@@ -1,0 +1,78 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a
+card.  Marked ``cuda``; each test skips on a host without a GPU.  This
+file imports no JAX, so it also runs on a GPU host without it:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.core import dispatch as dsp
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import dispatch as tdispatch
+from repro_torch.kernels import gmm as tgmm
+from repro_torch.kernels import topk_gating as ttopk
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [False, True])
+def test_topk_kernel_matches_plain(gen, tied):
+    logits = torch.randn(37, 384, device="cuda", generator=gen)
+    if tied:
+        logits = torch.round(logits)
+    w, idx, vals = ttopk.topk_gating(logits, 8, 9)
+    pw, pidx, pvals = ttopk.topk_gating_plain(logits, 8, 9)
+    assert torch.equal(idx, pidx) and torch.equal(vals, pvals)
+    torch.testing.assert_close(w, pw, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [40, 17])           # vector / scalar path
+def test_dispatch_combine_kernels_match_plain(gen, dtype, d):
+    t, e, k = 32, 8, 8
+    logits = torch.randn(t, e, device="cuda", generator=gen)
+    w, idx, _ = ttopk.topk_gating_plain(logits, k, k)
+    w[::3] = 0.0                                  # masked tokens
+    p = dsp.plan(idx, w, e, 8)
+    assert bool((p.position >= 8).any())          # drops are exercised
+    x = torch.randn(t, d, device="cuda", generator=gen).to(dtype)
+    buf = tdispatch.dispatch(x, p.expert_index, p.position, n_experts=e,
+                             capacity=8)
+    assert torch.equal(buf, tdispatch.dispatch_plain(
+        x, p.expert_index, p.position, None, e, 8))
+    y = tdispatch.combine(buf, p.weight, p.expert_index, p.position)
+    assert torch.equal(y, tdispatch.combine_plain(
+        buf, p.weight, p.expert_index, p.position, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("act", sorted(tgmm.ACTIVATIONS))
+def test_gmm_kernel_matches_plain(gen, dtype, tol, act):
+    for e, c, k, n in ((3, 13, 300, 264), (2, 8, 65, 17)):
+        x = torch.randn(e, c, k, device="cuda", generator=gen).to(dtype)
+        w = (torch.randn(e, k, n, device="cuda", generator=gen)
+             / k ** 0.5).to(dtype)
+        torch.testing.assert_close(tgmm.gmm(x, w, activation=act).float(),
+                                   tgmm.gmm_plain(x, w, act).float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_wrappers_count_launches(gen):
+    cuda_lib.reset_launch_counts()
+    x = torch.randn(2, 8, 16, device="cuda", generator=gen)
+    tgmm.gmm(x, torch.randn(2, 16, 8, device="cuda", generator=gen))
+    tgmm.gmm_plain(x, torch.randn(2, 16, 8, device="cuda", generator=gen))
+    assert cuda_lib.launch_counts() == {"gmm": 1}
