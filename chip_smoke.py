@@ -9,8 +9,12 @@ Phases, in order; any failure exits non-zero and prints no result:
              versions, and the build of the CUDA kernels from
              ``src/repro_torch/csrc`` (nvcc, one process per source).
 2. kernels — each kernel's wrapper against its plain PyTorch version on
-             the card: in bf16 at the shapes serving kimi-k2 gives it, and
-             in f32 at cut, ragged shapes under a tight tolerance.  Each
+             the card: the serving kernels in bf16 at the shapes serving
+             kimi-k2 gives them, in f32 at cut, ragged shapes, and in
+             f32 at the shapes training MoE-256 gives them; the
+             training kernels (top-k backward, e-blocked dispatch and
+             combine, the transposed GMMs of the backward pass) in f32
+             and bf16 at the shapes training MoE-256 gives them.  Each
              kernel is timed (CUDA events, median of 20 runs after
              warm-up) beside its plain version, one PyTorch library call
              computing the same function where there is one, and its
@@ -24,11 +28,31 @@ Phases, in order; any failure exits non-zero and prints no result:
              just after; every kernel must have run exactly once per MoE
              layer per model call (GMM three times).
    A profile of two decode steps (torch.profiler) then gives the device
-   time of each kernel per launch and the device's idle share.
+   time of each kernel per launch and the device's idle share of an
+   unprofiled decode step (the profiled window itself runs slower).
 4. cross   — one full-width prefill under the "cuda" and the "ref"
              backends; last-position logits must agree within a bf16
-             tolerance.
-5. report  — one ``{"kernels": [...]}`` line, then the result line.
+             tolerance.  The serving model is then freed.
+5. train   — the paper's MoE-256 LM (``paper_config("moe-256")``) at its
+             published widths with the 1-Billion-Word vocabulary of
+             793,471 (1.085 B parameters, f32), drawn from a seed on the
+             card, trained through the port's Trainer (factored Adam,
+             B=32 x S=128) for 12 steps with a checkpoint at step 6.
+             Launch counts per step must be exactly those of the
+             resident regime; every loss finite.  A profile of two more
+             steps gives the device time by kernel and the idle share.
+6. eblock  — moe_apply forward + backward at the training shape with
+             ``dispatch_e_block=16`` against the resident default:
+             dispatch buffers bit-equal, outputs and gradients close,
+             the e-blocked kernels launched.
+7. grads   — one more step's gradients under "cuda" (twice) and "ref"
+             from the same parameters and draws: all present and
+             finite, the MoE leaves' bit-equal between the two "cuda"
+             runs and within 1e-5 normwise of "ref"; w1's once the
+             terms of the pre-activations whose relu masks differ
+             between the two paths are taken out (phase_grads counts
+             them and says why).
+8. report  — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -47,18 +71,45 @@ REPS = 20
 ARCH = "kimi-k2-1t-a32b"
 N_LAYERS = 2
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS = 8, 32, 16
+# Training: the paper's MoE-256 LM, B x S tokens a step.
+TRAIN_CONFIG, TRAIN_VOCAB = "moe-256", 793_471
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 32, 128, 12, 6
+E_BLOCK = 16             # the reference's slab at this shape
+# Launches per training step in the resident regime: the forward top-k,
+# dispatch, combine and two GMMs; the backward top-k; the combine's
+# backward dispatch and the dispatch's backward combine; the recomputed
+# pre-activation (a forward GMM) and four transposed GMMs.
+TRAIN_LAUNCHES = {"topk_gating": 1, "topk_gating_bwd": 1, "dispatch": 2,
+                  "combine": 2, "gmm": 3, "gmm_bwd": 4}
+KERNELS = ("topk_gating", "dispatch", "combine", "gmm", "topk_gating_bwd",
+           "dispatch_eblock", "combine_eblock", "gmm_bwd")
 REPLACES = {
     "topk_gating": "src/repro/kernels/topk_gating.py:39",
     "dispatch": "src/repro/kernels/dispatch.py:148",
     "combine": "src/repro/kernels/dispatch.py:284",
     "gmm": "src/repro/kernels/gmm.py:232",
+    "topk_gating_bwd": "src/repro/kernels/topk_gating.py:116",
+    "dispatch_eblock": "src/repro/kernels/dispatch.py:230",
+    "combine_eblock": "src/repro/kernels/dispatch.py:338",
+    "gmm_bwd": "src/repro/kernels/gmm.py:283",
 }
 SOURCES = {
     "topk_gating": "src/repro_torch/csrc/topk_gating.cu",
     "dispatch": "src/repro_torch/csrc/dispatch.cu",
     "combine": "src/repro_torch/csrc/dispatch.cu",
     "gmm": "src/repro_torch/csrc/gmm.cu",
+    "topk_gating_bwd": "src/repro_torch/csrc/topk_gating.cu",
+    "dispatch_eblock": "src/repro_torch/csrc/dispatch.cu",
+    "combine_eblock": "src/repro_torch/csrc/dispatch.cu",
+    "gmm_bwd": "src/repro_torch/csrc/gmm.cu",
 }
+KERNEL_SYMBOLS = {"topk_gating": "topk_gating_kernel",
+                  "dispatch": "dispatch_kernel", "combine": "combine_kernel",
+                  "gmm": "gmm_kernel",
+                  "topk_gating_bwd": "topk_gating_bwd_kernel",
+                  "dispatch_eblock": "dispatch_eblock_kernel",
+                  "combine_eblock": "combine_eblock_kernel",
+                  "gmm_bwd": "gmm_tiled_kernel"}
 
 
 class SmokeFailure(RuntimeError):
@@ -162,9 +213,12 @@ def check_topk(gen) -> dict:
     import torch
     from repro_torch.kernels.topk_gating import topk_gating, topk_gating_plain
     worst = 0.0
+    # Serving shapes (kimi-k2: E = 384, k = 8), cut ragged ones, and the
+    # training shape (MoE-256: T = 4096, E = 256, k = 4, kk = k + 1).
     cases = [(8, 384, 8, 9, False), (32, 384, 8, 9, False),
              (32, 384, 8, 9, True), (37, 100, 2, 3, False),
-             (5, 33, 1, 1, True)]
+             (5, 33, 1, 1, True), (TRAIN_B * TRAIN_S, 256, 4, 5, False),
+             (TRAIN_B * TRAIN_S, 256, 4, 5, True)]
     for t, e, k, kk, tied in cases:
         logits = torch.randn(t, e, device="cuda", generator=gen)
         if tied:
@@ -174,6 +228,8 @@ def check_topk(gen) -> dict:
         check(torch.equal(got[1], want[1]),
               f"topk indices differ at T={t} E={e} tied={tied}")
         err = max(max_err(got[0], want[0]), max_err(got[2], want[2]))
+        log(f"topk_gating [{t},{e}] k={k} kk={kk} tied={tied}: indices "
+            f"equal, max_abs_err {err:.3g} (tol 1e-06)")
         check(err <= 1e-6, f"topk values differ by {err} at T={t} E={e}")
         worst = max(worst, err)
     t, e, k, kk = 8, 384, 8, 9
@@ -197,10 +253,13 @@ def check_dispatch_combine(gen) -> list[dict]:
     d, e, k = 7168, 384, 8
     worst_d = worst_c = 0.0
     tol_c = 0.0
+    # Serving shapes in bf16, cut ragged ones in f32, and the training
+    # shape in f32 (MoE-256: T = 4096, d = 512, E = 256, k = 4, C = 128).
     cases = [(8, d, e, k, torch.bfloat16, None, 0.0),
              (32, d, e, k, torch.bfloat16, None, 0.25),
              (13, 17, 5, 2, torch.float32, 2, 0.2),
-             (40, 24, 6, 2, torch.float32, 8, 0.0)]
+             (40, 24, 6, 2, torch.float32, 8, 0.0),
+             (TRAIN_B * TRAIN_S, 512, 256, 4, torch.float32, 128, 0.0)]
     for t, dd, ee, kk, dtype, cap, mask in cases:
         x, p = _route(t, ee, kk, dd, dtype, gen, capacity=cap,
                       mask_frac=mask)
@@ -208,17 +267,22 @@ def check_dispatch_combine(gen) -> list[dict]:
                           capacity=p.capacity)
         want = dk.dispatch_plain(x, p.expert_index, p.position, None, ee,
                                  p.capacity)
-        err = max_err(buf, want)
-        check(err == 0.0, f"dispatch differs by {err} at T={t} d={dd}")
-        worst_d = max(worst_d, err)
+        err_d = max_err(buf, want)
+        check(err_d == 0.0 and torch.equal(buf, want),
+              f"dispatch differs by {err_d} at T={t} d={dd}")
+        worst_d = max(worst_d, err_d)
         out = torch.randn(buf.shape, device="cuda", generator=gen).to(dtype)
         y = dk.combine(out, p.weight, p.expert_index, p.position)
         yw = dk.combine_plain(out, p.weight, p.expert_index, p.position,
                               dtype)
-        err = max_err(y, yw)
-        check(err == 0.0, f"combine differs by {err} at T={t} d={dd} "
-                          "(the kernel rounds as the plain version does)")
-        worst_c = max(worst_c, err)
+        err_c = max_err(y, yw)
+        log(f"dispatch / combine T={t} d={dd} E={ee} k={kk} C={p.capacity} "
+            f"{dtype}: max_abs_err {err_d:.3g} / {err_c:.3g} (tol 0.0)")
+        check(err_c == 0.0 and torch.equal(y, yw),
+              f"combine differs by {err_c} at T={t} d={dd} (the kernel "
+              "rounds as the plain version does)")
+        worst_c = max(worst_c, err_c)
+        del x, buf, want, out, y, yw
     # Time at the decode shape.
     t = 8
     x, p = _route(t, e, k, d, torch.bfloat16, gen)
@@ -262,6 +326,27 @@ def check_gmm(gen) -> dict:
                               f"differs by {err} > {tol}")
             worst_f32 = max(worst_f32, err)
     log(f"gmm f32 cut shapes: max_abs_err {worst_f32:.3g}")
+    # f32 at the training shapes (MoE-256: E = 256, C = 128, d = 512,
+    # f = 1024): the up-projection with relu (forward) and none (the
+    # backward pass's recomputed pre-activation), the down-projection.
+    e, c, d, f = 256, 128, 512, 1024
+    x = torch.randn(e, c, d, device="cuda", generator=gen)
+    w1 = torch.randn(e, d, f, device="cuda", generator=gen) / d ** 0.5
+    h = torch.randn(e, c, f, device="cuda", generator=gen)
+    w2 = torch.randn(e, f, d, device="cuda", generator=gen) / f ** 0.5
+    train_f32 = []
+    for xi, wi, act in ((x, w1, "relu"), (x, w1, "none"), (h, w2, "none")):
+        got = gk.gmm(xi, wi, activation=act)
+        want = gk.gmm_plain(xi, wi, act)
+        err = max_err(got, want)
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        log(f"gmm f32 {act} {tuple(xi.shape)} x {tuple(wi.shape)}: "
+            f"max_abs_err {err:.3g} (tol {tol:.3g})")
+        check(err <= tol, f"f32 gmm {act} {tuple(xi.shape)} x "
+                          f"{tuple(wi.shape)} differs by {err} > {tol}")
+        train_f32.append((err, tol))
+        del got, want
+    del x, w1, h, w2
     # bf16 at the serving shapes: one MoE layer's expert FFN at decode.
     e, c, d, f = 384, 8, 7168, 2048
     x = torch.randn(e, c, d, device="cuda", generator=gen).to(torch.bfloat16)
@@ -293,15 +378,178 @@ def check_gmm(gen) -> dict:
     return dict(name="gmm", max_abs_err=worst, tol=tol_used, ms=ms,
                 plain_ms=plain, bound_ms=bnd, bound_by="bytes",
                 library_ms=lib, weights_only_bound_ms=b_bytes,
+                max_abs_err_f32_train=max(r[0] for r in train_f32),
+                tol_f32_train=max(r[1] for r in train_f32),
                 shape=(f"one MoE layer at decode: 3 calls, x [{e},{c},{d}] x "
                        f"[{e},{d},{f}] (silu, none) and [{e},{c},{f}] x "
                        f"[{e},{f},{d}], bf16"))
 
 
+def _train_plan(gen, dtype):
+    """The MoE-256 training shape: T = 4096 tokens, E = 256, k = 4,
+    C = capacity_for(4096, 256, 4, 2.0) = 128, d = 512."""
+    from repro_torch.core import dispatch as dsp
+    t, e, k, d = TRAIN_B * TRAIN_S, 256, 4, 512
+    cap = dsp.capacity_for(t, e, k, 2.0)
+    return _route(t, e, k, d, dtype, gen, capacity=cap)
+
+
+def check_topk_bwd(gen) -> dict:
+    import torch
+    from repro_torch.kernels import topk_gating as tk
+    t, e, k, kk = TRAIN_B * TRAIN_S, 256, 4, 5
+    logits = torch.randn(t, e, device="cuda", generator=gen)
+    w, idx, _ = tk.topk_gating(logits, k, kk)
+    dw = torch.randn(t, k, device="cuda", generator=gen)
+    dvals = torch.randn(t, kk, device="cuda", generator=gen)
+    got = tk.topk_gating_bwd(w, idx, dw, dvals, e)
+    want = tk.topk_gating_bwd_plain(w, idx, dw, dvals, e)
+    err = max_err(got, want)
+    check(err <= 1e-6, f"topk_gating_bwd differs by {err}")
+    ms = cuda_ms(lambda: tk.topk_gating_bwd(w, idx, dw, dvals, e))
+    plain = cuda_ms(lambda: tk.topk_gating_bwd_plain(w, idx, dw, dvals, e))
+    b, by = bound_ms(t * e * 4 + t * k * 8 + t * kk * 8, 0, "float32")
+    return dict(name="topk_gating_bwd", max_abs_err=err, tol=1e-6, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+                shape=f"dlogits [{t},{e}] f32, k={k}, kk={kk}")
+
+
+def check_eblock(gen) -> list[dict]:
+    """The e-blocked dispatch and combine in f32 and bf16 at the
+    training shape, bit-equal to their plain versions (dispatch also to
+    the resident kernel); timed in f32."""
+    import torch
+    from repro_torch.kernels import dispatch as dk
+    worst_d = worst_c = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x, p = _train_plan(gen, dtype)
+        e, c = p.n_experts, p.capacity
+        ei, po, w = p.expert_index, p.position, p.weight
+        scale = torch.rand(ei.shape, device="cuda", generator=gen)
+        for sc in (None, scale):
+            got = dk.dispatch_eblock(x, ei, po, sc, n_experts=e, capacity=c,
+                                     e_block=E_BLOCK)
+            resident = dk.dispatch(x, ei, po, sc, n_experts=e, capacity=c)
+            err = max(max_err(got, dk.dispatch_eblock_plain(
+                x, ei, po, sc, e, c, E_BLOCK)), max_err(got, resident))
+            check(err == 0.0 and torch.equal(got, resident),
+                  f"dispatch_eblock {dtype} differs by {err}")
+            worst_d = max(worst_d, err)
+        buf = torch.randn(e, c, x.shape[1], device="cuda",
+                          generator=gen).to(dtype)
+        got = dk.combine_eblock(buf, w, ei, po, e_block=E_BLOCK)
+        want = dk.combine_eblock_plain(buf, w, ei, po, dtype, E_BLOCK)
+        err = max_err(got, want)
+        log(f"combine_eblock {dtype}: max_abs_err {err:.3g} (tol 0.0)")
+        check(err == 0.0 and torch.equal(got, want),
+              f"combine_eblock {dtype} differs by {err}")
+        worst_c = max(worst_c, err)
+        # The resident combine on the same buffer, against its own plain
+        # version (bitwise) and, for information, against the e-blocked
+        # one (the slab grouping reorders the sum for k >= 3).
+        resident = dk.combine(buf, w, ei, po)
+        err_r = max_err(resident, dk.combine_plain(buf, w, ei, po, dtype))
+        log(f"combine {dtype} at the training shape: max_abs_err "
+            f"{err_r:.3g} (tol 0.0); vs combine_eblock max |d| "
+            f"{max_err(got, resident):.3g}")
+        check(err_r == 0.0, f"combine {dtype} at the training shape differs "
+                            f"from its plain version by {err_r}")
+    x, p = _train_plan(gen, torch.float32)
+    e, c, d = p.n_experts, p.capacity, x.shape[1]
+    ei, po, w = p.expert_index, p.position, p.weight
+    t, k = ei.shape
+    n_kept = int((po < c).sum())
+    ms_d = cuda_ms(lambda: dk.dispatch_eblock(x, ei, po, n_experts=e,
+                                              capacity=c, e_block=E_BLOCK))
+    plain_d = cuda_ms(lambda: dk.dispatch_eblock_plain(x, ei, po, None, e, c,
+                                                       E_BLOCK))
+    # x read once, the [E*C] slot table (token, scale) read, the buffer
+    # written once.
+    b_d, by_d = bound_ms(e * c * d * 4 + t * d * 4 + e * c * 8, 0,
+                         "float32")
+    buf = torch.randn(e, c, d, device="cuda", generator=gen)
+    ms_c = cuda_ms(lambda: dk.combine_eblock(buf, w, ei, po,
+                                             e_block=E_BLOCK))
+    plain_c = cuda_ms(lambda: dk.combine_eblock_plain(buf, w, ei, po,
+                                                      torch.float32,
+                                                      E_BLOCK))
+    b_c, by_c = bound_ms(n_kept * d * 4 + t * k * 12 + t * d * 4,
+                         2 * n_kept * d, "float32")
+    shape = (f"x [{t},{d}] f32 <-> buf [{e},{c},{d}], k={k}, "
+             f"e_block={E_BLOCK}, {n_kept} kept")
+    return [dict(name="dispatch_eblock", max_abs_err=worst_d, tol=0.0,
+                 ms=ms_d, plain_ms=plain_d, bound_ms=b_d, bound_by=by_d,
+                 library_ms=None, shape=shape),
+            dict(name="combine_eblock", max_abs_err=worst_c, tol=0.0,
+                 ms=ms_c, plain_ms=plain_c, bound_ms=b_c, bound_by=by_c,
+                 library_ms=None, shape=shape)]
+
+
+def check_gmm_bwd(gen) -> dict:
+    """The four transposed GMMs of one training step's expert FFN
+    backward (MoE-256: E=256, C=128, d=512, f=1024), against the plain
+    version in f32 (1e-5 relative) and bf16 (two ulps of the output's
+    top binade), timed in f32 beside torch.bmm on transposed views."""
+    import torch
+    from repro_torch.kernels import gmm as gk
+    e, c, d, f = 256, 128, 512, 1024
+    worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
+    times = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        def r(*shape, scale=1.0):
+            return (torch.randn(*shape, device="cuda", generator=gen)
+                    * scale).to(dtype)
+        x, h = r(e, c, d), r(e, c, f)
+        w1, w2 = r(e, d, f, scale=d ** -0.5), r(e, f, d, scale=f ** -0.5)
+        dy, dh = r(e, c, d), r(e, c, f)
+        # (x, w, trans_x, trans_w): dh = dy w2^T, dw2 = h^T dy,
+        # dx = dh w1^T, dw1 = x^T dh.
+        calls = [(dy, w2, False, True), (h, dy, True, False),
+                 (dh, w1, False, True), (x, dh, True, False)]
+        for xi, wi, tx, tw in calls:
+            got = gk.gmm(xi, wi, trans_x=tx, trans_w=tw)
+            want = gk.gmm_plain(xi, wi, "none", tx, tw)
+            tol = (1e-5 * max(1.0, float(want.abs().max()))
+                   if dtype == torch.float32 else bf16_tol(want))
+            err = max_err(got, want)
+            check(err <= tol, f"gmm_bwd {dtype} trans_x={tx} trans_w={tw} "
+                              f"{tuple(xi.shape)} x {tuple(wi.shape)} "
+                              f"differs by {err} > {tol}")
+            worst[dtype] = (max(worst[dtype][0], err),
+                            max(worst[dtype][1], tol))
+            if dtype != torch.float32:
+                continue
+            xl = xi.transpose(1, 2) if tx else xi
+            wl = wi.transpose(1, 2) if tw else wi
+            times["ms"] += cuda_ms(
+                lambda: gk.gmm(xi, wi, trans_x=tx, trans_w=tw))
+            times["plain"] += cuda_ms(
+                lambda: gk.gmm_plain(xi, wi, "none", tx, tw))
+            times["lib"] += cuda_ms(lambda: torch.bmm(xl, wl))
+            ee, cc, kk = xl.shape
+            nn = wl.shape[-1]
+            b, _ = bound_ms((ee * cc * kk + ee * kk * nn + ee * cc * nn) * 4,
+                            2 * ee * cc * kk * nn, "float32")
+            times["bound"] += b
+        del x, h, w1, w2, dy, dh
+    err_bf16, tol_bf16 = worst[torch.bfloat16]
+    log(f"gmm_bwd bf16: max_abs_err {err_bf16:.3g} (tol {tol_bf16:.3g})")
+    return dict(name="gmm_bwd", max_abs_err=worst[torch.float32][0],
+                tol=worst[torch.float32][1], max_abs_err_bf16=err_bf16,
+                tol_bf16=tol_bf16, ms=times["ms"], plain_ms=times["plain"],
+                bound_ms=times["bound"], bound_by="operations",
+                library_ms=times["lib"],
+                shape=(f"one step's 4 transposed GMMs, f32: [{e},{c},{d}] x "
+                       f"[{e},{f},{d}]^T, [{e},{c},{f}]^T x [{e},{c},{d}], "
+                       f"[{e},{c},{f}] x [{e},{d},{f}]^T, [{e},{c},{d}]^T x "
+                       f"[{e},{c},{f}]"))
+
+
 def phase_kernels() -> dict:
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    results = [check_topk(gen), *check_dispatch_combine(gen), check_gmm(gen)]
+    results = [check_topk(gen), *check_dispatch_combine(gen), check_gmm(gen),
+               check_topk_bwd(gen), *check_eblock(gen), check_gmm_bwd(gen)]
     for r in results:
         log("kernel " + json.dumps(r))
     torch.cuda.empty_cache()
@@ -398,28 +646,23 @@ def phase_serve(cfg, params) -> dict:
             "engine": engine}
 
 
-KERNEL_SYMBOLS = {"topk_gating": "topk_gating_kernel",
-                  "dispatch": "dispatch_kernel", "combine": "combine_kernel",
-                  "gmm": "gmm_kernel"}
-
-
-def phase_profile(engine, prompts) -> dict:
-    """Device time by kernel over two decode steps of a full slot pool,
-    from torch.profiler (CUPTI), against the host wall clock."""
+def device_profile(fn) -> dict:
+    """Run ``fn`` under torch.profiler (CUPTI): device time by kernel of
+    the port (per launch), the largest device ops, and the share of the
+    profiled window (host wall clock, ending in a sync) in which the
+    device was idle.  The profiler adds host time to every launch, so
+    the window runs slower than the same work unprofiled; callers that
+    have an unprofiled step time report the idle share against it
+    (:func:`idle_share`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine.reset()
-    for p in prompts:
-        engine.submit(p, 4)
-    engine.step()                      # every slot prefills, one decode
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(2):
-            engine.step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [(e.key, e.count, e.self_device_time_total / 1e3)
@@ -430,14 +673,43 @@ def phase_profile(engine, prompts) -> dict:
     for name, sym in KERNEL_SYMBOLS.items():
         hits = [(n, ms) for key, n, ms in dev if sym in key]
         calls = sum(n for n, _ in hits)
-        per_kernel[name] = ({"launches": calls, "device_ms_per_launch":
-                             sum(ms for _, ms in hits) / calls}
-                            if calls else None)
-    top = sorted(dev, key=lambda r: -r[2])[:8]
-    out = {"decode_steps": 2, "wall_ms": wall_ms, "device_busy_ms": busy,
-           "device_idle_share": 1.0 - busy / wall_ms if dev else None,
-           "kernels": per_kernel,
-           "top_device_ms": [[k[:70], n, ms] for k, n, ms in top]}
+        if calls:
+            per_kernel[name] = {"launches": calls, "device_ms_per_launch":
+                                sum(ms for _, ms in hits) / calls}
+    top = sorted(dev, key=lambda r: -r[2])[:10]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "profiled_window_idle_share": 1.0 - busy / wall_ms if dev
+            else None,
+            "kernels": per_kernel,
+            "top_device_ms": [[k[:70], n, ms] for k, n, ms in top]}
+
+
+def idle_share(prof: dict, n_steps: int, step_ms: float) -> dict:
+    """The device's idle share of an unprofiled step: 1 - (device busy
+    time per step under the profiler) / (median unprofiled step)."""
+    busy = prof["device_busy_ms"] / n_steps
+    return {"device_busy_ms_per_step": busy, "unprofiled_step_ms": step_ms,
+            "device_idle_share": 1.0 - busy / step_ms,
+            "host_wait_ms_per_step": step_ms - busy}
+
+
+def phase_profile(engine, prompts, step_ms: float) -> dict:
+    """Device time by kernel over two decode steps of a full slot pool;
+    the idle share against ``step_ms``, the serve run's median decode
+    step."""
+    import torch
+
+    engine.reset()
+    for p in prompts:
+        engine.submit(p, 4)
+    engine.step()                      # every slot prefills, one decode
+    torch.cuda.synchronize()
+
+    def two_steps():
+        for _ in range(2):
+            engine.step()
+    prof = device_profile(two_steps)
+    out = dict(decode_steps=2, **prof, **idle_share(prof, 2, step_ms))
     log("profile " + json.dumps(out))
     return out
 
@@ -474,7 +746,400 @@ def phase_cross(cfg, params, prompt, engine) -> dict:
     return res
 
 
+def run_serve() -> dict:
+    """Phases 3-4 on the full-width kimi-k2; the model is freed on
+    return."""
+    cfg, params = build_model()
+    served = phase_serve(cfg, params)
+    profiled = phase_profile(served["engine"], served["prompts"],
+                             served["summary"]["decode_step_ms_median"])
+    cross = phase_cross(cfg, params, served["prompts"][0], served["engine"])
+    return {"counts": served["counts"], "summary": served["summary"],
+            "profile": profiled, "cross": cross}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: train the paper's MoE-256 LM at full width
+# ---------------------------------------------------------------------------
+
+def build_train_model():
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.moe_paper import paper_config
+    from repro_torch.models.paper_lm import paper_lm_defs
+
+    cfg = paper_config(TRAIN_CONFIG, vocab_size=TRAIN_VOCAB)
+    check(cfg.kernel_backend == "cuda" and cfg.dtype == torch.float32,
+          "the paper config must default to cuda and f32")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = pm.materialize(paper_lm_defs(cfg), gen, "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in pm.tree_leaves(params))
+    log(f"materialized {TRAIN_CONFIG} (vocab {cfg.vocab_size}, d "
+        f"{cfg.d_model}, {cfg.n_experts} experts {cfg.d_model}->"
+        f"{cfg.expert_hidden}->{cfg.d_model} top-{cfg.k}) on cuda in "
+        f"{time.perf_counter() - t0:.1f} s: {n} parameters, "
+        f"{pm.param_bytes(params) / 1e9:.2f} GB")
+    check(n == 1_085_410_304, f"{n} parameters, expected 1,085,410,304")
+    return cfg, params
+
+
+def _loss_fn(cfg):
+    from repro_torch.models.paper_lm import paper_lm_loss
+    return lambda p, b, g: paper_lm_loss(p, b, cfg, generator=g)
+
+
+def phase_train(cfg, params, workdir) -> dict:
+    import math
+    import torch
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train.trainer import Trainer, TrainLoopConfig, step_seed
+
+    dc = DataConfig(vocab_size=TRAIN_VOCAB, seq_len=TRAIN_S,
+                    batch_size=TRAIN_B, seed=SEED)
+    trainer = Trainer(
+        loss_fn=_loss_fn(cfg), params=params,
+        oc=opt_lib.OptConfig(kind="factored"),
+        loop=TrainLoopConfig(total_steps=TRAIN_STEPS,
+                             checkpoint_every=TRAIN_CKPT,
+                             keep_checkpoints=2, log_every=1, seed=SEED),
+        data_iter=DataIterator(dc, device="cuda"), workdir=workdir,
+        kernel_backend="cuda", device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda_lib.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: TRAIN_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
+    log(f"train launches {counts}, expected {want}")
+    check(counts == want, "training launch counts do not match the "
+                          "resident regime's per-step counts")
+    log_rows = trainer.metrics_log
+    check(len(log_rows) == TRAIN_STEPS, f"{len(log_rows)} logged steps")
+    for m in log_rows:
+        check(all(math.isfinite(m[k]) for k in ("loss", "xent", "aux_loss",
+                                                "grad_norm")),
+              f"non-finite metrics at step {m['step']}: {m}")
+    check(trainer.ckpt.all_steps() == [TRAIN_CKPT, TRAIN_STEPS],
+          f"checkpoints {trainer.ckpt.all_steps()}")
+    steady = trainer.step_times[2:]
+    tokens = TRAIN_B * TRAIN_S
+    keys = ("loss", "xent", "aux_loss", "max_over_mean_load", "cv_load",
+            "fraction_dropped", "grad_norm")
+    out = {
+        "config": f"{TRAIN_CONFIG}, vocab {TRAIN_VOCAB}, f32",
+        "steps": TRAIN_STEPS, "tokens_per_step": tokens,
+        "step_ms_median_steps_3_to_12": 1e3 * statistics.median(steady),
+        "step_ms_all": [1e3 * t for t in trainer.step_times],
+        "tokens_per_s": tokens / statistics.median(steady),
+        "wall_s_with_checkpoints": wall,
+        "max_memory_allocated_gib": peak / 2**30,
+        "max_memory_allocated_gb": peak / 1e9,
+        "first": {k: log_rows[0][k] for k in keys},
+        "last": {k: log_rows[-1][k] for k in keys},
+        "launches": counts,
+        "straggler_events": trainer.straggler_events,
+    }
+    log("train " + json.dumps(out))
+
+    # Two more steps under the profiler.
+    def two_steps():
+        for step in (TRAIN_STEPS, TRAIN_STEPS + 1):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(step_seed(SEED, step))
+            _, m = trainer.step_fn(trainer.state, next(trainer.data_iter),
+                                   gen)
+            float(m["loss"])
+    dprof = device_profile(two_steps)
+    prof = dict(train_steps=2, **dprof, **idle_share(
+        dprof, 2, out["step_ms_median_steps_3_to_12"]))
+    log("train profile " + json.dumps(prof))
+    return {"summary": out, "counts": counts, "profile": prof, "dc": dc}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: one step's gradients, cuda vs ref
+# ---------------------------------------------------------------------------
+
+# Gradients of the MoE leaves, cuda vs ref (see phase_grads): each within
+# GRAD_TOL normwise (||g_cuda - g_ref|| / ||g_ref||, Frobenius), w1's once
+# the terms of its relu flips are taken out; EXPERT_TOL of an expert's
+# largest w1 gradient entry separates a flip from rounding.
+MOE_LEAVES = ("gate.wg", "gate.wnoise", "w2", "w1")
+GRAD_TOL = 1e-5
+EXPERT_TOL = 1e-4
+
+
+def _capture_expert_ffn(name: str, store: dict):
+    """Register a copy of kernel backend ``name`` whose expert FFN also
+    keeps its input buffer (``buf``) and the gradient of its output
+    (``dout``) in ``store``; returns the original, to register back."""
+    import dataclasses
+    from repro_torch.kernels import backend as backend_lib
+    orig = backend_lib.get(name)
+
+    def expert_ffn(params, x, a):
+        out = orig.expert_ffn(params, x, a)
+        store["buf"] = x.detach()
+        out.register_hook(lambda g: store.update(dout=g.detach()))
+        return out
+    backend_lib.register(dataclasses.replace(orig, expert_ffn=expert_ffn))
+    return orig
+
+
+def relu_flips(w1, w2, runs: dict) -> dict:
+    """Each run's pre-activations z = buf w1, as its own path computes
+    them (the "cuda" path's GMM kernel, which its backward pass reruns;
+    the "ref" path's torch.bmm), the elements whose relu masks
+    disagree, and the part of each run's w1 gradient that those
+    elements carry: buf^T (dh * [z > 0] * flip), dh = dout w2^T."""
+    import torch
+    from repro_torch.kernels import gmm as gk
+    z = {"cuda": gk.gmm(runs["cuda"]["buf"], w1, activation="none"),
+         "ref": torch.bmm(runs["ref"]["buf"], w1)}
+    flip = (z["cuda"] > 0) != (z["ref"] > 0)
+    part = {}
+    for b in z:
+        dh = torch.bmm(runs[b]["dout"], w2.transpose(1, 2))
+        part[b] = torch.bmm(runs[b]["buf"].transpose(1, 2),
+                            dh * (flip & (z[b] > 0)))
+    z_err = max_err(z["cuda"], z["ref"])
+    z_tol = 1e-5 * max(1.0, float(z["ref"].abs().max()))
+    return {"flip": flip, "part": part, "z_err": z_err, "z_tol": z_tol}
+
+
+def phase_grads(cfg, params, dc) -> dict:
+    """Loss and gradients of one step from the same parameters and the
+    same draws under the "cuda" backend (twice) and the "ref" one.
+
+    Both paths run in f32 with the same routing and plan (the gate's
+    inputs come from the same ops, and both top-k break ties to the
+    lower index), but they sum in other orders (the GMM kernels against
+    cuBLAS, the combine kernel against an index gather), so values
+    differ by f32 roundings: the loss within 1e-5 relative, each MoE
+    leaf's gradient within GRAD_TOL normwise.  w1's gradient passes
+    through relu'(z), which jumps at 0: a pre-activation within a
+    rounding of 0 can take opposite masks in the two paths, and then
+    one token's whole term x[c, :] * dh[c, j] is in one path's gradient
+    of that expert and not in the other's.  So the run recomputes both
+    paths' pre-activations, checks that they agree within f32 rounding
+    (so a flip is an element within a rounding of 0), takes the flipped
+    elements' terms out of both w1 gradients, and holds the rest to
+    GRAD_TOL normwise and every expert to EXPERT_TOL; the experts whose
+    raw gradients differ by more than EXPERT_TOL must be exactly those
+    whose flipped terms do.  The two "cuda" runs must agree bit for bit
+    (no atomics on this path)."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.common.param import tree_leaves
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels import backend as backend_lib
+    from repro_torch.models.paper_lm import paper_lm_loss
+
+    batch = batch_at(dc, TRAIN_STEPS + 2, device="cuda")
+
+    def moe_leaf(key):
+        node = params["moe"]
+        for part in key.split("."):
+            node = node[part]
+        return node
+
+    res, runs = {}, {}
+    for run in ("cuda", "cuda_again", "ref"):
+        backend = run.split("_")[0]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        c = dataclasses.replace(cfg, kernel_backend=backend)
+        runs[run] = {}
+        orig = _capture_expert_ffn(backend, runs[run])
+        try:
+            loss, _ = paper_lm_loss(params, batch, c, generator=gen)
+            loss.backward()
+        finally:
+            backend_lib.register(orig)
+        leaves = tree_leaves(params)
+        if backend == "cuda":
+            check(all(p.grad is not None for p in leaves),
+                  "a parameter has no gradient through backend cuda")
+            check(all(bool(torch.isfinite(p.grad).all()) for p in leaves),
+                  "a gradient is not finite")
+            for key in MOE_LEAVES:
+                check(bool((moe_leaf(key).grad != 0).any()),
+                      f"the gradient of moe.{key} is zero")
+        res[run] = (float(loss.detach()),
+                    {k: moe_leaf(k).grad.detach() for k in MOE_LEAVES})
+        for p in leaves:
+            p.grad = None
+        del loss
+    lc, gc_ = res["cuda"]
+    lr_, gr = res["ref"]
+    rf = relu_flips(moe_leaf("w1").detach(), moe_leaf("w2").detach(), runs)
+    # w1 without the flipped elements' terms, in both paths.
+    kept = {"cuda": gc_["w1"] - rf["part"]["cuda"],
+            "ref": gr["w1"] - rf["part"]["ref"]}
+    scale = gr["w1"].abs().amax(dim=(1, 2)).clamp(min=1e-30)
+
+    def per_expert(diff):
+        return diff.abs().amax(dim=(1, 2)) / scale
+
+    def experts(mask):
+        return [int(i) for i in torch.nonzero(mask).flatten()]
+
+    past = per_expert(gc_["w1"] - gr["w1"]) > EXPERT_TOL
+    carried = per_expert(rf["part"]["cuda"] - rf["part"]["ref"]) > EXPERT_TOL
+    after = per_expert(kept["cuda"] - kept["ref"])
+    out = {"loss_cuda": lc, "loss_ref": lr_,
+           "loss_rel_err": abs(lc - lr_) / abs(lr_),
+           "grad_norm_rel_err": {}, "grad_max_rel_err": {}, "tol": GRAD_TOL,
+           "cuda_repeat_bitwise": {k: bool(torch.equal(
+               gc_[k], res["cuda_again"][1][k])) for k in MOE_LEAVES},
+           "w1_raw_norm_rel_err": float(
+               (gc_["w1"] - gr["w1"]).norm() / gr["w1"].norm()),
+           "z_max_abs_err": rf["z_err"], "z_tol": rf["z_tol"],
+           "relu_flipped_elements": int(rf["flip"].sum()),
+           "relu_flipped_experts": experts(rf["flip"].any(dim=(1, 2))),
+           "w1_experts_past_rounding": experts(past),
+           "w1_experts_carried_by_flips": experts(carried),
+           "w1_expert_max_rel_err_without_flips": float(after.max()),
+           "expert_tol": EXPERT_TOL}
+    for k in MOE_LEAVES:
+        got, want = (kept["cuda"], kept["ref"]) if k == "w1" else \
+            (gc_[k], gr[k])
+        out["grad_norm_rel_err"][k] = float(
+            (got - want).norm() / want.norm().clamp(min=1e-30))
+        out["grad_max_rel_err"][k] = max_err(got, want) / max(
+            float(want.abs().max()), 1e-30)
+    log("grads " + json.dumps(out))
+    check(math.isfinite(lc) and out["loss_rel_err"] <= 1e-5,
+          f"cuda vs ref loss {lc} vs {lr_}")
+    check(all(out["cuda_repeat_bitwise"].values()),
+          "the cuda path's MoE gradients differ between two identical runs")
+    check(rf["z_err"] <= rf["z_tol"],
+          f"the paths' pre-activations differ by {rf['z_err']} > "
+          f"{rf['z_tol']}")
+    check(torch.equal(past, carried),
+          f"experts past rounding {out['w1_experts_past_rounding']} are not "
+          f"those the relu flips carry {out['w1_experts_carried_by_flips']}")
+    check(float(after.max()) <= EXPERT_TOL,
+          f"without its relu flips, an expert's w1 gradient still differs "
+          f"by {float(after.max())} of its largest entry > {EXPERT_TOL}")
+    for k in MOE_LEAVES:
+        check(out["grad_norm_rel_err"][k] <= GRAD_TOL,
+              f"moe.{k} gradient differs by {out['grad_norm_rel_err'][k]} "
+              f"normwise > {GRAD_TOL}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the e-blocked regime against the resident one
+# ---------------------------------------------------------------------------
+
+def phase_eblock(cfg, params) -> dict:
+    """moe_apply forward + backward at the training shape with the
+    dispatch slab forced to E_BLOCK against the resident default.
+    Tolerance for outputs and gradients: 1e-5 of the largest entry (the
+    e-blocked combine groups the k = 4 terms of a token by slab, so its
+    sums round in another order)."""
+    import dataclasses
+    import torch
+    from repro_torch.core import moe as moe_lib
+    from repro_torch.core import router as router_lib
+    from repro_torch.kernels import backend as backend_lib
+    from repro_torch.kernels import cuda_lib, ops
+    from repro_torch.models.paper_lm import _moe_args
+
+    a = _moe_args(cfg)
+    mp = params["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    t = TRAIN_B * TRAIN_S
+    x = torch.randn(t, cfg.d_model, device="cuda", generator=gen)
+    noise = torch.randn(t, cfg.n_experts, device="cuda", generator=gen)
+    gy = torch.randn(t, cfg.d_model, device="cuda", generator=gen)
+    router = router_lib.build(a, topk_impl=backend_lib.get("cuda").topk_impl)
+    with torch.no_grad():
+        plan = router.route(mp, x, train=True, noise=noise).plan
+        args = (x, plan.expert_index, plan.position)
+        kw = dict(n_experts=plan.n_experts, capacity=plan.capacity)
+        same = torch.equal(ops.dispatch(*args, **kw),
+                           ops.dispatch(*args, e_block=E_BLOCK, **kw))
+    check(same, "e-blocked dispatch buffer differs from the resident one")
+    leaves = {"w1": mp["w1"], "w2": mp["w2"], "wg": mp["gate"]["wg"],
+              "wnoise": mp["gate"]["wnoise"]}
+    res, counts = {}, {}
+    for e_block in (None, E_BLOCK):
+        ai = dataclasses.replace(a, dispatch_e_block=e_block)
+        xg = x.clone().requires_grad_(True)
+
+        def fwd_bwd():
+            y, aux = moe_lib.moe_apply(mp, xg, ai, train=True, noise=noise)
+            ((y * gy).sum() + aux["aux_loss"]).backward()
+            return y.detach()
+        cuda_lib.reset_launch_counts()
+        y = fwd_bwd()
+        torch.cuda.synchronize()
+        counts[str(e_block)] = cuda_lib.launch_counts()
+        res[e_block] = {"y": y, "x": xg.grad,
+                        **{k: v.grad.clone() for k, v in leaves.items()}}
+        for v in leaves.values():
+            v.grad = None
+    want = {"topk_gating": 1, "topk_gating_bwd": 1, "dispatch_eblock": 2,
+            "combine_eblock": 2, "gmm": 3, "gmm_bwd": 4}
+    check(counts[str(E_BLOCK)] == want,
+          f"e-blocked launches {counts[str(E_BLOCK)]}, expected {want}")
+    errs = {}
+    for k in res[None]:
+        scale = max(float(res[None][k].abs().max()), 1e-30)
+        errs[k] = max_err(res[E_BLOCK][k], res[None][k]) / scale
+        check(errs[k] <= 1e-5, f"e-blocked {k} differs by {errs[k]} of its "
+                               "largest entry > 1e-5")
+
+    def eblock_step():
+        xg.grad = None
+        y, aux = moe_lib.moe_apply(
+            mp, xg, dataclasses.replace(a, dispatch_e_block=E_BLOCK),
+            train=True, noise=noise)
+        ((y * gy).sum() + aux["aux_loss"]).backward()
+    prof = device_profile(eblock_step)
+    for v in leaves.values():
+        v.grad = None
+    out = {"dispatch_bitwise": same, "rel_err": errs, "tol": 1e-5,
+           "launches": counts, "profile": prof}
+    log("eblock " + json.dumps(out))
+    return out
+
+
+def kernel_row(name, r, launches_by_path, profiles) -> dict:
+    dev = [p["kernels"][name]["device_ms_per_launch"] for p in profiles
+           if name in p["kernels"]]
+    return {
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name],
+        "launches": sum(c.get(name, 0) for c in launches_by_path.values()),
+        "launches_by_path": {k: c.get(name, 0)
+                             for k, c in launches_by_path.items()},
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "device_ms_per_launch": dev[0] if dev else None,
+        "tol": r["tol"], "check": "pass", "shape": r["shape"],
+        **{k: v for k, v in r.items()
+           if k.startswith(("max_abs_err_", "tol_"))}}
+
+
 def main() -> int:
+    import gc
+    import os
+    import tempfile
+    # The training phases hold logits-sized (13 GB) temporaries of
+    # changing sizes; growable segments keep the freed ones reusable.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -488,32 +1153,34 @@ def main() -> int:
               f"({err}); run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     try:
         setup = phase_setup()
         kernels = phase_kernels()
-        cfg, params = build_model()
-        served = phase_serve(cfg, params)
-        profiled = phase_profile(served["engine"], served["prompts"])
-        cross = phase_cross(cfg, params, served["prompts"][0],
-                            served["engine"])
+        served = run_serve()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"serving model freed; {torch.cuda.memory_allocated() / 2**30:.2f}"
+            f" GiB still allocated; {time.perf_counter() - t_start:.0f} s "
+            "so far")
+        cfg, params = build_train_model()
+        with tempfile.TemporaryDirectory() as workdir:
+            trained = phase_train(cfg, params, workdir)
+        eblock = phase_eblock(cfg, params)
+        grads = phase_grads(cfg, params, trained["dc"])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
-    rows = []
-    for name in ("topk_gating", "dispatch", "combine", "gmm"):
-        r = kernels[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": served["counts"].get(name, 0),
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "device_ms_per_launch": (profiled["kernels"][name] or {}).get(
-                "device_ms_per_launch"),
-            "tol": r["tol"], "check": "pass", "shape": r["shape"]})
-    log(f"card {setup['card']}; cross-check max_abs_err "
-        f"{cross['max_abs_err']:.4g} (tol {cross['tol']:.4g})")
+    launches = {"serve": served["counts"], "train": trained["counts"],
+                "train_eblock": eblock["launches"][str(E_BLOCK)]}
+    profiles = [served["profile"], trained["profile"], eblock["profile"]]
+    rows = [kernel_row(name, kernels[name], launches, profiles)
+            for name in KERNELS]
+    log(f"card {setup['card']}; serve cross-check max_abs_err "
+        f"{served['cross']['max_abs_err']:.4g} (tol "
+        f"{served['cross']['tol']:.4g}); train cuda-vs-ref loss rel err "
+        f"{grads['loss_rel_err']:.3g}; {time.perf_counter() - t_start:.0f} s "
+        "in all")
     print(setup["card"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

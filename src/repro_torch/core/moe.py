@@ -36,6 +36,13 @@ class MoEArgs:
     dispatch_impl: str = "sort"         # sort | einsum (ref backend only)
     priority_dispatch: bool = False
     kernel_backend: str = "cuda"        # cuda | ref
+    # Dispatch / combine buffer regime (kernels/backend.py:plan_e_block):
+    # a VMEM budget in bytes selects it as the reference does; an int
+    # e_block forces the expert-blocked kernels with that slab.  With
+    # both None the port keeps the resident kernels (the card has no
+    # VMEM; the reference's default budget is 16 MiB).
+    dispatch_vmem_limit: int | None = None
+    dispatch_e_block: int | None = None
     # The single-launch fused decode step is not ported yet.
     fused_decode: bool = False
     sigmoid_output: bool = False        # paper's LM passes MoE out thru sigmoid
@@ -67,7 +74,9 @@ def moe_apply(params, x: torch.Tensor, a: MoEArgs, *, train: bool = True,
     """x: [T, d_model] (tokens already flattened, §3.1).
 
     ``noise`` ([T, E] standard normals) is the Eq. (3) gating noise for
-    ``train=True``; ``mask`` ([T] in {0,1}) marks valid tokens — masked
+    ``train=True`` (``None``: a noiseless gate, as the reference's
+    ``rng=None``); every op is differentiable, the auxiliary loss and
+    the Appendix-A load estimator included; ``mask`` ([T] in {0,1}) marks valid tokens — masked
     tokens get zero gate weight, zero load and telemetry, and consume no
     expert capacity."""
     if a.fused_decode:

@@ -5,10 +5,18 @@ reference path and the CUDA kernel path (counterpart of
 * ``"ref"``  — plain PyTorch: sort-based top-k, index scatter / gather
   dispatch and combine, expert FFN in f32 over expert chunks.
 * ``"cuda"`` — the hand-written kernels of ``csrc/`` (the counterpart of
-  the reference's ``"pallas"``).  Each wrapper runs its kernel on CUDA
-  tensors and its plain version on CPU tensors only.  There is no VMEM
-  budget on the GPU, so no expert-blocked regime and no fallback to the
-  ref scatter.
+  the reference's ``"pallas"``), through their autograd Functions
+  (``kernels/ops.py``), so the path is differentiable on both devices.
+  Each wrapper runs its kernel on CUDA tensors and its plain version on
+  CPU tensors only; nothing falls back to the ref scatter.
+
+Buffer regime of dispatch / combine (:func:`plan_e_block`): the
+reference selects against a 16 MiB VMEM budget by default.  The card
+has no VMEM, so here the default (both ``MoEArgs.dispatch_e_block`` and
+``dispatch_vmem_limit`` None) keeps the resident kernels; a forced
+``dispatch_e_block`` or a named ``dispatch_vmem_limit`` selects the
+expert-blocked kernels as the reference would.  This is the one place
+where the port's default differs from the reference's.
 
 Resolution is explicit: an unknown backend raises
 :class:`KernelBackendError`, never a silent fall-back.
@@ -126,28 +134,54 @@ register(KernelBackend(name="ref", expert_ffn=_ref_expert_ffn,
 # "cuda" — the hand-written kernels
 # ---------------------------------------------------------------------------
 
+def plan_e_block(a, n_experts: int, capacity: int, d: int, dtype,
+                 n_tokens: int) -> int | None:
+    """The dispatch / combine regime for a call: ``None`` (resident
+    kernels) or the expert slab of the e-blocked kernels.  A forced
+    ``a.dispatch_e_block`` wins; a named ``a.dispatch_vmem_limit``
+    selects through ``select_e_block`` as the reference does (raising
+    ``DispatchVMEMError`` where the reference would fall back to its
+    ref scatter); with neither, resident (the card has no VMEM)."""
+    forced = getattr(a, "dispatch_e_block", None)
+    if forced is not None:
+        if forced < 1:
+            raise KernelBackendError(
+                f"dispatch_e_block must be >= 1, got {forced}")
+        return forced
+    limit = getattr(a, "dispatch_vmem_limit", None)
+    if limit is None:
+        return None
+    return dispatch_lib.select_e_block(n_experts, capacity, d, dtype,
+                                       n_tokens=n_tokens, limit=limit)
+
+
 def _cuda_expert_ffn(params, x, a):
     return ops.expert_ffn(params, x, activation=a.activation)
 
 
 def _cuda_dispatch(x, p, a):
     p = _as_plan(p)
-    return dispatch_lib.dispatch(x.contiguous(), p.expert_index.contiguous(),
-                                 p.position.contiguous(),
-                                 n_experts=p.n_experts, capacity=p.capacity)
+    e_block = plan_e_block(a, p.n_experts, p.capacity, x.shape[-1], x.dtype,
+                           x.shape[0])
+    return ops.dispatch(x.contiguous(), p.expert_index.contiguous(),
+                        p.position.contiguous(), n_experts=p.n_experts,
+                        capacity=p.capacity, e_block=e_block)
 
 
 def _cuda_combine(buf, p, a, *, dtype=None):
     p = _as_plan(p)
-    return dispatch_lib.combine(buf.contiguous(), p.weight.contiguous(),
-                                p.expert_index.contiguous(),
-                                p.position.contiguous(),
-                                out_dtype=dtype or buf.dtype)
+    # The reference's token-block term for the combine's estimate.
+    n_tok = min(dispatch_lib.COMBINE_BLOCK_T, p.expert_index.shape[0])
+    e_block = plan_e_block(a, buf.shape[0], buf.shape[1], buf.shape[2],
+                           buf.dtype, n_tok)
+    return ops.combine(buf.contiguous(), p.weight.contiguous(),
+                       p.expert_index.contiguous(), p.position.contiguous(),
+                       out_dtype=dtype or buf.dtype, e_block=e_block)
 
 
 def _cuda_topk(noisy, k, kk):
     w, idx, vals = ops.topk_gating(noisy, k, kk)
-    return w, idx[:, :k], vals
+    return w, idx[:, :k].contiguous(), vals
 
 
 register(KernelBackend(name="cuda", expert_ffn=_cuda_expert_ffn,

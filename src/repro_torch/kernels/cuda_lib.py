@@ -38,12 +38,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # logits, w, idx, vals, T, E, k, kk, stream
     "repro_topk_gating": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # w, idx, dw, dvals, dlogits, T, E, k, kk, stream
+    "repro_topk_gating_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, eidx, pos, scale, buf, T, k, d, E, C, dtype, stream
     "repro_dispatch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # buf, w, eidx, pos, y, T, k, d, E, C, in_dtype, out_dtype, stream
     "repro_combine": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, w, out, E, C, K, N, activation, dtype, stream
-    "repro_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, btok, bscale, buf, d, E, C, e_block, dtype, stream
+    "repro_dispatch_eblock": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # buf, w, eidx, pos, y, T, k, d, E, C, e_block, in_dtype, out_dtype,
+    # stream
+    "repro_combine_eblock": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P),
+    # x, w, out, E, C, K, N, activation, dtype, trans_x, trans_w, stream
+    "repro_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 # Element-type codes shared with csrc/common.cuh.

@@ -1,12 +1,13 @@
 """Grouped (per-expert) matmul with a fused activation: the CUDA kernel
-``csrc/gmm.cu`` and its plain PyTorch version.
+``csrc/gmm.cu`` and its plain PyTorch version, and its custom VJP.
 
 Replaces ``repro/kernels/gmm.py::_gmm_kernel``: ``[E, C, K] x [E, K, N]
 -> [E, C, N]`` with an f32 accumulator and a none / relu / silu
-epilogue.  The reference's tiling table (``gmm_tunings.json``) was
+epilogue; and ``_gmm_bwd`` (l.283) as :class:`GMMFn`, whose two
+products read an operand transposed in place (``trans_x`` /
+``trans_w``).  The reference's tiling table (``gmm_tunings.json``) was
 measured in CPU interpret mode and is not carried over; the CUDA source
-carries this kernel's design note.  ``_gmm_bwd`` comes with the training
-slice.
+carries the design notes.
 """
 from __future__ import annotations
 
@@ -38,46 +39,102 @@ def expert_chunk(k: int, n: int) -> int:
     return max(1, _PLAIN_CHUNK_ELEMS // max(k * n, 1))
 
 
-def gmm_plain(x: torch.Tensor, w: torch.Tensor,
-              activation: str = "none") -> torch.Tensor:
+def _logical(x: torch.Tensor, trans: bool) -> torch.Tensor:
+    return x.transpose(1, 2) if trans else x
+
+
+def gmm_plain(x: torch.Tensor, w: torch.Tensor, activation: str = "none",
+              trans_x: bool = False, trans_w: bool = False) -> torch.Tensor:
     """Plain PyTorch version: f32 products over expert chunks, then the
-    epilogue and one cast to x.dtype."""
-    e, c, k = x.shape
-    n = w.shape[-1]
+    epilogue and one cast to x.dtype.  The flags read x / w transposed
+    (as views)."""
+    xl, wl = _logical(x, trans_x), _logical(w, trans_w)
+    e, c, k = xl.shape
+    n = wl.shape[-1]
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     step = expert_chunk(k, n)
     for e0 in range(0, e, step):
-        z = torch.bmm(x[e0:e0 + step].float(), w[e0:e0 + step].float())
+        z = torch.bmm(xl[e0:e0 + step].float(), wl[e0:e0 + step].float())
         out[e0:e0 + step] = activate(z, activation).to(x.dtype)
     return out
 
 
-def gmm(x: torch.Tensor, w: torch.Tensor, *,
-        activation: str = "none") -> torch.Tensor:
-    """[E, C, K] x [E, K, N] -> [E, C, N] in x.dtype.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+def gmm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
+        trans_x: bool = False, trans_w: bool = False) -> torch.Tensor:
+    """[E, C, K] x [E, K, N] -> [E, C, N] in x.dtype.  ``trans_x`` reads x
+    stored as [E, K, C], ``trans_w`` reads w stored as [E, N, K], in
+    place (the backward pass's layouts, one operand at a time).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown gmm activation {activation!r} "
                          f"(expected one of {sorted(ACTIVATIONS)})")
-    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
-            or x.shape[2] != w.shape[1]:
+    if trans_x and trans_w:
+        raise ValueError("gmm: at most one operand is read transposed "
+                         "(the backward pass's layouts)")
+    if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"gmm: x {tuple(x.shape)} and w {tuple(w.shape)} "
-                         "are not [E, C, K] x [E, K, N]")
+                         "must be 3-d")
+    e, c, k = _logical(x, trans_x).shape
+    _, kw, n = _logical(w, trans_w).shape
+    if w.shape[0] != e or kw != k:
+        raise ValueError(f"gmm: x {tuple(x.shape)} (trans {trans_x}) and "
+                         f"w {tuple(w.shape)} (trans {trans_w}) are not "
+                         "[E, C, K] x [E, K, N]")
     if x.dtype != w.dtype:
         raise ValueError(f"gmm: x {x.dtype} and w {w.dtype} differ")
     if x.device.type == "cpu":
-        return gmm_plain(x, w, activation)
+        return gmm_plain(x, w, activation, trans_x, trans_w)
     if x.device.type != "cuda":
         raise cuda_lib.KernelLaunchError(
             f"gmm: no kernel for device {x.device}")
     if x.dtype not in cuda_lib.DTYPE_CODES:
         raise ValueError(f"gmm: unsupported dtype {x.dtype}")
     cuda_lib.check_cuda("gmm", x, w)
-    e, c, k = x.shape
-    n = w.shape[-1]
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     cuda_lib.call("repro_gmm", x.data_ptr(), w.data_ptr(), out.data_ptr(),
                   e, c, k, n, ACTIVATIONS[activation],
-                  cuda_lib.DTYPE_CODES[x.dtype])
-    cuda_lib.count("gmm")
+                  cuda_lib.DTYPE_CODES[x.dtype], int(trans_x), int(trans_w))
+    # A transposed layout runs the backward pass's tiled kernel.
+    cuda_lib.count("gmm_bwd" if trans_x or trans_w else "gmm")
     return out
+
+
+def act_grad(z: torch.Tensor, activation: str) -> torch.Tensor:
+    """d act(z) / dz in f32 (the reference's ``_act_grad``)."""
+    if activation == "relu":
+        return (z > 0.0).float()
+    if activation == "silu":
+        sg = torch.sigmoid(z)
+        return sg * (1.0 + z * (1.0 - sg))
+    if activation != "none":
+        raise ValueError(f"unknown gmm activation {activation!r}")
+    return torch.ones_like(z)
+
+
+class GMMFn(torch.autograd.Function):
+    """Differentiable :func:`gmm`: ``apply(x, w, activation)``.  Backward
+    (the reference's ``_gmm_bwd``): the pre-activation z is recomputed
+    with one more forward GMM (``activation="none"``), ``dz = g *
+    act'(z)`` in f32 cast to g's dtype, then ``dx = gmm(dz, w^T)`` and
+    ``dw = gmm(x^T, dz)`` with the operands read transposed in place."""
+
+    @staticmethod
+    def forward(ctx, x, w, activation):
+        ctx.save_for_backward(x, w)
+        ctx.activation = activation
+        return gmm(x, w, activation=activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.activation != "none":
+            z = gmm(x, w, activation="none")
+            g = (g.float() * act_grad(z.float(), ctx.activation)).to(g.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = gmm(g, w, trans_w=True).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = gmm(x, g, trans_x=True).to(w.dtype)
+        return dx, dw, None

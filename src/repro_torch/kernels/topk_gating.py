@@ -1,11 +1,12 @@
-"""Fused top-k gating: the CUDA kernel ``csrc/topk_gating.cu`` and its
-plain PyTorch version.
+"""Fused top-k gating: the CUDA kernels ``csrc/topk_gating.cu`` (forward
+and backward) and their plain PyTorch versions.
 
 Replaces ``repro/kernels/topk_gating.py::_topk_kernel`` (Eqs. 3/5,
 deterministic part): kk rounds of masked row argmax (ties to the lowest
 index), a softmax over the top k, and the raw top-kk values (the
-(k+1)-th feeds the Appendix-A load estimator).  The CUDA source carries
-the design note.  Training's ``_topk_bwd`` comes with the training slice.
+(k+1)-th feeds the Appendix-A load estimator); and its custom VJP
+``_topk_bwd`` (l.116), as :class:`TopKGatingFn`.  The CUDA source carries
+the design notes.
 """
 from __future__ import annotations
 
@@ -69,3 +70,79 @@ def topk_gating(logits: torch.Tensor, k: int, kk: int | None = None):
                       idx.data_ptr(), vals.data_ptr(), t, e, k, kk)
         cuda_lib.count("topk_gating")
     return w, idx, vals
+
+
+def topk_gating_bwd_plain(w: torch.Tensor, idx: torch.Tensor,
+                          dw: torch.Tensor, dvals: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`topk_gating_bwd`, in the kernel's
+    order of roundings: ``<w, dw>`` summed over j ascending."""
+    t, k = w.shape
+    s = torch.zeros((t,), dtype=torch.float32, device=w.device)
+    for j in range(k):
+        s = s + w[:, j] * dw[:, j]
+    full = dvals.clone()
+    full[:, :k] = full[:, :k] + w * (dw - s[:, None])
+    out = torch.zeros((t, n_experts), dtype=torch.float32, device=w.device)
+    return out.scatter_add_(1, idx.long(), full)
+
+
+def topk_gating_bwd(w: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,
+                    dvals: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """The VJP of :func:`topk_gating` (the reference's ``_topk_bwd``):
+    w, dw [T,k] f32, idx, dvals [T,kk] -> dlogits [T, E] f32 with
+    ``dvals + [w (dw - <w, dw>), 0]`` at the kk winning columns and zero
+    elsewhere.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    t, k = w.shape
+    kk = idx.shape[1]
+    if dw.shape != w.shape or idx.shape != dvals.shape or idx.shape[0] != t \
+            or not 1 <= k <= kk <= n_experts:
+        raise ValueError(f"topk_gating_bwd: w {tuple(w.shape)}, dw "
+                         f"{tuple(dw.shape)}, idx {tuple(idx.shape)}, dvals "
+                         f"{tuple(dvals.shape)} and E={n_experts} disagree")
+    if w.device.type == "cpu":
+        return topk_gating_bwd_plain(w, idx, dw, dvals, n_experts)
+    if w.device.type != "cuda":
+        raise cuda_lib.KernelLaunchError(
+            f"topk_gating_bwd: no kernel for device {w.device}")
+    if any(a.dtype != torch.float32 for a in (w, dw, dvals)) \
+            or idx.dtype != torch.int32:
+        raise ValueError("topk_gating_bwd: w, dw, dvals must be float32 and "
+                         "idx int32")
+    if kk > MAX_KK:
+        raise ValueError(f"topk_gating_bwd kernel takes kk <= {MAX_KK}")
+    cuda_lib.check_cuda("topk_gating_bwd", w, idx, dw, dvals)
+    out = torch.empty((t, n_experts), dtype=torch.float32, device=w.device)
+    if t:
+        cuda_lib.call("repro_topk_gating_bwd", w.data_ptr(), idx.data_ptr(),
+                      dw.data_ptr(), dvals.data_ptr(), out.data_ptr(), t,
+                      n_experts, k, kk)
+        cuda_lib.count("topk_gating_bwd")
+    return out
+
+
+class TopKGatingFn(torch.autograd.Function):
+    """Differentiable :func:`topk_gating`: ``apply(logits, k, kk) -> (w,
+    idx, vals)``.  The backward pass is :func:`topk_gating_bwd`; ``idx``
+    carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, k, kk):
+        w, idx, vals = topk_gating(logits, k, kk)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(w, idx)
+        ctx.logits_meta = (logits.shape[1], logits.dtype)
+        return w, idx, vals
+
+    @staticmethod
+    def backward(ctx, dw, _didx, dvals):
+        w, idx = ctx.saved_tensors
+        n_experts, dtype = ctx.logits_meta
+        dw = (torch.zeros_like(w) if dw is None
+              else dw.float().contiguous())
+        dvals = (torch.zeros(idx.shape, dtype=torch.float32,
+                             device=w.device)
+                 if dvals is None else dvals.float().contiguous())
+        dlogits = topk_gating_bwd(w, idx, dw, dvals, n_experts)
+        return dlogits.to(dtype), None, None

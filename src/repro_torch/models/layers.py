@@ -73,3 +73,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool, *,
+            keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverted dropout, as the reference's ``layers.dropout``.
+
+    ``keep`` is the boolean keep-mask (``paper_lm.make_draws`` draws it
+    from the step's generator; a test draws it with
+    ``jax.random.bernoulli`` and passes it in); without one the input
+    passes through, as with the reference's ``rng=None``."""
+    if not train or rate <= 0.0 or keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)

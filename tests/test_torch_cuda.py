@@ -76,3 +76,93 @@ def test_wrappers_count_launches(gen):
     tgmm.gmm(x, torch.randn(2, 16, 8, device="cuda", generator=gen))
     tgmm.gmm_plain(x, torch.randn(2, 16, 8, device="cuda", generator=gen))
     assert cuda_lib.launch_counts() == {"gmm": 1}
+
+
+# ---------------------------------------------------------------------------
+# the training slice's kernels
+# ---------------------------------------------------------------------------
+
+def _plan(gen, t=96, e=8, k=4, cap=40):
+    logits = torch.randn(t, e, device="cuda", generator=gen)
+    w, idx, _ = ttopk.topk_gating_plain(logits, k, k)
+    w[::5] = 0.0                                  # masked tokens
+    return dsp.plan(idx, w, e, cap)
+
+
+@pytest.mark.cuda
+def test_topk_bwd_kernel_matches_plain(gen):
+    t, e, k, kk = 37, 256, 4, 5
+    logits = torch.randn(t, e, device="cuda", generator=gen)
+    w, idx, _ = ttopk.topk_gating(logits, k, kk)
+    dw = torch.randn(t, k, device="cuda", generator=gen)
+    dvals = torch.randn(t, kk, device="cuda", generator=gen)
+    assert torch.equal(ttopk.topk_gating_bwd(w, idx, dw, dvals, e),
+                       ttopk.topk_gating_bwd_plain(w, idx, dw, dvals, e))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,e_block", [(40, 3), (17, 1)])
+def test_eblock_kernels_match_plain(gen, dtype, d, e_block):
+    p = _plan(gen)
+    assert bool((p.position >= p.capacity).any())
+    x = torch.randn(p.expert_index.shape[0], d, device="cuda",
+                    generator=gen).to(dtype)
+    args = (p.expert_index, p.position)
+    kw = dict(n_experts=p.n_experts, capacity=p.capacity)
+    buf = tdispatch.dispatch_eblock(x, *args, e_block=e_block, **kw)
+    assert torch.equal(buf, tdispatch.dispatch(x, *args, **kw))
+    assert torch.equal(buf, tdispatch.dispatch_eblock_plain(
+        x, *args, None, p.n_experts, p.capacity, e_block))
+    y = tdispatch.combine_eblock(buf, p.weight, *args, e_block=e_block)
+    assert torch.equal(y, tdispatch.combine_eblock_plain(
+        buf, p.weight, *args, dtype, e_block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("trans", [(True, False), (False, True),
+                                   (True, True)])
+def test_transposed_gmm_kernel_matches_plain(gen, dtype, tol, trans):
+    tx, tw = trans
+    e, c, k, n = 3, 70, 130, 67
+    x = torch.randn(*((e, k, c) if tx else (e, c, k)), device="cuda",
+                    generator=gen).to(dtype)
+    w = (torch.randn(*((e, n, k) if tw else (e, k, n)), device="cuda",
+                     generator=gen) / k ** 0.5).to(dtype)
+    if tx and tw:       # no layout of the backward pass
+        with pytest.raises(ValueError, match="at most one operand"):
+            tgmm.gmm(x, w, trans_x=True, trans_w=True)
+        return
+    for act in sorted(tgmm.ACTIVATIONS):
+        torch.testing.assert_close(
+            tgmm.gmm(x, w, activation=act, trans_x=tx, trans_w=tw).float(),
+            tgmm.gmm_plain(x, w, act, tx, tw).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_functions_backward_on_the_card_matches_cpu(gen):
+    """The autograd Functions' backward passes run their kernels on the
+    card and agree with the same Functions on the CPU (plain versions)."""
+    from repro_torch.kernels import ops
+    p = _plan(gen)
+    t, d, f = p.expert_index.shape[0], 24, 32
+    x = torch.randn(t, d, device="cuda", generator=gen)
+    w1 = torch.randn(p.n_experts, d, f, device="cuda", generator=gen) / 5
+    logits = torch.randn(t, p.n_experts, device="cuda", generator=gen)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [v.detach().to(dev).requires_grad_(True)
+                  for v in (x, w1, logits)]
+        xi, wi, li = leaves
+        cw, _, vals = ops.topk_gating(li, 4, 5)
+        pe, pp = p.expert_index.to(dev), p.position.to(dev)
+        buf = ops.dispatch(xi, pe, pp, n_experts=p.n_experts,
+                           capacity=p.capacity)
+        h = ops.gmm(buf, wi, activation="relu")
+        y = ops.combine(h, cw * p.weight.to(dev), pe, pp)
+        (y.sum() + vals.sum()).backward()
+        grads[dev] = [v.grad.cpu() for v in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

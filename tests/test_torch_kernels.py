@@ -223,3 +223,204 @@ def test_launch_counts_untouched_by_cpu_path():
     cuda_lib.reset_launch_counts()
     tgmm.gmm(torch.zeros(1, 2, 2), torch.zeros(1, 2, 2))
     assert cuda_lib.launch_counts() == {}
+
+
+# ---------------------------------------------------------------------------
+# the backward passes: each autograd Function against the JAX custom VJP
+# (jax.vjp of repro.kernels.ops, Pallas in interpret mode), rtol=atol=1e-5
+# ---------------------------------------------------------------------------
+
+def _close(got, want, tol=1e-5):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("with_dvals", [True, False])
+@pytest.mark.parametrize("case", [(24, 16, 4, 1), (9, 33, 2, 1),
+                                  (7, 8, 1, 0)])
+def test_topk_grads_match_jax_vjp(case, with_dvals):
+    import jax
+    t, e, k, extra = case
+    kk = k + extra
+    rs = np.random.RandomState(t + e)
+    logits = rs.randn(t, e).astype(np.float32)
+    dw = rs.randn(t, k).astype(np.float32)
+    dvals = (rs.randn(t, kk) if with_dvals else np.zeros((t, kk))).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda l: (lambda w, _, v: (w, v))(
+        *jops.topk_gating_full(l, k, extra)), jnp.asarray(logits))
+    (want,) = vjp((jnp.asarray(dw), jnp.asarray(dvals)))
+    tl = _t(logits).requires_grad_(True)
+    w, idx, vals = ttopk.TopKGatingFn.apply(tl, k, kk)
+    assert not idx.requires_grad
+    outs, cts = [w], [_t(dw)]
+    if with_dvals:
+        outs.append(vals)
+        cts.append(_t(dvals))
+    (got,) = torch.autograd.grad(outs, tl, cts)
+    _close(got, want)
+
+
+REGIMES = [None, 2]          # resident, and a forced two-expert slab
+
+
+@pytest.mark.parametrize("e_block", REGIMES)
+@pytest.mark.parametrize("case", [PLAN_CASES[0], PLAN_CASES[2]])
+def test_dispatch_combine_grads_match_jax_vjp(case, e_block):
+    import jax
+    x, eidx, pos, w, e, cap = _plan(case, seed=case[0] + 2)
+    rs = np.random.RandomState(11)
+    g_buf = rs.randn(e, cap, x.shape[1]).astype(np.float32)
+    buf = rs.randn(e, cap, x.shape[1]).astype(np.float32)
+    dy = rs.randn(x.shape[0], x.shape[1]).astype(np.float32)
+    je, jp = jnp.asarray(eidx), jnp.asarray(pos)
+    _, vjp = jax.vjp(lambda x_: jops.dispatch(
+        x_, je, jp, n_experts=e, capacity=cap, e_block=e_block),
+        jnp.asarray(x))
+    (want_dx,) = vjp(jnp.asarray(g_buf))
+    _, vjp = jax.vjp(lambda b_, w_: jops.combine(b_, w_, je, jp,
+                                                 e_block=e_block),
+                     jnp.asarray(buf), jnp.asarray(w))
+    want_dbuf, want_dw = vjp(jnp.asarray(dy))
+
+    tx = _t(x).requires_grad_(True)
+    out = tdispatch.DispatchFn.apply(tx, _t(eidx), _t(pos), e, cap, e_block)
+    (dx,) = torch.autograd.grad(out, tx, _t(g_buf))
+    _close(dx, want_dx)
+    tb, tw = _t(buf).requires_grad_(True), _t(w).requires_grad_(True)
+    y = tdispatch.CombineFn.apply(tb, tw, _t(eidx), _t(pos), torch.float32,
+                                  e_block)
+    dbuf, dw = torch.autograd.grad(y, (tb, tw), _t(dy))
+    _close(dbuf, want_dbuf)
+    _close(dw, want_dw)
+
+
+@pytest.mark.parametrize("shape", GMM_CASES)
+@pytest.mark.parametrize("act", ["none", "relu", "silu"])
+def test_gmm_grads_match_jax_vjp(shape, act):
+    import jax
+    e, c, k, n = shape
+    rs = np.random.RandomState(e * 10 + n)
+    x = rs.randn(e, c, k).astype(np.float32)
+    w = (rs.randn(e, k, n) / np.sqrt(k)).astype(np.float32)
+    g = rs.randn(e, c, n).astype(np.float32)
+    _, vjp = jax.vjp(lambda x_, w_: jops.gmm(x_, w_, activation=act),
+                     jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(g))
+    tx, tw = _t(x).requires_grad_(True), _t(w).requires_grad_(True)
+    out = tgmm.GMMFn.apply(tx, tw, act)
+    dx, dw = torch.autograd.grad(out, (tx, tw), _t(g))
+    _close(dx, want_dx)
+    _close(dw, want_dw)
+
+
+@pytest.mark.parametrize("trans", [(True, False), (False, True),
+                                   (True, True)])
+def test_gmm_transposed_layouts_match_pallas(trans):
+    """The layout flags read an operand transposed in place: the same
+    product as the Pallas kernel on explicitly swapped operands.  Both
+    operands transposed at once is no layout of the backward pass, and
+    raises."""
+    tx_, tw_ = trans
+    rs = np.random.RandomState(3)
+    e, c, k, n = 3, 5, 33, 17
+    x = rs.randn(e, c, k).astype(np.float32)
+    w = rs.randn(e, k, n).astype(np.float32)
+    xs = np.swapaxes(x, 1, 2).copy() if tx_ else x
+    ws = np.swapaxes(w, 1, 2).copy() if tw_ else w
+    if tx_ and tw_:
+        with pytest.raises(ValueError, match="at most one operand"):
+            tgmm.gmm(_t(xs), _t(ws), trans_x=True, trans_w=True)
+        return
+    want = jops.gmm(jnp.asarray(x), jnp.asarray(w))
+    got = tgmm.gmm(_t(xs), _t(ws), trans_x=tx_, trans_w=tw_)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError):
+        tgmm.gmm(_t(x), _t(w), trans_w=True)
+
+
+# ---------------------------------------------------------------------------
+# the expert-blocked kernels' plain versions against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+EBLOCK_CASES = [  # (plan case, e_block)
+    (PLAN_CASES[0], 2),          # E = 5: ragged last slab
+    (PLAN_CASES[1], 1),
+    (PLAN_CASES[2], 4),          # k = 8, masked rows
+]
+
+
+@pytest.mark.parametrize("case,e_block", EBLOCK_CASES)
+def test_eblock_plain_versions_match_pallas(case, e_block):
+    x, eidx, pos, w, e, cap = _plan(case, seed=case[0] + 3)
+    je, jp = jnp.asarray(eidx), jnp.asarray(pos)
+    want = jops.dispatch(jnp.asarray(x), je, jp, n_experts=e, capacity=cap,
+                         e_block=e_block)
+    got = tdispatch.dispatch_eblock(_t(x), _t(eidx), _t(pos), n_experts=e,
+                                    capacity=cap, e_block=e_block)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # bit-equal to the resident regime, as on the card
+    assert torch.equal(got, tdispatch.dispatch(_t(x), _t(eidx), _t(pos),
+                                               n_experts=e, capacity=cap))
+    buf = np.random.RandomState(4).randn(e, cap, x.shape[1]).astype(
+        np.float32)
+    want = jops.combine(jnp.asarray(buf), jnp.asarray(w), je, jp,
+                        e_block=e_block)
+    got = tdispatch.combine_eblock(_t(buf), _t(w), _t(eidx), _t(pos),
+                                   e_block=e_block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_bucket_table_inverts_the_plan():
+    x, eidx, pos, w, e, cap = _plan(PLAN_CASES[2], seed=9)
+    btok, bscale = tdispatch.bucket_assignments(_t(eidx), _t(pos), _t(w), e,
+                                                cap)
+    kept = pos < cap
+    assert int((btok >= 0).sum()) == int(kept.sum())
+    tok = np.repeat(np.arange(eidx.shape[0]), eidx.shape[1]).reshape(
+        eidx.shape)
+    for t_, j in zip(*np.nonzero(kept)):
+        slot = eidx[t_, j] * cap + pos[t_, j]
+        assert int(btok[slot]) == tok[t_, j]
+        assert float(bscale[slot]) == w[t_, j]
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 16, 0, None), (128, 128, 288, 64,
+                                                          None),
+                                   (256, 128, 512, 4096, None),
+                                   (64, 144, 512, 0, 18 * 2 ** 20)])
+def test_select_e_block_matches_reference(shape):
+    from repro.kernels import dispatch as jdl
+    e, c, d, t, limit = shape
+    for dt_j, dt_t in ((jnp.float32, torch.float32),
+                       (jnp.bfloat16, torch.bfloat16)):
+        assert tdispatch.select_e_block(e, c, d, dt_t, n_tokens=t,
+                                        limit=limit) == \
+            jdl.select_e_block(e, c, d, dt_j, n_tokens=t, limit=limit)
+    with pytest.raises(tdispatch.DispatchVMEMError):
+        tdispatch.select_e_block(4, 1024, 1024, torch.float32, limit=64)
+
+
+def test_new_wrappers_never_take_the_plain_path_off_cpu():
+    meta = dict(device="meta")
+    i32 = dict(dtype=torch.int32, device="meta")
+    with pytest.raises(cuda_lib.KernelLaunchError):
+        ttopk.topk_gating_bwd(torch.zeros(4, 2, **meta),
+                              torch.zeros(4, 3, **i32),
+                              torch.zeros(4, 2, **meta),
+                              torch.zeros(4, 3, **meta), 8)
+    with pytest.raises(cuda_lib.KernelLaunchError):
+        tdispatch.dispatch_eblock(torch.zeros(4, 3, **meta),
+                                  torch.zeros(4, 2, **i32),
+                                  torch.zeros(4, 2, **i32), n_experts=2,
+                                  capacity=8, e_block=1)
+    with pytest.raises(cuda_lib.KernelLaunchError):
+        tdispatch.combine_eblock(torch.zeros(2, 8, 3, **meta),
+                                 torch.zeros(4, 2, **meta),
+                                 torch.zeros(4, 2, **i32),
+                                 torch.zeros(4, 2, **i32), e_block=1)
+    with pytest.raises(cuda_lib.KernelLaunchError):
+        tgmm.gmm(torch.zeros(1, 2, 3, **meta), torch.zeros(1, 4, 3, **meta),
+                 trans_w=True)

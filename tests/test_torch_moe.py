@@ -156,3 +156,88 @@ def test_capacity_plan_matches_jax(priority):
     assert float(tp.fraction_dropped) == float(jp.fraction_dropped) > 0
     assert tdsp.capacity_for(t, e, k, 1.25) == jdsp.capacity_for(t, e, k,
                                                                  1.25)
+
+
+# ---------------------------------------------------------------------------
+# training: moe_apply(train=True) values and every gradient
+# ---------------------------------------------------------------------------
+
+def _grad_names(root) -> set:
+    """Names of the autograd nodes reachable from ``root``."""
+    seen, names, stack = set(), set(), [root]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.add(type(fn).__name__)
+        stack.extend(nxt for nxt, _ in fn.next_functions)
+    return names
+
+
+TRAIN_PAIRS = [("pallas", "cuda", None), ("ref", "ref", None),
+               ("pallas", "cuda", 2)]       # forced two-expert slab
+
+
+@pytest.mark.parametrize("backends", TRAIN_PAIRS)
+def test_moe_apply_train_grads_match_jax(backends):
+    """Output, aux_loss and the gradient of every parameter and of x,
+    with the JAX noise passed in, within 1e-5."""
+    jb, tb, e_block = backends
+    ja, ta = _args(jb, tb, capacity_factor=1.0, dispatch_e_block=e_block)
+    ja = dataclasses.replace(ja, activation="relu", sigmoid_output=True)
+    ta = dataclasses.replace(ta, activation="relu", sigmoid_output=True)
+    params, x, _ = _setup(ja, seed=4)
+    rs = np.random.RandomState(4)
+    gy = rs.randn(T, D).astype(np.float32)
+    key = jax.random.PRNGKey(9)
+    noise = np.array(jax.random.normal(key, (T, E)))
+
+    def jloss(p, x_):
+        y, aux = jmoe.moe_apply(p, x_, ja, train=True, rng=key)
+        return jnp.sum(y * gy) + aux["aux_loss"], (y, aux["aux_loss"])
+    (jl, (jy, jaux)), (jgp, jgx) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+
+    tp = from_jax_tree(params, device="cpu")
+    for leaf in jax.tree_util.tree_leaves(tp):
+        leaf.requires_grad_(True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ty, taux = tmoe.moe_apply(tp, tx, ta, train=True,
+                              noise=torch.from_numpy(noise))
+    tl = torch.sum(ty * torch.from_numpy(gy)) + taux["aux_loss"]
+    tl.backward()
+    if tb == "cuda":
+        assert {"TopKGatingFnBackward", "DispatchFnBackward",
+                "CombineFnBackward", "GMMFnBackward"} <= _grad_names(
+                    tl.grad_fn)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(float(taux["aux_loss"].detach()),
+                               float(jaux), rtol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), rtol=1e-5,
+                               atol=1e-5)
+    flat_t = jax.tree_util.tree_flatten_with_path(tp)[0]
+    flat_j = jax.tree_util.tree_leaves(jgp)
+    assert len(flat_t) == len(flat_j) == 4
+    for (path, leaf), want in zip(flat_t, flat_j):
+        assert leaf.grad is not None, path
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5, err_msg=str(path))
+
+
+def test_cuda_backend_regime_selection():
+    """Resident by default (the card has no VMEM); a forced slab wins;
+    a named budget selects as the reference does."""
+    from repro.kernels import dispatch as jdl
+    from repro_torch.kernels.backend import plan_e_block
+    _, ta = _args("pallas", "cuda")
+    shape = (256, 128, 512, torch.float32, 4096)
+    assert plan_e_block(ta, *shape) is None
+    assert plan_e_block(dataclasses.replace(ta, dispatch_e_block=16),
+                        *shape) == 16
+    limited = dataclasses.replace(ta, dispatch_vmem_limit=16 * 2 ** 20)
+    assert plan_e_block(limited, *shape) == jdl.select_e_block(
+        256, 128, 512, jnp.float32, n_tokens=4096) == 16
+    with pytest.raises(KernelBackendError):
+        plan_e_block(dataclasses.replace(ta, dispatch_e_block=0), *shape)
