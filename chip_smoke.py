@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero and prints no result:
              f32 at the shapes training MoE-256 gives them; the
              training kernels (top-k backward, e-blocked dispatch and
              combine, the transposed GMMs of the backward pass) in f32
-             and bf16 at the shapes training MoE-256 gives them.  Each
+             and bf16 at the shapes training MoE-256 gives them; the
+             fused decode kernels (7 and 8) in f32 at ragged shapes and
+             kernel 8's "proj" mode at moa-demo's decode shape.  Each
              kernel is timed (CUDA events, median of 20 runs after
              warm-up) beside its plain version, one PyTorch library call
              computing the same function where there is one, and its
@@ -32,8 +34,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    unprofiled decode step (the profiled window itself runs slower).
 4. cross   — one full-width prefill under the "cuda" and the "ref"
              backends; last-position logits must agree within a bf16
-             tolerance.  The serving model is then freed.
-5. train   — the paper's MoE-256 LM (``paper_config("moe-256")``) at its
+             tolerance.
+5. fused   — kernels 7 and 8 at full width on layer 0's weights against
+             their plain versions and timed; then the same 8 requests
+             with ``fused_decode``: one kernel-7 launch per MoE layer per
+             decode step and no top-k, dispatch, GMM or combine at
+             decode; one decode step's logits against the unfused path;
+             used experts per layer and step from an untimed replay;
+             a profile of two fused decode steps.
+6. expert_choice — the same requests under expert-choice routing with
+             fused decode: kernel 8 at every MoE decode layer.  The
+             serving model is then freed.
+7. moa     — moa-demo (Mixture-of-Attention-Heads) at its published
+             widths: first every kernel of its serve path against its
+             plain version at the shapes that path gives it (top-k,
+             dispatch, GMM and combine at prefill and unfused decode,
+             kernel 7 on its MoE layer, kernel 8 "proj" on its MoA
+             layer), then 8 requests unfused and fused (kernel 8 in
+             "proj" mode for each routed Q / O projection, kernel 7 for
+             the MoE layers).
+8. train   — the paper's MoE-256 LM (``paper_config("moe-256")``) at its
              published widths with the 1-Billion-Word vocabulary of
              793,471 (1.085 B parameters, f32), drawn from a seed on the
              card, trained through the port's Trainer (factored Adam,
@@ -41,18 +61,18 @@ Phases, in order; any failure exits non-zero and prints no result:
              Launch counts per step must be exactly those of the
              resident regime; every loss finite.  A profile of two more
              steps gives the device time by kernel and the idle share.
-6. eblock  — moe_apply forward + backward at the training shape with
+9. eblock  — moe_apply forward + backward at the training shape with
              ``dispatch_e_block=16`` against the resident default:
              dispatch buffers bit-equal, outputs and gradients close,
              the e-blocked kernels launched.
-7. grads   — one more step's gradients under "cuda" (twice) and "ref"
+10. grads  — one more step's gradients under "cuda" (twice) and "ref"
              from the same parameters and draws: all present and
              finite, the MoE leaves' bit-equal between the two "cuda"
              runs and within 1e-5 normwise of "ref"; w1's once the
              terms of the pre-activations whose relu masks differ
              between the two paths are taken out (phase_grads counts
              them and says why).
-8. report  — one ``{"kernels": [...]}`` line, then the result line.
+11. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -82,7 +102,8 @@ E_BLOCK = 16             # the reference's slab at this shape
 TRAIN_LAUNCHES = {"topk_gating": 1, "topk_gating_bwd": 1, "dispatch": 2,
                   "combine": 2, "gmm": 3, "gmm_bwd": 4}
 KERNELS = ("topk_gating", "dispatch", "combine", "gmm", "topk_gating_bwd",
-           "dispatch_eblock", "combine_eblock", "gmm_bwd")
+           "dispatch_eblock", "combine_eblock", "gmm_bwd", "fused_decode",
+           "fused_routed")
 REPLACES = {
     "topk_gating": "src/repro/kernels/topk_gating.py:39",
     "dispatch": "src/repro/kernels/dispatch.py:148",
@@ -92,6 +113,8 @@ REPLACES = {
     "dispatch_eblock": "src/repro/kernels/dispatch.py:230",
     "combine_eblock": "src/repro/kernels/dispatch.py:338",
     "gmm_bwd": "src/repro/kernels/gmm.py:283",
+    "fused_decode": "src/repro/kernels/fused_decode.py:192",
+    "fused_routed": "src/repro/kernels/fused_decode.py:323",
 }
 SOURCES = {
     "topk_gating": "src/repro_torch/csrc/topk_gating.cu",
@@ -102,6 +125,8 @@ SOURCES = {
     "dispatch_eblock": "src/repro_torch/csrc/dispatch.cu",
     "combine_eblock": "src/repro_torch/csrc/dispatch.cu",
     "gmm_bwd": "src/repro_torch/csrc/gmm.cu",
+    "fused_decode": "src/repro_torch/csrc/fused_decode.cu",
+    "fused_routed": "src/repro_torch/csrc/fused_decode.cu",
 }
 KERNEL_SYMBOLS = {"topk_gating": "topk_gating_kernel",
                   "dispatch": "dispatch_kernel", "combine": "combine_kernel",
@@ -109,7 +134,11 @@ KERNEL_SYMBOLS = {"topk_gating": "topk_gating_kernel",
                   "topk_gating_bwd": "topk_gating_bwd_kernel",
                   "dispatch_eblock": "dispatch_eblock_kernel",
                   "combine_eblock": "combine_eblock_kernel",
-                  "gmm_bwd": "gmm_tiled_kernel"}
+                  "gmm_bwd": "gmm_tiled_kernel",
+                  "fused_decode": "fused_decode_kernel",
+                  "fused_routed": "fused_routed_kernel"}
+# The MoA serve phase: moa-demo at its published widths.
+MOA_ARCH = "moa-demo"
 
 
 class SmokeFailure(RuntimeError):
@@ -141,16 +170,25 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def bound_ms(n_bytes: float, flops: float, dtype_name: str):
+def bound_ms(n_bytes: float, flops, dtype_name: str | None = None):
     """(least time in ms, what bounds it) for moving ``n_bytes`` once and
-    doing ``flops`` at the card's peak for the type."""
+    doing ``flops`` at the card's peak for the type; ``flops`` may be a
+    {type name: operations} dict for work in several types."""
+    if not isinstance(flops, dict):
+        flops = {dtype_name: flops}
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = sum(n / PEAK_FLOPS[dt] * 1e3 for dt, n in flops.items())
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def f32_tol(ref) -> float:
+    """f32 outputs summed in another order: 1e-5 of the output's scale
+    (at least 1e-5)."""
+    return 1e-5 * max(1.0, float(ref.float().abs().max()))
 
 
 def bf16_tol(ref) -> float:
@@ -321,7 +359,7 @@ def check_gmm(gen) -> dict:
             got = gk.gmm(x, w, activation=act)
             want = gk.gmm_plain(x, w, act)
             err = max_err(got, want)
-            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            tol = f32_tol(want)
             check(err <= tol, f"f32 gmm {act} [{e},{c},{kd}]x[{e},{kd},{n}] "
                               f"differs by {err} > {tol}")
             worst_f32 = max(worst_f32, err)
@@ -339,7 +377,7 @@ def check_gmm(gen) -> dict:
         got = gk.gmm(xi, wi, activation=act)
         want = gk.gmm_plain(xi, wi, act)
         err = max_err(got, want)
-        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        tol = f32_tol(want)
         log(f"gmm f32 {act} {tuple(xi.shape)} x {tuple(wi.shape)}: "
             f"max_abs_err {err:.3g} (tol {tol:.3g})")
         check(err <= tol, f"f32 gmm {act} {tuple(xi.shape)} x "
@@ -509,8 +547,7 @@ def check_gmm_bwd(gen) -> dict:
         for xi, wi, tx, tw in calls:
             got = gk.gmm(xi, wi, trans_x=tx, trans_w=tw)
             want = gk.gmm_plain(xi, wi, "none", tx, tw)
-            tol = (1e-5 * max(1.0, float(want.abs().max()))
-                   if dtype == torch.float32 else bf16_tol(want))
+            tol = f32_tol(want) if dtype == torch.float32 else bf16_tol(want)
             err = max_err(got, want)
             check(err <= tol, f"gmm_bwd {dtype} trans_x={tx} trans_w={tw} "
                               f"{tuple(xi.shape)} x {tuple(wi.shape)} "
@@ -545,6 +582,134 @@ def check_gmm_bwd(gen) -> dict:
                        f"[{e},{c},{f}]"))
 
 
+def near_ties(x, wg, k: int, rel: float = 1e-5) -> list:
+    """Tokens whose k-th and (k+1)-th gate logits (plain f32 matmul) are
+    within ``rel`` of the largest |logit|: where two summation orders
+    may pick different experts."""
+    import torch
+    logits = x.float() @ wg.float()
+    top = torch.topk(logits, min(k + 1, logits.shape[1]), dim=-1).values
+    gap = (top[:, k - 1] - top[:, -1]).abs()
+    scale = float(logits.abs().max())
+    return [int(i) for i in torch.nonzero(gap < rel * scale).flatten()]
+
+
+def check_fused_decode_case(x, valid, wg, w1, w2, w3, k, capacity, act,
+                            tol_fn) -> tuple[float, float]:
+    """Kernel 7 against its plain version: load and overflow exact, dead
+    rows exactly 0, y within ``tol_fn(plain y)``.  Returns (max |dy|,
+    tolerance)."""
+    import torch
+    from repro_torch.kernels import fused_decode as fd
+    y, load, over = fd.decode_step(x, valid, wg, w1, w2, w3, k=k,
+                                   capacity=capacity, activation=act)
+    py, pl, po = fd.decode_step_plain(x, valid, wg, w1, w2, w3, k=k,
+                                      capacity=capacity, activation=act)
+    if not (torch.equal(load, pl) and torch.equal(over, po)):
+        ties = near_ties(x, wg, k)
+        log(f"fused_decode routing differs from plain; tokens with a "
+            f"top-{k}/{k + 1} gap under 1e-5 of the largest |logit|: "
+            f"{ties}")
+        raise SmokeFailure(f"fused_decode load / overflow differ from the "
+                           f"plain version (near-tie tokens {ties})")
+    check(bool((y[valid == 0] == 0).all()), "fused_decode: a dead slot's "
+                                            "row is not zero")
+    err, tol = max_err(y, py), tol_fn(py)
+    check(err <= tol, f"fused_decode {x.dtype} {act} C={capacity} differs "
+                      f"by {err} > {tol}")
+    return err, tol
+
+
+def check_fused_ragged(gen) -> dict:
+    """Kernels 7 and 8 in f32 at cut, ragged shapes (relu and swiglu,
+    capacity 1, tied logits; kernel 8 in both modes and both plan
+    views), and kernel 8 in "proj" mode at moa-demo's decode shape
+    (E = 8, d 512 -> 128 and 128 -> 512, T = 8, k = 2, bf16), timed."""
+    import torch
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.core.moa import assignment_plan
+    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.kernels.topk_gating import topk_gating_plain
+
+    def r(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dtype)
+    worst7 = worst8 = 0.0
+    t, d, e, f, k = 13, 72, 10, 40, 3
+    for act in ("relu", "swiglu"):
+        for cap, tied in ((8, False), (1, False), (8, True)):
+            x, wg = r(t, d), r(d, e)
+            if tied:
+                wg[:, 7] = wg[:, 2]
+            valid = (torch.arange(t, device="cuda") % 4 != 2).float()
+            w1, w2, w3 = r(e, d, f, scale=d ** -0.5), \
+                r(e, f, d, scale=f ** -0.5), r(e, d, f, scale=d ** -0.5)
+            worst7 = max(worst7, check_fused_decode_case(
+                x, valid, wg, w1, w2, w3 if act == "swiglu" else None, k,
+                cap, act, f32_tol)[0])
+    log(f"fused_decode f32 ragged [{t},{d}] E={e} f={f} k={k} (relu, "
+        f"swiglu; C=8, C=1, ties): max_abs_err {worst7:.3g}")
+
+    def plan(t_, e_, k_, cap_, dead=0.2):
+        w, idx, _ = topk_gating_plain(r(t_, e_), k_, k_)
+        keep = torch.rand(t_, device="cuda", generator=gen) >= dead
+        return dsp.plan(idx, w * keep[:, None], e_, cap_)
+
+    def routed(x, p_in, p_out, ws, mode, act, tol_fn):
+        args = (x, p_in.expert_index, p_in.position, p_out.expert_index,
+                p_out.position, p_out.weight, *ws)
+        kw = dict(n_experts=p_in.n_experts, capacity=p_in.capacity,
+                  mode=mode, activation=act)
+        got, want = fd.routed_apply(*args, **kw), \
+            fd.routed_apply_plain(*args, **kw)
+        err, tol = max_err(got, want), tol_fn(want)
+        check(err <= tol, f"fused_routed {mode} {act} {x.dtype} differs by "
+                          f"{err} > {tol}")
+        return err, args, kw
+    p = plan(20, 6, 2, 6)
+    check(bool((p.position >= p.capacity).any()), "no drop in the plan")
+    ap = assignment_plan(p)
+    for mode, act in (("ffn", "relu"), ("ffn", "swiglu"), ("proj", "relu")):
+        ws = (r(6, 40, 24, scale=40 ** -0.5), r(6, 24, 40, scale=24 ** -0.5),
+              r(6, 40, 24, scale=40 ** -0.5))
+        ws = ws[:1] if mode == "proj" else ws[:2] if act == "relu" else ws
+        for p_in, p_out in ((p, p), (p, ap)):
+            x = r(p_in.expert_index.shape[0], 40)
+            worst8 = max(worst8, routed(x, p_in, p_out, ws, mode, act,
+                                        f32_tol)[0])
+    log(f"fused_routed f32 ragged (ffn relu / swiglu, proj; token- and "
+        f"assignment-major): max_abs_err {worst8:.3g}")
+    # moa-demo's decode: the Q projection (x [8,512] -> [16,128], out
+    # plan assignment-major) and the O projection ([16,128] -> [8,512]).
+    bf = torch.bfloat16
+    e, d, hh, t, k = 8, 512, 128, 8, 2
+    p = plan(t, e, k, 8, dead=0.25)
+    ap = assignment_plan(p)
+    wq, wo = r(e, d, hh, scale=d ** -0.5, dtype=bf), \
+        r(e, hh, d, scale=hh ** -0.5, dtype=bf)
+    res = {}
+    for name, x, p_in, p_out, w in (("q", r(t, d, dtype=bf), p, ap, wq),
+                                    ("o", r(t * k, hh, dtype=bf), ap, p,
+                                     wo)):
+        err, args, kw = routed(x, p_in, p_out, (w,), "proj", "relu",
+                               bf16_tol)
+        worst8 = max(worst8, err)
+        n_used = int(torch.unique(p_in.expert_index[p_in.position
+                                                    < p_in.capacity]).numel())
+        rows = int((p_out.position < p_out.capacity).sum())
+        b, _ = bound_ms(n_used * w.shape[1] * w.shape[2] * 2
+                        + x.numel() * 2 + p_out.expert_index.shape[0]
+                        * w.shape[2] * 2, 2 * rows * w.shape[1] * w.shape[2],
+                        "bfloat16")
+        res[name] = {"ms": cuda_ms(lambda: fd.routed_apply(*args, **kw)),
+                     "plain_ms": cuda_ms(
+                         lambda: fd.routed_apply_plain(*args, **kw)),
+                     "bound_ms": b, "max_abs_err": err, "used_experts": n_used}
+    log(f"fused_routed proj at moa-demo decode (bf16): {json.dumps(res)}")
+    return {"fused_decode_f32_max_abs_err": worst7,
+            "fused_routed_f32_max_abs_err": worst8, "moa_proj": res}
+
+
 def phase_kernels() -> dict:
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -552,8 +717,9 @@ def phase_kernels() -> dict:
                check_topk_bwd(gen), *check_eblock(gen), check_gmm_bwd(gen)]
     for r in results:
         log("kernel " + json.dumps(r))
+    fused = check_fused_ragged(gen)
     torch.cuda.empty_cache()
-    return {r["name"]: r for r in results}
+    return {"rows": {r["name"]: r for r in results}, "fused": fused}
 
 
 # ---------------------------------------------------------------------------
@@ -584,17 +750,14 @@ def build_model():
     return cfg, params
 
 
-def phase_serve(cfg, params) -> dict:
+def serve_run(engine, prompts, vocab_size: int):
+    """Warm up, then serve ``prompts`` (NEW_TOKENS greedy tokens each,
+    arrivals one step apart) with the launch counts zeroed just before
+    and read just after.  Returns (requests, launch counts, summary)."""
     import numpy as np
     import torch
     from repro_torch.kernels import cuda_lib
-    from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-    sc = ServeConfig(max_len=PROMPT_LEN + NEW_TOKENS, n_slots=N_REQUESTS)
-    engine = ServeEngine(params, cfg, sc, device="cuda")
-    rs = np.random.RandomState(SEED)
-    prompts = [rs.randint(1, cfg.vocab_size, (PROMPT_LEN,))
-               for _ in range(N_REQUESTS)]
     engine.generate(np.stack(prompts[:2]), 2)     # warm-up (cuBLAS, caches)
     engine.reset()
     torch.cuda.synchronize()
@@ -611,39 +774,67 @@ def phase_serve(cfg, params) -> dict:
     for r in reqs:
         check(r.done and len(r.tokens) == NEW_TOKENS,
               f"request {r.rid} ended with {len(r.tokens)} tokens")
-        check(all(0 <= t < cfg.vocab_size for t in r.tokens),
+        check(all(0 <= t < vocab_size for t in r.tokens),
               f"request {r.rid} sampled a token outside the vocabulary")
-    model_calls = stats["prefill_calls"] + stats["decode_steps"]
-    n_moe = N_LAYERS
-    want = {"topk_gating": n_moe * model_calls, "dispatch": n_moe * model_calls,
-            "combine": n_moe * model_calls, "gmm": 3 * n_moe * model_calls}
-    log(f"launches {counts}, expected {want} ({model_calls} model calls x "
-        f"{n_moe} MoE layers)")
-    check(counts == want, "kernel launch counts do not match the path")
-    load = np.sum([t["expert_load"] for t in engine.telemetry], axis=0)
-    hist = np.bincount(load.astype(int))
-    out = {
-        "requests": N_REQUESTS, "generated_tokens": stats["generated_tokens"],
-        "wall_s": wall, "tokens_per_s": stats["generated_tokens"] / wall,
+    summary = {
+        "requests": len(prompts),
+        "generated_tokens": stats["generated_tokens"], "wall_s": wall,
+        "tokens_per_s": stats["generated_tokens"] / wall,
         "prefill_ms_median": 1e3 * statistics.median(
             engine.step_times["prefill"]),
         "decode_step_ms_median": 1e3 * statistics.median(
             engine.step_times["decode"]),
-        "decode_steps": stats["decode_steps"],
-        "prefills": stats["prefills"],
+        "decode_steps": stats["decode_steps"], "prefills": stats["prefills"],
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": counts, "sample_tokens": reqs[0].tokens[:8]}
+    return reqs, counts, summary
+
+
+def expected_launches(stats: dict, per_prefill: dict,
+                      per_decode: dict) -> dict:
+    """Launches a serve run must count: per model call of each kind."""
+    out: dict = {}
+    for table, n in ((per_prefill, stats["prefills"]),
+                     (per_decode, stats["decode_steps"])):
+        for name, per in table.items():
+            out[name] = out.get(name, 0) + per * n
+    return {k: v for k, v in out.items() if v}
+
+
+def check_launches(what: str, counts: dict, want: dict) -> None:
+    log(f"{what} launches {counts}, expected {want}")
+    check(counts == want, f"{what}: kernel launch counts do not match the "
+                          "path")
+
+
+def phase_serve(cfg, params) -> dict:
+    import numpy as np
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    sc = ServeConfig(max_len=PROMPT_LEN + NEW_TOKENS, n_slots=N_REQUESTS)
+    engine = ServeEngine(params, cfg, sc, device="cuda")
+    rs = np.random.RandomState(SEED)
+    prompts = [rs.randint(1, cfg.vocab_size, (PROMPT_LEN,))
+               for _ in range(N_REQUESTS)]
+    reqs, counts, out = serve_run(engine, prompts, cfg.vocab_size)
+    stats = engine.stats
+    n_moe = N_LAYERS
+    unfused = {"topk_gating": n_moe, "dispatch": n_moe, "combine": n_moe,
+               "gmm": 3 * n_moe}
+    check_launches("serve", counts,
+                   expected_launches(stats, unfused, unfused))
+    load = np.sum([t["expert_load"] for t in engine.telemetry], axis=0)
+    hist = np.bincount(load.astype(int))
+    out.update({
         "decode_overflow_total": stats["overflow_total"],
         "decode_expert_load_histogram": {
             "experts_with_n_assignments": {str(n): int(c) for n, c in
                                            enumerate(hist) if c},
             "busiest": [[int(i), int(load[i])]
-                        for i in np.argsort(-load, kind="stable")[:5]]},
-        "launches": counts,
-        "sample_tokens": reqs[0].tokens[:8],
-    }
+                        for i in np.argsort(-load, kind="stable")[:5]]}})
     log("serve " + json.dumps(out))
     return {"summary": out, "counts": counts, "prompts": prompts,
-            "engine": engine}
+            "engine": engine, "streams": [r.tokens for r in reqs]}
 
 
 def device_profile(fn) -> dict:
@@ -693,7 +884,8 @@ def idle_share(prof: dict, n_steps: int, step_ms: float) -> dict:
             "host_wait_ms_per_step": step_ms - busy}
 
 
-def phase_profile(engine, prompts, step_ms: float) -> dict:
+def phase_profile(engine, prompts, step_ms: float,
+                  what: str = "profile") -> dict:
     """Device time by kernel over two decode steps of a full slot pool;
     the idle share against ``step_ms``, the serve run's median decode
     step."""
@@ -710,7 +902,7 @@ def phase_profile(engine, prompts, step_ms: float) -> dict:
             engine.step()
     prof = device_profile(two_steps)
     out = dict(decode_steps=2, **prof, **idle_share(prof, 2, step_ms))
-    log("profile " + json.dumps(out))
+    log(f"{what} " + json.dumps(out))
     return out
 
 
@@ -746,20 +938,454 @@ def phase_cross(cfg, params, prompt, engine) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 5-6: fused decode (kernels 7 and 8) on the same full-width model,
+# then expert-choice routing
+# ---------------------------------------------------------------------------
+
+def _layer0_moe(params):
+    moe = params["blocks"]["periods"]["pos0"]["moe"]
+    return (moe["gate"]["wg"][0], moe["w1"][0], moe["w2"][0],
+            moe["w3"][0])
+
+
+def _used(eidx, pos, capacity: int) -> int:
+    import torch
+    return int(torch.unique(eidx[pos < capacity]).numel())
+
+
+def check_fused_full(layer: dict) -> dict:
+    """Kernels 7 and 8 at full width against their plain versions on
+    layer 0's weights: T = 8 slots (two dead), C = 8, bf16 swiglu.
+    Kernel 8 runs the expert_choice plan of the same tokens.  Both are
+    timed with their plain versions; the bounds count the bytes of the
+    experts this data uses."""
+    import torch
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.core import router as router_lib
+    from repro_torch.kernels import fused_decode as fd
+
+    wg, w1, w2, w3 = layer["weights"]
+    t, d = N_REQUESTS, wg.shape[0]
+    e, f, k = wg.shape[1], w1.shape[-1], layer["k"]
+    cap = dsp.capacity_for(t, e, k, layer["capacity_factor"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x = torch.randn(t, d, device="cuda", generator=gen).to(torch.bfloat16)
+    valid = torch.ones(t, device="cuda")
+    valid[2] = valid[5] = 0.0
+    args7 = (x, valid, wg, w1, w2, w3)
+    kw7 = dict(k=k, capacity=cap, activation="swiglu")
+    err7, tol7 = check_fused_decode_case(*args7, k, cap, "swiglu", bf16_tol)
+    flat_e, flat_p, _, _, _ = fd.route_plain(x, valid, wg, k, cap)
+    used7 = _used(flat_e, flat_p, cap)
+    rows7 = int((flat_p < cap).sum())
+    weight_bytes = 3 * d * f * 2
+    b7, by7 = bound_ms(used7 * weight_bytes + d * e * 4 + 2 * t * d * 2
+                       + t * 4 + 2 * e * 4,
+                       {"float32": 2 * t * d * e,
+                        "bfloat16": 2 * rows7 * 3 * d * f})
+    ms7 = cuda_ms(lambda: fd.decode_step(*args7, **kw7))
+    plain7 = cuda_ms(lambda: fd.decode_step_plain(*args7, **kw7))
+    log(f"fused_decode full width [{t},{d}] E={e} f={f} k={k} C={cap} bf16 "
+        f"swiglu, 2 dead slots: load / overflow equal, max_abs_err "
+        f"{err7:.3g}; {used7} experts used; {ms7:.4g} ms (plain "
+        f"{plain7:.4g}, bound {b7:.4g})")
+
+    spec = router_lib.RouterSpec(policy="expert_choice", k=k,
+                                 capacity_factor=layer["capacity_factor"])
+    p = router_lib.Router(spec, e).route({"gate": {"wg": wg}}, x,
+                                         train=False, mask=valid).plan
+    args8 = (x, p.expert_index, p.position, p.expert_index, p.position,
+             p.weight, w1, w2, w3)
+    kw8 = dict(n_experts=e, capacity=p.capacity, mode="ffn",
+               activation="swiglu")
+    got, want = fd.routed_apply(*args8, **kw8), \
+        fd.routed_apply_plain(*args8, **kw8)
+    err8, tol8 = max_err(got, want), bf16_tol(want)
+    check(err8 <= tol8, f"fused_routed full width differs by {err8} > "
+                        f"{tol8}")
+    used8 = _used(p.expert_index, p.position, p.capacity)
+    rows8 = int((p.position < p.capacity).sum())
+    b8, by8 = bound_ms(used8 * weight_bytes + 2 * t * d * 2
+                       + t * k * 4 * 4, 2 * rows8 * 3 * d * f, "bfloat16")
+    ms8 = cuda_ms(lambda: fd.routed_apply(*args8, **kw8))
+    plain8 = cuda_ms(lambda: fd.routed_apply_plain(*args8, **kw8))
+    log(f"fused_routed full width, expert_choice plan (C={p.capacity}): "
+        f"max_abs_err {err8:.3g} (tol {tol8:.3g}); {used8} experts used; "
+        f"{ms8:.4g} ms (plain {plain8:.4g}, bound {b8:.4g})")
+    shape = (f"one kimi-k2 MoE layer at decode: x [{t},{d}] bf16 (2 dead "
+             f"slots), {e} experts [{d},{f}] swiglu, k={k}, C={cap}")
+    return {
+        "fused_decode": dict(
+            name="fused_decode", max_abs_err=err7, tol=tol7, ms=ms7,
+            plain_ms=plain7, bound_ms=b7, bound_by=by7, library_ms=None,
+            used_experts=used7, shape=shape),
+        "fused_routed": dict(
+            name="fused_routed", max_abs_err=err8, tol=tol8, ms=ms8,
+            plain_ms=plain8, bound_ms=b8, bound_by=by8, library_ms=None,
+            used_experts=used8, shape=shape + ", the expert_choice plan")}
+
+
+def decode_logits(cfg, params, prompts, fused_flags=(False, True)) -> dict:
+    """One decode step's logits after a batched prefill of ``prompts``,
+    once per fused_decode flag, from the same cache."""
+    import numpy as np
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.models import lm, transformer
+
+    tokens = torch.as_tensor(np.stack(prompts), dtype=torch.int32,
+                             device="cuda")
+    b, s = tokens.shape
+    cache = pm.zeros(transformer.cache_defs(cfg, b, s + 1), "cuda")
+    logits, _ = lm.lm_prefill(params, {"tokens": tokens}, cache, cfg)
+    nxt = logits.argmax(dim=-1).to(torch.int32)
+    cur = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    out = {}
+    for fused in fused_flags:
+        out[fused], _ = lm.lm_decode(params, nxt, cache, cur,
+                                     cfg.replace(fused_decode=fused))
+    for v in out.values():
+        check(bool(torch.isfinite(v).all()), "non-finite decode logits")
+    return out
+
+
+def compare_fused_logits(what: str, logits: dict) -> dict:
+    """Fused vs unfused decode logits within the cross phase's 5 % of
+    the logit scale; greedy agreement printed, not gated."""
+    a, b = logits[True], logits[False]
+    err, scale = max_err(a, b), float(b.abs().max())
+    res = {"max_abs_err": err, "tol": 0.05 * scale, "logit_scale": scale,
+           "greedy_rows_equal": float(
+               (a.argmax(-1) == b.argmax(-1)).float().mean())}
+    log(f"{what} fused vs unfused decode logits " + json.dumps(res))
+    check(err <= res["tol"], f"{what}: fused vs unfused decode logits "
+                             f"differ by {err} > {res['tol']}")
+    return res
+
+
+def stream_agreement(a: list, b: list) -> float:
+    same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+    return same / max(sum(len(r) for r in a), 1)
+
+
+def used_experts_replay(engine, prompts, n_moe: int, streams) -> list:
+    """The fused serve run once more, untimed, through a copy of the
+    engine's backend whose decode_step also reads kernel 7's load output:
+    the experts with load > 0, per MoE layer and decode step.  The
+    replay must sample the timed run's streams."""
+    import dataclasses
+    from repro_torch.kernels import backend as backend_lib
+
+    orig = backend_lib.get(engine.cfg.kernel_backend)
+    used = []
+
+    def decode_step(params, x, a, *, mask=None):
+        y, telem = orig.decode_step(params, x, a, mask=mask)
+        used.append(int((telem["expert_load"] > 0).sum()))
+        return y, telem
+    backend_lib.register(dataclasses.replace(orig, decode_step=decode_step))
+    try:
+        engine.reset()
+        reqs = [engine.submit(p, NEW_TOKENS, arrival=i)
+                for i, p in enumerate(prompts)]
+        engine.run()
+    finally:
+        backend_lib.register(orig)
+    check([r.tokens for r in reqs] == streams,
+          "the replayed fused serve run sampled other tokens")
+    check(len(used) == n_moe * engine.stats["decode_steps"],
+          f"{len(used)} fused decode layers in the replay")
+    return [used[i::n_moe] for i in range(n_moe)]
+
+
+def phase_fused(cfg, params, served) -> dict:
+    """Kernels 7 and 8 at full width, then the same 8 requests through a
+    fused-decode engine: exact launch counts, the decode step's logits
+    against the unfused path, used experts per layer and step, the share
+    of greedy tokens equal to the unfused run's, and a profile of two
+    fused decode steps."""
+    import torch
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    kernels = check_fused_full({"weights": _layer0_moe(params),
+                                "k": cfg.moe_k,
+                                "capacity_factor": cfg.capacity_factor})
+    engine = ServeEngine(params, cfg, ServeConfig(
+        max_len=PROMPT_LEN + NEW_TOKENS, n_slots=N_REQUESTS,
+        fused_decode=True), device="cuda")
+    reqs, counts, out = serve_run(engine, served["prompts"], cfg.vocab_size)
+    n_moe = N_LAYERS
+    check_launches("fused serve", counts, expected_launches(
+        engine.stats, {"topk_gating": n_moe, "dispatch": n_moe,
+                       "combine": n_moe, "gmm": 3 * n_moe},
+        {"fused_decode": n_moe}))
+    out.update({
+        "greedy_tokens_equal_to_unfused": stream_agreement(
+            [r.tokens for r in reqs], served["streams"]),
+        "decode_overflow_total": engine.stats["overflow_total"]})
+    out["used_experts_per_layer_and_step"] = used_experts_replay(
+        engine, served["prompts"], n_moe, [r.tokens for r in reqs])
+    log("fused serve " + json.dumps(out))
+    cross = compare_fused_logits("kimi-k2", decode_logits(
+        cfg, params, served["prompts"]))
+    prof = phase_profile(engine, served["prompts"],
+                         out["decode_step_ms_median"], "fused profile")
+    torch.cuda.empty_cache()
+    return {"kernels": kernels, "summary": out, "counts": counts,
+            "cross": cross, "profile": prof}
+
+
+def phase_expert_choice(cfg, params, prompts) -> dict:
+    """8 requests under expert_choice routing with fused decode: kernel
+    8 at every MoE decode layer, the prefill unfused (no top-k kernel:
+    the policy picks tokens per expert with plain tensor ops)."""
+    from repro_torch.core.router import RouterSpec
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    ec = cfg.replace(router=RouterSpec(policy="expert_choice",
+                                       capacity_factor=cfg.capacity_factor))
+    engine = ServeEngine(params, ec, ServeConfig(
+        max_len=PROMPT_LEN + NEW_TOKENS, n_slots=N_REQUESTS,
+        fused_decode=True), device="cuda")
+    reqs, counts, out = serve_run(engine, prompts, cfg.vocab_size)
+    n_moe = N_LAYERS
+    check_launches("expert_choice serve", counts, expected_launches(
+        engine.stats, {"dispatch": n_moe, "combine": n_moe,
+                       "gmm": 3 * n_moe}, {"fused_routed": n_moe}))
+    decode_logits(ec, params, prompts, fused_flags=(True,))
+    out["decode_overflow_total"] = engine.stats["overflow_total"]
+    log("expert_choice serve " + json.dumps(out))
+    prof = phase_profile(engine, prompts, out["decode_step_ms_median"],
+                         "expert_choice profile")
+    return {"summary": out, "counts": counts, "profile": prof}
+
+
 def run_serve() -> dict:
-    """Phases 3-4 on the full-width kimi-k2; the model is freed on
+    """Phases 3-6 on the full-width kimi-k2; the model is freed on
     return."""
     cfg, params = build_model()
     served = phase_serve(cfg, params)
     profiled = phase_profile(served["engine"], served["prompts"],
                              served["summary"]["decode_step_ms_median"])
     cross = phase_cross(cfg, params, served["prompts"][0], served["engine"])
+    fused = phase_fused(cfg, params, served)
+    ec = phase_expert_choice(cfg, params, served["prompts"])
     return {"counts": served["counts"], "summary": served["summary"],
-            "profile": profiled, "cross": cross}
+            "profile": profiled, "cross": cross, "fused": fused, "ec": ec}
 
 
 # ---------------------------------------------------------------------------
-# phase 5: train the paper's MoE-256 LM at full width
+# phase 7: serve moa-demo (MoA mixers) fused and unfused
+# ---------------------------------------------------------------------------
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def check_moa_demo_kernels(cfg, params) -> dict:
+    """Every kernel the moa-demo serve path runs, against its plain
+    version at the shapes that path gives it, on layer 0's weights with
+    bf16 hidden states from the seed.  Unfused, at the prefill of one
+    32-token prompt and at a decode step of 8 slots (two dead): top-k,
+    dispatch, the GMMs and combine of the MoE FFN (E = 8, k = 2, 512 ->
+    1024 -> 512, swiglu) and of the MoA mixer (8 head groups, k = 2, Q
+    512 -> 128, O 128 -> 512 through the assignment-major plan).  Fused,
+    at the decode step: kernel 7 on the MoE layer, kernel 8 "proj" on
+    the MoA layer (the top-k before it is the unfused decode's).
+    Tolerances as in phase 2: top-k indices exact and values within
+    1e-6, dispatch and combine bitwise, the GMMs and kernels 7 / 8
+    within two bf16 ulps (bf16_tol), kernel 7's load and overflow
+    exact.  Returns {kernel: (max |err|, tol)}."""
+    import torch
+    from repro_torch.core import router as router_lib
+    from repro_torch.core.moa import assignment_plan
+    from repro_torch.kernels import dispatch as dk
+    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.kernels import gmm as gk
+    from repro_torch.kernels.topk_gating import topk_gating, topk_gating_plain
+    from repro_torch.models.transformer import _moa_args, _moe_args
+
+    periods = params["blocks"]["periods"]
+    moe = _layer(periods["pos0"]["moe"], 0)
+    moa = _layer(periods["pos1"]["moa"], 0)
+    moe_a, moa_a = _moe_args(cfg), _moa_args(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    bf = torch.bfloat16
+    worst: dict = {}
+
+    def note(name, what, err, tol):
+        log(f"moa-demo {name} {what}: max_abs_err {err:.3g} (tol {tol:.3g})")
+        check(err <= tol, f"moa-demo {name} {what} differs by {err} > {tol}")
+        e0, t0 = worst.get(name, (0.0, 0.0))
+        worst[name] = (max(e0, err), max(t0, tol))
+
+    def topk(what, x, wg, k):
+        logits = (x.float() @ wg.float()).contiguous()
+        kk = min(k + 1, logits.shape[1])
+        got, want = topk_gating(logits, k, kk), topk_gating_plain(logits, k, kk)
+        check(torch.equal(got[1], want[1]),
+              f"moa-demo topk_gating indices differ ({what})")
+        note("topk_gating", f"{what} {list(logits.shape)} k={k} kk={kk}",
+             max(max_err(got[0], want[0]), max_err(got[2], want[2])), 1e-6)
+
+    def disp(what, x, p):
+        got = dk.dispatch(x, p.expert_index, p.position,
+                          n_experts=p.n_experts, capacity=p.capacity)
+        want = dk.dispatch_plain(x, p.expert_index, p.position, None,
+                                 p.n_experts, p.capacity)
+        note("dispatch", f"{what} {list(x.shape)} -> {list(got.shape)}",
+             max_err(got, want), 0.0)
+        check(torch.equal(got, want), f"moa-demo dispatch {what} is not "
+                                      "bitwise equal to its plain version")
+        return got
+
+    def comb(what, buf, p):
+        got = dk.combine(buf, p.weight, p.expert_index, p.position)
+        want = dk.combine_plain(buf, p.weight, p.expert_index, p.position,
+                                buf.dtype)
+        note("combine", f"{what} {list(buf.shape)} -> {list(got.shape)}",
+             max_err(got, want), 0.0)
+        check(torch.equal(got, want), f"moa-demo combine {what} is not "
+                                      "bitwise equal to its plain version")
+        return got
+
+    def gmm(what, xb, w, act):
+        got, want = gk.gmm(xb, w, activation=act), gk.gmm_plain(xb, w, act)
+        note("gmm", f"{what} {act} {list(xb.shape)} x {list(w.shape)}",
+             max_err(got, want), bf16_tol(want))
+        return got
+
+    def route(a, layer, x, valid):
+        p = router_lib.build(a).route(layer, x, train=False, mask=valid).plan
+        # The backend hands the kernels contiguous plan views.
+        return p._replace(expert_index=p.expert_index.contiguous(),
+                          position=p.position.contiguous(),
+                          weight=p.weight.contiguous())
+
+    def routed(what, x, p_in, p_out, w):
+        args = (x, p_in.expert_index, p_in.position, p_out.expert_index,
+                p_out.position, p_out.weight, w)
+        kw = dict(n_experts=p_in.n_experts, capacity=p_in.capacity,
+                  mode="proj")
+        want = fd.routed_apply_plain(*args, **kw)
+        note("fused_routed", f"proj {what} {list(x.shape)} -> "
+             f"{list(want.shape)}", max_err(fd.routed_apply(*args, **kw),
+                                            want), bf16_tol(want))
+
+    for what, t in (("prefill", PROMPT_LEN), ("decode", N_REQUESTS)):
+        valid = torch.ones(t, device="cuda")
+        if what == "decode":
+            valid[2] = valid[5] = 0.0
+        # The MoE FFN.
+        x = torch.randn(t, cfg.d_model, device="cuda", generator=gen).to(bf)
+        topk(f"moe {what}", x, moe["gate"]["wg"], cfg.moe_k)
+        p = route(moe_a, moe, x, valid)
+        buf = disp(f"moe {what}", x, p)
+        h = gmm(f"moe {what} w1", buf, moe["w1"], "silu")
+        g = gmm(f"moe {what} w3", buf, moe["w3"], "none")
+        out = gmm(f"moe {what} w2", (h.float() * g.float()).to(bf),
+                  moe["w2"], "none")
+        comb(f"moe {what}", out, p)
+        if what == "decode":
+            cap = router_lib.build(moe_a).capacity(t, train=False)
+            err, tol = check_fused_decode_case(
+                x, valid, moe["gate"]["wg"], moe["w1"], moe["w2"],
+                moe["w3"], cfg.moe_k, cap, "swiglu", bf16_tol)
+            note("fused_decode", f"[{t},{cfg.d_model}] E={cfg.n_experts} "
+                 f"k={cfg.moe_k} C={cap} swiglu, 2 dead slots, load / "
+                 "overflow equal", err, tol)
+        # The MoA mixer: Q through the token-major plan into the
+        # assignment-major rows, O back.
+        x = torch.randn(t, cfg.d_model, device="cuda", generator=gen).to(bf)
+        topk(f"moa {what}", x, moa["gate"]["wg"], cfg.moa_k)
+        p = route(moa_a, moa, x, valid)
+        ap = assignment_plan(p)
+        q = gmm(f"moa {what} wq", disp(f"moa {what} q", x, p), moa["wq"],
+                "none")
+        comb(f"moa {what} q", q, ap)
+        o_sel = torch.randn(t * cfg.moa_k, moa["wo"].shape[1], device="cuda",
+                            generator=gen).to(bf)
+        o = gmm(f"moa {what} wo", disp(f"moa {what} o", o_sel, ap),
+                moa["wo"], "none")
+        comb(f"moa {what} o", o, p)
+        if what == "decode":
+            routed("q", x, p, ap, moa["wq"])
+            routed("o", o_sel, ap, p, moa["wo"])
+    log(f"moa-demo kernels against their plain versions: {json.dumps(worst)}")
+    return worst
+
+
+def phase_moa() -> dict:
+    """moa-demo at its published widths (4 layers, d 512, 8 head groups
+    of 2 heads, MoE FFN of 8 experts), bf16 weights from the seed with
+    the gates redrawn, 8 requests unfused and fused.  Fused: kernel 8 in
+    "proj" mode twice per MoA layer and kernel 7 once per MoE layer per
+    decode step; the two runs' streams are compared and the decode
+    logits held to the cross phase's tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import get_config, layer_kinds
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = get_config(MOA_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    periods = params["blocks"]["periods"]
+    for gate in (periods["pos0"]["moe"]["gate"]["wg"],
+                 periods["pos1"]["moa"]["gate"]["wg"]):
+        gate.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+    kernel_errs = check_moa_demo_kernels(cfg, params)
+    kinds = layer_kinds(cfg)
+    n_rep = cfg.n_layers // cfg.period
+    n_moe = n_rep * sum(k.ffn == "moe" for k in kinds)
+    n_moa = n_rep * sum(k.mixer == "moa" for k in kinds)
+    rs = np.random.RandomState(SEED + 1)
+    prompts = [rs.randint(1, cfg.vocab_size, (PROMPT_LEN,))
+               for _ in range(N_REQUESTS)]
+    prefill = {"topk_gating": n_moe + n_moa, "dispatch": n_moe + 2 * n_moa,
+               "combine": n_moe + 2 * n_moa, "gmm": 3 * n_moe + 2 * n_moa}
+    per_decode = {False: prefill,
+                  True: {"topk_gating": n_moa, "fused_routed": 2 * n_moa,
+                         "fused_decode": n_moe}}
+    runs = {}
+    for fused in (False, True):
+        engine = ServeEngine(params, cfg, ServeConfig(
+            max_len=PROMPT_LEN + NEW_TOKENS, n_slots=N_REQUESTS,
+            fused_decode=fused), device="cuda")
+        reqs, counts, out = serve_run(engine, prompts, cfg.vocab_size)
+        check_launches(f"moa-demo serve (fused={fused})", counts,
+                       expected_launches(engine.stats, prefill,
+                                         per_decode[fused]))
+        out["moa_overflow_total"] = engine.stats["moa_overflow_total"]
+        runs[fused] = (reqs, counts, out, engine)
+    agree = stream_agreement([r.tokens for r in runs[True][0]],
+                             [r.tokens for r in runs[False][0]])
+    cross = compare_fused_logits("moa-demo", decode_logits(cfg, params,
+                                                           prompts))
+    fused_out = runs[True][2]
+    prof = phase_profile(runs[True][3], prompts,
+                         fused_out["decode_step_ms_median"], "moa profile")
+    res = {"config": f"{MOA_ARCH}: {n_moa} MoA + {n_moe} MoE layers, "
+                     f"d {cfg.d_model}, bf16",
+           "unfused": runs[False][2], "fused": fused_out,
+           "greedy_tokens_equal_fused_vs_unfused": agree, "cross": cross,
+           "sample_streams": {"unfused": runs[False][0][0].tokens,
+                              "fused": runs[True][0][0].tokens}}
+    log("moa serve " + json.dumps(res))
+    del params, runs
+    torch.cuda.empty_cache()
+    return {"summary": res, "counts": fused_out["launches"],
+            "profile": prof, "kernel_errs": kernel_errs}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: train the paper's MoE-256 LM at full width
 # ---------------------------------------------------------------------------
 
 def build_train_model():
@@ -865,7 +1491,7 @@ def phase_train(cfg, params, workdir) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: one step's gradients, cuda vs ref
+# phase 10: one step's gradients, cuda vs ref
 # ---------------------------------------------------------------------------
 
 # Gradients of the MoE leaves, cuda vs ref (see phase_grads): each within
@@ -1038,7 +1664,7 @@ def phase_grads(cfg, params, dc) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the e-blocked regime against the resident one
+# phase 9: the e-blocked regime against the resident one
 # ---------------------------------------------------------------------------
 
 def phase_eblock(cfg, params) -> dict:
@@ -1130,7 +1756,7 @@ def kernel_row(name, r, launches_by_path, profiles) -> dict:
         "device_ms_per_launch": dev[0] if dev else None,
         "tol": r["tol"], "check": "pass", "shape": r["shape"],
         **{k: v for k, v in r.items()
-           if k.startswith(("max_abs_err_", "tol_"))}}
+           if k.startswith(("max_abs_err_", "tol_", "used_", "moa_"))}}
 
 
 def main() -> int:
@@ -1163,6 +1789,7 @@ def main() -> int:
         log(f"serving model freed; {torch.cuda.memory_allocated() / 2**30:.2f}"
             f" GiB still allocated; {time.perf_counter() - t_start:.0f} s "
             "so far")
+        moa = phase_moa()
         cfg, params = build_train_model()
         with tempfile.TemporaryDirectory() as workdir:
             trained = phase_train(cfg, params, workdir)
@@ -1171,10 +1798,24 @@ def main() -> int:
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
-    launches = {"serve": served["counts"], "train": trained["counts"],
+    launches = {"serve": served["counts"],
+                "serve_fused": served["fused"]["counts"],
+                "serve_expert_choice": served["ec"]["counts"],
+                "serve_moa_fused": moa["counts"],
+                "train": trained["counts"],
                 "train_eblock": eblock["launches"][str(E_BLOCK)]}
-    profiles = [served["profile"], trained["profile"], eblock["profile"]]
-    rows = [kernel_row(name, kernels[name], launches, profiles)
+    profiles = [served["profile"], served["fused"]["profile"],
+                served["ec"]["profile"], moa["profile"], trained["profile"],
+                eblock["profile"]]
+    measured = dict(kernels["rows"], **served["fused"]["kernels"])
+    measured["fused_routed"].update(
+        max_abs_err_f32_ragged=kernels["fused"]["fused_routed_f32_max_abs_err"],
+        moa_proj=kernels["fused"]["moa_proj"])
+    measured["fused_decode"]["max_abs_err_f32_ragged"] = \
+        kernels["fused"]["fused_decode_f32_max_abs_err"]
+    for name, (err, tol) in moa["kernel_errs"].items():
+        measured[name].update(max_abs_err_moa_demo=err, tol_moa_demo=tol)
+    rows = [kernel_row(name, measured[name], launches, profiles)
             for name in KERNELS]
     log(f"card {setup['card']}; serve cross-check max_abs_err "
         f"{served['cross']['max_abs_err']:.4g} (tol "

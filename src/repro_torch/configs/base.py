@@ -56,6 +56,9 @@ class ModelConfig:
     moa_experts: int = 0
     moa_k: int = 0
     moa_heads_per_expert: int = 0
+    # The FFN's RouterSpec (k stripped) routes MoA too unless this
+    # overrides it.
+    moa_router: RouterSpec | None = None
     # --- attention ----------------------------------------------------------
     qk_norm: bool = False
     rope_theta: float = 10000.0
@@ -72,7 +75,9 @@ class ModelConfig:
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     kernel_backend: str = "cuda"           # cuda | ref
-    fused_decode: bool = False             # not ported yet
+    # One fused launch per MoE layer (and per MoA projection) at decode;
+    # prefill stays unfused (models/transformer.py).
+    fused_decode: bool = False
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -91,6 +96,26 @@ def layer_kinds(cfg: ModelConfig) -> list[LayerKind]:
         else:
             mixer = "attn"
         if p in cfg.moa_positions:
+            # MoA is an attention mixer: it cannot replace a state-space
+            # scan and has no sliding-window variant.
+            if mixer == "mamba":
+                raise ValueError(
+                    f"moa_positions={cfg.moa_positions}: position {p} is "
+                    f"an ssm mixer in family {cfg.family!r}; MoA routes "
+                    "attention head groups and cannot replace a state-"
+                    "space scan (put MoA on an attn position)")
+            if mixer == "attn_local":
+                raise ValueError(
+                    f"moa_positions={cfg.moa_positions}: position {p} is "
+                    "a sliding-window local-attention layer; MoA has no "
+                    "windowed variant (use a global_attn_positions slot)")
+            if cfg.moa_experts < 2 or cfg.moa_k < 1 \
+                    or cfg.moa_heads_per_expert < 1:
+                raise ValueError(
+                    "moa_positions set but moa_experts/moa_k/"
+                    "moa_heads_per_expert are not configured "
+                    f"(got {cfg.moa_experts}/{cfg.moa_k}/"
+                    f"{cfg.moa_heads_per_expert})")
             mixer = "moa"
         if cfg.family == "ssm":
             ffn = "none"

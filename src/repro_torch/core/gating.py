@@ -1,5 +1,7 @@
-"""Noisy top-k gating (Eqs. 3-5) and the Appendix-A load estimator,
-counterpart of ``repro.core.gating``.
+"""Gating networks, counterpart of ``repro.core.gating``: noisy top-k
+gating (Eqs. 3-5) with the Appendix-A load estimator, and Appendix F's
+batchwise gating (Eq. 18), threshold gating (Eq. 19) and the loss that
+trains the thresholds (Eq. 20).
 
 All gating math runs in float32.  Wg and Wnoise are zero-initialized
 (Appendix A: "no signal and some noise").
@@ -38,6 +40,18 @@ def gating_defs(d_model: int, n_experts: int, *, noisy: bool = True,
         defs["wnoise"] = ParamDef((d_model, n_experts), ("embed", "experts"),
                                   init="zeros", dtype=dtype)
     return defs
+
+
+def threshold_defs(n_experts: int,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """Per-expert thresholds T for Appendix-F inference (Eq. 19)."""
+    return {"t": ParamDef((n_experts,), ("experts",), init="zeros",
+                          dtype=dtype)}
+
+
+def softmax_gating(params, x: torch.Tensor) -> torch.Tensor:
+    """Eq. (2): dense softmax gates [T, E] in float32."""
+    return torch.softmax(x.float() @ params["wg"].float(), dim=-1)
 
 
 def top_k(v: torch.Tensor, k: int):
@@ -109,3 +123,58 @@ def noisy_topk_gating(params, x: torch.Tensor, k: int, *, train: bool,
 
     return GatingInfo(combine_weights=combine, expert_index=topk_idx,
                       gates=gates, load=load, raw_logits=clean)
+
+
+def _column_top_m(g: torch.Tensor, m: int) -> torch.Tensor:
+    """[T, E] 0/1 mask of each expert's top-m tokens (Eq. 18)."""
+    _, col_idx = top_k(g.T, m)                                     # [E, m]
+    return torch.zeros_like(g.T).scatter(1, col_idx.long(), 1.0).T
+
+
+def batchwise_gating(params, x: torch.Tensor, k: int,
+                     valid: torch.Tensor | None = None) -> GatingInfo:
+    """Appendix F, Eqs. (16) + (18): each expert keeps its top
+    m = k·T/E tokens of the batch.  ``valid`` masks rows out: they are
+    never selected and add nothing to gates or load."""
+    g_sigma = softmax_gating(params, x)                            # [T, E]
+    if valid is not None:
+        g_sigma = g_sigma * valid.float()[:, None]
+    t, e = g_sigma.shape
+    mask = _column_top_m(g_sigma, max((k * t) // e, 1))
+    if valid is not None:
+        # A masked row may be picked as zero-valued filler when an expert
+        # has fewer than m valid tokens; keep it out of load and gates.
+        mask = mask * valid.float()[:, None]
+    masked = g_sigma * mask
+    gates = masked / torch.clamp(masked.sum(dim=-1, keepdim=True), min=1e-9)
+    combine, topk_idx = top_k(gates, min(k, e))
+    return GatingInfo(combine_weights=combine, expert_index=topk_idx,
+                      gates=gates, load=mask.sum(dim=0),
+                      raw_logits=torch.log(torch.clamp(g_sigma, min=1e-20)))
+
+
+def threshold_gating(params, thresholds, x: torch.Tensor, k: int,
+                     valid: torch.Tensor | None = None) -> GatingInfo:
+    """Appendix F inference, Eq. (19): M_i = 1 if g_i > T_i."""
+    g_sigma = softmax_gating(params, x)
+    mask = (g_sigma > thresholds["t"].float()[None, :]).float()
+    if valid is not None:
+        mask = mask * (valid.float()[:, None] > 0).float()
+    masked = g_sigma * mask
+    gates = masked / torch.clamp(masked.sum(dim=-1, keepdim=True), min=1e-9)
+    combine, topk_idx = top_k(gates, min(k, g_sigma.shape[-1]))
+    return GatingInfo(combine_weights=combine, expert_index=topk_idx,
+                      gates=gates, load=mask.sum(dim=0),
+                      raw_logits=torch.log(torch.clamp(g_sigma, min=1e-20)))
+
+
+def batchwise_threshold_loss(params, thresholds, x: torch.Tensor,
+                             k: int) -> torch.Tensor:
+    """Eq. (20): aligns the threshold mask with the batchwise one; the
+    indicators are constants, the gradient flows through (g - T)."""
+    g_sigma = softmax_gating(params, x)                            # [T, E]
+    t, e = g_sigma.shape
+    m_batch = _column_top_m(g_sigma.detach(), max((k * t) // e, 1))
+    tvec = thresholds["t"].float()[None, :]
+    m_thresh = (g_sigma > tvec).float()
+    return torch.sum((m_thresh - m_batch) * (g_sigma - tvec)) / t

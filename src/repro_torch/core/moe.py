@@ -6,7 +6,8 @@ dispatch -> expert FFN -> combine and returns (output, aux) where aux
 carries the §4 balancing losses, the Table-6 diagnostics and the serving
 telemetry.  The hot-path ops go through the kernel backend registry
 (``kernels/backend.py``): ``"cuda"`` runs the hand-written kernels,
-``"ref"`` the plain PyTorch path.
+``"ref"`` the plain PyTorch path.  With ``fused_decode`` an eval call
+is the backend's one-launch ``decode_step``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,10 @@ import torch
 from repro_torch.common.param import ParamDef
 from repro_torch.core import router as router_lib
 from repro_torch.kernels import backend as backend_lib
+
+
+ZERO_METRICS = ("cv_importance", "cv_load", "max_over_mean_load",
+                "fraction_dropped")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,13 +42,11 @@ class MoEArgs:
     priority_dispatch: bool = False
     kernel_backend: str = "cuda"        # cuda | ref
     # Dispatch / combine buffer regime (kernels/backend.py:plan_e_block):
-    # a VMEM budget in bytes selects it as the reference does; an int
-    # e_block forces the expert-blocked kernels with that slab.  With
-    # both None the port keeps the resident kernels (the card has no
-    # VMEM; the reference's default budget is 16 MiB).
-    dispatch_vmem_limit: int | None = None
+    # None keeps the resident kernels; an int forces the expert-blocked
+    # ones with that slab.
     dispatch_e_block: int | None = None
-    # The single-launch fused decode step is not ported yet.
+    # Serve-time fused decode: one launch per MoE layer for eval calls
+    # (the model layer sets it on decode-shaped calls only).
     fused_decode: bool = False
     sigmoid_output: bool = False        # paper's LM passes MoE out thru sigmoid
     dtype: torch.dtype = torch.bfloat16
@@ -79,11 +82,18 @@ def moe_apply(params, x: torch.Tensor, a: MoEArgs, *, train: bool = True,
     the Appendix-A load estimator included; ``mask`` ([T] in {0,1}) marks valid tokens — masked
     tokens get zero gate weight, zero load and telemetry, and consume no
     expert capacity."""
-    if a.fused_decode:
-        raise NotImplementedError(
-            "fused_decode: the single-launch decode kernel is not ported "
-            "to repro_torch yet (it comes with the fused-decode slice)")
     bk = backend_lib.resolve(a)
+    if not train and a.fused_decode:
+        # One launch for the whole layer (kernels/backend.py); its
+        # telemetry is the kernel's load / overflow.  Decode discards the
+        # losses and metrics, so aux carries zeros.
+        y, telemetry = bk.decode_step(params, x, a, mask=mask)
+        if a.sigmoid_output:
+            y = torch.sigmoid(y.float()).to(x.dtype)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return y, {"aux_loss": zero,
+                   "metrics": {k: zero for k in ZERO_METRICS},
+                   "telemetry": telemetry}
     router = router_lib.build(a, topk_impl=bk.topk_impl)
     dec = router.route(params, x, train=train, noise=noise, mask=mask)
     buf = bk.dispatch(x, dec, a)

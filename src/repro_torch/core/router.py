@@ -5,9 +5,10 @@ of ``repro.core.router``.
   configures a routing decision (policy, k, capacity factors, noise,
   balance-loss weights, dispatch flavour).
 * the policy registry — ``get_policy`` resolves explicitly and raises
-  :class:`RouterError` for an unknown name.  This slice ports the
-  ``noisy_topk`` policy (Eqs. 3-5 + Appendix-A load); ``batchwise``,
-  ``threshold`` and ``expert_choice`` are not ported yet and raise.
+  :class:`RouterError` for an unknown name.  Built-ins: ``noisy_topk``
+  (Eqs. 3-5 + Appendix-A load), ``batchwise`` and ``threshold``
+  (Appendix F) and ``expert_choice`` (experts pick tokens, Zhou et al.
+  2022).
 * :class:`Router` / :class:`RouteDecision` — ``router.route(params, x,
   train=..., noise=..., mask=...)`` returns combine weights, indices,
   the capacity plan, balancing losses, metrics and serving telemetry.
@@ -27,9 +28,6 @@ from repro_torch.core import dispatch as dsp
 from repro_torch.core import gating, losses
 
 DEFAULT_CAPACITY_FACTOR = 2.0
-
-# Policies of the reference that later slices of the port bring over.
-NOT_YET_PORTED = ("batchwise", "expert_choice", "threshold")
 
 
 class RouterError(ValueError):
@@ -92,13 +90,21 @@ def route_telemetry(info: gating.GatingInfo, p: dsp.DispatchPlan) -> dict:
                                        assigned * (~kept).float())}
 
 
+class PolicyOutput(NamedTuple):
+    """What a policy hands back to the Router: ``capacity`` / ``plan``
+    override the spec's capacity and the standard plan when set;
+    ``extra_loss`` joins the balancing losses (Eq. 20)."""
+    info: gating.GatingInfo
+    capacity: int | None = None
+    plan: dsp.DispatchPlan | None = None
+    extra_loss: torch.Tensor | float = 0.0
+
+
 @dataclasses.dataclass(frozen=True)
 class RouterPolicy:
     """``route(params, x, spec, n_experts, *, train, noise, mask,
-    topk_impl) -> GatingInfo``; ``defs(spec, d_model, n_experts)`` -> the
-    policy's parameter definitions.  (The reference's policies may also
-    override the capacity, the plan and add a loss; the ported
-    ``noisy_topk`` does none of these.)"""
+    capacity, topk_impl) -> PolicyOutput``; ``defs(spec, d_model,
+    n_experts)`` -> the policy's parameter definitions."""
     name: str
     route: Callable
     defs: Callable
@@ -114,11 +120,6 @@ def register_policy(policy: RouterPolicy) -> None:
 def get_policy(name: str) -> RouterPolicy:
     entry = _POLICIES.get(name)
     if entry is None:
-        if name in NOT_YET_PORTED:
-            raise RouterError(
-                f"router policy {name!r} is not ported to repro_torch yet "
-                f"(not yet ported: {list(NOT_YET_PORTED)}; registered: "
-                f"{sorted(_POLICIES)})")
         raise RouterError(f"unknown router policy {name!r}; registered: "
                           f"{sorted(_POLICIES)}")
     return entry
@@ -177,14 +178,20 @@ class Router:
         if mask is not None:
             mask = mask.float().reshape(-1)
         capacity = self.capacity(x.shape[0], train=train)
-        info = self.policy.route(params, x, spec, self.n_experts,
-                                 train=train, noise=noise, mask=mask,
-                                 topk_impl=self.topk_impl)
-        plan = dsp.plan(info.expert_index, info.combine_weights,
-                        self.n_experts, capacity,
-                        priority=spec.priority_dispatch)
+        out = self.policy.route(params, x, spec, self.n_experts,
+                                train=train, noise=noise, mask=mask,
+                                capacity=capacity, topk_impl=self.topk_impl)
+        info = out.info
+        plan = out.plan
+        if plan is None:
+            plan = dsp.plan(info.expert_index, info.combine_weights,
+                            self.n_experts,
+                            capacity if out.capacity is None
+                            else out.capacity,
+                            priority=spec.priority_dispatch)
         aux_loss = (losses.importance_loss(info.gates, spec.w_importance)
-                    + losses.load_loss(info.load, spec.w_load))
+                    + losses.load_loss(info.load, spec.w_load)
+                    + out.extra_loss)
         metrics = losses.balance_metrics(info.gates, info.load)
         metrics["fraction_dropped"] = plan.fraction_dropped
         return RouteDecision(
@@ -198,19 +205,106 @@ def build(a, *, topk_impl: Callable | None = None) -> Router:
     return Router(resolve_spec(a), a.n_experts, topk_impl=topk_impl)
 
 
+def _gate_only_defs(spec: RouterSpec, d_model: int, n_experts: int) -> dict:
+    return {"gate": gating.gating_defs(d_model, n_experts, noisy=False)}
+
+
 def _noisy_topk_defs(spec: RouterSpec, d_model: int, n_experts: int) -> dict:
     return {"gate": gating.gating_defs(d_model, n_experts,
                                        noisy=spec.noise)}
 
 
 def _noisy_topk_route(params, x, spec, n_experts, *, train, noise, mask,
-                      topk_impl) -> gating.GatingInfo:
+                      capacity, topk_impl) -> PolicyOutput:
     """Eqs. (3)-(5) + the Appendix-A load estimator."""
-    return gating.noisy_topk_gating(
+    return PolicyOutput(info=gating.noisy_topk_gating(
         params["gate"], x, spec.k, train=train and spec.noise,
         noise=noise if spec.noise else None, valid=mask,
-        topk_impl=topk_impl)
+        topk_impl=topk_impl))
+
+
+def _appendix_f_capacity(spec: RouterSpec, n_tokens: int,
+                         n_experts: int) -> int:
+    """Appendix F: exactly m = k·T/E slots per expert; nothing dropped."""
+    cap = max((spec.k * n_tokens) // n_experts, 1)
+    m = spec.capacity_multiple
+    return int(-(-cap // m) * m)
+
+
+def _batchwise_route(params, x, spec, n_experts, *, train, noise, mask,
+                     capacity, topk_impl) -> PolicyOutput:
+    info = gating.batchwise_gating(params["gate"], x, spec.k, valid=mask)
+    cap = (_appendix_f_capacity(spec, x.shape[0], n_experts) if train
+           else None)
+    return PolicyOutput(info=info, capacity=cap)
+
+
+def _threshold_defs(spec: RouterSpec, d_model: int, n_experts: int) -> dict:
+    return {"gate": gating.gating_defs(d_model, n_experts, noisy=False),
+            "thresholds": gating.threshold_defs(n_experts)}
+
+
+def _threshold_route(params, x, spec, n_experts, *, train, noise, mask,
+                     capacity, topk_impl) -> PolicyOutput:
+    if train:   # train with the batchwise mask, infer with thresholds
+        info = gating.batchwise_gating(params["gate"], x, spec.k,
+                                       valid=mask)
+        extra = gating.batchwise_threshold_loss(
+            params["gate"], params["thresholds"], x, spec.k)
+        cap = _appendix_f_capacity(spec, x.shape[0], n_experts)
+        return PolicyOutput(info=info, capacity=cap, extra_loss=extra)
+    return PolicyOutput(info=gating.threshold_gating(
+        params["gate"], params["thresholds"], x, spec.k, valid=mask))
+
+
+def _expert_choice_route(params, x, spec, n_experts, *, train, noise, mask,
+                         capacity, topk_impl) -> PolicyOutput:
+    """Expert-choice routing (Zhou et al. 2022): each expert picks its
+    top-``capacity`` tokens by gate affinity, so nothing overflows: the
+    positions are column ranks.  A token keeps at most ``spec.k`` of the
+    experts that picked it (the token-major [T, k] plan); picks beyond
+    that are reported as ``fraction_dropped``.  Masked tokens are never
+    picked."""
+    t = x.shape[0]
+    dev = x.device
+    logits = x.float() @ params["gate"]["wg"].float()               # [T, E]
+    g_dense = torch.softmax(logits, dim=-1)
+    g_pickable = g_dense if mask is None else g_dense * mask[:, None]
+    cap = min(capacity, t)
+    col_vals, col_idx = gating.top_k(g_pickable.T, cap)             # [E, C]
+    rows = col_idx.long()
+    cols = torch.arange(n_experts, device=dev)[:, None].expand(-1, cap)
+    picked = torch.zeros((t, n_experts), dtype=torch.bool, device=dev)
+    picked[rows, cols] = col_vals > 0.0
+    pos_matrix = torch.full((t, n_experts), capacity, dtype=torch.int32,
+                            device=dev)
+    pos_matrix[rows, cols] = torch.arange(
+        cap, dtype=torch.int32, device=dev)[None, :].expand(n_experts, -1)
+    # Token-major view: each token keeps its k best picking experts.
+    g_kept = torch.where(picked, g_dense, 0.0)
+    combine, topk_idx = gating.top_k(g_kept, min(spec.k, n_experts))
+    position = torch.gather(pos_matrix, 1, topk_idx.long())
+    position = torch.where(combine > 0.0, position,
+                           torch.full_like(position, capacity))
+    gates = torch.zeros_like(g_dense).scatter(1, topk_idx.long(), combine)
+    load = picked.float().sum(dim=0)
+    n_picks = torch.clamp(picked.float().sum(), min=1.0)
+    kept = (combine > 0.0).float().sum()
+    plan = dsp.DispatchPlan(
+        expert_index=topk_idx, position=position, weight=combine.float(),
+        n_experts=n_experts, capacity=capacity,
+        fraction_dropped=(n_picks - kept) / n_picks)
+    info = gating.GatingInfo(combine_weights=combine, expert_index=topk_idx,
+                             gates=gates, load=load, raw_logits=logits)
+    return PolicyOutput(info=info, plan=plan)
 
 
 register_policy(RouterPolicy(name="noisy_topk", route=_noisy_topk_route,
                              defs=_noisy_topk_defs))
+register_policy(RouterPolicy(name="batchwise", route=_batchwise_route,
+                             defs=_gate_only_defs))
+register_policy(RouterPolicy(name="threshold", route=_threshold_route,
+                             defs=_threshold_defs))
+register_policy(RouterPolicy(name="expert_choice",
+                             route=_expert_choice_route,
+                             defs=_gate_only_defs))

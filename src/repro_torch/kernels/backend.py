@@ -11,12 +11,20 @@ reference path and the CUDA kernel path (counterpart of
   CPU tensors only; nothing falls back to the ref scatter.
 
 Buffer regime of dispatch / combine (:func:`plan_e_block`): the
-reference selects against a 16 MiB VMEM budget by default.  The card
-has no VMEM, so here the default (both ``MoEArgs.dispatch_e_block`` and
-``dispatch_vmem_limit`` None) keeps the resident kernels; a forced
-``dispatch_e_block`` or a named ``dispatch_vmem_limit`` selects the
-expert-blocked kernels as the reference would.  This is the one place
-where the port's default differs from the reference's.
+reference selects it against a 16 MiB VMEM budget.  The card has no
+VMEM, so here the resident kernels run unless ``MoEArgs.dispatch_e_block``
+forces the expert-blocked ones with that slab.
+
+Fused decode (``decode_step`` / ``decode_proj``, inference-only): on
+``"cuda"`` each MoE decode layer is one launch of kernel 7
+(``noisy_topk`` without priority dispatch: routing in the kernel) or of
+kernel 8 (any other policy: routing outside as plain tensor ops, then
+scatter -> FFN -> combine in one launch); each MoA routed projection is
+one launch of kernel 8 in ``"proj"`` mode.  The reference guards the
+fused slab against its VMEM budget and quietly runs the unfused
+pipeline past it; the card has no VMEM, so that guard is not ported and
+the fused kernels always run when asked for.  On ``"ref"`` both are the
+unfused compositions (:func:`_decode_step_via`, :func:`_decode_proj_via`).
 
 Resolution is explicit: an unknown backend raises
 :class:`KernelBackendError`, never a silent fall-back.
@@ -30,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import dispatch as dsp
-from repro_torch.kernels import dispatch as dispatch_lib
+from repro_torch.core import router as router_lib
 from repro_torch.kernels import gmm as gmm_lib
 from repro_torch.kernels import ops
 
@@ -48,6 +56,13 @@ class KernelBackend:
     expert_ffn: Callable     # (params, x, a) -> [E, C, d]
     dispatch: Callable       # (x, plan, a) -> [E, C, d]
     combine: Callable        # (buf, plan, a, *, dtype=None) -> [T, d]
+    gmm: Callable            # (x [E,C,K], w [E,K,N], a) -> [E, C, N]
+    # (params, x [T,d], a, *, mask=None) -> (y [T,d], telemetry with
+    # expert_load / overflow [E]): one MoE decode layer.
+    decode_step: Callable
+    # (x, w [E,K,N], plan_in, plan_out, a, *, dtype=None) -> [T_out, N]:
+    # dispatch(plan_in) -> gmm -> combine(plan_out), MoA's projections.
+    decode_proj: Callable
     topk_impl: Callable | None = None
 
 
@@ -82,6 +97,28 @@ def _dispatch_impl(a) -> str:
     if spec is not None:
         return spec.dispatch
     return getattr(a, "dispatch_impl", "sort")
+
+
+# ---------------------------------------------------------------------------
+# the unfused decode compositions ("ref"'s decode_step / decode_proj)
+# ---------------------------------------------------------------------------
+
+def _decode_step_via(bk: KernelBackend, params, x, a, *, mask=None):
+    """Route -> dispatch -> expert FFN -> combine through ``bk``'s ops,
+    in ``moe_apply``'s order."""
+    router = router_lib.build(a, topk_impl=bk.topk_impl)
+    dec = router.route(params, x, train=False, mask=mask)
+    buf = bk.dispatch(x, dec, a)
+    out = bk.expert_ffn(params, buf, a)
+    return bk.combine(out, dec, a, dtype=x.dtype), dec.telemetry
+
+
+def _decode_proj_via(bk: KernelBackend, x, w, plan_in, plan_out, a, *,
+                     dtype=None):
+    """dispatch(plan_in) -> gmm -> combine(plan_out) through ``bk``'s
+    ops (the MoA routed projections' sequence)."""
+    buf = bk.dispatch(x, plan_in, a)
+    return bk.combine(bk.gmm(buf, w, a), plan_out, a, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -125,34 +162,37 @@ def _ref_combine(buf, p, a, *, dtype=None):
     return dsp.combine(buf, p, dtype=dtype)
 
 
+def _ref_gmm(x, w, a):
+    return gmm_lib.gmm_plain(x, w.to(x.dtype))
+
+
+def _ref_decode_step(params, x, a, *, mask=None):
+    return _decode_step_via(get("ref"), params, x, a, mask=mask)
+
+
+def _ref_decode_proj(x, w, plan_in, plan_out, a, *, dtype=None):
+    return _decode_proj_via(get("ref"), x, w, plan_in, plan_out, a,
+                            dtype=dtype)
+
+
 register(KernelBackend(name="ref", expert_ffn=_ref_expert_ffn,
                        dispatch=_ref_dispatch, combine=_ref_combine,
-                       topk_impl=None))
+                       gmm=_ref_gmm, decode_step=_ref_decode_step,
+                       decode_proj=_ref_decode_proj, topk_impl=None))
 
 
 # ---------------------------------------------------------------------------
 # "cuda" — the hand-written kernels
 # ---------------------------------------------------------------------------
 
-def plan_e_block(a, n_experts: int, capacity: int, d: int, dtype,
-                 n_tokens: int) -> int | None:
-    """The dispatch / combine regime for a call: ``None`` (resident
-    kernels) or the expert slab of the e-blocked kernels.  A forced
-    ``a.dispatch_e_block`` wins; a named ``a.dispatch_vmem_limit``
-    selects through ``select_e_block`` as the reference does (raising
-    ``DispatchVMEMError`` where the reference would fall back to its
-    ref scatter); with neither, resident (the card has no VMEM)."""
+def plan_e_block(a) -> int | None:
+    """The dispatch / combine regime: ``None`` (resident kernels) or the
+    expert slab forced by ``a.dispatch_e_block``."""
     forced = getattr(a, "dispatch_e_block", None)
-    if forced is not None:
-        if forced < 1:
-            raise KernelBackendError(
-                f"dispatch_e_block must be >= 1, got {forced}")
-        return forced
-    limit = getattr(a, "dispatch_vmem_limit", None)
-    if limit is None:
-        return None
-    return dispatch_lib.select_e_block(n_experts, capacity, d, dtype,
-                                       n_tokens=n_tokens, limit=limit)
+    if forced is not None and forced < 1:
+        raise KernelBackendError(
+            f"dispatch_e_block must be >= 1, got {forced}")
+    return forced
 
 
 def _cuda_expert_ffn(params, x, a):
@@ -161,22 +201,20 @@ def _cuda_expert_ffn(params, x, a):
 
 def _cuda_dispatch(x, p, a):
     p = _as_plan(p)
-    e_block = plan_e_block(a, p.n_experts, p.capacity, x.shape[-1], x.dtype,
-                           x.shape[0])
     return ops.dispatch(x.contiguous(), p.expert_index.contiguous(),
                         p.position.contiguous(), n_experts=p.n_experts,
-                        capacity=p.capacity, e_block=e_block)
+                        capacity=p.capacity, e_block=plan_e_block(a))
 
 
 def _cuda_combine(buf, p, a, *, dtype=None):
     p = _as_plan(p)
-    # The reference's token-block term for the combine's estimate.
-    n_tok = min(dispatch_lib.COMBINE_BLOCK_T, p.expert_index.shape[0])
-    e_block = plan_e_block(a, buf.shape[0], buf.shape[1], buf.shape[2],
-                           buf.dtype, n_tok)
     return ops.combine(buf.contiguous(), p.weight.contiguous(),
                        p.expert_index.contiguous(), p.position.contiguous(),
-                       out_dtype=dtype or buf.dtype, e_block=e_block)
+                       out_dtype=dtype or buf.dtype, e_block=plan_e_block(a))
+
+
+def _cuda_gmm(x, w, a):
+    return ops.gmm(x.contiguous(), w.to(x.dtype).contiguous())
 
 
 def _cuda_topk(noisy, k, kk):
@@ -184,6 +222,41 @@ def _cuda_topk(noisy, k, kk):
     return w, idx[:, :k].contiguous(), vals
 
 
+def _cuda_decode_step(params, x, a, *, mask=None):
+    spec = router_lib.resolve_spec(a)
+    t = x.shape[0]
+    gated = a.activation == "swiglu"
+    w3 = params["w3"] if gated else None
+    x = x.contiguous()
+    if spec.policy == "noisy_topk" and not spec.priority_dispatch:
+        # Kernel 7: eval routing (clean-logit top-k) inside the launch;
+        # the telemetry comes back as its outputs.
+        valid = (torch.ones((t,), dtype=torch.float32, device=x.device)
+                 if mask is None else mask.float().reshape(-1))
+        y, load, overflow = ops.fused_decode_step(
+            x, valid, params["gate"]["wg"], params["w1"], params["w2"], w3,
+            k=min(spec.k, a.n_experts),
+            capacity=spec.capacity(t, a.n_experts, train=False),
+            activation=a.activation)
+        return y, {"expert_load": load, "overflow": overflow}
+    # Any other policy (expert_choice's column top-k over the batch,
+    # Appendix F's batchwise / threshold, priority dispatch) routes
+    # outside as plain tensor ops; kernel 8 fuses the rest.
+    dec = router_lib.build(a).route(params, x, train=False, mask=mask)
+    p = _as_plan(dec)
+    y = ops.fused_routed_apply(x, p, p, params["w1"], params["w2"], w3,
+                               mode="ffn", activation=a.activation,
+                               out_dtype=x.dtype)
+    return y, dec.telemetry
+
+
+def _cuda_decode_proj(x, w, plan_in, plan_out, a, *, dtype=None):
+    return ops.fused_routed_apply(x.contiguous(), _as_plan(plan_in),
+                                  _as_plan(plan_out), w, mode="proj",
+                                  out_dtype=dtype or x.dtype)
+
+
 register(KernelBackend(name="cuda", expert_ffn=_cuda_expert_ffn,
                        dispatch=_cuda_dispatch, combine=_cuda_combine,
-                       topk_impl=_cuda_topk))
+                       gmm=_cuda_gmm, decode_step=_cuda_decode_step,
+                       decode_proj=_cuda_decode_proj, topk_impl=_cuda_topk))

@@ -52,6 +52,16 @@ SIGNATURES = {
                              _I, _P),
     # x, w, out, E, C, K, N, activation, dtype, trans_x, trans_w, stream
     "repro_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # decode, T_in, k_in, d_in, d_out, f, E, C, mode, activation, dtype,
+    # out bytes (a query: no stream)
+    "repro_fused_workspace_bytes": (_I,) * 11 + (_P,),
+    # x, valid, wg, w1, w2, w3, y, load, overflow, ws, T, d, E, f, k, C,
+    # activation, dtype, stream
+    "repro_fused_decode": (_P,) * 10 + (_I,) * 8 + (_P,),
+    # x, in_e, in_p, out_e, out_p, out_w, w1, w2, w3, y, ws, T_in, k_in,
+    # T_out, k_out, d_in, d_out, f, E, C, mode, activation, in_dtype,
+    # out_dtype, stream
+    "repro_fused_routed": (_P,) * 11 + (_I,) * 13 + (_P,),
 }
 
 # Element-type codes shared with csrc/common.cuh.

@@ -12,11 +12,10 @@ Replaces ``repro/kernels/dispatch.py``:
   so that forward and backward run the same regime, as the reference's
   VJPs do.
 
-On the TPU the regime is chosen against the VMEM budget
-(:func:`select_e_block`, copied here with its constants).  The card has
+On the TPU the regime is chosen against the VMEM budget.  The card has
 no VMEM, so the port's backend keeps the resident kernels unless a
-caller forces a slab or names a budget (``kernels/backend.py``).  The
-CUDA source carries the design notes.
+caller forces a slab (``MoEArgs.dispatch_e_block``,
+``kernels/backend.py``).  The CUDA source carries the design notes.
 
 Semantics: an assignment with ``pos >= capacity`` (dropped, or masked
 padding) writes nothing in dispatch and contributes nothing in combine;
@@ -28,58 +27,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_lib
-
-# The reference's VMEM budget for the fused dispatch/combine buffer, and
-# the token block of its combine (repro/kernels/dispatch.py:65-76).
-DEFAULT_VMEM_LIMIT = 16 * 1024 * 1024
-COMBINE_BLOCK_T = 128
-
-
-class DispatchVMEMError(RuntimeError):
-    """Even a one-expert slab exceeds the named VMEM budget."""
-
-
-def _itemsize(dtype: torch.dtype) -> int:
-    return torch.empty((), dtype=dtype).element_size()
-
-
-def vmem_bytes(n_experts: int, capacity: int, d: int, dtype,
-               n_tokens: int = 0) -> int:
-    """The reference's resident-regime VMEM estimate: the [E, C, d]
-    buffer plus the [T, d] token block."""
-    return int((n_experts * capacity * d + n_tokens * d) * _itemsize(dtype))
-
-
-def eblock_vmem_bytes(e_block: int, capacity: int, d: int, dtype,
-                      n_tokens: int = 0) -> int:
-    """The reference's E-blocked estimate: two in-flight [e_block, C, d]
-    slabs plus the [T, d] token block."""
-    return int((2 * e_block * capacity * d + n_tokens * d)
-               * _itemsize(dtype))
-
-
-def select_e_block(n_experts: int, capacity: int, d: int, dtype, *,
-                   n_tokens: int = 0, limit: int | None = None
-                   ) -> int | None:
-    """The reference's regime choice: ``None`` (resident) when the whole
-    buffer fits ``limit``, else the largest power-of-two slab whose
-    double-buffered pair fits.  Raises :class:`DispatchVMEMError` when
-    even a one-expert slab does not."""
-    limit = DEFAULT_VMEM_LIMIT if limit is None else limit
-    if vmem_bytes(n_experts, capacity, d, dtype, n_tokens) <= limit:
-        return None
-    blk = 1
-    while (blk * 2 < n_experts
-           and eblock_vmem_bytes(blk * 2, capacity, d, dtype,
-                                 n_tokens) <= limit):
-        blk *= 2
-    if eblock_vmem_bytes(blk, capacity, d, dtype, n_tokens) > limit:
-        raise DispatchVMEMError(
-            f"dispatch/combine slab [e_block=1, C={capacity}, d={d}] "
-            f"({dtype}) needs "
-            f"~{eblock_vmem_bytes(1, capacity, d, dtype, n_tokens)} B "
-            f"> limit {limit} B")
-    return blk
 
 
 def _kept(eidx: torch.Tensor, pos: torch.Tensor, n_experts: int,

@@ -1,6 +1,6 @@
 """Public kernel ops (counterpart of ``repro.kernels.ops``): the
-differentiable forms of the kernel wrappers, and the expert FFN as fused
-GMMs.
+differentiable forms of the kernel wrappers, the expert FFN as fused
+GMMs, and the two fused decode kernels (forward only).
 
 Each op goes through its kernel's ``torch.autograd.Function``, whose
 forward and backward run the CUDA kernels on CUDA tensors and their
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fused_decode as fused_lib
 from repro_torch.kernels.dispatch import CombineFn, DispatchFn
 from repro_torch.kernels.gmm import GMMFn
 from repro_torch.kernels.topk_gating import TopKGatingFn
@@ -59,3 +60,36 @@ def expert_ffn(params, x: torch.Tensor, *,
     else:
         h = gmm(x, w1, activation="relu")
     return gmm(h, w2, activation="none")
+
+
+def _inference_only(name: str, *tensors) -> None:
+    """The fused kernels have no backward pass, as in the reference: a
+    call that autograd would record raises instead of detaching."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is inference-only (no backward pass); "
+                           "call it under torch.no_grad() or on tensors "
+                           "that do not require grad")
+
+
+def fused_decode_step(x, valid, wg, w1, w2, w3=None, *, k: int,
+                      capacity: int, activation: str = "relu"):
+    """One MoE decode layer in one launch (routing, scatter, expert FFN,
+    combine).  Returns (y, expert_load, overflow)."""
+    _inference_only("fused_decode_step", x, wg, w1, w2, w3)
+    return fused_lib.decode_step(x, valid, wg, w1, w2, w3, k=k,
+                                 capacity=capacity, activation=activation)
+
+
+def fused_routed_apply(x, plan_in, plan_out, w1, w2=None, w3=None, *,
+                       mode: str = "ffn", activation: str = "relu",
+                       out_dtype=None):
+    """dispatch(plan_in) -> expert FFN or projection -> combine(plan_out)
+    in one launch, over ``DispatchPlan``s (MoA's assignment-major views
+    included)."""
+    _inference_only("fused_routed_apply", x, w1, w2, w3)
+    return fused_lib.routed_apply(
+        x, plan_in.expert_index, plan_in.position, plan_out.expert_index,
+        plan_out.position, plan_out.weight, w1, w2, w3,
+        n_experts=plan_in.n_experts, capacity=plan_in.capacity, mode=mode,
+        activation=activation, out_dtype=out_dtype)

@@ -8,9 +8,17 @@ Example (one H100; kimi-k2 at full width fits the card at 2 layers):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch kimi-k2-1t-a32b --reduce --requests 4 --stagger 1
 
+  # one fused launch per MoE layer at decode, any routing policy:
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch kimi-k2-1t-a32b --reduce --fused-decode \
+      --router-policy expert_choice
+  # Mixture-of-Attention-Heads:
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch moa-demo --reduce --fused-decode --moa-k 2
+
 The flags are the reference launcher's; the ones whose feature is not
 ported yet (checkpoints, chunked prefill, prefix cache, tracing,
-decision logs, fused decode, MoA) raise NotImplementedError.
+decision logs) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -39,6 +47,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw.update(d_ff=128)
     if cfg.n_experts:
         kw.update(n_experts=8, moe_k=2, moe_d_ff=64)
+    if cfg.moa_experts:
+        kw.update(moa_experts=4, moa_k=2, moa_heads_per_expert=2)
     return cfg.replace(**kw)
 
 
@@ -88,8 +98,6 @@ def main(argv=None):
 
     if args.ckpt:
         raise NotImplementedError("checkpoint restore is not ported yet")
-    if args.moa_k is not None:
-        raise NotImplementedError("MoA is not ported yet")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduce:
@@ -106,6 +114,12 @@ def main(argv=None):
         router_lib.get_policy(spec.policy)
         cfg = cfg.replace(router=spec)
         print(f"[serve] router: {spec}")
+    if args.moa_k is not None:
+        if not cfg.moa_positions:
+            raise SystemExit(f"--moa-k: arch {cfg.name!r} has no MoA layers "
+                             "(moa_positions is empty)")
+        cfg = cfg.replace(moa_k=args.moa_k)
+        print(f"[serve] moa_k: {cfg.moa_k}/{cfg.moa_experts} head groups")
     n_slots = args.slots or min(args.requests, 8)
     sc = ServeConfig(
         max_len=args.prompt_len + args.new_tokens + 1,
@@ -140,15 +154,21 @@ def main(argv=None):
     print(f"[serve] {args.requests} requests x {args.new_tokens} tokens in "
           f"{dt:.2f}s ({total / dt:.1f} tok/s on {where}, "
           f"backend={cfg.kernel_backend}, policy={args.policy}, "
+          f"fused_decode={'on' if args.fused_decode else 'off'}, "
           f"slots={n_slots}, steps={engine.stats['decode_steps']}, "
           f"util={engine.slot_utilization:.2f})")
     print(f"[serve] prefill shapes: {sorted(engine.prefill_lengths)} "
           f"(buckets={'on' if engine._can_bucket else 'off'}, dead-slot "
           f"mask={'on' if engine.sc.mask_dead_slots else 'off'})")
-    if engine.telemetry:
-        load = np.sum([t["expert_load"] for t in engine.telemetry], axis=0)
-        print(f"[serve] expert load (decode): {load.astype(int).tolist()} "
-              f"(capacity overflow: {engine.stats['overflow_total']:.0f})")
+    for key, name, total in (("expert_load", "expert", "overflow_total"),
+                             ("moa_load", "MoA head-group",
+                              "moa_overflow_total")):
+        rows = [t[key] for t in engine.telemetry if key in t]
+        if rows:
+            load = np.sum(rows, axis=0)
+            print(f"[serve] {name} load (decode): "
+                  f"{load.astype(int).tolist()} (capacity overflow: "
+                  f"{engine.stats[total]:.0f})")
     print(f"[serve] sample: {reqs[0].tokens[:10]}")
 
 

@@ -138,18 +138,26 @@ def decode_attention(params, x, cache, cur_index, *, rope_theta: float,
     cur = cur.expand(b)
     q, k_new, v_new = _qkv(params, x, cur[:, None], rope_theta=rope_theta,
                            qk_norm=qk_norm)
-    rows = torch.arange(b, device=x.device)
+    o = attend_cached(q, k_new, v_new, cache, cur)
+    return _out(o, params["wo"]), cache
+
+
+def attend_cached(q, k_new, v_new, cache: dict, cur: torch.Tensor):
+    """The decode step's attention: write each row's new K/V ([B, 1, KV,
+    hd]) at its position ``cur`` ([B]) in ``cache`` (in place), then
+    attend its query ([B, 1, H, hd]) over positions <= it.  Scores and
+    softmax in f32; returns [B, 1, H, hd] in q's dtype."""
+    b, _, h, hd = q.shape
+    rows = torch.arange(b, device=q.device)
     cache["k"][rows, cur] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][rows, cur] = v_new[:, 0].to(cache["v"].dtype)
     k, v = cache["k"], cache["v"]
     length = k.shape[1]
-    h, hd = q.shape[2], q.shape[3]
     kv_heads = k.shape[2]
     qr = q.reshape(b, 1, kv_heads, h // kv_heads, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qr, k.float()) / (hd ** 0.5)
-    valid = torch.arange(length, device=x.device)[None, :] <= cur[:, None]
+    valid = torch.arange(length, device=q.device)[None, :] <= cur[:, None]
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(), v.float())
-    o = o.reshape(b, 1, h, hd).to(x.dtype)
-    return _out(o, params["wo"]), cache
+    return o.reshape(b, 1, h, hd).to(q.dtype)

@@ -13,10 +13,11 @@ tail masked out of MoE routing, and dead slots are masked out of routing
 at decode, exactly as in the reference, so the greedy token streams
 match it.
 
-The reference's ``jax.jit`` closures become eager calls.  Chunked
-prefill, the shared-prefix cache, chrome-trace capture, decision logging
-and the fused decode kernel are not ported yet: setting them raises
-NotImplementedError.
+The reference's ``jax.jit`` closures become eager calls.
+``fused_decode`` runs every MoE layer of a decode step (and each MoA
+routed projection) as one kernel launch; prefill stays unfused.  Chunked
+prefill, the shared-prefix cache, chrome-trace capture and decision
+logging are not ported yet: setting them raises NotImplementedError.
 
 ``stats`` is a plain dict with the reference's keys.  ``step_times``
 holds each prefill's and each decode step's wall time (seconds, host
@@ -58,32 +59,35 @@ class ServeConfig:
     prefill_budget: int = 0      # max prompt tokens per step (0 = no cap)
     admission: str = "fcfs"      # "fcfs" | "aware"
     telemetry_keep_last_n: int = 512
+    # One fused launch per MoE / MoA layer at decode (prefill unfused).
+    fused_decode: bool = False
     # Not ported yet (NotImplementedError when set):
     prefill_chunk: int = 0
     prefix_cache: bool = False
     trace_path: str | None = None
     log_decisions: bool = False
-    fused_decode: bool = False
 
 
 def _check_ported(sc: ServeConfig) -> None:
     unported = {"prefill_chunk": sc.prefill_chunk > 0,
                 "prefix_cache": sc.prefix_cache,
                 "trace_path": sc.trace_path is not None,
-                "log_decisions": sc.log_decisions,
-                "fused_decode": sc.fused_decode}
+                "log_decisions": sc.log_decisions}
     on = [name for name, set_ in unported.items() if set_]
     if on:
         raise NotImplementedError(
             f"ServeConfig {on}: not ported to repro_torch yet (chunked "
-            "prefill, prefix cache, tracing, decision logs and fused "
-            "decode come in later slices)")
+            "prefill, prefix cache, tracing and decision logs come in "
+            "later slices)")
 
 
 class ServeEngine:
     def __init__(self, params, cfg: ModelConfig, sc: ServeConfig, *,
                  device: str | torch.device = "cuda"):
         _check_ported(sc)
+        if sc.fused_decode:
+            # The model layer passes it to decode-shaped calls only.
+            cfg = cfg.replace(fused_decode=True)
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -260,11 +264,18 @@ class ServeEngine:
     def _record_telemetry(self, telem, n_active: int) -> None:
         if telem is None:
             return
-        entry = {"step": self.step_count, "active": n_active,
-                 "expert_load": telem["expert_load"].cpu().numpy(),
-                 "overflow": telem["overflow"].cpu().numpy(),
-                 "n_moe": float(telem["n_moe"])}
-        self._stats["overflow_total"] += float(entry["overflow"].sum())
+        entry = {"step": self.step_count, "active": n_active}
+        # MoE FFN counters and MoA head-group counters are independent
+        # families; a model may have either or both.
+        for load, over, count, total in (
+                ("expert_load", "overflow", "n_moe", "overflow_total"),
+                ("moa_load", "moa_overflow", "n_moa",
+                 "moa_overflow_total")):
+            if load in telem:
+                entry.update({load: telem[load].cpu().numpy(),
+                              over: telem[over].cpu().numpy(),
+                              count: float(telem[count])})
+                self._stats[total] += float(entry[over].sum())
         self._telemetry.append(entry)
 
     @property

@@ -11,6 +11,7 @@ import torch
 from repro_torch.core import dispatch as dsp
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import dispatch as tdispatch
+from repro_torch.kernels import fused_decode as tfd
 from repro_torch.kernels import gmm as tgmm
 from repro_torch.kernels import topk_gating as ttopk
 
@@ -166,3 +167,82 @@ def test_functions_backward_on_the_card_matches_cpu(gen):
         grads[dev] = [v.grad.cpu() for v in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the fused decode kernels (7 and 8)
+# ---------------------------------------------------------------------------
+
+def _close_to_plain(got, want, dtype):
+    """f32: 1e-5 of the output's scale (sums in another order); bf16:
+    two units in the last place at the output's largest binade."""
+    scale = max(float(want.float().abs().max()), 1.0 if dtype ==
+                torch.float32 else 1e-30)
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** -7 * scale
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _experts(gen, e, d, f, dtype):
+    def r(*shape, scale):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dtype)
+    return (r(e, d, f, scale=d ** -0.5), r(e, f, d, scale=f ** -0.5),
+            r(e, d, f, scale=d ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["relu", "swiglu"])
+@pytest.mark.parametrize("capacity", [1, 8])
+def test_fused_decode_kernel_matches_plain(gen, dtype, act, capacity):
+    t, d, e, f, k = 13, 72, 10, 40, 3
+    x = torch.randn(t, d, device="cuda", generator=gen).to(dtype)
+    valid = (torch.arange(t, device="cuda") % 4 != 2).float()
+    wg = torch.randn(d, e, device="cuda", generator=gen)
+    wg[:, 7] = wg[:, 2]                           # experts 2 and 7 tie
+    w1, w2, w3 = _experts(gen, e, d, f, dtype)
+    w3 = w3 if act == "swiglu" else None
+    cuda_lib.reset_launch_counts()
+    y, load, over = tfd.decode_step(x, valid, wg, w1, w2, w3, k=k,
+                                    capacity=capacity, activation=act)
+    assert cuda_lib.launch_counts() == {"fused_decode": 1}
+    py, pload, pover = tfd.decode_step_plain(x, valid, wg, w1, w2, w3, k=k,
+                                             capacity=capacity,
+                                             activation=act)
+    assert torch.equal(load, pload) and torch.equal(over, pover)
+    if capacity == 1:
+        assert float(over.sum()) > 0
+    assert bool((y[valid == 0] == 0).all())
+    _close_to_plain(y, py, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,act", [("ffn", "relu"), ("ffn", "swiglu"),
+                                      ("proj", "relu")])
+@pytest.mark.parametrize("view", ["token", "assign"])
+def test_fused_routed_kernel_matches_plain(gen, dtype, mode, act, view):
+    from repro_torch.core.moa import assignment_plan
+    p = _plan(gen, t=20, e=6, k=2, cap=6)
+    assert bool((p.position >= p.capacity).any())
+    p_in, p_out = (p, p) if view == "token" else (p, assignment_plan(p))
+    d, f = 40, 24
+    x = torch.randn(p_in.expert_index.shape[0], d, device="cuda",
+                    generator=gen).to(dtype)
+    w1, w2, w3 = _experts(gen, p.n_experts, d, f, dtype)
+    if mode == "proj":
+        w2 = w3 = None
+    elif act == "relu":
+        w3 = None
+    args = (x, p_in.expert_index, p_in.position, p_out.expert_index,
+            p_out.position, p_out.weight, w1, w2, w3)
+    kw = dict(n_experts=p.n_experts, capacity=p.capacity, mode=mode,
+              activation=act)
+    cuda_lib.reset_launch_counts()
+    got = tfd.routed_apply(*args, **kw)
+    assert cuda_lib.launch_counts() == {"fused_routed": 1}
+    _close_to_plain(got, tfd.routed_apply_plain(*args, **kw), dtype)
+    got32 = tfd.routed_apply(*args, out_dtype=torch.float32, **kw)
+    assert got32.dtype == torch.float32
+    _close_to_plain(got32, tfd.routed_apply_plain(
+        *args, out_dtype=torch.float32, **kw), dtype)

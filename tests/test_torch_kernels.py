@@ -387,22 +387,6 @@ def test_bucket_table_inverts_the_plan():
         assert float(bscale[slot]) == w[t_, j]
 
 
-@pytest.mark.parametrize("shape", [(8, 16, 16, 0, None), (128, 128, 288, 64,
-                                                          None),
-                                   (256, 128, 512, 4096, None),
-                                   (64, 144, 512, 0, 18 * 2 ** 20)])
-def test_select_e_block_matches_reference(shape):
-    from repro.kernels import dispatch as jdl
-    e, c, d, t, limit = shape
-    for dt_j, dt_t in ((jnp.float32, torch.float32),
-                       (jnp.bfloat16, torch.bfloat16)):
-        assert tdispatch.select_e_block(e, c, d, dt_t, n_tokens=t,
-                                        limit=limit) == \
-            jdl.select_e_block(e, c, d, dt_j, n_tokens=t, limit=limit)
-    with pytest.raises(tdispatch.DispatchVMEMError):
-        tdispatch.select_e_block(4, 1024, 1024, torch.float32, limit=64)
-
-
 def test_new_wrappers_never_take_the_plain_path_off_cpu():
     meta = dict(device="meta")
     i32 = dict(dtype=torch.int32, device="meta")
