@@ -11,7 +11,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. kernels — each kernel's wrapper against its plain PyTorch version on
              the card: the serving kernels in bf16 at the shapes serving
              kimi-k2 gives them, in f32 at cut, ragged shapes, and in
-             f32 at the shapes training MoE-256 gives them; the
+             f32 at the shapes training MoE-256 gives them; both GMM
+             kernels (the bf16 weight stream and the tiled 3xTF32 / bf16
+             one) with and without ``rows``, a kimi-k2 layer at decode
+             over all 384 experts and with the rows of a decode plan,
+             and both kernels at C = 8 .. 64 (their threshold); the
              training kernels (top-k backward, e-blocked dispatch and
              combine, the transposed GMMs of the backward pass) in f32
              and bf16 at the shapes training MoE-256 gives them; the
@@ -86,7 +90,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Dense peaks; "tf32" is the tensor cores' rate, which 3xTF32 spends
+# three times per f32 product.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 REPS = 20
 ARCH = "kimi-k2-1t-a32b"
 N_LAYERS = 2
@@ -128,15 +134,20 @@ SOURCES = {
     "fused_decode": "src/repro_torch/csrc/fused_decode.cu",
     "fused_routed": "src/repro_torch/csrc/fused_decode.cu",
 }
-KERNEL_SYMBOLS = {"topk_gating": "topk_gating_kernel",
-                  "dispatch": "dispatch_kernel", "combine": "combine_kernel",
-                  "gmm": "gmm_kernel",
-                  "topk_gating_bwd": "topk_gating_bwd_kernel",
-                  "dispatch_eblock": "dispatch_eblock_kernel",
-                  "combine_eblock": "combine_eblock_kernel",
-                  "gmm_bwd": "gmm_tiled_kernel",
-                  "fused_decode": "fused_decode_kernel",
-                  "fused_routed": "fused_routed_kernel"}
+# Device symbols of each kernel, matched by substring in the profiler's
+# names; no symbol contains another.  "gmm" (the forward layout) is
+# either GMM kernel; the tiled kernel's transposed layouts are their own
+# __global__ (gmm_tile_bwd_kernel), so "gmm" and "gmm_bwd" never mix.
+KERNEL_SYMBOLS = {"topk_gating": ("topk_gating_kernel",),
+                  "dispatch": ("dispatch_kernel",),
+                  "combine": ("combine_kernel",),
+                  "gmm": ("gmm_stream_kernel", "gmm_tile_kernel"),
+                  "topk_gating_bwd": ("topk_gating_bwd_kernel",),
+                  "dispatch_eblock": ("dispatch_eblock_kernel",),
+                  "combine_eblock": ("combine_eblock_kernel",),
+                  "gmm_bwd": ("gmm_tile_bwd_kernel",),
+                  "fused_decode": ("fused_decode_kernel",),
+                  "fused_routed": ("fused_routed_kernel",)}
 # The MoA serve phase: moa-demo at its published widths.
 MOA_ARCH = "moa-demo"
 
@@ -348,9 +359,20 @@ def check_dispatch_combine(gen) -> list[dict]:
 
 
 def check_gmm(gen) -> dict:
+    """Kernel 6, the forward layout, against its plain version: the
+    tiled kernel in f32 (3xTF32) at cut, ragged shapes and at the
+    training shapes (timed beside torch.bmm); both kernels in bf16 at
+    ragged shapes with and without ``rows``; one kimi-k2 MoE layer at
+    decode over all 384 experts (the timed row) and with ``rows`` from a
+    decode plan (its own bound, from the used experts); the streaming /
+    tiled threshold (both kernels at C = 8 .. 64)."""
     import torch
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.kernels import dispatch as dk
     from repro_torch.kernels import gmm as gk
-    # f32 at cut, ragged shapes: exact f32 FMA against the f32 plain path.
+    bf = torch.bfloat16
+    # f32 at cut, ragged shapes: the tiled kernel's 3xTF32 against the
+    # f32 plain path, within f32_tol (1e-5 of the output's scale).
     worst_f32 = 0.0
     for e, c, kd, n in ((5, 13, 300, 264), (3, 8, 65, 17), (2, 1, 7, 1000)):
         x = torch.randn(e, c, kd, device="cuda", generator=gen)
@@ -364,15 +386,41 @@ def check_gmm(gen) -> dict:
                               f"differs by {err} > {tol}")
             worst_f32 = max(worst_f32, err)
     log(f"gmm f32 cut shapes: max_abs_err {worst_f32:.3g}")
+    # bf16 at ragged shapes, both kernels, rows with empty, partial and
+    # full experts: within bf16_tol, rows past rows[e] exactly zero.
+    worst_rows, tol_rows = 0.0, 0.0
+    for e, c, kd, n in ((5, 13, 300, 264), (4, 9, 72, 136), (3, 64, 128, 256)):
+        x = torch.randn(e, c, kd, device="cuda", generator=gen).to(bf)
+        w = (torch.randn(e, kd, n, device="cuda", generator=gen)
+             / kd ** 0.5).to(bf)
+        rows = torch.tensor([0, c, c // 2, 1, c - 1][:e], dtype=torch.int32,
+                            device="cuda")
+        for kernel in ("stream", "tile"):
+            for act in gk.ACTIVATIONS:
+                got = gk.gmm(x, w, activation=act, rows=rows, kernel=kernel)
+                want = gk.gmm_plain(x, w, act, rows=rows)
+                err, tol = max_err(got, want), bf16_tol(want)
+                check(err <= tol, f"bf16 gmm ({kernel}) {act} with rows "
+                                  f"[{e},{c},{kd}]x[{e},{kd},{n}] differs by "
+                                  f"{err} > {tol}")
+                check(torch.equal(gk.mask_rows(got, rows), got),
+                      f"bf16 gmm ({kernel}) wrote a nonzero past rows")
+                worst_rows, tol_rows = max(worst_rows, err), max(tol_rows, tol)
+    log(f"gmm bf16 ragged with rows, both kernels: max_abs_err "
+        f"{worst_rows:.3g} (tol {tol_rows:.3g})")
     # f32 at the training shapes (MoE-256: E = 256, C = 128, d = 512,
     # f = 1024): the up-projection with relu (forward) and none (the
-    # backward pass's recomputed pre-activation), the down-projection.
+    # backward pass's recomputed pre-activation), the down-projection;
+    # timed beside torch.bmm.  Bound: the 3xTF32 tensor-core floor (three
+    # TF32 products at 495 TFLOP/s), with the CUDA cores' f32 figure.
     e, c, d, f = 256, 128, 512, 1024
     x = torch.randn(e, c, d, device="cuda", generator=gen)
     w1 = torch.randn(e, d, f, device="cuda", generator=gen) / d ** 0.5
     h = torch.randn(e, c, f, device="cuda", generator=gen)
     w2 = torch.randn(e, f, d, device="cuda", generator=gen) / f ** 0.5
     train_f32 = []
+    train = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 bound_ms_f32_cuda_cores=0.0)
     for xi, wi, act in ((x, w1, "relu"), (x, w1, "none"), (h, w2, "none")):
         got = gk.gmm(xi, wi, activation=act)
         want = gk.gmm_plain(xi, wi, act)
@@ -382,17 +430,63 @@ def check_gmm(gen) -> dict:
             f"max_abs_err {err:.3g} (tol {tol:.3g})")
         check(err <= tol, f"f32 gmm {act} {tuple(xi.shape)} x "
                           f"{tuple(wi.shape)} differs by {err} > {tol}")
+        check(torch.equal(got, gk.gmm(xi, wi, activation=act)),
+              "f32 gmm: two launches differ")
         train_f32.append((err, tol))
         del got, want
-    del x, w1, h, w2
-    # bf16 at the serving shapes: one MoE layer's expert FFN at decode.
+        train["ms"] += cuda_ms(lambda: gk.gmm(xi, wi, activation=act))
+        train["plain_ms"] += cuda_ms(lambda: gk.gmm_plain(xi, wi, act))
+        train["library_ms"] += cuda_ms(lambda: torch.bmm(xi, wi))
+        ee, cc, kk = xi.shape
+        nn = wi.shape[-1]
+        n_bytes = (ee * cc * kk + ee * kk * nn + ee * cc * nn) * 4
+        flops = 2 * ee * cc * kk * nn
+        train["bound_ms"] += bound_ms(n_bytes, {"tf32": 3 * flops})[0]
+        train["bound_ms_f32_cuda_cores"] += bound_ms(n_bytes, flops,
+                                                     "float32")[0]
+    log(f"gmm f32 at the training shapes, 3 calls: {json.dumps(train)}")
+    # The same calls with the rows of a training plan (T = 4096, k = 4,
+    # C = 128: ~64 filled rows an expert), as a training step runs them:
+    # against the plain version with rows, bitwise equal to the kernel
+    # without rows (the buffers are zero past rows), timed.
+    x_tok, plan = _train_plan(gen, torch.float32)
+    rows = dsp.filled_rows(plan)
+    buf = dk.dispatch_plain(x_tok, plan.expert_index, plan.position, None,
+                            e, c)
+    filled = int(rows.sum())
+    train_rows = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, filled_rows=filled)
+    for xi, wi, act in ((buf, w1, "relu"), (buf, w1, "none"),
+                        (gk.mask_rows(h, rows), w2, "none")):
+        got = gk.gmm(xi, wi, activation=act, rows=rows)
+        want = gk.gmm_plain(xi, wi, act, rows=rows)
+        err, tol = max_err(got, want), f32_tol(want)
+        check(err <= tol, f"f32 gmm {act} with training rows differs by "
+                          f"{err} > {tol}")
+        check(torch.equal(got, gk.gmm(xi, wi, activation=act)),
+              f"f32 gmm {act}: rows changed the result")
+        train_f32.append((err, tol))
+        del got, want
+        train_rows["ms"] += cuda_ms(lambda: gk.gmm(xi, wi, activation=act,
+                                                   rows=rows))
+        train_rows["plain_ms"] += cuda_ms(lambda: gk.gmm_plain(
+            xi, wi, act, rows=rows))
+        kk, nn = wi.shape[1], wi.shape[2]
+        train_rows["bound_ms"] += bound_ms(
+            (filled * kk + e * kk * nn + e * c * nn) * 4,
+            {"tf32": 3 * 2 * filled * kk * nn})[0]
+    log(f"gmm f32 at the training shapes with rows ({filled} rows): "
+        f"{json.dumps(train_rows)}")
+    train["with_rows"] = train_rows
+    del x, w1, h, w2, x_tok, buf
+    # bf16 at the serving shapes: one MoE layer's expert FFN at decode,
+    # over all 384 experts.
     e, c, d, f = 384, 8, 7168, 2048
-    x = torch.randn(e, c, d, device="cuda", generator=gen).to(torch.bfloat16)
+    x = torch.randn(e, c, d, device="cuda", generator=gen).to(bf)
     w_up = (torch.randn(e, d, f, device="cuda", generator=gen) / d ** 0.5
-            ).to(torch.bfloat16)
-    h = torch.randn(e, c, f, device="cuda", generator=gen).to(torch.bfloat16)
+            ).to(bf)
+    h = torch.randn(e, c, f, device="cuda", generator=gen).to(bf)
     w_dn = (torch.randn(e, f, d, device="cuda", generator=gen) / f ** 0.5
-            ).to(torch.bfloat16)
+            ).to(bf)
     calls = [(x, w_up, "silu"), (x, w_up, "none"), (h, w_dn, "none")]
     worst, tol_used = 0.0, 0.0
     ms = plain = lib = bnd = 0.0
@@ -402,6 +496,8 @@ def check_gmm(gen) -> dict:
         err, tol = max_err(got, want), bf16_tol(want)
         check(err <= tol, f"bf16 gmm {act} {tuple(xi.shape)} x "
                           f"{tuple(wi.shape)} differs by {err} > {tol}")
+        check(torch.equal(got, gk.gmm(xi, wi, activation=act)),
+              "bf16 gmm: two launches differ")
         worst, tol_used = max(worst, err), max(tol_used, tol)
         del got, want
         ms += cuda_ms(lambda: gk.gmm(xi, wi, activation=act))
@@ -413,11 +509,64 @@ def check_gmm(gen) -> dict:
                         2 * ee * cc * kk * nn, "bfloat16")
         bnd += b
     b_bytes = (3 * e * d * f * 2) / HBM_BYTES_PER_S * 1e3
+    # The same layer with rows from a decode plan (T = 8 tokens, k = 8,
+    # C = 8): the buffer dispatched from the plan, h zero past rows.
+    # Against the plain version with rows and the kernel without rows
+    # (bitwise: rows changes no result); timed; bounded by the bytes of
+    # the experts that hold a token.
+    x_tok, plan = _route(N_REQUESTS, e, 8, d, bf, gen, capacity=c)
+    rows = dsp.filled_rows(plan)
+    buf = dk.dispatch_plain(x_tok, plan.expert_index, plan.position, None,
+                            e, c)
+    used, filled = int((rows > 0).sum()), int(rows.sum())
+    dec = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, used_experts=used,
+               filled_rows=filled)
+    for xi, wi, act in [(buf, w_up, "silu"), (buf, w_up, "none"),
+                        (gk.mask_rows(h, rows), w_dn, "none")]:
+        got = gk.gmm(xi, wi, activation=act, rows=rows)
+        want = gk.gmm_plain(xi, wi, act, rows=rows)
+        err, tol = max_err(got, want), bf16_tol(want)
+        check(err <= tol, f"bf16 gmm {act} with decode rows differs by "
+                          f"{err} > {tol}")
+        check(torch.equal(got, gk.gmm(xi, wi, activation=act)),
+              f"bf16 gmm {act}: rows changed the result")
+        worst_rows, tol_rows = max(worst_rows, err), max(tol_rows, tol)
+        del got, want
+        dec["ms"] += cuda_ms(lambda: gk.gmm(xi, wi, activation=act,
+                                            rows=rows))
+        dec["plain_ms"] += cuda_ms(lambda: gk.gmm_plain(xi, wi, act,
+                                                        rows=rows))
+        kk, nn = wi.shape[1], wi.shape[2]
+        dec["bound_ms"] += bound_ms(
+            (used * kk * nn + filled * kk + e * c * nn) * 2,
+            2 * filled * kk * nn, "bfloat16")[0]
+    dec["bound_by"] = "bytes"
+    dec["library_ms"] = lib
+    log(f"gmm bf16 decode layer with rows ({used} experts, {filled} rows): "
+        f"{json.dumps(dec)}")
+    # The streaming / tiled threshold: both kernels on the up-projection
+    # [384, C, 7168] x [384, 7168, 2048] bf16 at C = 8 .. 64.
+    thr = {}
+    for cc in (8, 16, 32, 64):
+        xc = torch.randn(e, cc, d, device="cuda", generator=gen).to(bf)
+        want = gk.gmm_plain(xc, w_up, "none")
+        thr[cc] = {}
+        for kernel in ("stream", "tile"):
+            err, tol = max_err(gk.gmm(xc, w_up, kernel=kernel), want), \
+                bf16_tol(want)
+            check(err <= tol, f"bf16 gmm ({kernel}) C={cc} differs by {err} "
+                              f"> {tol}")
+            thr[cc][kernel] = cuda_ms(lambda: gk.gmm(xc, w_up, kernel=kernel),
+                                      reps=10)
+        del xc, want
+    log(f"gmm stream vs tile ms by C (up-projection, bf16): {json.dumps(thr)}")
     return dict(name="gmm", max_abs_err=worst, tol=tol_used, ms=ms,
                 plain_ms=plain, bound_ms=bnd, bound_by="bytes",
                 library_ms=lib, weights_only_bound_ms=b_bytes,
                 max_abs_err_f32_train=max(r[0] for r in train_f32),
                 tol_f32_train=max(r[1] for r in train_f32),
+                max_abs_err_rows=worst_rows, tol_rows=tol_rows,
+                rows_decode=dec, train_f32=train, stream_vs_tile_ms=thr,
                 shape=(f"one MoE layer at decode: 3 calls, x [{e},{c},{d}] x "
                        f"[{e},{d},{f}] (silu, none) and [{e},{c},{f}] x "
                        f"[{e},{f},{d}], bf16"))
@@ -515,24 +664,47 @@ def check_eblock(gen) -> list[dict]:
                          2 * n_kept * d, "float32")
     shape = (f"x [{t},{d}] f32 <-> buf [{e},{c},{d}], k={k}, "
              f"e_block={E_BLOCK}, {n_kept} kept")
+    # The resident kernels as the two VJPs run them at this shape (the
+    # reference's _dispatch_bwd: the combine kernel with unit weights;
+    # _combine_bwd: the dispatch kernel scaling each row by its weight),
+    # timed against their plain versions, with their byte bounds.
+    unit = torch.ones_like(w)
+    vjps = {
+        "B6_dispatch_bwd": dict(
+            ms=cuda_ms(lambda: dk.combine(buf, unit, ei, po)),
+            plain_ms=cuda_ms(lambda: dk.combine_plain(buf, unit, ei, po,
+                                                      torch.float32)),
+            bound_ms=b_c, bound_by=by_c),
+        "B7_combine_bwd": dict(
+            ms=cuda_ms(lambda: dk.dispatch(x, ei, po, w, n_experts=e,
+                                           capacity=c)),
+            plain_ms=cuda_ms(lambda: dk.dispatch_plain(x, ei, po, w, e, c)),
+            # x read once, (e, p, w) read, the buffer written once.
+            **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                e * c * d * 4 + t * d * 4 + t * k * 12, 0, "float32"))))}
+    log(f"VJP kernels at the training shape ({shape}): {json.dumps(vjps)}")
     return [dict(name="dispatch_eblock", max_abs_err=worst_d, tol=0.0,
                  ms=ms_d, plain_ms=plain_d, bound_ms=b_d, bound_by=by_d,
                  library_ms=None, shape=shape),
             dict(name="combine_eblock", max_abs_err=worst_c, tol=0.0,
                  ms=ms_c, plain_ms=plain_c, bound_ms=b_c, bound_by=by_c,
-                 library_ms=None, shape=shape)]
+                 library_ms=None, shape=shape, train_vjps=vjps)]
 
 
 def check_gmm_bwd(gen) -> dict:
     """The four transposed GMMs of one training step's expert FFN
     backward (MoE-256: E=256, C=128, d=512, f=1024), against the plain
     version in f32 (1e-5 relative) and bf16 (two ulps of the output's
-    top binade), timed in f32 beside torch.bmm on transposed views."""
+    top binade), timed in f32 beside torch.bmm on transposed views.
+    Bound: the 3xTF32 tensor-core floor, with the CUDA cores' f32
+    figure beside it."""
     import torch
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.kernels import dispatch as dk
     from repro_torch.kernels import gmm as gk
     e, c, d, f = 256, 128, 512, 1024
     worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
-    times = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0)
+    times = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, bound_f32=0.0)
     for dtype in (torch.float32, torch.bfloat16):
         def r(*shape, scale=1.0):
             return (torch.randn(*shape, device="cuda", generator=gen)
@@ -556,6 +728,8 @@ def check_gmm_bwd(gen) -> dict:
                             max(worst[dtype][1], tol))
             if dtype != torch.float32:
                 continue
+            check(torch.equal(got, gk.gmm(xi, wi, trans_x=tx, trans_w=tw)),
+                  "gmm_bwd: two launches differ")
             xl = xi.transpose(1, 2) if tx else xi
             wl = wi.transpose(1, 2) if tw else wi
             times["ms"] += cuda_ms(
@@ -565,17 +739,50 @@ def check_gmm_bwd(gen) -> dict:
             times["lib"] += cuda_ms(lambda: torch.bmm(xl, wl))
             ee, cc, kk = xl.shape
             nn = wl.shape[-1]
-            b, _ = bound_ms((ee * cc * kk + ee * kk * nn + ee * cc * nn) * 4,
-                            2 * ee * cc * kk * nn, "float32")
-            times["bound"] += b
+            n_bytes = (ee * cc * kk + ee * kk * nn + ee * cc * nn) * 4
+            flops = 2 * ee * cc * kk * nn
+            times["bound"] += bound_ms(n_bytes, {"tf32": 3 * flops})[0]
+            times["bound_f32"] += bound_ms(n_bytes, flops, "float32")[0]
         del x, h, w1, w2, dy, dh
+    # The four calls with the rows of a training plan, as GMMFn's
+    # backward runs them (dz zero past rows; x and h dispatch buffers):
+    # against the plain version with rows, timed.
+    x_tok, plan = _train_plan(gen, torch.float32)
+    rows = dsp.filled_rows(plan)
+    x = dk.dispatch_plain(x_tok, plan.expert_index, plan.position, None, e, c)
+
+    def rr(*shape, scale=1.0):
+        return gk.mask_rows(torch.randn(*shape, device="cuda", generator=gen)
+                            * scale, rows)
+    h, dy, dh = rr(e, c, f), rr(e, c, d), rr(e, c, f)
+    w1 = torch.randn(e, d, f, device="cuda", generator=gen) / d ** 0.5
+    w2 = torch.randn(e, f, d, device="cuda", generator=gen) / f ** 0.5
+    with_rows = dict(ms=0.0, plain_ms=0.0, filled_rows=int(rows.sum()))
+    for xi, wi, tx, tw in [(dy, w2, False, True), (h, dy, True, False),
+                           (dh, w1, False, True), (x, dh, True, False)]:
+        got = gk.gmm(xi, wi, trans_x=tx, trans_w=tw, rows=rows)
+        want = gk.gmm_plain(xi, wi, "none", tx, tw, rows)
+        err, tol = max_err(got, want), f32_tol(want)
+        check(err <= tol, f"gmm_bwd f32 with training rows trans_x={tx} "
+                          f"trans_w={tw} differs by {err} > {tol}")
+        worst[torch.float32] = (max(worst[torch.float32][0], err),
+                                max(worst[torch.float32][1], tol))
+        del got, want
+        with_rows["ms"] += cuda_ms(
+            lambda: gk.gmm(xi, wi, trans_x=tx, trans_w=tw, rows=rows))
+        with_rows["plain_ms"] += cuda_ms(
+            lambda: gk.gmm_plain(xi, wi, "none", tx, tw, rows))
+    log(f"gmm_bwd f32 with the rows of a training plan: "
+        f"{json.dumps(with_rows)}")
+    del x, h, dy, dh, w1, w2, x_tok
     err_bf16, tol_bf16 = worst[torch.bfloat16]
     log(f"gmm_bwd bf16: max_abs_err {err_bf16:.3g} (tol {tol_bf16:.3g})")
     return dict(name="gmm_bwd", max_abs_err=worst[torch.float32][0],
                 tol=worst[torch.float32][1], max_abs_err_bf16=err_bf16,
                 tol_bf16=tol_bf16, ms=times["ms"], plain_ms=times["plain"],
                 bound_ms=times["bound"], bound_by="operations",
-                library_ms=times["lib"],
+                bound_ms_f32_cuda_cores=times["bound_f32"],
+                library_ms=times["lib"], train_with_rows=with_rows,
                 shape=(f"one step's 4 transposed GMMs, f32: [{e},{c},{d}] x "
                        f"[{e},{f},{d}]^T, [{e},{c},{f}]^T x [{e},{c},{d}], "
                        f"[{e},{c},{f}] x [{e},{d},{f}]^T, [{e},{c},{d}]^T x "
@@ -844,34 +1051,45 @@ def device_profile(fn) -> dict:
     device was idle.  The profiler adds host time to every launch, so
     the window runs slower than the same work unprofiled; callers that
     have an unprofiled step time report the idle share against it
-    (:func:`idle_share`)."""
+    (:func:`idle_share`).  Launch counts are zeroed before ``fn``; a
+    kernel that the wrappers launched in the window but that has no
+    device time in the profile fails the run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import cuda_lib
 
     torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = cuda_lib.launch_counts()
     dev = [(e.key, e.count, e.self_device_time_total / 1e3)
            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
            and e.self_device_time_total > 0]
     busy = sum(ms for _, _, ms in dev)
     per_kernel = {}
-    for name, sym in KERNEL_SYMBOLS.items():
-        hits = [(n, ms) for key, n, ms in dev if sym in key]
+    for name, syms in KERNEL_SYMBOLS.items():
+        hits = [(n, ms) for key, n, ms in dev
+                if any(sym in key for sym in syms)]
         calls = sum(n for n, _ in hits)
         if calls:
             per_kernel[name] = {"launches": calls, "device_ms_per_launch":
                                 sum(ms for _, ms in hits) / calls}
+    missing = sorted(k for k, n in launched.items()
+                     if n and k not in per_kernel)
+    check(not missing, f"kernels launched in the profiled window with no "
+                       f"device time in the profile: {missing} (launch "
+                       f"counts {launched})")
     top = sorted(dev, key=lambda r: -r[2])[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "profiled_window_idle_share": 1.0 - busy / wall_ms if dev
             else None,
-            "kernels": per_kernel,
+            "kernels": per_kernel, "wrapper_launches": launched,
             "top_device_ms": [[k[:70], n, ms] for k, n, ms in top]}
 
 
@@ -1511,8 +1729,8 @@ def _capture_expert_ffn(name: str, store: dict):
     from repro_torch.kernels import backend as backend_lib
     orig = backend_lib.get(name)
 
-    def expert_ffn(params, x, a):
-        out = orig.expert_ffn(params, x, a)
+    def expert_ffn(params, x, a, *, rows=None):
+        out = orig.expert_ffn(params, x, a, rows=rows)
         store["buf"] = x.detach()
         out.register_hook(lambda g: store.update(dout=g.detach()))
         return out
@@ -1756,7 +1974,8 @@ def kernel_row(name, r, launches_by_path, profiles) -> dict:
         "device_ms_per_launch": dev[0] if dev else None,
         "tol": r["tol"], "check": "pass", "shape": r["shape"],
         **{k: v for k, v in r.items()
-           if k.startswith(("max_abs_err_", "tol_", "used_", "moa_"))}}
+           if k.startswith(("max_abs_err_", "tol_", "used_", "moa_", "rows_",
+                            "train_", "stream_", "bound_ms_"))}}
 
 
 def main() -> int:

@@ -75,6 +75,17 @@ def plan(expert_index: torch.Tensor, weight: torch.Tensor, n_experts: int,
                         capacity=capacity, fraction_dropped=frac_dropped)
 
 
+def filled_rows(p: DispatchPlan) -> torch.Tensor:
+    """[E] int32: the kept assignments of each expert.  For a plan from
+    :func:`plan`, whose slots fill each buffer from slot 0, this is the
+    count of filled leading rows that the GMM kernels may stop at.
+    Computed on the device with no host sync."""
+    flat_e = p.expert_index.reshape(-1).long()
+    kept = (p.position.reshape(-1) < p.capacity).to(torch.int32)
+    return torch.zeros((p.n_experts,), dtype=torch.int32,
+                       device=flat_e.device).scatter_add_(0, flat_e, kept)
+
+
 # ---------------------------------------------------------------------------
 # sort/scatter implementation
 # ---------------------------------------------------------------------------

@@ -97,7 +97,7 @@ def moe_apply(params, x: torch.Tensor, a: MoEArgs, *, train: bool = True,
     router = router_lib.build(a, topk_impl=bk.topk_impl)
     dec = router.route(params, x, train=train, noise=noise, mask=mask)
     buf = bk.dispatch(x, dec, a)
-    out = bk.expert_ffn(params, buf, a)
+    out = bk.expert_ffn(params, buf, a, rows=dec.rows)
     y = bk.combine(out, dec, a, dtype=x.dtype)
     if a.sigmoid_output:
         y = torch.sigmoid(y.float()).to(x.dtype)

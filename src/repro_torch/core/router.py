@@ -74,6 +74,11 @@ class RouteDecision(NamedTuple):
     aux_loss: torch.Tensor
     metrics: dict
     telemetry: dict
+    # [E] int32 filled leading slots of each expert (dispatch.filled_rows)
+    # when the plan fills slots as a prefix (dispatch.plan's plans); None
+    # for a policy's own plan (expert_choice's slots are column ranks, of
+    # which a token may drop some).  The GMM kernels stop at it.
+    rows: torch.Tensor | None = None
 
 
 def route_telemetry(info: gating.GatingInfo, p: dsp.DispatchPlan) -> dict:
@@ -182,13 +187,14 @@ class Router:
                                 train=train, noise=noise, mask=mask,
                                 capacity=capacity, topk_impl=self.topk_impl)
         info = out.info
-        plan = out.plan
+        plan, rows = out.plan, None
         if plan is None:
             plan = dsp.plan(info.expert_index, info.combine_weights,
                             self.n_experts,
                             capacity if out.capacity is None
                             else out.capacity,
                             priority=spec.priority_dispatch)
+            rows = dsp.filled_rows(plan)
         aux_loss = (losses.importance_loss(info.gates, spec.w_importance)
                     + losses.load_loss(info.load, spec.w_load)
                     + out.extra_loss)
@@ -198,7 +204,8 @@ class Router:
             combine_weights=info.combine_weights,
             expert_index=info.expert_index, gates=info.gates,
             load=info.load, plan=plan, aux_loss=aux_loss,
-            metrics=metrics, telemetry=route_telemetry(info, plan))
+            metrics=metrics, telemetry=route_telemetry(info, plan),
+            rows=rows)
 
 
 def build(a, *, topk_impl: Callable | None = None) -> Router:

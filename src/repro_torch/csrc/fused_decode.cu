@@ -37,7 +37,8 @@
 //      single projection: item = (used expert, 8-row tile of its cells,
 //      256-column tile); x rows are gathered through the cell table.
 //      The weight rows stream once per item with 16-byte loads, 8 warps
-//      splitting K as in the GMM kernel (csrc/gmm.cu).
+//      splitting K on the CUDA cores (the first GMM kernel's design;
+//      csrc/gmm.cu's streaming kernel now runs on the tensor cores).
 //   4. down-projection (FFN only), same items over d.
 //   5. combine: y[t] = sum over j ascending of w_j * out[e_j, p_j] in f32
 //      with separate multiply and add (no contraction), one write in the

@@ -1,55 +1,30 @@
 // Grouped (per-expert) matmul [E, C, K] x [E, K, N] -> [E, C, N] with an
-// f32 accumulator and a fused none / relu / silu epilogue; either operand
-// may be read transposed in place (the backward pass, at the end).
+// f32 accumulator and a fused none / relu / silu epilogue, on the tensor
+// cores.  Either operand may be read transposed in place (the backward
+// pass).  Two kernels, chosen per call by the wrapper
+// (kernels/gmm.py::kernel_for):
 //
-// Replaces the TPU kernel repro/kernels/gmm.py::_gmm_kernel (pallas_call
-// in _gmm_raw), which tiled (E, C, N, K) on the 128x128 MXU and
-// zero-padded ragged C/K/N with copies.  Here the ragged edges are masked
-// inside the kernel, and there are no padding copies.
+//   gmm_stream_kernel   bf16, forward layout, C <= 64 rows per expert:
+//                       serving (decode and prefill buckets), moa-demo.
+//   gmm_tile_kernel     every other call: f32 at any C (training), bf16
+//   gmm_tile_bwd_kernel above 64 rows; _bwd is the transposed layouts.
 //
-// Bound on the H100: bytes.  On the serving path C is small (C = 8 at
-// kimi-k2's decode and short prefills: capacity_for rounds k*T*1.25/E up
-// to 8), so the work is 2*C = 16 flops per weight element and the kernel
-// must stream all E*K*N weights once: 33.8 GB per kimi-k2 MoE layer,
-// about 10 ms at 3.35 TB/s.  A 128-row MMA tile would waste 15/16 of its
-// work, so the design is a weight-streaming kernel on the CUDA cores:
-//   * block = (expert, 8-row C tile, 256-column N tile), 8 warps;
-//   * each lane owns 8 consecutive columns and loads them with one
-//     16-byte access per weight row (a warp reads 512 contiguous bytes of
-//     bf16), four rows in flight per warp;
-//   * the warps split K (warp w takes rows w, w+8, ...); the 8 x 256 f32
-//     accumulators of a warp stay in registers (64 per thread), and the
-//     warps' partial sums are added in warp order through shared memory,
-//     so the result does not depend on scheduling;
-//   * the C tile of x is staged in shared memory as f32, 1024 K at a time
-//     (one barrier per 128 weight rows of each warp).
-// f32 inputs use exact f32 fused multiply-add, never TF32; bf16 inputs
-// are widened to f32 exactly before the same FMA.  Making this kernel
-// fast (tensor cores at larger C, skipping experts with no tokens) is
-// later work.
+// Both take an optional rows[E] (int32, on the device): the count of
+// filled leading rows of each expert's x (its stored dimension 1, the
+// C rows of a dispatch buffer).  Rows at or beyond rows[e] are never
+// read and add nothing: output rows there come out as exact zeros (for
+// dw = x^T dz, the reduction stops there); an expert with rows[e] == 0
+// reads no weights.  Sums run in a fixed order with no atomics and no
+// split-K, so a result repeats bit for bit.
+//
+// PTX used: cp.async (16-byte, zero-filling), ldmatrix(.trans), and
+// mma.sync m16n8k16 bf16 / m16n8k8 tf32 with f32 accumulators.
 #include "common.cuh"
 
-#define GMM_WARPS 8
-#define GMM_THREADS (32 * GMM_WARPS)
-#define GMM_BM 8
-#define GMM_NPT 8
-#define GMM_BN (32 * GMM_NPT)
-#define GMM_KC 1024
-#define GMM_UNROLL 4
-
 enum GmmActivation { GMM_NONE = 0, GMM_RELU = 1, GMM_SILU = 2 };
-
-template <typename T>
-static __device__ __forceinline__ void load_row(const T* row, int ncol, int N,
-                                                bool vec, float out[GMM_NPT]) {
-  if (vec && ncol + GMM_NPT <= N) {
-    Vec8<T>::load(row + ncol, out);
-  } else {
-#pragma unroll
-    for (int j = 0; j < GMM_NPT; ++j)
-      out[j] = (ncol + j < N) ? to_f<T>(row[ncol + j]) : 0.f;
-  }
-}
+// Kernel codes; kernels/gmm.py KERNELS mirrors them.
+enum GmmKernel { GMM_STREAM = 1, GMM_TILE = 2 };
+#define GMM_STREAM_MAX_C 64
 
 static __device__ __forceinline__ float epilogue(float z, int activation) {
   if (activation == GMM_RELU) return fmaxf(z, 0.f);
@@ -57,231 +32,694 @@ static __device__ __forceinline__ float epilogue(float z, int activation) {
   return z;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(GMM_THREADS, 2)
-gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-           T* __restrict__ out, int C, int K, int N, int activation,
-           bool vec) {
-  __shared__ float xs[GMM_BM][GMM_KC];
-  __shared__ float red[GMM_WARPS][GMM_BN];
-  const int n0 = blockIdx.x * GMM_BN;
-  const int c0 = blockIdx.y * GMM_BM;
-  const long long e = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ncol = n0 + lane * GMM_NPT;
-  const T* xe = x + e * C * K;
-  const T* we = w + e * K * N;
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
 
-  float acc[GMM_BM][GMM_NPT];
-#pragma unroll
-  for (int r = 0; r < GMM_BM; ++r)
-#pragma unroll
-    for (int j = 0; j < GMM_NPT; ++j) acc[r][j] = 0.f;
+static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  for (int k0 = 0; k0 < K; k0 += GMM_KC) {
-    for (int i = threadIdx.x; i < GMM_BM * GMM_KC; i += GMM_THREADS) {
-      const int r = i / GMM_KC, kk = i % GMM_KC;
-      const int c = c0 + r, kg = k0 + kk;
-      xs[r][kk] = (c < C && kg < K) ? to_f<T>(xe[(long long)c * K + kg]) : 0.f;
-    }
-    __syncthreads();
-    const int kend = min(GMM_KC, K - k0);
-    int kk = warp;
-    for (; kk + (GMM_UNROLL - 1) * GMM_WARPS < kend; kk += GMM_UNROLL * GMM_WARPS) {
-      float wv[GMM_UNROLL][GMM_NPT];
+// 16 bytes global -> shared, or 16 zero bytes when !valid (src unread).
+// L2_256: ask L2 to fetch the surrounding 256 bytes (the weight stream,
+// whose rows are read 512 contiguous bytes at a time).
+template <bool L2_256>
+static __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                                  bool valid) {
+  const int n = valid ? 16 : 0;
+  if (L2_256)
+    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
+                 ::"r"(dst), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(n));
+}
+
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8q..8q+7 give the row addresses of
+// matrix q.  Plain: r[q] = M_q[lane/4][2(lane%4) .. +1];  trans: r[q] =
+// M_q[2(lane%4) .. +1][lane/4].
+static __device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+static __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+static __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate.
+static __device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4],
+                                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: v = hi + lo with hi = tf32(v) (round to nearest) and lo = v -
+// hi (exact in f32); the tensor core reads lo as tf32, dropping its low
+// 13 bits, ~2^-22 of v.  A product is then hi*hi + hi*lo + lo*hi (lo*lo,
+// ~2^-22 relative, is dropped).
+static __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                                  uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// ---------------------------------------------------------------------------
+// Tile loads into shared memory
+// ---------------------------------------------------------------------------
+
+// A ROWS x COLS tile of a row-major matrix (row stride ld elements; the
+// tile's origin at g; rlim valid rows and clim valid columns from it)
+// into shared memory with row stride SLD; everything out of range reads
+// as zero.  VEC: 16-byte cp.async chunks, which needs ld, the origin's
+// column and the base pointer 16-byte aligned (a chunk is then wholly in
+// or wholly out of range).  Otherwise element loads through registers,
+// for ragged or unaligned operands.
+template <typename T, int ROWS, int COLS, int SLD, int THREADS, bool VEC,
+          bool L2_256 = false>
+static __device__ __forceinline__ void load_tile(T* s, const T* g, long long ld,
+                                                 int rlim, int clim, int tid) {
+  if constexpr (VEC) {
+    constexpr int CE = 16 / sizeof(T);
+    constexpr int CPR = COLS / CE;
+    constexpr int TOTAL = ROWS * CPR;
 #pragma unroll
-      for (int u = 0; u < GMM_UNROLL; ++u)
-        load_row<T>(we + (long long)(k0 + kk + u * GMM_WARPS) * N, ncol, N, vec, wv[u]);
-#pragma unroll
-      for (int u = 0; u < GMM_UNROLL; ++u) {
-#pragma unroll
-        for (int r = 0; r < GMM_BM; ++r) {
-          const float xv = xs[r][kk + u * GMM_WARPS];
-#pragma unroll
-          for (int j = 0; j < GMM_NPT; ++j) acc[r][j] = fmaf(xv, wv[u][j], acc[r][j]);
-        }
+    for (int j = 0; j < (TOTAL + THREADS - 1) / THREADS; ++j) {
+      const int i = tid + j * THREADS;
+      if (TOTAL % THREADS == 0 || i < TOTAL) {
+        const int r = i / CPR, c = (i % CPR) * CE;
+        const bool ok = r < rlim && c < clim;
+        cp_async16<L2_256>(smem_u32(s + r * SLD + c), ok ? g + r * ld + c : g,
+                           ok);
       }
     }
-    for (; kk < kend; kk += GMM_WARPS) {
-      float wv[GMM_NPT];
-      load_row<T>(we + (long long)(k0 + kk) * N, ncol, N, vec, wv);
-#pragma unroll
-      for (int r = 0; r < GMM_BM; ++r) {
-        const float xv = xs[r][kk];
-#pragma unroll
-        for (int j = 0; j < GMM_NPT; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
-      }
+  } else {
+    for (int i = tid; i < ROWS * COLS; i += THREADS) {
+      const int r = i / COLS, c = i % COLS;
+      s[r * SLD + c] = (r < rlim && c < clim) ? g[r * ld + c] : from_f<T>(0.f);
     }
-    __syncthreads();
-  }
-
-  // Add the warps' partial sums in warp order, one C row at a time.
-#pragma unroll
-  for (int r = 0; r < GMM_BM; ++r) {
-#pragma unroll
-    for (int j = 0; j < GMM_NPT; ++j) red[warp][lane * GMM_NPT + j] = acc[r][j];
-    __syncthreads();
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < GMM_WARPS; ++q) s += red[q][threadIdx.x];
-    const int c = c0 + r, n = n0 + threadIdx.x;
-    if (c < C && n < N) out[(e * C + c) * N + n] = from_f<T>(epilogue(s, activation));
-    __syncthreads();
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tiled product: gmm_tile_kernel (forward layout) and
+// gmm_tile_bwd_kernel (transposed layouts).
+//
+// Replaces the TPU kernel repro/kernels/gmm.py::_gmm_kernel (l.232,
+// pallas_call in _gmm_raw) where C is large, and the products of its
+// custom VJP repro/kernels/gmm.py::_gmm_bwd (l.283), which run the same
+// kernel on swapped operands:
+//   dx = gmm(dz, w^T)   w stored [E, K, N], read as [E, N, K]   (TW)
+//   dw = gmm(x^T, dz)   x stored [E, C, K], read as [E, K, C]   (TX)
+// read in place: no transposed copy is made.
+//
+// Bound on the H100: operations.  Training MoE-256 gives C = 128 rows an
+// expert, 2*C flops per weight element; one step's expert FFN is 7
+// products of 34.4 GFLOP in f32.  The CUDA cores' f32 rate (67 TFLOP/s)
+// would hold each to 0.51 ms.  The tensor cores run TF32 at 495 TFLOP/s,
+// but TF32 keeps ~11 bits, far from the reference's f32; so f32 runs as
+// 3xTF32 (each operand split into hi + lo, three tensor-core products),
+// ~2^-21 relative per product, and its floor is 3 x 34.4 GFLOP at 495
+// TFLOP/s = 0.21 ms a product.  That rate is wgmma's; mma.sync, used
+// here, runs well below it (wgmma is this kernel's next redesign).
+// bf16 operands go to the bf16 mma.
+//
+// Design: a block computes a 128 x 64 output tile of one expert with 4
+// warps (2 x 2), each a 64 x 32 warp tile of 4 x 4 mma tiles; three
+// blocks share an SM, which leaves each thread 168 registers, enough for
+// the 3xTF32 fragments without spills.  K moves in slabs of 64 bytes
+// (16 f32 / 32 bf16) through a 3-stage cp.async ring, one barrier a
+// slab.  Each operand lands in shared memory in its stored layout (its
+// contiguous dimension along the shared row, padded one 16-byte chunk
+// or 8 elements against bank conflicts), so both stored layouts load
+// with 16-byte accesses along their contiguous dimension; fragments
+// come out with ldmatrix (.trans where the stored layout is the
+// fragment's transpose) for bf16, with ldmatrix or conflict-free 32-bit
+// loads for f32.  Ragged M / N / K edges are zero-filled in the loads
+// and masked at the store: no padding copies.  Rows past rows[e] are
+// neither loaded nor multiplied (16-row tiles past it are skipped).
+// ---------------------------------------------------------------------------
+
+#define GT_WARPS_M 2
+#define GT_WARPS_N 2
+#define GT_BM (64 * GT_WARPS_M)
+#define GT_BN (32 * GT_WARPS_N)
+#define GT_STAGES 3
+#define GT_MIN_BLOCKS 3
+#define GT_THREADS (32 * GT_WARPS_M * GT_WARPS_N)
+#define GT_MT 4   // m16 tiles per warp
+#define GT_NT 4   // n8 tiles per warp
+
 template <typename T>
-static int run_gmm(const void* x, const void* w, void* out, int E, int C,
-                   int K, int N, int activation, cudaStream_t stream) {
-  if (E == 0 || C == 0 || N == 0) return 0;
-  const bool vec = N % GMM_NPT == 0 && aligned16(w);
-  const dim3 grid((N + GMM_BN - 1) / GMM_BN, (C + GMM_BM - 1) / GMM_BM, E);
-  gmm_kernel<T><<<grid, GMM_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
-      C, K, N, activation, vec);
+struct TileShape {
+  static constexpr int BK = 64 / sizeof(T);          // K per slab
+  static constexpr int LD_K = BK + 16 / sizeof(T);   // [BM or BN rows][BK]
+  static constexpr int LD_WA = GT_BM + 8;            // [BK rows][BM]
+  static constexpr int LD_WB = GT_BN + 8;            // [BK rows][BN]
+};
+
+template <typename T, bool TX, bool TW>
+struct TileSmem {
+  using S = TileShape<T>;
+  static constexpr int A = TX ? S::BK * S::LD_WA : GT_BM * S::LD_K;
+  static constexpr int B = TW ? GT_BN * S::LD_K : S::BK * S::LD_WB;
+  static constexpr int STAGE = A + B;
+  static constexpr int BYTES = GT_STAGES * STAGE * (int)sizeof(T);
+};
+
+// One slab of f32 on the tensor cores, 3xTF32.  For each output tile
+// the slab's products (2 k8 steps x 3) start from a zero accumulator
+// and are added to the f32 sum with an ordinary (round-to-nearest) add:
+// the tensor cores' own accumulation does not round to nearest, and
+// summed into one accumulator its error grows with the number of
+// additions at the sum's magnitude (3K/8 of them over K), far past
+// f32's at K = 1024.  Fragments of an operand stored with k contiguous
+// ([m][k] / [n][k]) come out with ldmatrix (an 8 x 8 b16 matrix is 8
+// rows of 4 f32, and lane l receives row l/4, f32 column l%4: the tf32
+// fragment's layout); the others with conflict-free 32-bit loads.
+template <bool TX, bool TW>
+static __device__ __forceinline__ void tile_slab(const float* As,
+                                                 const float* Bs,
+                                                 float acc[GT_MT][GT_NT][4],
+                                                 int wm, int wn, int lane,
+                                                 int mrows) {
+  using S = TileShape<float>;
+  constexpr int KS = S::BK / 8;   // k8 steps per slab
+  if (mrows <= 0) return;         // none of this warp's rows count
+  const int g = lane >> 2, t = lane & 3, q = lane >> 3, r = lane & 7;
+  uint32_t bh[KS][GT_NT][2], bl[KS][GT_NT][2];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int jj = 0; jj < GT_NT / 2; ++jj) {
+      const int nb = wn * 32 + jj * 16, kk = ks * 8;
+      float v[4];   // b0, b1 of n-tile 2jj, then of 2jj + 1
+      if (TW) {     // stored [n][k]
+        uint32_t u[4];
+        ldsm_x4(u, smem_u32(Bs + (nb + r + (q >> 1) * 8) * S::LD_K + kk +
+                            (q & 1) * 4));
+#pragma unroll
+        for (int z = 0; z < 4; ++z) v[z] = __uint_as_float(u[z]);
+      } else {      // stored [k][n]
+#pragma unroll
+        for (int z = 0; z < 4; ++z)
+          v[z] = Bs[(kk + t + (z & 1) * 4) * S::LD_WB + nb + (z >> 1) * 8 + g];
+      }
+#pragma unroll
+      for (int z = 0; z < 4; ++z)
+        split_tf32(v[z], bh[ks][2 * jj + (z >> 1)][z & 1],
+                   bl[ks][2 * jj + (z >> 1)][z & 1]);
+    }
+#pragma unroll
+  for (int i = 0; i < GT_MT; ++i) {
+    if (i * 16 >= mrows) break;   // rows past rows[e]: nothing to add
+    const int mb = wm * 64 + i * 16;
+    uint32_t ah[KS][4], al[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int kk = ks * 8;
+      float a[4];   // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+      if (TX) {     // stored [k][m]
+#pragma unroll
+        for (int z = 0; z < 4; ++z)
+          a[z] = As[(kk + t + (z >> 1) * 4) * S::LD_WA + mb + g + (z & 1) * 8];
+      } else {      // stored [m][k]
+        uint32_t u[4];
+        ldsm_x4(u, smem_u32(As + (mb + r + (q & 1) * 8) * S::LD_K + kk +
+                            (q >> 1) * 4));
+#pragma unroll
+        for (int z = 0; z < 4; ++z) a[z] = __uint_as_float(u[z]);
+      }
+#pragma unroll
+      for (int z = 0; z < 4; ++z) split_tf32(a[z], ah[ks][z], al[ks][z]);
+    }
+#pragma unroll
+    for (int j = 0; j < GT_NT; ++j) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        mma_tf32(d, al[ks], bh[ks][j][0], bh[ks][j][1]);
+        mma_tf32(d, ah[ks], bl[ks][j][0], bl[ks][j][1]);
+        mma_tf32(d, ah[ks], bh[ks][j][0], bh[ks][j][1]);
+      }
+#pragma unroll
+      for (int z = 0; z < 4; ++z) acc[i][j][z] += d[z];
+    }
+  }
+}
+
+// One slab of bf16 on the tensor cores.
+template <bool TX, bool TW>
+static __device__ __forceinline__ void tile_slab(const __nv_bfloat16* As,
+                                                 const __nv_bfloat16* Bs,
+                                                 float acc[GT_MT][GT_NT][4],
+                                                 int wm, int wn, int lane,
+                                                 int mrows) {
+  using S = TileShape<__nv_bfloat16>;
+  if (mrows <= 0) return;         // none of this warp's rows count
+  const int q = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < S::BK; kk += 16) {
+    uint32_t a[GT_MT][4], b[GT_NT][2];
+#pragma unroll
+    for (int i = 0; i < GT_MT; ++i) {
+      const int mb = wm * 64 + i * 16;
+      if (TX)   // stored [k][m]: the fragment's transpose
+        ldsm_x4_t(a[i], smem_u32(As + (kk + r + (q >> 1) * 8) * S::LD_WA + mb +
+                                 (q & 1) * 8));
+      else
+        ldsm_x4(a[i], smem_u32(As + (mb + r + (q & 1) * 8) * S::LD_K + kk +
+                               (q >> 1) * 8));
+    }
+#pragma unroll
+    for (int jj = 0; jj < GT_NT / 2; ++jj) {
+      const int nb = wn * 32 + jj * 16;
+      uint32_t v[4];
+      if (TW)   // stored [n][k]
+        ldsm_x4(v, smem_u32(Bs + (nb + r + (q >> 1) * 8) * S::LD_K + kk +
+                            (q & 1) * 8));
+      else      // stored [k][n]
+        ldsm_x4_t(v, smem_u32(Bs + (kk + r + (q & 1) * 8) * S::LD_WB + nb +
+                              (q >> 1) * 8));
+      b[2 * jj][0] = v[0];
+      b[2 * jj][1] = v[1];
+      b[2 * jj + 1][0] = v[2];
+      b[2 * jj + 1][1] = v[3];
+    }
+#pragma unroll
+    for (int i = 0; i < GT_MT; ++i) {
+      if (i * 16 >= mrows) break;   // rows past rows[e]: nothing to add
+#pragma unroll
+      for (int j = 0; j < GT_NT; ++j)
+        mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+}
+
+template <typename T, bool TX, bool TW, bool VEC>
+static __device__ __forceinline__ void tile_body(const T* __restrict__ x,
+                                                 const T* __restrict__ w,
+                                                 T* __restrict__ out,
+                                                 const int* __restrict__ rows,
+                                                 int M, int K, int N,
+                                                 int activation) {
+  using S = TileShape<T>;
+  using Sm = TileSmem<T, TX, TW>;
+  extern __shared__ __align__(16) unsigned char gmm_smem[];
+  T* smem = reinterpret_cast<T*>(gmm_smem);
+  const int n0 = blockIdx.x * GT_BN;
+  const int m0 = blockIdx.y * GT_BM;
+  const long long e = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / GT_WARPS_N, wn = warp % GT_WARPS_N;
+  // rows[e] bounds x's rows (its stored dimension 1): the output rows
+  // (forward, TW) or the reduction (TX).
+  const int lim = rows ? max(rows[e], 0) : (TX ? K : M);
+  const int Me = TX ? M : min(M, lim);
+  const int Ke = TX ? min(K, lim) : K;
+  T* oe = out + e * M * N;
+  if (m0 >= Me) {   // no filled row in this tile: zeros, nothing read
+    for (int i = tid; i < GT_BM * GT_BN; i += GT_THREADS) {
+      const int m = m0 + i / GT_BN, n = n0 + i % GT_BN;
+      if (m < M && n < N) oe[(long long)m * N + n] = from_f<T>(0.f);
+    }
+    return;
+  }
+  const T* xe = x + e * M * K;
+  const T* we = w + e * K * N;
+
+  auto load_slab = [&](int stage, int kt) {
+    T* As = smem + stage * Sm::STAGE;
+    T* Bs = As + Sm::A;
+    const int k0 = kt * S::BK;
+    if (TX)
+      load_tile<T, S::BK, GT_BM, S::LD_WA, GT_THREADS, VEC>(
+          As, xe + (long long)k0 * M + m0, M, Ke - k0, Me - m0, tid);
+    else
+      load_tile<T, GT_BM, S::BK, S::LD_K, GT_THREADS, VEC>(
+          As, xe + (long long)m0 * K + k0, K, Me - m0, Ke - k0, tid);
+    if (TW)
+      load_tile<T, GT_BN, S::BK, S::LD_K, GT_THREADS, VEC>(
+          Bs, we + (long long)n0 * K + k0, K, N - n0, Ke - k0, tid);
+    else
+      load_tile<T, S::BK, GT_BN, S::LD_WB, GT_THREADS, VEC>(
+          Bs, we + (long long)k0 * N + n0, N, Ke - k0, N - n0, tid);
+  };
+
+  float acc[GT_MT][GT_NT][4];
+#pragma unroll
+  for (int i = 0; i < GT_MT; ++i)
+#pragma unroll
+    for (int j = 0; j < GT_NT; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+
+  const int nk = (Ke + S::BK - 1) / S::BK;
+  const int mrows = Me - m0 - wm * 64;   // this warp's rows that count
+#pragma unroll
+  for (int s = 0; s < GT_STAGES - 1; ++s) {
+    if (s < nk) load_slab(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<GT_STAGES - 2>();
+    __syncthreads();   // slab kt landed; slab kt-1's stage is free
+    const int next = kt + GT_STAGES - 1;
+    if (next < nk) load_slab(next % GT_STAGES, next);
+    cp_async_commit();
+    const T* As = smem + (kt % GT_STAGES) * Sm::STAGE;
+    tile_slab<TX, TW>(As, As + Sm::A, acc, wm, wn, lane, mrows);
+  }
+  cp_async_wait<0>();
+
+  // acc[i][j] = rows (g, g+8) x columns (2t, 2t+1) of mma tile (i, j).
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < GT_MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 64 + i * 16 + g + h * 8;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < GT_NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int n = n0 + wn * 32 + j * 8 + 2 * t + c;
+          if (n < N)
+            oe[(long long)m * N + n] = from_f<T>(
+                m < Me ? epilogue(acc[i][j][2 * h + c], activation) : 0.f);
+        }
+    }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(GT_THREADS, GT_MIN_BLOCKS)
+gmm_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                T* __restrict__ out, const int* __restrict__ rows, int M,
+                int K, int N, int activation) {
+  tile_body<T, false, false, VEC>(x, w, out, rows, M, K, N, activation);
+}
+
+template <typename T, bool TX, bool TW, bool VEC>
+__global__ void __launch_bounds__(GT_THREADS, GT_MIN_BLOCKS)
+gmm_tile_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    T* __restrict__ out, const int* __restrict__ rows, int M,
+                    int K, int N, int activation) {
+  tile_body<T, TX, TW, VEC>(x, w, out, rows, M, K, N, activation);
+}
+
+// Opt a kernel into more than 48 KB of dynamic shared memory and the
+// largest shared-memory carveout, once per instantiation.
+template <typename Kernel>
+static cudaError_t allow_smem(Kernel kernel, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <typename T, bool TX, bool TW, bool VEC>
+static int run_tile(const void* x, const void* w, void* out, const int* rows,
+                    int E, int M, int K, int N, int activation,
+                    cudaStream_t stream) {
+  constexpr int bytes = TileSmem<T, TX, TW>::BYTES;
+  const dim3 grid((N + GT_BN - 1) / GT_BN, (M + GT_BM - 1) / GT_BM, E);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* op = static_cast<T*>(out);
+  if constexpr (!TX && !TW) {
+    static const cudaError_t ready = allow_smem(gmm_tile_kernel<T, VEC>, bytes);
+    if (ready != cudaSuccess) return (int)ready;
+    gmm_tile_kernel<T, VEC><<<grid, GT_THREADS, bytes, stream>>>(
+        xp, wp, op, rows, M, K, N, activation);
+  } else {
+    static const cudaError_t ready =
+        allow_smem(gmm_tile_bwd_kernel<T, TX, TW, VEC>, bytes);
+    if (ready != cudaSuccess) return (int)ready;
+    gmm_tile_bwd_kernel<T, TX, TW, VEC><<<grid, GT_THREADS, bytes, stream>>>(
+        xp, wp, op, rows, M, K, N, activation);
+  }
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Transposed operand layouts: the backward pass of the TPU kernel's
-// custom VJP (repro/kernels/gmm.py::_gmm_bwd, l.283), which runs the
-// same kernel on swapped operands:
-//   dx = gmm(dz, w^T)   w stored [E, K, N], read as [E, N, K]   (TW = 1)
-//   dw = gmm(x^T, dz)   x stored [E, C, K], read as [E, K, C]   (TX = 1)
-// The operands are read in place through the layout flags: no
-// transposed copy is ever made (one transposed weight is 1 GB at the
-// paper's MoE-256 and 33.8 GB at kimi-k2).
+// The streaming product: gmm_stream_kernel (bf16, forward layout, C <= 64).
 //
-// Bound on the H100: operations.  In training C = 128 rows per expert,
-// so the work is 2*C flops per weight element and the products are
-// compute-bound: one step's expert FFN at MoE-256 is 7 launches of
-// about 34 GFLOP, 0.5 ms each at the f32 rate of the CUDA cores
-// (67 TFLOP/s).  Design, simple first: a classic shared-memory tiled
-// matmul.  A block computes a 64 x 64 output tile of one expert with 256
-// threads, 4 x 4 outputs per thread; each 16-deep K slab of both
-// operands is staged in shared memory as f32, loaded so that
-// neighbouring threads read neighbouring addresses whichever dimension
-// of the stored operand is contiguous.  Each output is one thread's f32
-// FMA chain over K in ascending order (exact f32, never TF32; bf16 is
-// widened exactly first), so the result is deterministic.  Ragged edges
-// are masked with zeros.  Tensor cores (wgmma) are later work.
-#define GT_BM 64
-#define GT_BN 64
-#define GT_BK 16
-#define GT_THREADS 256
-#define GT_PAD 4
+// Replaces the TPU kernel repro/kernels/gmm.py::_gmm_kernel (l.232,
+// pallas_call in _gmm_raw) on the serving path, where it tiled (E, C, N,
+// K) on the 128x128 MXU with C zero-padded to the tile.
+//
+// Bound on the H100: bytes.  Serving gives C = 8 rows an expert (decode
+// and the prefill buckets: capacity_for rounds up to 8), 2*C flops per
+// weight element, so the card's least time is that of reading every
+// weight once: 11.3 GB a call, 3.4 ms, at kimi-k2 over all 384 experts;
+// over only the experts that hold a token (rows), far less.
+//
+// Design: operands swapped so that C is the mma's N dimension:
+// out^T[N, C] = W^T[N, K] x^T[K, C].  The weight tile is the 16-row A
+// operand, loaded with ldmatrix.trans straight from W's stored [K, N]
+// rows; the C rows of x are the n = 8 B operand (C above 8 loops n8
+// tiles over the same weight tile).  So the arithmetic runs on the
+// tensor cores and the kernel is held by bytes alone.  A block (8
+// warps) owns one expert and 256 output columns over all of K and
+// streams 64 x 256 weight slabs (32 KB) with x's matching 64-wide chunk
+// through a 4-stage cp.async ring: each weight element is read once,
+// with 16-byte accesses that ask L2 for 256 bytes around them (each
+// slab row is 512 contiguous bytes), and up to three slabs are in
+// flight per block.  Each warp owns 32 columns; no reduction across
+// warps.  An expert with rows[e] == 0 writes zeros and reads nothing;
+// n8 tiles at or beyond rows[e] are skipped.
+// ---------------------------------------------------------------------------
 
-template <typename T, bool TX, bool TW>
-__global__ void __launch_bounds__(GT_THREADS)
-gmm_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 T* __restrict__ out, int M, int K, int N, int activation) {
-  __shared__ __align__(16) float As[GT_BK][GT_BM + GT_PAD];
-  __shared__ __align__(16) float Bs[GT_BK][GT_BN + GT_PAD];
-  const int n0 = blockIdx.x * GT_BN;
-  const int m0 = blockIdx.y * GT_BM;
-  const long long e = blockIdx.z;
-  const T* xe = x + e * M * K;
+#define GS_BN 256   // columns per block, one warp per 32
+#define GS_STAGES 4
+#define GS_BK 64
+#define GS_THREADS GS_BN
+#define GS_LD_W (GS_BN + 8)
+#define GS_LD_X (GS_BK + 8)
+
+template <int NC>
+struct StreamSmem {
+  static constexpr int W = GS_BK * GS_LD_W;
+  static constexpr int X = NC * 8 * GS_LD_X;
+  static constexpr int STAGE = W + X;
+  static constexpr int BYTES = GS_STAGES * STAGE * 2;
+};
+
+template <int NC, bool VEC>
+__global__ void __launch_bounds__(GS_THREADS)
+gmm_stream_kernel(const __nv_bfloat16* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ w,
+                  __nv_bfloat16* __restrict__ out,
+                  const int* __restrict__ rows, int C, int K, int N,
+                  int activation) {
+  using T = __nv_bfloat16;
+  using Sm = StreamSmem<NC>;
+  extern __shared__ __align__(16) unsigned char gmm_smem[];
+  T* smem = reinterpret_cast<T*>(gmm_smem);
+  const int n0 = blockIdx.x * GS_BN;
+  const long long e = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Ce = rows ? min(C, max(rows[e], 0)) : C;
+  T* oe = out + e * C * N;
+  if (Ce == 0) {   // an expert with no token: zeros, no weight read
+    for (int i = tid; i < C * GS_BN; i += GS_THREADS) {
+      const int c = i / GS_BN, n = n0 + i % GS_BN;
+      if (n < N) oe[(long long)c * N + n] = from_f<T>(0.f);
+    }
+    return;
+  }
+  const int nct = (Ce + 7) / 8;   // n8 tiles of x in use
+  const T* xe = x + e * C * K;
   const T* we = w + e * K * N;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  auto load_slab = [&](int stage, int kt) {
+    T* Ws = smem + stage * Sm::STAGE;
+    T* Xs = Ws + Sm::W;
+    const int k0 = kt * GS_BK;
+    load_tile<T, GS_BK, GS_BN, GS_LD_W, GS_THREADS, VEC, true>(
+        Ws, we + (long long)k0 * N + n0, N, K - k0, N - n0, tid);
+    load_tile<T, NC * 8, GS_BK, GS_LD_X, GS_THREADS, VEC>(
+        Xs, xe + k0, K, Ce, K - k0, tid);
+  };
 
-  for (int k0 = 0; k0 < K; k0 += GT_BK) {
+  float acc[2][NC][4];
 #pragma unroll
-    for (int r = 0; r < (GT_BM * GT_BK) / GT_THREADS; ++r) {
-      const int l = tid + r * GT_THREADS;
-      int m, kk;
-      if (TX) { kk = l / GT_BM; m = l % GT_BM; }   // stored [K, M]: m contiguous
-      else    { m = l / GT_BK; kk = l % GT_BK; }   // stored [M, K]: k contiguous
-      const int mg = m0 + m, kg = k0 + kk;
-      float v = 0.f;
-      if (mg < M && kg < K)
-        v = to_f<T>(TX ? xe[(long long)kg * M + mg] : xe[(long long)mg * K + kg]);
-      As[kk][m] = v;
-    }
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int r = 0; r < (GT_BN * GT_BK) / GT_THREADS; ++r) {
-      const int l = tid + r * GT_THREADS;
-      int n, kk;
-      if (TW) { n = l / GT_BK; kk = l % GT_BK; }   // stored [N, K]: k contiguous
-      else    { kk = l / GT_BN; n = l % GT_BN; }   // stored [K, N]: n contiguous
-      const int ng = n0 + n, kg = k0 + kk;
-      float v = 0.f;
-      if (ng < N && kg < K)
-        v = to_f<T>(TW ? we[(long long)ng * K + kg] : we[(long long)kg * N + ng]);
-      Bs[kk][n] = v;
-    }
-    __syncthreads();
+    for (int j = 0; j < NC; ++j)
 #pragma unroll
-    for (int kk = 0; kk < GT_BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+
+  const int q = lane >> 3, r = lane & 7;
+  const int g = lane >> 2, t = lane & 3;
+  const int nk = (K + GS_BK - 1) / GS_BK;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < GS_STAGES - 1; ++s) {
+    if (s < nk) load_slab(s, s);
+    cp_async_commit();
   }
-
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<GS_STAGES - 2>();
+    __syncthreads();
+    const int next = kt + GS_STAGES - 1;
+    if (next < nk) load_slab(next % GS_STAGES, next);
+    cp_async_commit();
+    const T* Ws = smem + (kt % GS_STAGES) * Sm::STAGE;
+    const T* Xs = Ws + Sm::W;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
+    for (int kk = 0; kk < GS_BK; kk += 16) {
+      uint32_t a[2][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) out[(e * M + m) * N + n] = from_f<T>(epilogue(acc[i][j], activation));
+      for (int i = 0; i < 2; ++i)   // A = W^T: W's rows are the k axis
+        ldsm_x4_t(a[i], smem_u32(Ws + (kk + r + (q >> 1) * 8) * GS_LD_W +
+                                 warp * 32 + i * 16 + (q & 1) * 8));
+#pragma unroll
+      for (int ct = 0; ct < NC; ++ct) {
+        if (ct < nct) {   // B = x^T: x's row c holds column c
+          const T* xr = Xs + (ct * 8 + g) * GS_LD_X + kk + 2 * t;
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 8);
+          mma_bf16(acc[0][ct], a[0], b0, b1);
+          mma_bf16(acc[1][ct], a[1], b0, b1);
+        }
+      }
     }
   }
+  cp_async_wait<0>();
+
+  // acc[i][ct] = out^T rows n (g, g+8) x columns c (2t, 2t+1).
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int ct = 0; ct < NC; ++ct)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int n = n0 + warp * 32 + i * 16 + g + (v >> 1) * 8;
+        const int c = ct * 8 + 2 * t + (v & 1);
+        if (c < C && n < N)
+          oe[(long long)c * N + n] = from_f<T>(
+              c < Ce ? epilogue(acc[i][ct][v], activation) : 0.f);
+      }
 }
 
-template <typename T, bool TX, bool TW>
-static int run_gmm_tiled(const void* x, const void* w, void* out, int E,
-                         int M, int K, int N, int activation,
-                         cudaStream_t stream) {
-  if (E == 0 || M == 0 || N == 0) return 0;
-  const dim3 grid((N + GT_BN - 1) / GT_BN, (M + GT_BM - 1) / GT_BM, E);
-  gmm_tiled_kernel<T, TX, TW><<<grid, GT_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
-      M, K, N, activation);
+template <int NC, bool VEC>
+static int run_stream(const void* x, const void* w, void* out, const int* rows,
+                      int E, int C, int K, int N, int activation,
+                      cudaStream_t stream) {
+  constexpr int bytes = StreamSmem<NC>::BYTES;
+  static const cudaError_t ready =
+      allow_smem(gmm_stream_kernel<NC, VEC>, bytes);
+  if (ready != cudaSuccess) return (int)ready;
+  const dim3 grid((N + GS_BN - 1) / GS_BN, E);
+  gmm_stream_kernel<NC, VEC><<<grid, GS_THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
+      rows, C, K, N, activation);
   return (int)cudaGetLastError();
 }
 
+template <bool VEC>
+static int dispatch_stream(const void* x, const void* w, void* out,
+                           const int* rows, int E, int C, int K, int N,
+                           int activation, cudaStream_t stream) {
+  if (C <= 8) return run_stream<1, VEC>(x, w, out, rows, E, C, K, N, activation, stream);
+  if (C <= 16) return run_stream<2, VEC>(x, w, out, rows, E, C, K, N, activation, stream);
+  if (C <= 32) return run_stream<4, VEC>(x, w, out, rows, E, C, K, N, activation, stream);
+  return run_stream<8, VEC>(x, w, out, rows, E, C, K, N, activation, stream);
+}
+
+template <typename T, bool VEC>
+static int dispatch_tile(const void* x, const void* w, void* out,
+                         const int* rows, int E, int C, int K, int N,
+                         int activation, int trans_x, int trans_w,
+                         cudaStream_t stream) {
+  if (trans_x)
+    return run_tile<T, true, false, VEC>(x, w, out, rows, E, C, K, N, activation, stream);
+  if (trans_w)
+    return run_tile<T, false, true, VEC>(x, w, out, rows, E, C, K, N, activation, stream);
+  return run_tile<T, false, false, VEC>(x, w, out, rows, E, C, K, N, activation, stream);
+}
+
 template <typename T>
-static int dispatch_gmm(const void* x, const void* w, void* out, int E, int C,
-                        int K, int N, int activation, int trans_x, int trans_w,
+static int dispatch_gmm(const void* x, const void* w, void* out,
+                        const int* rows, int E, int C, int K, int N,
+                        int activation, int trans_x, int trans_w, int kernel,
                         cudaStream_t stream) {
-  // Both flags 0: the weight-streaming kernel above, unchanged.  The
-  // backward pass never reads both operands transposed.
-  if (!trans_x && !trans_w) return run_gmm<T>(x, w, out, E, C, K, N, activation, stream);
-  if (trans_x && trans_w) return (int)cudaErrorInvalidValue;
-  if (trans_x) return run_gmm_tiled<T, true, false>(x, w, out, E, C, K, N, activation, stream);
-  return run_gmm_tiled<T, false, true>(x, w, out, E, C, K, N, activation, stream);
+  if (E == 0 || C == 0 || N == 0) return 0;
+  // 16-byte chunks need each operand's contiguous dimension to be a
+  // whole number of chunks and both bases aligned.
+  constexpr int CE = 16 / sizeof(T);
+  const int x_inner = trans_x ? C : K, w_inner = trans_w ? K : N;
+  const bool vec = x_inner % CE == 0 && w_inner % CE == 0 && aligned16(x) &&
+                   aligned16(w);
+  if (kernel == GMM_STREAM) {
+    if constexpr (sizeof(T) == 2) {
+      return vec ? dispatch_stream<true>(x, w, out, rows, E, C, K, N, activation, stream)
+                 : dispatch_stream<false>(x, w, out, rows, E, C, K, N, activation, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  return vec ? dispatch_tile<T, true>(x, w, out, rows, E, C, K, N, activation,
+                                      trans_x, trans_w, stream)
+             : dispatch_tile<T, false>(x, w, out, rows, E, C, K, N, activation,
+                                       trans_x, trans_w, stream);
 }
 
 // x is [E, C, K] (trans_x = 0) or stored [E, K, C] (trans_x = 1); w is
 // [E, K, N] (trans_w = 0) or stored [E, N, K] (trans_w = 1), at most one
 // of the two transposed; out is [E, C, N].  E, C, K, N are the logical
-// sizes.
-extern "C" int repro_gmm(const void* x, const void* w, void* out, int E,
-                         int C, int K, int N, int activation, int dtype,
-                         int trans_x, int trans_w, cudaStream_t stream) {
+// sizes.  rows is null or [E] int32: x's rows (its stored dimension 1)
+// at or beyond rows[e] are taken as zero and not read.  kernel is
+// GMM_STREAM (bf16, forward layout, C <= GMM_STREAM_MAX_C) or GMM_TILE.
+extern "C" int repro_gmm(const void* x, const void* w, void* out,
+                         const int* rows, int E, int C, int K, int N,
+                         int activation, int dtype, int trans_x, int trans_w,
+                         int kernel, cudaStream_t stream) {
+  const bool transposed = trans_x || trans_w;
   if (E < 0 || C < 0 || K < 0 || N < 0 || E > 65535 || activation < GMM_NONE ||
-      activation > GMM_SILU)
+      activation > GMM_SILU || (trans_x && trans_w))
+    return (int)cudaErrorInvalidValue;
+  if (kernel == GMM_STREAM &&
+      (dtype != REPRO_BF16 || transposed || C > GMM_STREAM_MAX_C))
+    return (int)cudaErrorInvalidValue;
+  if (kernel != GMM_STREAM && kernel != GMM_TILE)
     return (int)cudaErrorInvalidValue;
   if (dtype == REPRO_F32)
-    return dispatch_gmm<float>(x, w, out, E, C, K, N, activation, trans_x, trans_w, stream);
+    return dispatch_gmm<float>(x, w, out, rows, E, C, K, N, activation, trans_x,
+                               trans_w, kernel, stream);
   if (dtype == REPRO_BF16)
-    return dispatch_gmm<__nv_bfloat16>(x, w, out, E, C, K, N, activation, trans_x,
-                                       trans_w, stream);
+    return dispatch_gmm<__nv_bfloat16>(x, w, out, rows, E, C, K, N, activation,
+                                       trans_x, trans_w, kernel, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -53,7 +53,9 @@ class KernelBackend:
     ``topk_impl`` is None for the sort-based top-k, else ``(noisy, k,
     kk) -> (combine [T,k], idx [T,k], raw top values [T,kk])``."""
     name: str
-    expert_ffn: Callable     # (params, x, a) -> [E, C, d]
+    # (params, x, a, *, rows=None) -> [E, C, d]; rows [E] int32: each
+    # expert's filled leading rows (core/dispatch.py::filled_rows).
+    expert_ffn: Callable
     dispatch: Callable       # (x, plan, a) -> [E, C, d]
     combine: Callable        # (buf, plan, a, *, dtype=None) -> [T, d]
     gmm: Callable            # (x [E,C,K], w [E,K,N], a) -> [E, C, N]
@@ -109,7 +111,7 @@ def _decode_step_via(bk: KernelBackend, params, x, a, *, mask=None):
     router = router_lib.build(a, topk_impl=bk.topk_impl)
     dec = router.route(params, x, train=False, mask=mask)
     buf = bk.dispatch(x, dec, a)
-    out = bk.expert_ffn(params, buf, a)
+    out = bk.expert_ffn(params, buf, a, rows=dec.rows)
     return bk.combine(out, dec, a, dtype=x.dtype), dec.telemetry
 
 
@@ -125,10 +127,11 @@ def _decode_proj_via(bk: KernelBackend, x, w, plan_in, plan_out, a, *,
 # "ref" — plain PyTorch
 # ---------------------------------------------------------------------------
 
-def _ref_expert_ffn(params, x, a):
+def _ref_expert_ffn(params, x, a, *, rows=None):
     """The reference's order of roundings: f32 up-projections, the gate
     product in f32, one cast, the f32 down-projection, one cast.  Walked
-    over expert chunks so weights are upcast a chunk at a time."""
+    over expert chunks so weights are upcast a chunk at a time.  Rows at
+    or beyond ``rows[e]`` come out as zeros, as on the kernel path."""
     dt = a.dtype
     e = x.shape[0]
     out = torch.empty((e, x.shape[1], params["w2"].shape[-1]), dtype=dt,
@@ -145,7 +148,7 @@ def _ref_expert_ffn(params, x, a):
             h = torch.relu(h)
         h = h.to(dt).float()
         out[sl] = torch.bmm(h, params["w2"][sl].to(dt).float()).to(dt)
-    return out
+    return gmm_lib.mask_rows(out, rows)
 
 
 def _ref_dispatch(x, p, a):
@@ -195,8 +198,8 @@ def plan_e_block(a) -> int | None:
     return forced
 
 
-def _cuda_expert_ffn(params, x, a):
-    return ops.expert_ffn(params, x, activation=a.activation)
+def _cuda_expert_ffn(params, x, a, *, rows=None):
+    return ops.expert_ffn(params, x, activation=a.activation, rows=rows)
 
 
 def _cuda_dispatch(x, p, a):

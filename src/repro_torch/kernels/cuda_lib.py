@@ -50,8 +50,9 @@ SIGNATURES = {
     # stream
     "repro_combine_eblock": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P),
-    # x, w, out, E, C, K, N, activation, dtype, trans_x, trans_w, stream
-    "repro_gmm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, out, rows, E, C, K, N, activation, dtype, trans_x, trans_w,
+    # kernel, stream
+    "repro_gmm": (_P, _P, _P, _P) + (_I,) * 9 + (_P,),
     # decode, T_in, k_in, d_in, d_out, f, E, C, mode, activation, dtype,
     # out bytes (a query: no stream)
     "repro_fused_workspace_bytes": (_I,) * 11 + (_P,),

@@ -38,28 +38,30 @@ def combine(buf: torch.Tensor, w: torch.Tensor, eidx: torch.Tensor,
                            e_block)
 
 
-def gmm(x: torch.Tensor, w: torch.Tensor, *,
-        activation: str = "none") -> torch.Tensor:
-    return GMMFn.apply(x, w, activation)
+def gmm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
+        rows: torch.Tensor | None = None) -> torch.Tensor:
+    return GMMFn.apply(x, w, activation, rows)
 
 
-def expert_ffn(params, x: torch.Tensor, *,
-               activation: str = "relu") -> torch.Tensor:
+def expert_ffn(params, x: torch.Tensor, *, activation: str = "relu",
+               rows: torch.Tensor | None = None) -> torch.Tensor:
     """Up-projection GMM (+ fused activation), then the down-projection.
 
     x: [E, C, d]; params carries w1 [E,d,f], w2 [E,f,d] (w3 for swiglu).
     swiglu is silu(x w1) * (x w3): two GMMs, the product in f32, one
-    cast — the reference's order of roundings."""
+    cast — the reference's order of roundings.  ``rows`` ([E] int32,
+    each expert's filled leading rows) goes to all three GMMs: the rest
+    come out as zeros without being computed."""
     dt = x.dtype
     w1 = params["w1"].to(dt)
     w2 = params["w2"].to(dt)
     if activation == "swiglu":
-        h = gmm(x, w1, activation="silu")
-        g = gmm(x, params["w3"].to(dt), activation="none")
+        h = gmm(x, w1, activation="silu", rows=rows)
+        g = gmm(x, params["w3"].to(dt), activation="none", rows=rows)
         h = (h.float() * g.float()).to(dt)
     else:
-        h = gmm(x, w1, activation="relu")
-    return gmm(h, w2, activation="none")
+        h = gmm(x, w1, activation="relu", rows=rows)
+    return gmm(h, w2, activation="none", rows=rows)
 
 
 def _inference_only(name: str, *tensors) -> None:

@@ -70,6 +70,107 @@ def test_gmm_kernel_matches_plain(gen, dtype, tol, act):
                                    rtol=tol, atol=tol)
 
 
+def _kernels_for(dtype, c):
+    """The GMM kernels a forward call of this type and C may run."""
+    if dtype == torch.bfloat16 and c <= tgmm.STREAM_MAX_C:
+        return ("stream", "tile")
+    return ("tile",)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("c", [1, 7, 8, 9, 16, 17, 128, 130])
+@pytest.mark.parametrize("k,n", [(75, 46), (64, 136)])
+def test_gmm_kernels_ragged_match_plain(gen, dtype, tol, c, k, n):
+    """Both GMM kernels (the streaming one where it applies) against the
+    plain version: C on both sides of the streaming / tiled threshold,
+    K and N off the 8 / 16 multiples (element loads) and on them
+    (16-byte cp.async); f32 runs 3xTF32 on the tiled kernel."""
+    e = 3
+    x = torch.randn(e, c, k, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(e, k, n, device="cuda", generator=gen)
+         / k ** 0.5).to(dtype)
+    for kernel in _kernels_for(dtype, c):
+        for act in sorted(tgmm.ACTIVATIONS):
+            torch.testing.assert_close(
+                tgmm.gmm(x, w, activation=act, kernel=kernel).float(),
+                tgmm.gmm_plain(x, w, act).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("c", [8, 17, 130])
+def test_gmm_rows_skip_exactly(gen, dtype, tol, c):
+    """rows with an empty, a partial and a full expert: rows past
+    rows[e] come out exactly 0, the rest as the plain version with the
+    same rows; on a buffer whose skipped rows are zero, the result is
+    bitwise that of the same kernel without rows."""
+    e, k, n = 4, 72, 136
+    rows = torch.tensor([0, c // 2, c, 1], dtype=torch.int32, device="cuda")
+    x = tgmm.mask_rows(torch.randn(e, c, k, device="cuda", generator=gen)
+                       .to(dtype), rows)
+    w = (torch.randn(e, k, n, device="cuda", generator=gen)
+         / k ** 0.5).to(dtype)
+    for kernel in _kernels_for(dtype, c):
+        for act in sorted(tgmm.ACTIVATIONS):
+            got = tgmm.gmm(x, w, activation=act, rows=rows, kernel=kernel)
+            for ex in range(e):
+                assert bool((got[ex, int(rows[ex]):] == 0).all())
+            torch.testing.assert_close(
+                got.float(), tgmm.gmm_plain(x, w, act, rows=rows).float(),
+                rtol=tol, atol=tol)
+            assert torch.equal(got, tgmm.gmm(x, w, activation=act,
+                                             kernel=kernel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("c", [8, 17, 130])
+def test_transposed_gmm_rows_match_plain(gen, dtype, tol, c):
+    """rows on the backward pass's layouts: dx = dz w^T (trans_w) has
+    zero rows past rows[e]; dw = x^T dz (trans_x) sums only the rows
+    before it.  Both against the plain version with the same rows, on
+    operands whose rows past rows[e] are not zero."""
+    e, k, n = 4, 72, 136
+    rows = torch.tensor([0, c // 2, c, 1], dtype=torch.int32, device="cuda")
+    dz = torch.randn(e, c, n, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(e, k, n, device="cuda", generator=gen)
+         / n ** 0.5).to(dtype)
+    x = (torch.randn(e, c, k, device="cuda", generator=gen)
+         / c ** 0.5).to(dtype)
+    dx = tgmm.gmm(dz, w, trans_w=True, rows=rows)
+    for ex in range(e):
+        assert bool((dx[ex, int(rows[ex]):] == 0).all())
+    torch.testing.assert_close(
+        dx.float(), tgmm.gmm_plain(dz, w, "none", False, True, rows).float(),
+        rtol=tol, atol=tol)
+    dw = tgmm.gmm(x, dz, trans_x=True, rows=rows)
+    torch.testing.assert_close(
+        dw.float(), tgmm.gmm_plain(x, dz, "none", True, False, rows).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_two_launches_bitwise_equal(gen, dtype):
+    """No split-K and no atomics: every kernel and layout repeats bit for
+    bit."""
+    e, c, k, n = 4, 40, 200, 264
+    x = torch.randn(e, c, k, device="cuda", generator=gen).to(dtype)
+    w = torch.randn(e, k, n, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(e, c, n, device="cuda", generator=gen).to(dtype)
+    for kernel in _kernels_for(dtype, c):
+        assert torch.equal(tgmm.gmm(x, w, kernel=kernel),
+                           tgmm.gmm(x, w, kernel=kernel))
+    assert torch.equal(tgmm.gmm(g, w, trans_w=True),
+                       tgmm.gmm(g, w, trans_w=True))
+    assert torch.equal(tgmm.gmm(x, g, trans_x=True),
+                       tgmm.gmm(x, g, trans_x=True))
+
+
 @pytest.mark.cuda
 def test_wrappers_count_launches(gen):
     cuda_lib.reset_launch_counts()
