@@ -40,7 +40,11 @@ Phases, in order; any failure exits non-zero and prints no result:
              backends; last-position logits must agree within a bf16
              tolerance.
 5. fused   — kernels 7 and 8 at full width on layer 0's weights against
-             their plain versions and timed; then the same 8 requests
+             their plain versions, each case repeated bitwise and timed:
+             kernel 7 with two dead slots and with all 8 live (a full
+             pool), kernel 8 on the expert_choice plan and on a 96-token
+             plan with more than 64 cells on some experts (two row
+             tiles); then the same 8 requests
              with ``fused_decode``: one kernel-7 launch per MoE layer per
              decode step and no top-k, dispatch, GMM or combine at
              decode; one decode step's logits against the unfused path;
@@ -1172,16 +1176,101 @@ def _used(eidx, pos, capacity: int) -> int:
     return int(torch.unique(eidx[pos < capacity]).numel())
 
 
+def _bitwise_repeat(what: str, fn) -> None:
+    """Two launches on the same inputs must give the same bits: the work
+    queue hands items to blocks in another order each run, and no sum
+    may depend on it."""
+    import torch
+    a, b = fn(), fn()
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    check(all(torch.equal(u, v) for u, v in zip(a, b)),
+          f"{what}: two launches on the same inputs differ")
+
+
+def _fused7_case(x, valid, wg, w1, w2, w3, k, cap, what) -> dict:
+    """Kernel 7 on one full-width layer: checked against its plain
+    version (load / overflow exact, y within bf16_tol), repeated
+    bitwise, timed beside its plain version, with its byte bound over
+    the experts this data uses, and beside kernel 8 on the same plan
+    (the difference is the gate, the routing and one grid barrier)."""
+    from repro_torch.kernels import fused_decode as fd
+    t, d = x.shape
+    e, f = wg.shape[1], w1.shape[-1]
+    args = (x, valid, wg, w1, w2, w3)
+    kw = dict(k=k, capacity=cap, activation="swiglu")
+    err, tol = check_fused_decode_case(*args, k, cap, "swiglu", bf16_tol)
+    _bitwise_repeat(f"fused_decode {what}", lambda: fd.decode_step(*args, **kw))
+    flat_e, flat_p, flat_w, _, _ = fd.route_plain(x, valid, wg, k, cap)
+    used = _used(flat_e, flat_p, cap)
+    rows = int((flat_p < cap).sum())
+    b, by = bound_ms(used * 3 * d * f * 2 + d * e * 4 + 2 * t * d * 2
+                     + t * 4 + 2 * e * 4,
+                     {"float32": 2 * t * d * e,
+                      "bfloat16": 2 * rows * 3 * d * f})
+    ms = cuda_ms(lambda: fd.decode_step(*args, **kw))
+    plain = cuda_ms(lambda: fd.decode_step_plain(*args, **kw))
+    # Phase split: kernel 8 over kernel 7's own plan does the same FFN
+    # and combine work without the gate, the routing and one barrier.
+    plan = [v.reshape(t, k).contiguous() for v in (flat_e, flat_p, flat_w)]
+    args8 = (x, plan[0], plan[1], *plan, w1, w2, w3)
+    kw8 = dict(n_experts=e, capacity=cap, mode="ffn", activation="swiglu")
+    ms8 = cuda_ms(lambda: fd.routed_apply(*args8, **kw8))
+    log(f"fused_decode full width [{t},{d}] E={e} f={f} k={k} C={cap} bf16 "
+        f"swiglu, {what}: load / overflow equal, two launches bitwise "
+        f"equal, max_abs_err {err:.3g} (tol {tol:.3g}); {used} experts "
+        f"used; {ms:.4g} ms (plain {plain:.4g}, bound {b:.4g}); kernel 8 "
+        f"on the same plan {ms8:.4g} ms")
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, used_experts=used,
+                phase_split={"kernel8_same_plan_ms": ms8,
+                             "gate_routing_barrier_ms": ms - ms8})
+
+
+def _fused8_case(x, p, w1, w2, w3, what) -> dict:
+    """Kernel 8 (FFN mode) on one full-width layer over the plan p,
+    in-plan = out-plan: checked against its plain version within
+    bf16_tol, repeated bitwise, timed, with its byte bound."""
+    from repro_torch.kernels import fused_decode as fd
+    t, d = x.shape
+    f = w1.shape[-1]
+    args = (x, p.expert_index, p.position, p.expert_index, p.position,
+            p.weight, w1, w2, w3)
+    kw = dict(n_experts=p.n_experts, capacity=p.capacity, mode="ffn",
+              activation="swiglu")
+    got, want = fd.routed_apply(*args, **kw), fd.routed_apply_plain(*args,
+                                                                    **kw)
+    err, tol = max_err(got, want), bf16_tol(want)
+    check(err <= tol, f"fused_routed full width, {what}: differs by {err} "
+                      f"> {tol}")
+    _bitwise_repeat(f"fused_routed {what}", lambda: fd.routed_apply(*args,
+                                                                    **kw))
+    used = _used(p.expert_index, p.position, p.capacity)
+    rows = int((p.position < p.capacity).sum())
+    n_assign = p.expert_index.numel()
+    b, by = bound_ms(used * 3 * d * f * 2 + 2 * t * d * 2
+                     + n_assign * 4 * 4, 2 * rows * 3 * d * f, "bfloat16")
+    ms = cuda_ms(lambda: fd.routed_apply(*args, **kw))
+    plain = cuda_ms(lambda: fd.routed_apply_plain(*args, **kw))
+    log(f"fused_routed full width, {what} (C={p.capacity}): max_abs_err "
+        f"{err:.3g} (tol {tol:.3g}), two launches bitwise equal; {used} "
+        f"experts used; {ms:.4g} ms (plain {plain:.4g}, bound {b:.4g})")
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, used_experts=used)
+
+
 def check_fused_full(layer: dict) -> dict:
     """Kernels 7 and 8 at full width against their plain versions on
-    layer 0's weights: T = 8 slots (two dead), C = 8, bf16 swiglu.
-    Kernel 8 runs the expert_choice plan of the same tokens.  Both are
+    layer 0's weights, bf16 swiglu, each case also repeated bitwise:
+    kernel 7 at T = 8 slots with two dead (C = 8) and with all 8 live
+    (the fused serve path's full pool); kernel 8 on the expert_choice
+    plan of the same tokens, and on a plan of 96 tokens that sends more
+    than 64 to some experts (C = 72: two row tiles of cells).  All are
     timed with their plain versions; the bounds count the bytes of the
-    experts this data uses."""
+    experts each case uses."""
     import torch
     from repro_torch.core import dispatch as dsp
     from repro_torch.core import router as router_lib
-    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.kernels.topk_gating import topk_gating_plain
 
     wg, w1, w2, w3 = layer["weights"]
     t, d = N_REQUESTS, wg.shape[0]
@@ -1191,57 +1280,36 @@ def check_fused_full(layer: dict) -> dict:
     x = torch.randn(t, d, device="cuda", generator=gen).to(torch.bfloat16)
     valid = torch.ones(t, device="cuda")
     valid[2] = valid[5] = 0.0
-    args7 = (x, valid, wg, w1, w2, w3)
-    kw7 = dict(k=k, capacity=cap, activation="swiglu")
-    err7, tol7 = check_fused_decode_case(*args7, k, cap, "swiglu", bf16_tol)
-    flat_e, flat_p, _, _, _ = fd.route_plain(x, valid, wg, k, cap)
-    used7 = _used(flat_e, flat_p, cap)
-    rows7 = int((flat_p < cap).sum())
-    weight_bytes = 3 * d * f * 2
-    b7, by7 = bound_ms(used7 * weight_bytes + d * e * 4 + 2 * t * d * 2
-                       + t * 4 + 2 * e * 4,
-                       {"float32": 2 * t * d * e,
-                        "bfloat16": 2 * rows7 * 3 * d * f})
-    ms7 = cuda_ms(lambda: fd.decode_step(*args7, **kw7))
-    plain7 = cuda_ms(lambda: fd.decode_step_plain(*args7, **kw7))
-    log(f"fused_decode full width [{t},{d}] E={e} f={f} k={k} C={cap} bf16 "
-        f"swiglu, 2 dead slots: load / overflow equal, max_abs_err "
-        f"{err7:.3g}; {used7} experts used; {ms7:.4g} ms (plain "
-        f"{plain7:.4g}, bound {b7:.4g})")
+    c7 = _fused7_case(x, valid, wg, w1, w2, w3, k, cap, "2 dead slots")
+    full = _fused7_case(x, torch.ones(t, device="cuda"), wg, w1, w2, w3, k,
+                        cap, "8 live slots")
 
     spec = router_lib.RouterSpec(policy="expert_choice", k=k,
                                  capacity_factor=layer["capacity_factor"])
     p = router_lib.Router(spec, e).route({"gate": {"wg": wg}}, x,
                                          train=False, mask=valid).plan
-    args8 = (x, p.expert_index, p.position, p.expert_index, p.position,
-             p.weight, w1, w2, w3)
-    kw8 = dict(n_experts=e, capacity=p.capacity, mode="ffn",
-               activation="swiglu")
-    got, want = fd.routed_apply(*args8, **kw8), \
-        fd.routed_apply_plain(*args8, **kw8)
-    err8, tol8 = max_err(got, want), bf16_tol(want)
-    check(err8 <= tol8, f"fused_routed full width differs by {err8} > "
-                        f"{tol8}")
-    used8 = _used(p.expert_index, p.position, p.capacity)
-    rows8 = int((p.position < p.capacity).sum())
-    b8, by8 = bound_ms(used8 * weight_bytes + 2 * t * d * 2
-                       + t * k * 4 * 4, 2 * rows8 * 3 * d * f, "bfloat16")
-    ms8 = cuda_ms(lambda: fd.routed_apply(*args8, **kw8))
-    plain8 = cuda_ms(lambda: fd.routed_apply_plain(*args8, **kw8))
-    log(f"fused_routed full width, expert_choice plan (C={p.capacity}): "
-        f"max_abs_err {err8:.3g} (tol {tol8:.3g}); {used8} experts used; "
-        f"{ms8:.4g} ms (plain {plain8:.4g}, bound {b8:.4g})")
+    c8 = _fused8_case(x, p, w1, w2, w3, "expert_choice plan")
+    # 96 tokens whose logits favour experts 0..7: ~96 assignments each
+    # on those, so cells past 64 (a second row tile) fill.
+    t96 = 96
+    logits = torch.randn(t96, e, device="cuda", generator=gen)
+    logits[:, :8] += 4.0
+    w, idx, _ = topk_gating_plain(logits, k, k)
+    p96 = dsp.plan(idx, w, e, 72)
+    check(int(p96.position[p96.position < 72].max()) >= 64,
+          "the C = 72 plan fills no second row tile")
+    x96 = torch.randn(t96, d, device="cuda", generator=gen).to(torch.bfloat16)
+    c96 = _fused8_case(x96, p96, w1, w2, w3, "96 tokens, C = 72")
     shape = (f"one kimi-k2 MoE layer at decode: x [{t},{d}] bf16 (2 dead "
              f"slots), {e} experts [{d},{f}] swiglu, k={k}, C={cap}")
     return {
         "fused_decode": dict(
-            name="fused_decode", max_abs_err=err7, tol=tol7, ms=ms7,
-            plain_ms=plain7, bound_ms=b7, bound_by=by7, library_ms=None,
-            used_experts=used7, shape=shape),
+            name="fused_decode", library_ms=None, shape=shape, **c7,
+            full_pool=full),
         "fused_routed": dict(
-            name="fused_routed", max_abs_err=err8, tol=tol8, ms=ms8,
-            plain_ms=plain8, bound_ms=b8, bound_by=by8, library_ms=None,
-            used_experts=used8, shape=shape + ", the expert_choice plan")}
+            name="fused_routed", library_ms=None,
+            shape=shape + ", the expert_choice plan", **c8,
+            c72=c96)}
 
 
 def decode_logits(cfg, params, prompts, fused_flags=(False, True)) -> dict:
@@ -1975,6 +2043,7 @@ def kernel_row(name, r, launches_by_path, profiles) -> dict:
         "tol": r["tol"], "check": "pass", "shape": r["shape"],
         **{k: v for k, v in r.items()
            if k.startswith(("max_abs_err_", "tol_", "used_", "moa_", "rows_",
+                            "full_pool", "c72", "phase_split",
                             "train_", "stream_", "bound_ms_"))}}
 
 

@@ -19,7 +19,7 @@
 //
 // PTX used: cp.async (16-byte, zero-filling), ldmatrix(.trans), and
 // mma.sync m16n8k16 bf16 / m16n8k8 tf32 with f32 accumulators.
-#include "common.cuh"
+#include "mma.cuh"
 
 enum GmmActivation { GMM_NONE = 0, GMM_RELU = 1, GMM_SILU = 2 };
 // Kernel codes; kernels/gmm.py KERNELS mirrors them.
@@ -33,62 +33,9 @@ static __device__ __forceinline__ float epilogue(float z, int activation) {
 }
 
 // ---------------------------------------------------------------------------
-// PTX wrappers
+// PTX wrappers (the bf16 ones, cp.async, ldmatrix and load_tile are in
+// mma.cuh)
 // ---------------------------------------------------------------------------
-
-static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !valid (src unread).
-// L2_256: ask L2 to fetch the surrounding 256 bytes (the weight stream,
-// whose rows are read 512 contiguous bytes at a time).
-template <bool L2_256>
-static __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                                  bool valid) {
-  const int n = valid ? 16 : 0;
-  if (L2_256)
-    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
-                 ::"r"(dst), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(n));
-}
-
-static __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-static __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8q..8q+7 give the row addresses of
-// matrix q.  Plain: r[q] = M_q[lane/4][2(lane%4) .. +1];  trans: r[q] =
-// M_q[2(lane%4) .. +1][lane/4].
-static __device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-static __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-static __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
-                                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate.
 static __device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4],
@@ -108,43 +55,6 @@ static __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                                   uint32_t& lo) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
   lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-// ---------------------------------------------------------------------------
-// Tile loads into shared memory
-// ---------------------------------------------------------------------------
-
-// A ROWS x COLS tile of a row-major matrix (row stride ld elements; the
-// tile's origin at g; rlim valid rows and clim valid columns from it)
-// into shared memory with row stride SLD; everything out of range reads
-// as zero.  VEC: 16-byte cp.async chunks, which needs ld, the origin's
-// column and the base pointer 16-byte aligned (a chunk is then wholly in
-// or wholly out of range).  Otherwise element loads through registers,
-// for ragged or unaligned operands.
-template <typename T, int ROWS, int COLS, int SLD, int THREADS, bool VEC,
-          bool L2_256 = false>
-static __device__ __forceinline__ void load_tile(T* s, const T* g, long long ld,
-                                                 int rlim, int clim, int tid) {
-  if constexpr (VEC) {
-    constexpr int CE = 16 / sizeof(T);
-    constexpr int CPR = COLS / CE;
-    constexpr int TOTAL = ROWS * CPR;
-#pragma unroll
-    for (int j = 0; j < (TOTAL + THREADS - 1) / THREADS; ++j) {
-      const int i = tid + j * THREADS;
-      if (TOTAL % THREADS == 0 || i < TOTAL) {
-        const int r = i / CPR, c = (i % CPR) * CE;
-        const bool ok = r < rlim && c < clim;
-        cp_async16<L2_256>(smem_u32(s + r * SLD + c), ok ? g + r * ld + c : g,
-                           ok);
-      }
-    }
-  } else {
-    for (int i = tid; i < ROWS * COLS; i += THREADS) {
-      const int r = i / COLS, c = i % COLS;
-      s[r * SLD + c] = (r < rlim && c < clim) ? g[r * ld + c] : from_f<T>(0.f);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -347,3 +347,81 @@ def test_fused_routed_kernel_matches_plain(gen, dtype, mode, act, view):
     assert got32.dtype == torch.float32
     _close_to_plain(got32, tfd.routed_apply_plain(
         *args, out_dtype=torch.float32, **kw), dtype)
+
+
+def _decode_problem(gen, t, d, e, f, dtype):
+    x = torch.randn(t, d, device="cuda", generator=gen).to(dtype)
+    valid = (torch.arange(t, device="cuda") % 7 != 3).float()
+    wg = torch.randn(d, e, device="cuda", generator=gen)
+    return (x, valid, wg, *_experts(gen, e, d, f, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["relu", "swiglu"])
+@pytest.mark.parametrize("capacity", [17, 64, 65])
+@pytest.mark.parametrize("d,f", [(72, 40),       # 16-byte loads
+                                 (70, 36),       # d not a multiple of 8
+                                 (264, 520)])    # column tails past 256
+def test_fused_decode_kernel_many_cells(gen, dtype, act, capacity, d, f):
+    """More than 8 filled cells an expert: several n8 tiles, and past 64
+    a second row tile (160 tokens x k = 2 over 4 experts)."""
+    t, e, k = 160, 4, 2
+    x, valid, wg, w1, w2, w3 = _decode_problem(gen, t, d, e, f, dtype)
+    w3 = w3 if act == "swiglu" else None
+    y, load, over = tfd.decode_step(x, valid, wg, w1, w2, w3, k=k,
+                                    capacity=capacity, activation=act)
+    py, pload, pover = tfd.decode_step_plain(x, valid, wg, w1, w2, w3, k=k,
+                                             capacity=capacity,
+                                             activation=act)
+    assert torch.equal(load, pload) and torch.equal(over, pover)
+    assert float(load.max()) > 64          # past one row tile of cells
+    assert bool((y[valid == 0] == 0).all())
+    _close_to_plain(y, py, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,act", [("ffn", "swiglu"), ("proj", "relu")])
+@pytest.mark.parametrize("view", ["token", "assign"])
+@pytest.mark.parametrize("cap", [20, 72])
+def test_fused_routed_kernel_many_cells(gen, dtype, mode, act, view, cap):
+    """Plans with more than 8 cells an expert (and above 64: a second row
+    tile), token-major and MoA's assignment-major view."""
+    from repro_torch.core.moa import assignment_plan
+    p = _plan(gen, t=200, e=4, k=2, cap=cap)
+    assert int(p.position[p.position < cap].max()) >= min(cap - 1, 64)
+    p_in, p_out = (p, p) if view == "token" else (p, assignment_plan(p))
+    d, f = 264, 300
+    x = torch.randn(p_in.expert_index.shape[0], d, device="cuda",
+                    generator=gen).to(dtype)
+    w1, w2, w3 = _experts(gen, p.n_experts, d, f, dtype)
+    if mode == "proj":
+        w2 = w3 = None
+    args = (x, p_in.expert_index, p_in.position, p_out.expert_index,
+            p_out.position, p_out.weight, w1, w2, w3)
+    kw = dict(n_experts=p.n_experts, capacity=p.capacity, mode=mode,
+              activation=act)
+    _close_to_plain(tfd.routed_apply(*args, **kw),
+                    tfd.routed_apply_plain(*args, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_two_launches_bitwise_equal(gen, dtype):
+    """The work queue hands items to blocks in another order each run;
+    no sum may depend on it."""
+    t, d, e, f, k = 160, 264, 4, 520, 2
+    x, valid, wg, w1, w2, w3 = _decode_problem(gen, t, d, e, f, dtype)
+    a = tfd.decode_step(x, valid, wg, w1, w2, w3, k=k, capacity=72,
+                        activation="swiglu")
+    b = tfd.decode_step(x, valid, wg, w1, w2, w3, k=k, capacity=72,
+                        activation="swiglu")
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    p = _plan(gen, t=t, e=e, k=k, cap=72)
+    args = (x, p.expert_index, p.position, p.expert_index, p.position,
+            p.weight, w1, w2, w3)
+    kw = dict(n_experts=e, capacity=72, mode="ffn", activation="swiglu")
+    assert torch.equal(tfd.routed_apply(*args, **kw),
+                       tfd.routed_apply(*args, **kw))

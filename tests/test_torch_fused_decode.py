@@ -69,19 +69,25 @@ def _problem(t=8, d=16, e=6, f=24, gated=False, tied=False, seed=0):
     return x, wg, w1, w2, w3
 
 
-# (activation, k, capacity, masked, tied)
+# (activation, k, capacity, masked, tied[, tokens, experts]): the last
+# cases put more than 8 filled cells on an expert (40 tokens x k over 4
+# experts), as the card's kernel tiles them.
 DECODE_CASES = [("relu", 2, 8, True, False), ("swiglu", 2, 8, True, False),
                 ("swiglu", 3, 1, False, False),     # capacity 1: overflow
                 ("relu", 2, 1, True, False),
-                ("relu", 2, 8, False, True), ("swiglu", 1, 8, True, True)]
+                ("relu", 2, 8, False, True), ("swiglu", 1, 8, True, True),
+                ("swiglu", 2, 17, True, False, 40, 4),
+                ("relu", 3, 17, False, False, 40, 4),
+                ("swiglu", 2, 24, False, False, 40, 4)]
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
 def test_decode_step_plain_matches_pallas_and_oracles(case):
-    act, k, cap, masked, tied = case
-    x, wg, w1, w2, w3 = _problem(gated=act == "swiglu", tied=tied,
+    act, k, cap, masked, tied, *size = case
+    t, e = size or (8, 6)
+    x, wg, w1, w2, w3 = _problem(t=t, e=e, gated=act == "swiglu", tied=tied,
                                  seed=len(act) + 10 * k + cap)
-    valid = VALID if masked else np.ones_like(VALID)
+    valid = np.resize(VALID, t) if masked else np.ones(t, np.float32)
     jy, jl, jo = jfd.decode_step(
         jnp.asarray(x), jnp.asarray(valid), jnp.asarray(wg), jnp.asarray(w1),
         jnp.asarray(w2), None if w3 is None else jnp.asarray(w3), k=k,
@@ -189,18 +195,21 @@ def _tplan(p):
         fraction_dropped=_t(p.fraction_dropped))
 
 
-# (mode, activation, view): view "token" runs (plan, plan); "assign" runs
-# MoA's (plan, assignment-major plan) for the Q projection and the
-# reverse for the O projection.
+# (mode, activation, view[, tokens, capacity]): view "token" runs (plan,
+# plan); "assign" runs MoA's (plan, assignment-major plan) for the Q
+# projection and the reverse for the O projection.  The last cases fill
+# more than 8 cells an expert (80 tokens x 2 over 5 experts, C = 20).
 ROUTED_CASES = [("ffn", "relu", "token"), ("ffn", "swiglu", "token"),
                 ("proj", "relu", "token"), ("proj", "relu", "q"),
-                ("proj", "relu", "o")]
+                ("proj", "relu", "o"), ("ffn", "swiglu", "token", 80, 20),
+                ("proj", "relu", "q", 80, 20), ("proj", "relu", "o", 80, 20)]
 
 
 @pytest.mark.parametrize("case", ROUTED_CASES)
 def test_routed_apply_plain_matches_pallas(case):
-    mode, act, view = case
-    t, e, k, cap, d = 16, 5, 2, 4, 12
+    mode, act, view, *size = case
+    t, cap = size or (16, 4)
+    e, k, d = 5, 2, 12
     jp = _plans(t, e, k, cap)
     ja = jmoa.assignment_plan(jp)
     p_in, p_out = {"token": (jp, jp), "q": (jp, ja), "o": (ja, jp)}[view]
