@@ -3,11 +3,16 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
+The port is imported from ``src/`` beside this file, so a copy of the
+script placed in another checkout (say, the parent commit's ``git
+archive``) times that checkout's kernels at the same shapes.
+
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. setup   — the card's name and power limit (nvidia-smi), torch / CUDA
              versions, and the build of the CUDA kernels from
-             ``src/repro_torch/csrc`` (nvcc, one process per source).
+             ``src/repro_torch/csrc`` (nvcc, one process per source),
+             with each kernel's registers and spill bytes.
 2. kernels — each kernel's wrapper against its plain PyTorch version on
              the card: the serving kernels in bf16 at the shapes serving
              kimi-k2 gives them, in f32 at cut, ragged shapes, and in
@@ -25,7 +30,15 @@ Phases, in order; any failure exits non-zero and prints no result:
              warm-up) beside its plain version, one PyTorch library call
              computing the same function where there is one, and its
              bound (the larger of bytes / 3.35 TB/s and operations / peak
-             rate of the H100 SXM).
+             rate of the H100 SXM).  Top-k, combine and dispatch are
+             also timed at the decode (T = 8), prefill (T = 32) and
+             training (T = 4096) shapes, combine and dispatch also at
+             moa-demo's decode (k = 2, and k = 1 through MoA's assignment
+             view): profiler device time per launch (dispatch's memset
+             apart; combine's with a cold L2) and the time per launch of
+             200 launches queued between two CUDA events, each beside
+             its bound and the launch floor (the device time of ``add_``
+             on one element).
 3. serve   — kimi-k2-1t-a32b at full width, depth cut to 2 layers, bf16
              weights drawn from a seed on the card, served through the
              port's ServeEngine with the "cuda" backend: 8 greedy
@@ -98,6 +111,8 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 # three times per f32 product.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 REPS = 20
+QUEUED_RUN = 200         # calls between two events in queued_ms
+PROFILED_RUN = 50        # calls under the profiler in device_ms
 ARCH = "kimi-k2-1t-a32b"
 N_LAYERS = 2
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS = 8, 32, 16
@@ -185,6 +200,89 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+def queued_ms(fn, n: int = QUEUED_RUN) -> float:
+    """Device time per call over ``n`` calls queued back to back between
+    two CUDA events: the kernel plus the device's gap between launches.
+    A sleep kernel holds the stream while the host queues the calls, so
+    host enqueue time does not enter; the start event must still be
+    pending when the last call is queued, or the sleep is doubled and
+    the run repeated."""
+    import torch
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0
+    for attempt in range(4):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        # Cycles at up to 2 GHz: three times the dry run's host time.
+        torch.cuda._sleep(int(3 * 2 ** attempt * host_s * 2e9))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / n
+    raise SmokeFailure("queued_ms: the host could not queue the run inside "
+                       "the sleep")
+
+
+def device_ms(fn, symbols, n: int = PROFILED_RUN) -> dict:
+    """Profiler device time per launch of the device ops whose names hold
+    each of ``symbols`` ("" matches every op), over ``n`` calls of
+    ``fn``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    sums: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        for sym in symbols:
+            if sym in e.key:
+                c, ms = sums.get(sym, (0, 0.0))
+                sums[sym] = (c + e.count, ms + e.self_device_time_total / 1e3)
+    return {sym: ms / c for sym, (c, ms) in sums.items()}
+
+
+def launch_floor() -> dict:
+    """The card's floor for a small kernel: a one-element elementwise op
+    (``add_`` on one f32), its profiler device time per launch and its
+    queued time per launch."""
+    import torch
+    a = torch.zeros(1, device="cuda")
+    res = {"dev_ms": device_ms(lambda: a.add_(1.0), ("",))[""],
+           "queued_ms": queued_ms(lambda: a.add_(1.0)),
+           "op": "add_ on a [1] f32 tensor"}
+    log("launch floor " + json.dumps(res))
+    return res
+
+
+def shape_times(what: str, fn, symbol: str, n_bytes: float, flops,
+                dtype_name: str, floor: dict) -> dict:
+    """One kernel at one shape: profiler device time per launch (and its
+    memset's, if it has one), queued time per launch, the bound, and the
+    launch floor beside it."""
+    dev = device_ms(fn, (symbol, "Memset"))
+    check(symbol in dev, f"{what}: no {symbol} in the profile")
+    b, by = bound_ms(n_bytes, flops, dtype_name)
+    res = {"dev_ms": dev[symbol], "queued_ms": queued_ms(fn), "bound_ms": b,
+           "bound_by": by, "launch_floor_ms": floor["dev_ms"]}
+    if "Memset" in dev:
+        res["memset_dev_ms"] = dev["Memset"]
+    log(f"{what}: " + json.dumps(res))
+    return res
+
+
 def bound_ms(n_bytes: float, flops, dtype_name: str | None = None):
     """(least time in ms, what bounds it) for moving ``n_bytes`` once and
     doing ``flops`` at the card's peak for the type; ``flops`` may be a
@@ -234,10 +332,26 @@ def phase_setup() -> dict:
     info = cuda_lib.build_info()
     log(f"kernels built and loaded in {info['build_seconds']:.1f} s "
         f"({info['path'].name})")
-    for line in info["build_log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log("  " + line.strip())
+    for line in ptxas_summary(info["build_log"]):
+        log("  " + line)
     return {"card": card}
+
+
+def ptxas_summary(build_log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` messages:
+    its (mangled) name, registers and spill bytes."""
+    import re
+    out, name, spill = [], "?", ""
+    for line in build_log.splitlines():
+        if line.startswith("=="):
+            out.append(line.strip())
+        elif m := re.search(r"Compiling entry function '([^']+)'", line):
+            name, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif m := re.search(r"Used (\d+) registers", line):
+            out.append(f"{name}: {m.group(1)} registers; {spill}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -262,19 +376,36 @@ def _route(n_tokens, n_experts, k, d, dtype, gen, *, capacity=None,
     return x, plan
 
 
-def check_topk(gen) -> dict:
+TOPK_SHAPES = {"decode": (8, 384, 8, 9), "prefill": (32, 384, 8, 9),
+               "train": (TRAIN_B * TRAIN_S, 256, 4, 5)}   # T, E, k, kk
+# T, d, E, k, dtype, capacity (None: the router's) of combine / dispatch.
+# moa-demo's decode: "moa_ffn" its MoE FFN (k = 2, d = 512), "moa_view"
+# MoA's assignment view (8 tokens x moa_k = 2 heads as 16 rows of one
+# slot each, head width 128).
+COMBINE_SHAPES = {"decode": (8, 7168, 384, 8, "bfloat16", None),
+                  "prefill": (32, 7168, 384, 8, "bfloat16", None),
+                  "moa_ffn": (8, 512, 8, 2, "bfloat16", None),
+                  "moa_view": (16, 128, 8, 1, "bfloat16", None),
+                  "train": (TRAIN_B * TRAIN_S, 512, 256, 4, "float32", 128)}
+
+
+def check_topk(gen, floor: dict) -> dict:
     import torch
     from repro_torch.kernels.topk_gating import topk_gating, topk_gating_plain
     worst = 0.0
     # Serving shapes (kimi-k2: E = 384, k = 8), cut ragged ones, and the
-    # training shape (MoE-256: T = 4096, E = 256, k = 4, kk = k + 1).
+    # training shape (MoE-256: T = 4096, E = 256, k = 4, kk = k + 1);
+    # "floor": 8 of a row's logits above -1e30 and the rest at -1e31, so
+    # the ninth round re-picks a masked winner.
     cases = [(8, 384, 8, 9, False), (32, 384, 8, 9, False),
              (32, 384, 8, 9, True), (37, 100, 2, 3, False),
              (5, 33, 1, 1, True), (TRAIN_B * TRAIN_S, 256, 4, 5, False),
-             (TRAIN_B * TRAIN_S, 256, 4, 5, True)]
+             (TRAIN_B * TRAIN_S, 256, 4, 5, True), (8, 384, 8, 9, "floor")]
     for t, e, k, kk, tied in cases:
         logits = torch.randn(t, e, device="cuda", generator=gen)
-        if tied:
+        if tied == "floor":
+            logits[:, 8:] = -1e31
+        elif tied:
             logits = torch.round(logits * 2)
         got = topk_gating(logits, k, kk)
         want = topk_gating_plain(logits, k, kk)
@@ -285,7 +416,8 @@ def check_topk(gen) -> dict:
             f"equal, max_abs_err {err:.3g} (tol 1e-06)")
         check(err <= 1e-6, f"topk values differ by {err} at T={t} E={e}")
         worst = max(worst, err)
-    t, e, k, kk = 8, 384, 8, 9
+    by_shape = topk_times(gen, floor)
+    t, e, k, kk = TOPK_SHAPES["decode"]
     logits = torch.randn(t, e, device="cuda", generator=gen)
     ms = cuda_ms(lambda: topk_gating(logits, k, kk))
     plain = cuda_ms(lambda: topk_gating_plain(logits, k, kk))
@@ -297,10 +429,67 @@ def check_topk(gen) -> dict:
     b, by = bound_ms(t * e * 4 + t * k * 4 + t * kk * 8, 0, "float32")
     return dict(name="topk_gating", max_abs_err=worst, tol=1e-6, ms=ms,
                 plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-                shape=f"logits [{t},{e}] f32, k={k}, kk={kk}")
+                shape=f"logits [{t},{e}] f32, k={k}, kk={kk}",
+                by_shape=by_shape)
 
 
-def check_dispatch_combine(gen) -> list[dict]:
+def topk_times(gen, floor: dict) -> dict:
+    """Top-k at the decode, prefill and training shapes: device and
+    queued time per launch, each shape's bound."""
+    import torch
+    from repro_torch.kernels.topk_gating import topk_gating
+    out = {}
+    for name, (t, e, k, kk) in TOPK_SHAPES.items():
+        logits = torch.randn(t, e, device="cuda", generator=gen)
+        out[name] = shape_times(
+            f"topk_gating {name} [{t},{e}] k={k} kk={kk}",
+            lambda: topk_gating(logits, k, kk), "topk_gating_kernel",
+            t * e * 4 + t * k * 4 + t * kk * 8, 0, "float32", floor)
+    return out
+
+
+def dispatch_combine_times(gen, floor: dict) -> dict:
+    """Combine and dispatch at the decode, prefill, moa-demo and training
+    shapes: device and queued time per launch (dispatch's memset apart),
+    each shape's bound from the kept slots of its plan.  Combine's
+    ``dev_ms`` is taken with the L2 cache cold (a 128 MB fill before each
+    launch), as on the serve and training paths, where the GMM before it
+    streams more than the L2 holds, so that it compares with the HBM
+    bound; its back-to-back times re-read a buffer the L2 may still hold
+    and are kept apart as ``dev_ms_l2_warm`` / ``queued_ms_l2_warm``."""
+    import torch
+    from repro_torch.kernels import dispatch as dk
+    out: dict = {"combine": {}, "dispatch": {}}
+    flush = torch.empty(32 * 2 ** 20, device="cuda")
+    for name, (t, d, e, k, dt, cap) in COMBINE_SHAPES.items():
+        dtype = getattr(torch, dt)
+        size = torch.finfo(dtype).bits // 8
+        x, p = _route(t, e, k, d, dtype, gen, capacity=cap)
+        ei, po, w, c = p.expert_index, p.position, p.weight, p.capacity
+        n_kept = int((po < c).sum())
+        buf = torch.randn(e, c, d, device="cuda", generator=gen).to(dtype)
+        what = f"[{t},{d}] {dt} <-> [{e},{c},{d}], k={k}"
+        out["combine"][name] = shape_times(
+            f"combine {name} {what}", lambda: dk.combine(buf, w, ei, po),
+            "combine_kernel", n_kept * d * size + t * k * 12 + t * d * size,
+            2 * n_kept * d, dt, floor)
+        out["dispatch"][name] = shape_times(
+            f"dispatch {name} {what}",
+            lambda: dk.dispatch(x, ei, po, n_experts=e, capacity=c),
+            "dispatch_kernel", t * d * size + t * k * 8 + e * c * d * size,
+            0, dt, floor)
+        cold = device_ms(lambda: (flush.zero_(), dk.combine(buf, w, ei, po)),
+                         ("combine_kernel",))
+        res = out["combine"][name]
+        res.update(dev_ms_l2_warm=res.pop("dev_ms"),
+                   queued_ms_l2_warm=res.pop("queued_ms"),
+                   dev_ms=cold["combine_kernel"], kept_slots=n_kept)
+        log(f"combine {name}, L2 cold: {cold['combine_kernel']} ms a launch")
+        del x, buf
+    return out
+
+
+def check_dispatch_combine(gen, floor: dict) -> list[dict]:
     import torch
     from repro_torch.kernels import dispatch as dk
     d, e, k = 7168, 384, 8
@@ -354,12 +543,13 @@ def check_dispatch_combine(gen) -> list[dict]:
     b_c, by_c = bound_ms(n_kept * d * 2 + t * k * 12 + t * d * 2,
                          2 * n_kept * d, "bfloat16")
     shape = f"x [{t},{d}] bf16 <-> buf [{e},{c},{d}], k={k}"
+    times = dispatch_combine_times(gen, floor)
     return [dict(name="dispatch", max_abs_err=worst_d, tol=tol_c, ms=ms_d,
                  plain_ms=plain_d, bound_ms=b_d, bound_by=by_d,
-                 library_ms=None, shape=shape),
+                 library_ms=None, shape=shape, by_shape=times["dispatch"]),
             dict(name="combine", max_abs_err=worst_c, tol=tol_c, ms=ms_c,
                  plain_ms=plain_c, bound_ms=b_c, bound_by=by_c,
-                 library_ms=None, shape=shape)]
+                 library_ms=None, shape=shape, by_shape=times["combine"])]
 
 
 def check_gmm(gen) -> dict:
@@ -924,13 +1114,16 @@ def check_fused_ragged(gen) -> dict:
 def phase_kernels() -> dict:
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    results = [check_topk(gen), *check_dispatch_combine(gen), check_gmm(gen),
-               check_topk_bwd(gen), *check_eblock(gen), check_gmm_bwd(gen)]
+    floor = launch_floor()
+    results = [check_topk(gen, floor), *check_dispatch_combine(gen, floor),
+               check_gmm(gen), check_topk_bwd(gen), *check_eblock(gen),
+               check_gmm_bwd(gen)]
     for r in results:
         log("kernel " + json.dumps(r))
     fused = check_fused_ragged(gen)
     torch.cuda.empty_cache()
-    return {"rows": {r["name"]: r for r in results}, "fused": fused}
+    return {"rows": {r["name"]: r for r in results}, "fused": fused,
+            "floor": floor}
 
 
 # ---------------------------------------------------------------------------
@@ -2027,7 +2220,7 @@ def phase_eblock(cfg, params) -> dict:
     return out
 
 
-def kernel_row(name, r, launches_by_path, profiles) -> dict:
+def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
     dev = [p["kernels"][name]["device_ms_per_launch"] for p in profiles
            if name in p["kernels"]]
     return {
@@ -2041,10 +2234,11 @@ def kernel_row(name, r, launches_by_path, profiles) -> dict:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "device_ms_per_launch": dev[0] if dev else None,
         "tol": r["tol"], "check": "pass", "shape": r["shape"],
+        "launch_floor_ms": floor["dev_ms"],
         **{k: v for k, v in r.items()
            if k.startswith(("max_abs_err_", "tol_", "used_", "moa_", "rows_",
                             "full_pool", "c72", "phase_split",
-                            "train_", "stream_", "bound_ms_"))}}
+                            "train_", "stream_", "bound_ms_", "by_shape"))}}
 
 
 def main() -> int:
@@ -2103,8 +2297,8 @@ def main() -> int:
         kernels["fused"]["fused_decode_f32_max_abs_err"]
     for name, (err, tol) in moa["kernel_errs"].items():
         measured[name].update(max_abs_err_moa_demo=err, tol_moa_demo=tol)
-    rows = [kernel_row(name, measured[name], launches, profiles)
-            for name in KERNELS]
+    rows = [kernel_row(name, measured[name], launches, profiles,
+                       kernels["floor"]) for name in KERNELS]
     log(f"card {setup['card']}; serve cross-check max_abs_err "
         f"{served['cross']['max_abs_err']:.4g} (tol "
         f"{served['cross']['tol']:.4g}); train cuda-vs-ref loss rel err "

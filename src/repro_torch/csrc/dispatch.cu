@@ -8,20 +8,21 @@
 // pos[a]] when pos[a] < C; a dropped (pos >= C) or padded assignment
 // writes nothing.  combine replaces _combine_kernel (pallas_call in
 // _combine_raw): y[t] = sum over j = 0..k-1, in ascending order, of
-// w[t, j] * buf[eidx, pos] accumulated in f32, a slot with pos >= C
-// contributing nothing, then one write in the output type.  The
+// w[t, j] * buf[eidx, pos] accumulated in f32 from +0, a slot with
+// pos >= C contributing nothing, then one write in the output type.  The
 // products and sums are rounded separately (no fused multiply-add), so
 // the result is bit-identical to the plain PyTorch version.
 //
 // Bound on the H100: bytes.  dispatch writes the whole E*C*d buffer and
 // reads the kept rows; combine reads the kept slots and writes T*d.  The
-// TPU kernels walked the assignment list one row at a time on one core;
-// here every assignment (dispatch) or token (combine) is its own block,
-// so all rows move in parallel with 16-byte accesses (8 elements per
-// thread).  The zeroing is one cudaMemsetAsync before the copy.  Kept
-// slots are unique, so the copy blocks never race, and combine reduces
-// within a thread in a fixed order: deterministic, no atomics.
+// TPU kernels walked the assignment list one row at a time on one core.
+// Here every assignment of dispatch is its own block, with 16-byte
+// accesses (8 elements per thread); the zeroing is one cudaMemsetAsync
+// before the copy.  Kept slots are unique, so the copy blocks never race.
+// The combine's design is in its own section below.
 #include "common.cuh"
+
+#include <atomic>
 
 #define DC_THREADS 128
 
@@ -51,41 +52,6 @@ dispatch_kernel(const T* __restrict__ x, const int* __restrict__ eidx,
   } else {
     for (int i = threadIdx.x; i < d; i += DC_THREADS)
       dst[i] = from_f<T>(__fmul_rn(to_f<T>(src[i]), s));
-  }
-}
-
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(DC_THREADS)
-combine_kernel(const TI* __restrict__ buf, const float* __restrict__ w,
-               const int* __restrict__ eidx, const int* __restrict__ pos,
-               TO* __restrict__ y, int k, int d, int E, int C, bool vec) {
-  const int t = blockIdx.x;
-  if (vec) {
-    for (int i = threadIdx.x * 8; i < d; i += DC_THREADS * 8) {
-      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int j = 0; j < k; ++j) {
-        const int a = t * k + j;
-        const int e = eidx[a], p = pos[a];
-        if (!kept_slot(e, p, E, C)) continue;
-        const float wt = w[a];
-        float v[8];
-        Vec8<TI>::load(buf + ((long long)e * C + p) * d + i, v);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[q] = __fadd_rn(acc[q], __fmul_rn(wt, v[q]));
-      }
-      Vec8<TO>::store(y + (long long)t * d + i, acc);
-    }
-  } else {
-    for (int i = threadIdx.x; i < d; i += DC_THREADS) {
-      float acc = 0.f;
-      for (int j = 0; j < k; ++j) {
-        const int a = t * k + j;
-        const int e = eidx[a], p = pos[a];
-        if (!kept_slot(e, p, E, C)) continue;
-        acc = __fadd_rn(acc, __fmul_rn(w[a], to_f<TI>(buf[((long long)e * C + p) * d + i])));
-      }
-      y[(long long)t * d + i] = from_f<TO>(acc);
-    }
   }
 }
 
@@ -119,15 +85,207 @@ extern "C" int repro_dispatch(const void* x, const int* eidx, const int* pos,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// Combine.  At decode a token's row is short work (k = 8 slots of d =
+// 7168 bf16) and there are only T = 8 tokens, so one block per token
+// would leave 124 of the 132 SMs idle and each thread with one load in
+// flight at a time.  The design:
+//
+// * A token's row is cut into chunks over a 2-D grid: blockIdx.x is the
+//   token (up to 2^31 - 1 rows, as MoA's [T*k, 1] assignment views need),
+//   blockIdx.y the chunk of 8 * blockDim.x elements, 8 per thread.  The
+//   host picks blockDim.x in {128, 64, 32}: no wider than the row needs
+//   (so no thread idles at d = 512), and narrower until the grid has two
+//   blocks per SM or the width is one warp.  T = 8, d = 7168 gives 224
+//   blocks of 32 threads; the training shape (T = 4096, d = 512) 4096
+//   blocks of 64.
+// * Every k-slot load of a chunk is in flight before the sum.  Lane j of
+//   each warp reads triple j (eidx, pos, w) of a group of G slots once
+//   and the warp shares it by shuffles; then all G loads are issued (a
+//   dropped or invalid slot reads nothing), and only then are they added
+//   in ascending j.  G is a template parameter (2, 4 or 8, the least
+//   that covers k) so the group is unrolled; k > 8 walks groups of 8 in a
+//   runtime loop, the order of the sum unchanged.  One G = 8 kernel for
+//   every k was slower at k = 2 (+0.5 us) and k = 4 (+1.1 us, the
+//   training shape, where its registers fit fewer blocks on an SM), and
+//   level with a G = 1 kernel at k = 1, which so runs G = 2 (L2-cold
+//   device times on an H100 SXM).
+// * The vector path (d % 8 == 0 and 16-byte aligned buffers) reads
+//   16-byte pieces, and the pieces of one load instruction are
+//   contiguous across the warp: a thread's 8 elements are one piece of 8
+//   in bf16, two pieces of 4 a block-width of pieces apart in f32 (eight
+//   consecutive f32 a thread would leave every instruction half of each
+//   32-byte sector).  Otherwise each thread takes 8 single elements a
+//   block-width apart, still coalesced.
+//
+// Each output element is one thread's fixed-order sum: no atomics, and a
+// launch repeats bit for bit.
+#define CB_MAX_THREADS 128
+#define CB_PER_THREAD 8
+
+// N consecutive elements <-> N floats, for the pieces of the vector path:
+// 4 f32 (16 bytes) or 8 bf16 (16 bytes) in; 4 or 8 of either type out.
+template <int N, typename T> struct Piece;
+template <> struct Piece<4, float> {
+  static __device__ __forceinline__ void load(const float* p, float* out) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* in) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  }
+};
+template <> struct Piece<4, __nv_bfloat16> {
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* in) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(in[0], in[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(in[2], in[3]);
+    *reinterpret_cast<uint2*>(p) = make_uint2(
+        *reinterpret_cast<const uint32_t*>(&a), *reinterpret_cast<const uint32_t*>(&b));
+  }
+};
+template <typename T> struct Piece<8, T> {
+  static __device__ __forceinline__ void load(const T* p, float* out) { Vec8<T>::load(p, out); }
+  static __device__ __forceinline__ void store(T* p, const float* in) { Vec8<T>::store(p, in); }
+};
+
+template <typename TI, typename TO, int G, bool VEC>
+__global__ void __launch_bounds__(CB_MAX_THREADS)
+combine_kernel(const TI* __restrict__ buf, const float* __restrict__ w,
+               const int* __restrict__ eidx, const int* __restrict__ pos,
+               TO* __restrict__ y, int k, int d, int E, int C) {
+  // A thread's elements: NP pieces of PN (vector path) or 8 single
+  // elements (scalar path), piece / element q at i0 + q * step.
+  constexpr int PN = VEC ? 16 / (int)sizeof(TI) : 1;
+  constexpr int NP = CB_PER_THREAD / PN;
+  const long long t = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const long long i0 = (long long)blockIdx.y * blockDim.x * CB_PER_THREAD +
+                       (long long)threadIdx.x * PN;
+  const int step = blockDim.x * PN;
+  float acc[CB_PER_THREAD];
+#pragma unroll
+  for (int q = 0; q < CB_PER_THREAD; ++q) acc[q] = 0.f;
+  for (int j0 = 0; j0 < k; j0 += G) {
+    long long my_off = -1;  // element offset of the slot's row, -1: skip
+    float my_w = 0.f;
+    if (lane < G && j0 + lane < k) {
+      const long long a = t * k + j0 + lane;
+      const int e = eidx[a], p = pos[a];
+      if (kept_slot(e, p, E, C)) {
+        my_off = ((long long)e * C + p) * d;
+        my_w = w[a];
+      }
+    }
+    long long off[G];
+    float wt[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      off[j] = __shfl_sync(0xffffffffu, my_off, j);
+      wt[j] = __shfl_sync(0xffffffffu, my_w, j);
+    }
+    float v[G][CB_PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        const long long i = i0 + (long long)q * step;
+        const bool live = off[j] >= 0 && i < d;
+        if constexpr (VEC) {
+          if (live) {
+            Piece<PN, TI>::load(buf + off[j] + i, &v[j][q * PN]);
+          } else {
+#pragma unroll
+            for (int r = 0; r < PN; ++r) v[j][q * PN + r] = 0.f;
+          }
+        } else {
+          v[j][q] = live ? to_f<TI>(buf[off[j] + i]) : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (off[j] < 0) continue;  // the same for the whole block
+#pragma unroll
+      for (int q = 0; q < CB_PER_THREAD; ++q)
+        acc[q] = __fadd_rn(acc[q], __fmul_rn(wt[j], v[j][q]));
+    }
+  }
+  TO* out = y + t * d;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    const long long i = i0 + (long long)q * step;
+    if (i >= d) continue;
+    if constexpr (VEC)
+      Piece<PN, TO>::store(out + i, &acc[q * PN]);
+    else
+      out[i] = from_f<TO>(acc[q]);
+  }
+}
+
+// SMs of the current device, queried once per device: the attribute
+// query would otherwise cost host time on every launch.
+#define CB_MAX_DEVICES 64
+static cudaError_t sm_count(int* n) {
+  static std::atomic<int> cache[CB_MAX_DEVICES];  // 0: not queried yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < CB_MAX_DEVICES && (*n = cache[dev].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < CB_MAX_DEVICES)
+    cache[dev].store(*n, std::memory_order_relaxed);
+  return err;
+}
+
+// Threads per combine block: no wider than a row needs, and narrower
+// while the grid has fewer than two blocks per SM.
+static int combine_threads(long long T_, int d, int n_sms) {
+  const long long per_row = ((long long)d + CB_PER_THREAD - 1) / CB_PER_THREAD;
+  int threads = CB_MAX_THREADS;
+  while (threads > 32) {
+    const long long chunks = (per_row + threads - 1) / threads;
+    if (threads / 2 < per_row && T_ * chunks >= 2LL * n_sms) break;
+    threads /= 2;
+  }
+  return threads;
+}
+
+template <typename TI, typename TO, int G>
+static void launch_combine(dim3 grid, int threads, bool vec, const void* buf,
+                           const float* w, const int* eidx, const int* pos,
+                           void* y, int k, int d, int E, int C,
+                           cudaStream_t stream) {
+  const TI* b = static_cast<const TI*>(buf);
+  TO* out = static_cast<TO*>(y);
+  if (vec)
+    combine_kernel<TI, TO, G, true><<<grid, threads, 0, stream>>>(
+        b, w, eidx, pos, out, k, d, E, C);
+  else
+    combine_kernel<TI, TO, G, false><<<grid, threads, 0, stream>>>(
+        b, w, eidx, pos, out, k, d, E, C);
+}
+
 template <typename TI, typename TO>
 static int run_combine(const void* buf, const float* w, const int* eidx,
                        const int* pos, void* y, int T_, int k, int d, int E,
                        int C, cudaStream_t stream) {
   if (T_ == 0 || d == 0) return 0;
+  int n_sms = 0;
+  const cudaError_t err = sm_count(&n_sms);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = combine_threads(T_, d, n_sms);
+  const long long span = (long long)threads * CB_PER_THREAD;
+  const long long chunks = ((long long)d + span - 1) / span;
+  if (chunks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)T_, (unsigned)chunks);
   const bool vec = d % 8 == 0 && aligned16(buf) && aligned16(y);
-  combine_kernel<TI, TO><<<T_, DC_THREADS, 0, stream>>>(
-      static_cast<const TI*>(buf), w, eidx, pos, static_cast<TO*>(y), k, d, E,
-      C, vec);
+  if (k <= 2)
+    launch_combine<TI, TO, 2>(grid, threads, vec, buf, w, eidx, pos, y, k, d, E, C, stream);
+  else if (k <= 4)
+    launch_combine<TI, TO, 4>(grid, threads, vec, buf, w, eidx, pos, y, k, d, E, C, stream);
+  else
+    launch_combine<TI, TO, 8>(grid, threads, vec, buf, w, eidx, pos, y, k, d, E, C, stream);
   return (int)cudaGetLastError();
 }
 

@@ -6,76 +6,123 @@
 // the row maximum with ties to the LOWEST index (jnp.argmax), then masks
 // the winner to NEG = -1e30 (a finite value, so a later round may pick it
 // again only if every remaining logit is below -1e30, as on the TPU);
-// the weights are the softmax of the first k values in f32.  Indices are
-// written as int32 (the JAX version carries them as f32 across its VJP
-// boundary; the port does not).
+// the weights are the softmax of the first k values in f32, with the
+// first value as its maximum.  Indices are written as int32 (the JAX
+// version carries them as f32 across its VJP boundary; the port does
+// not).
 //
 // Bound on the H100: bytes.  It reads T*E*4 bytes of logits and writes
-// T*(k + 2*kk)*4; the arithmetic is kk*E compares per row.  Design: one
-// warp per token row with the whole row in registers (E <= 32*VPL, 12
-// values per lane for E = 384), so the logits are read from device memory
-// exactly once, coalesced; each round is a per-lane scan plus a 5-step
-// shuffle reduction whose comparator breaks ties on the lower index.
+// T*(k + 2*kk)*4; the arithmetic is kk*E compares per row.  At the
+// serving shape (T = 8, E = 384, kk = 9) that is nanoseconds of traffic:
+// the time is the launch and the kk dependent rounds of each row, so the
+// design shortens the chain of a round.
+//
+// Design: one warp per token row, the whole row in registers (E <=
+// 32*VPL, 12 values per lane at E = 384), read from device memory once,
+// coalesced.  Each logit is held as a 32-bit order key (the float's bits
+// flipped so that unsigned order is float order, -0 taken as +0), which
+// lets the warp's maximum be one `redux.sync` instruction instead of a
+// five-stage shuffle butterfly.  A round is then:
+//   1. each lane's best (largest key, lowest slot on a tie) by a
+//      tournament tree over its VPL keys: log2(VPL) levels;
+//   2. the warp's largest key: __reduce_max_sync;
+//   3. the lowest index among the lanes holding it: __reduce_min_sync;
+//   4. the winner's key is set to NEG's key in the lane that owns it.
+// The two other designs considered, and why not:
+//   - sorting each lane's values once and advancing a head: in SIMT the
+//     warp issues the winning lane's head update for all lanes, which
+//     costs as much as the tree it saves, and the sort comes on top;
+//   - splitting a row over several warps at small T: every round would
+//     then need a cross-warp merge through shared memory and a barrier,
+//     longer than the tree it shortens.
+// Four rows share a block; at small T this leaves SMs idle, but a row's
+// time is its own chain and four warps of a block run on the SM's four
+// schedulers side by side.  The values written out are the keys decoded
+// back, so a -0 logit comes back as +0 (equal as floats).
 #include "common.cuh"
-
-#include <limits.h>
 
 #define TOPK_NEG (-1e30f)
 #define TOPK_WARPS 4
+
+// Unsigned order of the key is the float order of the value (NaN aside).
+static __device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(__fadd_rn(f, 0.f));  // -0 -> +0
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+static __device__ __forceinline__ float key_value(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// The lane's best slot: the largest key, the lowest slot on a tie (the
+// left operand of every comparison holds the lower slots).
+template <int VPL>
+static __device__ __forceinline__ void lane_best(const unsigned (&key)[VPL],
+                                                 unsigned& best, int& slot) {
+  unsigned kb[VPL];
+  int jb[VPL];
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    kb[j] = key[j];
+    jb[j] = j;
+  }
+#pragma unroll
+  for (int s = 1; s < VPL; s *= 2) {
+#pragma unroll
+    for (int j = 0; j + s < VPL; j += 2 * s) {
+      if (kb[j + s] > kb[j]) {
+        kb[j] = kb[j + s];
+        jb[j] = jb[j + s];
+      }
+    }
+  }
+  best = kb[0];
+  slot = jb[0];
+}
 
 template <int VPL>
 __global__ void __launch_bounds__(32 * TOPK_WARPS)
 topk_gating_kernel(const float* __restrict__ logits, float* __restrict__ w,
                    int* __restrict__ idx, float* __restrict__ vals, int T,
                    int E, int k, int kk) {
+  const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * TOPK_WARPS + (threadIdx.x >> 5);
   if (row >= T) return;  // the whole warp leaves together
   const float* src = logits + (long long)row * E;
-  float v[VPL];
+  // Key 0 lies below every real value's key (-inf's is 0x007fffff), so
+  // a slot past E never wins.
+  unsigned key[VPL];
 #pragma unroll
   for (int j = 0; j < VPL; ++j) {
     const int e = lane + 32 * j;
-    v[j] = (e < E) ? src[e] : 0.f;
+    key[j] = (e < E) ? order_key(src[e]) : 0u;
   }
-  float my_val = 0.f;
+  const unsigned neg = order_key(TOPK_NEG);
+  unsigned my_key = 0u;
   int my_idx = 0;
   for (int r = 0; r < kk; ++r) {
-    // Lane-local best; INT_MAX marks "no candidate" (lanes past E).
-    float best = 0.f;
-    int bi = INT_MAX;
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      const int e = lane + 32 * j;
-      if (e < E && (bi == INT_MAX || v[j] > best)) {
-        best = v[j];
-        bi = e;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (oi != INT_MAX &&
-          (bi == INT_MAX || ov > best || (ov == best && oi < bi))) {
-        best = ov;
-        bi = oi;
-      }
-    }
+    unsigned best;
+    int slot;
+    lane_best<VPL>(key, best, slot);
+    const unsigned top = __reduce_max_sync(full, best);
+    const unsigned mine = (best == top) ? (unsigned)(lane + 32 * slot) : 0xffffffffu;
+    const int win = (int)__reduce_min_sync(full, mine);
     if (lane == r) {
-      my_val = best;
-      my_idx = bi;
+      my_key = top;
+      my_idx = win;
     }
 #pragma unroll
     for (int j = 0; j < VPL; ++j)
-      if (lane + 32 * j == bi) v[j] = TOPK_NEG;
+      if (lane + 32 * j == win) key[j] = neg;
   }
   // Softmax over the first k values; the top-1 value is the maximum.
-  const float mx = __shfl_sync(0xffffffffu, my_val, 0);
+  const float my_val = key_value(my_key);
+  const float mx = __shfl_sync(full, my_val, 0);
   const float p = (lane < k) ? expf(my_val - mx) : 0.f;
   float s = p;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(full, s, off);
   if (lane < k) w[(long long)row * k + lane] = p / s;
   if (lane < kk) {
     idx[(long long)row * kk + lane] = my_idx;

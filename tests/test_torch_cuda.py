@@ -181,6 +181,108 @@ def test_wrappers_count_launches(gen):
 
 
 # ---------------------------------------------------------------------------
+# combine (kernel 4) and top-k (kernel 1) over their grid and group choices
+# ---------------------------------------------------------------------------
+
+COMBINE_DTYPES = [(torch.float32, torch.float32),
+                  (torch.float32, torch.bfloat16),
+                  (torch.bfloat16, torch.float32),
+                  (torch.bfloat16, torch.bfloat16)]
+
+
+def _random_plan(gen, t, k, e=16, cap=64):
+    """A [t, k] plan with kept, dropped (pos >= cap) and invalid (expert
+    -1 or e) slots, and masked rows (zero weight).  Kept slots may
+    repeat: combine only reads them."""
+    eidx = torch.randint(0, e, (t, k), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    pos = torch.randint(0, cap + cap // 4, (t, k), device="cuda",
+                        generator=gen, dtype=torch.int32)
+    bad = torch.rand(t, k, device="cuda", generator=gen) < 0.05
+    eidx = torch.where(bad, torch.where(pos % 2 == 0, -1, e), eidx)
+    w = torch.rand(t, k, device="cuda", generator=gen)
+    w[::7] = 0.0
+    return w, eidx.int(), pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", COMBINE_DTYPES)
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 12])     # 12: the runtime loop
+@pytest.mark.parametrize("t", [0, 1, 8, 32, 4096])
+def test_combine_kernel_bitwise_over_shapes(gen, t, k, dtypes):
+    """Every group size, grid width and path (d = 17: scalar; 40, 512,
+    7168: 16-byte vectors) is bit-identical to the plain version, and a
+    second launch repeats the first bit for bit."""
+    tin, tout = dtypes
+    e, cap = 16, 64
+    w, eidx, pos = _random_plan(gen, t, k, e, cap)
+    for d in (17, 40, 512, 7168):
+        buf = torch.randn(e, cap, d, device="cuda", generator=gen).to(tin)
+        y = tdispatch.combine(buf, w, eidx, pos, out_dtype=tout)
+        assert y.dtype == tout and y.shape == (t, d)
+        assert torch.equal(y, tdispatch.combine_plain(buf, w, eidx, pos,
+                                                      tout)), d
+        assert torch.equal(y, tdispatch.combine(buf, w, eidx, pos,
+                                                out_dtype=tout)), d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", COMBINE_DTYPES)
+def test_combine_kernel_unaligned_view(gen, dtypes):
+    """A buffer viewed one element into its storage takes the scalar path
+    (d % 8 == 0 but not 16-byte aligned) and still matches bit for bit."""
+    tin, tout = dtypes
+    t, k, e, cap, d = 8, 8, 16, 64, 512
+    w, eidx, pos = _random_plan(gen, t, k, e, cap)
+    flat = torch.randn(e * cap * d + 1, device="cuda", generator=gen).to(tin)
+    buf = flat[1:].view(e, cap, d)
+    assert buf.is_contiguous() and buf.data_ptr() % 16 != 0
+    y = tdispatch.combine(buf, w, eidx, pos, out_dtype=tout)
+    assert torch.equal(y, tdispatch.combine_plain(buf, w, eidx, pos, tout))
+    assert torch.equal(y, tdispatch.combine(buf.clone(), w, eidx, pos,
+                                            out_dtype=tout))
+
+
+def _topk_logits(gen, t, e, k, kk, mode):
+    logits = torch.randn(t, e, device="cuda", generator=gen)
+    if mode == "tied":
+        return torch.round(logits)
+    if mode == "floor":
+        # Between k and kk - 1 logits of a row above -1e30, the rest at
+        # -1e31: the rounds past them re-pick a masked winner (-1e30).
+        n = torch.randint(k, kk, (t, 1), device="cuda", generator=gen)
+        rank = torch.rand(t, e, device="cuda", generator=gen).argsort(1) \
+            .argsort(1)
+        return torch.where(rank < n, logits, -1e31)
+    return logits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [1, 31, 33, 384, 1024])
+@pytest.mark.parametrize("t", [1, 8, 4096])
+def test_topk_kernel_over_shapes(gen, t, e):
+    """Indices equal to the plain version's and values within 1e-6, for
+    kk = 1, 9, 32 and E (where E <= 32), on random, heavily tied and
+    floored rows (fewer than kk logits above -1e30)."""
+    kks = sorted({1, min(9, e), min(32, e)} | ({e} if e <= 32 else set()))
+    for kk in kks:
+        for k in sorted({1, max(1, kk - 1), kk}):
+            for mode in ("random", "tied", "floor"):
+                if mode == "floor" and k == kk:
+                    continue
+                logits = _topk_logits(gen, t, e, k, kk, mode)
+                w, idx, vals = ttopk.topk_gating(logits, k, kk)
+                pw, pidx, pvals = ttopk.topk_gating_plain(logits, k, kk)
+                case = (t, e, k, kk, mode)
+                assert torch.equal(idx, pidx), case
+                assert float((w - pw).abs().max()) <= 1e-6, case
+                assert float((vals - pvals).abs().max()) <= 1e-6, case
+                assert bool(torch.isfinite(w).all()), case
+                if mode == "floor":
+                    assert bool((vals == -1e30).any()), case
+
+
+# ---------------------------------------------------------------------------
 # the training slice's kernels
 # ---------------------------------------------------------------------------
 

@@ -35,11 +35,22 @@ TOPK_CASES = [  # (T, E, k, extra, tied)
     (5, 8, 1, 0, False),
     (12, 10, 2, 1, True),       # heavy ties: lowest index must win
     (9, 33, 8, 1, True),        # E not a multiple of 32
+    (10, 40, 3, 5, "floor"),    # 3..7 logits above -1e30: masked re-picks
+    (6, 12, 4, 8, False),       # kk = E
+    (7, 1, 1, 0, False),        # E = 1
 ]
 
 
 def _logits(t, e, tied, seed):
     rs = np.random.RandomState(seed)
+    if tied == "floor":
+        # Between k and kk - 1 logits of a row above -1e30 (k = 3, kk = 8
+        # in its case), the rest at -1e31: once they are taken, a round
+        # re-picks the lowest masked winner at -1e30.
+        x = rs.randn(t, e).astype(np.float32)
+        n = rs.randint(3, 8, (t, 1))
+        rank = np.argsort(np.argsort(rs.rand(t, e), 1), 1)
+        return np.where(rank < n, x, np.float32(-1e31)).astype(np.float32)
     if tied:
         return rs.randint(-2, 3, (t, e)).astype(np.float32)
     return rs.randn(t, e).astype(np.float32)
@@ -76,6 +87,8 @@ PLAN_CASES = [  # (T, E, k, d, capacity_factor, masked)
     (13, 5, 1, 17, 0.5, False),      # ragged T / d, k = 1, drops
     (20, 4, 2, 8, 0.5, False),       # tight capacity: pos >= C drops
     (32, 8, 8, 40, 1.0, True),       # k = 8, masked rows
+    (48, 6, 1, 24, 1.0, True),       # k = 1: MoA's [T*k, 1] assignment view
+    (24, 16, 12, 40, 0.5, True),     # k = 12: the kernel's runtime loop
 ]
 
 
