@@ -38,7 +38,12 @@ Phases, in order; any failure exits non-zero and prints no result:
              apart; combine's with a cold L2) and the time per launch of
              200 launches queued between two CUDA events, each beside
              its bound and the launch floor (the device time of ``add_``
-             on one element).
+             on one element); so are the top-k backward (B5) at the
+             training shape and the e-blocked combine (kernel 5, cold
+             L2) at the decode and prefill shapes with the reference's
+             slab of 64 and at the training shape with 16.  Both are
+             held bit for bit to their plain versions, B5 also on rows
+             whose indices repeat, kernel 5 also at the decode shape.
 3. serve   — kimi-k2-1t-a32b at full width, depth cut to 2 layers, bf16
              weights drawn from a seed on the card, served through the
              port's ServeEngine with the "cuda" backend: 8 greedy
@@ -387,6 +392,12 @@ COMBINE_SHAPES = {"decode": (8, 7168, 384, 8, "bfloat16", None),
                   "moa_ffn": (8, 512, 8, 2, "bfloat16", None),
                   "moa_view": (16, 128, 8, 1, "bfloat16", None),
                   "train": (TRAIN_B * TRAIN_S, 512, 256, 4, "float32", 128)}
+# The e-blocked combine (kernel 5): the COMBINE_SHAPES entry and the slab
+# the reference's select_e_block picks there (kimi-k2's decode and
+# prefill buffers exceed its 16 MiB budget at e_block = 64).
+EBLOCK_SHAPES = {"decode": (COMBINE_SHAPES["decode"], 64),
+                 "prefill": (COMBINE_SHAPES["prefill"], 64),
+                 "train": (COMBINE_SHAPES["train"], E_BLOCK)}
 
 
 def check_topk(gen, floor: dict) -> dict:
@@ -486,6 +497,59 @@ def dispatch_combine_times(gen, floor: dict) -> dict:
                    dev_ms=cold["combine_kernel"], kept_slots=n_kept)
         log(f"combine {name}, L2 cold: {cold['combine_kernel']} ms a launch")
         del x, buf
+    return out
+
+
+def topk_bwd_times(gen, floor: dict) -> dict:
+    """The top-k backward (B5) at the training shape: device and queued
+    time per launch, the bound (the [T, E] output written once, the
+    inputs read once)."""
+    import torch
+    from repro_torch.kernels import topk_gating as tk
+    t, e, k, kk = TOPK_SHAPES["train"]
+    logits = torch.randn(t, e, device="cuda", generator=gen)
+    w, idx, _ = tk.topk_gating(logits, k, kk)
+    dw = torch.randn(t, k, device="cuda", generator=gen)
+    dvals = torch.randn(t, kk, device="cuda", generator=gen)
+    return {"train": shape_times(
+        f"topk_gating_bwd train [{t},{e}] k={k} kk={kk}",
+        lambda: tk.topk_gating_bwd(w, idx, dw, dvals, e),
+        "topk_gating_bwd_kernel", t * e * 4 + t * k * 8 + t * kk * 8, 0,
+        "float32", floor)}
+
+
+def combine_eblock_times(gen, floor: dict) -> dict:
+    """The e-blocked combine (kernel 5) at EBLOCK_SHAPES, timed as
+    ``dispatch_combine_times`` times the combine: ``dev_ms`` with a cold
+    L2, the back-to-back times kept apart as ``*_l2_warm``."""
+    import torch
+    from repro_torch.kernels import dispatch as dk
+    out = {}
+    flush = torch.empty(32 * 2 ** 20, device="cuda")
+    for name, ((t, d, e, k, dt, cap), e_block) in EBLOCK_SHAPES.items():
+        dtype = getattr(torch, dt)
+        size = torch.finfo(dtype).bits // 8
+        _, p = _route(t, e, k, 1, dtype, gen, capacity=cap)
+        ei, po, w, c = p.expert_index, p.position, p.weight, p.capacity
+        n_kept = int((po < c).sum())
+        buf = torch.randn(e, c, d, device="cuda", generator=gen).to(dtype)
+
+        def fn():
+            return dk.combine_eblock(buf, w, ei, po, e_block=e_block)
+        res = shape_times(
+            f"combine_eblock {name} [{t},{d}] {dt} <- [{e},{c},{d}], k={k}, "
+            f"e_block={e_block}", fn, "combine_eblock_kernel",
+            n_kept * d * size + t * k * 12 + t * d * size, 2 * n_kept * d, dt,
+            floor)
+        cold = device_ms(lambda: (flush.zero_(), fn()),
+                         ("combine_eblock_kernel",))
+        res.update(dev_ms_l2_warm=res.pop("dev_ms"),
+                   queued_ms_l2_warm=res.pop("queued_ms"),
+                   dev_ms=cold["combine_eblock_kernel"], kept_slots=n_kept,
+                   e_block=e_block)
+        log(f"combine_eblock {name}, L2 cold: {res['dev_ms']} ms a launch")
+        out[name] = res
+        del buf
     return out
 
 
@@ -775,30 +839,55 @@ def _train_plan(gen, dtype):
     return _route(t, e, k, d, dtype, gen, capacity=cap)
 
 
-def check_topk_bwd(gen) -> dict:
+def check_topk_bwd(gen, floor: dict) -> dict:
+    """B5 bit for bit against its plain version at the training shape,
+    on random rows and on rows whose indices repeat (fewer than kk
+    logits above -1e30: one with k = 2, kk = 5; eight with k = 8,
+    kk = 9, kimi-k2's E); timed at the training shape."""
     import torch
     from repro_torch.kernels import topk_gating as tk
-    t, e, k, kk = TRAIN_B * TRAIN_S, 256, 4, 5
-    logits = torch.randn(t, e, device="cuda", generator=gen)
-    w, idx, _ = tk.topk_gating(logits, k, kk)
-    dw = torch.randn(t, k, device="cuda", generator=gen)
-    dvals = torch.randn(t, kk, device="cuda", generator=gen)
-    got = tk.topk_gating_bwd(w, idx, dw, dvals, e)
-    want = tk.topk_gating_bwd_plain(w, idx, dw, dvals, e)
-    err = max_err(got, want)
-    check(err <= 1e-6, f"topk_gating_bwd differs by {err}")
+    t = TRAIN_B * TRAIN_S
+    # The training shape first: its inputs are the timed ones.
+    cases = [(256, 4, 5, None), (256, 2, 5, 1), (384, 8, 9, 8)]
+    worst, timed = 0.0, None
+    for e, k, kk, n_finite in cases:
+        logits = torch.randn(t, e, device="cuda", generator=gen)
+        if n_finite:
+            rank = torch.rand(t, e, device="cuda", generator=gen).argsort(1) \
+                .argsort(1)
+            logits = torch.where(rank < n_finite, logits, -1e31)
+        w, idx, _ = tk.topk_gating(logits, k, kk)
+        dw = torch.randn(t, k, device="cuda", generator=gen)
+        dvals = torch.randn(t, kk, device="cuda", generator=gen)
+        got = tk.topk_gating_bwd(w, idx, dw, dvals, e)
+        want = tk.topk_gating_bwd_plain(w, idx, dw, dvals, e)
+        repeats = int((idx.sort(1).values.diff(1) == 0).any(1).sum())
+        err = max_err(got, want)
+        log(f"topk_gating_bwd [{t},{e}] k={k} kk={kk}, {repeats} rows with "
+            f"a repeated index: max_abs_err {err:.3g} (tol 0.0)")
+        check(torch.equal(got, want), f"topk_gating_bwd differs by {err} at "
+                                      f"E={e} k={k} kk={kk}")
+        check(n_finite is None or repeats == t,
+              f"topk_gating_bwd: {repeats} of {t} rows repeat an index")
+        worst = max(worst, err)
+        timed = timed or (w, idx, dw, dvals, e, k, kk)
+    w, idx, dw, dvals, e, k, kk = timed
     ms = cuda_ms(lambda: tk.topk_gating_bwd(w, idx, dw, dvals, e))
     plain = cuda_ms(lambda: tk.topk_gating_bwd_plain(w, idx, dw, dvals, e))
     b, by = bound_ms(t * e * 4 + t * k * 8 + t * kk * 8, 0, "float32")
-    return dict(name="topk_gating_bwd", max_abs_err=err, tol=1e-6, ms=ms,
+    return dict(name="topk_gating_bwd", max_abs_err=worst, tol=0.0, ms=ms,
                 plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-                shape=f"dlogits [{t},{e}] f32, k={k}, kk={kk}")
+                shape=f"dlogits [{t},{e}] f32, k={k}, kk={kk}",
+                by_shape=topk_bwd_times(gen, floor))
 
 
-def check_eblock(gen) -> list[dict]:
+def check_eblock(gen, floor: dict) -> list[dict]:
     """The e-blocked dispatch and combine in f32 and bf16 at the
     training shape, bit-equal to their plain versions (dispatch also to
-    the resident kernel); timed in f32."""
+    the resident kernel; the combine with one slab to the resident
+    combine); the combine also at kimi-k2's decode and prefill shapes
+    with the reference's slab of 64; timed in f32, the combine also at
+    EBLOCK_SHAPES."""
     import torch
     from repro_torch.kernels import dispatch as dk
     worst_d = worst_c = 0.0
@@ -835,6 +924,24 @@ def check_eblock(gen) -> list[dict]:
             f"{max_err(got, resident):.3g}")
         check(err_r == 0.0, f"combine {dtype} at the training shape differs "
                             f"from its plain version by {err_r}")
+        one = dk.combine_eblock(buf, w, ei, po, e_block=e)
+        check(torch.equal(one, resident), f"combine_eblock {dtype} with "
+              "e_block = E differs from the resident combine")
+    for name in ("decode", "prefill"):
+        (t, d, e, k, dt, cap), e_block = EBLOCK_SHAPES[name]
+        dtype = getattr(torch, dt)
+        _, p = _route(t, e, k, 1, dtype, gen, capacity=cap)
+        args = (p.weight, p.expert_index, p.position)
+        buf = torch.randn(e, p.capacity, d, device="cuda",
+                          generator=gen).to(dtype)
+        got = dk.combine_eblock(buf, *args, e_block=e_block)
+        want = dk.combine_eblock_plain(buf, *args, dtype, e_block)
+        err = max_err(got, want)
+        log(f"combine_eblock {name} [{t},{d}] {dt}, E={e}, k={k}, "
+            f"e_block={e_block}: max_abs_err {err:.3g} (tol 0.0)")
+        check(torch.equal(got, want),
+              f"combine_eblock at the {name} shape differs by {err}")
+        del buf
     x, p = _train_plan(gen, torch.float32)
     e, c, d = p.n_experts, p.capacity, x.shape[1]
     ei, po, w = p.expert_index, p.position, p.weight
@@ -882,7 +989,8 @@ def check_eblock(gen) -> list[dict]:
                  library_ms=None, shape=shape),
             dict(name="combine_eblock", max_abs_err=worst_c, tol=0.0,
                  ms=ms_c, plain_ms=plain_c, bound_ms=b_c, bound_by=by_c,
-                 library_ms=None, shape=shape, train_vjps=vjps)]
+                 library_ms=None, shape=shape, train_vjps=vjps,
+                 by_shape=combine_eblock_times(gen, floor))]
 
 
 def check_gmm_bwd(gen) -> dict:
@@ -1116,7 +1224,8 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     floor = launch_floor()
     results = [check_topk(gen, floor), *check_dispatch_combine(gen, floor),
-               check_gmm(gen), check_topk_bwd(gen), *check_eblock(gen),
+               check_gmm(gen), check_topk_bwd(gen, floor),
+               *check_eblock(gen, floor),
                check_gmm_bwd(gen)]
     for r in results:
         log("kernel " + json.dumps(r))

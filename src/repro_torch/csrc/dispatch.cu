@@ -23,6 +23,7 @@
 #include "common.cuh"
 
 #include <atomic>
+#include <climits>
 
 #define DC_THREADS 128
 
@@ -148,20 +149,72 @@ template <typename T> struct Piece<8, T> {
   static __device__ __forceinline__ void store(T* p, const float* in) { Vec8<T>::store(p, in); }
 };
 
+// A thread's elements of a row chunk: NP pieces of PN (vector path) or 8
+// single elements (scalar path), piece / element q at i0 + q * step.
+template <typename TI, bool VEC> struct Chunk {
+  static constexpr int PN = VEC ? 16 / (int)sizeof(TI) : 1;
+  static constexpr int NP = CB_PER_THREAD / PN;
+  long long i0;
+  int step;
+  __device__ __forceinline__ Chunk()
+      : i0((long long)blockIdx.y * blockDim.x * CB_PER_THREAD +
+           (long long)threadIdx.x * PN),
+        step(blockDim.x * PN) {}
+};
+
+// The G slot rows at element offsets off[j] (-1: none), this thread's
+// elements of each, all loads issued before any is used; zeros for a
+// missing row and past d.
+template <typename TI, int G, bool VEC>
+static __device__ __forceinline__ void load_group(
+    const TI* __restrict__ buf, const Chunk<TI, VEC>& ch,
+    const long long (&off)[G], int d, float (&v)[G][CB_PER_THREAD]) {
+  constexpr int PN = Chunk<TI, VEC>::PN, NP = Chunk<TI, VEC>::NP;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const long long i = ch.i0 + (long long)q * ch.step;
+      const bool live = off[j] >= 0 && i < d;
+      if constexpr (VEC) {
+        if (live) {
+          Piece<PN, TI>::load(buf + off[j] + i, &v[j][q * PN]);
+        } else {
+#pragma unroll
+          for (int r = 0; r < PN; ++r) v[j][q * PN + r] = 0.f;
+        }
+      } else {
+        v[j][q] = live ? to_f<TI>(buf[off[j] + i]) : 0.f;
+      }
+    }
+  }
+}
+
+// This thread's elements of one output row, in the output type.
+template <typename TI, typename TO, bool VEC>
+static __device__ __forceinline__ void store_chunk(
+    TO* __restrict__ out, const Chunk<TI, VEC>& ch,
+    const float (&acc)[CB_PER_THREAD], int d) {
+  constexpr int PN = Chunk<TI, VEC>::PN, NP = Chunk<TI, VEC>::NP;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    const long long i = ch.i0 + (long long)q * ch.step;
+    if (i >= d) continue;
+    if constexpr (VEC)
+      Piece<PN, TO>::store(out + i, &acc[q * PN]);
+    else
+      out[i] = from_f<TO>(acc[q]);
+  }
+}
+
 template <typename TI, typename TO, int G, bool VEC>
 __global__ void __launch_bounds__(CB_MAX_THREADS)
 combine_kernel(const TI* __restrict__ buf, const float* __restrict__ w,
                const int* __restrict__ eidx, const int* __restrict__ pos,
                TO* __restrict__ y, int k, int d, int E, int C) {
-  // A thread's elements: NP pieces of PN (vector path) or 8 single
-  // elements (scalar path), piece / element q at i0 + q * step.
-  constexpr int PN = VEC ? 16 / (int)sizeof(TI) : 1;
-  constexpr int NP = CB_PER_THREAD / PN;
   const long long t = blockIdx.x;
   const int lane = threadIdx.x & 31;
-  const long long i0 = (long long)blockIdx.y * blockDim.x * CB_PER_THREAD +
-                       (long long)threadIdx.x * PN;
-  const int step = blockDim.x * PN;
+  const Chunk<TI, VEC> ch;
   float acc[CB_PER_THREAD];
 #pragma unroll
   for (int q = 0; q < CB_PER_THREAD; ++q) acc[q] = 0.f;
@@ -184,24 +237,7 @@ combine_kernel(const TI* __restrict__ buf, const float* __restrict__ w,
       wt[j] = __shfl_sync(0xffffffffu, my_w, j);
     }
     float v[G][CB_PER_THREAD];
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-#pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        const long long i = i0 + (long long)q * step;
-        const bool live = off[j] >= 0 && i < d;
-        if constexpr (VEC) {
-          if (live) {
-            Piece<PN, TI>::load(buf + off[j] + i, &v[j][q * PN]);
-          } else {
-#pragma unroll
-            for (int r = 0; r < PN; ++r) v[j][q * PN + r] = 0.f;
-          }
-        } else {
-          v[j][q] = live ? to_f<TI>(buf[off[j] + i]) : 0.f;
-        }
-      }
-    }
+    load_group<TI, G, VEC>(buf, ch, off, d, v);
 #pragma unroll
     for (int j = 0; j < G; ++j) {
       if (off[j] < 0) continue;  // the same for the whole block
@@ -210,16 +246,7 @@ combine_kernel(const TI* __restrict__ buf, const float* __restrict__ w,
         acc[q] = __fadd_rn(acc[q], __fmul_rn(wt[j], v[j][q]));
     }
   }
-  TO* out = y + t * d;
-#pragma unroll
-  for (int q = 0; q < NP; ++q) {
-    const long long i = i0 + (long long)q * step;
-    if (i >= d) continue;
-    if constexpr (VEC)
-      Piece<PN, TO>::store(out + i, &acc[q * PN]);
-    else
-      out[i] = from_f<TO>(acc[q]);
-  }
+  store_chunk<TI, TO, VEC>(y + t * d, ch, acc, d);
 }
 
 // SMs of the current device, queried once per device: the attribute
@@ -389,70 +416,146 @@ extern "C" int repro_dispatch_eblock(const void* x, const int* btok,
 // Expert-blocked combine: replaces repro/kernels/dispatch.py::
 // _combine_eblock_kernel (pallas_call in _combine_eblock_raw).  The TPU
 // walked the expert slabs innermost and kept a [block_t, d] f32 sum in
-// scratch across them.  Blocks here cannot carry a sum from one launch
-// step to the next, so one block owns one token and walks the slabs
-// itself, in ascending order: for each slab a partial sum starts at 0 and
-// takes w[t, j] * buf[e, p] over j ascending, counting only the kept
-// assignments whose expert lies in the slab; the partial is then added to
-// the token's f32 total.  Each product and sum is rounded on its own, so
-// the result is bit-identical to the plain version.  For k >= 3 the
-// grouping by slab changes the order of the sum, so it is close to, not
-// bit-equal with, the resident combine (as on the TPU).
+// scratch across them.  The sum's order is the point: for each slab b
+// in ascending order, a partial sum starts at +0 and takes w[t, j] *
+// buf[e, p] over j ascending, counting only the kept assignments whose
+// expert lies in the slab (b = e / e_block); the partial is then added
+// to the token's f32 total, and a slab with no hit adds nothing.  Each
+// product and sum is rounded on its own, so the result is bit-identical
+// to the plain version; with e_block >= E there is one slab, and it is
+// bit-identical to the resident combine.  For k >= 3 the grouping by
+// slab changes the order of the sum against the resident combine (as
+// on the TPU).
 //
 // Bound on the H100: bytes.  It reads the kept slots and writes T*d.
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(DC_THREADS)
+// The design is the resident combine's (2-D grid of token x d-chunk,
+// width from combine_threads, f32 pieces contiguous across the warp, a
+// group's G loads in flight before its sum), with one step before the
+// loads: the block sorts its token's kept slots by (slab, j).  Thread j
+// reads triple j (eidx, pos and w in one trip) into shared memory with
+// its key, the slab times k plus j (unique); a slot's place is the
+// number of smaller keys, and the place -> slot table is all that is
+// sorted.  The group walk then runs over the table, and the sum needs
+// one more register set: the running partial, flushed into the total
+// where the slab changes.  k > G walks groups of the table in order;
+// the order of the sum is the same.  The launch bounds state one block
+// an SM as the minimum: without it ptxas spilled a few bytes in some
+// instantiations, far below the register limit; with it none spills.
+template <typename TI, typename TO, int G, bool VEC>
+__global__ void __launch_bounds__(CB_MAX_THREADS, 1)
 combine_eblock_kernel(const TI* __restrict__ buf, const float* __restrict__ w,
                       const int* __restrict__ eidx, const int* __restrict__ pos,
                       TO* __restrict__ y, int k, int d, int E, int C,
-                      int e_block, bool vec) {
-  const int t = blockIdx.x;
-  const int n_slabs = (E + e_block - 1) / e_block;
-  if (vec) {
-    for (int i = threadIdx.x * 8; i < d; i += DC_THREADS * 8) {
-      float total[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int b = 0; b < n_slabs; ++b) {
-        const int lo = b * e_block, hi = lo + e_block;
-        float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        bool hit = false;
-        for (int j = 0; j < k; ++j) {
-          const int a = t * k + j;
-          const int e = eidx[a], p = pos[a];
-          if (!kept_slot(e, p, E, C) || e < lo || e >= hi) continue;
-          hit = true;
-          const float wt = w[a];
-          float v[8];
-          Vec8<TI>::load(buf + ((long long)e * C + p) * d + i, v);
-#pragma unroll
-          for (int q = 0; q < 8; ++q) part[q] = __fadd_rn(part[q], __fmul_rn(wt, v[q]));
-        }
-        // A slab without hits adds +0, which leaves the total unchanged.
-        if (hit) {
-#pragma unroll
-          for (int q = 0; q < 8; ++q) total[q] = __fadd_rn(total[q], part[q]);
-        }
-      }
-      Vec8<TO>::store(y + (long long)t * d + i, total);
+                      int e_block) {
+  // By slot j: sort key, row offset, weight, slab; by place: the slot.
+  extern __shared__ __align__(16) unsigned char cbe_smem[];
+  long long* s_key = reinterpret_cast<long long*>(cbe_smem);
+  long long* s_off = s_key + k;
+  float* s_w = reinterpret_cast<float*>(s_off + k);
+  int* s_slab = reinterpret_cast<int*>(s_w + k);
+  int* s_slot = s_slab + k;
+  const long long t = blockIdx.x;
+  int n_kept = 0;
+  for (int j0 = 0; j0 < k; j0 += blockDim.x) {  // the same trips in every thread
+    const int j = j0 + threadIdx.x;
+    bool kept = false;
+    if (j < k) {
+      const long long a = t * k + j;
+      const int e = eidx[a], p = pos[a];
+      const float wa = w[a];
+      kept = kept_slot(e, p, E, C);
+      const int b = kept ? e / e_block : 0;
+      s_key[j] = kept ? (long long)b * k + j : LLONG_MAX;
+      s_off[j] = ((long long)e * C + p) * d;
+      s_w[j] = wa;
+      s_slab[j] = b;
     }
-  } else {
-    for (int i = threadIdx.x; i < d; i += DC_THREADS) {
-      float total = 0.f;
-      for (int b = 0; b < n_slabs; ++b) {
-        const int lo = b * e_block, hi = lo + e_block;
-        float part = 0.f;
-        bool hit = false;
-        for (int j = 0; j < k; ++j) {
-          const int a = t * k + j;
-          const int e = eidx[a], p = pos[a];
-          if (!kept_slot(e, p, E, C) || e < lo || e >= hi) continue;
-          hit = true;
-          part = __fadd_rn(part, __fmul_rn(w[a], to_f<TI>(buf[((long long)e * C + p) * d + i])));
+    n_kept += __syncthreads_count(kept);
+  }
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    const long long key = s_key[j];
+    if (key == LLONG_MAX) continue;
+    int r = 0;
+#pragma unroll 8
+    for (int i = 0; i < k; ++i) r += s_key[i] < key;
+    s_slot[r] = j;
+  }
+  __syncthreads();
+
+  const Chunk<TI, VEC> ch;
+  const int lane = threadIdx.x & 31;
+  float total[CB_PER_THREAD], part[CB_PER_THREAD];
+#pragma unroll
+  for (int q = 0; q < CB_PER_THREAD; ++q) total[q] = part[q] = 0.f;
+  int slab = -1;  // the running partial's slab
+  for (int r0 = 0; r0 < n_kept; r0 += G) {
+    // Lane j reads place r0 + j of the table and the warp shares it by
+    // shuffles, as in the resident combine.  (Read by every thread, the
+    // table let the compiler chain each slot's reads into its row load
+    // and issue the rows one after another.)
+    long long my_off = -1;
+    float my_w = 0.f;
+    int my_sb = -1;
+    if (lane < G && r0 + lane < n_kept) {
+      const int slot = s_slot[r0 + lane];
+      my_off = s_off[slot];
+      my_w = s_w[slot];
+      my_sb = s_slab[slot];
+    }
+    long long off[G];
+    float wt[G];
+    int sb[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      off[j] = __shfl_sync(0xffffffffu, my_off, j);
+      wt[j] = __shfl_sync(0xffffffffu, my_w, j);
+      sb[j] = __shfl_sync(0xffffffffu, my_sb, j);
+    }
+    float v[G][CB_PER_THREAD];
+    load_group<TI, G, VEC>(buf, ch, off, d, v);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (off[j] < 0) continue;  // past the table's end: the same for the block
+      const int bj = sb[j];
+      if (bj != slab) {
+        // A new slab: the finished partial joins the total (at the
+        // first kept slot, +0 joins +0).
+#pragma unroll
+        for (int q = 0; q < CB_PER_THREAD; ++q) {
+          total[q] = __fadd_rn(total[q], part[q]);
+          part[q] = 0.f;
         }
-        if (hit) total = __fadd_rn(total, part);
+        slab = bj;
       }
-      y[(long long)t * d + i] = from_f<TO>(total);
+#pragma unroll
+      for (int q = 0; q < CB_PER_THREAD; ++q)
+        part[q] = __fadd_rn(part[q], __fmul_rn(wt[j], v[j][q]));
     }
   }
+#pragma unroll
+  for (int q = 0; q < CB_PER_THREAD; ++q) total[q] = __fadd_rn(total[q], part[q]);
+  store_chunk<TI, TO, VEC>(y + t * d, ch, total, d);
+}
+
+// Shared memory of the sort: 28 bytes a slot, within the 48 KB a
+// launch gets without an opt-in.
+#define CBE_SMEM_PER_SLOT 28
+#define CBE_MAX_SMEM (48 * 1024)
+
+template <typename TI, typename TO, int G>
+static void launch_combine_eblock(dim3 grid, int threads, size_t smem,
+                                  bool vec, const void* buf, const float* w,
+                                  const int* eidx, const int* pos, void* y,
+                                  int k, int d, int E, int C, int e_block,
+                                  cudaStream_t stream) {
+  const TI* b = static_cast<const TI*>(buf);
+  TO* out = static_cast<TO*>(y);
+  if (vec)
+    combine_eblock_kernel<TI, TO, G, true><<<grid, threads, smem, stream>>>(
+        b, w, eidx, pos, out, k, d, E, C, e_block);
+  else
+    combine_eblock_kernel<TI, TO, G, false><<<grid, threads, smem, stream>>>(
+        b, w, eidx, pos, out, k, d, E, C, e_block);
 }
 
 template <typename TI, typename TO>
@@ -460,10 +563,23 @@ static int run_combine_eblock(const void* buf, const float* w, const int* eidx,
                               const int* pos, void* y, int T_, int k, int d,
                               int E, int C, int e_block, cudaStream_t stream) {
   if (T_ == 0 || d == 0) return 0;
+  const size_t smem = (size_t)k * CBE_SMEM_PER_SLOT;
+  if (smem > CBE_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  int n_sms = 0;
+  const cudaError_t err = sm_count(&n_sms);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = combine_threads(T_, d, n_sms);
+  const long long span = (long long)threads * CB_PER_THREAD;
+  const long long chunks = ((long long)d + span - 1) / span;
+  if (chunks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)T_, (unsigned)chunks);
   const bool vec = d % 8 == 0 && aligned16(buf) && aligned16(y);
-  combine_eblock_kernel<TI, TO><<<T_, DC_THREADS, 0, stream>>>(
-      static_cast<const TI*>(buf), w, eidx, pos, static_cast<TO*>(y), k, d, E,
-      C, e_block, vec);
+  if (k <= 2)
+    launch_combine_eblock<TI, TO, 2>(grid, threads, smem, vec, buf, w, eidx, pos, y, k, d, E, C, e_block, stream);
+  else if (k <= 4)
+    launch_combine_eblock<TI, TO, 4>(grid, threads, smem, vec, buf, w, eidx, pos, y, k, d, E, C, e_block, stream);
+  else
+    launch_combine_eblock<TI, TO, 8>(grid, threads, smem, vec, buf, w, eidx, pos, y, k, d, E, C, e_block, stream);
   return (int)cudaGetLastError();
 }
 

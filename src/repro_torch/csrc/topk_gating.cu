@@ -158,50 +158,98 @@ extern "C" int repro_topk_gating(const float* logits, float* w, int* idx,
 // ---------------------------------------------------------------------------
 // Backward pass: replaces repro/kernels/topk_gating.py::_topk_bwd (the
 // custom VJP at l.116, plain XLA on the TPU).  For each row:
-//   s        = <w, dw>, summed over j = 0..k-1 in ascending order
+//   s        = <w, dw>, summed over j = 0..k-1 in ascending order from +0
 //   dv_j     = w_j * (dw_j - s)                        (softmax Jacobian)
 //   full_j   = dvals_j + dv_j  (j < k),  dvals_j  (k <= j < kk)
-//   dlogits  = zeros [E] with full_j written at column idx_j
-// Every product, difference and sum is rounded on its own (no fused
-// multiply-add), so the result is bit-identical to the plain version.
+//   dlogits  = zeros [E] plus full_j at column idx_j, over j ascending
+// A row's indices repeat when fewer than kk of its logits lie above
+// -1e30 (later rounds re-pick a masked winner); such a column is the
+// sum from +0 over its j in ascending order, the order of the
+// reference's .at[].add.  Every product, difference and sum is rounded
+// on its own (no fused multiply-add), so the result is bit-identical to
+// the plain version.
 //
 // Bound on the H100: bytes.  The [T, E] f32 output is written once
 // (4.2 MB at T = 4096, E = 256); the inputs are T*(2k + 2kk)*4 bytes.
-// Design: one warp per token row.  The kk (index, value) pairs go to
-// shared memory; each lane then writes its columns of the row exactly
-// once, as 0 plus the values of the pairs that hit the column (the
-// indices of a row are distinct, so at most one does), in coalesced
-// 128-byte stores.  No memset, no read-modify-write, no atomics.
-template <int ROWS>
-__global__ void __launch_bounds__(32 * ROWS)
+// Design: one warp per row, four rows a block.  Lane j < k reads w_j and
+// dw_j, lane j < kk idx_j and dvals_j: one trip to memory for the row.
+// s is lane j's product added in ascending j by k shuffles (every lane
+// runs the same chain), then lane j < kk forms full_j.  A lane owns NQ
+// pieces of PN contiguous columns (PN = 4, one 16-byte store, when
+// E % 4 == 0 and the output is aligned; else single columns), piece q
+// at lane*PN + q*32*PN, so each store instruction of the warp covers
+// 32*PN contiguous columns.  The columns are built in registers: for
+// each pair j, ascending, (idx_j, full_j) reaches every lane by shuffle
+// and is added to the column it hits.  Rows longer than a tile of
+// 32*PN*NQ columns (NQ <= 8) walk tiles.  No shared memory, no memset,
+// no read-modify-write, no atomics.
+template <int NQ, bool VEC>
+__global__ void __launch_bounds__(32 * TOPK_WARPS)
 topk_gating_bwd_kernel(const float* __restrict__ w, const int* __restrict__ idx,
                        const float* __restrict__ dw,
                        const float* __restrict__ dvals,
                        float* __restrict__ dlogits, int T, int E, int k,
                        int kk) {
-  __shared__ int s_idx[ROWS][32];
-  __shared__ float s_val[ROWS][32];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int row = blockIdx.x * ROWS + wid;
+  constexpr int PN = VEC ? 4 : 1;
+  constexpr int TILE = 32 * PN * NQ;
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * TOPK_WARPS + (threadIdx.x >> 5);
   if (row >= T) return;  // the whole warp leaves together
-  const float* wr = w + (long long)row * k;
-  const float* dwr = dw + (long long)row * k;
-  float s = 0.f;
-  for (int j = 0; j < k; ++j) s = __fadd_rn(s, __fmul_rn(wr[j], dwr[j]));
+  float wj = 0.f, dwj = 0.f, vj = 0.f;
+  int ij = -1;
+  if (lane < k) {
+    wj = w[(long long)row * k + lane];
+    dwj = dw[(long long)row * k + lane];
+  }
   if (lane < kk) {
-    float v = dvals[(long long)row * kk + lane];
-    if (lane < k) v = __fadd_rn(v, __fmul_rn(wr[lane], __fsub_rn(dwr[lane], s)));
-    s_idx[wid][lane] = idx[(long long)row * kk + lane];
-    s_val[wid][lane] = v;
+    ij = idx[(long long)row * kk + lane];
+    vj = dvals[(long long)row * kk + lane];
   }
-  __syncwarp();
+  const float prod = __fmul_rn(wj, dwj);
+  float s = 0.f;
+  for (int j = 0; j < k; ++j) s = __fadd_rn(s, __shfl_sync(full, prod, j));
+  if (lane < k) vj = __fadd_rn(vj, __fmul_rn(wj, __fsub_rn(dwj, s)));
   float* out = dlogits + (long long)row * E;
-  for (int e = lane; e < E; e += 32) {
-    float acc = 0.f;
-    for (int j = 0; j < kk; ++j)
-      if (s_idx[wid][j] == e) acc = __fadd_rn(acc, s_val[wid][j]);
-    out[e] = acc;
+  for (int base = 0; base < E; base += TILE) {
+    const int c0 = base + lane * PN;
+    float acc[NQ * PN];
+#pragma unroll
+    for (int r = 0; r < NQ * PN; ++r) acc[r] = 0.f;
+    for (int j = 0; j < kk; ++j) {
+      const int rel = __shfl_sync(full, ij, j) - c0;
+      const float v = __shfl_sync(full, vj, j);
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int r = 0; r < PN; ++r)
+          if (rel == q * 32 * PN + r) acc[q * PN + r] = __fadd_rn(acc[q * PN + r], v);
+    }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int col = c0 + q * 32 * PN;
+      if (col >= E) continue;  // with PN = 4, E % 4 == 0: the piece fits
+      if constexpr (VEC)
+        *reinterpret_cast<float4*>(out + col) =
+            make_float4(acc[q * 4], acc[q * 4 + 1], acc[q * 4 + 2], acc[q * 4 + 3]);
+      else
+        out[col] = acc[q];
+    }
   }
+}
+
+template <int NQ>
+static void launch_topk_bwd(bool vec, const float* w, const int* idx,
+                            const float* dw, const float* dvals,
+                            float* dlogits, int T, int E, int k, int kk,
+                            cudaStream_t stream) {
+  const dim3 grid((T + TOPK_WARPS - 1) / TOPK_WARPS);
+  if (vec)
+    topk_gating_bwd_kernel<NQ, true><<<grid, 32 * TOPK_WARPS, 0, stream>>>(
+        w, idx, dw, dvals, dlogits, T, E, k, kk);
+  else
+    topk_gating_bwd_kernel<NQ, false><<<grid, 32 * TOPK_WARPS, 0, stream>>>(
+        w, idx, dw, dvals, dlogits, T, E, k, kk);
 }
 
 extern "C" int repro_topk_gating_bwd(const float* w, const int* idx,
@@ -211,8 +259,12 @@ extern "C" int repro_topk_gating_bwd(const float* w, const int* idx,
   if (T <= 0) return 0;
   if (E <= 0 || k < 1 || kk < k || kk > 32 || kk > E)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + TOPK_WARPS - 1) / TOPK_WARPS);
-  topk_gating_bwd_kernel<TOPK_WARPS><<<grid, 32 * TOPK_WARPS, 0, stream>>>(
-      w, idx, dw, dvals, dlogits, T, E, k, kk);
+  const bool vec = E % 4 == 0 && aligned16(dlogits);
+  // Pieces a lane: the least power of two covering the row, at most 8.
+  const int per_lane = (E + 32 * (vec ? 4 : 1) - 1) / (32 * (vec ? 4 : 1));
+  if (per_lane <= 1) launch_topk_bwd<1>(vec, w, idx, dw, dvals, dlogits, T, E, k, kk, stream);
+  else if (per_lane <= 2) launch_topk_bwd<2>(vec, w, idx, dw, dvals, dlogits, T, E, k, kk, stream);
+  else if (per_lane <= 4) launch_topk_bwd<4>(vec, w, idx, dw, dvals, dlogits, T, E, k, kk, stream);
+  else launch_topk_bwd<8>(vec, w, idx, dw, dvals, dlogits, T, E, k, kk, stream);
   return (int)cudaGetLastError();
 }

@@ -255,7 +255,8 @@ def combine_eblock(buf: torch.Tensor, w: torch.Tensor, eidx: torch.Tensor,
                    e_block: int) -> torch.Tensor:
     """[E, C, d] -> [T, d] walking the experts in slabs of ``e_block``.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise."""
+    or raise (the kernel sorts a token's slots in 48 KB of shared
+    memory, 28 bytes a slot: k <= 1755)."""
     out_dtype = out_dtype or buf.dtype
     if buf.dim() != 3:
         raise ValueError(f"combine_eblock: buf must be [E, C, d], got "

@@ -76,7 +76,11 @@ def topk_gating_bwd_plain(w: torch.Tensor, idx: torch.Tensor,
                           dw: torch.Tensor, dvals: torch.Tensor,
                           n_experts: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`topk_gating_bwd`, in the kernel's
-    order of roundings: ``<w, dw>`` summed over j ascending."""
+    order of roundings: ``<w, dw>`` summed over j ascending, and each
+    column the sum from +0 over its j ascending.  A row's indices repeat
+    when fewer than kk of its logits lie above NEG, so the scatter takes
+    one column of ``idx`` a call: one call over all kk would add the
+    repeats in an undefined order on CUDA."""
     t, k = w.shape
     s = torch.zeros((t,), dtype=torch.float32, device=w.device)
     for j in range(k):
@@ -84,7 +88,10 @@ def topk_gating_bwd_plain(w: torch.Tensor, idx: torch.Tensor,
     full = dvals.clone()
     full[:, :k] = full[:, :k] + w * (dw - s[:, None])
     out = torch.zeros((t, n_experts), dtype=torch.float32, device=w.device)
-    return out.scatter_add_(1, idx.long(), full)
+    cols = idx.long()
+    for j in range(idx.shape[1]):
+        out.scatter_add_(1, cols[:, j:j + 1], full[:, j:j + 1])
+    return out
 
 
 def topk_gating_bwd(w: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,

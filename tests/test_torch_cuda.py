@@ -304,6 +304,55 @@ def test_topk_bwd_kernel_matches_plain(gen):
                        ttopk.topk_gating_bwd_plain(w, idx, dw, dvals, e))
 
 
+def _repeat_logits(gen, t, e, n_finite):
+    """n_finite logits of each row drawn, the rest at -1e31: the rounds
+    past them re-pick a masked winner, so a row's indices repeat."""
+    logits = torch.randn(t, e, device="cuda", generator=gen)
+    rank = torch.rand(t, e, device="cuda", generator=gen).argsort(1) \
+        .argsort(1)
+    return torch.where(rank < n_finite, logits, -1e31)
+
+
+def _topk_bwd_case(gen, logits, k, kk):
+    w, idx, _ = ttopk.topk_gating(logits, k, kk)
+    dw = torch.randn(w.shape, device="cuda", generator=gen)
+    dvals = torch.randn(idx.shape, device="cuda", generator=gen)
+    e = logits.shape[1]
+    got = ttopk.topk_gating_bwd(w, idx, dw, dvals, e)
+    assert torch.equal(got, ttopk.topk_gating_bwd_plain(w, idx, dw, dvals,
+                                                        e))
+    assert torch.equal(got, ttopk.topk_gating_bwd(w, idx, dw, dvals, e))
+    return idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [33, 100, 256, 384])  # 33: rows not 16-byte aligned
+@pytest.mark.parametrize("t", [1, 4096])
+@pytest.mark.parametrize("k,kk,n_finite", [(2, 5, 1), (8, 9, 8)])
+def test_topk_bwd_kernel_repeated_indices(gen, t, e, k, kk, n_finite):
+    """Rows with fewer than kk logits above -1e30 repeat an index; the
+    kernel sums such a column in ascending j from +0, bit for bit as the
+    plain version does."""
+    idx = _topk_bwd_case(gen, _repeat_logits(gen, t, e, n_finite), k, kk)
+    assert bool((idx.sort(1).values.diff(1) == 0).any(1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [1, 4, 31, 33, 100, 256, 384, 1000, 1024])
+@pytest.mark.parametrize("t", [1, 4096])
+def test_topk_bwd_kernel_over_shapes(gen, t, e):
+    """Bit-equal to the plain version for kk = 1, 5, 9, 32 (at most E)
+    and k = 1 or kk, on random and floored rows, on both store paths
+    (E % 4 == 0: 16-byte stores) and over one or more column tiles."""
+    for kk in sorted({min(n, e) for n in (1, 5, 9, 32)}):
+        for k in sorted({1, kk}):
+            _topk_bwd_case(gen, torch.randn(t, e, device="cuda",
+                                            generator=gen), k, kk)
+            if kk > 1:
+                _topk_bwd_case(gen, _repeat_logits(gen, t, e, kk - 1),
+                               min(k, kk - 1), kk)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,e_block", [(40, 3), (17, 1)])
@@ -321,6 +370,72 @@ def test_eblock_kernels_match_plain(gen, dtype, d, e_block):
     y = tdispatch.combine_eblock(buf, p.weight, *args, e_block=e_block)
     assert torch.equal(y, tdispatch.combine_eblock_plain(
         buf, p.weight, *args, dtype, e_block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", COMBINE_DTYPES)
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 9])      # 9: two groups of 8
+@pytest.mark.parametrize("t", [1, 8, 300])
+def test_combine_eblock_kernel_bitwise_over_shapes(gen, t, k, dtypes):
+    """Kernel 5 against its plain version bit for bit, over slabs that do
+    not divide E (3, 5), one expert a slab and one slab (e_block >= E:
+    also bit-equal to the resident combine), on plans with dropped and
+    invalid slots, on the scalar (d = 17) and vector paths; a second
+    launch repeats the first."""
+    tin, tout = dtypes
+    e, cap = 16, 64
+    w, eidx, pos = _random_plan(gen, t, k, e, cap)
+    if t == 300:
+        assert bool((pos >= cap).any()) and bool((eidx < 0).any())
+    for d in (17, 40, 512):
+        buf = torch.randn(e, cap, d, device="cuda", generator=gen).to(tin)
+        for e_block in (1, 3, 5, 16, 40):
+            y = tdispatch.combine_eblock(buf, w, eidx, pos, out_dtype=tout,
+                                         e_block=e_block)
+            case = (d, e_block)
+            assert y.dtype == tout and y.shape == (t, d)
+            assert torch.equal(y, tdispatch.combine_eblock_plain(
+                buf, w, eidx, pos, tout, e_block)), case
+            assert torch.equal(y, tdispatch.combine_eblock(
+                buf, w, eidx, pos, out_dtype=tout, e_block=e_block)), case
+            if e_block >= e:
+                assert torch.equal(y, tdispatch.combine(
+                    buf, w, eidx, pos, out_dtype=tout)), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", COMBINE_DTYPES)
+def test_combine_eblock_kernel_unaligned_view(gen, dtypes):
+    """A buffer one element into its storage takes the scalar path and
+    still matches bit for bit."""
+    tin, tout = dtypes
+    t, k, e, cap, d = 8, 8, 16, 64, 512
+    w, eidx, pos = _random_plan(gen, t, k, e, cap)
+    flat = torch.randn(e * cap * d + 1, device="cuda", generator=gen).to(tin)
+    buf = flat[1:].view(e, cap, d)
+    assert buf.is_contiguous() and buf.data_ptr() % 16 != 0
+    for e_block in (3, 16):
+        y = tdispatch.combine_eblock(buf, w, eidx, pos, out_dtype=tout,
+                                     e_block=e_block)
+        assert torch.equal(y, tdispatch.combine_eblock_plain(
+            buf, w, eidx, pos, tout, e_block)), e_block
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [8, 32])
+def test_combine_eblock_kernel_decode_shape(gen, t):
+    """kimi-k2's decode and prefill plans (d = 7168, E = 384, k = 8,
+    bf16, the router's capacity) with the reference's slab of 64."""
+    e, k, d = 384, 8, 7168
+    logits = torch.randn(t, e, device="cuda", generator=gen)
+    w, idx, _ = ttopk.topk_gating(logits, k, k)
+    p = dsp.plan(idx, w, e, dsp.capacity_for(t, e, k, 1.25))
+    buf = torch.randn(e, p.capacity, d, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    args = (buf, p.weight, p.expert_index, p.position)
+    y = tdispatch.combine_eblock(*args, e_block=64)
+    assert torch.equal(y, tdispatch.combine_eblock_plain(
+        *args, torch.bfloat16, 64))
 
 
 @pytest.mark.cuda

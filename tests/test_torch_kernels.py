@@ -274,6 +274,32 @@ def test_topk_grads_match_jax_vjp(case, with_dvals):
     _close(got, want)
 
 
+@pytest.mark.parametrize("k,extra,n_finite", [(2, 3, 1), (8, 1, 8)])
+def test_topk_bwd_plain_repeated_indices_matches_jax_vjp(k, extra,
+                                                         n_finite):
+    """Rows with fewer than kk logits above -1e30 re-pick a masked
+    winner, so their indices repeat; the plain backward sums such a
+    column over j ascending, as the reference's ``.at[].add`` does."""
+    import jax
+    t, e = 6, 16
+    kk = k + extra
+    rs = np.random.RandomState(kk)
+    rank = np.argsort(np.argsort(rs.rand(t, e), 1), 1)
+    logits = np.where(rank < n_finite, rs.randn(t, e),
+                      -1e31).astype(np.float32)
+    dw = rs.randn(t, k).astype(np.float32)
+    dvals = rs.randn(t, kk).astype(np.float32)
+    jw, jidx, _ = jops.topk_gating_full(jnp.asarray(logits), k, extra)
+    assert (np.diff(np.sort(np.asarray(jidx), 1), axis=1) == 0).any(1).all()
+    _, vjp = jax.vjp(lambda l: (lambda w, _, v: (w, v))(
+        *jops.topk_gating_full(l, k, extra)), jnp.asarray(logits))
+    (want,) = vjp((jnp.asarray(dw), jnp.asarray(dvals)))
+    got = ttopk.topk_gating_bwd_plain(_t(np.asarray(jw)),
+                                      _t(np.asarray(jidx)), _t(dw),
+                                      _t(dvals), e)
+    _close(got, want)
+
+
 REGIMES = [None, 2]          # resident, and a forced two-expert slab
 
 
@@ -361,6 +387,7 @@ EBLOCK_CASES = [  # (plan case, e_block)
     (PLAN_CASES[0], 2),          # E = 5: ragged last slab
     (PLAN_CASES[1], 1),
     (PLAN_CASES[2], 4),          # k = 8, masked rows
+    (PLAN_CASES[2], 3),          # k = 8, E = 8: a slab that does not divide E
 ]
 
 
