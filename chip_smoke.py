@@ -98,7 +98,32 @@ Phases, in order; any failure exits non-zero and prints no result:
              terms of the pre-activations whose relu masks differ
              between the two paths are taken out (phase_grads counts
              them and says why).
-11. report — one ``{"kernels": [...]}`` line, then the result line.
+   The MoE-256 model is then freed.
+11. arctic — arctic-480b (``configs/arctic_480b.py``) at full width, bf16,
+             depth cut 35 -> 1 layer (14.12 B parameters: 128 experts
+             top-2 of 7168 -> 4864 swiglu beside a dense swiglu FFN of
+             7168, 56 / 8 heads of 128, vocab 32000), drawn from a seed,
+             gate redrawn.  First every kernel of its training step
+             against its plain version at the step's shapes (T = 4096,
+             C = 80, layer 0's experts and gate), timed beside its bound
+             and the launch floor; then 6 steps of ``make_train_step``
+             with ``lm_loss`` (remat on, factored Adam, B = 2 x S =
+             2048): launch counts exactly ARCTIC_LAUNCHES a step, every
+             metric finite, peak memory under the card's; one more
+             batch's gradients (all present and finite), one optimizer
+             update timed alone, the forward loss under "cuda" against
+             "ref" (ARCTIC_LOSS_TOL), a profile of one step.
+12. qwen3  — flash attention's output and gradients against plain
+             autograd through ``causal_attention`` in f32 at qwen3's
+             head shape (S = 2048, 4 x 4 blocks); then qwen3-1.7b at full
+             size (28 layers, qk_norm, vocab 151,936, bf16) trained 4
+             steps at B = 4 x S = 2048: finite metrics, every gradient
+             present, step time and peak memory.
+13. launchers — ``launch.train --arch smollm-135m`` at full size, 8 steps
+             of B = 8 x S = 2048 with checkpoints at 4 and 8; the same
+             call again resumes at step 8 and trains nothing; then
+             ``launch.serve --ckpt`` serves 4 greedy requests from it.
+14. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -174,6 +199,29 @@ KERNEL_SYMBOLS = {"topk_gating": ("topk_gating_kernel",),
                   "fused_routed": ("fused_routed_kernel",)}
 # The MoA serve phase: moa-demo at its published widths.
 MOA_ARCH = "moa-demo"
+# The transformer training path.  arctic-480b at full width, depth cut
+# 35 -> 1 (14,120,408,064 parameters, 28.2 GB in bf16, 56.5 GB with
+# their gradients): B x S tokens a step, C = capacity_for(4096, 128, 2,
+# 1.25) = 80.
+ARCTIC, ARCTIC_LAYERS, ARCTIC_PARAMS = "arctic-480b", 1, 14_120_408_064
+ARCTIC_B, ARCTIC_S, ARCTIC_STEPS, ARCTIC_C = 2, 2048, 6, 80
+# Launches per arctic step (one moe+dense layer, remat on, resident
+# regime): the forward's top-k, dispatch, three GMMs (w1 with silu, w3,
+# w2) and combine; remat's recompute of the layer in the backward pass,
+# the same six again; then the top-k backward (B5), the combine's
+# backward dispatch (B7), the dispatch's backward combine (B6), the
+# recomputed w1 pre-activation (a forward GMM) and two transposed GMMs
+# (dx, dw) for each of w2, w3 and w1.
+ARCTIC_LAUNCHES = {"topk_gating": 2, "topk_gating_bwd": 1, "dispatch": 3,
+                   "combine": 3, "gmm": 7, "gmm_bwd": 6}
+# cuda vs ref forward loss: one bf16 unit in the last place (2^-8
+# relative); the paths round the expert FFN's and the combine's bf16
+# outputs after summing in other orders.
+ARCTIC_LOSS_TOL = 2.0 ** -8
+# qwen3-1.7b at full size (2,031,739,904 parameters); smollm-135m
+# (162,826,560) through the launchers.
+QWEN, QWEN_B, QWEN_S, QWEN_STEPS = "qwen3-1.7b", 4, 2048, 4
+SMOLLM = "smollm-135m"
 
 
 class SmokeFailure(RuntimeError):
@@ -234,28 +282,47 @@ def queued_ms(fn, n: int = QUEUED_RUN) -> float:
                        "the sleep")
 
 
-def device_ms(fn, symbols, n: int = PROFILED_RUN) -> dict:
+PROFILE_ATTEMPTS = 3     # profiles of one run before device_ms gives up
+
+
+def device_ms(fn, symbols, n: int = PROFILED_RUN, required=None) -> dict:
     """Profiler device time per launch of the device ops whose names hold
     each of ``symbols`` ("" matches every op), over ``n`` calls of
-    ``fn``."""
+    ``fn``.  CUPTI now and then delivers a profile without some of its
+    device records: when a symbol of ``required`` (all of ``symbols`` by
+    default) has none, the run is profiled again, up to PROFILE_ATTEMPTS
+    times in all, and the result of the last attempt is returned (the
+    caller's check then names what is missing)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    required = tuple(symbols if required is None else required)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    sums: dict = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        for sym in symbols:
-            if sym in e.key:
-                c, ms = sums.get(sym, (0, 0.0))
-                sums[sym] = (c + e.count, ms + e.self_device_time_total / 1e3)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        sums: dict = {}
+        n_device = 0
+        for e in prof.key_averages():
+            if (e.device_type != DeviceType.CUDA
+                    or e.self_device_time_total <= 0):
+                continue
+            n_device += e.count
+            for sym in symbols:
+                if sym in e.key:
+                    c, ms = sums.get(sym, (0, 0.0))
+                    sums[sym] = (c + e.count,
+                                 ms + e.self_device_time_total / 1e3)
+        missing = [sym for sym in required if sym not in sums]
+        if not missing:
+            break
+        log(f"device_ms: profile {attempt} of {PROFILE_ATTEMPTS} has no "
+            f"device records of {missing} ({n_device} device records in "
+            f"all, {n} calls)")
     return {sym: ms / c for sym, (c, ms) in sums.items()}
 
 
@@ -277,7 +344,7 @@ def shape_times(what: str, fn, symbol: str, n_bytes: float, flops,
     """One kernel at one shape: profiler device time per launch (and its
     memset's, if it has one), queued time per launch, the bound, and the
     launch floor beside it."""
-    dev = device_ms(fn, (symbol, "Memset"))
+    dev = device_ms(fn, (symbol, "Memset"), required=(symbol,))
     check(symbol in dev, f"{what}: no {symbol} in the profile")
     b, by = bound_ms(n_bytes, flops, dtype_name)
     res = {"dev_ms": dev[symbol], "queued_ms": queued_ms(fn), "bound_ms": b,
@@ -299,21 +366,52 @@ def bound_ms(n_bytes: float, flops, dtype_name: str | None = None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Tensors above this many elements are reduced a slab of their leading
+# axis at a time: an f32 copy of an arctic expert gradient is 17.9 GB.
+_REDUCE_CHUNK = 1 << 28
+
+
+def _slabs(t):
+    """Views of ``t`` along its first axis of at most _REDUCE_CHUNK
+    elements each (``t`` itself when it is small or 1-d)."""
+    if t.numel() <= _REDUCE_CHUNK or t.dim() < 2:
+        return [t]
+    step = max(1, _REDUCE_CHUNK // max(t[0].numel(), 1))
+    return [t[i:i + step] for i in range(0, t.shape[0], step)]
+
+
+def abs_max(t) -> float:
+    return max(float(s.float().abs().max()) for s in _slabs(t)) \
+        if t.numel() else 0.0
+
+
 def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+    if not a.numel():
+        return 0.0
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(_slabs(a), _slabs(b)))
+
+
+def all_finite(t) -> bool:
+    import torch
+    return all(bool(torch.isfinite(s).all()) for s in _slabs(t))
+
+
+def any_nonzero(t) -> bool:
+    return any(bool((s != 0).any()) for s in _slabs(t))
 
 
 def f32_tol(ref) -> float:
     """f32 outputs summed in another order: 1e-5 of the output's scale
     (at least 1e-5)."""
-    return 1e-5 * max(1.0, float(ref.float().abs().max()))
+    return 1e-5 * max(1.0, abs_max(ref))
 
 
 def bf16_tol(ref) -> float:
     """Two bf16 units in the last place at the output's largest binade:
     kernel and plain version sum in different orders in f32, so the
     rounded bf16 results may differ by one unit."""
-    return 2.0 ** -7 * max(float(ref.float().abs().max()), 1e-30)
+    return 2.0 ** -7 * max(abs_max(ref), 1e-30)
 
 
 # ---------------------------------------------------------------------------
@@ -2329,6 +2427,513 @@ def phase_eblock(cfg, params) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: train arctic-480b at full width (one layer, bf16)
+# ---------------------------------------------------------------------------
+
+def build_arctic():
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(ARCTIC, n_layers=ARCTIC_LAYERS)
+    check(cfg.kernel_backend == "cuda" and cfg.param_dtype == torch.bfloat16
+          and cfg.remat, "arctic must default to cuda, bf16 and remat")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    # A zero gate sends every token to experts 0..k-1; the smoke draws
+    # it, as for serving, so routing spreads over all 128 experts.
+    gate = params["blocks"]["periods"]["pos0"]["moe"]["gate"]["wg"]
+    gate.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in pm.tree_leaves(params))
+    log(f"materialized {ARCTIC} (n_layers={ARCTIC_LAYERS}, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts "
+        f"top-{cfg.moe_k} x {cfg.moe_d_ff} + dense {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}) in {time.perf_counter() - t0:.1f} s: {n} "
+        f"parameters, {pm.param_bytes(params) / 1e9:.2f} GB")
+    check(n == ARCTIC_PARAMS, f"{n} parameters, expected {ARCTIC_PARAMS}")
+    return cfg, params
+
+
+def _timed_call(what, fn, symbol, n_bytes, flops, dtype_name, floor,
+                plain=None, library=None, big=False) -> dict:
+    """One kernel call at the arctic shape: device time per launch
+    (profiler), CUDA-event time, plain and library times, the bound and
+    the launch floor.  ``big``: a multi-ms call, timed with fewer
+    repeats and no queued run."""
+    if big:
+        dev = device_ms(fn, (symbol,), n=5)
+        check(symbol in dev, f"{what}: no {symbol} in the profile")
+        b, by = bound_ms(n_bytes, flops, dtype_name)
+        res = {"dev_ms": dev[symbol], "bound_ms": b, "bound_by": by,
+               "launch_floor_ms": floor["dev_ms"]}
+    else:
+        res = shape_times(what, fn, symbol, n_bytes, flops, dtype_name,
+                          floor)
+    reps = dict(reps=5, warmup=1) if big else {}
+    res["ms"] = cuda_ms(fn, **reps)
+    res["plain_ms"] = (cuda_ms(plain, **(dict(reps=3, warmup=1) if big
+                                         else {})) if plain else None)
+    res["library_ms"] = cuda_ms(library, **reps) if library else None
+    log(f"{what}: " + json.dumps(res))
+    return res
+
+
+def check_arctic_kernels(cfg, params, gen, floor) -> dict:
+    """Every kernel of the arctic training step against its plain version
+    at the shapes a step gives it (T = 4096 tokens of d = 7168 bf16, E =
+    128, k = 2, C = 80; layer 0's expert weights; a plan routed by layer
+    0's gate with noise), with phase 2's tolerances: top-k indices exact
+    and values within 1e-6, B5, dispatch (and B7, the dispatch scaled by
+    the combine weights) and combine (and B6, unit weights) bit for bit,
+    the GMMs within two bf16 ulps of the output's largest binade, with
+    the plan's ``rows``: the forward calls (w1 with silu, w3, w2; w1
+    without the activation is the backward pass's recomputed
+    pre-activation) and the transposed ones (dx = dz w^T, dw = x^T dz
+    for w1 / w3's shape and w2's).  Each is timed beside its bound and
+    the launch floor."""
+    import torch
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.kernels import dispatch as dk
+    from repro_torch.kernels import gmm as gk
+    from repro_torch.kernels import topk_gating as tk
+
+    bf = torch.bfloat16
+    moe = params["blocks"]["periods"]["pos0"]["moe"]
+    w1, w3, w2 = (moe[k][0].detach() for k in ("w1", "w3", "w2"))
+    wg = moe["gate"]["wg"][0].detach()
+    t, d = ARCTIC_B * ARCTIC_S, cfg.d_model
+    e, k, f = cfg.n_experts, cfg.moe_k, cfg.moe_d_ff
+    kk = k + 1
+    x = torch.randn(t, d, device="cuda", generator=gen).to(bf)
+    logits = x.float() @ wg.float() + torch.randn(t, e, device="cuda",
+                                                  generator=gen)
+    out: dict = {}
+    # Top-k (kernel 1) and its backward (B5).
+    got, want = tk.topk_gating(logits, k, kk), tk.topk_gating_plain(
+        logits, k, kk)
+    check(torch.equal(got[1], want[1]), "arctic top-k indices differ")
+    err = max(max_err(got[0], want[0]), max_err(got[2], want[2]))
+    check(err <= 1e-6, f"arctic top-k values differ by {err}")
+    cw, idx, _ = got
+    out["topk_gating"] = dict(max_abs_err=err, tol=1e-6, **_timed_call(
+        f"arctic topk_gating [{t},{e}] k={k} kk={kk}",
+        lambda: tk.topk_gating(logits, k, kk), "topk_gating_kernel",
+        t * e * 4 + t * k * 4 + t * kk * 8, 0, "float32", floor,
+        plain=lambda: tk.topk_gating_plain(logits, k, kk)))
+    dw_in = torch.randn(t, k, device="cuda", generator=gen)
+    dvals = torch.randn(t, kk, device="cuda", generator=gen)
+    got = tk.topk_gating_bwd(cw, idx, dw_in, dvals, e)
+    check(torch.equal(got, tk.topk_gating_bwd_plain(cw, idx, dw_in, dvals,
+                                                    e)),
+          "arctic top-k backward differs from its plain version")
+    out["topk_gating_bwd"] = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
+        f"arctic topk_gating_bwd [{t},{e}] k={k} kk={kk}",
+        lambda: tk.topk_gating_bwd(cw, idx, dw_in, dvals, e),
+        "topk_gating_bwd_kernel", t * e * 4 + t * k * 8 + t * kk * 8, 0,
+        "float32", floor,
+        plain=lambda: tk.topk_gating_bwd_plain(cw, idx, dw_in, dvals, e)))
+    # The plan, as the router builds it.
+    cap = dsp.capacity_for(t, e, k, cfg.capacity_factor)
+    check(cap == ARCTIC_C, f"arctic capacity {cap}, expected {ARCTIC_C}")
+    plan = dsp.plan(idx[:, :k].contiguous(), cw, e, cap)
+    ei, po, w = plan.expert_index, plan.position, plan.weight
+    rows = dsp.filled_rows(plan)
+    n_kept, filled = int((po < cap).sum()), int(rows.sum())
+    used = int((rows > 0).sum())
+    log(f"arctic plan: C={cap}, {n_kept} of {t * k} slots kept, {used} "
+        f"experts used, {filled} filled rows")
+    # Dispatch (kernel 2) and B7; combine (kernel 4) and B6.
+    buf = dk.dispatch(x, ei, po, n_experts=e, capacity=cap)
+    check(torch.equal(buf, dk.dispatch_plain(x, ei, po, None, e, cap)),
+          "arctic dispatch differs from its plain version")
+    g_tok = torch.randn(t, d, device="cuda", generator=gen).to(bf)
+    check(torch.equal(dk.dispatch(g_tok, ei, po, w, n_experts=e,
+                                  capacity=cap),
+                      dk.dispatch_plain(g_tok, ei, po, w, e, cap)),
+          "arctic B7 (dispatch scaled by w) differs from its plain version")
+    disp_bytes = t * d * 2 + t * k * 8 + e * cap * d * 2
+    out["dispatch"] = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
+        f"arctic dispatch [{t},{d}] bf16 -> [{e},{cap},{d}]",
+        lambda: dk.dispatch(x, ei, po, n_experts=e, capacity=cap),
+        "dispatch_kernel", disp_bytes, 0, "bfloat16", floor,
+        plain=lambda: dk.dispatch_plain(x, ei, po, None, e, cap)))
+    out["dispatch"]["B7"] = _timed_call(
+        f"arctic B7 dispatch scaled [{t},{d}] bf16 -> [{e},{cap},{d}]",
+        lambda: dk.dispatch(g_tok, ei, po, w, n_experts=e, capacity=cap),
+        "dispatch_kernel", disp_bytes + t * k * 4, 0, "bfloat16", floor,
+        plain=lambda: dk.dispatch_plain(g_tok, ei, po, w, e, cap))
+    ybuf = torch.randn(e, cap, d, device="cuda", generator=gen).to(bf)
+    unit = torch.ones_like(w)
+    for name, wt in (("combine", w), ("B6", unit)):
+        check(torch.equal(dk.combine(ybuf, wt, ei, po),
+                          dk.combine_plain(ybuf, wt, ei, po, bf)),
+              f"arctic {name} differs from its plain version")
+    comb = [n_kept * d * 2 + t * k * 12 + t * d * 2, 2 * n_kept * d]
+    out["combine"] = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
+        f"arctic combine [{e},{cap},{d}] bf16 -> [{t},{d}], k={k}",
+        lambda: dk.combine(ybuf, w, ei, po), "combine_kernel", *comb,
+        "bfloat16", floor,
+        plain=lambda: dk.combine_plain(ybuf, w, ei, po, bf)))
+    out["combine"]["B6"] = _timed_call(
+        f"arctic B6 combine, unit weights [{e},{cap},{d}] bf16",
+        lambda: dk.combine(ybuf, unit, ei, po), "combine_kernel", *comb,
+        "bfloat16", floor,
+        plain=lambda: dk.combine_plain(ybuf, unit, ei, po, bf))
+    del g_tok, ybuf
+    # The GMMs, forward layout: the tiled bf16 kernel (C = 80 > 64).
+    check(gk.kernel_for(bf, cap, False) == "tile",
+          "the arctic GMMs must run the tiled kernel")
+    hid = torch.randn(e, cap, f, device="cuda", generator=gen).to(bf)
+    hid = gk.mask_rows(hid, rows)
+    fwd = [("w1_silu", buf, w1, "silu"), ("w1_none", buf, w1, "none"),
+           ("w3", buf, w3, "none"), ("w2", hid, w2, "none")]
+    worst, tol_used, calls = 0.0, 0.0, {}
+    for name, xi, wi, act in fwd:
+        got = gk.gmm(xi, wi, activation=act, rows=rows)
+        want = gk.gmm_plain(xi, wi, act, rows=rows)
+        err, tol = max_err(got, want), bf16_tol(want)
+        check(err <= tol, f"arctic gmm {name} differs by {err} > {tol}")
+        worst, tol_used = max(worst, err), max(tol_used, tol)
+        del got, want
+        kd, nd = wi.shape[1], wi.shape[2]
+        calls[name] = dict(max_abs_err=err, tol=tol, **_timed_call(
+            f"arctic gmm {name} {tuple(xi.shape)} x {tuple(wi.shape)}",
+            lambda: gk.gmm(xi, wi, activation=act, rows=rows),
+            "gmm_tile_kernel", (used * kd * nd + filled * kd + e * cap * nd)
+            * 2, 2 * filled * kd * nd, "bfloat16", floor,
+            plain=lambda: gk.gmm_plain(xi, wi, act, rows=rows),
+            library=lambda: torch.bmm(xi, wi), big=True))
+    out["gmm"] = dict(max_abs_err=worst, tol=tol_used, calls=calls,
+                      **{key: sum(c[key] for c in calls.values())
+                         for key in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "dev_ms")})
+    # The transposed GMMs: dx = dz w^T and dw = x^T dz, at w1 / w3's
+    # shape (dz [E, C, f]) and w2's (dz [E, C, d]).
+    dz = gk.mask_rows(torch.randn(e, cap, f, device="cuda", generator=gen)
+                      .to(bf), rows)
+    dy = gk.mask_rows(torch.randn(e, cap, d, device="cuda", generator=gen)
+                      .to(bf), rows)
+    bwd = [("dx_w1", dz, w1, False, True), ("dw_w1", buf, dz, True, False),
+           ("dh_w2", dy, w2, False, True), ("dw_w2", hid, dy, True, False)]
+    worst, tol_used, calls = 0.0, 0.0, {}
+    for name, xi, wi, tx, tw in bwd:
+        got = gk.gmm(xi, wi, trans_x=tx, trans_w=tw, rows=rows)
+        want = gk.gmm_plain(xi, wi, "none", tx, tw, rows)
+        err, tol = max_err(got, want), bf16_tol(want)
+        check(err <= tol, f"arctic gmm_bwd {name} differs by {err} > {tol}")
+        worst, tol_used = max(worst, err), max(tol_used, tol)
+        del got, want
+        xl = xi.transpose(1, 2) if tx else xi
+        wl = wi.transpose(1, 2) if tw else wi
+        md, kd, nd = xl.shape[1], xl.shape[2], wl.shape[2]
+        if tx:      # dw [E, M, N]: the filled rows of both operands in
+            n_bytes = filled * (md + nd) * 2 + e * md * nd * 2
+            flops = 2 * filled * md * nd
+        else:       # dx: dz's filled rows and the used weights in
+            n_bytes = (filled * kd + used * kd * nd + e * cap * nd) * 2
+            flops = 2 * filled * kd * nd
+        calls[name] = dict(max_abs_err=err, tol=tol, **_timed_call(
+            f"arctic gmm_bwd {name} {tuple(xl.shape)} x {tuple(wl.shape)}",
+            lambda: gk.gmm(xi, wi, trans_x=tx, trans_w=tw, rows=rows),
+            "gmm_tile_bwd_kernel", n_bytes, flops, "bfloat16", floor,
+            plain=lambda: gk.gmm_plain(xi, wi, "none", tx, tw, rows),
+            library=lambda: torch.bmm(xl, wl), big=True))
+        torch.cuda.empty_cache()
+    out["gmm_bwd"] = dict(max_abs_err=worst, tol=tol_used, calls=calls,
+                          **{key: sum(c[key] for c in calls.values())
+                             for key in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "dev_ms")})
+    del x, buf, hid, dz, dy
+    torch.cuda.empty_cache()
+    out["plan"] = dict(tokens=t, capacity=cap, kept_slots=n_kept,
+                       used_experts=used, filled_rows=filled)
+    return out
+
+
+def _train_loop(cfg, params, dc, steps: int, what: str) -> dict:
+    """``steps`` steps of ``make_train_step`` (lm_loss, factored Adam),
+    each with the trainer's per-step generator; launch counts zeroed just
+    before and read just after.  Returns times, metrics, counts, peak
+    memory and the step function."""
+    import math
+    import torch
+    from repro_torch.common.param import tree_leaves
+    from repro_torch.data.pipeline import DataIterator
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train.trainer import make_train_step, step_seed
+
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    oc = opt_lib.OptConfig(kind="factored")
+    state = {"params": params, "opt": opt_lib.init(params, oc)}
+    step = make_train_step(lambda p, b, g: lm.lm_loss(p, b, cfg, generator=g),
+                           oc)
+    data = DataIterator(dc, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    times, rows = [], []
+    for s in range(steps):
+        gen = torch.Generator(device="cuda").manual_seed(step_seed(SEED, s))
+        batch = next(data)
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        rows.append({k: float(v) for k, v in m.items()})   # syncs
+        times.append(time.perf_counter() - t0)
+        log(f"{what} step {s + 1}: loss {rows[-1]['loss']:.4f} in "
+            f"{1e3 * times[-1]:.1f} ms")
+    counts = cuda_lib.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for m in rows:
+        check(all(math.isfinite(v) for v in m.values()),
+              f"{what}: non-finite metrics {m}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(peak < total, f"{what}: peak {peak} >= the card's {total} bytes")
+    return {"times": times, "rows": rows, "counts": counts, "peak": peak,
+            "state": state, "step": step, "oc": oc, "data": data}
+
+
+def _grad_check(cfg, params, batch, draws, what: str,
+                moe_leaves=()) -> None:
+    """One backward pass from fixed draws: every leaf has a gradient, all
+    finite; the named MoE leaves' are not all zero.  Leaves the
+    gradients in ``.grad``."""
+    from repro_torch.common.param import tree_leaves
+    from repro_torch.models import lm
+    loss, _ = lm.lm_loss(params, batch, cfg, draws=draws)
+    loss.backward()
+    leaves = tree_leaves(params)
+    check(all(p.grad is not None for p in leaves),
+          f"{what}: a parameter has no gradient")
+    check(all(all_finite(p.grad) for p in leaves),
+          f"{what}: a gradient is not finite")
+    for leaf in moe_leaves:
+        check(any_nonzero(leaf.grad), f"{what}: an MoE gradient is zero")
+
+
+def phase_arctic(cfg, params, floor) -> dict:
+    """arctic-480b at full width, depth cut to one layer: the kernels at
+    its shapes, ARCTIC_STEPS training steps with exact launch counts, a
+    gradient check, the optimizer's time, the cuda-vs-ref forward loss,
+    a profile of one step."""
+    import torch
+    from repro_torch.common.param import tree_leaves, tree_map
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train.trainer import step_seed
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    kernels = check_arctic_kernels(cfg, params, gen, floor)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=ARCTIC_S,
+                    batch_size=ARCTIC_B, seed=SEED)
+    run = _train_loop(cfg, params, dc, ARCTIC_STEPS, "arctic")
+    want = {k: ARCTIC_STEPS * v for k, v in ARCTIC_LAUNCHES.items()}
+    log(f"arctic launches {run['counts']}, expected {want}")
+    check(run["counts"] == want, "arctic launch counts differ from the "
+                                 "derivation in ARCTIC_LAUNCHES")
+    median = statistics.median(run["times"][1:])
+    # One more batch and its draws: the forward loss under "cuda" against
+    # "ref" (before any update has seen the batch), then its gradients,
+    # then one optimizer update on them, timed alone.
+    batch = batch_at(dc, ARCTIC_STEPS, device="cuda")
+    gdraw = torch.Generator(device="cuda").manual_seed(
+        step_seed(SEED, ARCTIC_STEPS))
+    draws = lm.make_draws(cfg, ARCTIC_B, ARCTIC_S, gdraw, "cuda")
+    with torch.no_grad():
+        lc = float(lm.lm_loss(params, batch, cfg, draws=draws)[0])
+        lr_ = float(lm.lm_loss(params, batch,
+                               cfg.replace(kernel_backend="ref"),
+                               draws=draws)[0])
+    rel = abs(lc - lr_) / abs(lr_)
+    log(f"arctic cuda vs ref forward loss: {lc} vs {lr_} (rel {rel:.3g}, "
+        f"tol {ARCTIC_LOSS_TOL:.3g})")
+    check(rel <= ARCTIC_LOSS_TOL, f"arctic cuda vs ref loss {lc} vs {lr_}")
+    torch.cuda.empty_cache()
+    moe = params["blocks"]["periods"]["pos0"]["moe"]
+    _grad_check(cfg, params, batch, draws, "arctic",
+                (moe["w1"], moe["w2"], moe["w3"], moe["gate"]["wg"]))
+    grads = tree_map(lambda p: p.grad, params)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    opt_lib.apply_updates(params, grads, run["state"]["opt"], run["oc"])
+    end.record()
+    torch.cuda.synchronize()
+    opt_ms = start.elapsed_time(end)
+    del grads
+    for p in tree_leaves(params):
+        p.grad = None
+    with torch.no_grad():
+        after = float(lm.lm_loss(params, batch, cfg, draws=draws)[0])
+    log(f"arctic: the batch's loss {lc} before and {after} after the "
+        "update computed on it")
+
+    # One more step under the profiler.
+    def one_step():
+        g = torch.Generator(device="cuda").manual_seed(
+            step_seed(SEED, ARCTIC_STEPS + 1))
+        _, m = run["step"](run["state"], next(run["data"]), g)
+        float(m["loss"])
+    dprof = device_profile(one_step)
+    prof = dict(train_steps=1, **dprof, **idle_share(dprof, 1, 1e3 * median))
+    # The step's device time split: the port's kernels (by their symbols),
+    # the optimizer (its update timed alone above), everything else
+    # (attention, the dense FFN, the loss, casts and copies).
+    kernels_ms = sum(v["launches"] * v["device_ms_per_launch"]
+                     for v in dprof["kernels"].values())
+    prof["split_ms"] = {"device_busy": dprof["device_busy_ms"],
+                        "port_kernels": kernels_ms, "optimizer": opt_ms,
+                        "other": dprof["device_busy_ms"] - kernels_ms
+                        - opt_ms}
+    keys = ("loss", "xent", "aux_loss", "cv_load", "max_over_mean_load",
+            "fraction_dropped", "grad_norm")
+    out = {"config": f"{ARCTIC}, {ARCTIC_LAYERS} layer, bf16, remat, "
+                     f"B={ARCTIC_B} x S={ARCTIC_S}, factored Adam",
+           "step_ms_median_steps_2_to_6": 1e3 * median,
+           "step_ms_all": [1e3 * t for t in run["times"]],
+           "tokens_per_s": ARCTIC_B * ARCTIC_S / median,
+           "optimizer_ms": opt_ms,
+           "max_memory_allocated_gib": run["peak"] / 2 ** 30,
+           "max_memory_allocated_gb": run["peak"] / 1e9,
+           "first": {k: run["rows"][0][k] for k in keys},
+           "last": {k: run["rows"][-1][k] for k in keys},
+           "launches": run["counts"],
+           "loss_cuda": lc, "loss_ref": lr_, "loss_rel_err": rel,
+           "loss_tol": ARCTIC_LOSS_TOL, "loss_after_its_own_update": after}
+    log("arctic train " + json.dumps(out))
+    log("arctic profile " + json.dumps(prof))
+    return {"summary": out, "kernels": kernels, "counts": run["counts"],
+            "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: train qwen3-1.7b at full size; flash attention on the card
+# ---------------------------------------------------------------------------
+
+def check_flash(gen) -> dict:
+    """flash_attention's output and gradients against plain autograd
+    through causal_attention, in f32 at qwen3-1.7b's head shape (16 / 8
+    heads of 128, S = 2048 in 4 x 4 blocks of 512), within 1e-5 of each
+    result's scale."""
+    import torch
+    from repro_torch.models import attention as at
+    b, kvh, g, s, hd = 2, 8, 2, QWEN_S, 128
+    q = torch.randn(b, s, kvh * g, hd, device="cuda", generator=gen)
+    k = torch.randn(b, s, kvh, hd, device="cuda", generator=gen)
+    v = torch.randn(b, s, kvh, hd, device="cuda", generator=gen)
+    dout = torch.randn(b, s, kvh * g, hd, device="cuda", generator=gen)
+
+    def flash(q, k, v):
+        qr = q.reshape(b, s, kvh, g, hd).permute(0, 2, 3, 1, 4)
+        o = at.flash_attention(qr, k.permute(0, 2, 3, 1),
+                               v.permute(0, 2, 1, 3), True, 0, 512, 512)
+        return o.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, hd)
+
+    res = {}
+    for name, fn in (("flash", flash), ("plain", at.causal_attention)):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*leaves)
+        (o * dout).sum().backward()
+        res[name] = [o.detach()] + [t.grad for t in leaves]
+    errs = {}
+    for key, got, want in zip(("out", "dq", "dk", "dv"), res["flash"],
+                              res["plain"]):
+        errs[key] = (max_err(got, want), f32_tol(want))
+        check(errs[key][0] <= errs[key][1], f"flash {key} differs from plain "
+              f"autograd by {errs[key][0]} > {errs[key][1]}")
+
+    def fwd_bwd(fn):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        (fn(*leaves) * dout).sum().backward()
+    times = {"flash_ms": cuda_ms(lambda: fwd_bwd(flash), reps=3, warmup=1),
+             "plain_ms": cuda_ms(lambda: fwd_bwd(at.causal_attention),
+                                 reps=3, warmup=1)}
+    out = {"shape": f"B={b}, {kvh * g}/{kvh} heads x {hd}, S={s}, blocks "
+                    "512 x 512, f32", "max_abs_err_and_tol": errs, **times}
+    log("flash attention " + json.dumps(out))
+    return out
+
+
+def phase_qwen3() -> dict:
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    flash = check_flash(gen)
+    cfg = get_config(QWEN)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    n = sum(p.numel() for p in pm.tree_leaves(params))
+    log(f"materialized {QWEN} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"qk_norm, vocab {cfg.vocab_size}): {n} parameters")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=QWEN_S,
+                    batch_size=QWEN_B, seed=SEED)
+    run = _train_loop(cfg, params, dc, QWEN_STEPS, "qwen3")
+    check(not any(run["counts"].values()),
+          f"qwen3 (dense) launched MoE kernels: {run['counts']}")
+    _grad_check(cfg, params, batch_at(dc, QWEN_STEPS, device="cuda"),
+                None, "qwen3")
+    median = statistics.median(run["times"][1:])
+    out = {"config": f"{QWEN}, full size, bf16, remat, B={QWEN_B} x "
+                     f"S={QWEN_S}, factored Adam",
+           "parameters": n, "flash": flash,
+           "step_ms_median_steps_2_to_4": 1e3 * median,
+           "step_ms_all": [1e3 * t for t in run["times"]],
+           "tokens_per_s": QWEN_B * QWEN_S / median,
+           "max_memory_allocated_gib": run["peak"] / 2 ** 30,
+           "losses": [m["loss"] for m in run["rows"]]}
+    log("qwen3 train " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the two launchers: train smollm-135m, resume, serve its
+# checkpoint
+# ---------------------------------------------------------------------------
+
+def phase_launchers(workdir: str) -> dict:
+    import math
+    import os
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+
+    argv = ["--arch", SMOLLM, "--device", "cuda", "--steps", "8", "--batch",
+            "8", "--seq", str(QWEN_S), "--checkpoint-every", "4",
+            "--workdir", workdir]
+    t0 = time.perf_counter()
+    final = train_launch.main(argv)
+    train_s = time.perf_counter() - t0
+    check(final.get("step") == 8 and math.isfinite(final["loss"]),
+          f"smollm launcher: {final}")
+    ckpt = os.path.join(workdir, "ckpt")
+    steps = sorted(os.listdir(ckpt))
+    check(steps == ["step_0000000004", "step_0000000008"],
+          f"smollm checkpoints {steps}")
+    t0 = time.perf_counter()
+    again = train_launch.main(argv)
+    resume_s = time.perf_counter() - t0
+    check(again == {}, f"the second launch trained again: {again}")
+    t0 = time.perf_counter()
+    tokens = serve_launch.main(["--arch", SMOLLM, "--device", "cuda",
+                                "--ckpt", ckpt, "--requests", "4",
+                                "--new-tokens", "8"])
+    serve_s = time.perf_counter() - t0
+    check(len(tokens) == 4 and all(len(t) == 8 for t in tokens),
+          f"smollm served {tokens}")
+    out = {"train_s": train_s, "final": final, "resume_s": resume_s,
+           "serve_s": serve_s, "tokens": tokens}
+    log("launchers " + json.dumps(out))
+    return out
+
+
 def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
     dev = [p["kernels"][name]["device_ms_per_launch"] for p in profiles
            if name in p["kernels"]]
@@ -2386,6 +2991,19 @@ def main() -> int:
             trained = phase_train(cfg, params, workdir)
         eblock = phase_eblock(cfg, params)
         grads = phase_grads(cfg, params, trained["dc"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        acfg, aparams = build_arctic()
+        arctic = phase_arctic(acfg, aparams, kernels["floor"])
+        del aparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        qwen3 = phase_qwen3()
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
+            launchers = phase_launchers(workdir)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -2394,10 +3012,11 @@ def main() -> int:
                 "serve_expert_choice": served["ec"]["counts"],
                 "serve_moa_fused": moa["counts"],
                 "train": trained["counts"],
-                "train_eblock": eblock["launches"][str(E_BLOCK)]}
+                "train_eblock": eblock["launches"][str(E_BLOCK)],
+                "train_arctic": arctic["counts"]}
     profiles = [served["profile"], served["fused"]["profile"],
                 served["ec"]["profile"], moa["profile"], trained["profile"],
-                eblock["profile"]]
+                eblock["profile"], arctic["profile"]]
     measured = dict(kernels["rows"], **served["fused"]["kernels"])
     measured["fused_routed"].update(
         max_abs_err_f32_ragged=kernels["fused"]["fused_routed_f32_max_abs_err"],
@@ -2406,13 +3025,22 @@ def main() -> int:
         kernels["fused"]["fused_decode_f32_max_abs_err"]
     for name, (err, tol) in moa["kernel_errs"].items():
         measured[name].update(max_abs_err_moa_demo=err, tol_moa_demo=tol)
+    for name in ("topk_gating", "topk_gating_bwd", "dispatch", "combine",
+                 "gmm", "gmm_bwd"):
+        measured[name]["train_arctic"] = arctic["kernels"][name]
     rows = [kernel_row(name, measured[name], launches, profiles,
                        kernels["floor"]) for name in KERNELS]
     log(f"card {setup['card']}; serve cross-check max_abs_err "
         f"{served['cross']['max_abs_err']:.4g} (tol "
         f"{served['cross']['tol']:.4g}); train cuda-vs-ref loss rel err "
-        f"{grads['loss_rel_err']:.3g}; {time.perf_counter() - t_start:.0f} s "
-        "in all")
+        f"{grads['loss_rel_err']:.3g}; arctic step "
+        f"{arctic['summary']['step_ms_median_steps_2_to_6']:.1f} ms, peak "
+        f"{arctic['summary']['max_memory_allocated_gib']:.2f} GiB, cuda-vs-"
+        f"ref loss rel err {arctic['summary']['loss_rel_err']:.3g}; qwen3 "
+        f"step {qwen3['step_ms_median_steps_2_to_4']:.1f} ms; smollm "
+        f"launchers {launchers['train_s']:.1f} + {launchers['resume_s']:.1f}"
+        f" + {launchers['serve_s']:.1f} s; {time.perf_counter() - t_start:.0f}"
+        " s in all")
     print(setup["card"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

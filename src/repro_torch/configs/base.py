@@ -2,9 +2,10 @@
 ``repro.configs.base``).
 
 The fields are the reference's, minus the mesh and TPU-tiling knobs
-(sharding, VMEM budgets, measured GMM tilings, scan/remat); dtypes are
-torch dtypes; ``kernel_backend`` defaults to ``"cuda"``.  The transformer
-stack interprets a config through :func:`layer_kinds`.
+(sharding, the VMEM budget ``dispatch_vmem_limit``, the measured GMM
+tilings ``gmm_autotune``); dtypes are torch dtypes; ``kernel_backend``
+defaults to ``"cuda"``.  The transformer stack interprets a config
+through :func:`layer_kinds`.
 """
 from __future__ import annotations
 
@@ -62,6 +63,9 @@ class ModelConfig:
     # --- attention ----------------------------------------------------------
     qk_norm: bool = False
     rope_theta: float = 10000.0
+    # Query heads padded with zero heads up to this count (sliced off
+    # before the output projection; numerically unchanged).
+    pad_attn_heads: int = 0
     # --- ssm ----------------------------------------------------------------
     ssm_d_state: int = 0
     ssm_d_conv: int = 4
@@ -74,7 +78,17 @@ class ModelConfig:
     norm_eps: float = 1e-6
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    # Training: one torch.utils.checkpoint around each stacked period;
+    # scan_layers=False keeps every layer unstacked (the "tail").
+    remat: bool = True
+    scan_layers: bool = True
+    # flash_attention's blocks (models/attention.py).
+    q_block: int = 512
+    kv_block: int = 512
     kernel_backend: str = "cuda"           # cuda | ref
+    # Dispatch / combine regime: None keeps the resident kernels 2 and 4;
+    # an int forces the expert-blocked kernels 3 and 5 with that slab.
+    dispatch_e_block: int | None = None
     # One fused launch per MoE layer (and per MoA projection) at decode;
     # prefill stays unfused (models/transformer.py).
     fused_decode: bool = False
@@ -130,7 +144,10 @@ def layer_kinds(cfg: ModelConfig) -> list[LayerKind]:
 
 
 def n_periods(cfg: ModelConfig) -> tuple[int, int]:
-    """(full stacked periods, remainder layers)."""
+    """(full stacked periods, remainder layers); every layer is a
+    remainder layer without ``scan_layers``."""
+    if not cfg.scan_layers:
+        return 0, cfg.n_layers
     return divmod(cfg.n_layers, cfg.period)
 
 

@@ -1,0 +1,15 @@
+"""llama3-8b [dense]: GQA, 128k vocab (the reference's config).
+
+32L d_model=4096 32H (GQA kv=8, head_dim=128) d_ff=14336 vocab=128256.
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+
+@register("llama3-8b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="llama3-8b", family="dense",
+        n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+        d_ff=14336, vocab_size=128256,
+        rope_theta=5e5, activation="swiglu",
+    )

@@ -1,0 +1,15 @@
+"""qwen3-1.7b [dense]: qk_norm + GQA (the reference's config).
+
+28L d_model=2048 16H (GQA kv=8, head_dim=128) d_ff=6144 vocab=151936.
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+
+@register("qwen3-1.7b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen3-1.7b", family="dense",
+        n_layers=28, d_model=2048, n_heads=16, n_kv_heads=8, head_dim=128,
+        d_ff=6144, vocab_size=151936,
+        qk_norm=True, rope_theta=1e6, activation="swiglu",
+    )

@@ -16,9 +16,13 @@ Example (one H100; kimi-k2 at full width fits the card at 2 layers):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch moa-demo --reduce --fused-decode --moa-k 2
 
+  # serve what launch.train trained (its <workdir>/ckpt):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch kimi-k2-1t-a32b --reduce --ckpt /tmp/w/ckpt
+
 The flags are the reference launcher's; the ones whose feature is not
-ported yet (checkpoints, chunked prefill, prefix cache, tracing,
-decision logs) raise NotImplementedError.
+ported yet (chunked prefill, prefix cache, tracing, decision logs) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -30,29 +34,16 @@ import torch
 
 from repro_torch.common import param as pm
 from repro_torch.common.device import resolve_device
-from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.configs.base import get_config
 from repro_torch.core import router as router_lib
+from repro_torch.launch.train import reduced
 from repro_torch.models import lm
 from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.train.checkpoint import CheckpointManager
 
 
-def reduced(cfg: ModelConfig) -> ModelConfig:
-    """The reference launcher's smoke-test shape of a config's family."""
-    kw = dict(n_layers=(2 * cfg.period) if cfg.period > 1 else 2,
-              d_model=64, vocab_size=512, param_dtype=torch.float32,
-              compute_dtype=torch.float32)
-    if cfg.n_heads:
-        kw.update(n_heads=4, n_kv_heads=2, head_dim=16)
-    if cfg.d_ff:
-        kw.update(d_ff=128)
-    if cfg.n_experts:
-        kw.update(n_experts=8, moe_k=2, moe_d_ff=64)
-    if cfg.moa_experts:
-        kw.update(moa_experts=4, moa_k=2, moa_heads_per_expert=2)
-    return cfg.replace(**kw)
-
-
-def main(argv=None):
+def main(argv=None) -> list:
+    """Returns each request's generated tokens, in submission order."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduce", action="store_true")
@@ -65,7 +56,9 @@ def main(argv=None):
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the depth (full width kimi-k2 fits one "
                          "80 GB card at 2 layers)")
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory to restore params from "
+                         "(launch.train's <workdir>/ckpt)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -96,8 +89,6 @@ def main(argv=None):
                     help="seed of the random weights and prompts")
     args = ap.parse_args(argv)
 
-    if args.ckpt:
-        raise NotImplementedError("checkpoint restore is not ported yet")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduce:
@@ -131,8 +122,17 @@ def main(argv=None):
         prefix_cache=args.prefix_cache,
         trace_path=args.trace, log_decisions=args.log_decisions,
         fused_decode=args.fused_decode, seed=args.seed)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = pm.materialize(lm.lm_defs(cfg), gen, device)
+    if args.ckpt:
+        mgr = CheckpointManager(args.ckpt)
+        step = mgr.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"--ckpt {args.ckpt}: no checkpoint")
+        like = {"params": pm.zeros(lm.lm_defs(cfg), device)}
+        params = mgr.restore(step, like)[0]["params"]
+        print(f"[serve] restored checkpoint step {step}")
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = pm.materialize(lm.lm_defs(cfg), gen, device)
     engine = ServeEngine(params, cfg, sc, device=device)
     rng = np.random.RandomState(args.seed)
     shared = rng.randint(1, cfg.vocab_size,
@@ -170,6 +170,7 @@ def main(argv=None):
                   f"{load.astype(int).tolist()} (capacity overflow: "
                   f"{engine.stats[total]:.0f})")
     print(f"[serve] sample: {reqs[0].tokens[:10]}")
+    return [list(r.tokens) for r in reqs]
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
 """Decoder blocks + the period-stacked layer loop (counterpart of
-``repro.models.transformer``), for prefill and decode.
+``repro.models.transformer``), for training, prefill and decode.
 
 Parameters for each position-in-period are stacked across periods with a
 leading ``[n_periods, ...]`` axis, as in the reference, so a JAX tree
 moves across as a plain copy; the loop walks the stack in Python and
-hands each block views of its layer's slice.  Remainder layers live
-unstacked under ``"tail"``.
+hands each block views of its layer's slice.  Remainder layers (every
+layer without ``cfg.scan_layers``) live unstacked under ``"tail"``.
+Training (:func:`stack_apply`) wraps each stacked period in
+``torch.utils.checkpoint`` when ``cfg.remat`` is set, as the reference
+wraps its scan body in ``jax.checkpoint``.
 
 The port runs the ``attn`` and ``moa`` mixers with ``dense`` / ``moe``
 / ``moe+dense`` FFNs.  Mamba mixers (hybrid / ssm zoo slice),
@@ -16,6 +19,7 @@ MoA calls only; prefill stays unfused.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.param import ParamDef, tree_map
 from repro_torch.configs.base import (LayerKind, ModelConfig, layer_kinds,
@@ -48,6 +52,7 @@ def _moe_args(cfg: ModelConfig, *, decode: bool = False) -> moe_lib.MoEArgs:
         gating_mode=cfg.gating_mode, capacity_factor=cfg.capacity_factor,
         w_importance=cfg.w_importance, w_load=cfg.w_load,
         dispatch_impl=cfg.dispatch_impl, kernel_backend=cfg.kernel_backend,
+        dispatch_e_block=cfg.dispatch_e_block,
         fused_decode=cfg.fused_decode and decode, dtype=cfg.param_dtype)
 
 
@@ -97,6 +102,19 @@ def _stack_tree(tree, n: int):
 def _layer(tree, i: int):
     """Views of layer ``i`` of a stacked tree."""
     return tree_map(lambda t: t[i], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree, as views whose
+    gradients reach the stacked leaf in one piece: ``unbind`` (its
+    backward stacks the layers' gradients once) rather than ``n``
+    selects (each of whose backward passes writes a zero-filled tensor
+    of the whole leaf), and for one layer a squeeze, whose backward is a
+    view (an arctic expert leaf is 8.9 GB)."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(tree[k], n) for k in sorted(tree)}
+        return [{k: subs[k][i] for k in subs} for i in range(n)]
+    return [tree.squeeze(0)] if n == 1 else list(tree.unbind(0))
 
 
 def stack_defs(cfg: ModelConfig) -> dict:
@@ -159,8 +177,9 @@ def _flat_mask(valid, b: int, s: int):
 
 
 def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
-               decode: bool = False):
-    """Post-mixer FFN with residual (inference).  Returns (x, aux)."""
+               decode: bool = False, train: bool = False, noise=None):
+    """Post-mixer FFN with residual.  ``noise`` ([B*S, E]) is the MoE
+    gate's training noise.  Returns (x, aux)."""
     if kind.ffn == "none":
         return x, None
     h = layers.rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -170,7 +189,8 @@ def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
         b, s, d = h.shape
         y, aux = moe_lib.moe_apply(params["moe"], h.reshape(b * s, d),
                                    _moe_args(cfg, decode=decode),
-                                   train=False, mask=_flat_mask(valid, b, s))
+                                   train=train, noise=noise,
+                                   mask=_flat_mask(valid, b, s))
         out = out + y.reshape(b, s, d)
     if kind.ffn in ("dense", "moe+dense"):
         out = out + layers.mlp(params["mlp"], h, cfg.activation)
@@ -182,6 +202,118 @@ def _moa_telemetry(aux) -> dict:
     load is never summed into FFN-expert load."""
     t = aux["telemetry"]
     return {"moa_load": t["expert_load"], "moa_overflow": t["overflow"]}
+
+
+# ---------------------------------------------------------------------------
+# training: blocks, the aux sums, the stack
+# ---------------------------------------------------------------------------
+
+def _zero_aux(device) -> dict:
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"aux_loss": zero, "metrics": {k: zero
+                                          for k in moe_lib.ZERO_METRICS},
+            "n_moe": zero}
+
+
+def _add_aux(acc: dict, aux: dict) -> dict:
+    """Add a block's aux; ``aux["n"]`` counts the routed sublayers it
+    sums over (metrics are averaged over ``n_moe`` in ``lm_loss``)."""
+    return {"aux_loss": acc["aux_loss"] + aux["aux_loss"],
+            "metrics": {k: acc["metrics"][k] + aux["metrics"][k]
+                        for k in moe_lib.ZERO_METRICS},
+            "n_moe": acc["n_moe"] + aux.get("n", 1.0)}
+
+
+def _merge_aux(a, b):
+    """Merge the mixer's and the FFN's aux of one block (either may be
+    None); the sublayer count ``n`` adds up."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return {"aux_loss": a["aux_loss"] + b["aux_loss"],
+            "metrics": {k: a["metrics"][k] + b["metrics"][k]
+                        for k in moe_lib.ZERO_METRICS},
+            "n": a.get("n", 1.0) + b.get("n", 1.0)}
+
+
+def block_apply(params, x, kind: LayerKind, cfg: ModelConfig, *,
+                positions, noise=None, train: bool = True):
+    """Training block: the mixer, then the FFN.  ``noise`` ([B*S, E] or
+    None) is the layer's MoE gate noise.  Returns (x, aux or None)."""
+    h = layers.rmsnorm(params["ln1"], x, cfg.norm_eps)
+    aux_mix = None
+    if kind.mixer == "moa":
+        # Raises NotImplementedError until the MoA training slice.
+        y, aux_mix = moa_lib.moa_apply(params["moa"], h, _moa_args(cfg),
+                                       positions=positions, train=train)
+    else:
+        y = attention.attention(params["attn"], h, positions,
+                                rope_theta=cfg.rope_theta,
+                                qk_norm=cfg.qk_norm, q_block=cfg.q_block,
+                                kv_block=cfg.kv_block,
+                                pad_heads=cfg.pad_attn_heads)
+    x, aux = _apply_ffn(params, x + y, kind, cfg, train=train, noise=noise)
+    return x, _merge_aux(aux_mix, aux)
+
+
+def layer_index(cfg: ModelConfig) -> list[tuple[int, LayerKind]]:
+    """(layer number, kind) of every layer in the order the stack runs
+    them: the stacked periods, then the tail.  Layer ``l``'s gate noise
+    is the reference's ``fold_in(rng, l)`` draw."""
+    kinds = layer_kinds(cfg)
+    full, rem = n_periods(cfg)
+    return ([(i * cfg.period + p, kinds[p]) for i in range(full)
+             for p in range(cfg.period)]
+            + [(full * cfg.period + p, kinds[p % cfg.period])
+               for p in range(rem)])
+
+
+def stack_apply(params, x, cfg: ModelConfig, *, positions, noise=None,
+                train: bool = True):
+    """Run all layers for training.  ``noise`` is a list with one entry
+    per layer number (a [B*S, E] tensor for MoE layers, None elsewhere),
+    or None for noiseless gates.  With ``cfg.remat`` each stacked period
+    runs under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward pass from its input,
+    with the same noise tensors, so the recomputed routing is the
+    forward's.  Returns (x, summed aux)."""
+    kinds = layer_kinds(cfg)
+    full, rem = n_periods(cfg)
+    aux = _zero_aux(x.device)
+
+    def noise_of(layer: int):
+        return None if noise is None else noise[layer]
+
+    def period(x, aux, blocks, i):
+        for p in range(cfg.period):
+            x, a = block_apply(blocks[f"pos{p}"], x, kinds[p], cfg,
+                               positions=positions,
+                               noise=noise_of(i * cfg.period + p),
+                               train=train)
+            if a is not None:
+                aux = _add_aux(aux, a)
+        return x, aux
+
+    if full:
+        stacked = {f"pos{p}": _unstack(params["periods"][f"pos{p}"], full)
+                   for p in range(cfg.period)}
+        for i in range(full):
+            blocks = {k: v[i] for k, v in stacked.items()}
+            if cfg.remat:
+                x, aux = checkpoint(period, x, aux, blocks, i,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = period(x, aux, blocks, i)
+    for p in range(rem):
+        x, a = block_apply(params["tail"][f"pos{p}"], x,
+                           kinds[p % cfg.period], cfg, positions=positions,
+                           noise=noise_of(full * cfg.period + p),
+                           train=train)
+        if a is not None:
+            aux = _add_aux(aux, a)
+    return x, aux
 
 
 def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,

@@ -488,6 +488,67 @@ def test_functions_backward_on_the_card_matches_cpu(gen):
 
 
 # ---------------------------------------------------------------------------
+# the transformer training path's expert FFN: bf16, swiglu, C above the
+# streaming kernel's range (arctic-480b trains at C = 80)
+# ---------------------------------------------------------------------------
+
+def _training_rows(c):
+    return torch.tensor([0, 1, c // 2, c, c - 3, c], dtype=torch.int32,
+                        device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [72, 80])
+def test_bf16_tile_gmm_at_training_capacity(gen, c):
+    """The bf16 tiled kernel at C above STREAM_MAX_C with rows: forward
+    (silu, none), dx = dz w^T and dw = x^T dz, each within two bf16 ulps
+    of the output's largest binade of the plain version; rows past
+    rows[e] exactly zero."""
+    bf = torch.bfloat16
+    assert tgmm.kernel_for(bf, c, False) == "tile"
+    e, k, n = 6, 136, 200
+    rows = _training_rows(c)
+    x = tgmm.mask_rows(torch.randn(e, c, k, device="cuda", generator=gen)
+                       .to(bf), rows)
+    w = (torch.randn(e, k, n, device="cuda", generator=gen) / k ** 0.5).to(bf)
+    for act in ("silu", "none"):
+        got = tgmm.gmm(x, w, activation=act, rows=rows)
+        assert torch.equal(tgmm.mask_rows(got, rows), got)
+        _close_to_plain(got, tgmm.gmm_plain(x, w, act, rows=rows), bf)
+    dz = torch.randn(e, c, n, device="cuda", generator=gen).to(bf)
+    _close_to_plain(tgmm.gmm(dz, w, trans_w=True, rows=rows),
+                    tgmm.gmm_plain(dz, w, "none", False, True, rows), bf)
+    _close_to_plain(tgmm.gmm(x, dz, trans_x=True, rows=rows),
+                    tgmm.gmm_plain(x, dz, "none", True, False, rows), bf)
+
+
+@pytest.mark.cuda
+def test_gmmfn_silu_backward_bf16_matches_cpu(gen):
+    """GMMFn with silu in bf16 (swiglu's up-projection) at C = 80 with
+    rows: the forward and dx / dw on the card (the recomputed
+    pre-activation, ``g * silu'(z)`` cast to bf16, two transposed GMMs)
+    against the same Function on the CPU (plain versions), within two
+    bf16 ulps of each output's largest binade."""
+    from repro_torch.kernels import ops
+    bf = torch.bfloat16
+    e, c, k, n = 6, 80, 136, 200
+    rows = _training_rows(c)
+    x = tgmm.mask_rows(torch.randn(e, c, k, device="cuda", generator=gen)
+                       .to(bf), rows)
+    w = (torch.randn(e, k, n, device="cuda", generator=gen) / k ** 0.5).to(bf)
+    g = torch.randn(e, c, n, device="cuda", generator=gen).to(bf)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xi, wi = (t.detach().to(dev).requires_grad_(True) for t in (x, w))
+        y = ops.gmm(xi, wi, activation="silu", rows=rows.to(dev))
+        y.backward(g.to(dev))
+        out[dev] = [t.detach().cuda() for t in (y, xi.grad, wi.grad)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.dtype == bf
+        _close_to_plain(got, want, bf)
+
+
+# ---------------------------------------------------------------------------
 # the fused decode kernels (7 and 8)
 # ---------------------------------------------------------------------------
 
