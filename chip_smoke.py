@@ -99,7 +99,28 @@ Phases, in order; any failure exits non-zero and prints no result:
              between the two paths are taken out (phase_grads counts
              them and says why).
    The MoE-256 model is then freed.
-11. arctic — arctic-480b (``configs/arctic_480b.py``) at full width, bf16,
+11. hmoe   — the paper's hierarchical MoE (Appendix B),
+             ``paper_config("moe-4096-h")`` at full width with its
+             vocabulary of 32,000 (4.34 B parameters, f32: 16 groups of
+             256 experts 512 -> 1024 -> 512 relu, k = 2 at each level),
+             drawn from a seed, both levels' gates redrawn.  First every
+             kernel of its training step against its plain version at
+             the step's shapes (top-k over [4096, 16] and over the
+             16,384 slot rows of 256 experts, dispatch / combine at both
+             levels, the GMMs over all 4096 experts at C = 16), timed
+             beside its bound, the launch floor and torch.bmm; then 12
+             steps through the Trainer as in phase 8 (launch counts
+             exactly HMOE_LAUNCHES a step: one launch of each kernel per
+             level and pass, whatever the number of groups), a profile
+             of two more; one more batch's loss and gradients under
+             "ref" and "cuda" (the MoE leaves within 1e-5 normwise, a
+             slab at a time, w1's without its relu flips as in phase 10)
+             and one optimizer update timed alone.  The model is then
+             freed, and one lm_loss forward and backward of
+             launch/train.py's reduced() kimi-k2 with a hierarchical MoE
+             runs under "cuda" and "ref": exact launch counts, losses
+             and gradients within f32 tolerances.
+12. arctic — arctic-480b (``configs/arctic_480b.py``) at full width, bf16,
              depth cut 35 -> 1 layer (14.12 B parameters: 128 experts
              top-2 of 7168 -> 4864 swiglu beside a dense swiglu FFN of
              7168, 56 / 8 heads of 128, vocab 32000), drawn from a seed,
@@ -113,17 +134,17 @@ Phases, in order; any failure exits non-zero and prints no result:
              batch's gradients (all present and finite), one optimizer
              update timed alone, the forward loss under "cuda" against
              "ref" (ARCTIC_LOSS_TOL), a profile of one step.
-12. qwen3  — flash attention's output and gradients against plain
+13. qwen3  — flash attention's output and gradients against plain
              autograd through ``causal_attention`` in f32 at qwen3's
              head shape (S = 2048, 4 x 4 blocks); then qwen3-1.7b at full
              size (28 layers, qk_norm, vocab 151,936, bf16) trained 4
              steps at B = 4 x S = 2048: finite metrics, every gradient
              present, step time and peak memory.
-13. launchers — ``launch.train --arch smollm-135m`` at full size, 8 steps
+14. launchers — ``launch.train --arch smollm-135m`` at full size, 8 steps
              of B = 8 x S = 2048 with checkpoints at 4 and 8; the same
              call again resumes at step 8 and trains nothing; then
              ``launch.serve --ckpt`` serves 4 greedy requests from it.
-14. report — one ``{"kernels": [...]}`` line, then the result line.
+15. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -156,6 +177,32 @@ E_BLOCK = 16             # the reference's slab at this shape
 # pre-activation (a forward GMM) and four transposed GMMs.
 TRAIN_LAUNCHES = {"topk_gating": 1, "topk_gating_bwd": 1, "dispatch": 2,
                   "combine": 2, "gmm": 3, "gmm_bwd": 4}
+# The hierarchical MoE (Appendix B): moe-4096-h at full width with its
+# default vocabulary of 32,000 (4,336,144,384 parameters, 17.34 GB in
+# f32): 16 groups of 256 experts 512 -> 1024 -> 512 relu, k = 2 at each
+# level, trained at TRAIN_B x TRAIN_S.  Capacities: HMOE_CP =
+# capacity_for(4096, 16, 2, 2.0) slots a group, HMOE_CS =
+# capacity_for(1024, 256, 2, 2.0) slots an expert.
+HMOE_CONFIG, HMOE_PARAMS = "moe-4096-h", 4_336_144_384
+HMOE_CP, HMOE_CS = 1024, 16
+# Launches per hierarchical training step: at each level the forward
+# top-k, dispatch and combine, and in the backward pass the top-k
+# backward (B5), the combine's backward dispatch (B7) and the dispatch's
+# backward combine (B6); the one expert FFN, the secondary level's over
+# all 4096 experts at once, as in TRAIN_LAUNCHES.  No count scales with
+# the 16 groups.
+HMOE_LAUNCHES = {"topk_gating": 2, "topk_gating_bwd": 2, "dispatch": 4,
+                 "combine": 4, "gmm": 3, "gmm_bwd": 4}
+# The transformer path: launch/train.py's reduced() kimi-k2 (2 MoE layers
+# under remat, swiglu) with 2 groups of 4 experts, one forward and
+# backward at B x S.  A layer launches both levels' top-k, dispatch and
+# combine twice (the forward and remat's recompute), B5 / B6 / B7 at both
+# levels, the swiglu FFN's three GMMs twice and the recomputed w1
+# pre-activation, and six transposed GMMs: ARCTIC_LAUNCHES with the
+# routing kernels doubled, for each of the 2 layers.
+HMOE_LM_GROUPS, HMOE_LM_BATCH = (2, 4), (4, 64)
+HMOE_LM_LAUNCHES = {"topk_gating": 8, "topk_gating_bwd": 4, "dispatch": 12,
+                    "combine": 12, "gmm": 14, "gmm_bwd": 12}
 KERNELS = ("topk_gating", "dispatch", "combine", "gmm", "topk_gating_bwd",
            "dispatch_eblock", "combine_eblock", "gmm_bwd", "fused_decode",
            "fused_routed")
@@ -282,7 +329,12 @@ def queued_ms(fn, n: int = QUEUED_RUN) -> float:
                        "the sleep")
 
 
+# CUPTI drops a few device records of a profile now and then (up to 5
+# of one profile seen on the card, more often after the training
+# phases), so a profile is repeated when a kernel has none, and a
+# profile of multi-ms calls takes enough of them that some survive.
 PROFILE_ATTEMPTS = 3     # profiles of one run before device_ms gives up
+PROFILED_BIG_RUN = 20    # calls of a multi-ms kernel in device_ms
 
 
 def device_ms(fn, symbols, n: int = PROFILED_RUN, required=None) -> dict:
@@ -1457,35 +1509,45 @@ def device_profile(fn) -> dict:
     have an unprofiled step time report the idle share against it
     (:func:`idle_share`).  Launch counts are zeroed before ``fn``; a
     kernel that the wrappers launched in the window but that has no
-    device time in the profile fails the run."""
+    device time in the profile fails the run, after PROFILE_ATTEMPTS
+    profiles of ``fn`` (each call of ``fn`` runs more steps) have all
+    lacked it, as in :func:`device_ms`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import cuda_lib
 
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    launched = cuda_lib.launch_counts()
-    dev = [(e.key, e.count, e.self_device_time_total / 1e3)
-           for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0]
+        cuda_lib.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = cuda_lib.launch_counts()
+        dev = [(e.key, e.count, e.self_device_time_total / 1e3)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+        per_kernel = {}
+        for name, syms in KERNEL_SYMBOLS.items():
+            hits = [(n, ms) for key, n, ms in dev
+                    if any(sym in key for sym in syms)]
+            calls = sum(n for n, _ in hits)
+            if calls:
+                per_kernel[name] = {"launches": calls,
+                                    "device_ms_per_launch":
+                                    sum(ms for _, ms in hits) / calls}
+        missing = sorted(k for k, n in launched.items()
+                         if n and k not in per_kernel)
+        if not missing:
+            break
+        log(f"device_profile: profile {attempt} of {PROFILE_ATTEMPTS} has "
+            f"no device records of {missing} ({len(dev)} device ops in "
+            f"all; launch counts {launched})")
     busy = sum(ms for _, _, ms in dev)
-    per_kernel = {}
-    for name, syms in KERNEL_SYMBOLS.items():
-        hits = [(n, ms) for key, n, ms in dev
-                if any(sym in key for sym in syms)]
-        calls = sum(n for n, _ in hits)
-        if calls:
-            per_kernel[name] = {"launches": calls, "device_ms_per_launch":
-                                sum(ms for _, ms in hits) / calls}
-    missing = sorted(k for k, n in launched.items()
-                     if n and k not in per_kernel)
     check(not missing, f"kernels launched in the profiled window with no "
                        f"device time in the profile: {missing} (launch "
                        f"counts {launched})")
@@ -2102,7 +2164,12 @@ def _loss_fn(cfg):
     return lambda p, b, g: paper_lm_loss(p, b, cfg, generator=g)
 
 
-def phase_train(cfg, params, workdir) -> dict:
+def phase_train(cfg, params, workdir, name: str = TRAIN_CONFIG,
+                launches: dict = TRAIN_LAUNCHES, what: str = "train") -> dict:
+    """TRAIN_STEPS steps of the paper LM ``cfg`` through the Trainer
+    (factored Adam, a checkpoint every TRAIN_CKPT steps): launch counts
+    exactly ``launches`` a step, every metric finite, peak memory under
+    the card's; then a profile of two more steps."""
     import math
     import torch
     from repro_torch.data.pipeline import DataConfig, DataIterator
@@ -2110,11 +2177,11 @@ def phase_train(cfg, params, workdir) -> dict:
     from repro_torch.optim import optimizers as opt_lib
     from repro_torch.train.trainer import Trainer, TrainLoopConfig, step_seed
 
-    dc = DataConfig(vocab_size=TRAIN_VOCAB, seq_len=TRAIN_S,
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
                     batch_size=TRAIN_B, seed=SEED)
+    oc = opt_lib.OptConfig(kind="factored")
     trainer = Trainer(
-        loss_fn=_loss_fn(cfg), params=params,
-        oc=opt_lib.OptConfig(kind="factored"),
+        loss_fn=_loss_fn(cfg), params=params, oc=oc,
         loop=TrainLoopConfig(total_steps=TRAIN_STEPS,
                              checkpoint_every=TRAIN_CKPT,
                              keep_checkpoints=2, log_every=1, seed=SEED),
@@ -2129,10 +2196,12 @@ def phase_train(cfg, params, workdir) -> dict:
     wall = time.perf_counter() - t0
     counts = cuda_lib.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {k: TRAIN_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
-    log(f"train launches {counts}, expected {want}")
-    check(counts == want, "training launch counts do not match the "
-                          "resident regime's per-step counts")
+    want = {k: TRAIN_STEPS * v for k, v in launches.items()}
+    log(f"{what} launches {counts}, expected {want}")
+    check(counts == want, f"{what}: launch counts do not match the "
+                          "derived per-step counts")
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(peak < total, f"{what}: peak {peak} >= the card's {total} bytes")
     log_rows = trainer.metrics_log
     check(len(log_rows) == TRAIN_STEPS, f"{len(log_rows)} logged steps")
     for m in log_rows:
@@ -2146,7 +2215,7 @@ def phase_train(cfg, params, workdir) -> dict:
     keys = ("loss", "xent", "aux_loss", "max_over_mean_load", "cv_load",
             "fraction_dropped", "grad_norm")
     out = {
-        "config": f"{TRAIN_CONFIG}, vocab {TRAIN_VOCAB}, f32",
+        "config": f"{name}, vocab {cfg.vocab_size}, f32",
         "steps": TRAIN_STEPS, "tokens_per_step": tokens,
         "step_ms_median_steps_3_to_12": 1e3 * statistics.median(steady),
         "step_ms_all": [1e3 * t for t in trainer.step_times],
@@ -2159,7 +2228,7 @@ def phase_train(cfg, params, workdir) -> dict:
         "launches": counts,
         "straggler_events": trainer.straggler_events,
     }
-    log("train " + json.dumps(out))
+    log(f"{what} " + json.dumps(out))
 
     # Two more steps under the profiler.
     def two_steps():
@@ -2172,8 +2241,9 @@ def phase_train(cfg, params, workdir) -> dict:
     dprof = device_profile(two_steps)
     prof = dict(train_steps=2, **dprof, **idle_share(
         dprof, 2, out["step_ms_median_steps_3_to_12"]))
-    log("train profile " + json.dumps(prof))
-    return {"summary": out, "counts": counts, "profile": prof, "dc": dc}
+    log(f"{what} profile " + json.dumps(prof))
+    return {"summary": out, "counts": counts, "profile": prof, "dc": dc,
+            "opt": trainer.state["opt"], "oc": oc}
 
 
 # ---------------------------------------------------------------------------
@@ -2206,25 +2276,94 @@ def _capture_expert_ffn(name: str, store: dict):
     return orig
 
 
-def relu_flips(w1, w2, runs: dict) -> dict:
-    """Each run's pre-activations z = buf w1, as its own path computes
-    them (the "cuda" path's GMM kernel, which its backward pass reruns;
-    the "ref" path's torch.bmm), the elements whose relu masks
-    disagree, and the part of each run's w1 gradient that those
-    elements carry: buf^T (dh * [z > 0] * flip), dh = dout w2^T."""
+def norm_rel_err(got, want) -> float:
+    """||got - want|| / ||want|| (Frobenius), a slab at a time."""
+    import math
+    import torch
+    diff = ref = 0.0
+    for g, w in zip(_slabs(got), _slabs(want)):
+        diff += float(torch.linalg.vector_norm(g.float() - w.float())) ** 2
+        ref += float(torch.linalg.vector_norm(w.float())) ** 2
+    return math.sqrt(diff) / max(math.sqrt(ref), 1e-30)
+
+
+# Experts a slab in w1_check (a moe-4096-h w1 gradient is 8.6 GB).
+W1_SLAB = 256
+
+
+def w1_check(gc, gr, w1, w2, runs: dict) -> dict:
+    """w1's gradient [E, d, f] under "cuda" (``gc``) against "ref"
+    (``gr``), without the terms of its relu flips (see phase_grads), a
+    slab of W1_SLAB experts at a time.
+
+    Each run's pre-activations z = buf w1, as its own path computes them
+    (the "cuda" path's GMM kernel, which its backward pass reruns; the
+    "ref" path's torch.bmm); the elements whose relu masks disagree; and
+    the part of each run's w1 gradient that those elements carry,
+    buf^T (dh * [z > 0] * flip) with dh = dout w2^T, taken out of both
+    gradients.  Checks that the pre-activations agree within f32
+    rounding, that the experts whose raw gradients differ by more than
+    EXPERT_TOL of their largest entry are exactly those whose flipped
+    terms do, that without the flips every expert is within EXPERT_TOL
+    and the whole gradient within GRAD_TOL normwise."""
+    import math
     import torch
     from repro_torch.kernels import gmm as gk
     z = {"cuda": gk.gmm(runs["cuda"]["buf"], w1, activation="none"),
          "ref": torch.bmm(runs["ref"]["buf"], w1)}
     flip = (z["cuda"] > 0) != (z["ref"] > 0)
-    part = {}
-    for b in z:
-        dh = torch.bmm(runs[b]["dout"], w2.transpose(1, 2))
-        part[b] = torch.bmm(runs[b]["buf"].transpose(1, 2),
-                            dh * (flip & (z[b] > 0)))
-    z_err = max_err(z["cuda"], z["ref"])
-    z_tol = 1e-5 * max(1.0, float(z["ref"].abs().max()))
-    return {"flip": flip, "part": part, "z_err": z_err, "z_tol": z_tol}
+    z_err, z_tol = max_err(z["cuda"], z["ref"]), f32_tol(z["ref"])
+    past, carried, after = [], [], []
+    sq = dict.fromkeys(("kept_diff", "kept_ref", "raw_diff", "raw_ref"), 0.0)
+    kept_err = kept_max = 0.0
+    for e0 in range(0, w1.shape[0], W1_SLAB):
+        sl = slice(e0, e0 + W1_SLAB)
+        part = {}
+        for b in z:
+            dh = torch.bmm(runs[b]["dout"][sl], w2[sl].transpose(1, 2))
+            part[b] = torch.bmm(runs[b]["buf"][sl].transpose(1, 2),
+                                dh * (flip[sl] & (z[b][sl] > 0)))
+        raw_c, raw_r = gc[sl], gr[sl]
+        kept_c, kept_r = raw_c - part["cuda"], raw_r - part["ref"]
+        scale = raw_r.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+        past.append((raw_c - raw_r).abs().amax(dim=(1, 2)) / scale
+                    > EXPERT_TOL)
+        carried.append((part["cuda"] - part["ref"]).abs().amax(dim=(1, 2))
+                       / scale > EXPERT_TOL)
+        after.append((kept_c - kept_r).abs().amax(dim=(1, 2)) / scale)
+        for key, t in (("kept_diff", kept_c - kept_r), ("kept_ref", kept_r),
+                       ("raw_diff", raw_c - raw_r), ("raw_ref", raw_r)):
+            sq[key] += float(torch.linalg.vector_norm(t)) ** 2
+        kept_err = max(kept_err, max_err(kept_c, kept_r))
+        kept_max = max(kept_max, abs_max(kept_r))
+        del part, kept_c, kept_r
+    past, carried, after = (torch.cat(v) for v in (past, carried, after))
+
+    def experts(mask):
+        return [int(i) for i in torch.nonzero(mask).flatten()]
+    out = {"w1_raw_norm_rel_err": math.sqrt(sq["raw_diff"] / sq["raw_ref"]),
+           "z_max_abs_err": z_err, "z_tol": z_tol,
+           "relu_flipped_elements": int(flip.sum()),
+           "relu_flipped_experts": experts(flip.any(dim=(1, 2))),
+           "w1_experts_past_rounding": experts(past),
+           "w1_experts_carried_by_flips": experts(carried),
+           "w1_expert_max_rel_err_without_flips": float(after.max()),
+           "expert_tol": EXPERT_TOL,
+           "norm_rel_err": math.sqrt(sq["kept_diff"]
+                                     / max(sq["kept_ref"], 1e-60)),
+           "max_rel_err": kept_err / max(kept_max, 1e-30)}
+    check(z_err <= z_tol,
+          f"the paths' pre-activations differ by {z_err} > {z_tol}")
+    check(torch.equal(past, carried),
+          f"experts past rounding {out['w1_experts_past_rounding']} are not "
+          f"those the relu flips carry {out['w1_experts_carried_by_flips']}")
+    check(out["w1_expert_max_rel_err_without_flips"] <= EXPERT_TOL,
+          f"without its relu flips, an expert's w1 gradient still differs "
+          f"by {float(after.max())} of its largest entry > {EXPERT_TOL}")
+    check(out["norm_rel_err"] <= GRAD_TOL,
+          f"w1's gradient without its relu flips differs by "
+          f"{out['norm_rel_err']} normwise > {GRAD_TOL}")
+    return out
 
 
 def phase_grads(cfg, params, dc) -> dict:
@@ -2292,56 +2431,25 @@ def phase_grads(cfg, params, dc) -> dict:
         del loss
     lc, gc_ = res["cuda"]
     lr_, gr = res["ref"]
-    rf = relu_flips(moe_leaf("w1").detach(), moe_leaf("w2").detach(), runs)
-    # w1 without the flipped elements' terms, in both paths.
-    kept = {"cuda": gc_["w1"] - rf["part"]["cuda"],
-            "ref": gr["w1"] - rf["part"]["ref"]}
-    scale = gr["w1"].abs().amax(dim=(1, 2)).clamp(min=1e-30)
-
-    def per_expert(diff):
-        return diff.abs().amax(dim=(1, 2)) / scale
-
-    def experts(mask):
-        return [int(i) for i in torch.nonzero(mask).flatten()]
-
-    past = per_expert(gc_["w1"] - gr["w1"]) > EXPERT_TOL
-    carried = per_expert(rf["part"]["cuda"] - rf["part"]["ref"]) > EXPERT_TOL
-    after = per_expert(kept["cuda"] - kept["ref"])
+    w1 = w1_check(gc_["w1"], gr["w1"], moe_leaf("w1").detach(),
+                  moe_leaf("w2").detach(), runs)
     out = {"loss_cuda": lc, "loss_ref": lr_,
            "loss_rel_err": abs(lc - lr_) / abs(lr_),
-           "grad_norm_rel_err": {}, "grad_max_rel_err": {}, "tol": GRAD_TOL,
+           "grad_norm_rel_err": {"w1": w1.pop("norm_rel_err")},
+           "grad_max_rel_err": {"w1": w1.pop("max_rel_err")},
+           "tol": GRAD_TOL,
            "cuda_repeat_bitwise": {k: bool(torch.equal(
                gc_[k], res["cuda_again"][1][k])) for k in MOE_LEAVES},
-           "w1_raw_norm_rel_err": float(
-               (gc_["w1"] - gr["w1"]).norm() / gr["w1"].norm()),
-           "z_max_abs_err": rf["z_err"], "z_tol": rf["z_tol"],
-           "relu_flipped_elements": int(rf["flip"].sum()),
-           "relu_flipped_experts": experts(rf["flip"].any(dim=(1, 2))),
-           "w1_experts_past_rounding": experts(past),
-           "w1_experts_carried_by_flips": experts(carried),
-           "w1_expert_max_rel_err_without_flips": float(after.max()),
-           "expert_tol": EXPERT_TOL}
-    for k in MOE_LEAVES:
-        got, want = (kept["cuda"], kept["ref"]) if k == "w1" else \
-            (gc_[k], gr[k])
-        out["grad_norm_rel_err"][k] = float(
-            (got - want).norm() / want.norm().clamp(min=1e-30))
-        out["grad_max_rel_err"][k] = max_err(got, want) / max(
-            float(want.abs().max()), 1e-30)
+           **w1}
+    for k in (k for k in MOE_LEAVES if k != "w1"):
+        out["grad_norm_rel_err"][k] = norm_rel_err(gc_[k], gr[k])
+        out["grad_max_rel_err"][k] = max_err(gc_[k], gr[k]) / max(
+            abs_max(gr[k]), 1e-30)
     log("grads " + json.dumps(out))
     check(math.isfinite(lc) and out["loss_rel_err"] <= 1e-5,
           f"cuda vs ref loss {lc} vs {lr_}")
     check(all(out["cuda_repeat_bitwise"].values()),
           "the cuda path's MoE gradients differ between two identical runs")
-    check(rf["z_err"] <= rf["z_tol"],
-          f"the paths' pre-activations differ by {rf['z_err']} > "
-          f"{rf['z_tol']}")
-    check(torch.equal(past, carried),
-          f"experts past rounding {out['w1_experts_past_rounding']} are not "
-          f"those the relu flips carry {out['w1_experts_carried_by_flips']}")
-    check(float(after.max()) <= EXPERT_TOL,
-          f"without its relu flips, an expert's w1 gradient still differs "
-          f"by {float(after.max())} of its largest entry > {EXPERT_TOL}")
     for k in MOE_LEAVES:
         check(out["grad_norm_rel_err"][k] <= GRAD_TOL,
               f"moe.{k} gradient differs by {out['grad_norm_rel_err'][k]} "
@@ -2428,7 +2536,445 @@ def phase_eblock(cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: train arctic-480b at full width (one layer, bf16)
+# phase 11: train the paper's hierarchical MoE-4096-h at full width
+# ---------------------------------------------------------------------------
+
+def build_hmoe():
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.moe_paper import paper_config
+    from repro_torch.models.paper_lm import paper_lm_defs
+
+    cfg = paper_config(HMOE_CONFIG)
+    check(cfg.kernel_backend == "cuda" and cfg.dtype == torch.float32,
+          "the paper config must default to cuda and f32")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = pm.materialize(paper_lm_defs(cfg), gen, "cuda")
+    # Zero gates send every token to groups 0 and 1 and to their experts
+    # 0 and 1; the smoke draws both levels' gates, as arctic's, so that
+    # routing spreads over all 4096 experts.
+    for level in ("gate_primary", "gate_secondary"):
+        params["moe"][level]["wg"].normal_(0.0, cfg.d_model ** -0.5,
+                                           generator=gen)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in pm.tree_leaves(params))
+    g, b = cfg.hierarchical
+    log(f"materialized {HMOE_CONFIG} (vocab {cfg.vocab_size}, d "
+        f"{cfg.d_model}, {g} groups of {b} experts {cfg.d_model}->"
+        f"{cfg.expert_hidden}->{cfg.d_model}, top-2 at each level) on cuda "
+        f"in {time.perf_counter() - t0:.1f} s: {n} parameters, "
+        f"{pm.param_bytes(params) / 1e9:.2f} GB")
+    check(n == HMOE_PARAMS, f"{n} parameters, expected {HMOE_PARAMS}")
+    return cfg, params
+
+
+def _hmoe_topk(level, logits, k, kk, gen, floor) -> tuple:
+    """Top-k (kernel 1) and its backward (B5) on one level's logits
+    against their plain versions, timed.  Returns both rows and the
+    kernel's (combine weights, indices)."""
+    import torch
+    from repro_torch.kernels import topk_gating as tk
+    n, e = logits.shape
+    got, want = tk.topk_gating(logits, k, kk), tk.topk_gating_plain(
+        logits, k, kk)
+    check(torch.equal(got[1], want[1]), f"hmoe {level} top-k indices differ")
+    err = max(max_err(got[0], want[0]), max_err(got[2], want[2]))
+    check(err <= 1e-6, f"hmoe {level} top-k values differ by {err}")
+    row = dict(max_abs_err=err, tol=1e-6, **_timed_call(
+        f"hmoe {level} topk_gating [{n},{e}] k={k} kk={kk}",
+        lambda: tk.topk_gating(logits, k, kk), "topk_gating_kernel",
+        n * e * 4 + n * k * 4 + n * kk * 8, 0, "float32", floor,
+        plain=lambda: tk.topk_gating_plain(logits, k, kk)))
+    cw, idx, _ = got
+    dw_in = torch.randn(n, k, device="cuda", generator=gen)
+    dvals = torch.randn(n, kk, device="cuda", generator=gen)
+    check(torch.equal(tk.topk_gating_bwd(cw, idx, dw_in, dvals, e),
+                      tk.topk_gating_bwd_plain(cw, idx, dw_in, dvals, e)),
+          f"hmoe {level} top-k backward differs from its plain version")
+    row_bwd = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
+        f"hmoe {level} topk_gating_bwd [{n},{e}] k={k} kk={kk}",
+        lambda: tk.topk_gating_bwd(cw, idx, dw_in, dvals, e),
+        "topk_gating_bwd_kernel", n * e * 4 + n * k * 8 + n * kk * 8, 0,
+        "float32", floor,
+        plain=lambda: tk.topk_gating_bwd_plain(cw, idx, dw_in, dvals, e)))
+    return row, row_bwd, cw, idx[:, :k].contiguous()
+
+
+def _hmoe_dispatch_combine(level, x, plan, gen, floor) -> tuple:
+    """Dispatch (kernel 2) and B7, combine (kernel 4) and B6 on one
+    level's plan against their plain versions, bit for bit, timed.
+    Bytes count the token rows that hold a kept assignment once.  As in
+    ``dispatch_combine_times``, combine's ``dev_ms`` is taken with the
+    L2 cache cold and its back-to-back times, which re-read a buffer the
+    L2 may hold, are kept apart.  Returns the dispatched buffer and both
+    rows."""
+    import torch
+    from repro_torch.kernels import dispatch as dk
+    ei, po, w = plan.expert_index, plan.position, plan.weight
+    e, cap = plan.n_experts, plan.capacity
+    n, d = x.shape
+    k = ei.shape[1]
+    kept = po < cap
+    n_kept, rows_read = int(kept.sum()), int(kept.any(dim=1).sum())
+    buf = dk.dispatch(x, ei, po, n_experts=e, capacity=cap)
+    check(torch.equal(buf, dk.dispatch_plain(x, ei, po, None, e, cap)),
+          f"hmoe {level} dispatch differs from its plain version")
+    g_tok = torch.randn(n, d, device="cuda", generator=gen)
+    check(torch.equal(dk.dispatch(g_tok, ei, po, w, n_experts=e,
+                                  capacity=cap),
+                      dk.dispatch_plain(g_tok, ei, po, w, e, cap)),
+          f"hmoe {level} B7 (dispatch scaled by w) differs from its plain "
+          "version")
+    disp_bytes = rows_read * d * 4 + n * k * 8 + e * cap * d * 4
+    shape = f"[{n},{d}] <-> [{e},{cap},{d}], k={k}, {n_kept} kept"
+    row_d = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
+        f"hmoe {level} dispatch {shape}",
+        lambda: dk.dispatch(x, ei, po, n_experts=e, capacity=cap),
+        "dispatch_kernel", disp_bytes, 0, "float32", floor,
+        plain=lambda: dk.dispatch_plain(x, ei, po, None, e, cap)))
+    row_d["B7"] = _timed_call(
+        f"hmoe {level} B7 dispatch scaled {shape}",
+        lambda: dk.dispatch(g_tok, ei, po, w, n_experts=e, capacity=cap),
+        "dispatch_kernel", disp_bytes + n * k * 4, 0, "float32", floor,
+        plain=lambda: dk.dispatch_plain(g_tok, ei, po, w, e, cap))
+    ybuf = torch.randn(e, cap, d, device="cuda", generator=gen)
+    unit = torch.ones_like(w)
+    for name, wt in (("combine", w), ("B6", unit)):
+        check(torch.equal(dk.combine(ybuf, wt, ei, po),
+                          dk.combine_plain(ybuf, wt, ei, po, torch.float32)),
+              f"hmoe {level} {name} differs from its plain version")
+    comb = [n_kept * d * 4 + n * k * 12 + n * d * 4, 2 * n_kept * d]
+    row_c = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
+        f"hmoe {level} combine {shape}",
+        lambda: dk.combine(ybuf, w, ei, po), "combine_kernel", *comb,
+        "float32", floor,
+        plain=lambda: dk.combine_plain(ybuf, w, ei, po, torch.float32)))
+    row_c["B6"] = _timed_call(
+        f"hmoe {level} B6 combine, unit weights {shape}",
+        lambda: dk.combine(ybuf, unit, ei, po), "combine_kernel", *comb,
+        "float32", floor,
+        plain=lambda: dk.combine_plain(ybuf, unit, ei, po, torch.float32))
+    flush = torch.empty(32 * 2 ** 20, device="cuda")
+    for row, wt in ((row_c, w), (row_c["B6"], unit)):
+        cold = device_ms(lambda: (flush.zero_(), dk.combine(ybuf, wt, ei, po)),
+                         ("combine_kernel",))
+        check("combine_kernel" in cold,
+              f"hmoe {level}: no combine_kernel in the L2-cold profile")
+        row.update(dev_ms_l2_warm=row.pop("dev_ms"),
+                   queued_ms_l2_warm=row.pop("queued_ms"),
+                   dev_ms=cold["combine_kernel"])
+    log(f"hmoe {level} combine, L2 cold: {row_c['dev_ms']} ms a launch "
+        f"(B6 {row_c['B6']['dev_ms']})")
+    return buf, row_d, row_c
+
+
+def check_hmoe_kernels(cfg, params, gen, floor) -> dict:
+    """Every kernel of the moe-4096-h training step against its plain
+    version at the shapes a step gives it, in f32 (T = 4096 tokens of
+    d = 512, k = 2 at each level): the primary level's top-k over
+    [4096, 16] and its dispatch into [16, HMOE_CP, 512] and combine back;
+    the secondary level's top-k over the 16 x HMOE_CP slot rows of 256
+    experts, with the primary plan's empty slots masked, and its dispatch
+    into [4096, HMOE_CS, 512] and combine back, on the plan over the flat
+    4096 experts that the router builds; B5, B6 and B7 at both levels;
+    the expert FFN's GMMs over all 4096 experts with the plan's rows
+    (w1 with relu, w1 without: the backward pass's recomputed
+    pre-activation, w2) and the transposed ones (dx = dz w^T and dw =
+    x^T dz at w1's and w2's shapes).  Tolerances as in phase 2: top-k
+    indices exact and values within 1e-6, B5, dispatch, B7, combine and
+    B6 bit for bit, the GMMs within f32_tol.  Each is timed beside its
+    bound and the launch floor, the GMMs also beside torch.bmm."""
+    import torch
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.core import hierarchical as hmoe_lib
+    from repro_torch.core import router as router_lib
+    from repro_torch.kernels import gmm as gk
+    from repro_torch.models.paper_lm import _hmoe_args
+
+    moe = params["moe"]
+    g, b = cfg.hierarchical
+    d, f, e = cfg.d_model, cfg.expert_hidden, cfg.n_experts
+    t = TRAIN_B * TRAIN_S
+    spec_p, spec_s = hmoe_lib._level_specs(_hmoe_args(cfg))
+    k, kk = spec_p.k, spec_p.k + 1
+    cp = spec_p.capacity(t, g, train=True)
+    cs = spec_s.capacity(cp, b, train=True)
+    check((cp, cs) == (HMOE_CP, HMOE_CS),
+          f"hmoe capacities {cp}, {cs}, expected {HMOE_CP}, {HMOE_CS}")
+    x = torch.randn(t, d, device="cuda", generator=gen)
+    out: dict = {name: {} for name in ("topk_gating", "topk_gating_bwd",
+                                       "dispatch", "combine")}
+    with torch.no_grad():
+        # The primary level: tokens into the groups' slot buffers.
+        logits = x @ moe["gate_primary"]["wg"] + torch.randn(
+            t, g, device="cuda", generator=gen)
+        r1, r5, cw, idx = _hmoe_topk("primary", logits, k, kk, gen, floor)
+        out["topk_gating"]["primary"] = r1
+        out["topk_gating_bwd"]["primary"] = r5
+        plan_p = dsp.plan(idx, cw, g, cp)
+        buf, r2, r4 = _hmoe_dispatch_combine("primary", x, plan_p, gen,
+                                             floor)
+        out["dispatch"]["primary"], out["combine"]["primary"] = r2, r4
+        # The secondary level: every group's slots at once.
+        valid = hmoe_lib._kept_slots(plan_p, g)
+        logits = (torch.bmm(buf, moe["gate_secondary"]["wg"])
+                  + torch.randn(g, cp, b, device="cuda", generator=gen))
+        r1, r5, cw, idx = _hmoe_topk("secondary", logits.reshape(g * cp, b),
+                                     k, kk, gen, floor)
+        out["topk_gating"]["secondary"] = r1
+        out["topk_gating_bwd"]["secondary"] = r5
+        plan_s = dsp.plan(router_lib.flat_expert_ids(idx.reshape(g, cp, k),
+                                                     b),
+                          cw * valid.reshape(-1, 1), e, cs)
+        rows = dsp.filled_rows(plan_s)
+        xs, r2, r4 = _hmoe_dispatch_combine("secondary", buf.reshape(-1, d),
+                                            plan_s, gen, floor)
+        out["dispatch"]["secondary"], out["combine"]["secondary"] = r2, r4
+        del buf
+    n_kept_p = int((plan_p.position < cp).sum())
+    used, filled = int((rows > 0).sum()), int(rows.sum())
+    log(f"hmoe plans: primary C={cp}, {n_kept_p} of {t * k} kept; secondary"
+        f" C={cs} over {e} experts, {used} used, {filled} filled rows")
+    # The expert FFN: GMMs over the flat experts (views of the [16, 256,
+    # ...] leaves), the tiled 3xTF32 kernel.
+    check(gk.kernel_for(torch.float32, cs, False) == "tile",
+          "the hmoe GMMs must run the tiled kernel")
+    w1 = moe["w1"].detach().reshape(e, d, f)
+    w2 = moe["w2"].detach().reshape(e, f, d)
+    hid = gk.mask_rows(torch.randn(e, cs, f, device="cuda", generator=gen),
+                       rows)
+    dz = gk.mask_rows(torch.randn(e, cs, f, device="cuda", generator=gen),
+                      rows)
+    dy = gk.mask_rows(torch.randn(e, cs, d, device="cuda", generator=gen),
+                      rows)
+    cases = {"gmm": [("w1_relu", xs, w1, "relu", False, False),
+                     ("w1_none", xs, w1, "none", False, False),
+                     ("w2", hid, w2, "none", False, False)],
+             "gmm_bwd": [("dx_w1", dz, w1, "none", False, True),
+                         ("dw_w1", xs, dz, "none", True, False),
+                         ("dh_w2", dy, w2, "none", False, True),
+                         ("dw_w2", hid, dy, "none", True, False)]}
+    for kernel, calls_of in cases.items():
+        symbol = ("gmm_tile_kernel" if kernel == "gmm"
+                  else "gmm_tile_bwd_kernel")
+        worst, tol_used, calls = 0.0, 0.0, {}
+        for name, xi, wi, act, tx, tw in calls_of:
+            got = gk.gmm(xi, wi, activation=act, trans_x=tx, trans_w=tw,
+                         rows=rows)
+            want = gk.gmm_plain(xi, wi, act, tx, tw, rows)
+            err, tol = max_err(got, want), f32_tol(want)
+            check(err <= tol, f"hmoe {kernel} {name} differs by {err} > {tol}")
+            worst, tol_used = max(worst, err), max(tol_used, tol)
+            del got, want
+            xl = xi.transpose(1, 2) if tx else xi
+            wl = wi.transpose(1, 2) if tw else wi
+            md, kd, nd = xl.shape[1], xl.shape[2], wl.shape[2]
+            if tx:      # dw [E, M, N]: the filled rows of both operands in
+                n_bytes = (filled * (md + nd) + e * md * nd) * 4
+                flops = 2 * filled * md * nd
+            else:       # the filled rows and the used experts' weights in
+                n_bytes = (filled * kd + used * kd * nd + e * cs * nd) * 4
+                flops = 2 * filled * kd * nd
+            calls[name] = dict(max_abs_err=err, tol=tol, **_timed_call(
+                f"hmoe {kernel} {name} {tuple(xl.shape)} x "
+                f"{tuple(wl.shape)}",
+                lambda: gk.gmm(xi, wi, activation=act, trans_x=tx,
+                               trans_w=tw, rows=rows),
+                symbol, n_bytes, {"tf32": 3 * flops}, None, floor,
+                plain=lambda: gk.gmm_plain(xi, wi, act, tx, tw, rows),
+                library=lambda: torch.bmm(xl, wl), big=True))
+            torch.cuda.empty_cache()
+        out[kernel] = dict(max_abs_err=worst, tol=tol_used, calls=calls,
+                           **{key: sum(c[key] for c in calls.values())
+                              for key in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "dev_ms")})
+    dw = out["gmm_bwd"]["calls"]
+    log(f"hmoe dw layout (x^T dz) at K = {cs}: dw_w1 "
+        f"{dw['dw_w1']['dev_ms']:.3f} ms, dw_w2 "
+        f"{dw['dw_w2']['dev_ms']:.3f} ms a call (torch.bmm "
+        f"{dw['dw_w1']['library_ms']:.3f}, {dw['dw_w2']['library_ms']:.3f}; "
+        f"bound {dw['dw_w1']['bound_ms']:.3f}, {dw['dw_w2']['bound_ms']:.3f})")
+    del xs, hid, dz, dy
+    torch.cuda.empty_cache()
+    out["plan"] = dict(tokens=t, primary_capacity=cp, secondary_capacity=cs,
+                       primary_kept=n_kept_p, used_experts=used,
+                       filled_rows=filled)
+    return out
+
+
+# The MoE leaves of the hierarchical layer compared in hmoe_grads.
+HMOE_LEAVES = ("gate_primary.wg", "gate_primary.wnoise", "gate_secondary.wg",
+               "gate_secondary.wnoise", "w2", "w1")
+
+
+def hmoe_grads(cfg, params, trained) -> dict:
+    """One more batch's loss and gradients from the same parameters and
+    draws under "ref", then "cuda" (phase_grads' comparison without its
+    second "cuda" run: each run holds two 8.6 GB expert gradients): the
+    loss within 1e-5 relative, every gradient present and finite, the
+    MoE leaves within GRAD_TOL normwise of "ref", w1's through
+    w1_check.  Then one optimizer update on the "cuda" gradients, timed
+    alone with CUDA events."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.common.param import tree_leaves, tree_map
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels import backend as backend_lib
+    from repro_torch.models.paper_lm import paper_lm_loss
+    from repro_torch.optim import optimizers as opt_lib
+
+    batch = batch_at(trained["dc"], TRAIN_STEPS + 2, device="cuda")
+
+    def moe_leaf(key):
+        node = params["moe"]
+        for part in key.split("."):
+            node = node[part]
+        return node
+
+    res, runs = {}, {}
+    leaves = tree_leaves(params)
+    for backend in ("ref", "cuda"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        runs[backend] = {}
+        orig = _capture_expert_ffn(backend, runs[backend])
+        try:
+            loss, _ = paper_lm_loss(
+                params, batch,
+                dataclasses.replace(cfg, kernel_backend=backend),
+                generator=gen)
+            loss.backward()
+        finally:
+            backend_lib.register(orig)
+        check(all(p.grad is not None for p in leaves),
+              f"hmoe {backend}: a parameter has no gradient")
+        check(all(all_finite(p.grad) for p in leaves),
+              f"hmoe {backend}: a gradient is not finite")
+        for key in HMOE_LEAVES:
+            check(any_nonzero(moe_leaf(key).grad),
+                  f"hmoe {backend}: the gradient of moe.{key} is zero")
+        res[backend] = (float(loss.detach()),
+                        {k: moe_leaf(k).grad for k in HMOE_LEAVES})
+        del loss
+        if backend == "ref":
+            for p in leaves:
+                p.grad = None
+    (lc, gc_), (lr_, gr) = res["cuda"], res["ref"]
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.expert_hidden
+    w1 = w1_check(gc_["w1"].reshape(e, d, f), gr["w1"].reshape(e, d, f),
+                  moe_leaf("w1").detach().reshape(e, d, f),
+                  moe_leaf("w2").detach().reshape(e, f, d), runs)
+    out = {"loss_cuda": lc, "loss_ref": lr_,
+           "loss_rel_err": abs(lc - lr_) / abs(lr_),
+           "grad_norm_rel_err": {"w1": w1.pop("norm_rel_err")},
+           "grad_max_rel_err": {"w1": w1.pop("max_rel_err")},
+           "tol": GRAD_TOL, **w1}
+    for k in (k for k in HMOE_LEAVES if k != "w1"):
+        out["grad_norm_rel_err"][k] = norm_rel_err(gc_[k], gr[k])
+        out["grad_max_rel_err"][k] = max_err(gc_[k], gr[k]) / max(
+            abs_max(gr[k]), 1e-30)
+    del res, gr, runs
+    torch.cuda.empty_cache()
+    check(math.isfinite(lc) and out["loss_rel_err"] <= 1e-5,
+          f"hmoe cuda vs ref loss {lc} vs {lr_}")
+    for k in HMOE_LEAVES:
+        check(out["grad_norm_rel_err"][k] <= GRAD_TOL,
+              f"hmoe moe.{k} gradient differs by "
+              f"{out['grad_norm_rel_err'][k]} normwise > {GRAD_TOL}")
+    grads = tree_map(lambda p: p.grad, params)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    opt_lib.apply_updates(params, grads, trained["opt"], trained["oc"])
+    end.record()
+    torch.cuda.synchronize()
+    out["optimizer_ms"] = start.elapsed_time(end)
+    del grads
+    for p in leaves:
+        p.grad = None
+    log("hmoe grads " + json.dumps(out))
+    return out
+
+
+def phase_hmoe(cfg, params, floor, workdir) -> dict:
+    """moe-4096-h at full width: its kernels at the step's shapes, then
+    TRAIN_STEPS steps through the Trainer with exact launch counts
+    (HMOE_LAUNCHES a step), a profile of two more, the cuda-vs-ref
+    gradient check and one optimizer update timed alone."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    kernels = check_hmoe_kernels(cfg, params, gen, floor)
+    trained = phase_train(cfg, params, workdir, name=HMOE_CONFIG,
+                          launches=HMOE_LAUNCHES, what="hmoe")
+    grads = hmoe_grads(cfg, params, trained)
+    return {"kernels": kernels, "summary": trained["summary"],
+            "counts": trained["counts"], "profile": trained["profile"],
+            "grads": grads}
+
+
+def phase_hmoe_lm() -> dict:
+    """The hierarchical MoE in the transformer: one ``lm_loss`` forward
+    and backward of ``launch/train.py::reduced()`` kimi-k2 (2 layers,
+    d 64, 8 experts top-2, swiglu, f32, remat) with ``moe_hierarchical``
+    = HMOE_LM_GROUPS, gates drawn, under "cuda" and "ref" with the same
+    draws: "cuda" launches exactly HMOE_LM_LAUNCHES, the losses agree
+    within 1e-5 relative and every gradient is present, finite and
+    within GRAD_TOL normwise of "ref"'s."""
+    import math
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.train import reduced
+    from repro_torch.models import lm
+
+    cfg = reduced(get_config(ARCH)).replace(moe_hierarchical=HMOE_LM_GROUPS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    moe = params["blocks"]["periods"]["pos0"]["moe"]
+    for level in ("gate_primary", "gate_secondary"):
+        moe[level]["wg"].normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+    leaves = pm.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    b, s = HMOE_LM_BATCH
+    batch = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                batch_size=b, seed=SEED), 0, device="cuda")
+    draws = lm.make_draws(cfg, b, s, gen, "cuda")
+    res = {}
+    for backend in ("cuda", "ref"):
+        cuda_lib.reset_launch_counts()
+        loss, _ = lm.lm_loss(params, batch,
+                             cfg.replace(kernel_backend=backend), draws=draws)
+        loss.backward()
+        torch.cuda.synchronize()
+        check(all(p.grad is not None and all_finite(p.grad) for p in leaves),
+              f"hmoe lm {backend}: a gradient is missing or not finite")
+        res[backend] = (float(loss.detach()), cuda_lib.launch_counts(),
+                        [p.grad for p in leaves])
+        for p in leaves:
+            p.grad = None
+    (lc, counts, gc_), (lr_, _, gr) = res["cuda"], res["ref"]
+    errs = [norm_rel_err(a, r) for a, r in zip(gc_, gr)]
+    out = {"config": f"reduced {ARCH}, moe_hierarchical={HMOE_LM_GROUPS}, "
+                     f"B={b} x S={s}, f32",
+           "loss_cuda": lc, "loss_ref": lr_,
+           "loss_rel_err": abs(lc - lr_) / abs(lr_),
+           "grad_norm_rel_err_max": max(errs), "tol": GRAD_TOL,
+           "launches": counts}
+    log("hmoe lm " + json.dumps(out))
+    check(counts == HMOE_LM_LAUNCHES, f"hmoe lm launches {counts}, expected "
+                                      f"{HMOE_LM_LAUNCHES}")
+    check(math.isfinite(lc) and out["loss_rel_err"] <= 1e-5,
+          f"hmoe lm cuda vs ref loss {lc} vs {lr_}")
+    check(max(errs) <= GRAD_TOL, f"hmoe lm: a gradient differs by "
+                                 f"{max(errs)} normwise > {GRAD_TOL}")
+    return {"summary": out, "counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: train arctic-480b at full width (one layer, bf16)
 # ---------------------------------------------------------------------------
 
 def build_arctic():
@@ -2465,7 +3011,7 @@ def _timed_call(what, fn, symbol, n_bytes, flops, dtype_name, floor,
     the launch floor.  ``big``: a multi-ms call, timed with fewer
     repeats and no queued run."""
     if big:
-        dev = device_ms(fn, (symbol,), n=5)
+        dev = device_ms(fn, (symbol,), n=PROFILED_BIG_RUN)
         check(symbol in dev, f"{what}: no {symbol} in the profile")
         b, by = bound_ms(n_bytes, flops, dtype_name)
         res = {"dev_ms": dev[symbol], "bound_ms": b, "bound_by": by,
@@ -2813,7 +3359,7 @@ def phase_arctic(cfg, params, floor) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: train qwen3-1.7b at full size; flash attention on the card
+# phase 13: train qwen3-1.7b at full size; flash attention on the card
 # ---------------------------------------------------------------------------
 
 def check_flash(gen) -> dict:
@@ -2895,7 +3441,7 @@ def phase_qwen3() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the two launchers: train smollm-135m, resume, serve its
+# phase 14: the two launchers: train smollm-135m, resume, serve its
 # checkpoint
 # ---------------------------------------------------------------------------
 
@@ -2994,6 +3540,13 @@ def main() -> int:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+        hcfg, hparams = build_hmoe()
+        with tempfile.TemporaryDirectory() as workdir:
+            hmoe = phase_hmoe(hcfg, hparams, kernels["floor"], workdir)
+        del hparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        hmoe["lm"] = phase_hmoe_lm()
         acfg, aparams = build_arctic()
         arctic = phase_arctic(acfg, aparams, kernels["floor"])
         del aparams
@@ -3013,10 +3566,12 @@ def main() -> int:
                 "serve_moa_fused": moa["counts"],
                 "train": trained["counts"],
                 "train_eblock": eblock["launches"][str(E_BLOCK)],
+                "train_hmoe": hmoe["counts"],
+                "train_hmoe_lm": hmoe["lm"]["counts"],
                 "train_arctic": arctic["counts"]}
     profiles = [served["profile"], served["fused"]["profile"],
                 served["ec"]["profile"], moa["profile"], trained["profile"],
-                eblock["profile"], arctic["profile"]]
+                eblock["profile"], hmoe["profile"], arctic["profile"]]
     measured = dict(kernels["rows"], **served["fused"]["kernels"])
     measured["fused_routed"].update(
         max_abs_err_f32_ragged=kernels["fused"]["fused_routed_f32_max_abs_err"],
@@ -3027,13 +3582,24 @@ def main() -> int:
         measured[name].update(max_abs_err_moa_demo=err, tol_moa_demo=tol)
     for name in ("topk_gating", "topk_gating_bwd", "dispatch", "combine",
                  "gmm", "gmm_bwd"):
+        measured[name]["train_hmoe"] = hmoe["kernels"][name]
         measured[name]["train_arctic"] = arctic["kernels"][name]
+    dw = {what: run["kernels"]["gmm_bwd"]["calls"]["dw_w1"]
+          for what, run in (("hmoe", hmoe), ("arctic", arctic))}
+    log("the dw layout (x^T dz, dev ms a call / torch.bmm ms / bound ms): "
+        + "; ".join(f"{what} K = {k} {dw[what]['dev_ms']:.3f} / "
+                    f"{dw[what]['library_ms']:.3f} / "
+                    f"{dw[what]['bound_ms']:.3f}"
+                    for what, k in (("hmoe", HMOE_CS), ("arctic", ARCTIC_C))))
     rows = [kernel_row(name, measured[name], launches, profiles,
                        kernels["floor"]) for name in KERNELS]
     log(f"card {setup['card']}; serve cross-check max_abs_err "
         f"{served['cross']['max_abs_err']:.4g} (tol "
         f"{served['cross']['tol']:.4g}); train cuda-vs-ref loss rel err "
-        f"{grads['loss_rel_err']:.3g}; arctic step "
+        f"{grads['loss_rel_err']:.3g}; {HMOE_CONFIG} step "
+        f"{hmoe['summary']['step_ms_median_steps_3_to_12']:.1f} ms, peak "
+        f"{hmoe['summary']['max_memory_allocated_gib']:.2f} GiB, cuda-vs-"
+        f"ref loss rel err {hmoe['grads']['loss_rel_err']:.3g}; arctic step "
         f"{arctic['summary']['step_ms_median_steps_2_to_6']:.1f} ms, peak "
         f"{arctic['summary']['max_memory_allocated_gib']:.2f} GiB, cuda-vs-"
         f"ref loss rel err {arctic['summary']['loss_rel_err']:.3g}; qwen3 "

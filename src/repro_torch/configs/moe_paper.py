@@ -4,8 +4,9 @@ counterpart of ``repro.configs.moe_paper``.
 These use :mod:`repro_torch.models.paper_lm` (LSTM -> MoE -> LSTM), not
 the transformer stack.  Vocab defaults to 32k wordpieces as in the
 reference; the 1-Billion-Word vocabulary of the paper is 793,471 words
-(pass ``vocab_size=793_471``).  The hierarchical rows resolve to a
-config, but their model raises until the hierarchical slice.
+(pass ``vocab_size=793_471``).  The hierarchical rows (``moe-*-h``,
+Appendix B) build :mod:`repro_torch.core.hierarchical`'s two-level MoE,
+k = 2 at each level.
 """
 from __future__ import annotations
 

@@ -80,9 +80,15 @@ def noisy_topk_gating(params, x: torch.Tensor, k: int, *, train: bool,
     out of gates, combine weights and load.  ``topk_impl`` swaps in the
     kernel backend's fused KeepTopK+softmax: ``(noisy, k, kk) ->
     (combine [T,k], idx [T,k], raw top values [T,kk])``.
+
+    ``x`` may carry leading group axes ([G, T, d] with gate leaves
+    [G, d, E], noise [G, T, E], valid [G, T]): each group is gated by
+    its own slice, as ``vmap`` over the groups would, and every output
+    keeps the group axes (load [G, E]); the top-k runs once over all
+    G·T rows.
     """
     xf = x.float()
-    clean = xf @ params["wg"].float()                               # [T, E]
+    clean = xf @ params["wg"].float()                           # [..., T, E]
     n_experts = clean.shape[-1]
     k = min(k, n_experts)
 
@@ -96,15 +102,20 @@ def noisy_topk_gating(params, x: torch.Tensor, k: int, *, train: bool,
 
     kk = min(k + 1, n_experts)
     if topk_impl is not None:
-        combine, topk_idx, top_vals = topk_impl(noisy.contiguous(), k, kk)
+        lead = noisy.shape[:-1]
+        combine, topk_idx, top_vals = topk_impl(
+            noisy.reshape(-1, n_experts).contiguous(), k, kk)
+        combine, topk_idx, top_vals = (
+            combine.reshape(lead + (k,)), topk_idx.reshape(lead + (k,)),
+            top_vals.reshape(lead + (kk,)))
     else:
         top_vals, top_idx = top_k(noisy, kk)
         topk_idx = top_idx[..., :k]
         combine = torch.softmax(top_vals[..., :k], dim=-1)
     if valid is not None:
-        combine = combine * valid[:, None]
+        combine = combine * valid[..., None]
 
-    gates = torch.zeros_like(clean).scatter(1, topk_idx.long(), combine)
+    gates = torch.zeros_like(clean).scatter(-1, topk_idx.long(), combine)
 
     if noise_std is not None and kk > k:
         in_topk = gates > 0.0
@@ -113,13 +124,13 @@ def noisy_topk_gating(params, x: torch.Tensor, k: int, *, train: bool,
         threshold = torch.where(in_topk, thresh_if_in, thresh_if_out)
         p = _normal_cdf((clean - threshold) / noise_std)            # Eq. (9)
         if valid is not None:
-            p = p * valid[:, None]
-        load = torch.sum(p, dim=0)                                  # Eq. (10)
+            p = p * valid[..., None]
+        load = torch.sum(p, dim=-2)                                 # Eq. (10)
     else:
         hard = (gates > 0.0).float()
         if valid is not None:
-            hard = hard * valid[:, None]
-        load = torch.sum(hard, dim=0)
+            hard = hard * valid[..., None]
+        load = torch.sum(hard, dim=-2)
 
     return GatingInfo(combine_weights=combine, expert_index=topk_idx,
                       gates=gates, load=load, raw_logits=clean)

@@ -17,8 +17,9 @@ def cv_squared(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 
 
 def importance(gates: torch.Tensor) -> torch.Tensor:
-    """Eq. (6): Importance(X)_i = sum_x G(x)_i.  gates: [T, E] -> [E]."""
-    return torch.sum(gates.float(), dim=0)
+    """Eq. (6): Importance(X)_i = sum_x G(x)_i.  gates: [..., T, E] ->
+    [..., E] (leading group axes stay)."""
+    return torch.sum(gates.float(), dim=-2)
 
 
 def importance_loss(gates: torch.Tensor, w_importance: float) -> torch.Tensor:
@@ -32,14 +33,15 @@ def load_loss(load: torch.Tensor, w_load: float) -> torch.Tensor:
 
 
 def balance_metrics(gates: torch.Tensor, load: torch.Tensor) -> dict:
-    """The Table-6 diagnostics: CV(Importance), CV(Load), max/mean load."""
+    """The Table-6 diagnostics: CV(Importance), CV(Load), max/mean load
+    (one value per group when the inputs carry leading group axes)."""
     imp = importance(gates)
     loadf = load.float()
     return {
         "cv_importance": torch.sqrt(cv_squared(imp)),
         "cv_load": torch.sqrt(cv_squared(loadf)),
-        "max_over_mean_load": torch.max(loadf) / torch.clamp(
-            torch.mean(loadf), min=1e-9),
+        "max_over_mean_load": torch.amax(loadf, dim=-1) / torch.clamp(
+            torch.mean(loadf, dim=-1), min=1e-9),
         "fraction_dropped": torch.zeros((), dtype=torch.float32,
                                         device=loadf.device),
     }

@@ -10,12 +10,20 @@ of ``repro.core.router``.
   (Appendix F) and ``expert_choice`` (experts pick tokens, Zhou et al.
   2022).
 * :class:`Router` / :class:`RouteDecision` — ``router.route(params, x,
-  train=..., noise=..., mask=...)`` returns combine weights, indices,
-  the capacity plan, balancing losses, metrics and serving telemetry.
+  train=..., noise=..., mask=..., capacity=...)`` returns combine
+  weights, indices, the capacity plan, balancing losses, metrics and
+  serving telemetry.
 
 ``mask`` ([T] in {0,1}) zeroes masked tokens out of gates, load,
 telemetry and capacity: the serving engine passes slot occupancy and the
 bucketed-prefill padding mask through it.
+
+Grouped routing (the hierarchical MoE's secondary level, policies
+``noisy_topk`` and ``expert_choice``): ``x`` [G, T, d] routes G token
+batches at once, each by its own gate slice (leaves [G, d, E]), as
+``vmap`` of ``route`` over the groups would; the plan is one plan over
+the G·E experts (group g's expert j is ``g·E + j``), slot for slot the
+G per-group plans, so each kernel runs once for all groups.
 """
 from __future__ import annotations
 
@@ -66,6 +74,10 @@ class RouterSpec:
 
 
 class RouteDecision(NamedTuple):
+    """For grouped input every field but ``plan``, ``rows`` and
+    ``telemetry`` keeps the leading group axis (indices local to the
+    group, ``aux_loss`` and metrics one per group, but the plan's
+    ``fraction_dropped``); those three are over the flat G·E experts."""
     combine_weights: torch.Tensor   # [T, k] f32
     expert_index: torch.Tensor      # [T, k] int32
     gates: torch.Tensor             # [T, E] f32
@@ -82,12 +94,13 @@ class RouteDecision(NamedTuple):
 
 
 def route_telemetry(info: gating.GatingInfo, p: dsp.DispatchPlan) -> dict:
-    """Per-expert serving counters: ``expert_load`` (assignments routed
-    per expert) and ``overflow`` (assignments dropped by capacity).
-    Masked (zero-weight) tokens count toward neither."""
+    """Per-expert serving counters over the plan's experts:
+    ``expert_load`` (assignments routed per expert) and ``overflow``
+    (assignments dropped by capacity).  Masked (zero-weight) tokens count
+    toward neither."""
     assigned = (info.combine_weights > 0.0).reshape(-1).float()
     kept = (p.position < p.capacity).reshape(-1)
-    flat_e = info.expert_index.reshape(-1).long()
+    flat_e = p.expert_index.reshape(-1).long()
     zero = torch.zeros((p.n_experts,), dtype=torch.float32,
                        device=assigned.device)
     return {"expert_load": zero.index_add(0, flat_e, assigned),
@@ -177,20 +190,29 @@ class Router:
 
     def route(self, params, x: torch.Tensor, *, train: bool,
               noise: torch.Tensor | None = None,
-              mask: torch.Tensor | None = None) -> RouteDecision:
-        """One routing decision over a flat token batch x: [T, d]."""
+              mask: torch.Tensor | None = None,
+              capacity: int | None = None) -> RouteDecision:
+        """One routing decision over a flat token batch x: [T, d], or
+        over G batches x: [G, T, d] (grouped routing, see the module
+        docstring; ``noise`` [G, T, E], ``mask`` [G, T]).  ``capacity``
+        overrides the spec-derived slots per expert (the hierarchical
+        secondary level does this)."""
         spec = self.spec
         if mask is not None:
-            mask = mask.float().reshape(-1)
-        capacity = self.capacity(x.shape[0], train=train)
+            mask = mask.float().reshape(x.shape[:-1])
+        if capacity is None:
+            capacity = self.capacity(x.shape[-2], train=train)
         out = self.policy.route(params, x, spec, self.n_experts,
                                 train=train, noise=noise, mask=mask,
                                 capacity=capacity, topk_impl=self.topk_impl)
         info = out.info
         plan, rows = out.plan, None
         if plan is None:
-            plan = dsp.plan(info.expert_index, info.combine_weights,
-                            self.n_experts,
+            k = info.expert_index.shape[-1]
+            plan = dsp.plan(flat_expert_ids(info.expert_index,
+                                            self.n_experts),
+                            info.combine_weights.reshape(-1, k),
+                            self.n_experts * n_groups(x),
                             capacity if out.capacity is None
                             else out.capacity,
                             priority=spec.priority_dispatch)
@@ -210,6 +232,24 @@ class Router:
 
 def build(a, *, topk_impl: Callable | None = None) -> Router:
     return Router(resolve_spec(a), a.n_experts, topk_impl=topk_impl)
+
+
+def n_groups(x: torch.Tensor) -> int:
+    """G of a grouped [G, T, d] batch; 1 for a flat [T, d] one."""
+    return x.shape[0] if x.dim() == 3 else 1
+
+
+def flat_expert_ids(expert_index: torch.Tensor,
+                    n_experts: int) -> torch.Tensor:
+    """[..., T, k] group-local expert ids -> [G·T, k] ids over the flat
+    G·E experts (group g's expert j is g·E + j); [T, k] stays as is."""
+    if expert_index.dim() == 2:
+        return expert_index
+    g = expert_index.shape[0]
+    offset = torch.arange(g, dtype=expert_index.dtype,
+                          device=expert_index.device) * n_experts
+    return (expert_index + offset[:, None, None]).reshape(
+        -1, expert_index.shape[-1])
 
 
 def _gate_only_defs(spec: RouterSpec, d_model: int, n_experts: int) -> dict:
@@ -271,35 +311,40 @@ def _expert_choice_route(params, x, spec, n_experts, *, train, noise, mask,
     positions are column ranks.  A token keeps at most ``spec.k`` of the
     experts that picked it (the token-major [T, k] plan); picks beyond
     that are reported as ``fraction_dropped``.  Masked tokens are never
-    picked."""
-    t = x.shape[0]
+    picked.  Grouped input ([G, T, d]): each group's experts pick among
+    its own tokens; the plan is over the flat G·E experts."""
+    t = x.shape[-2]
     dev = x.device
-    logits = x.float() @ params["gate"]["wg"].float()               # [T, E]
+    logits = x.float() @ params["gate"]["wg"].float()           # [..., T, E]
     g_dense = torch.softmax(logits, dim=-1)
-    g_pickable = g_dense if mask is None else g_dense * mask[:, None]
+    g_pickable = g_dense if mask is None else g_dense * mask[..., None]
     cap = min(capacity, t)
-    col_vals, col_idx = gating.top_k(g_pickable.T, cap)             # [E, C]
-    rows = col_idx.long()
-    cols = torch.arange(n_experts, device=dev)[:, None].expand(-1, cap)
-    picked = torch.zeros((t, n_experts), dtype=torch.bool, device=dev)
-    picked[rows, cols] = col_vals > 0.0
-    pos_matrix = torch.full((t, n_experts), capacity, dtype=torch.int32,
-                            device=dev)
-    pos_matrix[rows, cols] = torch.arange(
-        cap, dtype=torch.int32, device=dev)[None, :].expand(n_experts, -1)
+    # Expert-major [..., E, C]: each expert's picks, in rank order.
+    col_vals, col_idx = gating.top_k(g_pickable.transpose(-1, -2), cap)
+    col_idx = col_idx.long()
+    by_expert = g_dense.transpose(-1, -2).shape                 # [..., E, T]
+    picked = torch.zeros(by_expert, dtype=torch.bool, device=dev).scatter(
+        -1, col_idx, col_vals > 0.0).transpose(-1, -2)
+    ranks = torch.arange(cap, dtype=torch.int32, device=dev)
+    pos_matrix = torch.full(by_expert, capacity, dtype=torch.int32,
+                            device=dev).scatter(
+        -1, col_idx, ranks.expand(col_idx.shape)).transpose(-1, -2)
     # Token-major view: each token keeps its k best picking experts.
     g_kept = torch.where(picked, g_dense, 0.0)
-    combine, topk_idx = gating.top_k(g_kept, min(spec.k, n_experts))
-    position = torch.gather(pos_matrix, 1, topk_idx.long())
+    k = min(spec.k, n_experts)
+    combine, topk_idx = gating.top_k(g_kept, k)
+    position = torch.gather(pos_matrix, -1, topk_idx.long())
     position = torch.where(combine > 0.0, position,
                            torch.full_like(position, capacity))
-    gates = torch.zeros_like(g_dense).scatter(1, topk_idx.long(), combine)
-    load = picked.float().sum(dim=0)
+    gates = torch.zeros_like(g_dense).scatter(-1, topk_idx.long(), combine)
+    load = picked.float().sum(dim=-2)
     n_picks = torch.clamp(picked.float().sum(), min=1.0)
     kept = (combine > 0.0).float().sum()
     plan = dsp.DispatchPlan(
-        expert_index=topk_idx, position=position, weight=combine.float(),
-        n_experts=n_experts, capacity=capacity,
+        expert_index=flat_expert_ids(topk_idx, n_experts),
+        position=position.reshape(-1, k),
+        weight=combine.float().reshape(-1, k),
+        n_experts=n_experts * n_groups(x), capacity=capacity,
         fraction_dropped=(n_picks - kept) / n_picks)
     info = gating.GatingInfo(combine_weights=combine, expert_index=topk_idx,
                              gates=gates, load=load, raw_logits=logits)

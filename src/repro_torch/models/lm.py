@@ -48,12 +48,15 @@ def make_draws(cfg: ModelConfig, batch_size: int, seq_len: int,
     """One step's random draws: ``noise``, a list with one entry per
     layer number (``transformer.layer_index``), [B*S, E] standard
     normals for an MoE layer (the reference's
-    ``normal(fold_in(rng, layer), [T, E])``) and None elsewhere."""
+    ``normal(fold_in(rng, layer), [T, E])``), the two-level dict of
+    ``hierarchical.make_noise`` for a hierarchical one (the reference
+    splits ``fold_in(rng, layer)`` into the two levels' keys) and None
+    elsewhere."""
     noise: list = [None] * cfg.n_layers
     for layer, kind in transformer.layer_index(cfg):
         if kind.ffn in ("moe", "moe+dense"):
-            noise[layer] = torch.randn((batch_size * seq_len, cfg.n_experts),
-                                       generator=generator, device=device)
+            noise[layer] = transformer.moe_noise(
+                cfg, batch_size * seq_len, generator, device)
     return {"noise": noise}
 
 

@@ -6,9 +6,10 @@ over all timesteps, §3.1) -> LSTM -> softmax.  Residual connections
 around each non-softmax layer with dropout on the layer output; the MoE
 output passes through a sigmoid before dropout (§C.1).
 
-Variants (Appendix C baselines, Table 7): ``moe`` (flat noisy top-k;
-the hierarchical MoE comes with a later slice), ``moe_1_wide``,
-``moe_1_deep``, ``lstm_4x``, ``lstm_2048_512``.
+Variants (Appendix C baselines, Table 7): ``moe`` (noisy top-k, flat
+or hierarchical: ``hierarchical=(a, b)``, Appendix B, with no sigmoid
+on its output, as in the reference), ``moe_1_wide``, ``moe_1_deep``,
+``lstm_4x``, ``lstm_2048_512``.
 
 Randomness: torch cannot reproduce ``jax.random``, so
 :func:`paper_lm_loss` takes its draws either from a ``torch.Generator``
@@ -22,6 +23,7 @@ from typing import Any
 import torch
 
 from repro_torch.common.param import ParamDef
+from repro_torch.core import hierarchical as hmoe_lib
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import layers
 from repro_torch.models import lstm as lstm_lib
@@ -52,10 +54,6 @@ def _check(cfg: PaperLMConfig) -> None:
     if cfg.variant not in VARIANTS:
         raise ValueError(f"unknown paper LM variant {cfg.variant!r}; "
                          f"have {VARIANTS}")
-    if cfg.variant == "moe" and cfg.hierarchical:
-        raise NotImplementedError(
-            "the hierarchical MoE (moe-*-h, Appendix B) is not ported to "
-            "repro_torch yet; it comes with the hierarchical slice")
 
 
 def _moe_args(cfg: PaperLMConfig) -> moe_lib.MoEArgs:
@@ -66,6 +64,16 @@ def _moe_args(cfg: PaperLMConfig) -> moe_lib.MoEArgs:
         w_importance=cfg.w_importance, w_load=cfg.w_load,
         sigmoid_output=True, kernel_backend=cfg.kernel_backend,
         dtype=cfg.dtype)
+
+
+def _hmoe_args(cfg: PaperLMConfig) -> hmoe_lib.HMoEArgs:
+    a, b = cfg.hierarchical
+    return hmoe_lib.HMoEArgs(
+        n_groups=a, n_experts_per_group=b, k_primary=2, k_secondary=2,
+        d_model=cfg.d_model, d_ff=cfg.expert_hidden, activation="relu",
+        router=cfg.router, capacity_factor=cfg.capacity_factor,
+        w_importance=cfg.w_importance, w_load=cfg.w_load,
+        kernel_backend=cfg.kernel_backend, dtype=cfg.dtype)
 
 
 def paper_lm_defs(cfg: PaperLMConfig) -> dict:
@@ -79,7 +87,9 @@ def paper_lm_defs(cfg: PaperLMConfig) -> dict:
                                   ("embed_fsdp", "vocab"), dtype=cfg.dtype,
                                   fan_in=d)},
     }
-    if cfg.variant == "moe":
+    if cfg.variant == "moe" and cfg.hierarchical:
+        defs["moe"] = hmoe_lib.hmoe_defs(_hmoe_args(cfg))
+    elif cfg.variant == "moe":
         defs["moe"] = moe_lib.moe_defs(_moe_args(cfg))
     elif cfg.variant == "moe_1_wide":
         defs["mid"] = {
@@ -108,25 +118,33 @@ def make_draws(cfg: PaperLMConfig, batch_size: int, seq_len: int,
                generator: torch.Generator, device) -> dict:
     """One step's random draws, in the layout of the reference's
     four-way key split (``paper_lm.py:158``): ``keep0``..``keep3`` are
-    the dropout keep-masks of keys 0..3, and ``noise`` ([T, E] standard
-    normals) is the MoE gate noise, which the reference draws from key
-    2 as well."""
+    the dropout keep-masks of keys 0..3, and ``noise`` is the MoE gate
+    noise, which the reference draws from key 2 as well: [T, E] standard
+    normals, or for the hierarchical MoE ``{"primary": [T, a],
+    "secondary": [a, Cp, b]}`` (``hierarchical.hmoe_apply``)."""
     shape = (batch_size, seq_len, cfg.d_model)
     p_keep = 1.0 - cfg.dropout
     draws = {f"keep{i}": torch.rand(shape, generator=generator,
                                     device=device) < p_keep
              for i in range(4)}
-    if cfg.variant == "moe":
-        draws["noise"] = torch.randn((batch_size * seq_len, cfg.n_experts),
+    t = batch_size * seq_len
+    if cfg.variant == "moe" and cfg.hierarchical:
+        draws["noise"] = hmoe_lib.make_noise(_hmoe_args(cfg), t, generator,
+                                             device)
+    elif cfg.variant == "moe":
+        draws["noise"] = torch.randn((t, cfg.n_experts),
                                      generator=generator, device=device)
     return draws
 
 
 def _mid_layer(params, x2d: torch.Tensor, cfg: PaperLMConfig, *,
-               train: bool, noise: torch.Tensor | None):
+               train: bool, noise):
     """The capacity layer between the LSTMs.  x2d: [T, d]."""
     zero_aux = {"aux_loss": torch.zeros((), dtype=torch.float32,
                                         device=x2d.device), "metrics": {}}
+    if cfg.variant == "moe" and cfg.hierarchical:
+        return hmoe_lib.hmoe_apply(params["moe"], x2d, _hmoe_args(cfg),
+                                   train=train, noise=noise)
     if cfg.variant == "moe":
         return moe_lib.moe_apply(params["moe"], x2d, _moe_args(cfg),
                                  train=train, noise=noise)

@@ -11,10 +11,12 @@ Training (:func:`stack_apply`) wraps each stacked period in
 wraps its scan body in ``jax.checkpoint``.
 
 The port runs the ``attn`` and ``moa`` mixers with ``dense`` / ``moe``
-/ ``moe+dense`` FFNs.  Mamba mixers (hybrid / ssm zoo slice),
-hierarchical MoE (its own slice) and sliding-window attention raise
-NotImplementedError.  ``cfg.fused_decode`` reaches decode-shaped MoE and
-MoA calls only; prefill stays unfused.
+/ ``moe+dense`` FFNs, the MoE flat or hierarchical
+(``cfg.moe_hierarchical``, Appendix B).  Mamba mixers (hybrid / ssm zoo
+slice) and sliding-window attention raise NotImplementedError.
+``cfg.fused_decode`` reaches decode-shaped flat MoE and MoA calls only;
+prefill stays unfused, and the hierarchical MoE has no fused decode (nor
+has the reference).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.param import ParamDef, tree_map
 from repro_torch.configs.base import (LayerKind, ModelConfig, layer_kinds,
                                       n_periods)
+from repro_torch.core import hierarchical as hmoe_lib
 from repro_torch.core import moa as moa_lib
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import attention, layers
@@ -38,10 +41,6 @@ _NOT_PORTED = {
 def _check_supported(cfg: ModelConfig, kind: LayerKind) -> None:
     if kind.mixer in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[kind.mixer])
-    if kind.ffn in ("moe", "moe+dense") and cfg.moe_hierarchical:
-        raise NotImplementedError(
-            "hierarchical MoE is not ported yet (the hierarchical-MoE "
-            "slice)")
 
 
 def _moe_args(cfg: ModelConfig, *, decode: bool = False) -> moe_lib.MoEArgs:
@@ -54,6 +53,29 @@ def _moe_args(cfg: ModelConfig, *, decode: bool = False) -> moe_lib.MoEArgs:
         dispatch_impl=cfg.dispatch_impl, kernel_backend=cfg.kernel_backend,
         dispatch_e_block=cfg.dispatch_e_block,
         fused_decode=cfg.fused_decode and decode, dtype=cfg.param_dtype)
+
+
+def _hmoe_args(cfg: ModelConfig) -> hmoe_lib.HMoEArgs:
+    a, b = cfg.moe_hierarchical
+    return hmoe_lib.HMoEArgs(
+        n_groups=a, n_experts_per_group=b, k_primary=cfg.moe_k,
+        k_secondary=cfg.moe_k, d_model=cfg.d_model, d_ff=cfg.moe_d_ff,
+        activation=cfg.activation, router=cfg.router,
+        capacity_factor=cfg.capacity_factor, w_importance=cfg.w_importance,
+        w_load=cfg.w_load, dispatch_impl=cfg.dispatch_impl,
+        kernel_backend=cfg.kernel_backend,
+        dispatch_e_block=cfg.dispatch_e_block, dtype=cfg.param_dtype)
+
+
+def moe_noise(cfg: ModelConfig, n_tokens: int,
+              generator: torch.Generator, device):
+    """One MoE layer's training gate noise: [T, E] standard normals, or
+    the hierarchical MoE's two-level dict (``hierarchical.make_noise``)."""
+    if cfg.moe_hierarchical:
+        return hmoe_lib.make_noise(_hmoe_args(cfg), n_tokens, generator,
+                                   device)
+    return torch.randn((n_tokens, cfg.n_experts), generator=generator,
+                       device=device)
 
 
 def _moa_args(cfg: ModelConfig, *, decode: bool = False) -> moa_lib.MoAArgs:
@@ -84,7 +106,9 @@ def block_defs(cfg: ModelConfig, kind: LayerKind) -> dict:
             qk_norm=cfg.qk_norm, dtype=cfg.param_dtype)
     if kind.ffn != "none":
         defs["ln2"] = layers.rmsnorm_defs(cfg.d_model)
-    if kind.ffn in ("moe", "moe+dense"):
+    if kind.ffn in ("moe", "moe+dense") and cfg.moe_hierarchical:
+        defs["moe"] = hmoe_lib.hmoe_defs(_hmoe_args(cfg))
+    elif kind.ffn in ("moe", "moe+dense"):
         defs["moe"] = moe_lib.moe_defs(_moe_args(cfg))
     if kind.ffn in ("dense", "moe+dense"):
         defs["mlp"] = layers.mlp_defs(cfg.d_model, cfg.d_ff, cfg.activation,
@@ -178,8 +202,9 @@ def _flat_mask(valid, b: int, s: int):
 
 def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
                decode: bool = False, train: bool = False, noise=None):
-    """Post-mixer FFN with residual.  ``noise`` ([B*S, E]) is the MoE
-    gate's training noise.  Returns (x, aux)."""
+    """Post-mixer FFN with residual.  ``noise`` is the MoE gate's
+    training noise ([B*S, E], or the hierarchical MoE's two-level dict).
+    Returns (x, aux)."""
     if kind.ffn == "none":
         return x, None
     h = layers.rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -187,10 +212,15 @@ def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
     aux = None
     if kind.ffn in ("moe", "moe+dense"):
         b, s, d = h.shape
-        y, aux = moe_lib.moe_apply(params["moe"], h.reshape(b * s, d),
-                                   _moe_args(cfg, decode=decode),
-                                   train=train, noise=noise,
-                                   mask=_flat_mask(valid, b, s))
+        flat, mask = h.reshape(b * s, d), _flat_mask(valid, b, s)
+        if cfg.moe_hierarchical:
+            y, aux = hmoe_lib.hmoe_apply(params["moe"], flat,
+                                         _hmoe_args(cfg), train=train,
+                                         noise=noise, mask=mask)
+        else:
+            y, aux = moe_lib.moe_apply(params["moe"], flat,
+                                       _moe_args(cfg, decode=decode),
+                                       train=train, noise=noise, mask=mask)
         out = out + y.reshape(b, s, d)
     if kind.ffn in ("dense", "moe+dense"):
         out = out + layers.mlp(params["mlp"], h, cfg.activation)
@@ -239,8 +269,9 @@ def _merge_aux(a, b):
 
 def block_apply(params, x, kind: LayerKind, cfg: ModelConfig, *,
                 positions, noise=None, train: bool = True):
-    """Training block: the mixer, then the FFN.  ``noise`` ([B*S, E] or
-    None) is the layer's MoE gate noise.  Returns (x, aux or None)."""
+    """Training block: the mixer, then the FFN.  ``noise`` (as in
+    :func:`_apply_ffn`, or None) is the layer's MoE gate noise.  Returns
+    (x, aux or None)."""
     h = layers.rmsnorm(params["ln1"], x, cfg.norm_eps)
     aux_mix = None
     if kind.mixer == "moa":
@@ -365,9 +396,13 @@ def stack_prefill(params, x, cfg: ModelConfig, cache, positions, valid=None):
 
 
 def telemetry_width(cfg: ModelConfig) -> int:
-    """Length of the per-expert telemetry vectors (0 = no MoE layer)."""
+    """Length of the per-expert telemetry vectors (0 = no MoE layer; a·b
+    for the hierarchical MoE's flat (group, expert) grid)."""
     if not any(k.ffn in ("moe", "moe+dense") for k in layer_kinds(cfg)):
         return 0
+    if cfg.moe_hierarchical:
+        a, b = cfg.moe_hierarchical
+        return a * b
     return cfg.n_experts
 
 

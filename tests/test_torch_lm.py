@@ -31,6 +31,7 @@ from repro.train import trainer as jtrain
 from repro_torch.common.bridge import from_jax_tree
 from repro_torch.common.param import materialize, tree_leaves
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import hierarchical as thier
 from repro_torch.data import pipeline as tdata
 from repro_torch.models import lm as tlm
 from repro_torch.models import transformer as ttransformer
@@ -62,7 +63,7 @@ def _params(jcfg, seed=0):
 
     def redraw(node):
         for key, sub in node.items():
-            if key == "gate":
+            if key in ("gate", "gate_primary", "gate_secondary"):
                 sub["wg"] = rs.randn(*sub["wg"].shape).astype(np.float32)
             elif isinstance(sub, dict):
                 redraw(sub)
@@ -78,12 +79,23 @@ def _torch_params(tree):
 
 
 def _jax_draws(rng, tcfg, t=B * S) -> dict:
-    """The gate noise of the reference's ``lm_loss(rng=rng)``."""
+    """The gate noise of the reference's ``lm_loss(rng=rng)``: layer
+    ``l``'s from ``fold_in(rng, l)``, which a hierarchical MoE splits
+    into its two levels' keys (``test_torch_hierarchical.jax_noise``)."""
+    from test_torch_hierarchical import jax_noise
     noise = [None] * tcfg.n_layers
     for layer, kind in ttransformer.layer_index(tcfg):
-        if kind.ffn in ("moe", "moe+dense"):
+        if kind.ffn not in ("moe", "moe+dense"):
+            continue
+        key = jax.random.fold_in(rng, layer)
+        if tcfg.moe_hierarchical:
+            a, b = tcfg.moe_hierarchical
+            spec_p, _ = thier._level_specs(ttransformer._hmoe_args(tcfg))
+            noise[layer] = jax_noise(key, t, a, b,
+                                     spec_p.capacity(t, a, train=True))
+        else:
             noise[layer] = torch.from_numpy(np.array(jax.random.normal(
-                jax.random.fold_in(rng, layer), (t, tcfg.n_experts))))
+                key, (t, tcfg.n_experts))))
     return {"noise": noise}
 
 
@@ -103,11 +115,13 @@ def _port_loss(tree, tcfg, rng, step=0):
 
 @pytest.mark.parametrize("arch,over", [
     ("smollm-135m", {}), ("qwen3-1.7b", {}), (KIMI, {}),
-    ("arctic-480b", {}), (KIMI, {"scan_layers": False})])
+    ("arctic-480b", {}), (KIMI, {"scan_layers": False}),
+    (KIMI, {"moe_hierarchical": (2, 2)})])
 def test_lm_loss_and_grads_match_jax(arch, over):
     """smollm (dense), qwen3 (qk_norm), kimi-k2 (moe, swiglu), arctic
-    (moe+dense) and kimi-k2 unstacked (``scan_layers=False``: every
-    layer in the tail, no remat)."""
+    (moe+dense), kimi-k2 unstacked (``scan_layers=False``: every layer
+    in the tail, no remat) and kimi-k2 with a hierarchical MoE (2 groups
+    of 2 experts, Appendix B)."""
     jcfg = small_config(arch, **over)
     tcfg = _tcfg(jcfg)
     tree = _params(jcfg, seed=1)
@@ -192,21 +206,16 @@ def test_dispatch_e_block_reaches_the_moe_layers():
                                    rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("what", ["moa", "hierarchical"])
+@pytest.mark.parametrize("what", ["moa"])
 def test_unported_training_features_raise(what):
-    """MoA training (``moa_apply``) and the hierarchical MoE are later
-    slices: the training path raises instead of running without them."""
-    if what == "moa":
-        tcfg = _tcfg(small_config("moa-demo"))
-        tp = materialize(tlm.lm_defs(tcfg), torch.Generator(), "cpu")
-        batch = tdata.batch_at(tdata.DataConfig(**_dc(tcfg.vocab_size)), 0,
-                               device="cpu")
-        with pytest.raises(NotImplementedError, match="MoA training"):
-            tlm.lm_loss(tp, batch, tcfg)
-    else:
-        tcfg = _tcfg(small_config(KIMI)).replace(moe_hierarchical=(2, 2))
-        with pytest.raises(NotImplementedError, match="hierarchical"):
-            tlm.lm_defs(tcfg)
+    """MoA training (``moa_apply``) is a later slice: the training path
+    raises instead of running without it."""
+    tcfg = _tcfg(small_config("moa-demo"))
+    tp = materialize(tlm.lm_defs(tcfg), torch.Generator(), "cpu")
+    batch = tdata.batch_at(tdata.DataConfig(**_dc(tcfg.vocab_size)), 0,
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="MoA training"):
+        tlm.lm_loss(tp, batch, tcfg)
 
 
 def test_make_draws_layout():

@@ -146,9 +146,6 @@ def test_cuda_backend_trains_through_the_kernel_functions():
 
 
 def test_hierarchical_and_unknown_variants_raise():
-    cfg = tconfigs.paper_config("moe-256-h")
-    with pytest.raises(NotImplementedError, match="hierarchical slice"):
-        tpl.paper_lm_defs(cfg)
     with pytest.raises(ValueError):
         tpl.paper_lm_defs(tpl.PaperLMConfig(vocab_size=V, variant="gru"))
     with pytest.raises(KeyError):
