@@ -69,9 +69,28 @@ Phases, in order; any failure exits non-zero and prints no result:
              used experts per layer and step from an untimed replay;
              a profile of two fused decode steps.
 6. expert_choice — the same requests under expert-choice routing with
-             fused decode: kernel 8 at every MoE decode layer.  The
-             serving model is then freed.
-7. moa     — moa-demo (Mixture-of-Attention-Heads) at its published
+             fused decode: kernel 8 at every MoE decode layer.
+7. prefix  — chunked prefill, cross-slot batched prefill and the
+             shared-prefix KV cache on the same model: top-k, dispatch,
+             combine and the GMM stream against their plain versions at
+             a chunk call's shapes (two 512-token chunks: top-k
+             [1024, 384], [1024, 7168] <-> [384, 32, 7168]; the GMM at
+             C = 32 and 16), timed beside bound, floor, plain and
+             library; a 1536-token prompt pair as chunks at offsets 0 /
+             512 / 1024 in calls of two rows under "cuda" and "ref"; one
+             prompt chunked against whole at a capacity factor where
+             neither call drops a token (logits and K/V); then 9
+             requests of a shared 1024-token system prompt and 512
+             tokens each (request 0 first, the others one step apart
+             after it retired) through a chunked engine (budget 1024
+             tokens a step, fused decode) with the cache off and on:
+             8 hits of 1024 tokens, 8 x 1024 prefill tokens saved, pins
+             released, launch counts exact per prefill call and decode
+             step, and the trie's page of request 0 bit for bit a fresh
+             chunked prefill of its prompt; TTFT, chunk-call time, the
+             stall of decode steps that ran a chunk, prefill tokens/s
+             and peak memory printed.  The serving model is then freed.
+8. moa     — moa-demo (Mixture-of-Attention-Heads) at its published
              widths: first every kernel of its serve path against its
              plain version at the shapes that path gives it (top-k,
              dispatch, GMM and combine at prefill and unfused decode,
@@ -79,7 +98,7 @@ Phases, in order; any failure exits non-zero and prints no result:
              layer), then 8 requests unfused and fused (kernel 8 in
              "proj" mode for each routed Q / O projection, kernel 7 for
              the MoE layers).
-8. train   — the paper's MoE-256 LM (``paper_config("moe-256")``) at its
+9. train   — the paper's MoE-256 LM (``paper_config("moe-256")``) at its
              published widths with the 1-Billion-Word vocabulary of
              793,471 (1.085 B parameters, f32), drawn from a seed on the
              card, trained through the port's Trainer (factored Adam,
@@ -87,11 +106,11 @@ Phases, in order; any failure exits non-zero and prints no result:
              Launch counts per step must be exactly those of the
              resident regime; every loss finite.  A profile of two more
              steps gives the device time by kernel and the idle share.
-9. eblock  — moe_apply forward + backward at the training shape with
+10. eblock  — moe_apply forward + backward at the training shape with
              ``dispatch_e_block=16`` against the resident default:
              dispatch buffers bit-equal, outputs and gradients close,
              the e-blocked kernels launched.
-10. grads  — one more step's gradients under "cuda" (twice) and "ref"
+11. grads  — one more step's gradients under "cuda" (twice) and "ref"
              from the same parameters and draws: all present and
              finite, the MoE leaves' bit-equal between the two "cuda"
              runs and within 1e-5 normwise of "ref"; w1's once the
@@ -99,7 +118,7 @@ Phases, in order; any failure exits non-zero and prints no result:
              between the two paths are taken out (phase_grads counts
              them and says why).
    The MoE-256 model is then freed.
-11. hmoe   — the paper's hierarchical MoE (Appendix B),
+12. hmoe   — the paper's hierarchical MoE (Appendix B),
              ``paper_config("moe-4096-h")`` at full width with its
              vocabulary of 32,000 (4.34 B parameters, f32: 16 groups of
              256 experts 512 -> 1024 -> 512 relu, k = 2 at each level),
@@ -109,18 +128,18 @@ Phases, in order; any failure exits non-zero and prints no result:
              16,384 slot rows of 256 experts, dispatch / combine at both
              levels, the GMMs over all 4096 experts at C = 16), timed
              beside its bound, the launch floor and torch.bmm; then 12
-             steps through the Trainer as in phase 8 (launch counts
+             steps through the Trainer as in phase 9 (launch counts
              exactly HMOE_LAUNCHES a step: one launch of each kernel per
              level and pass, whatever the number of groups), a profile
              of two more; one more batch's loss and gradients under
              "ref" and "cuda" (the MoE leaves within 1e-5 normwise, a
-             slab at a time, w1's without its relu flips as in phase 10)
+             slab at a time, w1's without its relu flips as in phase 11)
              and one optimizer update timed alone.  The model is then
              freed, and one lm_loss forward and backward of
              launch/train.py's reduced() kimi-k2 with a hierarchical MoE
              runs under "cuda" and "ref": exact launch counts, losses
              and gradients within f32 tolerances.
-12. arctic — arctic-480b (``configs/arctic_480b.py``) at full width, bf16,
+13. arctic — arctic-480b (``configs/arctic_480b.py``) at full width, bf16,
              depth cut 35 -> 1 layer (14.12 B parameters: 128 experts
              top-2 of 7168 -> 4864 swiglu beside a dense swiglu FFN of
              7168, 56 / 8 heads of 128, vocab 32000), drawn from a seed,
@@ -134,17 +153,17 @@ Phases, in order; any failure exits non-zero and prints no result:
              batch's gradients (all present and finite), one optimizer
              update timed alone, the forward loss under "cuda" against
              "ref" (ARCTIC_LOSS_TOL), a profile of one step.
-13. qwen3  — flash attention's output and gradients against plain
+14. qwen3  — flash attention's output and gradients against plain
              autograd through ``causal_attention`` in f32 at qwen3's
              head shape (S = 2048, 4 x 4 blocks); then qwen3-1.7b at full
              size (28 layers, qk_norm, vocab 151,936, bf16) trained 4
              steps at B = 4 x S = 2048: finite metrics, every gradient
              present, step time and peak memory.
-14. launchers — ``launch.train --arch smollm-135m`` at full size, 8 steps
+15. launchers — ``launch.train --arch smollm-135m`` at full size, 8 steps
              of B = 8 x S = 2048 with checkpoints at 4 and 8; the same
              call again resumes at step 8 and trains nothing; then
              ``launch.serve --ckpt`` serves 4 greedy requests from it.
-15. report — one ``{"kernels": [...]}`` line, then the result line.
+16. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -167,6 +186,18 @@ PROFILED_RUN = 50        # calls under the profiler in device_ms
 ARCH = "kimi-k2-1t-a32b"
 N_LAYERS = 2
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS = 8, 32, 16
+# Chunked prefill and the shared-prefix cache on the same model: 512-token
+# chunks (kimi-k2's kv_block and q_block), at most two a step; 9 prompts
+# of a 1024-token shared system prompt and 512 tokens of their own; the
+# page sized to a chunk multiple above prompt + new tokens.  Request 0
+# arrives at step 0 and retires at step 15 (its chunks at steps 0, 0 and
+# 1, then 16 tokens, the first at step 1); the 8 others arrive one step
+# apart from step 16.  PREFIX_C = capacity_for(1024, 384, 8, 1.25), the
+# capacity of a two-chunk call.  PREFIX_CROSS_CF: the capacity factor of
+# the chunked-vs-whole gate, at which neither call drops a token.
+PREFIX_CHUNK, PREFIX_BUDGET, PREFIX_SHARED, PREFIX_LEN = 512, 1024, 1024, 1536
+PREFIX_MAX_LEN, PREFIX_FIRST_ARRIVAL, PREFIX_C = 2048, 16, 32
+PREFIX_CROSS_CF = 8.0
 # Training: the paper's MoE-256 LM, B x S tokens a step.
 TRAIN_CONFIG, TRAIN_VOCAB = "moe-256", 793_471
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 32, 128, 12, 6
@@ -1455,9 +1486,11 @@ def serve_run(engine, prompts, vocab_size: int):
 
 def expected_launches(stats: dict, per_prefill: dict,
                       per_decode: dict) -> dict:
-    """Launches a serve run must count: per model call of each kind."""
+    """Launches a serve run must count: per model call of each kind (a
+    prefill call is one whole prompt or one group of same-offset
+    chunks)."""
     out: dict = {}
-    for table, n in ((per_prefill, stats["prefills"]),
+    for table, n in ((per_prefill, stats["prefill_calls"]),
                      (per_decode, stats["decode_steps"])):
         for name, per in table.items():
             out[name] = out.get(name, 0) + per * n
@@ -1909,8 +1942,387 @@ def phase_expert_choice(cfg, params, prompts) -> dict:
     return {"summary": out, "counts": counts, "profile": prof}
 
 
-def run_serve() -> dict:
-    """Phases 3-6 on the full-width kimi-k2; the model is freed on
+# ---------------------------------------------------------------------------
+# phase 7: chunked prefill and the shared-prefix KV cache on the same
+# full-width model
+# ---------------------------------------------------------------------------
+
+def check_chunk_kernels(cfg, params, gen, floor) -> dict:
+    """Kernels 1, 2, 4 and 6 at the shapes a chunk call gives them: two
+    512-token chunks in one call (T = 1024: top-k [1024, 384], dispatch
+    and combine [1024, 7168] <-> [384, 32, 7168] bf16, the GMM stream
+    over all 384 experts at C = 32 with a plan's rows) and one (T = 512,
+    C = 16: the GMM).  Each against its plain version with phase 2's
+    tolerances (top-k indices exact and values within 1e-6, dispatch
+    and combine bit for bit, the GMM within bf16_tol), then timed:
+    profiler device time per launch, CUDA events, plain and library
+    times, the bound and the launch floor; the combine's device time
+    also with a cold L2."""
+    import torch
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.kernels import dispatch as dk
+    from repro_torch.kernels import gmm as gk
+    from repro_torch.kernels import topk_gating as tk
+
+    bf = torch.bfloat16
+    e, k, kk, d = cfg.n_experts, cfg.moe_k, cfg.moe_k + 1, cfg.d_model
+    t = PREFIX_BUDGET
+    out: dict = {}
+    logits = torch.randn(t, e, device="cuda", generator=gen)
+    got, want = tk.topk_gating(logits, k, kk), tk.topk_gating_plain(
+        logits, k, kk)
+    check(torch.equal(got[1], want[1]), "chunk topk indices differ")
+    err = max(max_err(got[0], want[0]), max_err(got[2], want[2]))
+    check(err <= 1e-6, f"chunk topk values differ by {err}")
+
+    def library():
+        vals, idx = torch.topk(logits, kk, dim=-1)
+        return torch.softmax(vals[:, :k], dim=-1), idx
+    out["topk_gating"] = dict(max_abs_err=err, tol=1e-6, **_timed_call(
+        f"topk_gating chunk [{t},{e}] k={k} kk={kk}",
+        lambda: tk.topk_gating(logits, k, kk), "topk_gating_kernel",
+        t * e * 4 + t * k * 4 + t * kk * 8, 0, "float32", floor,
+        plain=lambda: tk.topk_gating_plain(logits, k, kk), library=library))
+    x, p = _route(t, e, k, d, bf, gen)
+    ei, po, w, c = p.expert_index, p.position, p.weight, p.capacity
+    check(c == PREFIX_C, f"chunk capacity {c}, expected {PREFIX_C}")
+    buf = dk.dispatch(x, ei, po, n_experts=e, capacity=c)
+    check(torch.equal(buf, dk.dispatch_plain(x, ei, po, None, e, c)),
+          "chunk dispatch differs from its plain version")
+    y = dk.combine(buf, w, ei, po)
+    check(torch.equal(y, dk.combine_plain(buf, w, ei, po, bf)),
+          "chunk combine differs from its plain version")
+    what = f"[{t},{d}] bf16 <-> [{e},{c},{d}], k={k}"
+    n_kept = int((po < c).sum())
+    out["dispatch"] = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
+        f"dispatch chunk {what}",
+        lambda: dk.dispatch(x, ei, po, n_experts=e, capacity=c),
+        "dispatch_kernel", t * d * 2 + t * k * 8 + e * c * d * 2, 0,
+        "bfloat16", floor,
+        plain=lambda: dk.dispatch_plain(x, ei, po, None, e, c)))
+    out["combine"] = dict(max_abs_err=0.0, tol=0.0, kept_slots=n_kept,
+                          **_timed_call(
+        f"combine chunk {what}", lambda: dk.combine(buf, w, ei, po),
+        "combine_kernel", n_kept * d * 2 + t * k * 12 + t * d * 2,
+        2 * n_kept * d, "bfloat16", floor,
+        plain=lambda: dk.combine_plain(buf, w, ei, po, bf)))
+    flush = torch.empty(32 * 2 ** 20, device="cuda")
+    out["combine"]["dev_ms_l2_cold"] = device_ms(
+        lambda: (flush.zero_(), dk.combine(buf, w, ei, po)),
+        ("combine_kernel",))["combine_kernel"]
+    del flush, y
+    # The expert FFN of layer 0 on the dispatched buffer (C = 32) and on
+    # a one-chunk plan's (C = 16), with the plans' rows, as the path
+    # runs it: w1 with silu, w3, w2.
+    _, w1, w2, w3 = _layer0_moe(params)
+    f = w1.shape[-1]
+    x16, p16 = _route(t // 2, e, k, d, bf, gen)
+    buf16 = dk.dispatch(x16, p16.expert_index, p16.position, n_experts=e,
+                        capacity=p16.capacity)
+    out["gmm"] = {}
+    for cc, b_in, plan in ((c, buf, p), (p16.capacity, buf16, p16)):
+        rows = dsp.filled_rows(plan)
+        used, filled = int((rows > 0).sum()), int(rows.sum())
+        h = gk.mask_rows(torch.randn(e, cc, f, device="cuda",
+                                     generator=gen).to(bf), rows)
+        res = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0, bound_by="bytes", used_experts=used,
+                   filled_rows=filled, max_abs_err=0.0, tol=0.0,
+                   launch_floor_ms=floor["dev_ms"])
+        for name, xi, wi, act in (("w1", b_in, w1, "silu"),
+                                  ("w3", b_in, w3, "none"),
+                                  ("w2", h, w2, "none")):
+            got = gk.gmm(xi, wi, activation=act, rows=rows)
+            want = gk.gmm_plain(xi, wi, act, rows=rows)
+            err, tol = max_err(got, want), bf16_tol(want)
+            check(err <= tol, f"chunk gmm {name} C={cc} differs by {err} "
+                              f"> {tol}")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["tol"] = max(res["tol"], tol)
+            del got, want
+            kd, nn = wi.shape[1], wi.shape[2]
+            call = _timed_call(
+                f"gmm chunk {name} [{e},{cc},{kd}] x [{e},{kd},{nn}] rows",
+                lambda: gk.gmm(xi, wi, activation=act, rows=rows),
+                "gmm_stream_kernel",
+                (used * kd * nn + filled * kd + e * cc * nn) * 2,
+                2 * filled * kd * nn, "bfloat16", floor,
+                plain=lambda: gk.gmm_plain(xi, wi, act, rows=rows),
+                library=lambda: torch.bmm(xi, wi), big=True)
+            for key in ("ms", "dev_ms", "plain_ms", "library_ms",
+                        "bound_ms"):
+                res[key] += call[key]
+        out["gmm"][f"C{cc}"] = res
+    log("chunk kernels " + json.dumps(out))
+    del buf, buf16, x, x16, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def chunked_prefill(cfg, params, rows, page, *, n_chunks=None) -> tuple:
+    """``rows`` ([G, S] int) through ``lm_prefill`` as PREFIX_CHUNK-token
+    chunks at offsets 0, PREFIX_CHUNK, ... into ``page``: (last logits
+    of the last chunk, page)."""
+    import torch
+    from repro_torch.models import lm
+
+    tokens = torch.as_tensor(rows, dtype=torch.int32, device="cuda")
+    n = n_chunks or tokens.shape[1] // PREFIX_CHUNK
+    for i in range(n):
+        off = i * PREFIX_CHUNK
+        logits, page = lm.lm_prefill(
+            params, {"tokens": tokens[:, off:off + PREFIX_CHUNK]}, page, cfg,
+            start_pos=off)
+    return logits, page
+
+
+def kv_span(cfg, page, lo: int, hi: int) -> list:
+    """Each K/V leaf of ``page`` on cache positions [lo, hi)."""
+    from repro_torch.common import param as pm
+    from repro_torch.models import transformer
+    defs = transformer.cache_defs(cfg, 1, PREFIX_MAX_LEN)
+    return [leaf.narrow(d.axes.index("kv_seq"), lo, hi - lo)
+            for d, leaf in zip(pm.tree_leaves(defs), pm.tree_leaves(page))]
+
+
+def overflow_probe():
+    """Wrap the router's telemetry so every routing call of a block
+    records its dropped assignments and its busiest expert's load;
+    returns (records, restore)."""
+    from repro_torch.core import router as router_lib
+    orig = router_lib.route_telemetry
+    records = []
+
+    def probe(info, p):
+        telem = orig(info, p)
+        records.append((float(telem["overflow"].sum()),
+                        float(telem["expert_load"].max()), p.capacity))
+        return telem
+    router_lib.route_telemetry = probe
+    return records, lambda: setattr(router_lib, "route_telemetry", orig)
+
+
+def phase_chunk_gates(cfg, params, prompts) -> dict:
+    """Gate 1: one prompt pair taken as chunks at offsets 0 / 512 / 1024
+    in calls of G = 2 rows under the "cuda" and "ref" backends, last
+    logits within phase_cross's tolerance.  Gate 2: one prompt chunked
+    (three G = 1 calls) against whole (one call of 1536 tokens) at
+    PREFIX_CROSS_CF, where neither call drops a token (checked): last
+    logits and the page's K/V on [0, 1536) within 5 % of their scale."""
+    import numpy as np
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.models import lm, transformer
+
+    pair = np.stack(prompts[:2])
+    out = {}
+    for backend in ("cuda", "ref"):
+        page = pm.zeros(transformer.cache_defs(cfg, 2, PREFIX_MAX_LEN),
+                        "cuda")
+        out[backend], _ = chunked_prefill(
+            cfg.replace(kernel_backend=backend), params, pair, page)
+        del page
+    a, b = out["cuda"], out["ref"]
+    check(all_finite(a) and all_finite(b), "non-finite chunk logits")
+    scale = float(b.abs().max())
+    g1 = {"max_abs_err": max_err(a, b), "tol": 0.05 * scale,
+          "logit_scale": scale, "rows": 2, "chunks": PREFIX_LEN //
+          PREFIX_CHUNK, "top1_equal": bool(torch.equal(a.argmax(-1),
+                                                          b.argmax(-1)))}
+    log("chunk cross (cuda vs ref, G = 2) " + json.dumps(g1))
+    check(g1["max_abs_err"] <= g1["tol"], f"chunked cuda vs ref logits "
+          f"differ by {g1['max_abs_err']} > {g1['tol']}")
+    del out, a, b
+    ccfg = cfg.replace(capacity_factor=PREFIX_CROSS_CF)
+    records, restore = overflow_probe()
+    try:
+        lc, pc = chunked_prefill(ccfg, params, pair[:1],
+                                 pm.zeros(transformer.cache_defs(
+                                     ccfg, 1, PREFIX_MAX_LEN), "cuda"))
+        chunk_rec = list(records)
+        records.clear()
+        lw, pw = lm.lm_prefill(
+            params, {"tokens": torch.as_tensor(pair[:1], dtype=torch.int32,
+                                               device="cuda")},
+            pm.zeros(transformer.cache_defs(ccfg, 1, PREFIX_MAX_LEN), "cuda"),
+            ccfg)
+        whole_rec = list(records)
+    finally:
+        restore()
+    n_moe = N_LAYERS
+    check(len(chunk_rec) == 3 * n_moe and len(whole_rec) == n_moe,
+          f"routing calls: {len(chunk_rec)} chunked, {len(whole_rec)} whole")
+    dropped = sum(r[0] for r in chunk_rec + whole_rec)
+    scale = float(lw.abs().max())
+    kv_err = kv_scale = 0.0
+    for x, y in zip(kv_span(cfg, pc, 0, PREFIX_LEN),
+                    kv_span(cfg, pw, 0, PREFIX_LEN)):
+        kv_err = max(kv_err, max_err(x, y))
+        kv_scale = max(kv_scale, abs_max(y))
+    g2 = {"capacity_factor": PREFIX_CROSS_CF,
+          "capacity_chunk": chunk_rec[0][2], "capacity_whole": whole_rec[0][2],
+          "busiest_expert_chunk": max(r[1] for r in chunk_rec),
+          "busiest_expert_whole": max(r[1] for r in whole_rec),
+          "dropped_assignments": dropped,
+          "logits_max_abs_err": max_err(lc, lw), "logits_tol": 0.05 * scale,
+          "kv_max_abs_err": kv_err, "kv_tol": 0.05 * kv_scale,
+          "top1_equal": bool(torch.equal(lc.argmax(-1), lw.argmax(-1)))}
+    log("chunked vs whole prompt (tolerance: 5 % of the logits' and of the "
+        "K/V's largest magnitude, as the cross phase) " + json.dumps(g2))
+    check(dropped == 0, f"chunked vs whole: {dropped} assignments dropped")
+    check(g2["logits_max_abs_err"] <= g2["logits_tol"],
+          f"chunked vs whole logits differ by {g2['logits_max_abs_err']}")
+    check(kv_err <= g2["kv_tol"], f"chunked vs whole K/V differ by {kv_err}")
+    del pc, pw
+    torch.cuda.empty_cache()
+    return {"cuda_vs_ref": g1, "chunked_vs_whole": g2}
+
+
+def prefix_run(cfg, params, prompts, prefix_cache: bool) -> dict:
+    """The shared-system-prompt trace through a chunked engine (fused
+    decode), each step timed to a device sync: request 0 at step 0, the
+    others one step apart from PREFIX_FIRST_ARRIVAL.  Launch counts are
+    zeroed just before the run and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    engine = ServeEngine(params, cfg, ServeConfig(
+        max_len=PREFIX_MAX_LEN, n_slots=N_REQUESTS,
+        prefill_chunk=PREFIX_CHUNK, prefill_budget=PREFIX_BUDGET,
+        admission="aware", fused_decode=True, prefix_cache=prefix_cache),
+        device="cuda")
+    arrivals = [0] + [PREFIX_FIRST_ARRIVAL + i
+                      for i in range(len(prompts) - 1)]
+    reqs = [engine.submit(p, NEW_TOKENS, arrival=a)
+            for p, a in zip(prompts, arrivals)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    steps = []
+    while engine.queue or engine.sched.active():
+        calls, dec = (engine.stats["prefill_calls"],
+                      engine.stats["decode_steps"])
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        steps.append((t0, time.perf_counter(),
+                      engine.stats["prefill_calls"] > calls,
+                      engine.stats["decode_steps"] > dec))
+    counts = cuda_lib.launch_counts()
+    for r in reqs:
+        check(r.done and len(r.tokens) == NEW_TOKENS,
+              f"prefix run: request {r.rid} ended with {len(r.tokens)} "
+              "tokens")
+        check(all(0 <= tok < cfg.vocab_size for tok in r.tokens),
+              f"prefix run: request {r.rid} sampled outside the vocabulary")
+    check(reqs[0].finished_step < PREFIX_FIRST_ARRIVAL,
+          f"request 0 retired at step {reqs[0].finished_step}, not before "
+          f"the others arrive at {PREFIX_FIRST_ARRIVAL}")
+    ttft_steps = [r.first_token_step - r.arrival for r in reqs]
+    ttft_ms = [1e3 * (steps[r.first_token_step][1] - steps[r.arrival][0])
+               for r in reqs]
+    stall = [1e3 * (b - a) for a, b, chunk, dec in steps if chunk and dec]
+    chunk_s = engine.step_times["chunk"]
+    stats = engine.stats
+    summary = {
+        "prefix_cache": prefix_cache, "first_arrival_step":
+        PREFIX_FIRST_ARRIVAL, "request0_finished_step": reqs[0].finished_step,
+        "steps": len(steps), "ttft_steps": ttft_steps,
+        "ttft_ms_median": statistics.median(ttft_ms),
+        "ttft_ms_p95": float(np.percentile(ttft_ms, 95)),
+        "ttft_steps_median": statistics.median(ttft_steps),
+        "ttft_steps_p95": float(np.percentile(ttft_steps, 95)),
+        "chunk_call_ms_median": 1e3 * statistics.median(chunk_s),
+        "stall_steps": len(stall),
+        "stall_ms_p95": float(np.percentile(stall, 95)) if stall else None,
+        "prefill_tokens_per_s": stats["prefill_tokens"] / sum(chunk_s),
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "stats": stats, "launches": counts}
+    if engine.prefix is not None:
+        summary["prefix"] = dict(engine.prefix.stats,
+                                 pages=engine.prefix.n_pages,
+                                 bytes=engine.prefix.bytes)
+    log(f"prefix run (cache {'on' if prefix_cache else 'off'}) "
+        + json.dumps(summary))
+    return {"engine": engine, "reqs": reqs, "summary": summary,
+            "counts": counts}
+
+
+def phase_prefix(cfg, params, floor) -> dict:
+    """Chunked prefill, cross-slot batching and the shared-prefix cache
+    at kimi-k2's full width: the kernels at the chunk shapes, gates 1-2
+    (phase_chunk_gates), then the shared-system-prompt trace with the
+    cache off and on: gate 3 (every request finishes inside the
+    vocabulary; 8 hits of 1024 tokens; 8 x 1024 prefill tokens fewer
+    than with the cache off; every pin released; the trie within its
+    budget), gate 4 (launches exactly per prefill call and decode step)
+    and gate 5 (the trie's page of request 0 equals, bit for bit on the
+    prompt, a fresh chunked prefill of that prompt at the same calls:
+    no hit's tail chunk wrote into it)."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kernels = check_chunk_kernels(cfg, params, gen, floor)
+    rs = np.random.RandomState(SEED)
+    shared = rs.randint(1, cfg.vocab_size, (PREFIX_SHARED,))
+    prompts = [np.concatenate([shared, rs.randint(
+        1, cfg.vocab_size, (PREFIX_LEN - PREFIX_SHARED,))])
+        for _ in range(N_REQUESTS + 1)]
+    gates = phase_chunk_gates(cfg, params, prompts)
+    off = prefix_run(cfg, params, prompts, False)
+    on = prefix_run(cfg, params, prompts, True)
+    eng = on["engine"]
+    s_on, s_off = on["summary"]["stats"], off["summary"]["stats"]
+    n_hit = len(prompts) - 1
+    check(s_on["prefix_hits"] == n_hit, f"{s_on['prefix_hits']} prefix hits")
+    check(s_on["prefix_hit_tokens"] == n_hit * PREFIX_SHARED,
+          f"{s_on['prefix_hit_tokens']} prefix hit tokens")
+    check(s_off["prefill_tokens"] - s_on["prefill_tokens"]
+          == n_hit * PREFIX_SHARED,
+          f"prefill tokens {s_on['prefill_tokens']} with the cache, "
+          f"{s_off['prefill_tokens']} without")
+    check(eng._pins == {} and all(e.pins == 0 for e in eng.prefix._entries),
+          "prefix pins left after the run")
+    check(eng.prefix.bytes <= eng.sc.prefix_cache_bytes,
+          f"the trie holds {eng.prefix.bytes} B over its budget")
+    n_moe = N_LAYERS
+    per_call = {"topk_gating": n_moe, "dispatch": n_moe, "combine": n_moe,
+                "gmm": 3 * n_moe}
+    for run, what in ((off, "prefix off"), (on, "prefix on")):
+        check_launches(f"{what} serve", run["counts"], expected_launches(
+            run["summary"]["stats"], per_call, {"fused_decode": n_moe}))
+    entry, depth = eng.prefix._walk(prompts[0], PREFIX_LEN // PREFIX_CHUNK)
+    check(entry is not None and depth == PREFIX_LEN // PREFIX_CHUNK,
+          "request 0's prompt is not in the trie")
+    _, fresh = chunked_prefill(eng.cfg, params, np.stack(prompts[:1]),
+                               eng.kv.new_page())
+    same = {}
+    for what, lo, hi in (("shared_prefix", 0, PREFIX_SHARED),
+                         ("request0_tail", PREFIX_SHARED, PREFIX_LEN)):
+        same[what] = all(torch.equal(x, y) for x, y in zip(
+            kv_span(cfg, entry.page, lo, hi), kv_span(cfg, fresh, lo, hi)))
+    log("trie page of request 0 against a fresh chunked prefill, bit for "
+        "bit " + json.dumps(same))
+    check(all(same.values()), f"the trie's page changed: {same}")
+    agree = stream_agreement([r.tokens for r in on["reqs"]],
+                             [r.tokens for r in off["reqs"]])
+    res = {"kernels": kernels, "gates": gates, "off": off["summary"],
+           "on": on["summary"], "trie_page_bitwise": same,
+           "greedy_tokens_equal_on_vs_off": agree,
+           "prefill_tokens_saved": s_off["prefill_tokens"]
+           - s_on["prefill_tokens"]}
+    log(f"prefix phase: greedy tokens equal with the cache on and off "
+        f"{agree:.4f}; prefill tokens saved {res['prefill_tokens_saved']}")
+    del off, on, eng, fresh
+    torch.cuda.empty_cache()
+    return dict(res, counts=res["on"]["launches"])
+
+
+def run_serve(floor: dict) -> dict:
+    """Phases 3-7 on the full-width kimi-k2; the model is freed on
     return."""
     cfg, params = build_model()
     served = phase_serve(cfg, params)
@@ -1919,12 +2331,14 @@ def run_serve() -> dict:
     cross = phase_cross(cfg, params, served["prompts"][0], served["engine"])
     fused = phase_fused(cfg, params, served)
     ec = phase_expert_choice(cfg, params, served["prompts"])
+    prefix = phase_prefix(cfg, params, floor)
     return {"counts": served["counts"], "summary": served["summary"],
-            "profile": profiled, "cross": cross, "fused": fused, "ec": ec}
+            "profile": profiled, "cross": cross, "fused": fused, "ec": ec,
+            "prefix": prefix}
 
 
 # ---------------------------------------------------------------------------
-# phase 7: serve moa-demo (MoA mixers) fused and unfused
+# phase 8: serve moa-demo (MoA mixers) fused and unfused
 # ---------------------------------------------------------------------------
 
 def _layer(tree, i: int):
@@ -2133,7 +2547,7 @@ def phase_moa() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: train the paper's MoE-256 LM at full width
+# phase 9: train the paper's MoE-256 LM at full width
 # ---------------------------------------------------------------------------
 
 def build_train_model():
@@ -2247,7 +2661,7 @@ def phase_train(cfg, params, workdir, name: str = TRAIN_CONFIG,
 
 
 # ---------------------------------------------------------------------------
-# phase 10: one step's gradients, cuda vs ref
+# phase 11: one step's gradients, cuda vs ref
 # ---------------------------------------------------------------------------
 
 # Gradients of the MoE leaves, cuda vs ref (see phase_grads): each within
@@ -2458,7 +2872,7 @@ def phase_grads(cfg, params, dc) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the e-blocked regime against the resident one
+# phase 10: the e-blocked regime against the resident one
 # ---------------------------------------------------------------------------
 
 def phase_eblock(cfg, params) -> dict:
@@ -2536,7 +2950,7 @@ def phase_eblock(cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: train the paper's hierarchical MoE-4096-h at full width
+# phase 12: train the paper's hierarchical MoE-4096-h at full width
 # ---------------------------------------------------------------------------
 
 def build_hmoe():
@@ -2974,7 +3388,7 @@ def phase_hmoe_lm() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: train arctic-480b at full width (one layer, bf16)
+# phase 13: train arctic-480b at full width (one layer, bf16)
 # ---------------------------------------------------------------------------
 
 def build_arctic():
@@ -3359,7 +3773,7 @@ def phase_arctic(cfg, params, floor) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: train qwen3-1.7b at full size; flash attention on the card
+# phase 14: train qwen3-1.7b at full size; flash attention on the card
 # ---------------------------------------------------------------------------
 
 def check_flash(gen) -> dict:
@@ -3441,7 +3855,7 @@ def phase_qwen3() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the two launchers: train smollm-135m, resume, serve its
+# phase 15: the two launchers: train smollm-135m, resume, serve its
 # checkpoint
 # ---------------------------------------------------------------------------
 
@@ -3497,7 +3911,7 @@ def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
         "launch_floor_ms": floor["dev_ms"],
         **{k: v for k, v in r.items()
            if k.startswith(("max_abs_err_", "tol_", "used_", "moa_", "rows_",
-                            "full_pool", "c72", "phase_split",
+                            "full_pool", "c72", "phase_split", "chunk_",
                             "train_", "stream_", "bound_ms_", "by_shape"))}}
 
 
@@ -3525,7 +3939,7 @@ def main() -> int:
     try:
         setup = phase_setup()
         kernels = phase_kernels()
-        served = run_serve()
+        served = run_serve(kernels["floor"])
         gc.collect()
         torch.cuda.empty_cache()
         log(f"serving model freed; {torch.cuda.memory_allocated() / 2**30:.2f}"
@@ -3563,6 +3977,7 @@ def main() -> int:
     launches = {"serve": served["counts"],
                 "serve_fused": served["fused"]["counts"],
                 "serve_expert_choice": served["ec"]["counts"],
+                "serve_prefix": served["prefix"]["counts"],
                 "serve_moa_fused": moa["counts"],
                 "train": trained["counts"],
                 "train_eblock": eblock["launches"][str(E_BLOCK)],
@@ -3578,6 +3993,8 @@ def main() -> int:
         moa_proj=kernels["fused"]["moa_proj"])
     measured["fused_decode"]["max_abs_err_f32_ragged"] = \
         kernels["fused"]["fused_decode_f32_max_abs_err"]
+    for name, r in served["prefix"]["kernels"].items():
+        measured[name]["chunk_prefill"] = r
     for name, (err, tol) in moa["kernel_errs"].items():
         measured[name].update(max_abs_err_moa_demo=err, tol_moa_demo=tol)
     for name in ("topk_gating", "topk_gating_bwd", "dispatch", "combine",

@@ -217,9 +217,10 @@ def moa_prefill(params, x, positions, a: MoAArgs, *, cache: dict,
                 start_pos: int | None = None):
     """Prefill: routed attention that also writes K/V for positions
     [0, S) into ``cache`` (in place).  ``mask`` ([B·S]) keeps bucketed
-    padding out of routing.  Returns (y, cache)."""
-    if start_pos is not None:
-        raise NotImplementedError("chunked prefill is not ported yet")
+    or chunk padding out of routing.  ``start_pos`` is chunked-prefill
+    mode, as ``attention.prefill_attention``'s ``offset``: the shared
+    K/V lands at [start_pos, start_pos + S) and the chunk attends over
+    the cached prefix.  Returns (y, cache)."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     bk = backend_lib.resolve(a)
@@ -228,9 +229,8 @@ def moa_prefill(params, x, positions, a: MoAArgs, *, cache: dict,
     q = _queries(_routed_q(params, flat, dec, a, bk), positions, params, a,
                  kk)
     k, v = _shared_kv(params, x, positions, a)
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
-    o = attn_lib.causal_attention(q, k, v)
+    o = attn_lib.attend_chunk(q, k, v, cache,
+                              0 if start_pos is None else int(start_pos))
     o = _from_virtual(o, a.n_kv_heads, kk, a.n_heads_per_expert)
     y = _routed_o(params, o.reshape(b * s * kk, a.d_head_group), dec, a,
                   bk, x.dtype)

@@ -16,13 +16,20 @@ Example (one H100; kimi-k2 at full width fits the card at 2 layers):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch moa-demo --reduce --fused-decode --moa-k 2
 
+  # chunked prefill and the shared-prefix KV cache: every request opens
+  # with the same 32 tokens and arrives after the one before retired
+  # (the chunk must be a multiple of the reduced config's kv_block, 32):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch kimi-k2-1t-a32b --reduce --requests 3 --new-tokens 4 \
+      --stagger 6 --prompt-len 48 --prefill-chunk 32 --prefill-budget 64 \
+      --admission aware --prefix-cache --shared-prefix 32
+
   # serve what launch.train trained (its <workdir>/ckpt):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch kimi-k2-1t-a32b --reduce --ckpt /tmp/w/ckpt
 
 The flags are the reference launcher's; the ones whose feature is not
-ported yet (chunked prefill, prefix cache, tracing, decision logs) raise
-NotImplementedError.
+ported yet (tracing, decision logs) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -112,14 +119,20 @@ def main(argv=None) -> list:
         cfg = cfg.replace(moa_k=args.moa_k)
         print(f"[serve] moa_k: {cfg.moa_k}/{cfg.moa_experts} head groups")
     n_slots = args.slots or min(args.requests, 8)
+    max_len = args.prompt_len + args.new_tokens + 1
+    if args.prefill_chunk > 0:
+        # Chunk writes land in [start, start + chunk) windows: size the
+        # page to a chunk multiple so the final padded window fits.
+        max_len = -(-max_len // args.prefill_chunk) * args.prefill_chunk
     sc = ServeConfig(
-        max_len=args.prompt_len + args.new_tokens + 1,
+        max_len=max_len,
         temperature=args.temperature, n_slots=n_slots, policy=args.policy,
         mask_dead_slots=not args.no_dead_slot_mask,
         prefill_buckets=not args.no_prefill_buckets,
         prefill_chunk=args.prefill_chunk,
         prefill_budget=args.prefill_budget, admission=args.admission,
         prefix_cache=args.prefix_cache,
+        prefix_cache_bytes=args.prefix_cache_bytes,
         trace_path=args.trace, log_decisions=args.log_decisions,
         fused_decode=args.fused_decode, seed=args.seed)
     if args.ckpt:
@@ -160,6 +173,21 @@ def main(argv=None) -> list:
     print(f"[serve] prefill shapes: {sorted(engine.prefill_lengths)} "
           f"(buckets={'on' if engine._can_bucket else 'off'}, dead-slot "
           f"mask={'on' if engine.sc.mask_dead_slots else 'off'})")
+    if engine._chunk:
+        print(f"[serve] chunked prefill: chunk={engine._chunk}, "
+              f"budget={engine.sc.prefill_budget or 'unlimited'}, "
+              f"admission={engine.sc.admission}, "
+              f"chunks={engine.stats['prefill_chunks']} in "
+              f"{engine.stats['prefill_calls']} calls, "
+              f"offsets={sorted(engine.chunk_offsets)}")
+    if engine.prefix is not None:
+        ps = engine.prefix.stats
+        print(f"[serve] prefix cache: {ps['hits']} hits / "
+              f"{ps['hits'] + ps['misses']} lookups, "
+              f"{ps['hit_tokens']} prompt tokens reused, "
+              f"{engine.prefix.n_pages} pages "
+              f"({engine.prefix.bytes / 1e6:.1f} MB, "
+              f"{ps['evictions']} evictions)")
     for key, name, total in (("expert_load", "expert", "overflow_total"),
                              ("moa_load", "MoA head-group",
                               "moa_overflow_total")):

@@ -9,8 +9,9 @@ key / value blocks with an online softmax, only the blocks at or below
 the diagonal, and a backward pass that recomputes the probabilities
 from the saved log-sum-exp, so no ``[S, S]`` tensor is ever kept.
 Prefill keeps the masking semantics of the reference's
-``blockwise_attention`` (causal, optional ``kv_len``, GQA) but forms the
-whole score matrix at once: prompts here are short.  Decode attends one
+``blockwise_attention`` (causal, optional ``kv_len``, a query offset,
+GQA) but forms the whole score matrix of a prompt, or of a chunk against
+its cached prefix, at once.  Decode attends one
 query per row against the slot cache at the row's own position.
 
 Caches are updated in place: the engine owns one pool and the layers
@@ -305,20 +306,43 @@ def prefill_attention(params, x, positions, *, rope_theta: float,
                       qk_norm: bool, cache: dict, window: int = 0,
                       offset: int | None = None):
     """Prefill: causal attention that also writes K/V for positions
-    [0, S) into ``cache`` (in place).  Returns (y, cache)."""
+    [0, S) into ``cache`` (in place).  Returns (y, cache).
+
+    ``offset`` is chunked-prefill mode: the S tokens are the prompt
+    slice at positions [offset, offset + S); their K/V lands at that
+    range of ``cache`` and they attend over the cached prefix [0,
+    offset), cast to the compute dtype, followed by the chunk's own K/V
+    at its absolute positions."""
+    if offset is not None and window:
+        raise ValueError(
+            "chunked prefill is unsupported for sliding-window layers")
     if window:
         raise NotImplementedError(
             "sliding-window attention is not ported yet (zoo slice)")
-    if offset is not None:
-        raise NotImplementedError(
-            "chunked prefill (offset) is not ported yet")
     q, k, v = _qkv(params, x, positions, rope_theta=rope_theta,
                    qk_norm=qk_norm)
-    s = x.shape[1]
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
-    o = causal_attention(q, k, v)
+    o = attend_chunk(q, k, v, cache, 0 if offset is None else int(offset))
     return _out(o, params["wo"]), cache
+
+
+def attend_chunk(q, k, v, cache: dict, off: int) -> torch.Tensor:
+    """Write the chunk's K/V ([B, S, KV, hd]) at cache positions [off,
+    off + S) in place, then attend its queries over [cached prefix
+    [0, off), the chunk].  The prefix is read back at the cache's
+    precision, as in the reference."""
+    s = k.shape[1]
+    if off + s > cache["k"].shape[1]:
+        raise ValueError(f"chunk [{off}, {off + s}) overruns the cache "
+                         f"page of {cache['k'].shape[1]} positions")
+    if off:
+        # torch.cat copies, so the write below cannot reach these reads.
+        k_ctx = torch.cat([cache["k"][:, :off].to(k.dtype), k], dim=1)
+        v_ctx = torch.cat([cache["v"][:, :off].to(v.dtype), v], dim=1)
+    else:
+        k_ctx, v_ctx = k, v
+    cache["k"][:, off:off + s] = k.to(cache["k"].dtype)
+    cache["v"][:, off:off + s] = v.to(cache["v"].dtype)
+    return causal_attention(q, k_ctx, v_ctx, q_offset=off)
 
 
 def init_cache_defs(batch: int, max_len: int, n_kv_heads: int, head_dim: int,

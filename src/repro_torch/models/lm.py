@@ -119,19 +119,27 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, *,
 
 
 def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
-               last_index=None, valid=None):
+               last_index=None, valid=None, start_pos: int | None = None):
     """Prompt ingestion.  batch: tokens [B, S].  Writes K/V for
     positions [0, S) into ``cache``; returns (last_logits [B, V], cache).
 
-    Bucketed prefill: ``last_index`` (scalar or [B]) picks the logits
-    position — the true final prompt token of a right-padded prompt —
-    and ``valid`` ([B, S]) masks the padded tail out of MoE routing."""
+    Bucketed prefill: ``last_index`` (scalar or [B], one per row of a
+    cross-slot batched chunk call) picks the logits position — the true
+    final prompt token of a right-padded prompt — and ``valid`` ([B, S])
+    masks the padded tail out of MoE routing.
+
+    Chunked prefill: ``start_pos`` ingests the prompt slice at absolute
+    positions [start_pos, start_pos + S) against a cache already holding
+    [0, start_pos); RoPE, the K/V writes and the causal mask use the
+    absolute positions, ``last_index`` stays chunk-local."""
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
     b, s = tokens.shape
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    positions = (start_pos or 0) + torch.arange(s, device=x.device)
+    positions = positions[None, :].expand(b, s)
     x = transformer.stack_prefill(params["blocks"], x, cfg, cache,
-                                  positions, valid=valid)
+                                  positions, valid=valid,
+                                  start_pos=start_pos)
     if last_index is None:
         x = x[:, -1:, :]
     else:

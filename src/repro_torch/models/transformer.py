@@ -348,19 +348,26 @@ def stack_apply(params, x, cfg: ModelConfig, *, positions, noise=None,
 
 
 def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
-                  positions, valid=None):
+                  positions, valid=None, start_pos: int | None = None):
     """Prefill block: causal attention (or MoA) + cache fill.  Returns
-    x."""
+    x.  ``start_pos`` is chunked-prefill mode: K/V lands at cache
+    positions [start_pos, start_pos + S) and attention resumes against
+    the cached prefix (attention mixers only)."""
+    if kind.mixer == "mamba" and start_pos is not None:
+        raise ValueError(
+            "chunked prefill requires attention mixers (ssm/hybrid state "
+            "scans cannot resume mid-prompt from a cache page)")
     h = layers.rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind.mixer == "moa":
         b, s, _ = h.shape
         y, _ = moa_lib.moa_prefill(params["moa"], h, positions,
                                    _moa_args(cfg), cache=cache,
-                                   mask=_flat_mask(valid, b, s))
+                                   mask=_flat_mask(valid, b, s),
+                                   start_pos=start_pos)
     else:
         y, _ = attention.prefill_attention(
             params["attn"], h, positions, rope_theta=cfg.rope_theta,
-            qk_norm=cfg.qk_norm, cache=cache)
+            qk_norm=cfg.qk_norm, cache=cache, offset=start_pos)
     x, _ = _apply_ffn(params, x + y, kind, cfg, valid=valid)
     return x
 
@@ -388,10 +395,15 @@ def block_decode(params, x, kind: LayerKind, cfg: ModelConfig, cache,
     return x, telem
 
 
-def stack_prefill(params, x, cfg: ModelConfig, cache, positions, valid=None):
-    """Prefill all layers, writing K/V into ``cache``.  Returns x."""
+def stack_prefill(params, x, cfg: ModelConfig, cache, positions, valid=None,
+                  start_pos: int | None = None):
+    """Prefill all layers, writing K/V into ``cache``.  ``start_pos`` is
+    the chunked-prefill offset: this call ingests prompt positions
+    [start_pos, start_pos + S) against a cache already holding [0,
+    start_pos).  Returns x."""
     for p, c, kind in _layers(params, cache, cfg):
-        x = block_prefill(p, x, kind, cfg, c, positions, valid=valid)
+        x = block_prefill(p, x, kind, cfg, c, positions, valid=valid,
+                          start_pos=start_pos)
     return x
 
 

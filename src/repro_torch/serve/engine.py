@@ -3,41 +3,59 @@
 
 The engine owns ``n_slots`` sequence slots and runs a step loop of
 
-    schedule (admission) -> prefill each admitted prompt -> one decode
-    step over every fully-prefilled slot -> sample -> retire
+    schedule (admission + chunk planning under the prefill-token budget)
+    -> run this step's prefill work -> one decode step over every
+    fully-prefilled slot -> sample -> retire
 
 Requests are admitted and retired independently (``policy=
 "continuous"``); ``policy="static"`` is the batch-drain baseline.
-Prompts are right-padded to power-of-two length buckets with the padded
-tail masked out of MoE routing, and dead slots are masked out of routing
-at decode, exactly as in the reference, so the greedy token streams
-match it.
+Whole prompts are right-padded to power-of-two length buckets with the
+padded tail masked out of MoE routing, and dead slots are masked out of
+routing at decode, exactly as in the reference, so the greedy token
+streams match it.
 
-The reference's ``jax.jit`` closures become eager calls.
+Chunked prefill (``prefill_chunk``): a prompt longer than the chunk is
+ingested as fixed-size chunk work-items over consecutive steps, each
+resuming the slot's staged page where the previous chunk ended
+(``lm_prefill(start_pos=...)``); ``prefill_budget`` bounds the prompt
+tokens a step takes.  Same-offset chunks of different slots run as one
+multi-row call (cross-slot batched prefill, rows padded to a power of
+two).  The shared-prefix cache (``prefix_cache``) keeps retired pages in
+a radix trie keyed by chunk-sized prompt blocks; a new request resumes
+from a copy of the longest cached block-aligned prefix and prefills only
+its tail.
+
+The reference's ``jax.jit`` closures become eager calls, and its
+immutable pages become tensors written in place, so a page that two
+owners could write is copied (``kv_cache``'s docstring).
 ``fused_decode`` runs every MoE layer of a decode step (and each MoA
-routed projection) as one kernel launch; prefill stays unfused.  Chunked
-prefill, the shared-prefix cache, chrome-trace capture and decision
-logging are not ported yet: setting them raises NotImplementedError.
+routed projection) as one kernel launch; prefill stays unfused.
+Chrome-trace capture and decision logging are not ported yet: setting
+them raises NotImplementedError.
 
 ``stats`` is a plain dict with the reference's keys.  ``step_times``
-holds each prefill's and each decode step's wall time (seconds, host
-clock, ending at the sampled token's copy to the host, which waits for
-the device).
+holds the wall time (seconds, host clock) of each whole-prompt prefill
+and each decode step, ending at the sampled tokens' copy to the host
+(which waits for the device), and of each chunk call, ending at that
+copy or, for a call that completes no prompt, at a device sync.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from repro_torch.common import param as pm
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import ModelConfig, layer_kinds
 from repro_torch.models import lm
-from repro_torch.serve.kv_cache import SlotKVCache
-from repro_torch.serve.scheduler import Request, RequestQueue, Scheduler
+from repro_torch.serve.kv_cache import PrefixCache, SlotKVCache
+from repro_torch.serve.scheduler import (Request, RequestQueue, Scheduler,
+                                         chunk_rounds)
 
 STAT_KEYS = ("prefills", "decode_steps", "reshards", "generated_tokens",
              "slot_steps_active", "slot_steps_total", "overflow_total",
@@ -56,29 +74,31 @@ class ServeConfig:
     mask_dead_slots: bool = True
     prefill_buckets: bool = True
     min_bucket: int = 8
+    # Chunked prefill: prompts longer than this many tokens are ingested
+    # as chunk work-items over consecutive steps (0 = whole prompts).
+    prefill_chunk: int = 0
     prefill_budget: int = 0      # max prompt tokens per step (0 = no cap)
     admission: str = "fcfs"      # "fcfs" | "aware"
+    # Shared-prefix radix KV cache over retired pages (needs a chunk);
+    # LRU byte budget for its pages (<= 0 = unlimited).
+    prefix_cache: bool = False
+    prefix_cache_bytes: int = 1 << 30
     telemetry_keep_last_n: int = 512
     # One fused launch per MoE / MoA layer at decode (prefill unfused).
     fused_decode: bool = False
     # Not ported yet (NotImplementedError when set):
-    prefill_chunk: int = 0
-    prefix_cache: bool = False
     trace_path: str | None = None
     log_decisions: bool = False
 
 
 def _check_ported(sc: ServeConfig) -> None:
-    unported = {"prefill_chunk": sc.prefill_chunk > 0,
-                "prefix_cache": sc.prefix_cache,
-                "trace_path": sc.trace_path is not None,
+    unported = {"trace_path": sc.trace_path is not None,
                 "log_decisions": sc.log_decisions}
     on = [name for name, set_ in unported.items() if set_]
     if on:
         raise NotImplementedError(
-            f"ServeConfig {on}: not ported to repro_torch yet (chunked "
-            "prefill, prefix cache, tracing and decision logs come in "
-            "later slices)")
+            f"ServeConfig {on}: not ported to repro_torch yet (tracing and "
+            "decision logs come in a later slice)")
 
 
 class ServeEngine:
@@ -99,6 +119,41 @@ class ServeEngine:
         stateless = (not cfg.sliding_window
                      and all(k.mixer != "mamba" for k in layer_kinds(cfg)))
         self._can_bucket = sc.prefill_buckets and stateless
+        # The architectures that refuse chunking in the reference (ssm,
+        # sliding window) are not ported: building their cache raises
+        # NotImplementedError in reset().
+        self._chunk = 0
+        if sc.prefill_chunk > 0:
+            c = sc.prefill_chunk
+            if c % cfg.kv_block != 0 or (c > cfg.q_block
+                                         and c % cfg.q_block != 0):
+                raise ValueError(
+                    f"prefill_chunk={c} must be a multiple of "
+                    f"kv_block={cfg.kv_block} (and of q_block="
+                    f"{cfg.q_block} when larger) so chunk boundaries "
+                    "stay block-aligned with whole-prompt prefill")
+            if c > sc.max_len:
+                raise ValueError(
+                    f"prefill_chunk={c} > max_len={sc.max_len}: even a "
+                    "single chunk's cache write would not fit the slot "
+                    "page")
+            if cfg.param_dtype != cfg.compute_dtype:
+                # A chunk attends the cached prefix at cache precision,
+                # a whole-prompt prefill its fresh compute-dtype K/V.
+                warnings.warn(
+                    f"chunked prefill with cache dtype {cfg.param_dtype} "
+                    f"!= compute dtype {cfg.compute_dtype}: chunk "
+                    "attention reads the cached prefix at cache "
+                    "precision, so outputs are not guaranteed "
+                    "bit-identical to whole-prompt prefill",
+                    RuntimeWarning, stacklevel=2)
+            self._chunk = c
+        if sc.prefix_cache and self._chunk == 0:
+            raise ValueError(
+                "prefix_cache requires chunked prefill (prefill_chunk > "
+                "0): cache hits resume mid-prompt on the chunk grid, and "
+                "whole-prompt prefill has no resume path")
+        self._prefix_on = sc.prefix_cache
         self.reset()
 
     # -- lifecycle --------------------------------------------------------
@@ -107,17 +162,29 @@ class ServeEngine:
         self._rid = 0
         self.kv = SlotKVCache(self.cfg, self.sc.n_slots, self.sc.max_len,
                               self.device)
+        # Shared-prefix radix cache over retired pages, charged one
+        # seq_defs page per entry.
+        self.prefix: PrefixCache | None = None
+        self._pins: dict[int, object] = {}   # rid -> pinned trie entry
+        if self._prefix_on:
+            self.prefix = PrefixCache(
+                block=self._chunk, page_bytes=self.kv.page_bytes,
+                max_bytes=self.sc.prefix_cache_bytes)
         self.queue = RequestQueue()
-        self.sched = Scheduler(self.sc.n_slots, policy=self.sc.policy,
-                               admission=self.sc.admission,
-                               prefill_budget=self.sc.prefill_budget)
+        self.sched = Scheduler(
+            self.sc.n_slots, policy=self.sc.policy,
+            admission=self.sc.admission, prefill_chunk=self._chunk,
+            prefill_budget=self.sc.prefill_budget,
+            prefix_probe=self._prefix_probe if self._prefix_on else None,
+            on_admit=self._on_admit if self._prefix_on else None)
         self.step_count = 0
         self.prefill_lengths: set[int] = set()
+        self.chunk_offsets: set[int] = set()
         self._telemetry = collections.deque(
             maxlen=max(self.sc.telemetry_keep_last_n, 0) or None)
         self._stats = dict.fromkeys(STAT_KEYS, 0)
-        self.step_times: dict[str, list[float]] = {"prefill": [],
-                                                   "decode": []}
+        self.step_times: dict[str, list[float]] = {
+            "prefill": [], "chunk": [], "decode": []}
 
     def submit(self, prompt, max_new_tokens: int, arrival: int = 0
                ) -> Request:
@@ -130,12 +197,22 @@ class ServeEngine:
             raise ValueError(
                 f"prompt ({prompt.shape[0]}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_len {self.sc.max_len}")
-        if self.sc.prefill_budget > 0 and \
-                prompt.shape[0] > self.sc.prefill_budget:
+        if (self._chunk == 0 and self.sc.prefill_budget > 0
+                and prompt.shape[0] > self.sc.prefill_budget):
             raise ValueError(
                 f"prompt ({prompt.shape[0]}) exceeds the per-step prefill "
                 f"budget ({self.sc.prefill_budget}) and chunked prefill "
-                "is not ported")
+                "is off — enable ServeConfig.prefill_chunk to split it")
+        if self._chunk and prompt.shape[0] > self._chunk:
+            # Every chunk writes a full chunk of cache positions (the
+            # last one padded), so the chunk-rounded prompt must fit.
+            padded = -(-int(prompt.shape[0]) // self._chunk) * self._chunk
+            if padded > self.sc.max_len:
+                raise ValueError(
+                    f"prompt ({prompt.shape[0]}) rounds up to {padded} "
+                    f"chunk-padded tokens > max_len {self.sc.max_len}: "
+                    "the final chunk's cache write would not fit the "
+                    "page — raise max_len or lower prefill_chunk")
         req = Request(rid=self._rid, prompt=prompt,
                       max_new_tokens=max_new_tokens, arrival=arrival)
         self._rid += 1
@@ -175,6 +252,11 @@ class ServeEngine:
         if req.done:
             req.finished_step = self.step_count
             self.sched.retire(slot)
+            if self.prefix is not None and not self.prefix.covered(
+                    req.prompt):
+                # The page's prompt span [0, prompt_len) is chunk-prefill
+                # output; decode K/V past it is never part of a hit.
+                self.prefix.insert(req.prompt, self.kv.extract(slot))
             self.kv.release(slot)
 
     def _bucket_len(self, plen: int) -> int:
@@ -210,15 +292,120 @@ class ServeEngine:
         self.step_times["prefill"].append(time.perf_counter() - t0)
         self._append_token(req, tok, slot)
 
+    # -- shared-prefix cache hooks ----------------------------------------
+    def _prefix_probe(self, req: Request) -> int:
+        """Scheduler hook: the cached-prefix length a new request would
+        resume from (admission charges only the uncached tail)."""
+        return self.prefix.probe(req.prompt)
+
+    def _on_admit(self, slot: int, req: Request) -> None:
+        """Scheduler hook, when a request claims a slot: stage a copy of
+        the longest cached block-aligned prefix page in the slot and
+        advance ``prefill_pos`` so the chunks cover only the tail.  A
+        copy, because the tail chunk writes its K/V into the page it
+        resumes from.  The trie entry stays pinned until the prefill
+        completes."""
+        hit, page, entry = self.prefix.lookup(req.prompt)
+        if hit <= 0:
+            return
+        self._pins[req.rid] = entry
+        req.prefill_pos = hit
+        self.kv.append(slot, pm.tree_map(torch.clone, page), hit,
+                       last=False)
+        self._stats["prefix_hits"] += 1
+        self._stats["prefix_hit_tokens"] += hit
+
+    # -- chunked prefill ---------------------------------------------------
+    def _resume_page(self, slot: int):
+        """The page a slot's next chunk resumes from: its staged
+        in-flight page, else a new blank one (never shared: the chunk
+        writes into it)."""
+        page = self.kv.staged(slot)
+        return self.kv.new_page() if page is None else page
+
+    def _run_chunk_rounds(self, by_slot: dict) -> None:
+        """Run this step's chunk work-items in the rounds of
+        ``scheduler.chunk_rounds``: same-offset chunks of different
+        slots as one multi-row call."""
+        for off, group in chunk_rounds(by_slot):
+            self._run_chunk_group(off, group)
+
+    def _run_chunk_group(self, off: int, group: list) -> None:
+        """One multi-row prefill call for same-offset chunks of
+        ``len(group)`` slots, rows padded to a power of two (pad rows: a
+        blank page and all-zero validity, so they route nowhere).
+        In-flight pages stay staged and join the pool only with the
+        completing chunk; completing rows sample their first token."""
+        t0 = time.perf_counter()
+        c = self._chunk
+        g = len(group)
+        gp = 1 << (g - 1).bit_length()
+        tokens = np.zeros((gp, c), np.int32)
+        valid = np.zeros((gp, c), np.float32)
+        li = np.full((gp,), c - 1, np.int64)   # pad rows: never read
+        pages = []
+        for i, (slot, w) in enumerate(group):
+            req = w.req
+            tokens[i, :w.length] = req.prompt[w.start:w.start + w.length]
+            valid[i, :w.length] = 1.0
+            # Chunk-local index of the final prompt token (read only on
+            # a row's last chunk).
+            li[i] = min(req.prompt_len - 1 - off, c - 1)
+            pages.append(self._resume_page(slot))
+        pages.extend(self.kv.new_page() for _ in range(gp - g))
+        page_in = pages[0] if gp == 1 else self.kv.stack_pages(pages)
+        self.chunk_offsets.add(off)
+        dev = self.device
+        logits, page_out = lm.lm_prefill(
+            self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
+            page_in, self.cfg, last_index=torch.from_numpy(li).to(dev),
+            valid=torch.from_numpy(valid).to(dev), start_pos=off)
+        self._stats["prefill_calls"] += 1
+        self._stats["prefill_chunks"] += g
+        out_pages = ([page_out] if gp == 1
+                     else self.kv.split_pages(page_out, g))
+        rows: list[Request | None] = [None] * gp
+        done_rows = []
+        for i, (slot, w) in enumerate(group):
+            req = w.req
+            req.prefill_pos = w.start + w.length
+            self._stats["prefill_tokens"] += w.length
+            done = not req.prefilling
+            self.kv.append(slot, out_pages[i], req.prefill_pos, last=done)
+            if done:
+                self._stats["prefills"] += 1
+                req.first_token_step = self.step_count
+                entry = self._pins.pop(req.rid, None)
+                if entry is not None:
+                    # The tail no longer reads the cached page.
+                    self.prefix.unpin(entry)
+                rows[i] = req
+                done_rows.append((i, slot, req))
+        toks = None
+        if done_rows:
+            toks = self._sample_rows(logits, rows)
+        elif dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.step_times["chunk"].append(time.perf_counter() - t0)
+        for i, slot, req in done_rows:
+            self._append_token(req, toks[i], slot)
+
     def step(self) -> int:
-        """One engine step: admit + prefill, then one decode over the
+        """One engine step: plan prefill work (admission + chunks under
+        the per-step token budget), run it, then one decode over the
         fully-prefilled slots, sample, retire.  Returns the number of
         slots that were active in the decode."""
+        by_slot: dict[int, list] = {}
         for w in self.sched.schedule_prefill(self.queue, self.step_count):
-            if w.start != 0 or w.length != w.req.prompt_len:
-                raise RuntimeError("partial prefill work-item without "
-                                   "chunked prefill")
-            self._start(w.slot, w.req)
+            if (not self._prefix_on and w.start == 0
+                    and w.length == w.req.prompt_len):
+                self._start(w.slot, w.req)   # whole prompt: bucketed path
+            else:
+                # With the prefix cache on, every prompt takes the chunk
+                # path, so every cached page comes from the same chunk
+                # calls a resumed prefill replays.
+                by_slot.setdefault(w.slot, []).append(w)
+        self._run_chunk_rounds(by_slot)
         active = self.sched.decoding()
         if active:
             t0 = time.perf_counter()

@@ -769,3 +769,53 @@ def test_hmoe_cuda_matches_ref(gen, policy):
         assert bool(torch.isfinite(got).all())
         assert float((got - ref).norm()) <= 1e-5 * max(float(ref.norm()),
                                                        1e-30)
+
+
+@pytest.mark.cuda
+def test_chunked_prefix_cached_engine_matches_ref(gen):
+    """A chunked, prefix-cached engine (f32, a small kimi-k2 family
+    model, fused decode) on the card under "cuda" against "ref": the
+    same greedy streams and stats, prefix hits on every request after
+    the first, and every kernel of the path launched."""
+    import numpy as np
+
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = get_config("kimi-k2-1t-a32b", n_layers=2, d_model=32, n_heads=2,
+                     n_kv_heads=2, head_dim=16, vocab_size=64, n_experts=4,
+                     moe_k=2, moe_d_ff=32, capacity_factor=2.0, q_block=16,
+                     kv_block=16, param_dtype=torch.float32,
+                     compute_dtype=torch.float32)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    params["blocks"]["periods"]["pos0"]["moe"]["gate"]["wg"].normal_(
+        generator=gen)
+    rs = np.random.RandomState(3)
+    shared = rs.randint(1, 64, (32,))
+    trace = [(np.concatenate([shared, rs.randint(1, 64, (8,))]), 4,
+              0 if i == 0 else 12 + i) for i in range(4)]
+    sc = ServeConfig(max_len=64, n_slots=4, prefill_chunk=16,
+                     prefill_budget=32, admission="aware", prefix_cache=True,
+                     fused_decode=True)
+    out = {}
+    for backend in ("cuda", "ref"):
+        eng = ServeEngine(params, cfg.replace(kernel_backend=backend), sc,
+                          device="cuda")
+        cuda_lib.reset_launch_counts()
+        reqs = [eng.submit(p, m, arrival=a) for p, m, a in trace]
+        eng.run()
+        torch.cuda.synchronize()
+        out[backend] = ([r.tokens for r in reqs], eng.stats,
+                        cuda_lib.launch_counts())
+    (toks, stats, counts), (toks_ref, stats_ref, counts_ref) = (
+        out["cuda"], out["ref"])
+    assert toks == toks_ref
+    assert stats == stats_ref
+    assert stats["prefix_hits"] == 3
+    assert stats["prefix_hit_tokens"] == 3 * 32
+    assert not any(counts_ref.values())
+    for name in ("topk_gating", "dispatch", "combine", "gmm",
+                 "fused_decode"):
+        assert counts[name] > 0, name

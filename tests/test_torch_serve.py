@@ -183,8 +183,7 @@ def test_temperature_streams_do_not_depend_on_batching(models):
 
 def test_engine_refuses_unported_options(models):
     _, tcfg, _, tparams = models
-    for kw in ({"prefill_chunk": 16}, {"prefix_cache": True},
-               {"trace_path": "t.json"}, {"log_decisions": True}):
+    for kw in ({"trace_path": "t.json"}, {"log_decisions": True}):
         with pytest.raises(NotImplementedError):
             tengine.ServeEngine(tparams, tcfg, tengine.ServeConfig(**kw),
                                 device="cpu")
