@@ -159,14 +159,49 @@ Phases, in order; any failure exits non-zero and prints no result:
              size (28 layers, qk_norm, vocab 151,936, bf16) trained 4
              steps at B = 4 x S = 2048: finite metrics, every gradient
              present, step time and peak memory.
-15. launchers — ``launch.train --arch smollm-135m`` at full size, 8 steps
+15. moa_train — moa-demo at its published widths (no cut: 4 layers, d
+             512, vocab 32,000, bf16, gates redrawn) trained: first every
+             kernel of its training step against its plain version at the
+             step's shapes (T = 8 x 1024), in its first MoE FFN (top-k
+             and B5 over [8192, 8]; dispatch / combine / B6 / B7 on its
+             plan, [8192, 512] <-> [8, C, 512]; the swiglu FFN's GMMs
+             with the plan's rows, forward and transposed) and its first
+             MoA mixer (top-k and B5; dispatch / combine / B6 / B7 on the
+             token plan and on the assignment plan, [16384, 128] <->
+             [8, C, 128]; the GMMs of wq and wo and their transposed
+             calls), timed beside bound, floor, plain and torch.bmm; step
+             0's loss and every gradient under "cuda" and "ref" from the
+             same draws, the ref run's routing pinned to the cuda run's
+             and the tokens whose own top-k differs counted per layer
+             (MOA_LOSS_TOL, MOA_GRAD_TOL; every gradient present, finite
+             and nonzero, the MoA gates' included); then 6 Trainer steps
+             with exact launch counts (MOA_TRAIN_LAUNCHES a step) and
+             finite losses, a profile of one more.
+16. gemma3 — gemma3-27b at full width (62 layers when they fit, else cut
+             a period at a time: d 5376, 32 / 16 heads x 128, geglu
+             21504, vocab 262,144, a 1024-token window on 52 layers,
+             qk-norm, bf16) served: 4 requests of 1536-token prompts and
+             32 greedy tokens, 4 slots, whole-prompt prefill; no kernel
+             launch; the cache's bytes exactly the ring-buffer formula
+             (windowed layers 1024 positions, global ones max_len); the
+             engine with prefill_chunk=512 warns, falls back and serves
+             the same streams, its prefill and decode logits (recorded)
+             within 5 % of the logit scale of a training forward over
+             each prompt and its tokens.  The model is then freed.
+17. gemma3_train — gemma3-27b at full width cut to one period (5
+             windowed layers, 1 global): the windowed flash attention
+             against plain masked autograd at S = 4096, its time beside
+             the global layer's, then 3 steps (B = 1 x S = 4096, remat):
+             finite metrics, every gradient present and finite.
+18. launchers — ``launch.train --arch smollm-135m`` at full size, 8 steps
              of B = 8 x S = 2048 with checkpoints at 4 and 8; the same
              call again resumes at step 8 and trains nothing; then
              ``launch.serve --ckpt`` serves 4 greedy requests from it.
-16. report — one ``{"kernels": [...]}`` line, then the result line.
+19. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -277,6 +312,35 @@ KERNEL_SYMBOLS = {"topk_gating": ("topk_gating_kernel",),
                   "fused_routed": ("fused_routed_kernel",)}
 # The MoA serve phase: moa-demo at its published widths.
 MOA_ARCH = "moa-demo"
+# Training moa-demo (no cut): B x S tokens a step through the Trainer.
+MOA_TRAIN_B, MOA_TRAIN_S, MOA_TRAIN_STEPS = 8, 1024, 6
+# Launches per moa-demo training step (remat on, resident regime; the
+# derivation is tests/test_torch_moa_train.py's): each of the two MoE
+# layers as ARCTIC_LAUNCHES; each of the two MoA layers its top-k, the
+# Q dispatch (token plan), GMM wq, the Q combine (assignment plan), the
+# O dispatch (assignment plan), GMM wo and the O combine (token plan),
+# twice with remat's recompute, then B5, a combine for each dispatch's
+# backward (B6), a dispatch for each combine's (B7; the assignment
+# plan's unit weights take no gradient) and two transposed GMMs for each
+# of wq and wo.
+MOA_TRAIN_LAUNCHES = {"topk_gating": 8, "topk_gating_bwd": 4, "dispatch": 18,
+                      "combine": 18, "gmm": 22, "gmm_bwd": 20}
+# cuda vs ref at step 0 from the same draws, bf16, the ref run's routing
+# pinned to the cuda run's (_TopkReplay): the loss within MOA_LOSS_TOL
+# relative, each gradient leaf within MOA_GRAD_TOL normwise (||g_cuda -
+# g_ref|| / ||g_ref||).  With the same plans the paths differ only where
+# they round the GMMs', the expert FFN's and the combines' bf16 outputs
+# after summing in other orders, through four layers and their backward
+# passes; the same pinned step under "ref" in f32 is logged beside as
+# what bf16 rounding alone moves.
+MOA_LOSS_TOL, MOA_GRAD_TOL = 2.0 ** -7, 2.0 ** -5
+# gemma3-27b: served at full width (all 62 layers when they fit the
+# card), 4 requests of 1536-token prompts (longer than the 1024-token
+# window) and 32 greedy tokens, 4 slots; then trained for one period (5
+# windowed layers and a global one) at B x S tokens a step.
+GEMMA = "gemma3-27b"
+GEMMA_REQUESTS, GEMMA_PROMPT, GEMMA_NEW, GEMMA_CHUNK = 4, 1536, 32, 512
+GEMMA_TRAIN_B, GEMMA_TRAIN_S, GEMMA_TRAIN_STEPS = 1, 4096, 3
 # The transformer training path.  arctic-480b at full width, depth cut
 # 35 -> 1 (14,120,408,064 parameters, 28.2 GB in bf16, 56.5 GB with
 # their gradients): B x S tokens a step, C = capacity_for(4096, 128, 2,
@@ -1444,10 +1508,12 @@ def build_model():
     return cfg, params
 
 
-def serve_run(engine, prompts, vocab_size: int):
-    """Warm up, then serve ``prompts`` (NEW_TOKENS greedy tokens each,
-    arrivals one step apart) with the launch counts zeroed just before
-    and read just after.  Returns (requests, launch counts, summary)."""
+def serve_run(engine, prompts, vocab_size: int, *,
+              new_tokens: int = NEW_TOKENS, stagger: int = 1):
+    """Warm up, then serve ``prompts`` (``new_tokens`` greedy tokens
+    each, arrivals ``stagger`` steps apart) with the launch counts
+    zeroed just before and read just after.  Returns (requests, launch
+    counts, summary)."""
     import numpy as np
     import torch
     from repro_torch.kernels import cuda_lib
@@ -1456,7 +1522,7 @@ def serve_run(engine, prompts, vocab_size: int):
     engine.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reqs = [engine.submit(p, NEW_TOKENS, arrival=i)
+    reqs = [engine.submit(p, new_tokens, arrival=stagger * i)
             for i, p in enumerate(prompts)]
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1466,7 +1532,7 @@ def serve_run(engine, prompts, vocab_size: int):
     counts = cuda_lib.launch_counts()
     stats = engine.stats
     for r in reqs:
-        check(r.done and len(r.tokens) == NEW_TOKENS,
+        check(r.done and len(r.tokens) == new_tokens,
               f"request {r.rid} ended with {len(r.tokens)} tokens")
         check(all(0 <= t < vocab_size for t in r.tokens),
               f"request {r.rid} sampled a token outside the vocabulary")
@@ -1943,6 +2009,237 @@ def phase_expert_choice(cfg, params, prompts) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the kernel checks shared by the serve and training paths
+# ---------------------------------------------------------------------------
+
+def _timed_call(what, fn, symbol, n_bytes, flops, dtype_name, floor,
+                plain=None, library=None, big=False) -> dict:
+    """One kernel call at a path's shape: device time per launch
+    (profiler), CUDA-event time, plain and library times, the bound and
+    the launch floor.  ``big``: a multi-ms call, timed with fewer
+    repeats and no queued run."""
+    if big:
+        dev = device_ms(fn, (symbol,), n=PROFILED_BIG_RUN)
+        check(symbol in dev, f"{what}: no {symbol} in the profile")
+        b, by = bound_ms(n_bytes, flops, dtype_name)
+        res = {"dev_ms": dev[symbol], "bound_ms": b, "bound_by": by,
+               "launch_floor_ms": floor["dev_ms"]}
+    else:
+        res = shape_times(what, fn, symbol, n_bytes, flops, dtype_name,
+                          floor)
+    reps = dict(reps=5, warmup=1) if big else {}
+    res["ms"] = cuda_ms(fn, **reps)
+    res["plain_ms"] = (cuda_ms(plain, **(dict(reps=3, warmup=1) if big
+                                         else {})) if plain else None)
+    res["library_ms"] = cuda_ms(library, **reps) if library else None
+    log(f"{what}: " + json.dumps(res))
+    return res
+
+
+def _dtype_name(t) -> str:
+    import torch
+    return "bfloat16" if t.dtype == torch.bfloat16 else "float32"
+
+
+def _topk_rows(label, logits, k, kk, gen, floor, *, bwd=True,
+               library=None) -> tuple:
+    """Top-k (kernel 1) on ``logits`` [N, E] against its plain version
+    (indices exact, values within 1e-6) and, with ``bwd``, its backward
+    (B5) on random cotangents, bit for bit; each timed.  Returns the
+    row, B5's row (or None), and the kernel's combine weights and
+    indices [N, k]."""
+    import torch
+    from repro_torch.kernels import topk_gating as tk
+    n, e = logits.shape
+    got, want = tk.topk_gating(logits, k, kk), tk.topk_gating_plain(
+        logits, k, kk)
+    check(torch.equal(got[1], want[1]), f"{label} top-k indices differ")
+    err = max(max_err(got[0], want[0]), max_err(got[2], want[2]))
+    check(err <= 1e-6, f"{label} top-k values differ by {err}")
+    row = dict(max_abs_err=err, tol=1e-6, **_timed_call(
+        f"{label} topk_gating [{n},{e}] k={k} kk={kk}",
+        lambda: tk.topk_gating(logits, k, kk), "topk_gating_kernel",
+        n * e * 4 + n * k * 4 + n * kk * 8, 0, "float32", floor,
+        plain=lambda: tk.topk_gating_plain(logits, k, kk), library=library))
+    cw, idx, _ = got
+    row_bwd = None
+    if bwd:
+        dw_in = torch.randn(n, k, device="cuda", generator=gen)
+        dvals = torch.randn(n, kk, device="cuda", generator=gen)
+        check(torch.equal(tk.topk_gating_bwd(cw, idx, dw_in, dvals, e),
+                          tk.topk_gating_bwd_plain(cw, idx, dw_in, dvals,
+                                                   e)),
+              f"{label} top-k backward differs from its plain version")
+        row_bwd = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
+            f"{label} topk_gating_bwd [{n},{e}] k={k} kk={kk}",
+            lambda: tk.topk_gating_bwd(cw, idx, dw_in, dvals, e),
+            "topk_gating_bwd_kernel", n * e * 4 + n * k * 8 + n * kk * 8, 0,
+            "float32", floor,
+            plain=lambda: tk.topk_gating_bwd_plain(cw, idx, dw_in, dvals,
+                                                   e)))
+    return row, row_bwd, cw, idx[:, :k].contiguous()
+
+
+def _dispatch_combine_rows(label, x, plan, gen, floor, *, backward=True,
+                           b6=True, l2_cold=False) -> tuple:
+    """Dispatch (kernel 2) and combine (kernel 4) on ``plan`` against
+    their plain versions, bit for bit, and with ``backward`` the calls
+    of their backward passes: B7, the dispatch scaled by the plan's
+    weights, and with ``b6`` B6, the combine with unit weights (a plan
+    whose weights are already 0 / 1, as MoA's assignment view, shares it
+    with the combine).  Each is timed; bytes count the token rows that
+    hold a kept assignment once.  With ``l2_cold`` the combine's
+    ``dev_ms`` is taken with the L2 cache cold, as in
+    ``dispatch_combine_times``, and its back-to-back times, which re-read
+    a buffer the L2 may hold, are kept apart.  Returns the dispatched
+    buffer and both rows."""
+    import torch
+    from repro_torch.kernels import dispatch as dk
+    ei, po, w = (v.contiguous() for v in (plan.expert_index, plan.position,
+                                          plan.weight))
+    e, cap = plan.n_experts, plan.capacity
+    n, d = x.shape
+    k, es, dt = ei.shape[1], x.element_size(), _dtype_name(x)
+    kept = po < cap
+    n_kept, rows_read = int(kept.sum()), int(kept.any(dim=1).sum())
+    buf = dk.dispatch(x, ei, po, n_experts=e, capacity=cap)
+    check(torch.equal(buf, dk.dispatch_plain(x, ei, po, None, e, cap)),
+          f"{label} dispatch differs from its plain version")
+    disp_bytes = (rows_read * d + e * cap * d) * es + n * k * 8
+    shape = f"[{n},{d}] {dt} <-> [{e},{cap},{d}], k={k}, {n_kept} kept"
+    row_d = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
+        f"{label} dispatch {shape}",
+        lambda: dk.dispatch(x, ei, po, n_experts=e, capacity=cap),
+        "dispatch_kernel", disp_bytes, 0, dt, floor,
+        plain=lambda: dk.dispatch_plain(x, ei, po, None, e, cap)))
+    if backward:
+        g_tok = torch.randn(n, d, device="cuda", generator=gen).to(x.dtype)
+        check(torch.equal(dk.dispatch(g_tok, ei, po, w, n_experts=e,
+                                      capacity=cap),
+                          dk.dispatch_plain(g_tok, ei, po, w, e, cap)),
+              f"{label} B7 (dispatch scaled by w) differs from its plain "
+              "version")
+        row_d["B7"] = _timed_call(
+            f"{label} B7 dispatch scaled {shape}",
+            lambda: dk.dispatch(g_tok, ei, po, w, n_experts=e,
+                                capacity=cap),
+            "dispatch_kernel", disp_bytes + n * k * 4, 0, dt, floor,
+            plain=lambda: dk.dispatch_plain(g_tok, ei, po, w, e, cap))
+    ybuf = torch.randn(e, cap, d, device="cuda", generator=gen).to(x.dtype)
+    weights = [("combine", w)]
+    if backward and b6:
+        weights.append(("B6", torch.ones_like(w)))
+    for name, wt in weights:
+        check(torch.equal(dk.combine(ybuf, wt, ei, po),
+                          dk.combine_plain(ybuf, wt, ei, po, x.dtype)),
+              f"{label} {name} differs from its plain version")
+    comb = [n_kept * d * es + n * k * 12 + n * d * es, 2 * n_kept * d]
+    rows = []
+    for name, wt in weights:
+        row = _timed_call(
+            f"{label} {name} {shape}", lambda: dk.combine(ybuf, wt, ei, po),
+            "combine_kernel", *comb, dt, floor,
+            plain=lambda: dk.combine_plain(ybuf, wt, ei, po, x.dtype))
+        if l2_cold:
+            flush = torch.empty(32 * 2 ** 20, device="cuda")
+            cold = device_ms(
+                lambda: (flush.zero_(), dk.combine(ybuf, wt, ei, po)),
+                ("combine_kernel",))
+            check("combine_kernel" in cold,
+                  f"{label}: no combine_kernel in the L2-cold profile")
+            row.update(dev_ms_l2_warm=row.pop("dev_ms"),
+                       queued_ms_l2_warm=row.pop("queued_ms", None),
+                       dev_ms=cold["combine_kernel"])
+            del flush
+        rows.append(row)
+    row_c = dict(max_abs_err=0.0, tol=0.0, **rows[0])
+    if len(rows) > 1:
+        row_c["B6"] = rows[1]
+    if l2_cold:
+        log(f"{label} combine, L2 cold: {row_c['dev_ms']} ms a launch")
+    return buf, row_d, row_c
+
+
+def _gmm_rows(label, cases, rows, floor) -> dict:
+    """GMM calls against ``gmm_plain``: kernel 6 in the forward layout
+    and B8's transposed ones (dx = dz w^T, dw = x^T dz).  ``cases``:
+    (name, x, w, activation, trans_x, trans_w); ``rows`` the plan's
+    filled rows an expert, or None for every row.  Each within
+    ``bf16_tol`` / ``f32_tol`` of the output's largest binade by its
+    dtype, timed beside its bound (bytes and operations of the filled
+    rows and the used experts' weights; an f32 call does 3xTF32's three
+    products), the launch floor and torch.bmm.  Returns the calls and
+    their sums."""
+    import torch
+    from repro_torch.kernels import gmm as gk
+    x0 = cases[0][1]
+    e, es = x0.shape[0], x0.element_size()
+    f32 = x0.dtype == torch.float32
+    if rows is None:
+        used, filled = e, e * x0.shape[1]
+    else:
+        used, filled = int((rows > 0).sum()), int(rows.sum())
+    worst, tol_used, calls = 0.0, 0.0, {}
+    for name, xi, wi, act, tx, tw in cases:
+        cap = xi.shape[1]
+        got = gk.gmm(xi, wi, activation=act, trans_x=tx, trans_w=tw,
+                     rows=rows)
+        want = gk.gmm_plain(xi, wi, act, tx, tw, rows)
+        err = max_err(got, want)
+        tol = f32_tol(want) if f32 else bf16_tol(want)
+        check(err <= tol, f"{label} gmm {name} differs by {err} > {tol}")
+        worst, tol_used = max(worst, err), max(tol_used, tol)
+        del got, want
+        xl = xi.transpose(1, 2) if tx else xi
+        wl = wi.transpose(1, 2) if tw else wi
+        md, kd, nd = xl.shape[1], xl.shape[2], wl.shape[2]
+        if tx:      # dw [E, M, N]: the filled rows of both operands in
+            n_bytes = (filled * (md + nd) + e * md * nd) * es
+            flops = 2 * filled * md * nd
+        else:       # the filled rows and the used experts' weights in
+            n_bytes = (filled * kd + used * kd * nd + e * cap * nd) * es
+            flops = 2 * filled * kd * nd
+        if tx or tw:
+            symbol = "gmm_tile_bwd_kernel"
+        else:
+            symbol = f"gmm_{gk.kernel_for(xi.dtype, cap, False)}_kernel"
+        calls[name] = dict(max_abs_err=err, tol=tol, **_timed_call(
+            f"{label} gmm {name} {tuple(xl.shape)} x {tuple(wl.shape)}"
+            + (" rows" if rows is not None else ""),
+            lambda: gk.gmm(xi, wi, activation=act, trans_x=tx, trans_w=tw,
+                           rows=rows), symbol, n_bytes,
+            {"tf32": 3 * flops} if f32 else flops,
+            None if f32 else "bfloat16", floor,
+            plain=lambda: gk.gmm_plain(xi, wi, act, tx, tw, rows),
+            library=lambda: torch.bmm(xl, wl), big=True))
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, tol=tol_used, calls=calls,
+                used_experts=used, filled_rows=filled,
+                **{key: sum(c[key] for c in calls.values())
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "dev_ms")})
+
+
+def _moe_ffn_cases(x_buf, hid, dz, dy, w1, w2, w3, activation) -> tuple:
+    """The GMM calls of one MoE FFN's training step, as ``expert_ffn``
+    and its backward make them: forward, w1 with its activation (silu
+    for swiglu, then w3) and w2, and w1 without the activation (the
+    backward pass's recomputed pre-activation); transposed, dx and dw
+    at w1's shape (dz [E, C, f]) and w2's (dy [E, C, d])."""
+    up = "silu" if activation == "swiglu" else activation
+    fwd = [(f"w1_{up}", x_buf, w1, up, False, False),
+           ("w1_none", x_buf, w1, "none", False, False)]
+    if w3 is not None:
+        fwd.append(("w3", x_buf, w3, "none", False, False))
+    fwd.append(("w2", hid, w2, "none", False, False))
+    bwd = [("dx_w1", dz, w1, "none", False, True),
+           ("dw_w1", x_buf, dz, "none", True, False),
+           ("dh_w2", dy, w2, "none", False, True),
+           ("dw_w2", hid, dy, "none", True, False)]
+    return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
 # phase 7: chunked prefill and the shared-prefix KV cache on the same
 # full-width model
 # ---------------------------------------------------------------------------
@@ -1957,60 +2254,28 @@ def check_chunk_kernels(cfg, params, gen, floor) -> dict:
     and combine bit for bit, the GMM within bf16_tol), then timed:
     profiler device time per launch, CUDA events, plain and library
     times, the bound and the launch floor; the combine's device time
-    also with a cold L2."""
+    with a cold L2."""
     import torch
     from repro_torch.core import dispatch as dsp
     from repro_torch.kernels import dispatch as dk
     from repro_torch.kernels import gmm as gk
-    from repro_torch.kernels import topk_gating as tk
 
     bf = torch.bfloat16
     e, k, kk, d = cfg.n_experts, cfg.moe_k, cfg.moe_k + 1, cfg.d_model
     t = PREFIX_BUDGET
     out: dict = {}
     logits = torch.randn(t, e, device="cuda", generator=gen)
-    got, want = tk.topk_gating(logits, k, kk), tk.topk_gating_plain(
-        logits, k, kk)
-    check(torch.equal(got[1], want[1]), "chunk topk indices differ")
-    err = max(max_err(got[0], want[0]), max_err(got[2], want[2]))
-    check(err <= 1e-6, f"chunk topk values differ by {err}")
 
     def library():
         vals, idx = torch.topk(logits, kk, dim=-1)
         return torch.softmax(vals[:, :k], dim=-1), idx
-    out["topk_gating"] = dict(max_abs_err=err, tol=1e-6, **_timed_call(
-        f"topk_gating chunk [{t},{e}] k={k} kk={kk}",
-        lambda: tk.topk_gating(logits, k, kk), "topk_gating_kernel",
-        t * e * 4 + t * k * 4 + t * kk * 8, 0, "float32", floor,
-        plain=lambda: tk.topk_gating_plain(logits, k, kk), library=library))
+    out["topk_gating"] = _topk_rows("chunk", logits, k, kk, gen, floor,
+                                    bwd=False, library=library)[0]
     x, p = _route(t, e, k, d, bf, gen)
-    ei, po, w, c = p.expert_index, p.position, p.weight, p.capacity
-    check(c == PREFIX_C, f"chunk capacity {c}, expected {PREFIX_C}")
-    buf = dk.dispatch(x, ei, po, n_experts=e, capacity=c)
-    check(torch.equal(buf, dk.dispatch_plain(x, ei, po, None, e, c)),
-          "chunk dispatch differs from its plain version")
-    y = dk.combine(buf, w, ei, po)
-    check(torch.equal(y, dk.combine_plain(buf, w, ei, po, bf)),
-          "chunk combine differs from its plain version")
-    what = f"[{t},{d}] bf16 <-> [{e},{c},{d}], k={k}"
-    n_kept = int((po < c).sum())
-    out["dispatch"] = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
-        f"dispatch chunk {what}",
-        lambda: dk.dispatch(x, ei, po, n_experts=e, capacity=c),
-        "dispatch_kernel", t * d * 2 + t * k * 8 + e * c * d * 2, 0,
-        "bfloat16", floor,
-        plain=lambda: dk.dispatch_plain(x, ei, po, None, e, c)))
-    out["combine"] = dict(max_abs_err=0.0, tol=0.0, kept_slots=n_kept,
-                          **_timed_call(
-        f"combine chunk {what}", lambda: dk.combine(buf, w, ei, po),
-        "combine_kernel", n_kept * d * 2 + t * k * 12 + t * d * 2,
-        2 * n_kept * d, "bfloat16", floor,
-        plain=lambda: dk.combine_plain(buf, w, ei, po, bf)))
-    flush = torch.empty(32 * 2 ** 20, device="cuda")
-    out["combine"]["dev_ms_l2_cold"] = device_ms(
-        lambda: (flush.zero_(), dk.combine(buf, w, ei, po)),
-        ("combine_kernel",))["combine_kernel"]
-    del flush, y
+    check(p.capacity == PREFIX_C,
+          f"chunk capacity {p.capacity}, expected {PREFIX_C}")
+    buf, out["dispatch"], out["combine"] = _dispatch_combine_rows(
+        "chunk", x, p, gen, floor, backward=False, l2_cold=True)
     # The expert FFN of layer 0 on the dispatched buffer (C = 32) and on
     # a one-chunk plan's (C = 16), with the plans' rows, as the path
     # runs it: w1 with silu, w3, w2.
@@ -2020,39 +2285,15 @@ def check_chunk_kernels(cfg, params, gen, floor) -> dict:
     buf16 = dk.dispatch(x16, p16.expert_index, p16.position, n_experts=e,
                         capacity=p16.capacity)
     out["gmm"] = {}
-    for cc, b_in, plan in ((c, buf, p), (p16.capacity, buf16, p16)):
+    for b_in, plan in ((buf, p), (buf16, p16)):
         rows = dsp.filled_rows(plan)
-        used, filled = int((rows > 0).sum()), int(rows.sum())
-        h = gk.mask_rows(torch.randn(e, cc, f, device="cuda",
+        h = gk.mask_rows(torch.randn(e, plan.capacity, f, device="cuda",
                                      generator=gen).to(bf), rows)
-        res = dict(ms=0.0, dev_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                   bound_ms=0.0, bound_by="bytes", used_experts=used,
-                   filled_rows=filled, max_abs_err=0.0, tol=0.0,
-                   launch_floor_ms=floor["dev_ms"])
-        for name, xi, wi, act in (("w1", b_in, w1, "silu"),
-                                  ("w3", b_in, w3, "none"),
-                                  ("w2", h, w2, "none")):
-            got = gk.gmm(xi, wi, activation=act, rows=rows)
-            want = gk.gmm_plain(xi, wi, act, rows=rows)
-            err, tol = max_err(got, want), bf16_tol(want)
-            check(err <= tol, f"chunk gmm {name} C={cc} differs by {err} "
-                              f"> {tol}")
-            res["max_abs_err"] = max(res["max_abs_err"], err)
-            res["tol"] = max(res["tol"], tol)
-            del got, want
-            kd, nn = wi.shape[1], wi.shape[2]
-            call = _timed_call(
-                f"gmm chunk {name} [{e},{cc},{kd}] x [{e},{kd},{nn}] rows",
-                lambda: gk.gmm(xi, wi, activation=act, rows=rows),
-                "gmm_stream_kernel",
-                (used * kd * nn + filled * kd + e * cc * nn) * 2,
-                2 * filled * kd * nn, "bfloat16", floor,
-                plain=lambda: gk.gmm_plain(xi, wi, act, rows=rows),
-                library=lambda: torch.bmm(xi, wi), big=True)
-            for key in ("ms", "dev_ms", "plain_ms", "library_ms",
-                        "bound_ms"):
-                res[key] += call[key]
-        out["gmm"][f"C{cc}"] = res
+        out["gmm"][f"C{plan.capacity}"] = _gmm_rows(
+            f"chunk C={plan.capacity}",
+            [("w1", b_in, w1, "silu", False, False),
+             ("w3", b_in, w3, "none", False, False),
+             ("w2", h, w2, "none", False, False)], rows, floor)
     log("chunk kernels " + json.dumps(out))
     del buf, buf16, x, x16, logits
     torch.cuda.empty_cache()
@@ -2983,106 +3224,6 @@ def build_hmoe():
     return cfg, params
 
 
-def _hmoe_topk(level, logits, k, kk, gen, floor) -> tuple:
-    """Top-k (kernel 1) and its backward (B5) on one level's logits
-    against their plain versions, timed.  Returns both rows and the
-    kernel's (combine weights, indices)."""
-    import torch
-    from repro_torch.kernels import topk_gating as tk
-    n, e = logits.shape
-    got, want = tk.topk_gating(logits, k, kk), tk.topk_gating_plain(
-        logits, k, kk)
-    check(torch.equal(got[1], want[1]), f"hmoe {level} top-k indices differ")
-    err = max(max_err(got[0], want[0]), max_err(got[2], want[2]))
-    check(err <= 1e-6, f"hmoe {level} top-k values differ by {err}")
-    row = dict(max_abs_err=err, tol=1e-6, **_timed_call(
-        f"hmoe {level} topk_gating [{n},{e}] k={k} kk={kk}",
-        lambda: tk.topk_gating(logits, k, kk), "topk_gating_kernel",
-        n * e * 4 + n * k * 4 + n * kk * 8, 0, "float32", floor,
-        plain=lambda: tk.topk_gating_plain(logits, k, kk)))
-    cw, idx, _ = got
-    dw_in = torch.randn(n, k, device="cuda", generator=gen)
-    dvals = torch.randn(n, kk, device="cuda", generator=gen)
-    check(torch.equal(tk.topk_gating_bwd(cw, idx, dw_in, dvals, e),
-                      tk.topk_gating_bwd_plain(cw, idx, dw_in, dvals, e)),
-          f"hmoe {level} top-k backward differs from its plain version")
-    row_bwd = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
-        f"hmoe {level} topk_gating_bwd [{n},{e}] k={k} kk={kk}",
-        lambda: tk.topk_gating_bwd(cw, idx, dw_in, dvals, e),
-        "topk_gating_bwd_kernel", n * e * 4 + n * k * 8 + n * kk * 8, 0,
-        "float32", floor,
-        plain=lambda: tk.topk_gating_bwd_plain(cw, idx, dw_in, dvals, e)))
-    return row, row_bwd, cw, idx[:, :k].contiguous()
-
-
-def _hmoe_dispatch_combine(level, x, plan, gen, floor) -> tuple:
-    """Dispatch (kernel 2) and B7, combine (kernel 4) and B6 on one
-    level's plan against their plain versions, bit for bit, timed.
-    Bytes count the token rows that hold a kept assignment once.  As in
-    ``dispatch_combine_times``, combine's ``dev_ms`` is taken with the
-    L2 cache cold and its back-to-back times, which re-read a buffer the
-    L2 may hold, are kept apart.  Returns the dispatched buffer and both
-    rows."""
-    import torch
-    from repro_torch.kernels import dispatch as dk
-    ei, po, w = plan.expert_index, plan.position, plan.weight
-    e, cap = plan.n_experts, plan.capacity
-    n, d = x.shape
-    k = ei.shape[1]
-    kept = po < cap
-    n_kept, rows_read = int(kept.sum()), int(kept.any(dim=1).sum())
-    buf = dk.dispatch(x, ei, po, n_experts=e, capacity=cap)
-    check(torch.equal(buf, dk.dispatch_plain(x, ei, po, None, e, cap)),
-          f"hmoe {level} dispatch differs from its plain version")
-    g_tok = torch.randn(n, d, device="cuda", generator=gen)
-    check(torch.equal(dk.dispatch(g_tok, ei, po, w, n_experts=e,
-                                  capacity=cap),
-                      dk.dispatch_plain(g_tok, ei, po, w, e, cap)),
-          f"hmoe {level} B7 (dispatch scaled by w) differs from its plain "
-          "version")
-    disp_bytes = rows_read * d * 4 + n * k * 8 + e * cap * d * 4
-    shape = f"[{n},{d}] <-> [{e},{cap},{d}], k={k}, {n_kept} kept"
-    row_d = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
-        f"hmoe {level} dispatch {shape}",
-        lambda: dk.dispatch(x, ei, po, n_experts=e, capacity=cap),
-        "dispatch_kernel", disp_bytes, 0, "float32", floor,
-        plain=lambda: dk.dispatch_plain(x, ei, po, None, e, cap)))
-    row_d["B7"] = _timed_call(
-        f"hmoe {level} B7 dispatch scaled {shape}",
-        lambda: dk.dispatch(g_tok, ei, po, w, n_experts=e, capacity=cap),
-        "dispatch_kernel", disp_bytes + n * k * 4, 0, "float32", floor,
-        plain=lambda: dk.dispatch_plain(g_tok, ei, po, w, e, cap))
-    ybuf = torch.randn(e, cap, d, device="cuda", generator=gen)
-    unit = torch.ones_like(w)
-    for name, wt in (("combine", w), ("B6", unit)):
-        check(torch.equal(dk.combine(ybuf, wt, ei, po),
-                          dk.combine_plain(ybuf, wt, ei, po, torch.float32)),
-              f"hmoe {level} {name} differs from its plain version")
-    comb = [n_kept * d * 4 + n * k * 12 + n * d * 4, 2 * n_kept * d]
-    row_c = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
-        f"hmoe {level} combine {shape}",
-        lambda: dk.combine(ybuf, w, ei, po), "combine_kernel", *comb,
-        "float32", floor,
-        plain=lambda: dk.combine_plain(ybuf, w, ei, po, torch.float32)))
-    row_c["B6"] = _timed_call(
-        f"hmoe {level} B6 combine, unit weights {shape}",
-        lambda: dk.combine(ybuf, unit, ei, po), "combine_kernel", *comb,
-        "float32", floor,
-        plain=lambda: dk.combine_plain(ybuf, unit, ei, po, torch.float32))
-    flush = torch.empty(32 * 2 ** 20, device="cuda")
-    for row, wt in ((row_c, w), (row_c["B6"], unit)):
-        cold = device_ms(lambda: (flush.zero_(), dk.combine(ybuf, wt, ei, po)),
-                         ("combine_kernel",))
-        check("combine_kernel" in cold,
-              f"hmoe {level}: no combine_kernel in the L2-cold profile")
-        row.update(dev_ms_l2_warm=row.pop("dev_ms"),
-                   queued_ms_l2_warm=row.pop("queued_ms"),
-                   dev_ms=cold["combine_kernel"])
-    log(f"hmoe {level} combine, L2 cold: {row_c['dev_ms']} ms a launch "
-        f"(B6 {row_c['B6']['dev_ms']})")
-    return buf, row_d, row_c
-
-
 def check_hmoe_kernels(cfg, params, gen, floor) -> dict:
     """Every kernel of the moe-4096-h training step against its plain
     version at the shapes a step gives it, in f32 (T = 4096 tokens of
@@ -3091,14 +3232,13 @@ def check_hmoe_kernels(cfg, params, gen, floor) -> dict:
     the secondary level's top-k over the 16 x HMOE_CP slot rows of 256
     experts, with the primary plan's empty slots masked, and its dispatch
     into [4096, HMOE_CS, 512] and combine back, on the plan over the flat
-    4096 experts that the router builds; B5, B6 and B7 at both levels;
-    the expert FFN's GMMs over all 4096 experts with the plan's rows
-    (w1 with relu, w1 without: the backward pass's recomputed
-    pre-activation, w2) and the transposed ones (dx = dz w^T and dw =
-    x^T dz at w1's and w2's shapes).  Tolerances as in phase 2: top-k
-    indices exact and values within 1e-6, B5, dispatch, B7, combine and
-    B6 bit for bit, the GMMs within f32_tol.  Each is timed beside its
-    bound and the launch floor, the GMMs also beside torch.bmm."""
+    4096 experts that the router builds; B5, B6 and B7 at both levels
+    (combine's device time with a cold L2); the expert FFN's GMMs over
+    all 4096 experts with the plan's rows (``_moe_ffn_cases``).
+    Tolerances as in phase 2: top-k indices exact and values within
+    1e-6, B5, dispatch, B7, combine and B6 bit for bit, the GMMs within
+    f32_tol.  Each is timed beside its bound and the launch floor, the
+    GMMs also beside torch.bmm."""
     import torch
     from repro_torch.core import dispatch as dsp
     from repro_torch.core import hierarchical as hmoe_lib
@@ -3119,33 +3259,35 @@ def check_hmoe_kernels(cfg, params, gen, floor) -> dict:
     x = torch.randn(t, d, device="cuda", generator=gen)
     out: dict = {name: {} for name in ("topk_gating", "topk_gating_bwd",
                                        "dispatch", "combine")}
+
+    def level(name, x_in, logits, n_experts, cap, valid=None):
+        r1, r5, cw, idx = _topk_rows(f"hmoe {name}", logits, k, kk, gen,
+                                     floor)
+        out["topk_gating"][name], out["topk_gating_bwd"][name] = r1, r5
+        if valid is None:
+            plan = dsp.plan(idx, cw, n_experts, cap)
+        else:       # the flat expert ids over all groups
+            plan = dsp.plan(router_lib.flat_expert_ids(
+                idx.reshape(g, cp, k), b), cw * valid.reshape(-1, 1),
+                n_experts, cap)
+        buf, out["dispatch"][name], out["combine"][name] = \
+            _dispatch_combine_rows(f"hmoe {name}", x_in, plan, gen, floor,
+                                   l2_cold=True)
+        return buf, plan
+
     with torch.no_grad():
         # The primary level: tokens into the groups' slot buffers.
         logits = x @ moe["gate_primary"]["wg"] + torch.randn(
             t, g, device="cuda", generator=gen)
-        r1, r5, cw, idx = _hmoe_topk("primary", logits, k, kk, gen, floor)
-        out["topk_gating"]["primary"] = r1
-        out["topk_gating_bwd"]["primary"] = r5
-        plan_p = dsp.plan(idx, cw, g, cp)
-        buf, r2, r4 = _hmoe_dispatch_combine("primary", x, plan_p, gen,
-                                             floor)
-        out["dispatch"]["primary"], out["combine"]["primary"] = r2, r4
+        buf, plan_p = level("primary", x, logits, g, cp)
         # The secondary level: every group's slots at once.
-        valid = hmoe_lib._kept_slots(plan_p, g)
         logits = (torch.bmm(buf, moe["gate_secondary"]["wg"])
                   + torch.randn(g, cp, b, device="cuda", generator=gen))
-        r1, r5, cw, idx = _hmoe_topk("secondary", logits.reshape(g * cp, b),
-                                     k, kk, gen, floor)
-        out["topk_gating"]["secondary"] = r1
-        out["topk_gating_bwd"]["secondary"] = r5
-        plan_s = dsp.plan(router_lib.flat_expert_ids(idx.reshape(g, cp, k),
-                                                     b),
-                          cw * valid.reshape(-1, 1), e, cs)
-        rows = dsp.filled_rows(plan_s)
-        xs, r2, r4 = _hmoe_dispatch_combine("secondary", buf.reshape(-1, d),
-                                            plan_s, gen, floor)
-        out["dispatch"]["secondary"], out["combine"]["secondary"] = r2, r4
+        xs, plan_s = level("secondary", buf.reshape(-1, d),
+                           logits.reshape(g * cp, b), e, cs,
+                           valid=hmoe_lib._kept_slots(plan_p, g))
         del buf
+    rows = dsp.filled_rows(plan_s)
     n_kept_p = int((plan_p.position < cp).sum())
     used, filled = int((rows > 0).sum()), int(rows.sum())
     log(f"hmoe plans: primary C={cp}, {n_kept_p} of {t * k} kept; secondary"
@@ -3154,55 +3296,17 @@ def check_hmoe_kernels(cfg, params, gen, floor) -> dict:
     # ...] leaves), the tiled 3xTF32 kernel.
     check(gk.kernel_for(torch.float32, cs, False) == "tile",
           "the hmoe GMMs must run the tiled kernel")
-    w1 = moe["w1"].detach().reshape(e, d, f)
-    w2 = moe["w2"].detach().reshape(e, f, d)
-    hid = gk.mask_rows(torch.randn(e, cs, f, device="cuda", generator=gen),
-                       rows)
-    dz = gk.mask_rows(torch.randn(e, cs, f, device="cuda", generator=gen),
-                      rows)
-    dy = gk.mask_rows(torch.randn(e, cs, d, device="cuda", generator=gen),
-                      rows)
-    cases = {"gmm": [("w1_relu", xs, w1, "relu", False, False),
-                     ("w1_none", xs, w1, "none", False, False),
-                     ("w2", hid, w2, "none", False, False)],
-             "gmm_bwd": [("dx_w1", dz, w1, "none", False, True),
-                         ("dw_w1", xs, dz, "none", True, False),
-                         ("dh_w2", dy, w2, "none", False, True),
-                         ("dw_w2", hid, dy, "none", True, False)]}
-    for kernel, calls_of in cases.items():
-        symbol = ("gmm_tile_kernel" if kernel == "gmm"
-                  else "gmm_tile_bwd_kernel")
-        worst, tol_used, calls = 0.0, 0.0, {}
-        for name, xi, wi, act, tx, tw in calls_of:
-            got = gk.gmm(xi, wi, activation=act, trans_x=tx, trans_w=tw,
-                         rows=rows)
-            want = gk.gmm_plain(xi, wi, act, tx, tw, rows)
-            err, tol = max_err(got, want), f32_tol(want)
-            check(err <= tol, f"hmoe {kernel} {name} differs by {err} > {tol}")
-            worst, tol_used = max(worst, err), max(tol_used, tol)
-            del got, want
-            xl = xi.transpose(1, 2) if tx else xi
-            wl = wi.transpose(1, 2) if tw else wi
-            md, kd, nd = xl.shape[1], xl.shape[2], wl.shape[2]
-            if tx:      # dw [E, M, N]: the filled rows of both operands in
-                n_bytes = (filled * (md + nd) + e * md * nd) * 4
-                flops = 2 * filled * md * nd
-            else:       # the filled rows and the used experts' weights in
-                n_bytes = (filled * kd + used * kd * nd + e * cs * nd) * 4
-                flops = 2 * filled * kd * nd
-            calls[name] = dict(max_abs_err=err, tol=tol, **_timed_call(
-                f"hmoe {kernel} {name} {tuple(xl.shape)} x "
-                f"{tuple(wl.shape)}",
-                lambda: gk.gmm(xi, wi, activation=act, trans_x=tx,
-                               trans_w=tw, rows=rows),
-                symbol, n_bytes, {"tf32": 3 * flops}, None, floor,
-                plain=lambda: gk.gmm_plain(xi, wi, act, tx, tw, rows),
-                library=lambda: torch.bmm(xl, wl), big=True))
-            torch.cuda.empty_cache()
-        out[kernel] = dict(max_abs_err=worst, tol=tol_used, calls=calls,
-                           **{key: sum(c[key] for c in calls.values())
-                              for key in ("ms", "plain_ms", "library_ms",
-                                          "bound_ms", "dev_ms")})
+
+    def act(shape):
+        return gk.mask_rows(torch.randn(*shape, device="cuda",
+                                        generator=gen), rows)
+    hid, dz, dy = act((e, cs, f)), act((e, cs, f)), act((e, cs, d))
+    fwd, bwd = _moe_ffn_cases(xs, hid, dz, dy,
+                              moe["w1"].detach().reshape(e, d, f),
+                              moe["w2"].detach().reshape(e, f, d), None,
+                              "relu")
+    out["gmm"] = _gmm_rows("hmoe", fwd, rows, floor)
+    out["gmm_bwd"] = _gmm_rows("hmoe", bwd, rows, floor)
     dw = out["gmm_bwd"]["calls"]
     log(f"hmoe dw layout (x^T dz) at K = {cs}: dw_w1 "
         f"{dw['dw_w1']['dev_ms']:.3f} ms, dw_w2 "
@@ -3217,7 +3321,6 @@ def check_hmoe_kernels(cfg, params, gen, floor) -> dict:
     return out
 
 
-# The MoE leaves of the hierarchical layer compared in hmoe_grads.
 HMOE_LEAVES = ("gate_primary.wg", "gate_primary.wnoise", "gate_secondary.wg",
                "gate_secondary.wnoise", "w2", "w1")
 
@@ -3418,30 +3521,6 @@ def build_arctic():
     return cfg, params
 
 
-def _timed_call(what, fn, symbol, n_bytes, flops, dtype_name, floor,
-                plain=None, library=None, big=False) -> dict:
-    """One kernel call at the arctic shape: device time per launch
-    (profiler), CUDA-event time, plain and library times, the bound and
-    the launch floor.  ``big``: a multi-ms call, timed with fewer
-    repeats and no queued run."""
-    if big:
-        dev = device_ms(fn, (symbol,), n=PROFILED_BIG_RUN)
-        check(symbol in dev, f"{what}: no {symbol} in the profile")
-        b, by = bound_ms(n_bytes, flops, dtype_name)
-        res = {"dev_ms": dev[symbol], "bound_ms": b, "bound_by": by,
-               "launch_floor_ms": floor["dev_ms"]}
-    else:
-        res = shape_times(what, fn, symbol, n_bytes, flops, dtype_name,
-                          floor)
-    reps = dict(reps=5, warmup=1) if big else {}
-    res["ms"] = cuda_ms(fn, **reps)
-    res["plain_ms"] = (cuda_ms(plain, **(dict(reps=3, warmup=1) if big
-                                         else {})) if plain else None)
-    res["library_ms"] = cuda_ms(library, **reps) if library else None
-    log(f"{what}: " + json.dumps(res))
-    return res
-
-
 def check_arctic_kernels(cfg, params, gen, floor) -> dict:
     """Every kernel of the arctic training step against its plain version
     at the shapes a step gives it (T = 4096 tokens of d = 7168 bf16, E =
@@ -3450,16 +3529,11 @@ def check_arctic_kernels(cfg, params, gen, floor) -> dict:
     and values within 1e-6, B5, dispatch (and B7, the dispatch scaled by
     the combine weights) and combine (and B6, unit weights) bit for bit,
     the GMMs within two bf16 ulps of the output's largest binade, with
-    the plan's ``rows``: the forward calls (w1 with silu, w3, w2; w1
-    without the activation is the backward pass's recomputed
-    pre-activation) and the transposed ones (dx = dz w^T, dw = x^T dz
-    for w1 / w3's shape and w2's).  Each is timed beside its bound and
-    the launch floor."""
+    the plan's ``rows`` (``_moe_ffn_cases``).  Each is timed beside its
+    bound and the launch floor."""
     import torch
     from repro_torch.core import dispatch as dsp
-    from repro_torch.kernels import dispatch as dk
     from repro_torch.kernels import gmm as gk
-    from repro_torch.kernels import topk_gating as tk
 
     bf = torch.bfloat16
     moe = params["blocks"]["periods"]["pos0"]["moe"]
@@ -3467,146 +3541,34 @@ def check_arctic_kernels(cfg, params, gen, floor) -> dict:
     wg = moe["gate"]["wg"][0].detach()
     t, d = ARCTIC_B * ARCTIC_S, cfg.d_model
     e, k, f = cfg.n_experts, cfg.moe_k, cfg.moe_d_ff
-    kk = k + 1
     x = torch.randn(t, d, device="cuda", generator=gen).to(bf)
     logits = x.float() @ wg.float() + torch.randn(t, e, device="cuda",
                                                   generator=gen)
     out: dict = {}
-    # Top-k (kernel 1) and its backward (B5).
-    got, want = tk.topk_gating(logits, k, kk), tk.topk_gating_plain(
-        logits, k, kk)
-    check(torch.equal(got[1], want[1]), "arctic top-k indices differ")
-    err = max(max_err(got[0], want[0]), max_err(got[2], want[2]))
-    check(err <= 1e-6, f"arctic top-k values differ by {err}")
-    cw, idx, _ = got
-    out["topk_gating"] = dict(max_abs_err=err, tol=1e-6, **_timed_call(
-        f"arctic topk_gating [{t},{e}] k={k} kk={kk}",
-        lambda: tk.topk_gating(logits, k, kk), "topk_gating_kernel",
-        t * e * 4 + t * k * 4 + t * kk * 8, 0, "float32", floor,
-        plain=lambda: tk.topk_gating_plain(logits, k, kk)))
-    dw_in = torch.randn(t, k, device="cuda", generator=gen)
-    dvals = torch.randn(t, kk, device="cuda", generator=gen)
-    got = tk.topk_gating_bwd(cw, idx, dw_in, dvals, e)
-    check(torch.equal(got, tk.topk_gating_bwd_plain(cw, idx, dw_in, dvals,
-                                                    e)),
-          "arctic top-k backward differs from its plain version")
-    out["topk_gating_bwd"] = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
-        f"arctic topk_gating_bwd [{t},{e}] k={k} kk={kk}",
-        lambda: tk.topk_gating_bwd(cw, idx, dw_in, dvals, e),
-        "topk_gating_bwd_kernel", t * e * 4 + t * k * 8 + t * kk * 8, 0,
-        "float32", floor,
-        plain=lambda: tk.topk_gating_bwd_plain(cw, idx, dw_in, dvals, e)))
+    out["topk_gating"], out["topk_gating_bwd"], cw, idx = _topk_rows(
+        "arctic", logits, k, k + 1, gen, floor)
     # The plan, as the router builds it.
     cap = dsp.capacity_for(t, e, k, cfg.capacity_factor)
     check(cap == ARCTIC_C, f"arctic capacity {cap}, expected {ARCTIC_C}")
-    plan = dsp.plan(idx[:, :k].contiguous(), cw, e, cap)
-    ei, po, w = plan.expert_index, plan.position, plan.weight
+    plan = dsp.plan(idx, cw, e, cap)
     rows = dsp.filled_rows(plan)
-    n_kept, filled = int((po < cap).sum()), int(rows.sum())
+    n_kept, filled = int((plan.position < cap).sum()), int(rows.sum())
     used = int((rows > 0).sum())
     log(f"arctic plan: C={cap}, {n_kept} of {t * k} slots kept, {used} "
         f"experts used, {filled} filled rows")
-    # Dispatch (kernel 2) and B7; combine (kernel 4) and B6.
-    buf = dk.dispatch(x, ei, po, n_experts=e, capacity=cap)
-    check(torch.equal(buf, dk.dispatch_plain(x, ei, po, None, e, cap)),
-          "arctic dispatch differs from its plain version")
-    g_tok = torch.randn(t, d, device="cuda", generator=gen).to(bf)
-    check(torch.equal(dk.dispatch(g_tok, ei, po, w, n_experts=e,
-                                  capacity=cap),
-                      dk.dispatch_plain(g_tok, ei, po, w, e, cap)),
-          "arctic B7 (dispatch scaled by w) differs from its plain version")
-    disp_bytes = t * d * 2 + t * k * 8 + e * cap * d * 2
-    out["dispatch"] = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
-        f"arctic dispatch [{t},{d}] bf16 -> [{e},{cap},{d}]",
-        lambda: dk.dispatch(x, ei, po, n_experts=e, capacity=cap),
-        "dispatch_kernel", disp_bytes, 0, "bfloat16", floor,
-        plain=lambda: dk.dispatch_plain(x, ei, po, None, e, cap)))
-    out["dispatch"]["B7"] = _timed_call(
-        f"arctic B7 dispatch scaled [{t},{d}] bf16 -> [{e},{cap},{d}]",
-        lambda: dk.dispatch(g_tok, ei, po, w, n_experts=e, capacity=cap),
-        "dispatch_kernel", disp_bytes + t * k * 4, 0, "bfloat16", floor,
-        plain=lambda: dk.dispatch_plain(g_tok, ei, po, w, e, cap))
-    ybuf = torch.randn(e, cap, d, device="cuda", generator=gen).to(bf)
-    unit = torch.ones_like(w)
-    for name, wt in (("combine", w), ("B6", unit)):
-        check(torch.equal(dk.combine(ybuf, wt, ei, po),
-                          dk.combine_plain(ybuf, wt, ei, po, bf)),
-              f"arctic {name} differs from its plain version")
-    comb = [n_kept * d * 2 + t * k * 12 + t * d * 2, 2 * n_kept * d]
-    out["combine"] = dict(max_abs_err=0.0, tol=0.0, **_timed_call(
-        f"arctic combine [{e},{cap},{d}] bf16 -> [{t},{d}], k={k}",
-        lambda: dk.combine(ybuf, w, ei, po), "combine_kernel", *comb,
-        "bfloat16", floor,
-        plain=lambda: dk.combine_plain(ybuf, w, ei, po, bf)))
-    out["combine"]["B6"] = _timed_call(
-        f"arctic B6 combine, unit weights [{e},{cap},{d}] bf16",
-        lambda: dk.combine(ybuf, unit, ei, po), "combine_kernel", *comb,
-        "bfloat16", floor,
-        plain=lambda: dk.combine_plain(ybuf, unit, ei, po, bf))
-    del g_tok, ybuf
-    # The GMMs, forward layout: the tiled bf16 kernel (C = 80 > 64).
+    buf, out["dispatch"], out["combine"] = _dispatch_combine_rows(
+        "arctic", x, plan, gen, floor)
+    # The GMMs: the tiled bf16 kernel (C = 80 > 64).
     check(gk.kernel_for(bf, cap, False) == "tile",
           "the arctic GMMs must run the tiled kernel")
-    hid = torch.randn(e, cap, f, device="cuda", generator=gen).to(bf)
-    hid = gk.mask_rows(hid, rows)
-    fwd = [("w1_silu", buf, w1, "silu"), ("w1_none", buf, w1, "none"),
-           ("w3", buf, w3, "none"), ("w2", hid, w2, "none")]
-    worst, tol_used, calls = 0.0, 0.0, {}
-    for name, xi, wi, act in fwd:
-        got = gk.gmm(xi, wi, activation=act, rows=rows)
-        want = gk.gmm_plain(xi, wi, act, rows=rows)
-        err, tol = max_err(got, want), bf16_tol(want)
-        check(err <= tol, f"arctic gmm {name} differs by {err} > {tol}")
-        worst, tol_used = max(worst, err), max(tol_used, tol)
-        del got, want
-        kd, nd = wi.shape[1], wi.shape[2]
-        calls[name] = dict(max_abs_err=err, tol=tol, **_timed_call(
-            f"arctic gmm {name} {tuple(xi.shape)} x {tuple(wi.shape)}",
-            lambda: gk.gmm(xi, wi, activation=act, rows=rows),
-            "gmm_tile_kernel", (used * kd * nd + filled * kd + e * cap * nd)
-            * 2, 2 * filled * kd * nd, "bfloat16", floor,
-            plain=lambda: gk.gmm_plain(xi, wi, act, rows=rows),
-            library=lambda: torch.bmm(xi, wi), big=True))
-    out["gmm"] = dict(max_abs_err=worst, tol=tol_used, calls=calls,
-                      **{key: sum(c[key] for c in calls.values())
-                         for key in ("ms", "plain_ms", "library_ms",
-                                     "bound_ms", "dev_ms")})
-    # The transposed GMMs: dx = dz w^T and dw = x^T dz, at w1 / w3's
-    # shape (dz [E, C, f]) and w2's (dz [E, C, d]).
-    dz = gk.mask_rows(torch.randn(e, cap, f, device="cuda", generator=gen)
-                      .to(bf), rows)
-    dy = gk.mask_rows(torch.randn(e, cap, d, device="cuda", generator=gen)
-                      .to(bf), rows)
-    bwd = [("dx_w1", dz, w1, False, True), ("dw_w1", buf, dz, True, False),
-           ("dh_w2", dy, w2, False, True), ("dw_w2", hid, dy, True, False)]
-    worst, tol_used, calls = 0.0, 0.0, {}
-    for name, xi, wi, tx, tw in bwd:
-        got = gk.gmm(xi, wi, trans_x=tx, trans_w=tw, rows=rows)
-        want = gk.gmm_plain(xi, wi, "none", tx, tw, rows)
-        err, tol = max_err(got, want), bf16_tol(want)
-        check(err <= tol, f"arctic gmm_bwd {name} differs by {err} > {tol}")
-        worst, tol_used = max(worst, err), max(tol_used, tol)
-        del got, want
-        xl = xi.transpose(1, 2) if tx else xi
-        wl = wi.transpose(1, 2) if tw else wi
-        md, kd, nd = xl.shape[1], xl.shape[2], wl.shape[2]
-        if tx:      # dw [E, M, N]: the filled rows of both operands in
-            n_bytes = filled * (md + nd) * 2 + e * md * nd * 2
-            flops = 2 * filled * md * nd
-        else:       # dx: dz's filled rows and the used weights in
-            n_bytes = (filled * kd + used * kd * nd + e * cap * nd) * 2
-            flops = 2 * filled * kd * nd
-        calls[name] = dict(max_abs_err=err, tol=tol, **_timed_call(
-            f"arctic gmm_bwd {name} {tuple(xl.shape)} x {tuple(wl.shape)}",
-            lambda: gk.gmm(xi, wi, trans_x=tx, trans_w=tw, rows=rows),
-            "gmm_tile_bwd_kernel", n_bytes, flops, "bfloat16", floor,
-            plain=lambda: gk.gmm_plain(xi, wi, "none", tx, tw, rows),
-            library=lambda: torch.bmm(xl, wl), big=True))
-        torch.cuda.empty_cache()
-    out["gmm_bwd"] = dict(max_abs_err=worst, tol=tol_used, calls=calls,
-                          **{key: sum(c[key] for c in calls.values())
-                             for key in ("ms", "plain_ms", "library_ms",
-                                         "bound_ms", "dev_ms")})
+
+    def act(shape):
+        return gk.mask_rows(torch.randn(*shape, device="cuda",
+                                        generator=gen).to(bf), rows)
+    hid, dz, dy = act((e, cap, f)), act((e, cap, f)), act((e, cap, d))
+    fwd, bwd = _moe_ffn_cases(buf, hid, dz, dy, w1, w2, w3, cfg.activation)
+    out["gmm"] = _gmm_rows("arctic", fwd, rows, floor)
+    out["gmm_bwd"] = _gmm_rows("arctic", bwd, rows, floor)
     del x, buf, hid, dz, dy
     torch.cuda.empty_cache()
     out["plan"] = dict(tokens=t, capacity=cap, kept_slots=n_kept,
@@ -3776,14 +3738,16 @@ def phase_arctic(cfg, params, floor) -> dict:
 # phase 14: train qwen3-1.7b at full size; flash attention on the card
 # ---------------------------------------------------------------------------
 
-def check_flash(gen) -> dict:
+def check_flash(gen, *, b: int = 2, kvh: int = 8, g: int = 2,
+                s: int = QWEN_S, hd: int = 128, window: int = 0,
+                what: str = "flash attention") -> dict:
     """flash_attention's output and gradients against plain autograd
-    through causal_attention, in f32 at qwen3-1.7b's head shape (16 / 8
-    heads of 128, S = 2048 in 4 x 4 blocks of 512), within 1e-5 of each
-    result's scale."""
+    through causal_attention (with its window mask), in f32 at a head
+    shape (by default qwen3-1.7b's: 16 / 8 heads of 128, S = 2048 in
+    4 x 4 blocks of 512, no window), within 1e-5 of each result's
+    scale."""
     import torch
     from repro_torch.models import attention as at
-    b, kvh, g, s, hd = 2, 8, 2, QWEN_S, 128
     q = torch.randn(b, s, kvh * g, hd, device="cuda", generator=gen)
     k = torch.randn(b, s, kvh, hd, device="cuda", generator=gen)
     v = torch.randn(b, s, kvh, hd, device="cuda", generator=gen)
@@ -3792,11 +3756,14 @@ def check_flash(gen) -> dict:
     def flash(q, k, v):
         qr = q.reshape(b, s, kvh, g, hd).permute(0, 2, 3, 1, 4)
         o = at.flash_attention(qr, k.permute(0, 2, 3, 1),
-                               v.permute(0, 2, 1, 3), True, 0, 512, 512)
+                               v.permute(0, 2, 1, 3), True, window, 512, 512)
         return o.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, hd)
 
+    def plain(q, k, v):
+        return at.causal_attention(q, k, v, window=window)
+
     res = {}
-    for name, fn in (("flash", flash), ("plain", at.causal_attention)):
+    for name, fn in (("flash", flash), ("plain", plain)):
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         o = fn(*leaves)
         (o * dout).sum().backward()
@@ -3805,18 +3772,18 @@ def check_flash(gen) -> dict:
     for key, got, want in zip(("out", "dq", "dk", "dv"), res["flash"],
                               res["plain"]):
         errs[key] = (max_err(got, want), f32_tol(want))
-        check(errs[key][0] <= errs[key][1], f"flash {key} differs from plain "
-              f"autograd by {errs[key][0]} > {errs[key][1]}")
+        check(errs[key][0] <= errs[key][1], f"{what} {key} differs from "
+              f"plain autograd by {errs[key][0]} > {errs[key][1]}")
 
     def fwd_bwd(fn):
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         (fn(*leaves) * dout).sum().backward()
     times = {"flash_ms": cuda_ms(lambda: fwd_bwd(flash), reps=3, warmup=1),
-             "plain_ms": cuda_ms(lambda: fwd_bwd(at.causal_attention),
-                                 reps=3, warmup=1)}
+             "plain_ms": cuda_ms(lambda: fwd_bwd(plain), reps=3, warmup=1)}
     out = {"shape": f"B={b}, {kvh * g}/{kvh} heads x {hd}, S={s}, blocks "
-                    "512 x 512, f32", "max_abs_err_and_tol": errs, **times}
-    log("flash attention " + json.dumps(out))
+                    f"512 x 512, window {window}, f32",
+           "max_abs_err_and_tol": errs, **times}
+    log(f"{what} " + json.dumps(out))
     return out
 
 
@@ -3855,7 +3822,650 @@ def phase_qwen3() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the two launchers: train smollm-135m, resume, serve its
+# phase 15: train moa-demo (MoA's backward passes through the kernels)
+# ---------------------------------------------------------------------------
+
+def _named_leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) of a parameter tree, in sorted key order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _named_leaves(tree[key], f"{prefix}{key}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def check_moa_train_kernels(cfg, params, gen, floor) -> dict:
+    """Every kernel of moa-demo's training step against its plain
+    version at the shapes a step gives it (T = B x S tokens of d = 512
+    bf16), in the first layer of each routed kind.  The MoE FFN (8
+    experts top-2, swiglu 512 -> 1024), routed by its gate with
+    training noise: top-k over [T, 8] and B5, dispatch / combine / B6 /
+    B7 on its plan ([T, 512] <-> [8, C, 512]) and the FFN's GMMs with
+    the plan's rows (``_moe_ffn_cases``).  The MoA mixer, routed by its
+    gate likewise: top-k and B5, dispatch / combine / B6 / B7 on the
+    token plan and on the assignment plan ([T·k, 128] <-> [8, C, 128],
+    unit weights, which B6 and the combine share), the GMMs of wq
+    ([8, C, 512] x [8, 512, 128]) and wo and their transposed calls,
+    without rows (MoA's projections take none).  Phase 2's tolerances
+    (top-k indices exact and values within 1e-6, B5, dispatch and
+    combine bit for bit, the GMMs within two bf16 ulps), each timed
+    beside its bound, the launch floor and torch.bmm."""
+    import torch
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.core import router as router_lib
+    from repro_torch.core.moa import assignment_plan
+    from repro_torch.kernels import gmm as gk
+    from repro_torch.kernels import topk_gating as tk
+    from repro_torch.models.transformer import _moa_args, _moe_args
+
+    bf = torch.bfloat16
+    periods = params["blocks"]["periods"]
+    t, d = MOA_TRAIN_B * MOA_TRAIN_S, cfg.d_model
+    out: dict = {name: {} for name in ("topk_gating", "topk_gating_bwd",
+                                       "dispatch", "combine", "gmm",
+                                       "gmm_bwd")}
+
+    def route(label, a, layer):
+        """The router's plan of T random tokens (training noise and
+        capacity); the noisy logits its top-k sees go to kernel 1's
+        check."""
+        x = torch.randn(t, d, device="cuda", generator=gen).to(bf)
+        noise = torch.randn(t, a.n_experts, device="cuda", generator=gen)
+        seen: dict = {}
+
+        def topk_seen(noisy, k_, kk_):
+            seen.update(logits=noisy, kk=kk_)
+            w_, i_, v_ = tk.topk_gating(noisy, k_, kk_)
+            return w_, i_[:, :k_].contiguous(), v_
+        with torch.no_grad():
+            p = router_lib.build(a, topk_impl=topk_seen).route(
+                layer, x, train=True, noise=noise).plan
+        (out["topk_gating"][label], out["topk_gating_bwd"][label], _,
+         _) = _topk_rows(f"moa-demo train {label}", seen["logits"], a.k,
+                         seen["kk"], gen, floor)
+        n_kept = int((p.position < p.capacity).sum())
+        log(f"moa-demo train {label} plan: C={p.capacity}, {n_kept} of "
+            f"{t * a.k} assignments kept")
+        out.setdefault("plan", {})[label] = dict(
+            tokens=t, capacity=p.capacity, kept=n_kept)
+        return x, p
+
+    # The MoE FFN of layer 0.
+    moe = {k: v.detach() for k, v in _layer(periods["pos0"]["moe"],
+                                            0).items() if k != "gate"}
+    x, p = route("moe", _moe_args(cfg), _layer(periods["pos0"]["moe"], 0))
+    rows = dsp.filled_rows(p)
+    buf, out["dispatch"]["moe"], out["combine"]["moe"] = \
+        _dispatch_combine_rows("moa-demo train moe", x, p, gen, floor)
+    e, cap, f = p.n_experts, p.capacity, cfg.moe_d_ff
+
+    def act(shape):
+        return gk.mask_rows(torch.randn(*shape, device="cuda",
+                                        generator=gen).to(bf), rows)
+    hid, dz, dy = act((e, cap, f)), act((e, cap, f)), act((e, cap, d))
+    fwd, bwd = _moe_ffn_cases(buf, hid, dz, dy, moe["w1"], moe["w2"],
+                              moe.get("w3"), cfg.activation)
+    out["gmm"]["moe"] = _gmm_rows("moa-demo train moe", fwd, rows, floor)
+    out["gmm_bwd"]["moe"] = _gmm_rows("moa-demo train moe", bwd, rows,
+                                      floor)
+    del x, buf, hid, dz, dy
+    # The MoA mixer of layer 1: both plans, then wq and wo.
+    moa = _layer(periods["pos1"]["moa"], 0)
+    a = _moa_args(cfg)
+    hh = a.d_head_group
+    x, p = route("moa", a, moa)
+    e, cap = p.n_experts, p.capacity
+    _, out["dispatch"]["moa_token"], out["combine"]["moa_token"] = \
+        _dispatch_combine_rows("moa-demo train moa token plan", x, p, gen,
+                               floor)
+    xa = torch.randn(t * a.k, hh, device="cuda", generator=gen).to(bf)
+    _, out["dispatch"]["moa_assign"], out["combine"]["moa_assign"] = \
+        _dispatch_combine_rows("moa-demo train moa assignment plan", xa,
+                               assignment_plan(p), gen, floor, b6=False)
+    xq = torch.randn(e, cap, d, device="cuda", generator=gen).to(bf)
+    xo = torch.randn(e, cap, hh, device="cuda", generator=gen).to(bf)
+    wq, wo = moa["wq"].detach(), moa["wo"].detach()
+    out["gmm"]["moa"] = _gmm_rows(
+        "moa-demo train moa", [("wq", xq, wq, "none", False, False),
+                               ("wo", xo, wo, "none", False, False)],
+        None, floor)
+    out["gmm_bwd"]["moa"] = _gmm_rows(
+        "moa-demo train moa", [("dx_wq", xo, wq, "none", False, True),
+                               ("dw_wq", xq, xo, "none", True, False),
+                               ("dx_wo", xq, wo, "none", False, True),
+                               ("dw_wo", xo, xq, "none", True, False)],
+        None, floor)
+    del x, xa, xq, xo
+    torch.cuda.empty_cache()
+    return out
+
+
+class _TopkReplay:
+    """Pins the "ref" runs' routing to the "cuda" run's.  ``record``
+    keeps every top-k choice kernel 1 makes (k + 1 indices a row, in
+    call order: the forward's layers, then remat's recompute);
+    ``replay`` makes the sort-based top-k of ``core.gating`` take them in
+    the same order, with its own values gathered at those indices.  A
+    "ref" run then has the cuda run's plans, capacity drops and load
+    thresholds, and its own values and gradients.  ``flips`` counts, per
+    call, the rows whose own top-k set is not the recorded one."""
+
+    def __init__(self):
+        self.choices: list = []
+        self.flips: list = []
+
+    @contextlib.contextmanager
+    def record(self):
+        from repro_torch.kernels import ops
+        orig = ops.topk_gating
+
+        def recorded(logits, k, kk=None):
+            w, idx, vals = orig(logits, k, kk)
+            self.choices.append(idx.detach().clone())
+            return w, idx, vals
+        ops.topk_gating = recorded
+        try:
+            yield
+        finally:
+            ops.topk_gating = orig
+
+    @contextlib.contextmanager
+    def replay(self):
+        import torch
+        from repro_torch.core import gating
+        orig = gating.top_k
+        self.flips = []
+
+        def replayed(v, kk):
+            n = len(self.flips)
+            check(n < len(self.choices),
+                  "the ref run made more top-k calls than the cuda run")
+            idx = self.choices[n]
+            check(tuple(idx.shape) == tuple(v.shape[:-1]) + (kk,),
+                  f"top-k call {n}: recorded {tuple(idx.shape)}, logits "
+                  f"{tuple(v.shape)}, kk={kk}")
+            _, own = orig(v, kk)
+            mine = torch.sort(own[..., :kk - 1].long(), dim=-1).values
+            theirs = torch.sort(idx[..., :kk - 1].long(), dim=-1).values
+            self.flips.append(int((mine != theirs).any(dim=-1).sum()))
+            return v.gather(-1, idx.long()), idx.to(torch.int32)
+        gating.top_k = replayed
+        try:
+            yield
+        finally:
+            gating.top_k = orig
+        check(len(self.flips) == len(self.choices),
+              f"the ref run made {len(self.flips)} top-k calls, the cuda "
+              f"run {len(self.choices)}")
+
+
+def moa_grads_cuda_vs_ref(cfg, params, batch, draws) -> dict:
+    """Step 0's loss and every gradient under "cuda" and "ref" from the
+    same parameters, batch and draws (MoE and MoA noise), the ref run's
+    routing pinned to the cuda run's (``_TopkReplay``): every gradient
+    present, finite and not all zero under "cuda" (the MoA gates'
+    included), the loss within MOA_LOSS_TOL relative and each leaf
+    within MOA_GRAD_TOL normwise of "ref".  The same pinned step under
+    "ref" in f32 (the weights upcast) shows what bf16 rounding alone
+    moves; the tokens whose own top-k differs from the cuda run's are
+    counted for each routed layer of the forward."""
+    import torch
+    from repro_torch.common.param import tree_map
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import layer_index
+
+    f32 = torch.float32
+    wide = tree_map(lambda p: p.detach().float().requires_grad_(True),
+                    params)
+    runs = {"cuda": (params, cfg),
+            "ref": (params, cfg.replace(kernel_backend="ref")),
+            "ref_f32": (wide, cfg.replace(kernel_backend="ref",
+                                          param_dtype=f32,
+                                          compute_dtype=f32))}
+    pin = _TopkReplay()
+    res, flips = {}, {}
+    for what, (tree, c) in runs.items():
+        named = list(_named_leaves(tree))
+        with pin.record() if what == "cuda" else pin.replay():
+            loss, _ = lm.lm_loss(tree, batch, c, draws=draws)
+            loss.backward()
+        if what != "cuda":
+            flips[what] = pin.flips
+        res[what] = (float(loss.detach()),
+                     {name: p.grad for name, p in named})
+        for _, p in named:
+            p.grad = None
+    del wide
+    routed = [f"layer {i} {'moa' if kind.mixer == 'moa' else 'moe'}"
+              for i, kind in layer_index(cfg)
+              if kind.mixer == "moa" or kind.ffn in ("moe", "moe+dense")]
+    flips = {what: dict(zip(routed, f)) for what, f in flips.items()}
+    (lc, gc), (lr_, gr), (lw, gw) = res["cuda"], res["ref"], res["ref_f32"]
+    rel = abs(lc - lr_) / abs(lr_)
+    errs, floor = {}, {}
+    for name, g in gc.items():
+        check(g is not None, f"moa-demo: {name} has no gradient")
+        check(all_finite(g), f"moa-demo: {name}'s gradient is not finite")
+        check(any_nonzero(g), f"moa-demo: {name}'s gradient is zero")
+        errs[name] = norm_rel_err(g, gr[name])
+        floor[name] = norm_rel_err(gr[name], gw[name])
+    worst = max(errs, key=errs.get)
+    t = batch["tokens"].numel()
+    log(f"moa-demo routing flips at step 0 (tokens of {t} whose own top-k "
+        "differs from the cuda run's; both ref runs take the cuda run's): "
+        + json.dumps(flips))
+    log(f"moa-demo cuda vs ref at step 0, routing pinned: loss {lc} vs "
+        f"{lr_} (rel {rel:.3g}, tol {MOA_LOSS_TOL:.3g}; ref in f32 {lw}); "
+        f"gradients normwise rel err (tol {MOA_GRAD_TOL:.3g}): "
+        + json.dumps(errs))
+    log("moa-demo bf16 ref vs f32 ref gradients, routing pinned, normwise "
+        "rel err: " + json.dumps(floor))
+    moa_leaves = {n.split("moa.", 1)[1] for n in errs if ".moa." in n}
+    check({"gate.wg", "wq", "wo", "wk", "wv"} <= moa_leaves,
+          f"moa-demo: MoA leaves missing from {sorted(errs)}")
+    check(rel <= MOA_LOSS_TOL, f"moa-demo cuda vs ref loss {lc} vs {lr_}")
+    check(errs[worst] <= MOA_GRAD_TOL,
+          f"moa-demo cuda vs ref gradient of {worst} differs by "
+          f"{errs[worst]} > {MOA_GRAD_TOL} normwise")
+    return {"loss_cuda": lc, "loss_ref": lr_, "loss_rel_err": rel,
+            "loss_tol": MOA_LOSS_TOL, "grad_tol": MOA_GRAD_TOL,
+            "loss_ref_f32": lw, "grad_norm_rel_err": errs,
+            "worst_leaf": worst, "ref_bf16_vs_f32": floor,
+            "routing_flips": flips}
+
+
+def phase_moa_train(floor, workdir: str) -> dict:
+    """moa-demo at its published widths (4 layers, d 512: two MoE FFN
+    layers of 8 experts top-2, two MoA mixers of 8 head groups x 2 heads
+    x 64 top-2 over one shared K/V head; vocab 32,000, bf16), drawn from
+    a seed, gates redrawn: its kernels at the training shapes, step 0's
+    loss and gradients cuda vs ref, then MOA_TRAIN_STEPS Trainer steps
+    with exact launch counts (MOA_TRAIN_LAUNCHES a step) and finite
+    losses, and a profile of one more step."""
+    import math
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, DataIterator, batch_at
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train.trainer import Trainer, TrainLoopConfig, step_seed
+
+    cfg = get_config(MOA_ARCH)
+    check(cfg.kernel_backend == "cuda" and cfg.param_dtype == torch.bfloat16
+          and cfg.remat, "moa-demo must default to cuda, bf16 and remat")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    periods = params["blocks"]["periods"]
+    for gate in (periods["pos0"]["moe"]["gate"]["wg"],
+                 periods["pos1"]["moa"]["gate"]["wg"]):
+        gate.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+    n = sum(p.numel() for p in pm.tree_leaves(params))
+    log(f"materialized {MOA_ARCH} for training: {n} parameters")
+    kernels = check_moa_train_kernels(cfg, params, gen, floor)
+    b, s = MOA_TRAIN_B, MOA_TRAIN_S
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=s, batch_size=b,
+                    seed=SEED)
+    for p in pm.tree_leaves(params):
+        p.requires_grad_(True)
+    draws = lm.make_draws(cfg, b, s, torch.Generator(device="cuda")
+                          .manual_seed(step_seed(SEED, 0)), "cuda")
+    check(sum(x is not None for x in draws["moa_noise"]) == 2
+          and sum(x is not None for x in draws["noise"]) == 2,
+          "moa-demo draws: one per MoE FFN and one per MoA mixer")
+    grads = moa_grads_cuda_vs_ref(cfg, params, batch_at(dc, 0, device="cuda"),
+                                  draws)
+    trainer = Trainer(
+        loss_fn=lambda p, bt, g: lm.lm_loss(p, bt, cfg, generator=g),
+        params=params, oc=opt_lib.OptConfig(kind="factored"),
+        loop=TrainLoopConfig(total_steps=MOA_TRAIN_STEPS,
+                             checkpoint_every=MOA_TRAIN_STEPS, log_every=1,
+                             seed=SEED),
+        data_iter=DataIterator(dc, device="cuda"), workdir=workdir,
+        kernel_backend="cuda", device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    trainer.run()
+    torch.cuda.synchronize()
+    counts = cuda_lib.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("moa-demo train", counts,
+                   {key: MOA_TRAIN_STEPS * v
+                    for key, v in MOA_TRAIN_LAUNCHES.items()})
+    rows = trainer.metrics_log
+    check(len(rows) == MOA_TRAIN_STEPS, f"{len(rows)} logged moa-demo steps")
+    for m in rows:
+        check(all(math.isfinite(m[key]) for key in ("loss", "xent",
+                                                    "aux_loss", "grad_norm")),
+              f"moa-demo: non-finite metrics at step {m['step']}: {m}")
+    median = statistics.median(trainer.step_times[1:])
+
+    def one_step():
+        g = torch.Generator(device="cuda").manual_seed(
+            step_seed(SEED, MOA_TRAIN_STEPS))
+        _, m = trainer.step_fn(trainer.state, next(trainer.data_iter), g)
+        float(m["loss"])
+    dprof = device_profile(one_step)
+    prof = dict(train_steps=1, **dprof, **idle_share(dprof, 1, 1e3 * median))
+    keys = ("loss", "xent", "aux_loss", "cv_load", "max_over_mean_load",
+            "fraction_dropped", "grad_norm")
+    out = {"config": f"{MOA_ARCH}, no cut, bf16, remat, B={b} x S={s}, "
+                     "factored Adam",
+           "parameters": n,
+           "step_ms_median_steps_2_to_6": 1e3 * median,
+           "step_ms_all": [1e3 * t for t in trainer.step_times],
+           "tokens_per_s": b * s / median,
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "losses": [m["loss"] for m in rows],
+           "first": {key: rows[0][key] for key in keys},
+           "last": {key: rows[-1][key] for key in keys},
+           "launches": counts, "grads": grads}
+    log("moa-demo train " + json.dumps(out))
+    log("moa-demo train profile " + json.dumps(prof))
+    del params, trainer
+    torch.cuda.empty_cache()
+    return {"summary": out, "kernels": kernels, "counts": counts,
+            "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: serve gemma3-27b at full width (ring-buffer caches)
+# ---------------------------------------------------------------------------
+
+def build_gemma():
+    """gemma3-27b with bf16 weights drawn from the seed on the card, at
+    all 62 layers when they fit beside the serve run's caches and 6 GiB
+    of work space, else cut a period (6 layers) at a time."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import count_params, get_config
+    from repro_torch.models import lm, transformer
+
+    full = get_config(GEMMA)
+    check(full.param_dtype == torch.bfloat16 and full.sliding_window == 1024,
+          "gemma3-27b must be bf16 with a 1024-token window")
+    free, _ = torch.cuda.mem_get_info()
+    max_len = GEMMA_PROMPT + GEMMA_NEW
+    n_layers = full.n_layers
+    while True:
+        cfg = full.replace(n_layers=n_layers)
+        need = (2 * count_params(cfg)["total"] + pm.param_bytes(
+            transformer.cache_defs(cfg, GEMMA_REQUESTS, max_len))
+            + 6 * 2 ** 30)
+        if need <= free or n_layers <= cfg.period:
+            break
+        n_layers -= cfg.period
+    check(need <= free, f"gemma3-27b does not fit: {need} > {free} bytes")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in pm.tree_leaves(params))
+    log(f"materialized {GEMMA} ({n_layers} of {full.n_layers} layers"
+        f"{'' if n_layers == full.n_layers else ', depth cut to fit'}, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+        f"{cfg.head_dim}, geglu {cfg.d_ff}, vocab {cfg.vocab_size}, window "
+        f"{cfg.sliding_window}) in {time.perf_counter() - t0:.1f} s: {n} "
+        f"parameters ({count_params(cfg)['total']} without the norms' "
+        f"scales), {pm.param_bytes(params) / 1e9:.2f} GB; "
+        f"{free / 2 ** 30:.2f} GiB were free")
+    return cfg, params
+
+
+def full_forward_logits(cfg, params, seq, positions):
+    """No-grad logits of one sequence at ``positions`` from the training
+    forward (``stack_apply``: the windowed FlashAttentionFn, no cache),
+    the sequence padded at its end to a multiple of the attention
+    blocks (causal, so the padding changes no earlier position)."""
+    import torch
+    from repro_torch.models import layers, lm, transformer
+
+    blk = max(cfg.q_block, cfg.kv_block)
+    s = -(-len(seq) // blk) * blk
+    tokens = torch.zeros((1, s), dtype=torch.int32, device="cuda")
+    tokens[0, :len(seq)] = torch.as_tensor(seq, dtype=torch.int32)
+    with torch.no_grad():
+        x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
+        pos = torch.arange(s, device="cuda")[None]
+        x, _ = transformer.stack_apply(params["blocks"], x, cfg,
+                                       positions=pos, train=False)
+        x = layers.rmsnorm(params["ln_f"], x[:, positions], cfg.norm_eps)
+        return lm.logits_fn(params, x, cfg)[0]
+
+
+def _recording_lm(records: dict):
+    """Wrap lm_prefill / lm_decode to keep each call's logits (on the
+    card) with the tokens and positions it was called with; returns the
+    function that restores them."""
+    from repro_torch.models import lm
+    real_prefill, real_decode = lm.lm_prefill, lm.lm_decode
+
+    def prefill(params, batch, cache, cfg, **kw):
+        logits, cache = real_prefill(params, batch, cache, cfg, **kw)
+        records["prefill"].append((batch["tokens"][0].cpu().numpy(),
+                                   logits[0].detach().clone()))
+        return logits, cache
+
+    def decode(params, tokens, cache, cur, cfg, **kw):
+        out = real_decode(params, tokens, cache, cur, cfg, **kw)
+        records["decode"].append((tokens.cpu().numpy(), cur.cpu().numpy(),
+                                  kw["valid"].cpu().numpy(),
+                                  out[0].detach().clone()))
+        return out
+
+    lm.lm_prefill, lm.lm_decode = prefill, decode
+
+    def restore():
+        lm.lm_prefill, lm.lm_decode = real_prefill, real_decode
+    return restore
+
+
+def phase_gemma_serve() -> dict:
+    """gemma3-27b served at full width: GEMMA_REQUESTS prompts of
+    GEMMA_PROMPT tokens and GEMMA_NEW greedy tokens each, all arriving
+    at step 0, one slot each, whole-prompt prefill.  Gates: no kernel
+    launch (a dense model); the cache's bytes exactly the ring-buffer
+    formula; the engine with ``prefill_chunk`` warns, falls back to
+    whole prompts and gives the same streams; its prefill and decode
+    logits (recorded) against the training forward over each prompt and
+    its generated tokens, within 5 % of the logit scale (the cross
+    phase's tolerance)."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import layer_kinds
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg, params = build_gemma()
+    max_len = GEMMA_PROMPT + GEMMA_NEW
+    rs = np.random.RandomState(SEED + 6)
+    prompts = [rs.randint(1, cfg.vocab_size, (GEMMA_PROMPT,))
+               for _ in range(GEMMA_REQUESTS)]
+    engine = ServeEngine(params, cfg, ServeConfig(
+        max_len=max_len, n_slots=GEMMA_REQUESTS), device="cuda")
+    reqs, counts, out = serve_run(engine, prompts, cfg.vocab_size,
+                                  new_tokens=GEMMA_NEW, stagger=0)
+    check_launches("gemma3 serve", counts, {})
+    streams = [r.tokens for r in reqs]
+    # Where a step's time goes: two decode steps of the full pool, then
+    # one whole-prompt prefill, under the profiler.
+    prof = {"decode": phase_profile(engine, prompts,
+                                    out["decode_step_ms_median"],
+                                    "gemma3 decode profile")}
+    page = engine.kv.new_page()
+    tokens = torch.as_tensor(prompts[0], dtype=torch.int32,
+                             device="cuda")[None]
+    dprof = device_profile(lambda: lm.lm_prefill(params, {"tokens": tokens},
+                                                 page, cfg))
+    prof["prefill"] = dict(prefills=1, **dprof, **idle_share(
+        dprof, 1, out["prefill_ms_median"]))
+    log("gemma3 prefill profile " + json.dumps(prof["prefill"]))
+    del page
+    # The cache: windowed layers hold min(window, max_len) positions.
+    kinds = layer_kinds(cfg)
+    full, rem = divmod(cfg.n_layers, cfg.period)
+    n_local = sum((full + (p < rem)) * (kinds[p].mixer == "attn_local")
+                  for p in range(cfg.period))
+    per_pos = 2 * GEMMA_REQUESTS * cfg.n_kv_heads * cfg.head_dim * 2
+    ring = min(cfg.sliding_window, max_len)
+    want = per_pos * (n_local * ring + (cfg.n_layers - n_local) * max_len)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in pm.tree_leaves(engine.kv.cache))
+    full_len = per_pos * cfg.n_layers * max_len
+    log(f"gemma3 cache: {cache_bytes} bytes ({n_local} windowed layers of "
+        f"{ring} positions, {cfg.n_layers - n_local} global of {max_len}); "
+        f"a full-length cache {full_len} bytes "
+        f"({cache_bytes / full_len:.4f} of it)")
+    check(cache_bytes == want,
+          f"gemma3 cache holds {cache_bytes} bytes, the formula {want}")
+    # The chunked engine falls back (with a warning) and records logits.
+    records: dict = {"prefill": [], "decode": []}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        chunked = ServeEngine(params, cfg, ServeConfig(
+            max_len=max_len, n_slots=GEMMA_REQUESTS,
+            prefill_chunk=GEMMA_CHUNK), device="cuda")
+    check(any(issubclass(w.category, RuntimeWarning)
+              and "chunked prefill" in str(w.message) for w in caught)
+          and chunked._chunk == 0,
+          f"gemma3: prefill_chunk did not warn and fall back ({caught})")
+    restore = _recording_lm(records)
+    try:
+        creqs = [chunked.submit(p, GEMMA_NEW) for p in prompts]
+        chunked.run()
+    finally:
+        restore()
+    check(chunked.stats["prefill_chunks"] == 0,
+          f"gemma3: the fall-back engine ran chunks {chunked.stats}")
+    check([r.tokens for r in creqs] == streams,
+          "gemma3: the fall-back engine's streams differ from the engine's")
+    del chunked, engine
+    torch.cuda.empty_cache()
+    # Engine logits by (request, position): prefill rows by prompt, decode
+    # rows by slot (request i holds slot i), each checked against the
+    # token the request had at that position.
+    seqs = [np.concatenate([p, np.asarray(t[:-1])])
+            for p, t in zip(prompts, streams)]
+    engine_logits = {}
+    for toks, logits in records["prefill"]:
+        i = next(j for j, p in enumerate(prompts) if np.array_equal(p, toks))
+        engine_logits[(i, GEMMA_PROMPT - 1)] = logits
+    for toks, cur, valid, logits in records["decode"]:
+        for i in np.nonzero(valid)[0]:
+            check(seqs[i][cur[i]] == toks[i], f"gemma3: decode row {i} fed "
+                                              "another request's token")
+            engine_logits[(int(i), int(cur[i]))] = logits[i]
+    positions = list(range(GEMMA_PROMPT - 1, max_len - 1))
+    check(len(engine_logits) == GEMMA_REQUESTS * len(positions),
+          f"gemma3: {len(engine_logits)} recorded logits rows")
+    err, scale, same = 0.0, 0.0, 0
+    for i, seq in enumerate(seqs):
+        ref = full_forward_logits(cfg, params, seq, positions)
+        check(all_finite(ref), "gemma3: non-finite full-forward logits")
+        got = torch.stack([engine_logits[(i, p)] for p in positions])
+        err = max(err, max_err(got, ref))
+        scale = max(scale, abs_max(ref))
+        same += int((ref.argmax(-1).cpu().numpy()
+                     == np.asarray(streams[i])).sum())
+    tol = 0.05 * scale
+    ring_gate = {"max_abs_err": err, "tol": tol, "logit_scale": scale,
+                 "positions": f"{GEMMA_PROMPT - 1}..{max_len - 2} of each "
+                              "request",
+                 "greedy_equal_full_forward_argmax":
+                     same / (GEMMA_REQUESTS * GEMMA_NEW)}
+    log("gemma3 engine vs full forward " + json.dumps(ring_gate))
+    check(err <= tol, f"gemma3: engine logits differ from the full forward "
+                      f"by {err} > {tol}")
+    out.update(config=f"{GEMMA}, {cfg.n_layers} layers, bf16, window "
+                      f"{cfg.sliding_window}",
+               cache_bytes=cache_bytes, cache_bytes_full_length=full_len,
+               ring=ring_gate, sample_tokens=streams[0][:8])
+    log("gemma3 serve " + json.dumps(out))
+    del params
+    torch.cuda.empty_cache()
+    return {"summary": out, "counts": counts, "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: train gemma3-27b for one period at full width
+# ---------------------------------------------------------------------------
+
+def phase_gemma_train() -> dict:
+    """gemma3-27b at full width, depth cut to one period (5 windowed
+    layers and 1 global), remat on, B = 1 x S = 4096: the windowed
+    FlashAttentionFn against plain masked autograd at gemma3's head
+    shape, its time against the global layer's, then GEMMA_TRAIN_STEPS
+    steps (finite metrics, no kernel launch) and every gradient present
+    and finite."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import attention as at
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cfg = get_config(GEMMA)
+    cfg = cfg.replace(n_layers=cfg.period)
+    kvh, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    s, w = GEMMA_TRAIN_S, cfg.sliding_window
+    flash = check_flash(gen, b=GEMMA_TRAIN_B, kvh=kvh, g=g, s=s, hd=hd,
+                        window=w, what="gemma3 windowed")
+    q = torch.randn(GEMMA_TRAIN_B, kvh, g, s, hd, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    k = torch.randn(GEMMA_TRAIN_B, kvh, hd, s, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    v = torch.randn(GEMMA_TRAIN_B, kvh, s, hd, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+
+    def fwd_bwd(window):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        at.flash_attention(*leaves, True, window, cfg.q_block,
+                           cfg.kv_block).sum().backward()
+    attn_ms = {"windowed_ms": cuda_ms(lambda: fwd_bwd(w), reps=5, warmup=1),
+               "global_ms": cuda_ms(lambda: fwd_bwd(0), reps=5, warmup=1)}
+    nq = s // cfg.q_block
+    visits = {"windowed": sum(hi - lo for lo, hi in (
+        at._kv_range(i, nq, cfg.q_block, cfg.kv_block, True, w)
+        for i in range(nq))), "global": nq * (nq + 1) // 2}
+    log(f"gemma3 attention forward + backward, bf16, B={GEMMA_TRAIN_B}, "
+        f"{kvh * g}/{kvh} heads x {hd}, S={s}, blocks {cfg.q_block}: "
+        + json.dumps({**attn_ms, "block_pairs": visits}))
+    del q, k, v
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    n = sum(p.numel() for p in pm.tree_leaves(params))
+    log(f"materialized {GEMMA} (one period: {cfg.n_layers} layers) for "
+        f"training: {n} parameters, {pm.param_bytes(params) / 1e9:.2f} GB")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                    batch_size=GEMMA_TRAIN_B, seed=SEED)
+    run = _train_loop(cfg, params, dc, GEMMA_TRAIN_STEPS, "gemma3 train")
+    check(not any(run["counts"].values()),
+          f"gemma3 (dense) launched MoE kernels: {run['counts']}")
+    _grad_check(cfg, params, batch_at(dc, GEMMA_TRAIN_STEPS, device="cuda"),
+                None, "gemma3")
+    median = statistics.median(run["times"][1:])
+    out = {"config": f"{GEMMA}, one period ({cfg.n_layers} layers: 5 "
+                     f"windowed of {w}, 1 global), bf16, remat, "
+                     f"B={GEMMA_TRAIN_B} x S={s}, factored Adam",
+           "parameters": n, "flash": flash, "attention": attn_ms,
+           "attention_block_pairs": visits,
+           "step_ms_median_steps_2_to_3": 1e3 * median,
+           "step_ms_all": [1e3 * t for t in run["times"]],
+           "tokens_per_s": GEMMA_TRAIN_B * s / median,
+           "max_memory_allocated_gib": run["peak"] / 2 ** 30,
+           "losses": [m["loss"] for m in run["rows"]]}
+    log("gemma3 train " + json.dumps(out))
+    del params, run
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the two launchers: train smollm-135m, resume, serve its
 # checkpoint
 # ---------------------------------------------------------------------------
 
@@ -3970,6 +4580,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
+            moa_train = phase_moa_train(kernels["floor"], workdir)
+        gemma = phase_gemma_serve()
+        gc.collect()
+        torch.cuda.empty_cache()
+        gemma["train"] = phase_gemma_train()
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
             launchers = phase_launchers(workdir)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
@@ -3979,13 +4597,15 @@ def main() -> int:
                 "serve_expert_choice": served["ec"]["counts"],
                 "serve_prefix": served["prefix"]["counts"],
                 "serve_moa_fused": moa["counts"],
+                "train_moa": moa_train["counts"],
                 "train": trained["counts"],
                 "train_eblock": eblock["launches"][str(E_BLOCK)],
                 "train_hmoe": hmoe["counts"],
                 "train_hmoe_lm": hmoe["lm"]["counts"],
                 "train_arctic": arctic["counts"]}
     profiles = [served["profile"], served["fused"]["profile"],
-                served["ec"]["profile"], moa["profile"], trained["profile"],
+                served["ec"]["profile"], moa["profile"],
+                moa_train["profile"], trained["profile"],
                 eblock["profile"], hmoe["profile"], arctic["profile"]]
     measured = dict(kernels["rows"], **served["fused"]["kernels"])
     measured["fused_routed"].update(
@@ -3999,6 +4619,7 @@ def main() -> int:
         measured[name].update(max_abs_err_moa_demo=err, tol_moa_demo=tol)
     for name in ("topk_gating", "topk_gating_bwd", "dispatch", "combine",
                  "gmm", "gmm_bwd"):
+        measured[name]["train_moa"] = moa_train["kernels"][name]
         measured[name]["train_hmoe"] = hmoe["kernels"][name]
         measured[name]["train_arctic"] = arctic["kernels"][name]
     dw = {what: run["kernels"]["gmm_bwd"]["calls"]["dw_w1"]
@@ -4010,9 +4631,17 @@ def main() -> int:
                     for what, k in (("hmoe", HMOE_CS), ("arctic", ARCTIC_C))))
     rows = [kernel_row(name, measured[name], launches, profiles,
                        kernels["floor"]) for name in KERNELS]
+    mt, gs, gt = moa_train["summary"], gemma["summary"], gemma["train"]
     log(f"card {setup['card']}; serve cross-check max_abs_err "
         f"{served['cross']['max_abs_err']:.4g} (tol "
-        f"{served['cross']['tol']:.4g}); train cuda-vs-ref loss rel err "
+        f"{served['cross']['tol']:.4g}); moa-demo train step "
+        f"{mt['step_ms_median_steps_2_to_6']:.1f} ms, cuda-vs-ref loss rel "
+        f"err {mt['grads']['loss_rel_err']:.3g}; gemma3 serve prefill "
+        f"{gs['prefill_ms_median']:.1f} ms, decode step "
+        f"{gs['decode_step_ms_median']:.1f} ms, engine vs full forward "
+        f"{gs['ring']['max_abs_err']:.4g} (tol {gs['ring']['tol']:.4g}); "
+        f"gemma3 train step {gt['step_ms_median_steps_2_to_3']:.1f} ms; "
+        "MoE-256 train cuda-vs-ref loss rel err "
         f"{grads['loss_rel_err']:.3g}; {HMOE_CONFIG} step "
         f"{hmoe['summary']['step_ms_median_steps_3_to_12']:.1f} ms, peak "
         f"{hmoe['summary']['max_memory_allocated_gib']:.2f} GiB, cuda-vs-"

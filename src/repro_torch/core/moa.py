@@ -18,10 +18,12 @@ of query heads against one shared K/V projection:
   the backend's ``decode_proj`` (kernel 8 in ``"proj"`` mode on
   ``"cuda"``).
 
-Prefill attention is the port's plain ``attention.causal_attention``
-(the reference's ``blockwise_attention`` is plain jnp too).  Training
-(``moa_apply``, the flash-attention VJP) comes with the MoA training
-slice.
+Training (``moa_apply``) attends through the port's
+``attention.FlashAttentionFn`` (the reference's flash-attention custom
+VJP), so gradients reach the gate, both routed projections and the
+shared K/V through the kernels' backward passes.  Prefill attention is
+the port's plain ``attention.causal_attention`` (the reference's
+``blockwise_attention`` is plain jnp too).
 """
 from __future__ import annotations
 
@@ -59,9 +61,15 @@ class MoAArgs:
     priority_dispatch: bool = False
     kernel_backend: str = "cuda"
     dispatch_impl: str = "sort"
+    # None keeps the resident dispatch / combine; an int forces the
+    # expert-blocked kernels with that slab (kernels/backend.py).
+    dispatch_e_block: int | None = None
     # Decode-shaped calls only (set by the model layer): each routed
     # projection is one launch of the backend's decode_proj.
     fused_decode: bool = False
+    # Training attention's blocks (FlashAttentionFn).
+    q_block: int = 512
+    kv_block: int = 512
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
@@ -181,9 +189,18 @@ def _from_virtual(o, n_kv: int, kk: int, hg: int):
     return o.reshape(b, s, kk, hg, hd)
 
 
-def _route(params, flat, a: MoAArgs, bk, *, mask):
+def _block(pref: int, n: int) -> int:
+    """The attention block for a length ``n``: ``pref`` (at most ``n``),
+    or the whole length when ``pref`` does not divide it, as in the
+    reference (whose ``flash_attention`` would truncate such a length;
+    ``FlashAttentionFn`` raises on it)."""
+    b = min(pref, n)
+    return b if n % b == 0 else n
+
+
+def _route(params, flat, a: MoAArgs, bk, *, mask, train=False, noise=None):
     router = router_lib.build(a, topk_impl=bk.topk_impl)
-    return router.route(params, flat, train=False, mask=mask)
+    return router.route(params, flat, train=train, noise=noise, mask=mask)
 
 
 def _aux(dec: router_lib.RouteDecision) -> dict:
@@ -203,13 +220,34 @@ def _queries(q_sel, positions, params, a: MoAArgs, kk: int):
 # entry points
 # ---------------------------------------------------------------------------
 
-def moa_apply(params, x, a: MoAArgs, **kw):
-    """Full-sequence MoA for training (the reference's flash-attention
-    custom VJP) is not ported yet."""
-    raise NotImplementedError(
-        "moa_apply (MoA training, flash-attention VJP) is not ported yet: "
-        "it comes with the MoA training slice; serving uses moa_prefill "
-        "and moa_decode")
+def moa_apply(params, x, a: MoAArgs, *, positions, train: bool = True,
+              noise: torch.Tensor | None = None,
+              mask: torch.Tensor | None = None):
+    """Full-sequence MoA for training.  x: [B, S, d]; positions: [B, S];
+    ``noise`` ([B·S, E] standard normals) is the gate's training noise
+    (None: a noiseless gate, as the reference's ``rng=None``); ``mask``
+    ([B·S]) marks the tokens that route.  Attention is the causal
+    ``FlashAttentionFn`` over the virtual heads.  Returns (y [B, S, d],
+    aux) with ``moe_apply``'s aux keys."""
+    b, s, d = x.shape
+    flat = x.reshape(b * s, d)
+    bk = backend_lib.resolve(a)
+    dec = _route(params, flat, a, bk, mask=mask, train=train, noise=noise)
+    kk = dec.plan.expert_index.shape[1]
+    q = _queries(_routed_q(params, flat, dec, a, bk), positions, params, a,
+                 kk)
+    k, v = _shared_kv(params, x, positions, a)
+    kvh, hd = a.n_kv_heads, a.head_dim
+    g = q.shape[2] // kvh
+    qr = q.reshape(b, s, kvh, g, hd).permute(0, 2, 3, 1, 4)
+    o = attn_lib.flash_attention(qr, k.permute(0, 2, 3, 1),
+                                 v.permute(0, 2, 1, 3), True, 0,
+                                 _block(a.q_block, s), _block(a.kv_block, s))
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, hd)
+    o = _from_virtual(o, kvh, kk, a.n_heads_per_expert)
+    y = _routed_o(params, o.reshape(b * s * kk, a.d_head_group), dec, a,
+                  bk, x.dtype)
+    return y.reshape(b, s, d), _aux(dec)
 
 
 def moa_prefill(params, x, positions, a: MoAArgs, *, cache: dict,

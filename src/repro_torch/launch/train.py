@@ -16,11 +16,14 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 8 --batch 8 --seq 2048 --workdir /tmp/smollm
 
-The flags are the reference launcher's, plus ``--device``.  Four of them
-raise: ``--dispatch-vmem-limit`` and ``--no-gmm-autotune`` have no
+  # the MoA demo on the CPU, one head group a token
+  PYTHONPATH=src python -m repro_torch.launch.train --arch moa-demo \
+      --reduce --device cpu --steps 4 --batch 2 --seq 32 --moa-k 1
+
+The flags are the reference launcher's, plus ``--device``.  Three of
+them raise: ``--dispatch-vmem-limit`` and ``--no-gmm-autotune`` have no
 counterpart in the port (the card has no VMEM budget, and the port has
-no GMM tuning table), and ``--moa-k`` and ``--trace`` wait for the MoA
-training and observability slices.
+no GMM tuning table), and ``--trace`` waits for the observability slice.
 """
 from __future__ import annotations
 
@@ -46,8 +49,6 @@ REFUSED = {
     "no_gmm_autotune": "--no-gmm-autotune: the port has no GMM tuning "
                        "table (the reference's was measured in CPU "
                        "interpret mode)",
-    "moa_k": "--moa-k: MoA training is not ported yet (the MoA training "
-             "slice)",
     "trace": "--trace: chrome-trace capture is not ported yet (the "
              "observability slice)",
 }
@@ -66,6 +67,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw.update(n_experts=8, moe_k=2, moe_d_ff=64)
     if cfg.moa_experts:
         kw.update(moa_experts=4, moa_k=2, moa_heads_per_expert=2)
+    if cfg.ssm_d_state:
+        kw.update(ssm_d_state=4)
+    if cfg.sliding_window:
+        kw.update(sliding_window=32)
+    if cfg.n_prefix:
+        kw.update(n_prefix=0, frontend="none")
     return cfg.replace(**kw)
 
 
@@ -95,7 +102,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--router-policy", default=None)
     ap.add_argument("--capacity-factor", type=float, default=None)
     ap.add_argument("--eval-capacity-factor", type=float, default=None)
-    ap.add_argument("--moa-k", type=int, default=None)
+    ap.add_argument("--moa-k", type=int, default=None,
+                    help="head groups per token of the MoA mixers")
     ap.add_argument("--workdir", default="repro_train")
     ap.add_argument("--trace", default=None, metavar="PATH")
     args = ap.parse_args(argv)
@@ -124,6 +132,12 @@ def main(argv=None) -> dict:
         router_lib.get_policy(spec.policy)
         cfg = cfg.replace(router=spec)
         print(f"[train] router: {spec}")
+    if args.moa_k is not None:
+        if not cfg.moa_positions:
+            raise SystemExit(f"--moa-k: arch {cfg.name!r} has no MoA layers "
+                             "(moa_positions is empty)")
+        cfg = cfg.replace(moa_k=args.moa_k)
+        print(f"[train] moa_k: {cfg.moa_k}/{cfg.moa_experts} head groups")
     gen = torch.Generator(device=device).manual_seed(0)
     params = pm.materialize(lm.lm_defs(cfg), gen, device)
     n = sum(p.numel() for p in pm.tree_leaves(params))

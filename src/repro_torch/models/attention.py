@@ -9,10 +9,12 @@ key / value blocks with an online softmax, only the blocks at or below
 the diagonal, and a backward pass that recomputes the probabilities
 from the saved log-sum-exp, so no ``[S, S]`` tensor is ever kept.
 Prefill keeps the masking semantics of the reference's
-``blockwise_attention`` (causal, optional ``kv_len``, a query offset,
-GQA) but forms the whole score matrix of a prompt, or of a chunk against
-its cached prefix, at once.  Decode attends one
-query per row against the slot cache at the row's own position.
+``blockwise_attention`` (causal, a sliding window, optional ``kv_len``,
+a query offset, GQA) but forms the whole score matrix of a prompt, or
+of a chunk against its cached prefix, at once.  Decode attends one
+query per row against the slot cache at the row's own position.  A
+sliding-window layer's cache is a ring buffer of ``min(window,
+max_len)`` positions: position p lives in slot ``p % length``.
 
 Caches are updated in place: the engine owns one pool and the layers
 write their new K/V into it, where the reference returns new arrays.
@@ -250,12 +252,10 @@ def attention(params, x, positions, *, rope_theta: float, qk_norm: bool,
               pad_heads: int = 0) -> torch.Tensor:
     """Causal self-attention for training.  x: [B, S, d] -> [B, S, d].
 
+    ``window`` > 0 lets query i see keys in (i - window, i].
     ``pad_heads`` pads the query heads of each KV group with zero heads
     up to this many in all; their outputs are sliced off before the
     output projection, so the result is unchanged."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (zoo slice)")
     q, k, v = _qkv(params, x, positions, rope_theta=rope_theta,
                    qk_norm=qk_norm)
     b, sq, h, hd = q.shape
@@ -276,11 +276,12 @@ def attention(params, x, positions, *, rope_theta: float, qk_norm: bool,
 
 
 def causal_attention(q, k, v, *, kv_len: int | None = None,
-                     q_offset: int = 0) -> torch.Tensor:
+                     q_offset: int = 0, window: int = 0) -> torch.Tensor:
     """q: [B,Sq,H,hd]; k,v: [B,Skv,KV,hd] -> [B,Sq,H,hd].
 
     Query i sits at position ``q_offset + i`` and sees kv positions
-    <= its own (and < ``kv_len`` when given).  Scores and softmax in f32;
+    <= its own (and < ``kv_len`` when given; with ``window`` > 0, only
+    those above its own minus ``window``).  Scores and softmax in f32;
     the probabilities meet v in v's dtype, as in the reference."""
     b, sq, h, hd = q.shape
     skv, kv_heads = k.shape[1], k.shape[2]
@@ -293,6 +294,8 @@ def causal_attention(q, k, v, *, kv_len: int | None = None,
     mask = pos_k[None, :] <= pos_q[:, None]
     if kv_len is not None:
         mask = mask & (pos_k < kv_len)[None, :]
+    if window > 0:
+        mask = mask & (pos_k[None, :] > pos_q[:, None] - window)
     s = torch.where(mask, s, NEG_INF)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -308,20 +311,35 @@ def prefill_attention(params, x, positions, *, rope_theta: float,
     """Prefill: causal attention that also writes K/V for positions
     [0, S) into ``cache`` (in place).  Returns (y, cache).
 
+    A sliding-window layer (``window`` > 0) attends within its window
+    and writes its ring buffer: the last ``length`` positions at slots
+    ``pos % length`` when S >= length, else positions [0, S).
+
     ``offset`` is chunked-prefill mode: the S tokens are the prompt
     slice at positions [offset, offset + S); their K/V lands at that
     range of ``cache`` and they attend over the cached prefix [0,
     offset), cast to the compute dtype, followed by the chunk's own K/V
-    at its absolute positions."""
+    at its absolute positions.  A ring buffer has no such prefix, so an
+    offset on a windowed layer raises."""
     if offset is not None and window:
         raise ValueError(
             "chunked prefill is unsupported for sliding-window layers")
-    if window:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (zoo slice)")
     q, k, v = _qkv(params, x, positions, rope_theta=rope_theta,
                    qk_norm=qk_norm)
-    o = attend_chunk(q, k, v, cache, 0 if offset is None else int(offset))
+    if not window:
+        o = attend_chunk(q, k, v, cache,
+                         0 if offset is None else int(offset))
+        return _out(o, params["wo"]), cache
+    s, length = k.shape[1], cache["k"].shape[1]
+    if s >= length:
+        tail = torch.arange(s - length, s, device=k.device)
+        slots = tail % length
+        cache["k"][:, slots] = k[:, tail].to(cache["k"].dtype)
+        cache["v"][:, slots] = v[:, tail].to(cache["v"].dtype)
+    else:
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+    o = causal_attention(q, k, v, window=window)
     return _out(o, params["wo"]), cache
 
 
@@ -346,8 +364,11 @@ def attend_chunk(q, k, v, cache: dict, off: int) -> torch.Tensor:
 
 
 def init_cache_defs(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
-                    *, dtype=torch.bfloat16) -> dict:
-    shape = (batch, max_len, n_kv_heads, head_dim)
+                    *, window: int = 0, dtype=torch.bfloat16) -> dict:
+    """Zero K/V pages; a sliding-window layer's is a ring buffer of
+    ``min(window, max_len)`` positions."""
+    length = min(window, max_len) if window > 0 else max_len
+    shape = (batch, length, n_kv_heads, head_dim)
     axes = ("batch", "kv_seq", "kv_heads", "head_dim")
     return {"k": ParamDef(shape, axes, init="zeros", dtype=dtype),
             "v": ParamDef(shape, axes, init="zeros", dtype=dtype)}
@@ -357,35 +378,44 @@ def decode_attention(params, x, cache, cur_index, *, rope_theta: float,
                      qk_norm: bool, window: int = 0):
     """One-token decode.  x: [B, 1, d]; ``cur_index``: scalar or [B]
     per-row positions (slots of mixed age).  Writes the new K/V at each
-    row's position in ``cache`` (in place) and attends over positions
-    <= it.  Returns (y [B, 1, d], cache)."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (zoo slice)")
+    row's position in ``cache`` (in place; a windowed layer's ring
+    buffer at the position modulo its length) and attends over positions
+    <= it (within the ring).  Returns (y [B, 1, d], cache)."""
     b = x.shape[0]
     cur = torch.as_tensor(cur_index, device=x.device).long().reshape(-1)
     cur = cur.expand(b)
     q, k_new, v_new = _qkv(params, x, cur[:, None], rope_theta=rope_theta,
                            qk_norm=qk_norm)
-    o = attend_cached(q, k_new, v_new, cache, cur)
+    o = attend_cached(q, k_new, v_new, cache, cur, ring=window > 0)
     return _out(o, params["wo"]), cache
 
 
-def attend_cached(q, k_new, v_new, cache: dict, cur: torch.Tensor):
+def attend_cached(q, k_new, v_new, cache: dict, cur: torch.Tensor, *,
+                  ring: bool = False):
     """The decode step's attention: write each row's new K/V ([B, 1, KV,
     hd]) at its position ``cur`` ([B]) in ``cache`` (in place), then
-    attend its query ([B, 1, H, hd]) over positions <= it.  Scores and
-    softmax in f32; returns [B, 1, H, hd] in q's dtype."""
+    attend its query ([B, 1, H, hd]) over positions <= it.  A ``ring``
+    cache takes position p at slot ``p % length`` and attends every slot
+    written so far (slot s then holds the latest position <= cur that
+    is s modulo the length, valid once that position is >= 0).  Scores
+    and softmax in f32; returns [B, 1, H, hd] in q's dtype."""
     b, _, h, hd = q.shape
-    rows = torch.arange(b, device=q.device)
-    cache["k"][rows, cur] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, cur] = v_new[:, 0].to(cache["v"].dtype)
     k, v = cache["k"], cache["v"]
     length = k.shape[1]
+    slot = cur % length if ring else cur
+    rows = torch.arange(b, device=q.device)
+    k[rows, slot] = k_new[:, 0].to(k.dtype)
+    v[rows, slot] = v_new[:, 0].to(v.dtype)
     kv_heads = k.shape[2]
     qr = q.reshape(b, 1, kv_heads, h // kv_heads, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qr, k.float()) / (hd ** 0.5)
-    valid = torch.arange(length, device=q.device)[None, :] <= cur[:, None]
+    slots = torch.arange(length, device=q.device)[None, :]
+    if ring:
+        abs_pos = (cur[:, None] - slot[:, None] + slots
+                   - length * (slots > slot[:, None]).long())
+        valid = abs_pos >= 0
+    else:
+        valid = slots <= cur[:, None]
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(), v.float())

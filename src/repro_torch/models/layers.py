@@ -42,16 +42,19 @@ def mlp_defs(d: int, d_ff: int, activation: str, dtype: torch.dtype) -> dict:
 
 
 def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """Dense FFN: matmuls in the compute dtype, activation in f32."""
+    """Dense FFN: matmuls in the compute dtype, activation in f32.  gelu
+    is the tanh form, the default of the reference's ``jax.nn.gelu``."""
     dt = x.dtype
     h = torch.matmul(x, params["w1"].to(dt)).float()
     if activation == "relu":
         h = torch.relu(h)
     elif activation == "gelu":
-        h = F.gelu(h)
+        h = F.gelu(h, approximate="tanh")
     elif activation in GATED:
         g = torch.matmul(x, params["w3"].to(dt)).float()
-        h = (F.silu(h) if activation == "swiglu" else F.gelu(h)) * g
+        act = F.silu(h) if activation == "swiglu" else F.gelu(
+            h, approximate="tanh")
+        h = act * g
     else:
         raise ValueError(activation)
     return torch.matmul(h.to(dt), params["w2"].to(dt))

@@ -10,6 +10,10 @@ embedding -> layer stack -> norm -> logits / loss.
 Randomness: torch cannot reproduce ``jax.random``, so ``lm_loss`` takes
 its gate noise from a ``torch.Generator`` (the trainer) or as tensors
 (``draws=``, see :func:`make_draws`; the tests pass the JAX draws).
+
+Modality frontends (vlm / audio) are stubs, as in the reference:
+``batch["prefix_embeds"]`` ([B, n_prefix, d], precomputed patch or
+frame embeddings) overwrites the first ``n_prefix`` token embeddings.
 """
 from __future__ import annotations
 
@@ -22,9 +26,6 @@ from repro_torch.models import layers, transformer
 
 
 def lm_defs(cfg: ModelConfig) -> dict:
-    if cfg.n_prefix or cfg.frontend != "none":
-        raise NotImplementedError(
-            "modality frontend stubs are not ported yet (the zoo slice)")
     return {
         "embed": layers.embed_defs(cfg.vocab_size, cfg.d_model,
                                    cfg.param_dtype),
@@ -37,6 +38,18 @@ def lm_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def _embed_with_prefix(params, tokens, cfg: ModelConfig,
+                       prefix_embeds=None) -> torch.Tensor:
+    """Token embeddings in the compute dtype, the first positions
+    overwritten by the stub frontend's ``prefix_embeds`` when the
+    config has a prefix."""
+    x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
+    if cfg.n_prefix and prefix_embeds is not None:
+        n = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x[:, n:]], dim=1)
+    return x
+
+
 def logits_fn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """[..., d] -> [..., V] f32: the matmul runs in the compute dtype and
     only the result is widened (the [d, V] weight is never upcast)."""
@@ -45,19 +58,26 @@ def logits_fn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def make_draws(cfg: ModelConfig, batch_size: int, seq_len: int,
                generator: torch.Generator, device) -> dict:
-    """One step's random draws: ``noise``, a list with one entry per
-    layer number (``transformer.layer_index``), [B*S, E] standard
-    normals for an MoE layer (the reference's
-    ``normal(fold_in(rng, layer), [T, E])``), the two-level dict of
-    ``hierarchical.make_noise`` for a hierarchical one (the reference
-    splits ``fold_in(rng, layer)`` into the two levels' keys) and None
-    elsewhere."""
+    """One step's random draws, two lists with one entry per layer
+    number (``transformer.layer_index``), drawn in that order:
+    ``noise``, [B*S, E] standard normals for an MoE layer (the
+    reference's ``normal(fold_in(rng, layer), [T, E])``), the two-level
+    dict of ``hierarchical.make_noise`` for a hierarchical one (the
+    reference splits ``fold_in(rng, layer)`` into the two levels' keys)
+    and None elsewhere; ``moa_noise``, [B*S, moa_experts] for an MoA
+    mixer (the reference's ``normal(fold_in(fold_in(rng, layer), 1),
+    [T, E])``) and None elsewhere."""
+    t = batch_size * seq_len
     noise: list = [None] * cfg.n_layers
+    moa_noise: list = [None] * cfg.n_layers
     for layer, kind in transformer.layer_index(cfg):
         if kind.ffn in ("moe", "moe+dense"):
-            noise[layer] = transformer.moe_noise(
-                cfg, batch_size * seq_len, generator, device)
-    return {"noise": noise}
+            noise[layer] = transformer.moe_noise(cfg, t, generator, device)
+        if kind.mixer == "moa":
+            moa_noise[layer] = torch.randn((t, cfg.moa_experts),
+                                           generator=generator,
+                                           device=device)
+    return {"noise": noise, "moa_noise": moa_noise}
 
 
 def _xent_sum(params, x, labels, cfg: ModelConfig):
@@ -92,9 +112,11 @@ def chunked_xent(params, x: torch.Tensor, labels: torch.Tensor,
 def lm_loss(params, batch: dict, cfg: ModelConfig, *,
             generator: torch.Generator | None = None,
             draws: dict | None = None, train: bool = True):
-    """batch: tokens / labels [B, S].  Returns (loss, metrics) with the
+    """batch: tokens / labels [B, S] (+ ``prefix_embeds`` [B, n_prefix,
+    d] for the frontend stubs).  Returns (loss, metrics) with the
     reference's keys: ``xent``, ``aux_loss``, ``loss`` and the balancing
-    metrics averaged over the routed sublayers.
+    metrics averaged over the routed sublayers (MoE FFNs and MoA
+    mixers).
 
     Gate noise comes from ``draws`` (:func:`make_draws`) or, when that is
     None, from ``generator``; with neither the gates are noiseless, as
@@ -103,11 +125,11 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, *,
     b, s = tokens.shape
     if train and draws is None and generator is not None:
         draws = make_draws(cfg, b, s, generator, tokens.device)
-    noise = draws["noise"] if train and draws is not None else None
-    x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
+    x = _embed_with_prefix(params, tokens, cfg, batch.get("prefix_embeds"))
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     x, aux = transformer.stack_apply(params["blocks"], x, cfg,
-                                     positions=positions, noise=noise,
+                                     positions=positions,
+                                     draws=draws if train else None,
                                      train=train)
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     xent = chunked_xent(params, x, batch["labels"], cfg)
@@ -120,7 +142,8 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, *,
 
 def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
                last_index=None, valid=None, start_pos: int | None = None):
-    """Prompt ingestion.  batch: tokens [B, S].  Writes K/V for
+    """Prompt ingestion.  batch: tokens [B, S] (+ ``prefix_embeds``, as
+    in :func:`lm_loss`).  Writes K/V for
     positions [0, S) into ``cache``; returns (last_logits [B, V], cache).
 
     Bucketed prefill: ``last_index`` (scalar or [B], one per row of a
@@ -133,7 +156,7 @@ def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
     [0, start_pos); RoPE, the K/V writes and the causal mask use the
     absolute positions, ``last_index`` stays chunk-local."""
     tokens = batch["tokens"]
-    x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
+    x = _embed_with_prefix(params, tokens, cfg, batch.get("prefix_embeds"))
     b, s = tokens.shape
     positions = (start_pos or 0) + torch.arange(s, device=x.device)
     positions = positions[None, :].expand(b, s)

@@ -10,10 +10,11 @@ Training (:func:`stack_apply`) wraps each stacked period in
 ``torch.utils.checkpoint`` when ``cfg.remat`` is set, as the reference
 wraps its scan body in ``jax.checkpoint``.
 
-The port runs the ``attn`` and ``moa`` mixers with ``dense`` / ``moe``
-/ ``moe+dense`` FFNs, the MoE flat or hierarchical
-(``cfg.moe_hierarchical``, Appendix B).  Mamba mixers (hybrid / ssm zoo
-slice) and sliding-window attention raise NotImplementedError.
+The port runs the ``attn``, ``attn_local`` (sliding window,
+``cfg.sliding_window``; its decode cache is a ring buffer) and ``moa``
+mixers with ``dense`` / ``moe`` / ``moe+dense`` FFNs, the MoE flat or
+hierarchical (``cfg.moe_hierarchical``, Appendix B).  Mamba mixers
+(hybrid / ssm slice) raise NotImplementedError.
 ``cfg.fused_decode`` reaches decode-shaped flat MoE and MoA calls only;
 prefill stays unfused, and the hierarchical MoE has no fused decode (nor
 has the reference).
@@ -32,9 +33,7 @@ from repro_torch.core import moe as moe_lib
 from repro_torch.models import attention, layers
 
 _NOT_PORTED = {
-    "mamba": "mamba mixers are not ported yet (the zoo slice)",
-    "attn_local": "sliding-window attention is not ported yet (the zoo "
-                  "slice)",
+    "mamba": "mamba mixers are not ported yet (the ssm slice)",
 }
 
 
@@ -92,7 +91,15 @@ def _moa_args(cfg: ModelConfig, *, decode: bool = False) -> moa_lib.MoAArgs:
         capacity_factor=cfg.capacity_factor, w_importance=cfg.w_importance,
         w_load=cfg.w_load, kernel_backend=cfg.kernel_backend,
         dispatch_impl=cfg.dispatch_impl,
-        fused_decode=cfg.fused_decode and decode, dtype=cfg.param_dtype)
+        dispatch_e_block=cfg.dispatch_e_block,
+        fused_decode=cfg.fused_decode and decode, q_block=cfg.q_block,
+        kv_block=cfg.kv_block, dtype=cfg.param_dtype)
+
+
+def _window(cfg: ModelConfig, kind: LayerKind) -> int:
+    """The attention window of a layer: ``cfg.sliding_window`` for a
+    local layer, 0 (global) otherwise."""
+    return cfg.sliding_window if kind.mixer == "attn_local" else 0
 
 
 def block_defs(cfg: ModelConfig, kind: LayerKind) -> dict:
@@ -167,7 +174,9 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
             return moa_lib.init_cache_defs(batch, max_len, _moa_args(cfg),
                                            dtype=cfg.param_dtype)
         return attention.init_cache_defs(batch, max_len, cfg.n_kv_heads,
-                                         cfg.head_dim, dtype=cfg.param_dtype)
+                                         cfg.head_dim,
+                                         window=_window(cfg, kind),
+                                         dtype=cfg.param_dtype)
 
     defs: dict = {}
     if full:
@@ -227,11 +236,14 @@ def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
     return out, aux
 
 
-def _moa_telemetry(aux) -> dict:
-    """An MoA layer's router telemetry under its own names, so head-group
-    load is never summed into FFN-expert load."""
+def _moa_aux(aux) -> dict:
+    """An MoA layer's router aux: its aux loss and metrics, counted as
+    one routed sublayer (``n``), and its telemetry under its own names,
+    so head-group load is never summed into FFN-expert load."""
     t = aux["telemetry"]
-    return {"moa_load": t["expert_load"], "moa_overflow": t["overflow"]}
+    return {"aux_loss": aux["aux_loss"], "metrics": aux["metrics"],
+            "n": 1.0, "telemetry": {"moa_load": t["expert_load"],
+                                    "moa_overflow": t["overflow"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -268,21 +280,24 @@ def _merge_aux(a, b):
 
 
 def block_apply(params, x, kind: LayerKind, cfg: ModelConfig, *,
-                positions, noise=None, train: bool = True):
+                positions, noise=None, moa_noise=None, train: bool = True):
     """Training block: the mixer, then the FFN.  ``noise`` (as in
-    :func:`_apply_ffn`, or None) is the layer's MoE gate noise.  Returns
+    :func:`_apply_ffn`, or None) is the layer's MoE gate noise,
+    ``moa_noise`` ([B*S, moa_experts] or None) its MoA gate's.  Returns
     (x, aux or None)."""
     h = layers.rmsnorm(params["ln1"], x, cfg.norm_eps)
     aux_mix = None
     if kind.mixer == "moa":
-        # Raises NotImplementedError until the MoA training slice.
-        y, aux_mix = moa_lib.moa_apply(params["moa"], h, _moa_args(cfg),
-                                       positions=positions, train=train)
+        y, aux = moa_lib.moa_apply(params["moa"], h, _moa_args(cfg),
+                                   positions=positions, train=train,
+                                   noise=moa_noise)
+        aux_mix = _moa_aux(aux)
     else:
         y = attention.attention(params["attn"], h, positions,
                                 rope_theta=cfg.rope_theta,
-                                qk_norm=cfg.qk_norm, q_block=cfg.q_block,
-                                kv_block=cfg.kv_block,
+                                qk_norm=cfg.qk_norm,
+                                window=_window(cfg, kind),
+                                q_block=cfg.q_block, kv_block=cfg.kv_block,
                                 pad_heads=cfg.pad_attn_heads)
     x, aux = _apply_ffn(params, x + y, kind, cfg, train=train, noise=noise)
     return x, _merge_aux(aux_mix, aux)
@@ -300,28 +315,36 @@ def layer_index(cfg: ModelConfig) -> list[tuple[int, LayerKind]]:
                for p in range(rem)])
 
 
-def stack_apply(params, x, cfg: ModelConfig, *, positions, noise=None,
+def stack_apply(params, x, cfg: ModelConfig, *, positions, draws=None,
                 train: bool = True):
-    """Run all layers for training.  ``noise`` is a list with one entry
-    per layer number (a [B*S, E] tensor for MoE layers, None elsewhere),
-    or None for noiseless gates.  With ``cfg.remat`` each stacked period
-    runs under ``torch.utils.checkpoint`` (non-reentrant): its
+    """Run all layers for training.  ``draws`` is one step's draws
+    (``lm.make_draws``: ``noise`` and ``moa_noise``, lists with one
+    entry per layer number) or None for noiseless gates; a config with
+    MoA mixers needs ``moa_noise``.  With ``cfg.remat`` each stacked
+    period runs under ``torch.utils.checkpoint`` (non-reentrant): its
     activations are recomputed in the backward pass from its input,
     with the same noise tensors, so the recomputed routing is the
     forward's.  Returns (x, summed aux)."""
     kinds = layer_kinds(cfg)
     full, rem = n_periods(cfg)
     aux = _zero_aux(x.device)
+    if (draws is not None and "moa_noise" not in draws
+            and any(kind.mixer == "moa" for kind in kinds)):
+        raise ValueError("draws for a config with MoA mixers need "
+                         "'moa_noise' (see lm.make_draws)")
 
-    def noise_of(layer: int):
-        return None if noise is None else noise[layer]
+    def draws_of(layer: int) -> dict:
+        if draws is None:
+            return {}
+        return {"noise": draws["noise"][layer],
+                "moa_noise": (draws["moa_noise"][layer]
+                              if "moa_noise" in draws else None)}
 
     def period(x, aux, blocks, i):
         for p in range(cfg.period):
             x, a = block_apply(blocks[f"pos{p}"], x, kinds[p], cfg,
                                positions=positions,
-                               noise=noise_of(i * cfg.period + p),
-                               train=train)
+                               **draws_of(i * cfg.period + p), train=train)
             if a is not None:
                 aux = _add_aux(aux, a)
         return x, aux
@@ -340,8 +363,7 @@ def stack_apply(params, x, cfg: ModelConfig, *, positions, noise=None,
     for p in range(rem):
         x, a = block_apply(params["tail"][f"pos{p}"], x,
                            kinds[p % cfg.period], cfg, positions=positions,
-                           noise=noise_of(full * cfg.period + p),
-                           train=train)
+                           **draws_of(full * cfg.period + p), train=train)
         if a is not None:
             aux = _add_aux(aux, a)
     return x, aux
@@ -367,7 +389,8 @@ def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
     else:
         y, _ = attention.prefill_attention(
             params["attn"], h, positions, rope_theta=cfg.rope_theta,
-            qk_norm=cfg.qk_norm, cache=cache, offset=start_pos)
+            qk_norm=cfg.qk_norm, cache=cache, window=_window(cfg, kind),
+            offset=start_pos)
     x, _ = _apply_ffn(params, x + y, kind, cfg, valid=valid)
     return x
 
@@ -384,11 +407,11 @@ def block_decode(params, x, kind: LayerKind, cfg: ModelConfig, cache,
         y, _, aux = moa_lib.moa_decode(params["moa"], h, cache, cur_index,
                                        _moa_args(cfg, decode=True),
                                        mask=mask)
-        telem.update(_moa_telemetry(aux))
+        telem.update(_moa_aux(aux)["telemetry"])
     else:
         y, _ = attention.decode_attention(
             params["attn"], h, cache, cur_index, rope_theta=cfg.rope_theta,
-            qk_norm=cfg.qk_norm)
+            qk_norm=cfg.qk_norm, window=_window(cfg, kind))
     x, aux = _apply_ffn(params, x + y, kind, cfg, valid=valid, decode=True)
     if aux is not None:
         telem.update(aux["telemetry"])

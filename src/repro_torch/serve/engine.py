@@ -12,7 +12,9 @@ Requests are admitted and retired independently (``policy=
 Whole prompts are right-padded to power-of-two length buckets with the
 padded tail masked out of MoE routing, and dead slots are masked out of
 routing at decode, exactly as in the reference, so the greedy token
-streams match it.
+streams match it.  A sliding-window model serves whole, unpadded
+prompts into its ring-buffer caches: bucketing is off, and chunking and
+the prefix cache warn and stay off, as in the reference.
 
 Chunked prefill (``prefill_chunk``): a prompt longer than the chunk is
 ingested as fixed-size chunk work-items over consecutive steps, each
@@ -116,14 +118,22 @@ class ServeEngine:
         self.params = params
         self.cfg = cfg
         self.sc = sc
+        # Bucketing and chunking need caches a padded tail cannot stay in
+        # and a prefix can be resumed from: a sliding-window ring buffer
+        # (or a state scan) is neither, so such a model serves whole,
+        # unpadded prompts.  Mamba mixers are not ported: building their
+        # cache raises NotImplementedError in reset().
         stateless = (not cfg.sliding_window
                      and all(k.mixer != "mamba" for k in layer_kinds(cfg)))
         self._can_bucket = sc.prefill_buckets and stateless
-        # The architectures that refuse chunking in the reference (ssm,
-        # sliding window) are not ported: building their cache raises
-        # NotImplementedError in reset().
         self._chunk = 0
-        if sc.prefill_chunk > 0:
+        if sc.prefill_chunk > 0 and not stateless:
+            warnings.warn(
+                "chunked prefill requires stateless attention caches; "
+                "ssm/hybrid state scans and sliding-window ring buffers "
+                "cannot resume mid-prompt — falling back to whole-prompt "
+                "prefill", RuntimeWarning, stacklevel=2)
+        elif sc.prefill_chunk > 0:
             c = sc.prefill_chunk
             if c % cfg.kv_block != 0 or (c > cfg.q_block
                                          and c % cfg.q_block != 0):
@@ -148,12 +158,18 @@ class ServeEngine:
                     "bit-identical to whole-prompt prefill",
                     RuntimeWarning, stacklevel=2)
             self._chunk = c
-        if sc.prefix_cache and self._chunk == 0:
+        if sc.prefix_cache and sc.prefill_chunk <= 0:
             raise ValueError(
                 "prefix_cache requires chunked prefill (prefill_chunk > "
                 "0): cache hits resume mid-prompt on the chunk grid, and "
                 "whole-prompt prefill has no resume path")
-        self._prefix_on = sc.prefix_cache
+        self._prefix_on = sc.prefix_cache and self._chunk > 0
+        if sc.prefix_cache and not self._prefix_on:
+            warnings.warn(
+                "prefix cache disabled: this architecture refused chunked "
+                "prefill (ssm/sliding-window), and prefix hits can only "
+                "resume through the chunk path", RuntimeWarning,
+                stacklevel=2)
         self.reset()
 
     # -- lifecycle --------------------------------------------------------

@@ -130,8 +130,16 @@ def test_pad_attn_heads_numerically_identical():
 
 
 def test_sliding_window_attention_still_raises():
-    _, tp = _attn_params(32, 4, 2, 8, False)
-    x = torch.zeros(1, S, 32)
-    with pytest.raises(NotImplementedError, match="zoo slice"):
-        tattn.attention(tp, x, torch.arange(S)[None], rope_theta=1e4,
-                        qk_norm=False, window=16)
+    """Named for the check it replaced (a window raised): the training
+    attention with a window of 16, in blocks of 16 x 32, against the
+    reference's (the gradients are ``test_torch_window.py``'s)."""
+    jp, tp = _attn_params(32, 4, 2, 8, False)
+    x = np.random.RandomState(3).randn(1, S, 32).astype(np.float32)
+    pos = np.arange(S)[None]
+    kw = dict(rope_theta=1e4, qk_norm=False, window=16, q_block=16,
+              kv_block=32)
+    want = jattn.attention(jp, x, pos, **kw)
+    got = tattn.attention(tp, torch.from_numpy(x), torch.from_numpy(pos),
+                          **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)

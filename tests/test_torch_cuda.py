@@ -819,3 +819,115 @@ def test_chunked_prefix_cached_engine_matches_ref(gen):
     for name in ("topk_gating", "dispatch", "combine", "gmm",
                  "fused_decode"):
         assert counts[name] > 0, name
+
+
+@pytest.mark.cuda
+def test_moa_training_step_cuda_matches_ref(gen):
+    """One lm_loss forward and backward of a small moa-demo (f32, two
+    periods of attention + MoE FFN and MoA + dense FFN, remat) on the
+    card under "cuda" against "ref" from the same draws: the loss and
+    every gradient within 1e-5 of their scale, the MoA gates' nonzero,
+    and each kernel launched as often as a step of the full model
+    launches it (chip_smoke.py's MOA_TRAIN_LAUNCHES)."""
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import lm
+
+    cfg = get_config("moa-demo", d_model=64, vocab_size=256, n_heads=4,
+                     head_dim=16, d_ff=96, moe_d_ff=32, q_block=32,
+                     kv_block=32, param_dtype=torch.float32,
+                     compute_dtype=torch.float32)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    periods = params["blocks"]["periods"]
+    for gate in (periods["pos0"]["moe"]["gate"], periods["pos1"]["moa"]
+                 ["gate"]):
+        gate["wg"].normal_(generator=gen)
+    batch = batch_at(DataConfig(vocab_size=256, seq_len=64, batch_size=2,
+                                n_clusters=4), 0, device="cuda")
+    draws = lm.make_draws(cfg, 2, 64, gen, "cuda")
+    res = {}
+    for backend in ("cuda", "ref"):
+        p = pm.tree_map(lambda t: t.clone().requires_grad_(True), params)
+        cuda_lib.reset_launch_counts()
+        loss, _ = lm.lm_loss(p, batch, cfg.replace(kernel_backend=backend),
+                             draws=draws)
+        loss.backward()
+        torch.cuda.synchronize()
+        res[backend] = (cuda_lib.launch_counts(), loss.detach(),
+                        [t.grad for t in pm.tree_leaves(p)], p)
+    counts, loss, grads, p = res["cuda"]
+    counts_ref, loss_ref, grads_ref, _ = res["ref"]
+    assert {k: v for k, v in counts.items() if v} == {
+        "topk_gating": 8, "topk_gating_bwd": 4, "dispatch": 18,
+        "combine": 18, "gmm": 22, "gmm_bwd": 20}
+    assert not any(counts_ref.values())
+    torch.testing.assert_close(loss, loss_ref, rtol=1e-5, atol=1e-6)
+    for got, ref in zip(grads, grads_ref):
+        assert got is not None and bool(torch.isfinite(got).all())
+        assert float((got - ref).norm()) <= 1e-5 * max(float(ref.norm()),
+                                                       1e-30)
+    assert float(p["blocks"]["periods"]["pos1"]["moa"]["gate"]["wg"]
+                 .grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_windowed_engine_matches_full_forward(gen):
+    """A small gemma3-family model (f32, 5 windowed layers of 16 and a
+    global one) served on the card: prompts shorter and longer than the
+    ring, decodes that wrap it; each prefill and decode logit row
+    against the training forward (windowed FlashAttentionFn) over the
+    prompt and its tokens, within 1e-4."""
+    import numpy as np
+
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers, lm, transformer
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = get_config("gemma3-27b", n_layers=6, d_model=64, n_heads=4,
+                     n_kv_heads=2, head_dim=16, d_ff=96, vocab_size=256,
+                     sliding_window=16, q_block=16, kv_block=16,
+                     param_dtype=torch.float32, compute_dtype=torch.float32)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    rs = np.random.RandomState(5)
+    trace = [(rs.randint(1, 256, (n,)), m) for n, m in ((8, 20), (40, 12))]
+    eng = ServeEngine(params, cfg, ServeConfig(max_len=64, n_slots=2),
+                      device="cuda")
+    rows: dict = {}
+    real_prefill, real_decode = lm.lm_prefill, lm.lm_decode
+
+    def prefill(p, batch, cache, c, **kw):
+        out = real_prefill(p, batch, cache, c, **kw)
+        n = batch["tokens"].shape[1]
+        i = next(j for j, (pr, _) in enumerate(trace) if len(pr) == n)
+        rows[(i, n - 1)] = out[0][0]
+        return out
+
+    def decode(p, tokens, cache, cur, c, **kw):
+        out = real_decode(p, tokens, cache, cur, c, **kw)
+        for i in np.nonzero(kw["valid"].cpu().numpy())[0]:
+            rows[(int(i), int(cur[i]))] = out[0][i]
+        return out
+
+    lm.lm_prefill, lm.lm_decode = prefill, decode
+    try:
+        reqs = [eng.submit(pr, m) for pr, m in trace]
+        eng.run()
+    finally:
+        lm.lm_prefill, lm.lm_decode = real_prefill, real_decode
+    for i, (pr, m) in enumerate(trace):
+        seq = np.concatenate([pr, reqs[i].tokens[:-1]])
+        s = -(-len(seq) // 16) * 16
+        tokens = torch.zeros((1, s), dtype=torch.int32, device="cuda")
+        tokens[0, :len(seq)] = torch.as_tensor(seq)
+        with torch.no_grad():
+            x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
+            x, _ = transformer.stack_apply(
+                params["blocks"], x, cfg,
+                positions=torch.arange(s, device="cuda")[None], train=False)
+            full = lm.logits_fn(params, layers.rmsnorm(
+                params["ln_f"], x, cfg.norm_eps), cfg)[0]
+        for pos in range(len(pr) - 1, len(seq)):
+            torch.testing.assert_close(rows[(i, pos)], full[pos], rtol=1e-4,
+                                       atol=1e-4)

@@ -46,7 +46,6 @@ def test_train_launcher_runs_writes_metrics_and_resumes(tmp_path, capsys):
 @pytest.mark.parametrize("flags,why", [
     (["--dispatch-vmem-limit", "1048576"], "no VMEM budget"),
     (["--no-gmm-autotune"], "no GMM tuning table"),
-    (["--moa-k", "2"], "MoA training"),
     (["--trace", "t.json"], "observability slice")])
 def test_train_launcher_refuses_unported_flags(tmp_path, flags, why):
     with pytest.raises(NotImplementedError, match=why):

@@ -104,10 +104,22 @@ def _dc(vocab, **kw):
                 **kw)
 
 
+def _prefix_embeds(cfg, seed=0):
+    """The frontend stub's [B, n_prefix, d] embeddings (None without a
+    prefix)."""
+    if not cfg.n_prefix:
+        return None
+    return np.random.RandomState(seed).randn(
+        B, cfg.n_prefix, cfg.d_model).astype(np.float32)
+
+
 def _port_loss(tree, tcfg, rng, step=0):
     tp = _torch_params(tree)
     batch = tdata.batch_at(tdata.DataConfig(**_dc(tcfg.vocab_size)), step,
                            device="cpu")
+    pe = _prefix_embeds(tcfg)
+    if pe is not None:
+        batch["prefix_embeds"] = torch.from_numpy(pe)
     loss, metrics = tlm.lm_loss(tp, batch, tcfg, draws=_jax_draws(rng, tcfg))
     loss.backward()
     return tp, loss.detach(), {k: v.detach() for k, v in metrics.items()}
@@ -116,16 +128,23 @@ def _port_loss(tree, tcfg, rng, step=0):
 @pytest.mark.parametrize("arch,over", [
     ("smollm-135m", {}), ("qwen3-1.7b", {}), (KIMI, {}),
     ("arctic-480b", {}), (KIMI, {"scan_layers": False}),
-    (KIMI, {"moe_hierarchical": (2, 2)})])
+    (KIMI, {"moe_hierarchical": (2, 2)}), ("gemma3-27b", {}),
+    ("pixtral-12b", {}), ("musicgen-large", {})])
 def test_lm_loss_and_grads_match_jax(arch, over):
     """smollm (dense), qwen3 (qk_norm), kimi-k2 (moe, swiglu), arctic
     (moe+dense), kimi-k2 unstacked (``scan_layers=False``: every layer
-    in the tail, no remat) and kimi-k2 with a hierarchical MoE (2 groups
-    of 2 experts, Appendix B)."""
+    in the tail, no remat), kimi-k2 with a hierarchical MoE (2 groups
+    of 2 experts, Appendix B), gemma3 (two periods of 5 windowed layers
+    and a global one, a windowed tail; geglu), pixtral (a 4-position
+    vision prefix) and musicgen (gelu, a 4-position audio prefix)."""
     jcfg = small_config(arch, **over)
     tcfg = _tcfg(jcfg)
     tree = _params(jcfg, seed=1)
-    batch = jdata.batch_at(jdata.DataConfig(**_dc(jcfg.vocab_size)), 3)
+    batch = dict(jdata.batch_at(jdata.DataConfig(**_dc(jcfg.vocab_size)),
+                                3))
+    pe = _prefix_embeds(jcfg)
+    if pe is not None:
+        batch["prefix_embeds"] = jnp.asarray(pe)
     rng = jax.random.PRNGKey(7)
     (jl, jm), jg = jax.jit(jax.value_and_grad(
         lambda p: jlm.lm_loss(p, batch, jcfg, rng=rng), has_aux=True))(tree)
@@ -147,7 +166,9 @@ def test_lm_loss_and_grads_match_jax(arch, over):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-1.7b", "llama3-8b",
-                                  "arctic-480b", KIMI, "moa-demo"])
+                                  "arctic-480b", KIMI, "moa-demo",
+                                  "gemma3-27b", "pixtral-12b",
+                                  "musicgen-large"])
 def test_registered_configs_are_the_references(arch):
     """Every ported config carries the reference's values (torch dtypes,
     the port's backend), and the same parameter counts."""
@@ -208,14 +229,28 @@ def test_dispatch_e_block_reaches_the_moe_layers():
 
 @pytest.mark.parametrize("what", ["moa"])
 def test_unported_training_features_raise(what):
-    """MoA training (``moa_apply``) is a later slice: the training path
-    raises instead of running without it."""
+    """Named for the check it replaced (MoA training raised): moa-demo
+    now trains through ``lm_loss`` with the trainer's generator (its MoE
+    and MoA draws from ``make_draws``), every leaf gets a finite
+    gradient, and the MoA gates a nonzero one.  Mamba, still unported,
+    raises."""
     tcfg = _tcfg(small_config("moa-demo"))
-    tp = materialize(tlm.lm_defs(tcfg), torch.Generator(), "cpu")
+    tp = materialize(tlm.lm_defs(tcfg), torch.Generator().manual_seed(0),
+                     "cpu")
+    for leaf in tree_leaves(tp):
+        leaf.requires_grad_(True)
     batch = tdata.batch_at(tdata.DataConfig(**_dc(tcfg.vocab_size)), 0,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="MoA training"):
-        tlm.lm_loss(tp, batch, tcfg)
+    loss, metrics = tlm.lm_loss(tp, batch, tcfg,
+                                generator=torch.Generator().manual_seed(1))
+    loss.backward()
+    assert bool(torch.isfinite(loss)) and float(metrics["aux_loss"]) > 0
+    assert all(leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
+               for leaf in tree_leaves(tp))
+    wg = tp["blocks"]["periods"]["pos1"]["moa"]["gate"]["wg"]
+    assert float(wg.grad.abs().max()) > 0
+    with pytest.raises(NotImplementedError, match="mamba"):
+        tlm.lm_defs(tcfg.replace(family="ssm", moa_positions=()))
 
 
 def test_make_draws_layout():

@@ -9,7 +9,7 @@ package, in f32 on the CPU, at ``conftest.small_config("moa-demo")``.
 * a fused MoA decode layer runs the fused op twice (Q and O) and the
   routing's top-k once;
 * the parameter bridge carries MoA trees both ways; ``moa_apply``
-  (training) raises.
+  (the training forward) matches the reference's.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +19,7 @@ import torch
 from conftest import small_config
 
 from repro.common import param as jpm
+from repro.core import moa as jmoa
 from repro.models import lm as jlm
 from repro.models import transformer as jtransformer
 from repro.serve import engine as jengine
@@ -173,6 +174,25 @@ def test_fused_moa_decode_is_two_fused_ops(moa, monkeypatch):
     assert float(aux["telemetry"]["expert_load"].sum()) == 3 * a.k
 
 
-def test_moa_training_is_not_ported():
-    with pytest.raises(NotImplementedError, match="MoA training"):
-        tmoa.moa_apply({}, torch.zeros(1, 2, 8), None, positions=None)
+def test_moa_training_is_not_ported(moa):
+    """Named for the check it replaced (``moa_apply`` raised): the
+    training forward of a MoA layer without gate noise, output and aux,
+    against the reference's at atol 1e-5 (the gradients are
+    ``test_torch_moa_train.py``'s)."""
+    jcfg, tcfg, tree, tparams = moa
+    jparams = jax.tree_util.tree_map(
+        lambda a: a[0], tree["blocks"]["periods"]["pos1"]["moa"])
+    params = ttransformer._layer(tparams["blocks"]["periods"]["pos1"]["moa"],
+                                 0)
+    rs = np.random.RandomState(4)
+    x = rs.randn(2, 32, tcfg.d_model).astype(np.float32)
+    pos = np.broadcast_to(np.arange(32)[None], (2, 32)).astype(np.int32)
+    jy, jaux = jmoa.moa_apply(jparams, jnp.asarray(x),
+                              jtransformer._moa_args(jcfg),
+                              positions=jnp.asarray(pos), train=True)
+    ty, taux = tmoa.moa_apply(params, torch.from_numpy(x),
+                              ttransformer._moa_args(tcfg),
+                              positions=torch.from_numpy(pos), train=True)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(float(taux["aux_loss"]),
+                               float(jaux["aux_loss"]), rtol=1e-5)

@@ -598,7 +598,7 @@ def test_chunked_cache_dtype_warning_and_unported_architectures():
     with pytest.warns(RuntimeWarning, match="cache precision"):
         tengine.ServeEngine(params, tcfg, tengine.ServeConfig(
             max_len=32, n_slots=2, prefill_chunk=16), device="cpu")
-    # the architectures whose chunking the reference refuses are not
+    # mamba mixers, whose chunking the reference refuses, are not
     # ported at all
     with pytest.raises(NotImplementedError, match="mamba"):
         tengine.ServeEngine(params, _configs()[1].replace(family="ssm"),
