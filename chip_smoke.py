@@ -197,7 +197,42 @@ Phases, in order; any failure exits non-zero and prints no result:
              of B = 8 x S = 2048 with checkpoints at 4 and 8; the same
              call again resumes at step 8 and trains nothing; then
              ``launch.serve --ckpt`` serves 4 greedy requests from it.
-19. report — one ``{"kernels": [...]}`` line, then the result line.
+19. falcon — falcon-mamba-7b at full size (64 mamba layers, no FFN,
+             7.27 B parameters, bf16): layer 0's chunked scan against
+             ``mamba_decode`` stepped token by token (f32 and bf16,
+             SCAN_TOL); 4 requests of 1024-token prompts and 32 greedy
+             tokens, 4 slots: no kernel launch, the decode state exactly
+             146,800,640 bytes at any page length, the chunked engine's
+             warning and fall-back; its logits against the training
+             forward: in bf16 no farther from the f32 forward than
+             BF16_FORWARD_RATIO times the bf16 forward, and the same
+             engine in f32 (the weights widened) within 5 % of the
+             logit scale of the f32 forward, greedy equal >= 0.9;
+             profiles of two decode steps and of a prefill (the scan's
+             device time: ops on [..., d_inner, d_state] tensors).
+20. jamba  — jamba-v0.1-52b at full width cut to 16 layers (2 periods:
+             14 mamba and 2 attention layers, 8 MoE FFNs of 16 experts
+             top-2 swiglu 4096 -> 14336; 26.05 B parameters): kernels 1,
+             2, 4, 6 and 7 against their plain versions at its prefill
+             (T 1024, C 256) and decode (T 4, C 8) shapes, timed; 4
+             requests of 1024 tokens and 32 greedy tokens unfused and
+             fused, launch counts exact; cuda vs ref prefill logits;
+             fused vs unfused decode logits; at capacity factor 8 (no
+             drops) the chunked engine's fall-back and its logits
+             against the training forward.
+21. jamba_train — one period (8 layers, 13.29 B parameters), B = 1 x
+             S = 4096, remat: the training kernels against their plain
+             versions at C = 1024; step 0's loss and every gradient cuda
+             vs ref with the ref run's routing pinned (loss 2^-7; each
+             gradient within 2 x what bf16 rounding alone moves it,
+             from a pinned ref run with the compute in f32); 3
+             steps, launch counts exactly 4 x ARCTIC_LAUNCHES a step; one
+             more step timed as in phase 22.
+22. falcon_train — falcon-mamba-7b trained at B = 2 x S = 2048, remat,
+             3 steps: finite metrics, every gradient present and finite,
+             the optimizer timed alone, one more step with CUDA events
+             around it and around every call of the scan (its share).
+23. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -364,6 +399,54 @@ ARCTIC_LOSS_TOL = 2.0 ** -8
 # (162,826,560) through the launchers.
 QWEN, QWEN_B, QWEN_S, QWEN_STEPS = "qwen3-1.7b", 4, 2048, 4
 SMOLLM = "smollm-135m"
+# The Mamba mixer (models/ssm.py).  falcon-mamba-7b at full size (64
+# layers, 7,270,825,984 parameters, 14.54 GB in bf16): served with 4
+# slots, 4 prompts of 1024 tokens and 32 greedy tokens; trained at B x S
+# tokens a step with remat.  Its decode state is n_layers x slots x
+# (d_in·N·4 + (d_conv - 1)·d_in·2) bytes at any page length:
+# 64 x 4 x (8192·16·4 + 3·8192·2).  SCAN_S: the one-layer scan-vs-decode
+# gate's length (two chunks of 128), SCAN_TOL its tolerance a dtype,
+# relative to the output's (and the state's) scale.
+FALCON, FALCON_PARAMS = "falcon-mamba-7b", 7_270_825_984
+SSM_REQUESTS, SSM_PROMPT, SSM_NEW = 4, 1024, 32
+FALCON_STATE_BYTES = 146_800_640
+FALCON_TRAIN_B, FALCON_TRAIN_S, FALCON_TRAIN_STEPS = 2, 2048, 3
+SCAN_S, SCAN_TOL = 256, {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+# The engine against the training forward at falcon's 64 layers: in bf16
+# the forward itself moves 10-15 % of the logit scale from the same
+# forward in f32 (rounding carried through 64 random layers; 2.8 % at
+# 16 layers, 6-8 % at 32: my chip experiment, PR 22), so the 5 % gate
+# and greedy >= 0.9 hold the f32 engine (the weights widened) to the f32
+# forward, and the bf16 engine may be at most BF16_FORWARD_RATIO times
+# as far from the f32 forward as the bf16 forward is.
+BF16_FORWARD_RATIO = 2.0
+# jamba-v0.1-52b at full width: served cut 32 -> 16 layers (2 periods,
+# 26,052,591,616 parameters), trained cut to one period (8 layers,
+# 13,294,731,264; its 4 MoE layers each launch ARCTIC_LAUNCHES a step).
+# Capacities, capacity_for(T, 16, 2, 2.0) (the config keeps the default
+# factor): a 1024-token prefill 256, a decode step of 4 slots 8, a
+# training step of 4096 tokens 1024.  The
+# engine-vs-forward gate runs at JAMBA_CROSS_CF, where C = T and no call
+# drops a token (the prefill, the decode steps and the forward over
+# the whole sequence route the same tokens with other capacities).
+JAMBA = "jamba-v0.1-52b"
+JAMBA_SERVE_LAYERS, JAMBA_SERVE_PARAMS = 16, 26_052_591_616
+JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_PARAMS = 8, 13_294_731_264
+JAMBA_PREFILL_C, JAMBA_DECODE_C, JAMBA_TRAIN_C = 256, 8, 1024
+JAMBA_TRAIN_B, JAMBA_TRAIN_S, JAMBA_TRAIN_STEPS = 1, 4096, 3
+JAMBA_CROSS_CF = 8.0
+# cuda vs ref at step 0 from the same draws, the ref run's routing pinned
+# to the cuda run's (_TopkReplay): the loss within JAMBA_LOSS_TOL
+# relative, as MOA_LOSS_TOL.  The gradients differ by 1.1-3.6 %
+# normwise on every leaf, the MoE leaves no more than the others (my
+# chip run 7, PR 22): bf16 rounding carried through seven mamba layers
+# (in bf16 the forward of 8 falcon layers moves 2 % of the logit scale
+# from f32, my chip experiment, PR 22), where moa-demo's were within
+# MOA_GRAD_TOL.  So each leaf's cuda-vs-ref error is held to
+# JAMBA_GRAD_RATIO times what bf16 rounding alone moves it: the same
+# pinned step under "ref" with the compute in f32 (the weights stay
+# bf16: f32 weights and gradients would not fit).
+JAMBA_LOSS_TOL, JAMBA_GRAD_RATIO = 2.0 ** -7, 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -1599,7 +1682,7 @@ def phase_serve(cfg, params) -> dict:
             "engine": engine, "streams": [r.tokens for r in reqs]}
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, scan=None) -> dict:
     """Run ``fn`` under torch.profiler (CUPTI): device time by kernel of
     the port (per launch), the largest device ops, and the share of the
     profiled window (host wall clock, ending in a sync) in which the
@@ -1610,7 +1693,9 @@ def device_profile(fn) -> dict:
     kernel that the wrappers launched in the window but that has no
     device time in the profile fails the run, after PROFILE_ATTEMPTS
     profiles of ``fn`` (each call of ``fn`` runs more steps) have all
-    lacked it, as in :func:`device_ms`."""
+    lacked it, as in :func:`device_ms`.  ``scan`` = (d_inner, d_state)
+    records the ops' input shapes and adds ``scan_ms``
+    (:func:`scan_device_ms`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1620,7 +1705,8 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         cuda_lib.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=scan is not None) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1651,11 +1737,42 @@ def device_profile(fn) -> dict:
                        f"device time in the profile: {missing} (launch "
                        f"counts {launched})")
     top = sorted(dev, key=lambda r: -r[2])[:10]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+    extra = {} if scan is None else scan_device_ms(prof, *scan)
+    return {**extra, "wall_ms": wall_ms, "device_busy_ms": busy,
             "profiled_window_idle_share": 1.0 - busy / wall_ms if dev
             else None,
             "kernels": per_kernel, "wrapper_launches": launched,
             "top_device_ms": [[k[:70], n, ms] for k, n, ms in top]}
+
+
+def scan_device_ms(prof, d_in: int, d_state: int) -> dict:
+    """The selective scan's device time in a profile taken with shapes:
+    the self device time of every op with an input of rank 3 or more
+    shaped [..., d_in, d_state] (dA and dB·x, the doubling steps, the
+    carried state, the C contraction; forward, recomputed and backward),
+    beside the self device time of all ops."""
+    from torch.autograd import DeviceType
+
+    def shapes(sh):
+        """The tensor shapes in one recorded input (a tensor list, as
+        ``cat``'s, records one shape a tensor)."""
+        if sh and isinstance(sh[0], (list, tuple)):
+            for inner in sh:
+                yield from shapes(inner)
+        else:
+            yield list(sh)
+
+    scan_ms = ops_ms = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != DeviceType.CPU:
+            continue
+        ms = e.self_device_time_total / 1e3
+        ops_ms += ms
+        if any(len(sh) >= 3 and sh[-2:] == [d_in, d_state]
+               for inp in e.input_shapes or () for sh in shapes(inp)):
+            scan_ms += ms
+    return {"scan_ms": scan_ms, "ops_device_ms": ops_ms,
+            "scan_share": scan_ms / ops_ms if ops_ms else None}
 
 
 def idle_share(prof: dict, n_steps: int, step_ms: float) -> dict:
@@ -1875,7 +1992,8 @@ def check_fused_full(layer: dict) -> dict:
 
 def decode_logits(cfg, params, prompts, fused_flags=(False, True)) -> dict:
     """One decode step's logits after a batched prefill of ``prompts``,
-    once per fused_decode flag, from the same cache."""
+    once per fused_decode flag, each from its own copy of the prefilled
+    cache (a mamba mixer's decode advances its state in place)."""
     import numpy as np
     import torch
     from repro_torch.common import param as pm
@@ -1890,7 +2008,8 @@ def decode_logits(cfg, params, prompts, fused_flags=(False, True)) -> dict:
     cur = torch.full((b,), s, dtype=torch.int32, device="cuda")
     out = {}
     for fused in fused_flags:
-        out[fused], _ = lm.lm_decode(params, nxt, cache, cur,
+        out[fused], _ = lm.lm_decode(params, nxt,
+                                     pm.tree_map(torch.clone, cache), cur,
                                      cfg.replace(fused_decode=fused))
     for v in out.values():
         check(bool(torch.isfinite(v).all()), "non-finite decode logits")
@@ -3521,54 +3640,52 @@ def build_arctic():
     return cfg, params
 
 
-def check_arctic_kernels(cfg, params, gen, floor) -> dict:
-    """Every kernel of the arctic training step against its plain version
-    at the shapes a step gives it (T = 4096 tokens of d = 7168 bf16, E =
-    128, k = 2, C = 80; layer 0's expert weights; a plan routed by layer
-    0's gate with noise), with phase 2's tolerances: top-k indices exact
-    and values within 1e-6, B5, dispatch (and B7, the dispatch scaled by
-    the combine weights) and combine (and B6, unit weights) bit for bit,
-    the GMMs within two bf16 ulps of the output's largest binade, with
-    the plan's ``rows`` (``_moe_ffn_cases``).  Each is timed beside its
-    bound and the launch floor."""
+def check_train_kernels(label, cfg, moe, t, want_cap, gen, floor) -> dict:
+    """Every kernel of one MoE layer's training step against its plain
+    version at the shapes a step gives it (T tokens of d bf16, the
+    layer's expert weights ``moe``, a plan routed by its gate with
+    noise), with phase 2's tolerances: top-k indices exact and values
+    within 1e-6, B5, dispatch (and B7, the dispatch scaled by the
+    combine weights) and combine (and B6, unit weights) bit for bit, the
+    GMMs (the tiled bf16 kernel) within two bf16 ulps of the output's
+    largest binade, with the plan's ``rows`` (``_moe_ffn_cases``).  Each
+    is timed beside its bound and the launch floor."""
     import torch
     from repro_torch.core import dispatch as dsp
     from repro_torch.kernels import gmm as gk
 
     bf = torch.bfloat16
-    moe = params["blocks"]["periods"]["pos0"]["moe"]
-    w1, w3, w2 = (moe[k][0].detach() for k in ("w1", "w3", "w2"))
-    wg = moe["gate"]["wg"][0].detach()
-    t, d = ARCTIC_B * ARCTIC_S, cfg.d_model
+    w1, w3, w2 = (moe[k].detach() for k in ("w1", "w3", "w2"))
+    wg = moe["gate"]["wg"].detach()
+    d = cfg.d_model
     e, k, f = cfg.n_experts, cfg.moe_k, cfg.moe_d_ff
     x = torch.randn(t, d, device="cuda", generator=gen).to(bf)
     logits = x.float() @ wg.float() + torch.randn(t, e, device="cuda",
                                                   generator=gen)
     out: dict = {}
     out["topk_gating"], out["topk_gating_bwd"], cw, idx = _topk_rows(
-        "arctic", logits, k, k + 1, gen, floor)
+        label, logits, k, k + 1, gen, floor)
     # The plan, as the router builds it.
     cap = dsp.capacity_for(t, e, k, cfg.capacity_factor)
-    check(cap == ARCTIC_C, f"arctic capacity {cap}, expected {ARCTIC_C}")
+    check(cap == want_cap, f"{label} capacity {cap}, expected {want_cap}")
     plan = dsp.plan(idx, cw, e, cap)
     rows = dsp.filled_rows(plan)
     n_kept, filled = int((plan.position < cap).sum()), int(rows.sum())
     used = int((rows > 0).sum())
-    log(f"arctic plan: C={cap}, {n_kept} of {t * k} slots kept, {used} "
+    log(f"{label} plan: C={cap}, {n_kept} of {t * k} slots kept, {used} "
         f"experts used, {filled} filled rows")
     buf, out["dispatch"], out["combine"] = _dispatch_combine_rows(
-        "arctic", x, plan, gen, floor)
-    # The GMMs: the tiled bf16 kernel (C = 80 > 64).
+        label, x, plan, gen, floor)
     check(gk.kernel_for(bf, cap, False) == "tile",
-          "the arctic GMMs must run the tiled kernel")
+          f"the {label} GMMs must run the tiled kernel")
 
     def act(shape):
         return gk.mask_rows(torch.randn(*shape, device="cuda",
                                         generator=gen).to(bf), rows)
     hid, dz, dy = act((e, cap, f)), act((e, cap, f)), act((e, cap, d))
     fwd, bwd = _moe_ffn_cases(buf, hid, dz, dy, w1, w2, w3, cfg.activation)
-    out["gmm"] = _gmm_rows("arctic", fwd, rows, floor)
-    out["gmm_bwd"] = _gmm_rows("arctic", bwd, rows, floor)
+    out["gmm"] = _gmm_rows(label, fwd, rows, floor)
+    out["gmm_bwd"] = _gmm_rows(label, bwd, rows, floor)
     del x, buf, hid, dz, dy
     torch.cuda.empty_cache()
     out["plan"] = dict(tokens=t, capacity=cap, kept_slots=n_kept,
@@ -3652,7 +3769,9 @@ def phase_arctic(cfg, params, floor) -> dict:
     from repro_torch.train.trainer import step_seed
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    kernels = check_arctic_kernels(cfg, params, gen, floor)
+    kernels = check_train_kernels(
+        "arctic", cfg, _layer(params["blocks"]["periods"]["pos0"]["moe"], 0),
+        ARCTIC_B * ARCTIC_S, ARCTIC_C, gen, floor)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=ARCTIC_S,
                     batch_size=ARCTIC_B, seed=SEED)
     run = _train_loop(cfg, params, dc, ARCTIC_STEPS, "arctic")
@@ -4262,6 +4381,207 @@ def _recording_lm(records: dict):
     return restore
 
 
+def fallback_records(what, cfg, params, prompts, new_tokens, max_len,
+                     streams) -> tuple:
+    """An engine with ``prefill_chunk=GEMMA_CHUNK`` for a model whose
+    caches cannot resume mid-prompt (ring buffers, scan states): it must
+    warn, fall back to whole prompts, run no chunk and serve ``streams``
+    (unless None).  Returns its prefill and decode logits, recorded
+    (``_recording_lm``), and its streams."""
+    import warnings
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    records: dict = {"prefill": [], "decode": []}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        chunked = ServeEngine(params, cfg, ServeConfig(
+            max_len=max_len, n_slots=len(prompts),
+            prefill_chunk=GEMMA_CHUNK), device="cuda")
+    check(any(issubclass(w.category, RuntimeWarning)
+              and "chunked prefill" in str(w.message) for w in caught)
+          and chunked._chunk == 0,
+          f"{what}: prefill_chunk did not warn and fall back ({caught})")
+    restore = _recording_lm(records)
+    try:
+        creqs = [chunked.submit(p, new_tokens) for p in prompts]
+        chunked.run()
+    finally:
+        restore()
+    check(chunked.stats["prefill_chunks"] == 0,
+          f"{what}: the fall-back engine ran chunks {chunked.stats}")
+    got = [r.tokens for r in creqs]
+    check(streams is None or got == streams,
+          f"{what}: the fall-back engine's streams differ from the engine's")
+    return records, got
+
+
+class _RoutingPin:
+    """Pins a full forward's MoE routing to a serve run's.  ``record``
+    wraps ``lm_prefill`` / ``lm_decode`` and kernel 1
+    (``ops.topk_gating``) while the engine serves ``prompts`` and keeps
+    each token's choice by (request, MoE layer, position): a prefill
+    call's rows are its request's positions, a decode step's rows its
+    live slots at their positions (request i holds slot i).
+    ``replay(i)`` makes kernel 1, in a forward over request i's
+    sequence, return those choices at every recorded position (its own
+    values gathered at them, the combine weights their softmax) and
+    counts, by layer, the rows whose own top-k differs (``flips``)."""
+
+    def __init__(self, prompts):
+        self.prompts = prompts
+        self.table: dict = {}
+        self.flips: dict = {}
+        self._rows = None        # [(request, position)] of the lm call
+        self._layer = 0
+
+    @contextlib.contextmanager
+    def record(self):
+        import numpy as np
+        import torch
+        from repro_torch.kernels import ops
+        from repro_torch.models import lm
+        real_prefill, real_decode, real_topk = (lm.lm_prefill, lm.lm_decode,
+                                                ops.topk_gating)
+
+        def prefill(params, batch, cache, cfg, **kw):
+            toks = batch["tokens"][0].cpu().numpy()
+            i = next(j for j, p in enumerate(self.prompts)
+                     if np.array_equal(p, toks))
+            # (rows, request, positions): a prefill's rows are its
+            # request's positions 0, 1, ...
+            self._rows = [(slice(None), i, slice(0, len(toks)))]
+            self._layer = 0
+            return real_prefill(params, batch, cache, cfg, **kw)
+
+        def decode(params, tokens, cache, cur, cfg, **kw):
+            live = np.nonzero(kw["valid"].cpu().numpy())[0]
+            cur_np = cur.cpu().numpy()
+            self._rows = [(int(s), int(s), int(cur_np[s])) for s in live]
+            self._layer = 0
+            return real_decode(params, tokens, cache, cur, cfg, **kw)
+
+        def topk(logits, k, kk=None):
+            w, idx, vals = real_topk(logits, k, kk)
+            for r, i, pos in self._rows:
+                key = (i, self._layer)
+                if key not in self.table:
+                    self.table[key] = torch.full(
+                        (4 * len(self.prompts[0]), idx.shape[1]), -1,
+                        dtype=idx.dtype, device=idx.device)
+                self.table[key][pos] = idx[r]
+            self._layer += 1
+            return w, idx, vals
+
+        lm.lm_prefill, lm.lm_decode, ops.topk_gating = prefill, decode, topk
+        try:
+            yield
+        finally:
+            lm.lm_prefill, lm.lm_decode, ops.topk_gating = (
+                real_prefill, real_decode, real_topk)
+
+    @contextlib.contextmanager
+    def replay(self, i: int):
+        import torch
+        from repro_torch.kernels import ops
+        real_topk = ops.topk_gating
+        layer = [0]
+
+        def topk(logits, k, kk=None):
+            w, idx, vals = real_topk(logits, k, kk)
+            pinned = self.table[(i, layer[0])][:logits.shape[0]]
+            rec = pinned[:, 0] >= 0
+            mine = torch.sort(idx[:, :k].long(), dim=-1).values
+            theirs = torch.sort(pinned[:, :k].long(), dim=-1).values
+            n = int(((mine != theirs).any(dim=-1) & rec).sum())
+            self.flips[layer[0]] = self.flips.get(layer[0], 0) + n
+            idx = torch.where(rec[:, None], pinned, idx)
+            vals = logits.gather(-1, idx.long())
+            w = torch.softmax(vals[:, :k], dim=-1)
+            layer[0] += 1
+            return w, idx, vals
+
+        ops.topk_gating = topk
+        try:
+            yield
+        finally:
+            ops.topk_gating = real_topk
+
+
+def engine_rows(what, prompts, streams, records) -> list:
+    """The engine's recorded logits, one [new tokens, V] tensor a
+    request: the prefill row by prompt, decode rows by slot (request i
+    holds slot i), each checked against the token the request had at
+    that position."""
+    import numpy as np
+    import torch
+
+    plen, new = len(prompts[0]), len(streams[0])
+    seqs = [np.concatenate([p, np.asarray(t[:-1])])
+            for p, t in zip(prompts, streams)]
+    rows = {}
+    for toks, logits in records["prefill"]:
+        i = next(j for j, p in enumerate(prompts) if np.array_equal(p, toks))
+        rows[(i, plen - 1)] = logits
+    for toks, cur, valid, logits in records["decode"]:
+        for i in np.nonzero(valid)[0]:
+            check(seqs[i][cur[i]] == toks[i], f"{what}: decode row {i} fed "
+                                              "another request's token")
+            rows[(int(i), int(cur[i]))] = logits[i]
+    positions = range(plen - 1, plen + new - 1)
+    check(len(rows) == len(prompts) * new,
+          f"{what}: {len(rows)} recorded logits rows")
+    return [torch.stack([rows[(i, p)] for p in positions])
+            for i in range(len(prompts))]
+
+
+def forward_rows(what, cfg, params, prompts, streams, pin=None) -> list:
+    """The training forward's logits (``full_forward_logits``) over each
+    prompt and its generated tokens, at the positions the engine
+    sampled from: one [new tokens, V] tensor a request; with ``pin`` (a
+    recorded ``_RoutingPin``) the MoE layers route as the engine did."""
+    import numpy as np
+
+    plen, new = len(prompts[0]), len(streams[0])
+    positions = list(range(plen - 1, plen + new - 1))
+    out = []
+    for i, (p, t) in enumerate(zip(prompts, streams)):
+        with pin.replay(i) if pin else contextlib.nullcontext():
+            ref = full_forward_logits(
+                cfg, params, np.concatenate([p, np.asarray(t[:-1])]),
+                positions)
+        check(all_finite(ref), f"{what}: non-finite full-forward logits")
+        out.append(ref)
+    return out
+
+
+def engine_vs_forward(what, cfg, params, prompts, streams, records,
+                      pin=None) -> dict:
+    """The engine's recorded logits (``engine_rows``) against the
+    training forward's (``forward_rows``, routed as the engine was when
+    ``pin`` is given).  Gate: within 5 % of the logit scale (the cross
+    phase's tolerance); the share of the engine's greedy tokens equal to
+    the forward's argmax is returned beside it."""
+    import numpy as np
+
+    got = engine_rows(what, prompts, streams, records)
+    ref = forward_rows(what, cfg, params, prompts, streams, pin)
+    err = max(max_err(g, r) for g, r in zip(got, ref))
+    scale = max(abs_max(r) for r in ref)
+    same = sum(int((r.argmax(-1).cpu().numpy() == np.asarray(t)).sum())
+               for r, t in zip(ref, streams))
+    plen, new = len(prompts[0]), len(streams[0])
+    tol = 0.05 * scale
+    gate = {"max_abs_err": err, "tol": tol, "logit_scale": scale,
+            "positions": f"{plen - 1}..{plen + new - 2} of each request",
+            "greedy_equal_full_forward_argmax": same / (len(prompts) * new)}
+    if pin is not None:
+        gate["routing_flips"] = pin.flips
+    log(f"{what} engine vs full forward " + json.dumps(gate))
+    check(err <= tol, f"{what}: engine logits differ from the full forward "
+                      f"by {err} > {tol}")
+    return gate
+
+
 def phase_gemma_serve() -> dict:
     """gemma3-27b served at full width: GEMMA_REQUESTS prompts of
     GEMMA_PROMPT tokens and GEMMA_NEW greedy tokens each, all arriving
@@ -4272,12 +4592,10 @@ def phase_gemma_serve() -> dict:
     logits (recorded) against the training forward over each prompt and
     its generated tokens, within 5 % of the logit scale (the cross
     phase's tolerance)."""
-    import warnings
     import numpy as np
     import torch
     from repro_torch.common import param as pm
     from repro_torch.configs.base import layer_kinds
-    from repro_torch.models import lm
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     cfg, params = build_gemma()
@@ -4291,20 +4609,7 @@ def phase_gemma_serve() -> dict:
                                   new_tokens=GEMMA_NEW, stagger=0)
     check_launches("gemma3 serve", counts, {})
     streams = [r.tokens for r in reqs]
-    # Where a step's time goes: two decode steps of the full pool, then
-    # one whole-prompt prefill, under the profiler.
-    prof = {"decode": phase_profile(engine, prompts,
-                                    out["decode_step_ms_median"],
-                                    "gemma3 decode profile")}
-    page = engine.kv.new_page()
-    tokens = torch.as_tensor(prompts[0], dtype=torch.int32,
-                             device="cuda")[None]
-    dprof = device_profile(lambda: lm.lm_prefill(params, {"tokens": tokens},
-                                                 page, cfg))
-    prof["prefill"] = dict(prefills=1, **dprof, **idle_share(
-        dprof, 1, out["prefill_ms_median"]))
-    log("gemma3 prefill profile " + json.dumps(prof["prefill"]))
-    del page
+    prof = serve_profiles("gemma3", engine, params, cfg, prompts, out)
     # The cache: windowed layers hold min(window, max_len) positions.
     kinds = layer_kinds(cfg)
     full, rem = divmod(cfg.n_layers, cfg.period)
@@ -4322,64 +4627,12 @@ def phase_gemma_serve() -> dict:
         f"({cache_bytes / full_len:.4f} of it)")
     check(cache_bytes == want,
           f"gemma3 cache holds {cache_bytes} bytes, the formula {want}")
-    # The chunked engine falls back (with a warning) and records logits.
-    records: dict = {"prefill": [], "decode": []}
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        chunked = ServeEngine(params, cfg, ServeConfig(
-            max_len=max_len, n_slots=GEMMA_REQUESTS,
-            prefill_chunk=GEMMA_CHUNK), device="cuda")
-    check(any(issubclass(w.category, RuntimeWarning)
-              and "chunked prefill" in str(w.message) for w in caught)
-          and chunked._chunk == 0,
-          f"gemma3: prefill_chunk did not warn and fall back ({caught})")
-    restore = _recording_lm(records)
-    try:
-        creqs = [chunked.submit(p, GEMMA_NEW) for p in prompts]
-        chunked.run()
-    finally:
-        restore()
-    check(chunked.stats["prefill_chunks"] == 0,
-          f"gemma3: the fall-back engine ran chunks {chunked.stats}")
-    check([r.tokens for r in creqs] == streams,
-          "gemma3: the fall-back engine's streams differ from the engine's")
-    del chunked, engine
+    records, _ = fallback_records("gemma3", cfg, params, prompts,
+                                  GEMMA_NEW, max_len, streams)
+    del engine
     torch.cuda.empty_cache()
-    # Engine logits by (request, position): prefill rows by prompt, decode
-    # rows by slot (request i holds slot i), each checked against the
-    # token the request had at that position.
-    seqs = [np.concatenate([p, np.asarray(t[:-1])])
-            for p, t in zip(prompts, streams)]
-    engine_logits = {}
-    for toks, logits in records["prefill"]:
-        i = next(j for j, p in enumerate(prompts) if np.array_equal(p, toks))
-        engine_logits[(i, GEMMA_PROMPT - 1)] = logits
-    for toks, cur, valid, logits in records["decode"]:
-        for i in np.nonzero(valid)[0]:
-            check(seqs[i][cur[i]] == toks[i], f"gemma3: decode row {i} fed "
-                                              "another request's token")
-            engine_logits[(int(i), int(cur[i]))] = logits[i]
-    positions = list(range(GEMMA_PROMPT - 1, max_len - 1))
-    check(len(engine_logits) == GEMMA_REQUESTS * len(positions),
-          f"gemma3: {len(engine_logits)} recorded logits rows")
-    err, scale, same = 0.0, 0.0, 0
-    for i, seq in enumerate(seqs):
-        ref = full_forward_logits(cfg, params, seq, positions)
-        check(all_finite(ref), "gemma3: non-finite full-forward logits")
-        got = torch.stack([engine_logits[(i, p)] for p in positions])
-        err = max(err, max_err(got, ref))
-        scale = max(scale, abs_max(ref))
-        same += int((ref.argmax(-1).cpu().numpy()
-                     == np.asarray(streams[i])).sum())
-    tol = 0.05 * scale
-    ring_gate = {"max_abs_err": err, "tol": tol, "logit_scale": scale,
-                 "positions": f"{GEMMA_PROMPT - 1}..{max_len - 2} of each "
-                              "request",
-                 "greedy_equal_full_forward_argmax":
-                     same / (GEMMA_REQUESTS * GEMMA_NEW)}
-    log("gemma3 engine vs full forward " + json.dumps(ring_gate))
-    check(err <= tol, f"gemma3: engine logits differ from the full forward "
-                      f"by {err} > {tol}")
+    ring_gate = engine_vs_forward("gemma3", cfg, params, prompts, streams,
+                                  records)
     out.update(config=f"{GEMMA}, {cfg.n_layers} layers, bf16, window "
                       f"{cfg.sliding_window}",
                cache_bytes=cache_bytes, cache_bytes_full_length=full_len,
@@ -4504,6 +4757,577 @@ def phase_launchers(workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 19-22: the Mamba mixer (models/ssm.py): falcon-mamba-7b served and
+# trained at full size, jamba-v0.1-52b served at full width cut to two
+# periods and trained for one
+# ---------------------------------------------------------------------------
+
+def build_ssm(name: str, n_layers: int | None = None):
+    """``name`` (cut to ``n_layers`` when given) with bf16 weights drawn
+    from the seed on the card; MoE gates, zero-initialized, redrawn at
+    std d^-1/2 as in ``build_model``, so routing spreads over all the
+    experts.  Returns (cfg, params, parameter count)."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import count_params, get_config, layer_kinds
+    from repro_torch.models import lm
+
+    cfg = get_config(name, **({} if n_layers is None
+                              else {"n_layers": n_layers}))
+    check(cfg.kernel_backend == "cuda" and cfg.param_dtype == torch.bfloat16
+          and cfg.remat, f"{name} must default to cuda, bf16 and remat")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    for p, kind in enumerate(layer_kinds(cfg)):
+        if kind.ffn == "moe":
+            params["blocks"]["periods"][f"pos{p}"]["moe"]["gate"][
+                "wg"].normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in pm.tree_leaves(params))
+    log(f"materialized {name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"d_inner {cfg.ssm_expand * cfg.d_model}, d_state "
+        f"{cfg.ssm_d_state}, vocab {cfg.vocab_size}) in "
+        f"{time.perf_counter() - t0:.1f} s: {n} parameters "
+        f"({count_params(cfg)['total']} without the norms' scales and the "
+        f"scan's vectors), {pm.param_bytes(params) / 1e9:.2f} GB")
+    return cfg, params, n
+
+
+def scan_vs_decode(cfg, params, gen) -> dict:
+    """Layer 0's mixer at full width, two chunks (SCAN_S tokens): the
+    chunked scan (``ssm.mamba`` with ``return_state``) against
+    ``mamba_decode`` stepped token by token from a zero state, as the
+    reference's own check; the outputs and the final scan and conv
+    states, in f32 (the weights widened) and in bf16.  Gate: each max
+    abs error within SCAN_TOL[dtype] of the scan's scale."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.models import ssm
+
+    mp = _layer(params["blocks"]["periods"]["pos0"]["mamba"], 0)
+    x0 = torch.randn(1, SCAN_S, cfg.d_model, device="cuda", generator=gen)
+    out = {}
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        p = {k: v.float() if dt == torch.float32 else v
+             for k, v in mp.items()}
+        x = x0.to(dt)
+        with torch.no_grad():
+            y, st = ssm.mamba(p, x, d_state=cfg.ssm_d_state,
+                              return_state=True)
+            state = pm.zeros(ssm.init_state_defs(
+                1, cfg.d_model, d_state=cfg.ssm_d_state,
+                d_conv=cfg.ssm_d_conv, expand=cfg.ssm_expand, dtype=dt),
+                "cuda")
+            ys = []
+            for i in range(SCAN_S):
+                yi, state = ssm.mamba_decode(p, x[:, i:i + 1], state,
+                                             d_state=cfg.ssm_d_state)
+                ys.append(yi)
+            ys = torch.cat(ys, dim=1)
+        res = {}
+        for what, got, want in (("y", ys, y), ("ssm", state["ssm"],
+                                               st["ssm"]),
+                                ("conv", state["conv"], st["conv"])):
+            err, scale = max_err(got, want), abs_max(want)
+            res[what] = {"max_abs_err": err, "scale": scale,
+                         "tol": SCAN_TOL[name] * max(scale, 1e-30)}
+            check(all_finite(want) and err <= res[what]["tol"],
+                  f"scan vs decode ({name}) {what}: {res[what]}")
+        out[name] = res
+        del p
+    log(f"scan vs step-by-step decode, layer 0 at full width, S={SCAN_S}: "
+        + json.dumps(out))
+    return out
+
+
+def serve_profiles(what, engine, params, cfg, prompts, out,
+                   scan=None) -> dict:
+    """Two decode steps of the full slot pool and one whole-prompt
+    prefill under the profiler, each with the device's idle share
+    against the serve run's median step; ``scan`` as in
+    ``device_profile``."""
+    import torch
+    from repro_torch.models import lm
+
+    prof = {"decode": phase_profile(engine, prompts,
+                                    out["decode_step_ms_median"],
+                                    f"{what} decode profile")}
+    page = engine.kv.new_page()
+    tokens = torch.as_tensor(prompts[0], dtype=torch.int32,
+                             device="cuda")[None]
+    dprof = device_profile(lambda: lm.lm_prefill(params, {"tokens": tokens},
+                                                 page, cfg), scan=scan)
+    prof["prefill"] = dict(prefills=1, **dprof, **idle_share(
+        dprof, 1, out["prefill_ms_median"]))
+    log(f"{what} prefill profile " + json.dumps(prof["prefill"]))
+    return prof
+
+
+def _scan_shape(cfg) -> tuple:
+    return (cfg.ssm_expand * cfg.d_model, cfg.ssm_d_state)
+
+
+def phase_falcon_serve() -> dict:
+    """falcon-mamba-7b at full size: the scan against step-by-step
+    decode on layer 0; SSM_REQUESTS prompts of SSM_PROMPT tokens and
+    SSM_NEW greedy tokens, one slot each, whole-prompt prefill.  Gates:
+    no kernel launch (no FFN); the decode state exactly
+    FALCON_STATE_BYTES at this page length and at four times it; the
+    engine with ``prefill_chunk`` warns, falls back and serves the same
+    streams; its bf16 logits no farther from the f32 forward than
+    BF16_FORWARD_RATIO times the bf16 forward's; the same engine in f32
+    against the f32 training forward over each prompt and its tokens
+    within 5 % of the logit scale, greedy tokens equal to the forward's
+    argmax on at least 0.9 of the positions."""
+    import numpy as np
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import count_params
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg, params, n = build_ssm(FALCON)
+    check(count_params(cfg)["total"] == FALCON_PARAMS,
+          f"falcon: {count_params(cfg)['total']} parameters, expected "
+          f"{FALCON_PARAMS}")
+    scan = scan_vs_decode(cfg, params,
+                          torch.Generator(device="cuda").manual_seed(SEED + 8))
+    max_len = SSM_PROMPT + SSM_NEW
+    rs = np.random.RandomState(SEED + 9)
+    prompts = [rs.randint(1, cfg.vocab_size, (SSM_PROMPT,))
+               for _ in range(SSM_REQUESTS)]
+    engine = ServeEngine(params, cfg, ServeConfig(
+        max_len=max_len, n_slots=SSM_REQUESTS), device="cuda")
+    reqs, counts, out = serve_run(engine, prompts, cfg.vocab_size,
+                                  new_tokens=SSM_NEW, stagger=0)
+    check_launches("falcon serve", counts, {})
+    streams = [r.tokens for r in reqs]
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in pm.tree_leaves(engine.kv.cache))
+    longer = pm.param_bytes(transformer.cache_defs(cfg, SSM_REQUESTS,
+                                                   4 * max_len))
+    log(f"falcon decode state: {state_bytes} bytes for {SSM_REQUESTS} "
+        f"slots (pages of {max_len}), {longer} at pages of {4 * max_len}")
+    check(state_bytes == longer == FALCON_STATE_BYTES,
+          f"falcon state {state_bytes} / {longer} bytes, the formula "
+          f"{FALCON_STATE_BYTES}")
+    prof = serve_profiles("falcon", engine, params, cfg, prompts, out,
+                          scan=_scan_shape(cfg))
+    del engine
+    records, _ = fallback_records("falcon", cfg, params, prompts, SSM_NEW,
+                                  max_len, streams)
+    torch.cuda.empty_cache()
+    # bf16: the engine and the forward, each against the f32 forward over
+    # the same tokens.
+    got = engine_rows("falcon", prompts, streams, records)
+    ref = forward_rows("falcon", cfg, params, prompts, streams)
+    f32 = torch.float32
+    cfg32 = cfg.replace(param_dtype=f32, compute_dtype=f32)
+    params32 = pm.tree_map(lambda t: t.float(), params)
+    ref32 = forward_rows("falcon f32", cfg32, params32, prompts, streams)
+    bf16 = {"engine_vs_forward": max(map(max_err, got, ref)),
+            "engine_vs_f32_forward": max(map(max_err, got, ref32)),
+            "forward_vs_f32_forward": max(map(max_err, ref, ref32)),
+            "logit_scale": max(map(abs_max, ref32)),
+            "greedy_equal_forward_argmax": sum(
+                int((r.argmax(-1).cpu().numpy() == np.asarray(t)).sum())
+                for r, t in zip(ref, streams)) / (SSM_REQUESTS * SSM_NEW)}
+    log("falcon bf16 engine and forward against the f32 forward "
+        + json.dumps(bf16))
+    check(bf16["engine_vs_f32_forward"]
+          <= BF16_FORWARD_RATIO * bf16["forward_vs_f32_forward"],
+          f"falcon: the bf16 engine is {bf16['engine_vs_f32_forward']} from "
+          "the f32 forward, more than "
+          f"{BF16_FORWARD_RATIO} x the bf16 forward's "
+          f"{bf16['forward_vs_f32_forward']}")
+    del got, ref, ref32, params
+    # f32: the engine (recorded, the chunked engine's fall-back) against
+    # the forward over its own tokens.
+    records, streams32 = fallback_records("falcon f32", cfg32, params32,
+                                          prompts, SSM_NEW, max_len, None)
+    gate = engine_vs_forward("falcon f32", cfg32, params32, prompts,
+                             streams32, records)
+    check(gate["greedy_equal_full_forward_argmax"] >= 0.9,
+          f"falcon: greedy tokens equal the full forward's argmax on "
+          f"{gate['greedy_equal_full_forward_argmax']} of the positions")
+    out.update(config=f"{FALCON}, {cfg.n_layers} layers, bf16, no cut",
+               parameters=n, state_bytes=state_bytes, scan=scan,
+               forward_f32=gate, forward_bf16=bf16,
+               sample_tokens=streams[0][:8])
+    log("falcon serve " + json.dumps(out))
+    del params32, records
+    torch.cuda.empty_cache()
+    return {"summary": out, "profile": prof}
+
+
+def scan_event_ms(fn) -> dict:
+    """One call of ``fn`` (a training step) with CUDA events around the
+    whole call and around every call of the scan Function
+    (``ssm._ChunkScan``: its forwards, the recomputed ones included, and
+    its backward passes; the calls run in stream order, so each pair of
+    events brackets its kernels).  Returns the scan's device time, the
+    span of the call on the device and the share.  No profiler: a
+    profile of a falcon step holds ~10^5 device records, which took
+    minutes to read back and after which CUPTI delivered none in the
+    same process (my chip runs 2 and 8, PR 22)."""
+    import torch
+    from repro_torch.models import ssm
+
+    cls = ssm._ChunkScan
+    fwd, bwd = cls.forward, cls.backward
+    pairs = []
+
+    def timed(f):
+        def run(ctx, *args):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = f(ctx, *args)
+            end.record()
+            pairs.append((start, end))
+            return out
+        return staticmethod(run)
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    cls.forward, cls.backward = timed(fwd), timed(bwd)
+    try:
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        cls.forward, cls.backward = staticmethod(fwd), staticmethod(bwd)
+    span = start.elapsed_time(end)
+    scan = sum(a.elapsed_time(b) for a, b in pairs)
+    return {"scan_calls": len(pairs), "scan_ms": scan, "span_ms": span,
+            "scan_share_of_span": scan / span}
+
+
+def train_tail(what, cfg, params, dc, run, steps: int,
+               moe_leaves=()) -> dict:
+    """After ``_train_loop``: one more batch's gradients (every leaf
+    present and finite, the named MoE leaves nonzero), one optimizer
+    update on them timed alone, and one more step timed with CUDA
+    events: its span on the device and the scan's share of it
+    (``scan_event_ms``)."""
+    import torch
+    from repro_torch.common.param import tree_leaves, tree_map
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train.trainer import step_seed
+
+    median = statistics.median(run["times"][1:])
+    b, s = dc.batch_size, dc.seq_len
+    gdraw = torch.Generator(device="cuda").manual_seed(step_seed(SEED, steps))
+    draws = lm.make_draws(cfg, b, s, gdraw, "cuda")
+    _grad_check(cfg, params, batch_at(dc, steps, device="cuda"), draws,
+                what, moe_leaves)
+    grads = tree_map(lambda p: p.grad, params)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    opt_lib.apply_updates(params, grads, run["state"]["opt"], run["oc"])
+    end.record()
+    torch.cuda.synchronize()
+    opt_ms = start.elapsed_time(end)
+    del grads
+    for p in tree_leaves(params):
+        p.grad = None
+
+    def one_step():
+        g = torch.Generator(device="cuda").manual_seed(
+            step_seed(SEED, steps + 1))
+        _, m = run["step"](run["state"], next(run["data"]), g)
+        float(m["loss"])
+    split = dict(scan_event_ms(one_step), optimizer_ms=opt_ms)
+    log(f"{what} train step split " + json.dumps(split))
+    out = {"step_ms_median_steps_2_on": 1e3 * median,
+           "step_ms_all": [1e3 * t for t in run["times"]],
+           "tokens_per_s": b * s / median, "optimizer_ms": opt_ms,
+           "max_memory_allocated_gib": run["peak"] / 2 ** 30,
+           "losses": [m["loss"] for m in run["rows"]],
+           "launches": run["counts"], "split": split}
+    return {"summary": out}
+
+
+def phase_falcon_train() -> dict:
+    """falcon-mamba-7b at full size, B x S = FALCON_TRAIN_B x
+    FALCON_TRAIN_S, remat: FALCON_TRAIN_STEPS steps (finite metrics, no
+    kernel launch), every gradient present and finite, the optimizer
+    timed alone, one step profiled (the scan's share)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig
+
+    cfg, params, n = build_ssm(FALCON)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=FALCON_TRAIN_S,
+                    batch_size=FALCON_TRAIN_B, seed=SEED)
+    run = _train_loop(cfg, params, dc, FALCON_TRAIN_STEPS, "falcon train")
+    check(not any(run["counts"].values()),
+          f"falcon (no FFN) launched MoE kernels: {run['counts']}")
+    res = train_tail("falcon", cfg, params, dc, run, FALCON_TRAIN_STEPS)
+    res["summary"].update(config=f"{FALCON}, {cfg.n_layers} layers, bf16, "
+                                 f"remat, B={FALCON_TRAIN_B} x "
+                                 f"S={FALCON_TRAIN_S}, factored Adam",
+                          parameters=n)
+    log("falcon train " + json.dumps(res["summary"]))
+    del params, run
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_jamba_serve_kernels(cfg, params, gen, floor) -> dict:
+    """Kernels 1, 2, 4, 6 and 7 at the shapes serving jamba gives them,
+    on its first MoE layer's weights (E = 16, k = 2, swiglu 4096 ->
+    14336): a 1024-token prefill (top-k [1024, 16], dispatch / combine
+    [1024, 4096] <-> [16, 256, 4096], the tiled GMM at C = 256 with the
+    plan's rows) and an unfused decode step of 4 slots (top-k [4, 16],
+    [4, 4096] <-> [16, 8, 4096], the GMM stream at C = 8), then kernel 7
+    on the 4 slots; phase 2's tolerances, each timed beside its bound,
+    the launch floor, its plain version and torch.bmm."""
+    import torch
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.kernels import gmm as gk
+
+    bf = torch.bfloat16
+    moe = _layer(params["blocks"]["periods"]["pos1"]["moe"], 0)
+    wg, w1, w2, w3 = (moe["gate"]["wg"], moe["w1"], moe["w2"], moe["w3"])
+    e, k, d, f = cfg.n_experts, cfg.moe_k, cfg.d_model, cfg.moe_d_ff
+    out: dict = {"topk_gating": {}, "dispatch": {}, "combine": {},
+                 "gmm": {}}
+    for label, t, want_cap in (("prefill", SSM_PROMPT, JAMBA_PREFILL_C),
+                               ("decode", SSM_REQUESTS, JAMBA_DECODE_C)):
+        x = torch.randn(t, d, device="cuda", generator=gen).to(bf)
+        logits = x.float() @ wg.float()
+
+        def library():
+            vals, idx = torch.topk(logits, k + 1, dim=-1)
+            return torch.softmax(vals[:, :k], dim=-1), idx
+        out["topk_gating"][label], _, cw, idx = _topk_rows(
+            f"jamba {label}", logits, k, k + 1, gen, floor, bwd=False,
+            library=library)
+        cap = dsp.capacity_for(t, e, k, cfg.capacity_factor)
+        check(cap == want_cap, f"jamba {label} capacity {cap}, expected "
+                               f"{want_cap}")
+        plan = dsp.plan(idx, cw, e, cap)
+        rows = dsp.filled_rows(plan)
+        buf, out["dispatch"][label], out["combine"][label] = \
+            _dispatch_combine_rows(f"jamba {label}", x, plan, gen, floor,
+                                   backward=False, l2_cold=True)
+        h = gk.mask_rows(torch.randn(e, cap, f, device="cuda",
+                                     generator=gen).to(bf), rows)
+        out["gmm"][label] = _gmm_rows(
+            f"jamba {label} C={cap}",
+            [("w1", buf, w1, "silu", False, False),
+             ("w3", buf, w3, "none", False, False),
+             ("w2", h, w2, "none", False, False)], rows, floor)
+        del x, buf, h
+    x = torch.randn(SSM_REQUESTS, d, device="cuda", generator=gen).to(bf)
+    out["fused_decode"] = _fused7_case(
+        x, torch.ones(SSM_REQUESTS, device="cuda"), wg, w1, w2, w3, k,
+        JAMBA_DECODE_C, f"jamba, {SSM_REQUESTS} slots")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_jamba_serve(floor) -> dict:
+    """jamba-v0.1-52b at full width cut to JAMBA_SERVE_LAYERS layers (2
+    periods: 14 mamba, 2 attention; 8 MoE FFNs): its kernels against
+    their plain versions at its shapes; SSM_REQUESTS prompts of
+    SSM_PROMPT tokens and SSM_NEW greedy tokens, unfused and fused, with
+    exact launch counts (a prefill or unfused decode step: each MoE
+    layer's top-k, dispatch, combine and three GMMs; a fused decode
+    step: kernel 7 once a MoE layer); cuda vs ref prefill logits and
+    fused vs unfused decode logits within 5 % of the logit scale; then,
+    at JAMBA_CROSS_CF (no call drops a token), the chunked engine's
+    fall-back and its logits against the training forward."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import count_params, layer_kinds
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg, params, n = build_ssm(JAMBA, JAMBA_SERVE_LAYERS)
+    check(count_params(cfg)["total"] == JAMBA_SERVE_PARAMS,
+          f"jamba: {count_params(cfg)['total']} parameters, expected "
+          f"{JAMBA_SERVE_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    kernels = check_jamba_serve_kernels(cfg, params, gen, floor)
+    max_len = SSM_PROMPT + SSM_NEW
+    rs = np.random.RandomState(SEED + 11)
+    prompts = [rs.randint(1, cfg.vocab_size, (SSM_PROMPT,))
+               for _ in range(SSM_REQUESTS)]
+    n_moe = (cfg.n_layers // cfg.period) * sum(
+        kind.ffn == "moe" for kind in layer_kinds(cfg))
+    unfused = {"topk_gating": n_moe, "dispatch": n_moe, "combine": n_moe,
+               "gmm": 3 * n_moe}
+    engine = ServeEngine(params, cfg, ServeConfig(
+        max_len=max_len, n_slots=SSM_REQUESTS), device="cuda")
+    reqs, counts, out = serve_run(engine, prompts, cfg.vocab_size,
+                                  new_tokens=SSM_NEW, stagger=0)
+    check_launches("jamba serve", counts,
+                   expected_launches(engine.stats, unfused, unfused))
+    streams = [r.tokens for r in reqs]
+    prof = serve_profiles("jamba", engine, params, cfg, prompts, out,
+                          scan=_scan_shape(cfg))
+    cross = phase_cross(cfg, params, prompts[0], engine)
+    del engine
+    fengine = ServeEngine(params, cfg, ServeConfig(
+        max_len=max_len, n_slots=SSM_REQUESTS, fused_decode=True),
+        device="cuda")
+    freqs, fcounts, fout = serve_run(fengine, prompts, cfg.vocab_size,
+                                     new_tokens=SSM_NEW, stagger=0)
+    check_launches("jamba fused serve", fcounts, expected_launches(
+        fengine.stats, unfused, {"fused_decode": n_moe}))
+    fout["greedy_tokens_equal_to_unfused"] = stream_agreement(
+        [r.tokens for r in freqs], streams)
+    prof["fused_decode"] = phase_profile(
+        fengine, prompts, fout["decode_step_ms_median"],
+        "jamba fused decode profile")
+    del fengine
+    fused_cross = compare_fused_logits("jamba", decode_logits(
+        cfg, params, prompts))
+    torch.cuda.empty_cache()
+    xcfg = cfg.replace(capacity_factor=JAMBA_CROSS_CF)
+    pin = _RoutingPin(prompts)
+    with pin.record():
+        records, xstreams = fallback_records("jamba", xcfg, params, prompts,
+                                             SSM_NEW, max_len, None)
+    gate = engine_vs_forward("jamba", xcfg, params, prompts, xstreams,
+                             records, pin)
+    check(gate["greedy_equal_full_forward_argmax"] >= 0.9,
+          f"jamba: greedy tokens equal the full forward's argmax on "
+          f"{gate['greedy_equal_full_forward_argmax']} of the positions")
+    out.update(config=f"{JAMBA}, {cfg.n_layers} of 32 layers (2 periods), "
+                      "bf16", parameters=n, n_moe_layers=n_moe,
+               cross=cross, fused=fout, fused_vs_unfused=fused_cross,
+               forward=gate, sample_tokens=streams[0][:8])
+    log("jamba serve " + json.dumps(out))
+    del params
+    torch.cuda.empty_cache()
+    return {"summary": out, "kernels": kernels, "profile": prof,
+            "counts": counts, "fused_counts": fcounts}
+
+
+def jamba_grads_cuda_vs_ref(cfg, params, batch, draws) -> dict:
+    """Step 0's loss and every gradient under "cuda", "ref" and "ref"
+    with the compute in f32, from the same parameters, batch and draws,
+    both ref runs' routing pinned to the cuda run's (``_TopkReplay``):
+    every cuda gradient present, finite and nonzero; the loss within
+    JAMBA_LOSS_TOL relative; each leaf's cuda-vs-ref normwise error
+    within JAMBA_GRAD_RATIO times its ref-vs-f32-compute error.  One
+    run's gradients wait on the host while the next computes its own
+    (two sets on the card would not fit beside the weights)."""
+    import torch
+    from repro_torch.models import lm
+
+    named = list(_named_leaves(params))
+    pin = _TopkReplay()
+    runs = (("cuda", cfg), ("ref", cfg.replace(kernel_backend="ref")),
+            ("ref_f32", cfg.replace(kernel_backend="ref",
+                                    compute_dtype=torch.float32)))
+    losses, errs, floor, host, flips = {}, {}, {}, {}, {}
+    for what, c in runs:
+        with pin.record() if what == "cuda" else pin.replay():
+            loss, _ = lm.lm_loss(params, batch, c, draws=draws)
+            loss.backward()
+        losses[what] = float(loss.detach())
+        if what != "cuda":
+            flips[what] = pin.flips
+        for name, p in named:
+            if what == "cuda":
+                check(p.grad is not None, f"jamba: {name} has no gradient")
+                check(all_finite(p.grad),
+                      f"jamba: {name}'s gradient is not finite")
+                check(any_nonzero(p.grad), f"jamba: {name}'s gradient is zero")
+            else:
+                (errs if what == "ref" else floor)[name] = norm_rel_err(
+                    host[name].to("cuda"), p.grad)
+            host[name] = p.grad.to("cpu") if what != "ref_f32" else None
+            p.grad = None
+    lc, lr_ = losses["cuda"], losses["ref"]
+    rel = abs(lc - lr_) / abs(lr_)
+    ratio = {name: errs[name] / max(floor[name], 1e-30) for name in errs}
+    worst = max(ratio, key=ratio.get)
+    log(f"jamba routing flips at step 0 (tokens of {batch['tokens'].numel()}"
+        " whose own top-k differs from the cuda run's, forward then remat's "
+        "recompute): " + json.dumps(flips))
+    log(f"jamba cuda vs ref at step 0, routing pinned: loss {lc} vs {lr_} "
+        f"(rel {rel:.3g}, tol {JAMBA_LOSS_TOL:.3g}; ref in f32 "
+        f"{losses['ref_f32']}); gradients normwise rel err: "
+        + json.dumps(errs))
+    log("jamba ref vs ref in f32 (what bf16 rounding moves), routing "
+        "pinned, normwise rel err: " + json.dumps(floor))
+    check(rel <= JAMBA_LOSS_TOL, f"jamba cuda vs ref loss {lc} vs {lr_}")
+    check(ratio[worst] <= JAMBA_GRAD_RATIO,
+          f"jamba cuda vs ref gradient of {worst} differs by {errs[worst]}"
+          f", {ratio[worst]} x its bf16 rounding {floor[worst]} > "
+          f"{JAMBA_GRAD_RATIO}")
+    return {"loss_cuda": lc, "loss_ref": lr_, "loss_ref_f32": losses[
+                "ref_f32"], "loss_rel_err": rel, "loss_tol": JAMBA_LOSS_TOL,
+            "grad_ratio_tol": JAMBA_GRAD_RATIO, "grad_norm_rel_err": errs,
+            "ref_bf16_vs_f32": floor, "worst_leaf": worst,
+            "worst_ratio": ratio[worst], "routing_flips": flips}
+
+
+def phase_jamba_train(floor) -> dict:
+    """jamba-v0.1-52b at full width cut to one period (8 layers: 7
+    mamba, 1 attention, 4 MoE FFNs), B x S = JAMBA_TRAIN_B x
+    JAMBA_TRAIN_S, remat: the training kernels against their plain
+    versions at the step's shapes (its first MoE layer, C = 1024), step
+    0's loss and gradients cuda vs ref (routing pinned), then
+    JAMBA_TRAIN_STEPS steps with exact launch counts (4 x
+    ARCTIC_LAUNCHES a step) and the tail of ``train_tail``."""
+    import torch
+    from repro_torch.common.param import tree_leaves
+    from repro_torch.configs.base import count_params
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import layer_index
+    from repro_torch.train.trainer import step_seed
+
+    cfg, params, n = build_ssm(JAMBA, JAMBA_TRAIN_LAYERS)
+    check(count_params(cfg)["total"] == JAMBA_TRAIN_PARAMS,
+          f"jamba: {count_params(cfg)['total']} parameters, expected "
+          f"{JAMBA_TRAIN_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    periods = params["blocks"]["periods"]
+    kernels = check_train_kernels(
+        "jamba", cfg, _layer(periods["pos1"]["moe"], 0),
+        JAMBA_TRAIN_B * JAMBA_TRAIN_S, JAMBA_TRAIN_C, gen, floor)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=JAMBA_TRAIN_S,
+                    batch_size=JAMBA_TRAIN_B, seed=SEED)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    draws = lm.make_draws(cfg, JAMBA_TRAIN_B, JAMBA_TRAIN_S,
+                          torch.Generator(device="cuda").manual_seed(
+                              step_seed(SEED, 0)), "cuda")
+    grads = jamba_grads_cuda_vs_ref(cfg, params,
+                                    batch_at(dc, 0, device="cuda"), draws)
+    del draws
+    torch.cuda.empty_cache()
+    run = _train_loop(cfg, params, dc, JAMBA_TRAIN_STEPS, "jamba train")
+    n_moe = sum(kind.ffn == "moe" for _, kind in layer_index(cfg))
+    check_launches("jamba train", run["counts"],
+                   {k: JAMBA_TRAIN_STEPS * n_moe * v
+                    for k, v in ARCTIC_LAUNCHES.items()})
+    moe = periods["pos1"]["moe"]
+    res = train_tail("jamba", cfg, params, dc, run, JAMBA_TRAIN_STEPS,
+                     (moe["w1"], moe["w2"], moe["w3"], moe["gate"]["wg"]))
+    res["summary"].update(config=f"{JAMBA}, one period ({cfg.n_layers} "
+                                 "layers), bf16, remat, "
+                                 f"B={JAMBA_TRAIN_B} x S={JAMBA_TRAIN_S}, "
+                                 "factored Adam", parameters=n,
+                          grads=grads)
+    log("jamba train " + json.dumps(res["summary"]))
+    res.update(kernels=kernels, counts=run["counts"])
+    del params, run
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
     dev = [p["kernels"][name]["device_ms_per_launch"] for p in profiles
            if name in p["kernels"]]
@@ -4522,7 +5346,8 @@ def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
         **{k: v for k, v in r.items()
            if k.startswith(("max_abs_err_", "tol_", "used_", "moa_", "rows_",
                             "full_pool", "c72", "phase_split", "chunk_",
-                            "train_", "stream_", "bound_ms_", "by_shape"))}}
+                            "train_", "stream_", "bound_ms_", "by_shape",
+                            "jamba_"))}}
 
 
 def main() -> int:
@@ -4589,6 +5414,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             launchers = phase_launchers(workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        falcon = phase_falcon_serve()
+        gc.collect()
+        torch.cuda.empty_cache()
+        jamba = phase_jamba_serve(kernels["floor"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        jamba["train"] = phase_jamba_train(kernels["floor"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        falcon["train"] = phase_falcon_train()
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -4602,11 +5439,16 @@ def main() -> int:
                 "train_eblock": eblock["launches"][str(E_BLOCK)],
                 "train_hmoe": hmoe["counts"],
                 "train_hmoe_lm": hmoe["lm"]["counts"],
-                "train_arctic": arctic["counts"]}
+                "train_arctic": arctic["counts"],
+                "serve_jamba": jamba["counts"],
+                "serve_jamba_fused": jamba["fused_counts"],
+                "train_jamba": jamba["train"]["counts"]}
     profiles = [served["profile"], served["fused"]["profile"],
                 served["ec"]["profile"], moa["profile"],
                 moa_train["profile"], trained["profile"],
-                eblock["profile"], hmoe["profile"], arctic["profile"]]
+                eblock["profile"], hmoe["profile"], arctic["profile"],
+                jamba["profile"]["decode"], jamba["profile"]["prefill"],
+                jamba["profile"]["fused_decode"]]
     measured = dict(kernels["rows"], **served["fused"]["kernels"])
     measured["fused_routed"].update(
         max_abs_err_f32_ragged=kernels["fused"]["fused_routed_f32_max_abs_err"],
@@ -4622,6 +5464,10 @@ def main() -> int:
         measured[name]["train_moa"] = moa_train["kernels"][name]
         measured[name]["train_hmoe"] = hmoe["kernels"][name]
         measured[name]["train_arctic"] = arctic["kernels"][name]
+        measured[name]["jamba_train"] = jamba["train"]["kernels"][name]
+    for name in ("topk_gating", "dispatch", "combine", "gmm",
+                 "fused_decode"):
+        measured[name]["jamba_serve"] = jamba["kernels"][name]
     dw = {what: run["kernels"]["gmm_bwd"]["calls"]["dw_w1"]
           for what, run in (("hmoe", hmoe), ("arctic", arctic))}
     log("the dw layout (x^T dz, dev ms a call / torch.bmm ms / bound ms): "
@@ -4649,7 +5495,17 @@ def main() -> int:
         f"{arctic['summary']['step_ms_median_steps_2_to_6']:.1f} ms, peak "
         f"{arctic['summary']['max_memory_allocated_gib']:.2f} GiB, cuda-vs-"
         f"ref loss rel err {arctic['summary']['loss_rel_err']:.3g}; qwen3 "
-        f"step {qwen3['step_ms_median_steps_2_to_4']:.1f} ms; smollm "
+        f"step {qwen3['step_ms_median_steps_2_to_4']:.1f} ms; falcon "
+        f"prefill {falcon['summary']['prefill_ms_median']:.1f} ms, decode "
+        f"step {falcon['summary']['decode_step_ms_median']:.1f} ms, train "
+        f"step {falcon['train']['summary']['step_ms_median_steps_2_on']:.1f}"
+        f" ms; jamba prefill {jamba['summary']['prefill_ms_median']:.1f} ms,"
+        f" decode step {jamba['summary']['decode_step_ms_median']:.1f} ms "
+        f"(fused {jamba['summary']['fused']['decode_step_ms_median']:.1f}),"
+        " train step "
+        f"{jamba['train']['summary']['step_ms_median_steps_2_on']:.1f} ms, "
+        "cuda-vs-ref loss rel err "
+        f"{jamba['train']['summary']['grads']['loss_rel_err']:.3g}; smollm "
         f"launchers {launchers['train_s']:.1f} + {launchers['resume_s']:.1f}"
         f" + {launchers['serve_s']:.1f} s; {time.perf_counter() - t_start:.0f}"
         " s in all")

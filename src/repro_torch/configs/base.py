@@ -78,7 +78,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
-    # Training: one torch.utils.checkpoint around each stacked period;
+    # Training: one torch.utils.checkpoint around each stacked layer;
     # scan_layers=False keeps every layer unstacked (the "tail").
     remat: bool = True
     scan_layers: bool = True

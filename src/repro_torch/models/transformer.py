@@ -6,15 +6,16 @@ leading ``[n_periods, ...]`` axis, as in the reference, so a JAX tree
 moves across as a plain copy; the loop walks the stack in Python and
 hands each block views of its layer's slice.  Remainder layers (every
 layer without ``cfg.scan_layers``) live unstacked under ``"tail"``.
-Training (:func:`stack_apply`) wraps each stacked period in
-``torch.utils.checkpoint`` when ``cfg.remat`` is set, as the reference
-wraps its scan body in ``jax.checkpoint``.
+Training (:func:`stack_apply`) wraps each layer of the stacked periods
+in ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference
+wraps its scan body, a period, in ``jax.checkpoint``).
 
 The port runs the ``attn``, ``attn_local`` (sliding window,
-``cfg.sliding_window``; its decode cache is a ring buffer) and ``moa``
-mixers with ``dense`` / ``moe`` / ``moe+dense`` FFNs, the MoE flat or
-hierarchical (``cfg.moe_hierarchical``, Appendix B).  Mamba mixers
-(hybrid / ssm slice) raise NotImplementedError.
+``cfg.sliding_window``; its decode cache is a ring buffer), ``moa`` and
+``mamba`` (``models/ssm.py``; its decode cache is the scan and conv
+state, written in place by prefill and decode like K/V) mixers with
+``dense`` / ``moe`` / ``moe+dense`` / no FFN, the MoE flat or
+hierarchical (``cfg.moe_hierarchical``, Appendix B).
 ``cfg.fused_decode`` reaches decode-shaped flat MoE and MoA calls only;
 prefill stays unfused, and the hierarchical MoE has no fused decode (nor
 has the reference).
@@ -30,16 +31,7 @@ from repro_torch.configs.base import (LayerKind, ModelConfig, layer_kinds,
 from repro_torch.core import hierarchical as hmoe_lib
 from repro_torch.core import moa as moa_lib
 from repro_torch.core import moe as moe_lib
-from repro_torch.models import attention, layers
-
-_NOT_PORTED = {
-    "mamba": "mamba mixers are not ported yet (the ssm slice)",
-}
-
-
-def _check_supported(cfg: ModelConfig, kind: LayerKind) -> None:
-    if kind.mixer in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[kind.mixer])
+from repro_torch.models import attention, layers, ssm
 
 
 def _moe_args(cfg: ModelConfig, *, decode: bool = False) -> moe_lib.MoEArgs:
@@ -103,10 +95,13 @@ def _window(cfg: ModelConfig, kind: LayerKind) -> int:
 
 
 def block_defs(cfg: ModelConfig, kind: LayerKind) -> dict:
-    _check_supported(cfg, kind)
     defs: dict = {"ln1": layers.rmsnorm_defs(cfg.d_model)}
     if kind.mixer == "moa":
         defs["moa"] = moa_lib.moa_defs(_moa_args(cfg))
+    elif kind.mixer == "mamba":
+        defs["mamba"] = ssm.mamba_defs(
+            cfg.d_model, d_state=cfg.ssm_d_state, d_conv=cfg.ssm_d_conv,
+            expand=cfg.ssm_expand, dtype=cfg.param_dtype)
     else:
         defs["attn"] = attention.attention_defs(
             cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
@@ -168,11 +163,16 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     full, rem = n_periods(cfg)
 
     def one(kind: LayerKind):
-        _check_supported(cfg, kind)
         if kind.mixer == "moa":
             # Shared K/V: a plain attention layer's cache.
             return moa_lib.init_cache_defs(batch, max_len, _moa_args(cfg),
                                            dtype=cfg.param_dtype)
+        if kind.mixer == "mamba":
+            return ssm.init_state_defs(batch, cfg.d_model,
+                                       d_state=cfg.ssm_d_state,
+                                       d_conv=cfg.ssm_d_conv,
+                                       expand=cfg.ssm_expand,
+                                       dtype=cfg.param_dtype)
         return attention.init_cache_defs(batch, max_len, cfg.n_kv_heads,
                                          cfg.head_dim,
                                          window=_window(cfg, kind),
@@ -292,6 +292,8 @@ def block_apply(params, x, kind: LayerKind, cfg: ModelConfig, *,
                                    positions=positions, train=train,
                                    noise=moa_noise)
         aux_mix = _moa_aux(aux)
+    elif kind.mixer == "mamba":
+        y = ssm.mamba(params["mamba"], h, d_state=cfg.ssm_d_state)
     else:
         y = attention.attention(params["attn"], h, positions,
                                 rope_theta=cfg.rope_theta,
@@ -320,11 +322,15 @@ def stack_apply(params, x, cfg: ModelConfig, *, positions, draws=None,
     """Run all layers for training.  ``draws`` is one step's draws
     (``lm.make_draws``: ``noise`` and ``moa_noise``, lists with one
     entry per layer number) or None for noiseless gates; a config with
-    MoA mixers needs ``moa_noise``.  With ``cfg.remat`` each stacked
-    period runs under ``torch.utils.checkpoint`` (non-reentrant): its
-    activations are recomputed in the backward pass from its input,
-    with the same noise tensors, so the recomputed routing is the
-    forward's.  Returns (x, summed aux)."""
+    MoA mixers needs ``moa_noise``.  With ``cfg.remat`` each layer of
+    the stacked periods runs under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are recomputed in the backward pass
+    from its input, with the same noise tensors, so the recomputed
+    routing is the forward's.  The reference checkpoints a whole period;
+    a layer at a time recomputes the same work and holds one layer's
+    activations, not a period's (a jamba period at S = 4096 would not
+    fit beside its weights and gradients on one card).  Returns (x,
+    summed aux)."""
     kinds = layer_kinds(cfg)
     full, rem = n_periods(cfg)
     aux = _zero_aux(x.device)
@@ -340,41 +346,43 @@ def stack_apply(params, x, cfg: ModelConfig, *, positions, draws=None,
                 "moa_noise": (draws["moa_noise"][layer]
                               if "moa_noise" in draws else None)}
 
-    def period(x, aux, blocks, i):
-        for p in range(cfg.period):
-            x, a = block_apply(blocks[f"pos{p}"], x, kinds[p], cfg,
-                               positions=positions,
-                               **draws_of(i * cfg.period + p), train=train)
-            if a is not None:
-                aux = _add_aux(aux, a)
-        return x, aux
+    def layer(x, aux, block, kind, number):
+        x, a = block_apply(block, x, kind, cfg, positions=positions,
+                           **draws_of(number), train=train)
+        return x, aux if a is None else _add_aux(aux, a)
 
     if full:
         stacked = {f"pos{p}": _unstack(params["periods"][f"pos{p}"], full)
                    for p in range(cfg.period)}
         for i in range(full):
-            blocks = {k: v[i] for k, v in stacked.items()}
-            if cfg.remat:
-                x, aux = checkpoint(period, x, aux, blocks, i,
-                                    use_reentrant=False,
-                                    preserve_rng_state=False)
-            else:
-                x, aux = period(x, aux, blocks, i)
+            for p in range(cfg.period):
+                args = (x, aux, stacked[f"pos{p}"][i], kinds[p],
+                        i * cfg.period + p)
+                if cfg.remat:
+                    x, aux = checkpoint(layer, *args, use_reentrant=False,
+                                        preserve_rng_state=False)
+                else:
+                    x, aux = layer(*args)
     for p in range(rem):
-        x, a = block_apply(params["tail"][f"pos{p}"], x,
-                           kinds[p % cfg.period], cfg, positions=positions,
-                           **draws_of(full * cfg.period + p), train=train)
-        if a is not None:
-            aux = _add_aux(aux, a)
+        x, aux = layer(x, aux, params["tail"][f"pos{p}"],
+                       kinds[p % cfg.period], full * cfg.period + p)
     return x, aux
+
+
+def _write_state(cache: dict, state: dict) -> None:
+    """Copy a mamba mixer's new scan and conv state into its cache
+    tensors (the page or pool that prefill and decode write in place)."""
+    for key in ("ssm", "conv"):
+        cache[key].copy_(state[key])
 
 
 def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
                   positions, valid=None, start_pos: int | None = None):
-    """Prefill block: causal attention (or MoA) + cache fill.  Returns
-    x.  ``start_pos`` is chunked-prefill mode: K/V lands at cache
-    positions [start_pos, start_pos + S) and attention resumes against
-    the cached prefix (attention mixers only)."""
+    """Prefill block: causal attention (or MoA, or the mamba scan) +
+    cache fill.  Returns x.  ``start_pos`` is chunked-prefill mode: K/V
+    lands at cache positions [start_pos, start_pos + S) and attention
+    resumes against the cached prefix (attention mixers only).  A mamba
+    mixer copies its final scan and conv state into ``cache``."""
     if kind.mixer == "mamba" and start_pos is not None:
         raise ValueError(
             "chunked prefill requires attention mixers (ssm/hybrid state "
@@ -386,6 +394,10 @@ def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
                                    _moa_args(cfg), cache=cache,
                                    mask=_flat_mask(valid, b, s),
                                    start_pos=start_pos)
+    elif kind.mixer == "mamba":
+        y, state = ssm.mamba(params["mamba"], h, d_state=cfg.ssm_d_state,
+                             return_state=True)
+        _write_state(cache, state)
     else:
         y, _ = attention.prefill_attention(
             params["attn"], h, positions, rope_theta=cfg.rope_theta,
@@ -408,6 +420,10 @@ def block_decode(params, x, kind: LayerKind, cfg: ModelConfig, cache,
                                        _moa_args(cfg, decode=True),
                                        mask=mask)
         telem.update(_moa_aux(aux)["telemetry"])
+    elif kind.mixer == "mamba":
+        y, state = ssm.mamba_decode(params["mamba"], h, cache,
+                                    d_state=cfg.ssm_d_state)
+        _write_state(cache, state)
     else:
         y, _ = attention.decode_attention(
             params["attn"], h, cache, cur_index, rope_theta=cfg.rope_theta,

@@ -13,8 +13,9 @@ Whole prompts are right-padded to power-of-two length buckets with the
 padded tail masked out of MoE routing, and dead slots are masked out of
 routing at decode, exactly as in the reference, so the greedy token
 streams match it.  A sliding-window model serves whole, unpadded
-prompts into its ring-buffer caches: bucketing is off, and chunking and
-the prefix cache warn and stay off, as in the reference.
+prompts into its ring-buffer caches, and a model with mamba mixers
+into its scan and conv states: bucketing is off, and chunking and the
+prefix cache warn and stay off, as in the reference.
 
 Chunked prefill (``prefill_chunk``): a prompt longer than the chunk is
 ingested as fixed-size chunk work-items over consecutive steps, each
@@ -120,9 +121,9 @@ class ServeEngine:
         self.sc = sc
         # Bucketing and chunking need caches a padded tail cannot stay in
         # and a prefix can be resumed from: a sliding-window ring buffer
-        # (or a state scan) is neither, so such a model serves whole,
-        # unpadded prompts.  Mamba mixers are not ported: building their
-        # cache raises NotImplementedError in reset().
+        # or a mamba mixer's scan state is neither, so such a model
+        # serves whole, unpadded prompts (a mamba prompt's length must be
+        # a multiple of the scan chunk, or shorter than it).
         stateless = (not cfg.sliding_window
                      and all(k.mixer != "mamba" for k in layer_kinds(cfg)))
         self._can_bucket = sc.prefill_buckets and stateless

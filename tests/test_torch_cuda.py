@@ -931,3 +931,72 @@ def test_windowed_engine_matches_full_forward(gen):
         for pos in range(len(pr) - 1, len(seq)):
             torch.testing.assert_close(rows[(i, pos)], full[pos], rtol=1e-4,
                                        atol=1e-4)
+
+
+def _mamba_case(dtype, b=2, s=256, d=64, n=16):
+    """A mamba block's parameters (seeded on the CPU) and an input, two
+    chunks of 128 long."""
+    from repro_torch.common import param as pm
+    from repro_torch.models import ssm
+    g = torch.Generator().manual_seed(1)
+    params = pm.materialize(ssm.mamba_defs(d, d_state=n, d_conv=4, expand=2,
+                                           dtype=dtype), g, "cpu")
+    params["dt_bias"].normal_(0.0, 0.5, generator=g)
+    params["a_log"].uniform_(-1.0, 1.5, generator=g)
+    x = (0.5 * torch.randn(b, s, d, generator=g)).to(dtype)
+    return params, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_cuda_matches_cpu(gen, dtype):
+    """``ssm.mamba`` on the card against the same call on the CPU: the
+    output, the final scan and conv state and every gradient.  f32: max
+    abs error within 1e-4 of each tensor's scale (sums in other orders);
+    bf16: within 2^-6 normwise (||got - want|| / ||want||: the
+    compute-dtype matmuls round sums taken in other orders, and the
+    backward pass carries that rounding through)."""
+    from repro_torch.common.param import tree_leaves, tree_map
+    from repro_torch.models import ssm
+    params, x = _mamba_case(dtype)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.detach().clone().to(dev).requires_grad_(
+            True), params)
+        xx = x.detach().clone().to(dev).requires_grad_(True)
+        y, st = ssm.mamba(p, xx, d_state=16, return_state=True)
+        (y.float() * dy.to(dev)).sum().backward()
+        runs[dev] = [y, st["ssm"], st["conv"], xx.grad] + [
+            t.grad for t in tree_leaves(p)]
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        diff = got.cpu().float() - want.float()
+        if dtype == torch.float32:
+            scale = float(want.abs().max())
+            assert float(diff.abs().max()) <= 1e-4 * max(scale, 1e-30)
+        else:
+            norm = float(torch.linalg.vector_norm(want.float()))
+            assert float(torch.linalg.vector_norm(diff)) <= \
+                2.0 ** -6 * max(norm, 1e-30)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_matches_decode_on_card(gen):
+    """The chunked scan against the one-step recurrence on the card, in
+    f32, over two chunks."""
+    from repro_torch.common import param as pm
+    from repro_torch.models import ssm
+    params, x = _mamba_case(torch.float32)
+    params = pm.tree_map(lambda t: t.cuda(), params)
+    x = x.cuda()
+    with torch.no_grad():
+        want = ssm.mamba(params, x, d_state=16)
+        state = pm.zeros(ssm.init_state_defs(2, 64, d_state=16, d_conv=4,
+                                             expand=2), "cuda")
+        ys = []
+        for i in range(x.shape[1]):
+            y, state = ssm.mamba_decode(params, x[:, i:i + 1], state,
+                                        d_state=16)
+            ys.append(y)
+    torch.testing.assert_close(torch.cat(ys, 1), want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))

@@ -195,7 +195,7 @@ def test_unstacked_tree_is_the_references():
 
 
 def test_remat_changes_no_number():
-    """``remat`` on (a checkpoint around each stacked period) and off:
+    """``remat`` on (a checkpoint around each stacked layer) and off:
     the same loss and gradients, bit for bit on the CPU."""
     jcfg = small_config(KIMI)
     tree = _params(jcfg, seed=2)
@@ -232,8 +232,10 @@ def test_unported_training_features_raise(what):
     """Named for the check it replaced (MoA training raised): moa-demo
     now trains through ``lm_loss`` with the trainer's generator (its MoE
     and MoA draws from ``make_draws``), every leaf gets a finite
-    gradient, and the MoA gates a nonzero one.  Mamba, still unported,
-    raises."""
+    gradient, and the MoA gates a nonzero one.  Mamba (which raised
+    here before it was ported) now declares the reference's tree: the
+    same config with every mixer a mamba one has the JAX package's
+    paths and shapes (its numbers are ``test_torch_hybrid.py``'s)."""
     tcfg = _tcfg(small_config("moa-demo"))
     tp = materialize(tlm.lm_defs(tcfg), torch.Generator().manual_seed(0),
                      "cpu")
@@ -249,8 +251,17 @@ def test_unported_training_features_raise(what):
                for leaf in tree_leaves(tp))
     wg = tp["blocks"]["periods"]["pos1"]["moa"]["gate"]["wg"]
     assert float(wg.grad.abs().max()) > 0
-    with pytest.raises(NotImplementedError, match="mamba"):
-        tlm.lm_defs(tcfg.replace(family="ssm", moa_positions=()))
+    from repro_torch.common.param import ParamDef
+    ssm_cfg = small_config("moa-demo").replace(
+        family="ssm", moa_positions=(), ssm_d_state=4)
+    tflat = jax.tree_util.tree_flatten_with_path(
+        tlm.lm_defs(_tcfg(ssm_cfg)),
+        is_leaf=lambda d: isinstance(d, ParamDef))[0]
+    jflat = jax.tree_util.tree_flatten_with_path(
+        jlm.lm_defs(ssm_cfg), is_leaf=jpm.is_def)[0]
+    assert [(p, d.shape) for p, d in tflat] == [(p, d.shape)
+                                                for p, d in jflat]
+    assert any("mamba" in jax.tree_util.keystr(p) for p, _ in tflat)
 
 
 def test_make_draws_layout():

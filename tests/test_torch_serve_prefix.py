@@ -598,13 +598,28 @@ def test_chunked_cache_dtype_warning_and_unported_architectures():
     with pytest.warns(RuntimeWarning, match="cache precision"):
         tengine.ServeEngine(params, tcfg, tengine.ServeConfig(
             max_len=32, n_slots=2, prefill_chunk=16), device="cpu")
-    # mamba mixers, whose chunking the reference refuses, are not
-    # ported at all
-    with pytest.raises(NotImplementedError, match="mamba"):
-        tengine.ServeEngine(params, _configs()[1].replace(family="ssm"),
-                            tengine.ServeConfig(max_len=32, n_slots=2,
-                                                prefill_chunk=16),
-                            device="cpu")
+    # mamba mixers: both engines refuse chunking with a warning, fall
+    # back to whole prompts and serve the same greedy streams
+    jcfg, tcfg = (c.replace(family="ssm", ssm_d_state=4) for c in _configs())
+    tree = jax.tree_util.tree_map(np.asarray, jpm.materialize(
+        jlm.lm_defs(jcfg), jax.random.PRNGKey(1)))
+    kw = dict(max_len=48, n_slots=2, prefill_chunk=16)
+    with pytest.warns(RuntimeWarning, match="chunked prefill"):
+        teng = tengine.ServeEngine(from_jax_tree(tree, device="cpu"), tcfg,
+                                   tengine.ServeConfig(**kw), device="cpu")
+    with pytest.warns(RuntimeWarning, match="chunked prefill"):
+        jeng = jengine.ServeEngine(tree, jcfg, jengine.ServeConfig(**kw))
+    assert teng._chunk == jeng._chunk == 0
+    rs = np.random.RandomState(7)
+    trace = [(rs.randint(1, jcfg.vocab_size, (n,)), m, a)
+             for n, m, a in MATRIX_TRACE]
+    streams = []
+    for eng in (teng, jeng):
+        reqs = [eng.submit(p, m, arrival=a) for p, m, a in trace]
+        eng.run()
+        streams.append([list(r.tokens) for r in reqs])
+    assert streams[0] == streams[1]
+    assert teng.stats["prefill_chunks"] == 0
     with pytest.raises(ValueError, match="attention mixers"):
         ttransformer.block_prefill(
             {"ln1": {"scale": torch.ones(4)}}, torch.zeros(1, 2, 4),
