@@ -89,7 +89,29 @@ Phases, in order; any failure exits non-zero and prints no result:
              step, and the trie's page of request 0 bit for bit a fresh
              chunked prefill of its prompt; TTFT, chunk-call time, the
              stall of decode steps that ran a chunk, prefill tokens/s
-             and peak memory printed.  The serving model is then freed.
+             and peak memory printed.
+7b. obs    — observability on the same model (``repro_torch.obs``):
+             (a) phase 7's traffic with the cache on, traced without a
+             sync: greedy streams and launch counts equal to phase 7's,
+             the trace loads with the reference test's span names, no
+             negative duration, kernel.dispatch / kernel.combine spans
+             equal to those kernels' launches, kernel.gmm spans a third
+             of the GMM launches, kernel.decode_step spans kernel 7's;
+             the registry: one decode_overflow_per_step observation a
+             decode step, the decode_expert_load family equal to the
+             telemetry's summed load; (b) the same traffic with
+             ``trace_sync`` and ``log_decisions`` (a warm-up pass, then
+             reset, clear and the measured pass): ``CostModel`` fitted
+             on the trace (the table printed), a ``replay`` with the
+             engine's page bytes: decisions and ten counters equal to
+             the engine's, the predicted wall within 10 % of the
+             recorded time of the ops it charges, a zero-cost replay
+             deciding the same; (c) phase 3's traffic on phase 3's
+             engine untraced and traced in turns (the median decode step
+             of each pass printed, not gated), and one traced pass with
+             fused decode (kernel.decode_step spans equal to kernel 7's
+             launches, streams phase 5's).  The serving model is then
+             freed.
 8. moa     — moa-demo (Mixture-of-Attention-Heads) at its published
              widths: first every kernel of its serve path against its
              plain version at the shapes that path gives it (top-k,
@@ -102,10 +124,14 @@ Phases, in order; any failure exits non-zero and prints no result:
              published widths with the 1-Billion-Word vocabulary of
              793,471 (1.085 B parameters, f32), drawn from a seed on the
              card, trained through the port's Trainer (factored Adam,
-             B=32 x S=128) for 12 steps with a checkpoint at step 6.
-             Launch counts per step must be exactly those of the
-             resident regime; every loss finite.  A profile of two more
-             steps gives the device time by kernel and the idle share.
+             B=32 x S=128) for 12 steps with a checkpoint at step 6,
+             traced (``trace_path`` under its workdir).  Launch counts
+             per step must be exactly those of the resident regime;
+             every loss finite; the trace's train.step spans 12, its
+             train.checkpoint spans 2, kernel spans present, the median
+             train.step span within 2 % of the median step time.  A
+             profile of two more steps gives the device time by kernel
+             and the idle share.
 10. eblock  — moe_apply forward + backward at the training shape with
              ``dispatch_e_block=16`` against the resident default:
              dispatch buffers bit-equal, outputs and gradients close,
@@ -193,10 +219,14 @@ Phases, in order; any failure exits non-zero and prints no result:
              against plain masked autograd at S = 4096, its time beside
              the global layer's, then 3 steps (B = 1 x S = 4096, remat):
              finite metrics, every gradient present and finite.
-18. launchers — ``launch.train --arch smollm-135m`` at full size, 8 steps
-             of B = 8 x S = 2048 with checkpoints at 4 and 8; the same
-             call again resumes at step 8 and trains nothing; then
-             ``launch.serve --ckpt`` serves 4 greedy requests from it.
+18. launchers — ``launch.train --arch smollm-135m --trace`` at full
+             size, 8 steps of B = 8 x S = 2048 with checkpoints at 4 and
+             8; the same call again resumes at step 8 and trains
+             nothing; then ``launch.serve --ckpt --trace --trace-sync
+             --log-decisions`` serves 4 greedy requests from it.  Both
+             traces load (8 train.step and 2 train.checkpoint spans;
+             serve.step and serve.decode spans) and both launchers print
+             their trace lines.
 19. falcon — falcon-mamba-7b at full size (64 mamba layers, no FFN,
              7.27 B parameters, bf16): layer 0's chunked scan against
              ``mamba_decode`` stepped token by token (f32 and bf16,
@@ -241,6 +271,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -271,6 +302,9 @@ PREFIX_CROSS_CF = 8.0
 # Training: the paper's MoE-256 LM, B x S tokens a step.
 TRAIN_CONFIG, TRAIN_VOCAB = "moe-256", 793_471
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 32, 128, 12, 6
+# The traced training run's median train.step span against the trainer's
+# median step time (the span sits inside the step's timer).
+TRAIN_SPAN_TOL = 0.02
 E_BLOCK = 16             # the reference's slab at this shape
 # Launches per training step in the resident regime: the forward top-k,
 # dispatch, combine and two GMMs; the backward top-k; the combine's
@@ -2099,7 +2133,8 @@ def phase_fused(cfg, params, served) -> dict:
                          out["decode_step_ms_median"], "fused profile")
     torch.cuda.empty_cache()
     return {"kernels": kernels, "summary": out, "counts": counts,
-            "cross": cross, "profile": prof}
+            "cross": cross, "profile": prof,
+            "streams": [list(r.tokens) for r in reqs]}
 
 
 def phase_expert_choice(cfg, params, prompts) -> dict:
@@ -2538,25 +2573,38 @@ def phase_chunk_gates(cfg, params, prompts) -> dict:
     return {"cuda_vs_ref": g1, "chunked_vs_whole": g2}
 
 
+def prefix_engine(cfg, params, prefix_cache: bool = True, **kw):
+    """The chunked engine of the shared-system-prompt trace (fused
+    decode); ``kw`` adds ServeConfig fields."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    return ServeEngine(params, cfg, ServeConfig(
+        max_len=PREFIX_MAX_LEN, n_slots=N_REQUESTS,
+        prefill_chunk=PREFIX_CHUNK, prefill_budget=PREFIX_BUDGET,
+        admission="aware", fused_decode=True, prefix_cache=prefix_cache,
+        **kw), device="cuda")
+
+
+def prefix_traffic(prompts) -> list:
+    """(prompt, new tokens, arrival) of the shared-system-prompt trace:
+    request 0 at step 0, the others one step apart from
+    PREFIX_FIRST_ARRIVAL."""
+    arrivals = [0] + [PREFIX_FIRST_ARRIVAL + i
+                      for i in range(len(prompts) - 1)]
+    return [(p, NEW_TOKENS, a) for p, a in zip(prompts, arrivals)]
+
+
 def prefix_run(cfg, params, prompts, prefix_cache: bool) -> dict:
     """The shared-system-prompt trace through a chunked engine (fused
-    decode), each step timed to a device sync: request 0 at step 0, the
-    others one step apart from PREFIX_FIRST_ARRIVAL.  Launch counts are
-    zeroed just before the run and read just after."""
+    decode), each step timed to a device sync.  Launch counts are zeroed
+    just before the run and read just after."""
     import numpy as np
     import torch
     from repro_torch.kernels import cuda_lib
-    from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-    engine = ServeEngine(params, cfg, ServeConfig(
-        max_len=PREFIX_MAX_LEN, n_slots=N_REQUESTS,
-        prefill_chunk=PREFIX_CHUNK, prefill_budget=PREFIX_BUDGET,
-        admission="aware", fused_decode=True, prefix_cache=prefix_cache),
-        device="cuda")
-    arrivals = [0] + [PREFIX_FIRST_ARRIVAL + i
-                      for i in range(len(prompts) - 1)]
-    reqs = [engine.submit(p, NEW_TOKENS, arrival=a)
-            for p, a in zip(prompts, arrivals)]
+    engine = prefix_engine(cfg, params, prefix_cache)
+    reqs = [engine.submit(p, m, arrival=a)
+            for p, m, a in prefix_traffic(prompts)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
@@ -2676,13 +2724,260 @@ def phase_prefix(cfg, params, floor) -> dict:
            - s_on["prefill_tokens"]}
     log(f"prefix phase: greedy tokens equal with the cache on and off "
         f"{agree:.4f}; prefill tokens saved {res['prefill_tokens_saved']}")
+    streams_on = [list(r.tokens) for r in on["reqs"]]
     del off, on, eng, fresh
     torch.cuda.empty_cache()
-    return dict(res, counts=res["on"]["launches"])
+    return dict(res, counts=res["on"]["launches"], prompts=prompts,
+                streams_on=streams_on)
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: observability on the same model: phase 7's traffic traced, the
+# replay cost model fitted on the card, tracing's cost at decode, the
+# metrics registry
+# ---------------------------------------------------------------------------
+
+# The span names the reference's engine test requires of a traced run.
+OBS_SPANS = {"serve.step", "serve.schedule", "serve.prefill_chunk",
+             "serve.decode", "serve.sample", "serve.kv_insert",
+             "serve.retire", "serve.prefix_probe", "serve.queue"}
+# The ops the replay charges (serve.step would count its children twice)
+# and the counters it must reproduce; its predicted wall within
+# OBS_WALL_TOL of the recorded time of those ops.
+OBS_CHARGED = {"serve.schedule", "serve.prefix_probe", "serve.prefix_hit",
+               "serve.retire", "serve.prefill", "serve.prefill_chunk",
+               "serve.kv_insert", "serve.sample", "serve.decode"}
+OBS_COUNTERS = ("prefills", "decode_steps", "generated_tokens",
+                "slot_steps_active", "slot_steps_total", "prefill_chunks",
+                "prefill_tokens", "prefill_calls", "prefix_hits",
+                "prefix_hit_tokens")
+OBS_WALL_TOL = 0.10
+OBS_AB_PAIRS = 4         # untraced / traced decode passes, in turns
+
+
+def span_counts(events) -> dict:
+    out: dict = {}
+    for e in events:
+        out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def obs_run(engine, traffic) -> tuple:
+    """Serve ``traffic`` through ``engine.run()`` (which saves its trace)
+    with the launch counts zeroed just before and read just after.
+    Returns (streams, launch counts, wall seconds)."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+
+    reqs = [engine.submit(p, m, arrival=a) for p, m, a in traffic]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        check(r.done and len(r.tokens) == r.max_new_tokens,
+              f"obs: request {r.rid} ended with {len(r.tokens)} tokens")
+    return [list(r.tokens) for r in reqs], cuda_lib.launch_counts(), wall
+
+
+def obs_kernel_spans(what, events, counts) -> dict:
+    """Each kernel span against its kernels' launches: one dispatch,
+    combine and kernel-7 launch a span, three GMM launches (w1, w3, w2)
+    a ``kernel.gmm`` span of the expert FFN."""
+    spans = span_counts(events)
+    pairs = {"kernel.dispatch": counts.get("dispatch", 0),
+             "kernel.combine": counts.get("combine", 0),
+             "kernel.gmm": counts.get("gmm", 0) / 3,
+             "kernel.decode_step": counts.get("fused_decode", 0)}
+    got = {name: [spans.get(name, 0), want] for name, want in pairs.items()}
+    log(f"{what}: kernel spans [spans, launches (GMM / 3)] "
+        + json.dumps(got))
+    check(all(a == b for a, b in got.values()),
+          f"{what}: kernel span counts do not match the launches: {got}")
+    return got
+
+
+def obs_registry(what, engine) -> dict:
+    """The registry against the engine's own records: one overflow
+    observation a decode step, the per-expert load family summed equal
+    to the telemetry ring's summed ``expert_load`` (the ring holds every
+    step here)."""
+    import numpy as np
+
+    stats = engine.stats
+    n = engine.metrics.get("decode_overflow_per_step").count
+    check(n == stats["decode_steps"] == len(engine.telemetry),
+          f"{what}: {n} overflow observations, {stats['decode_steps']} "
+          f"decode steps, {len(engine.telemetry)} telemetry entries")
+    load = np.sum([t["expert_load"] for t in engine.telemetry], axis=0)
+    fam = engine.metrics.get("decode_expert_load").children()
+    got = [fam[(e,)].value if (e,) in fam else 0.0
+           for e in range(load.shape[0])]
+    check(got == load.tolist(),
+          f"{what}: decode_expert_load differs from the telemetry's sum")
+    out = {"decode_steps": stats["decode_steps"],
+           "expert_load_total": float(load.sum()),
+           "experts_loaded": int((load > 0).sum()),
+           "decode_active_slots_p50":
+           engine.metrics.get("decode_active_slots").p50,
+           "overflow_total": stats["overflow_total"]}
+    log(f"{what} registry " + json.dumps(out))
+    return out
+
+
+def obs_overhead(served) -> dict:
+    """Phase 3's traffic on phase 3's engine, untraced and traced (no
+    sync) in turns: the median decode step of each pass; the streams
+    must not change.  Reported, not gated."""
+    import torch
+    from repro_torch.obs import trace as trace_lib
+
+    engine = served["engine"]
+    traffic = [(p, NEW_TOKENS, i) for i, p in enumerate(served["prompts"])]
+    passes = []
+    for _ in range(OBS_AB_PAIRS):
+        for traced in (False, True):
+            engine.tracer = trace_lib.Tracer() if traced else trace_lib.NULL
+            engine.reset()
+            streams, _, _ = obs_run(engine, traffic)
+            check(streams == served["streams"],
+                  f"obs overhead: the {'traced' if traced else 'untraced'} "
+                  "pass changed the greedy streams")
+            passes.append((traced, 1e3 * statistics.median(
+                engine.step_times["decode"])))
+    engine.tracer = trace_lib.NULL
+    engine.reset()
+    torch.cuda.synchronize()
+    out = {"order": ["traced" if t else "untraced" for t, _ in passes],
+           "decode_step_ms_median_by_pass": [ms for _, ms in passes],
+           "untraced_ms": statistics.median(ms for t, ms in passes if not t),
+           "traced_ms": statistics.median(ms for t, ms in passes if t)}
+    log("obs overhead (phase 3 traffic, one engine) " + json.dumps(out))
+    return out
+
+
+def phase_obs(cfg, params, served, fused, prefix, workdir) -> dict:
+    """Observability on the full-width kimi-k2 (phase 7's model):
+
+    (a) phase 7's shared-prefix traffic (cache on) with ``trace_path``
+        and no sync: the streams and launch counts equal to phase 7's
+        untraced run, the trace loads with the reference test's span
+        names, every span's duration >= 0, kernel spans equal to
+        launches; (d) the registry against the telemetry;
+    (b) the same traffic with ``trace_sync`` and ``log_decisions``: a
+        warm-up pass, then ``reset()`` and ``tracer.clear()`` and the
+        measured pass; ``CostModel.fit_trace`` and a ``replay`` of the
+        traffic: the decisions and counters equal to the engine's, the
+        predicted wall within OBS_WALL_TOL of the recorded time of the
+        ops it charges, a zero-cost replay deciding the same;
+    (c) tracing's cost at decode (obs_overhead), and one traced pass of
+        phase 3's traffic with fused decode: ``kernel.decode_step``
+        spans equal to kernel 7's launches, the streams phase 5's."""
+    import os
+    import torch
+    from repro_torch.obs import replay as replay_lib
+    from repro_torch.obs import trace as trace_lib
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    traffic = prefix_traffic(prefix["prompts"])
+    # (a)
+    path = os.path.join(workdir, "serve_prefix.json")
+    engine = prefix_engine(cfg, params, trace_path=path)
+    streams, counts, wall = obs_run(engine, traffic)
+    check(streams == prefix["streams_on"],
+          "obs (a): traced greedy streams differ from phase 7's untraced "
+          "run")
+    check(counts == prefix["counts"],
+          f"obs (a): launches {counts} != phase 7's {prefix['counts']}")
+    events = trace_lib.load(path)
+    names = span_counts(events)
+    check(OBS_SPANS <= set(names),
+          f"obs (a): trace lacks {sorted(OBS_SPANS - set(names))}")
+    check(all(e["dur"] >= 0 for e in events if e["ph"] == "X"),
+          "obs (a): a span has a negative duration")
+    spans_a = obs_kernel_spans("obs (a)", events, counts)
+    registry = obs_registry("obs (a)", engine)
+    host_ms = {}
+    for e in events:
+        if e["ph"] == "X" and e["name"] in OBS_CHARGED:
+            host_ms[e["name"]] = host_ms.get(e["name"], 0.0) + e["dur"] / 1e3
+    traced = {"wall_s": wall, "events": len(events), "span_counts": names,
+              "span_ms_total_unsynced": host_ms}
+    log("obs (a) traced prefix run " + json.dumps(traced))
+    del engine
+    torch.cuda.empty_cache()
+    # (b)
+    path = os.path.join(workdir, "serve_fit.json")
+    engine = prefix_engine(cfg, params, trace_path=path, trace_sync=True,
+                           log_decisions=True)
+    obs_run(engine, traffic)                       # warm-up pass
+    engine.reset()
+    engine.tracer.clear()
+    streams, _, wall = obs_run(engine, traffic)
+    check(streams == prefix["streams_on"],
+          "obs (b): synced greedy streams differ from phase 7's")
+    real = tuple(engine.sched.decision_log)
+    check(len(real) > 0, "obs (b): the engine logged no decisions")
+    model = replay_lib.CostModel.fit_trace(path)
+    rcfg = replay_lib.ReplayConfig(
+        n_slots=N_REQUESTS, admission="aware", prefill_chunk=PREFIX_CHUNK,
+        prefill_budget=PREFIX_BUDGET, prefix_cache=True,
+        prefix_cache_bytes=engine.sc.prefix_cache_bytes,
+        page_bytes=engine.kv.page_bytes, max_len=PREFIX_MAX_LEN)
+    res = replay_lib.replay(traffic, rcfg, model)
+    check(tuple(res.decisions) == real,
+          "obs (b): the replay's decisions differ from the engine's")
+    for key in OBS_COUNTERS:
+        check(res.stats[key] == engine.stats[key],
+              f"obs (b): replay {key} {res.stats[key]} != engine "
+              f"{engine.stats[key]}")
+    recorded = sum(e["dur"] for e in trace_lib.load(path)
+                   if e["ph"] == "X" and e["name"] in OBS_CHARGED) / 1e6
+    rel = abs(res.predicted_wall_s - recorded) / recorded
+    check(rel < OBS_WALL_TOL,
+          f"obs (b): predicted wall {res.predicted_wall_s:.6f} s vs "
+          f"recorded {recorded:.6f} s ({rel:.3%})")
+    zero = replay_lib.replay(traffic, rcfg, None)
+    check(tuple(zero.decisions) == real and zero.predicted_wall_s == 0.0,
+          "obs (b): a zero-cost replay decided differently")
+    for op, c in model.to_dict().items():
+        log(f"fitted cost {op}: a {c['a']:.6e} s per unit of "
+            f"{replay_lib.OP_X.get(op, '(constant)')}, b {c['b']:.6e} s, "
+            f"n {c['n']}")
+    lat = res.metrics.get("request_latency_s")
+    fit = {"decisions": len(real), "page_bytes": engine.kv.page_bytes,
+           "predicted_wall_s": res.predicted_wall_s,
+           "recorded_charged_s": recorded, "rel_err": rel,
+           "measured_pass_wall_s": wall,
+           "replay_request_latency_s_p50": lat.p50,
+           "replay_request_latency_s_p95": lat.p95,
+           "costs": model.to_dict(), "stats": res.stats}
+    log("obs (b) replay calibration " + json.dumps(fit))
+    del engine
+    torch.cuda.empty_cache()
+    # (c)
+    overhead = obs_overhead(served)
+    path = os.path.join(workdir, "serve_fused.json")
+    engine = ServeEngine(params, cfg, ServeConfig(
+        max_len=PROMPT_LEN + NEW_TOKENS, n_slots=N_REQUESTS,
+        fused_decode=True, trace_path=path), device="cuda")
+    streams, counts, _ = obs_run(engine, [
+        (p, NEW_TOKENS, i) for i, p in enumerate(served["prompts"])])
+    check(streams == fused["streams"],
+          "obs (c): traced fused streams differ from phase 5's")
+    spans_c = obs_kernel_spans("obs (c) fused", trace_lib.load(path), counts)
+    check(spans_c["kernel.decode_step"][0] > 0,
+          "obs (c): no kernel.decode_step span")
+    del engine
+    torch.cuda.empty_cache()
+    return {"traced": traced, "kernel_spans": spans_a, "registry": registry,
+            "fit": fit, "overhead": overhead, "fused_kernel_spans": spans_c}
 
 
 def run_serve(floor: dict) -> dict:
-    """Phases 3-7 on the full-width kimi-k2; the model is freed on
+    """Phases 3-7b on the full-width kimi-k2; the model is freed on
     return."""
     cfg, params = build_model()
     served = phase_serve(cfg, params)
@@ -2692,9 +2987,11 @@ def run_serve(floor: dict) -> dict:
     fused = phase_fused(cfg, params, served)
     ec = phase_expert_choice(cfg, params, served["prompts"])
     prefix = phase_prefix(cfg, params, floor)
+    with tempfile.TemporaryDirectory() as workdir:
+        obs = phase_obs(cfg, params, served, fused, prefix, workdir)
     return {"counts": served["counts"], "summary": served["summary"],
             "profile": profiled, "cross": cross, "fused": fused, "ec": ec,
-            "prefix": prefix}
+            "prefix": prefix, "obs": obs}
 
 
 # ---------------------------------------------------------------------------
@@ -2941,13 +3238,18 @@ def _loss_fn(cfg):
 def phase_train(cfg, params, workdir, name: str = TRAIN_CONFIG,
                 launches: dict = TRAIN_LAUNCHES, what: str = "train") -> dict:
     """TRAIN_STEPS steps of the paper LM ``cfg`` through the Trainer
-    (factored Adam, a checkpoint every TRAIN_CKPT steps): launch counts
-    exactly ``launches`` a step, every metric finite, peak memory under
-    the card's; then a profile of two more steps."""
+    (factored Adam, a checkpoint every TRAIN_CKPT steps), traced: launch
+    counts exactly ``launches`` a step, every metric finite, peak memory
+    under the card's, the trace's train.step spans one a step, its
+    train.checkpoint spans one a checkpoint, kernel spans present, the
+    median train.step span within TRAIN_SPAN_TOL of the trainer's median
+    step time; then a profile of two more steps."""
     import math
+    import os
     import torch
     from repro_torch.data.pipeline import DataConfig, DataIterator
     from repro_torch.kernels import cuda_lib
+    from repro_torch.obs import trace as trace_lib
     from repro_torch.optim import optimizers as opt_lib
     from repro_torch.train.trainer import Trainer, TrainLoopConfig, step_seed
 
@@ -2960,7 +3262,8 @@ def phase_train(cfg, params, workdir, name: str = TRAIN_CONFIG,
                              checkpoint_every=TRAIN_CKPT,
                              keep_checkpoints=2, log_every=1, seed=SEED),
         data_iter=DataIterator(dc, device="cuda"), workdir=workdir,
-        kernel_backend="cuda", device="cuda")
+        kernel_backend="cuda",
+        trace_path=os.path.join(workdir, "train_trace.json"), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
@@ -2984,6 +3287,22 @@ def phase_train(cfg, params, workdir, name: str = TRAIN_CONFIG,
               f"non-finite metrics at step {m['step']}: {m}")
     check(trainer.ckpt.all_steps() == [TRAIN_CKPT, TRAIN_STEPS],
           f"checkpoints {trainer.ckpt.all_steps()}")
+    events = trace_lib.load(trainer.tracer.path)
+    spans = span_counts(events)
+    kernel_spans = {k: v for k, v in spans.items()
+                    if k.startswith("kernel.")}
+    check(spans.get("train.step") == TRAIN_STEPS
+          and spans.get("train.data") == TRAIN_STEPS,
+          f"{what}: train spans {spans}")
+    check(spans.get("train.checkpoint") == TRAIN_STEPS // TRAIN_CKPT,
+          f"{what}: {spans.get('train.checkpoint')} checkpoint spans")
+    check(kernel_spans, f"{what}: no kernel spans in the trace")
+    span_ms = statistics.median(e["dur"] / 1e3 for e in events
+                                if e["name"] == "train.step")
+    step_ms = 1e3 * statistics.median(trainer.step_times)
+    check(abs(span_ms - step_ms) <= TRAIN_SPAN_TOL * step_ms,
+          f"{what}: median train.step span {span_ms:.3f} ms vs step "
+          f"{step_ms:.3f} ms")
     steady = trainer.step_times[2:]
     tokens = TRAIN_B * TRAIN_S
     keys = ("loss", "xent", "aux_loss", "max_over_mean_load", "cv_load",
@@ -3001,6 +3320,9 @@ def phase_train(cfg, params, workdir, name: str = TRAIN_CONFIG,
         "last": {k: log_rows[-1][k] for k in keys},
         "launches": counts,
         "straggler_events": trainer.straggler_events,
+        "trace": {"span_counts": spans,
+                  "train_step_span_ms_median": span_ms,
+                  "step_ms_median_all": step_ms},
     }
     log(f"{what} " + json.dumps(out))
 
@@ -4722,17 +5044,34 @@ def phase_gemma_train() -> dict:
 # checkpoint
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def tee_stdout():
+    """Capture what the block prints, and print it too."""
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield buf
+    finally:
+        sys.stdout.write(buf.getvalue())
+        sys.stdout.flush()
+
+
 def phase_launchers(workdir: str) -> dict:
     import math
     import os
     from repro_torch.launch import serve as serve_launch
     from repro_torch.launch import train as train_launch
+    from repro_torch.obs import trace as trace_lib
 
     argv = ["--arch", SMOLLM, "--device", "cuda", "--steps", "8", "--batch",
             "8", "--seq", str(QWEN_S), "--checkpoint-every", "4",
             "--workdir", workdir]
+    traces = {k: os.path.join(workdir, f"{k}_trace.json")
+              for k in ("train", "serve")}
     t0 = time.perf_counter()
-    final = train_launch.main(argv)
+    with tee_stdout() as out_train:
+        final = train_launch.main(argv + ["--trace", traces["train"]])
     train_s = time.perf_counter() - t0
     check(final.get("step") == 8 and math.isfinite(final["loss"]),
           f"smollm launcher: {final}")
@@ -4745,14 +5084,28 @@ def phase_launchers(workdir: str) -> dict:
     resume_s = time.perf_counter() - t0
     check(again == {}, f"the second launch trained again: {again}")
     t0 = time.perf_counter()
-    tokens = serve_launch.main(["--arch", SMOLLM, "--device", "cuda",
-                                "--ckpt", ckpt, "--requests", "4",
-                                "--new-tokens", "8"])
+    with tee_stdout() as out_serve:
+        tokens = serve_launch.main(["--arch", SMOLLM, "--device", "cuda",
+                                    "--ckpt", ckpt, "--requests", "4",
+                                    "--new-tokens", "8", "--trace",
+                                    traces["serve"], "--trace-sync",
+                                    "--log-decisions"])
     serve_s = time.perf_counter() - t0
     check(len(tokens) == 4 and all(len(t) == 8 for t in tokens),
           f"smollm served {tokens}")
+    spans = {k: span_counts(trace_lib.load(p)) for k, p in traces.items()}
+    check(spans["train"].get("train.step") == 8
+          and spans["train"].get("train.checkpoint") == 2,
+          f"smollm train trace: {spans['train']}")
+    check(spans["serve"].get("serve.step", 0) > 0
+          and spans["serve"].get("serve.decode", 0) > 0,
+          f"smollm serve trace: {spans['serve']}")
+    for buf, line in ((out_train, "[train] trace written: "),
+                      (out_serve, "[serve] trace written: "),
+                      (out_serve, "[serve] decision log: ")):
+        check(line in buf.getvalue(), f"a launcher did not print {line!r}")
     out = {"train_s": train_s, "final": final, "resume_s": resume_s,
-           "serve_s": serve_s, "tokens": tokens}
+           "serve_s": serve_s, "tokens": tokens, "trace_spans": spans}
     log("launchers " + json.dumps(out))
     return out
 
@@ -5353,7 +5706,6 @@ def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
 def main() -> int:
     import gc
     import os
-    import tempfile
     # The training phases hold logits-sized (13 GB) temporaries of
     # changing sizes; growable segments keep the freed ones reusable.
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -5478,6 +5830,7 @@ def main() -> int:
     rows = [kernel_row(name, measured[name], launches, profiles,
                        kernels["floor"]) for name in KERNELS]
     mt, gs, gt = moa_train["summary"], gemma["summary"], gemma["train"]
+    obs = served["obs"]
     log(f"card {setup['card']}; serve cross-check max_abs_err "
         f"{served['cross']['max_abs_err']:.4g} (tol "
         f"{served['cross']['tol']:.4g}); moa-demo train step "
@@ -5507,8 +5860,12 @@ def main() -> int:
         "cuda-vs-ref loss rel err "
         f"{jamba['train']['summary']['grads']['loss_rel_err']:.3g}; smollm "
         f"launchers {launchers['train_s']:.1f} + {launchers['resume_s']:.1f}"
-        f" + {launchers['serve_s']:.1f} s; {time.perf_counter() - t_start:.0f}"
-        " s in all")
+        f" + {launchers['serve_s']:.1f} s; obs: replay predicted "
+        f"{obs['fit']['predicted_wall_s']:.4f} s of recorded "
+        f"{obs['fit']['recorded_charged_s']:.4f} s, decode step untraced "
+        f"{obs['overhead']['untraced_ms']:.2f} / traced "
+        f"{obs['overhead']['traced_ms']:.2f} ms; "
+        f"{time.perf_counter() - t_start:.0f} s in all")
     print(setup["card"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 Laid out module for module like ``repro`` (the JAX package, which stays
 the reference): ``common/``, ``configs/``, ``core/``, ``kernels/``,
-``models/``, ``serve/``, ``launch/``.  The port imports torch, numpy and
-the standard library only.
+``models/``, ``serve/``, ``obs/``, ``launch/``.  The port imports torch,
+numpy and the standard library only.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for CUDA on a host without it raises (``common.device``).  The

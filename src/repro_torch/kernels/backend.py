@@ -28,6 +28,19 @@ unfused compositions (:func:`_decode_step_via`, :func:`_decode_proj_via`).
 
 Resolution is explicit: an unknown backend raises
 :class:`KernelBackendError`, never a silent fall-back.
+
+Observability: every backend call site runs under a span of the ambient
+tracer (``repro_torch.obs.trace.current()``): ``kernel.gmm`` (``shape``)
+around the expert FFN and ``gmm``, ``kernel.dispatch`` (``tokens``),
+``kernel.combine`` (``shape``), ``kernel.decode_step`` /
+``kernel.decode_proj`` (``tokens``), each with ``backend`` "ref" or
+"cuda".  Two differences from the reference: its spans record a
+``jax.jit`` trace once, at the step that compiled, while the port's
+calls are eager, so a span records the host side of *every* call (the
+kernel itself runs asynchronously on the card, and its time lands in
+the first span that waits for a result); and there is no pallas-style
+``fused`` flag, because the port never falls back to the ref scatter.
+With no tracer installed each span is the shared no-op.
 """
 from __future__ import annotations
 
@@ -41,6 +54,7 @@ from repro_torch.core import dispatch as dsp
 from repro_torch.core import router as router_lib
 from repro_torch.kernels import gmm as gmm_lib
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as trace_lib
 
 
 class KernelBackendError(RuntimeError):
@@ -132,50 +146,63 @@ def _ref_expert_ffn(params, x, a, *, rows=None):
     product in f32, one cast, the f32 down-projection, one cast.  Walked
     over expert chunks so weights are upcast a chunk at a time.  Rows at
     or beyond ``rows[e]`` come out as zeros, as on the kernel path."""
-    dt = a.dtype
-    e = x.shape[0]
-    out = torch.empty((e, x.shape[1], params["w2"].shape[-1]), dtype=dt,
-                      device=x.device)
-    step = gmm_lib.expert_chunk(params["w1"].shape[1], params["w1"].shape[2])
-    for e0 in range(0, e, step):
-        sl = slice(e0, e0 + step)
-        xs = x[sl].to(dt).float()
-        h = torch.bmm(xs, params["w1"][sl].to(dt).float())
-        if a.activation == "swiglu":
-            g = torch.bmm(xs, params["w3"][sl].to(dt).float())
-            h = F.silu(h) * g
-        else:
-            h = torch.relu(h)
-        h = h.to(dt).float()
-        out[sl] = torch.bmm(h, params["w2"][sl].to(dt).float()).to(dt)
-    return gmm_lib.mask_rows(out, rows)
+    with trace_lib.current().span("kernel.gmm", backend="ref",
+                                  shape=tuple(x.shape)):
+        dt = a.dtype
+        e = x.shape[0]
+        out = torch.empty((e, x.shape[1], params["w2"].shape[-1]),
+                          dtype=dt, device=x.device)
+        step = gmm_lib.expert_chunk(params["w1"].shape[1],
+                                    params["w1"].shape[2])
+        for e0 in range(0, e, step):
+            sl = slice(e0, e0 + step)
+            xs = x[sl].to(dt).float()
+            h = torch.bmm(xs, params["w1"][sl].to(dt).float())
+            if a.activation == "swiglu":
+                g = torch.bmm(xs, params["w3"][sl].to(dt).float())
+                h = F.silu(h) * g
+            else:
+                h = torch.relu(h)
+            h = h.to(dt).float()
+            out[sl] = torch.bmm(h, params["w2"][sl].to(dt).float()).to(dt)
+        return gmm_lib.mask_rows(out, rows)
 
 
 def _ref_dispatch(x, p, a):
     p = _as_plan(p)
-    if _dispatch_impl(a) == "einsum":
-        return dsp.dispatch_einsum(x, p)
-    return dsp.dispatch(x, p)
+    with trace_lib.current().span("kernel.dispatch", backend="ref",
+                                  tokens=int(x.shape[0])):
+        if _dispatch_impl(a) == "einsum":
+            return dsp.dispatch_einsum(x, p)
+        return dsp.dispatch(x, p)
 
 
 def _ref_combine(buf, p, a, *, dtype=None):
     p = _as_plan(p)
-    if _dispatch_impl(a) == "einsum":
-        return dsp.combine_einsum(buf, p, dtype=dtype)
-    return dsp.combine(buf, p, dtype=dtype)
+    with trace_lib.current().span("kernel.combine", backend="ref",
+                                  shape=tuple(buf.shape)):
+        if _dispatch_impl(a) == "einsum":
+            return dsp.combine_einsum(buf, p, dtype=dtype)
+        return dsp.combine(buf, p, dtype=dtype)
 
 
 def _ref_gmm(x, w, a):
-    return gmm_lib.gmm_plain(x, w.to(x.dtype))
+    with trace_lib.current().span("kernel.gmm", backend="ref",
+                                  shape=tuple(x.shape)):
+        return gmm_lib.gmm_plain(x, w.to(x.dtype))
 
 
 def _ref_decode_step(params, x, a, *, mask=None):
-    return _decode_step_via(get("ref"), params, x, a, mask=mask)
+    with trace_lib.current().span("kernel.decode_step", backend="ref",
+                                  tokens=int(x.shape[0])):
+        return _decode_step_via(get("ref"), params, x, a, mask=mask)
 
 
 def _ref_decode_proj(x, w, plan_in, plan_out, a, *, dtype=None):
-    return _decode_proj_via(get("ref"), x, w, plan_in, plan_out, a,
-                            dtype=dtype)
+    with trace_lib.current().span("kernel.decode_proj", backend="ref",
+                                  tokens=int(x.shape[0])):
+        return _decode_proj_via(get("ref"), x, w, plan_in, plan_out, a,
+                                dtype=dtype)
 
 
 register(KernelBackend(name="ref", expert_ffn=_ref_expert_ffn,
@@ -199,25 +226,35 @@ def plan_e_block(a) -> int | None:
 
 
 def _cuda_expert_ffn(params, x, a, *, rows=None):
-    return ops.expert_ffn(params, x, activation=a.activation, rows=rows)
+    with trace_lib.current().span("kernel.gmm", backend="cuda",
+                                  shape=tuple(x.shape)):
+        return ops.expert_ffn(params, x, activation=a.activation, rows=rows)
 
 
 def _cuda_dispatch(x, p, a):
     p = _as_plan(p)
-    return ops.dispatch(x.contiguous(), p.expert_index.contiguous(),
-                        p.position.contiguous(), n_experts=p.n_experts,
-                        capacity=p.capacity, e_block=plan_e_block(a))
+    with trace_lib.current().span("kernel.dispatch", backend="cuda",
+                                  tokens=int(x.shape[0])):
+        return ops.dispatch(x.contiguous(), p.expert_index.contiguous(),
+                            p.position.contiguous(), n_experts=p.n_experts,
+                            capacity=p.capacity, e_block=plan_e_block(a))
 
 
 def _cuda_combine(buf, p, a, *, dtype=None):
     p = _as_plan(p)
-    return ops.combine(buf.contiguous(), p.weight.contiguous(),
-                       p.expert_index.contiguous(), p.position.contiguous(),
-                       out_dtype=dtype or buf.dtype, e_block=plan_e_block(a))
+    with trace_lib.current().span("kernel.combine", backend="cuda",
+                                  shape=tuple(buf.shape)):
+        return ops.combine(buf.contiguous(), p.weight.contiguous(),
+                           p.expert_index.contiguous(),
+                           p.position.contiguous(),
+                           out_dtype=dtype or buf.dtype,
+                           e_block=plan_e_block(a))
 
 
 def _cuda_gmm(x, w, a):
-    return ops.gmm(x.contiguous(), w.to(x.dtype).contiguous())
+    with trace_lib.current().span("kernel.gmm", backend="cuda",
+                                  shape=tuple(x.shape)):
+        return ops.gmm(x.contiguous(), w.to(x.dtype).contiguous())
 
 
 def _cuda_topk(noisy, k, kk):
@@ -226,37 +263,42 @@ def _cuda_topk(noisy, k, kk):
 
 
 def _cuda_decode_step(params, x, a, *, mask=None):
-    spec = router_lib.resolve_spec(a)
-    t = x.shape[0]
-    gated = a.activation == "swiglu"
-    w3 = params["w3"] if gated else None
-    x = x.contiguous()
-    if spec.policy == "noisy_topk" and not spec.priority_dispatch:
-        # Kernel 7: eval routing (clean-logit top-k) inside the launch;
-        # the telemetry comes back as its outputs.
-        valid = (torch.ones((t,), dtype=torch.float32, device=x.device)
-                 if mask is None else mask.float().reshape(-1))
-        y, load, overflow = ops.fused_decode_step(
-            x, valid, params["gate"]["wg"], params["w1"], params["w2"], w3,
-            k=min(spec.k, a.n_experts),
-            capacity=spec.capacity(t, a.n_experts, train=False),
-            activation=a.activation)
-        return y, {"expert_load": load, "overflow": overflow}
-    # Any other policy (expert_choice's column top-k over the batch,
-    # Appendix F's batchwise / threshold, priority dispatch) routes
-    # outside as plain tensor ops; kernel 8 fuses the rest.
-    dec = router_lib.build(a).route(params, x, train=False, mask=mask)
-    p = _as_plan(dec)
-    y = ops.fused_routed_apply(x, p, p, params["w1"], params["w2"], w3,
-                               mode="ffn", activation=a.activation,
-                               out_dtype=x.dtype)
-    return y, dec.telemetry
+    with trace_lib.current().span("kernel.decode_step", backend="cuda",
+                                  tokens=int(x.shape[0])):
+        spec = router_lib.resolve_spec(a)
+        t = x.shape[0]
+        gated = a.activation == "swiglu"
+        w3 = params["w3"] if gated else None
+        x = x.contiguous()
+        if spec.policy == "noisy_topk" and not spec.priority_dispatch:
+            # Kernel 7: eval routing (clean-logit top-k) inside the
+            # launch; the telemetry comes back as its outputs.
+            valid = (torch.ones((t,), dtype=torch.float32, device=x.device)
+                     if mask is None else mask.float().reshape(-1))
+            y, load, overflow = ops.fused_decode_step(
+                x, valid, params["gate"]["wg"], params["w1"], params["w2"],
+                w3,
+                k=min(spec.k, a.n_experts),
+                capacity=spec.capacity(t, a.n_experts, train=False),
+                activation=a.activation)
+            return y, {"expert_load": load, "overflow": overflow}
+        # Any other policy (expert_choice's column top-k over the batch,
+        # Appendix F's batchwise / threshold, priority dispatch) routes
+        # outside as plain tensor ops; kernel 8 fuses the rest.
+        dec = router_lib.build(a).route(params, x, train=False, mask=mask)
+        p = _as_plan(dec)
+        y = ops.fused_routed_apply(x, p, p, params["w1"], params["w2"],
+                                   w3, mode="ffn", activation=a.activation,
+                                   out_dtype=x.dtype)
+        return y, dec.telemetry
 
 
 def _cuda_decode_proj(x, w, plan_in, plan_out, a, *, dtype=None):
-    return ops.fused_routed_apply(x.contiguous(), _as_plan(plan_in),
-                                  _as_plan(plan_out), w, mode="proj",
-                                  out_dtype=dtype or x.dtype)
+    with trace_lib.current().span("kernel.decode_proj", backend="cuda",
+                                  tokens=int(x.shape[0])):
+        return ops.fused_routed_apply(x.contiguous(), _as_plan(plan_in),
+                                      _as_plan(plan_out), w, mode="proj",
+                                      out_dtype=dtype or x.dtype)
 
 
 register(KernelBackend(name="cuda", expert_ffn=_cuda_expert_ffn,

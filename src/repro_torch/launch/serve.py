@@ -28,8 +28,15 @@ Example (one H100; kimi-k2 at full width fits the card at 2 layers):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch kimi-k2-1t-a32b --reduce --ckpt /tmp/w/ckpt
 
-The flags are the reference launcher's; the ones whose feature is not
-ported yet (tracing, decision logs) raise NotImplementedError.
+  # a chrome trace with the device waited for inside the prefill and
+  # decode spans, and the scheduler's decision log (what
+  # repro_torch.obs.replay fits and replays):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch kimi-k2-1t-a32b --reduce --requests 4 --stagger 1 \
+      --trace /tmp/serve_trace.json --trace-sync --log-decisions
+
+The flags are the reference launcher's, plus ``--device``,
+``--kernel-backend``, ``--n-layers`` and ``--seed``.
 """
 from __future__ import annotations
 
@@ -133,8 +140,9 @@ def main(argv=None) -> list:
         prefill_budget=args.prefill_budget, admission=args.admission,
         prefix_cache=args.prefix_cache,
         prefix_cache_bytes=args.prefix_cache_bytes,
-        trace_path=args.trace, log_decisions=args.log_decisions,
-        fused_decode=args.fused_decode, seed=args.seed)
+        trace_path=args.trace, trace_sync=args.trace_sync,
+        log_decisions=args.log_decisions, fused_decode=args.fused_decode,
+        seed=args.seed)
     if args.ckpt:
         mgr = CheckpointManager(args.ckpt)
         step = mgr.latest_step()
@@ -197,6 +205,12 @@ def main(argv=None) -> list:
             print(f"[serve] {name} load (decode): "
                   f"{load.astype(int).tolist()} (capacity overflow: "
                   f"{engine.stats[total]:.0f})")
+    if args.trace:
+        print(f"[serve] trace written: {args.trace} "
+              f"({len(engine.tracer.events)} events; load in Perfetto)")
+    if args.log_decisions:
+        print(f"[serve] decision log: {len(engine.sched.decision_log)} "
+              "scheduling steps recorded")
     print(f"[serve] sample: {reqs[0].tokens[:10]}")
     return [list(r.tokens) for r in reqs]
 

@@ -20,10 +20,15 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch moa-demo \
       --reduce --device cpu --steps 4 --batch 2 --seq 32 --moa-k 1
 
-The flags are the reference launcher's, plus ``--device``.  Three of
-them raise: ``--dispatch-vmem-limit`` and ``--no-gmm-autotune`` have no
+  # a chrome trace of the run (train.* spans, kernel.* inside them):
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch kimi-k2-1t-a32b --reduce --device cpu --steps 4 --batch 4 \
+      --seq 32 --trace /tmp/train_trace.json
+
+The flags are the reference launcher's, plus ``--device``.  Two of them
+raise: ``--dispatch-vmem-limit`` and ``--no-gmm-autotune`` have no
 counterpart in the port (the card has no VMEM budget, and the port has
-no GMM tuning table), and ``--trace`` waits for the observability slice.
+no GMM tuning table).
 """
 from __future__ import annotations
 
@@ -49,8 +54,6 @@ REFUSED = {
     "no_gmm_autotune": "--no-gmm-autotune: the port has no GMM tuning "
                        "table (the reference's was measured in CPU "
                        "interpret mode)",
-    "trace": "--trace: chrome-trace capture is not ported yet (the "
-             "observability slice)",
 }
 
 
@@ -154,8 +157,12 @@ def main(argv=None) -> dict:
                              checkpoint_every=args.checkpoint_every,
                              log_every=10),
         data_iter=DataIterator(dc, device=device), workdir=args.workdir,
-        kernel_backend=cfg.kernel_backend, router=cfg.router, device=device)
+        kernel_backend=cfg.kernel_backend, router=cfg.router,
+        trace_path=args.trace, device=device)
     final = trainer.run()
+    if args.trace:
+        print(f"[train] trace written: {args.trace} "
+              f"({len(trainer.tracer.events)} events; load in Perfetto)")
     print(f"[train] done: {final}")
     return final
 

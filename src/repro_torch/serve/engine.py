@@ -33,14 +33,29 @@ immutable pages become tensors written in place, so a page that two
 owners could write is copied (``kv_cache``'s docstring).
 ``fused_decode`` runs every MoE layer of a decode step (and each MoA
 routed projection) as one kernel launch; prefill stays unfused.
-Chrome-trace capture and decision logging are not ported yet: setting
-them raises NotImplementedError.
 
-``stats`` is a plain dict with the reference's keys.  ``step_times``
-holds the wall time (seconds, host clock) of each whole-prompt prefill
-and each decode step, ending at the sampled tokens' copy to the host
-(which waits for the device), and of each chunk call, ending at that
-copy or, for a call that completes no prompt, at a device sync.
+Observability, as in the reference: ``trace_path`` records the
+reference's spans (``serve.step``, ``serve.schedule``,
+``serve.prefill``, ``serve.prefill_chunk``, ``serve.kv_insert``,
+``serve.decode``, ``serve.sample``, ``serve.prefix_probe`` /
+``serve.prefix_hit``, ``serve.retire``; the counters ``serve.queue`` and
+``serve.slots``) with the kernel backend's ``kernel.*`` spans inside
+them, and ``run()`` writes the chrome trace at its end.  There is no
+``serve.reshard``: the port has no mesh.  The launches are
+asynchronous, so without ``trace_sync`` a prefill or decode span ends
+when its launches return and the device time lands in the
+``serve.sample`` that copies the tokens to the host; ``trace_sync``
+waits for the device inside those spans (what the replay cost model
+fits on).  ``log_decisions`` keeps the scheduler's ``StepDecision`` log
+on ``sched.decision_log``.  ``metrics`` is the reference's typed
+registry (the stats counters, the per-step overflow and active-slot
+histograms, per-expert load families); ``stats`` is its flat view.
+
+``step_times`` holds the wall time (seconds, host clock) of each
+whole-prompt prefill and each decode step, ending at the sampled
+tokens' copy to the host (which waits for the device), and of each
+chunk call, ending at that copy or, for a call that completes no
+prompt, at a device sync.
 """
 from __future__ import annotations
 
@@ -56,15 +71,11 @@ from repro_torch.common import param as pm
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import ModelConfig, layer_kinds
 from repro_torch.models import lm
+from repro_torch.obs import metrics as metrics_lib
+from repro_torch.obs import trace as trace_lib
 from repro_torch.serve.kv_cache import PrefixCache, SlotKVCache
 from repro_torch.serve.scheduler import (Request, RequestQueue, Scheduler,
                                          chunk_rounds)
-
-STAT_KEYS = ("prefills", "decode_steps", "reshards", "generated_tokens",
-             "slot_steps_active", "slot_steps_total", "overflow_total",
-             "prefill_chunks", "prefill_tokens", "prefill_calls",
-             "prefix_hits", "prefix_hit_tokens", "moa_overflow_total")
-
 
 @dataclasses.dataclass
 class ServeConfig:
@@ -89,25 +100,23 @@ class ServeConfig:
     telemetry_keep_last_n: int = 512
     # One fused launch per MoE / MoA layer at decode (prefill unfused).
     fused_decode: bool = False
-    # Not ported yet (NotImplementedError when set):
+    # Chrome-trace capture: None installs the null tracer (one no-op
+    # context manager a span site); a path records spans, and run()
+    # writes the trace there at its end.
     trace_path: str | None = None
+    # Calibration tracing: wait for the device inside the prefill, chunk
+    # and decode spans, so each span's duration is that op's wall time
+    # (what the replay cost model fits on).  Off, those spans end when
+    # the launches return and the untraced host/device overlap is kept.
+    trace_sync: bool = False
+    # Keep the scheduler's StepDecision records on sched.decision_log:
+    # the fidelity contract the replay simulator reproduces.
     log_decisions: bool = False
-
-
-def _check_ported(sc: ServeConfig) -> None:
-    unported = {"trace_path": sc.trace_path is not None,
-                "log_decisions": sc.log_decisions}
-    on = [name for name, set_ in unported.items() if set_]
-    if on:
-        raise NotImplementedError(
-            f"ServeConfig {on}: not ported to repro_torch yet (tracing and "
-            "decision logs come in a later slice)")
 
 
 class ServeEngine:
     def __init__(self, params, cfg: ModelConfig, sc: ServeConfig, *,
                  device: str | torch.device = "cuda"):
-        _check_ported(sc)
         if sc.fused_decode:
             # The model layer passes it to decode-shaped calls only.
             cfg = cfg.replace(fused_decode=True)
@@ -119,6 +128,10 @@ class ServeEngine:
         self.params = params
         self.cfg = cfg
         self.sc = sc
+        self.tracer = (trace_lib.Tracer(sc.trace_path, process_name="serve")
+                       if sc.trace_path else trace_lib.NULL)
+        self._trace_sync = (self.tracer.enabled and sc.trace_sync
+                            and self.device.type == "cuda")
         # Bucketing and chunking need caches a padded tail cannot stay in
         # and a prefix can be resumed from: a sliding-window ring buffer
         # or a mamba mixer's scan state is neither, so such a model
@@ -194,12 +207,33 @@ class ServeEngine:
             prefill_budget=self.sc.prefill_budget,
             prefix_probe=self._prefix_probe if self._prefix_on else None,
             on_admit=self._on_admit if self._prefix_on else None)
+        if self.sc.log_decisions:
+            self.sched.decision_log = []
         self.step_count = 0
         self.prefill_lengths: set[int] = set()
         self.chunk_offsets: set[int] = set()
         self._telemetry = collections.deque(
             maxlen=max(self.sc.telemetry_keep_last_n, 0) or None)
-        self._stats = dict.fromkeys(STAT_KEYS, 0)
+        # The reference's registry: the counters carry the stats keys
+        # (prefill_calls counts model calls, fewer than prefill_chunks
+        # when same-offset chunks share a call).
+        self.metrics = metrics_lib.MetricsRegistry()
+        self._c = {name: self.metrics.counter(name) for name in (
+            "prefills", "decode_steps", "reshards", "generated_tokens",
+            "slot_steps_active", "slot_steps_total", "overflow_total",
+            "prefill_chunks", "prefill_tokens", "prefill_calls",
+            "prefix_hits", "prefix_hit_tokens")}
+        self._h_overflow = self.metrics.histogram("decode_overflow_per_step")
+        self._h_active = self.metrics.histogram("decode_active_slots")
+        self._c_expert_load = self.metrics.counter("decode_expert_load",
+                                                   labels=("expert",))
+        # MoA head groups get families of their own: head-group load is
+        # not FFN-expert load.
+        self._c_moa_overflow = self.metrics.counter("moa_overflow_total")
+        self._h_moa_overflow = self.metrics.histogram(
+            "decode_moa_overflow_per_step")
+        self._c_moa_load = self.metrics.counter("decode_moa_load",
+                                                labels=("expert",))
         self.step_times: dict[str, list[float]] = {
             "prefill": [], "chunk": [], "decode": []}
 
@@ -261,20 +295,23 @@ class ServeEngine:
         """Record a sampled token; retire on EOS (checked for every token,
         the last of the budget included) or length."""
         req.tokens.append(int(tok))
-        self._stats["generated_tokens"] += 1
+        self._c["generated_tokens"].inc()
         if self.sc.eos_id >= 0 and int(tok) == self.sc.eos_id:
             req.done_reason = "eos"
         elif len(req.tokens) >= req.max_new_tokens:
             req.done_reason = "length"
         if req.done:
             req.finished_step = self.step_count
-            self.sched.retire(slot)
-            if self.prefix is not None and not self.prefix.covered(
-                    req.prompt):
-                # The page's prompt span [0, prompt_len) is chunk-prefill
-                # output; decode K/V past it is never part of a hit.
-                self.prefix.insert(req.prompt, self.kv.extract(slot))
-            self.kv.release(slot)
+            with self.tracer.span("serve.retire", rid=req.rid, slot=slot,
+                                  reason=req.done_reason):
+                self.sched.retire(slot)
+                if self.prefix is not None and not self.prefix.covered(
+                        req.prompt):
+                    # The page's prompt span [0, prompt_len) is
+                    # chunk-prefill output; decode K/V past it is never
+                    # part of a hit.
+                    self.prefix.insert(req.prompt, self.kv.extract(slot))
+                self.kv.release(slot)
 
     def _bucket_len(self, plen: int) -> int:
         if not self._can_bucket:
@@ -295,17 +332,25 @@ class ServeEngine:
         valid = np.zeros((1, blen), np.float32)
         valid[0, :plen] = 1.0
         self.prefill_lengths.add(blen)
-        logits, page = lm.lm_prefill(
-            self.params, {"tokens": torch.from_numpy(padded).to(self.device)},
-            self.kv.new_page(), self.cfg, last_index=plen - 1,
-            valid=torch.from_numpy(valid).to(self.device))
-        self.kv.insert(slot, page, plen)
-        for key, n in (("prefills", 1), ("prefill_calls", 1),
-                       ("prefill_tokens", plen)):
-            self._stats[key] += n
+        tr = self.tracer
+        with tr.span("serve.prefill", rid=req.rid, slot=slot, plen=plen,
+                     tokens=blen):
+            logits, page = lm.lm_prefill(
+                self.params,
+                {"tokens": torch.from_numpy(padded).to(self.device)},
+                self.kv.new_page(), self.cfg, last_index=plen - 1,
+                valid=torch.from_numpy(valid).to(self.device))
+            if self._trace_sync:
+                torch.cuda.synchronize(self.device)
+        with tr.span("serve.kv_insert", slot=slot):
+            self.kv.insert(slot, page, plen)
+        self._c["prefills"].inc()
+        self._c["prefill_calls"].inc()
+        self._c["prefill_tokens"].inc(plen)
         req.prefill_pos = plen
         req.first_token_step = self.step_count
-        tok = self._sample_rows(logits, [req])[0]
+        with tr.span("serve.sample", rows=1):
+            tok = self._sample_rows(logits, [req])[0]
         self.step_times["prefill"].append(time.perf_counter() - t0)
         self._append_token(req, tok, slot)
 
@@ -313,7 +358,8 @@ class ServeEngine:
     def _prefix_probe(self, req: Request) -> int:
         """Scheduler hook: the cached-prefix length a new request would
         resume from (admission charges only the uncached tail)."""
-        return self.prefix.probe(req.prompt)
+        with self.tracer.span("serve.prefix_probe", rid=req.rid):
+            return self.prefix.probe(req.prompt)
 
     def _on_admit(self, slot: int, req: Request) -> None:
         """Scheduler hook, when a request claims a slot: stage a copy of
@@ -325,12 +371,14 @@ class ServeEngine:
         hit, page, entry = self.prefix.lookup(req.prompt)
         if hit <= 0:
             return
-        self._pins[req.rid] = entry
-        req.prefill_pos = hit
-        self.kv.append(slot, pm.tree_map(torch.clone, page), hit,
-                       last=False)
-        self._stats["prefix_hits"] += 1
-        self._stats["prefix_hit_tokens"] += hit
+        with self.tracer.span("serve.prefix_hit", rid=req.rid, slot=slot,
+                              hit_tokens=hit):
+            self._pins[req.rid] = entry
+            req.prefill_pos = hit
+            self.kv.append(slot, pm.tree_map(torch.clone, page), hit,
+                           last=False)
+        self._c["prefix_hits"].inc()
+        self._c["prefix_hit_tokens"].inc(hit)
 
     # -- chunked prefill ---------------------------------------------------
     def _resume_page(self, slot: int):
@@ -373,12 +421,17 @@ class ServeEngine:
         page_in = pages[0] if gp == 1 else self.kv.stack_pages(pages)
         self.chunk_offsets.add(off)
         dev = self.device
-        logits, page_out = lm.lm_prefill(
-            self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
-            page_in, self.cfg, last_index=torch.from_numpy(li).to(dev),
-            valid=torch.from_numpy(valid).to(dev), start_pos=off)
-        self._stats["prefill_calls"] += 1
-        self._stats["prefill_chunks"] += g
+        tr = self.tracer
+        with tr.span("serve.prefill_chunk", offset=off, G=g, Gp=gp, C=c,
+                     tokens=gp * c):
+            logits, page_out = lm.lm_prefill(
+                self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
+                page_in, self.cfg, last_index=torch.from_numpy(li).to(dev),
+                valid=torch.from_numpy(valid).to(dev), start_pos=off)
+            if self._trace_sync:
+                torch.cuda.synchronize(dev)
+        self._c["prefill_calls"].inc()
+        self._c["prefill_chunks"].inc(g)
         out_pages = ([page_out] if gp == 1
                      else self.kv.split_pages(page_out, g))
         rows: list[Request | None] = [None] * gp
@@ -386,11 +439,13 @@ class ServeEngine:
         for i, (slot, w) in enumerate(group):
             req = w.req
             req.prefill_pos = w.start + w.length
-            self._stats["prefill_tokens"] += w.length
+            self._c["prefill_tokens"].inc(w.length)
             done = not req.prefilling
-            self.kv.append(slot, out_pages[i], req.prefill_pos, last=done)
+            with tr.span("serve.kv_insert", slot=slot):
+                self.kv.append(slot, out_pages[i], req.prefill_pos,
+                               last=done)
             if done:
-                self._stats["prefills"] += 1
+                self._c["prefills"].inc()
                 req.first_token_step = self.step_count
                 entry = self._pins.pop(req.rid, None)
                 if entry is not None:
@@ -400,7 +455,8 @@ class ServeEngine:
                 done_rows.append((i, slot, req))
         toks = None
         if done_rows:
-            toks = self._sample_rows(logits, rows)
+            with tr.span("serve.sample", rows=len(done_rows)):
+                toks = self._sample_rows(logits, rows)
         elif dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.step_times["chunk"].append(time.perf_counter() - t0)
@@ -412,8 +468,15 @@ class ServeEngine:
         the per-step token budget), run it, then one decode over the
         fully-prefilled slots, sample, retire.  Returns the number of
         slots that were active in the decode."""
+        tr = self.tracer
+        with trace_lib.use(tr), tr.span("serve.step", step=self.step_count):
+            return self._step_body(tr)
+
+    def _step_body(self, tr) -> int:
         by_slot: dict[int, list] = {}
-        for w in self.sched.schedule_prefill(self.queue, self.step_count):
+        with tr.span("serve.schedule", queued=len(self.queue)):
+            work = self.sched.schedule_prefill(self.queue, self.step_count)
+        for w in work:
             if (not self._prefix_on and w.start == 0
                     and w.length == w.req.prompt_len):
                 self._start(w.slot, w.req)   # whole prompt: bucketed path
@@ -439,30 +502,41 @@ class ServeEngine:
             if not self.sc.mask_dead_slots:
                 occ[:] = 1.0
             dev = self.device
-            logits, _, telem = lm.lm_decode(
-                self.params, torch.from_numpy(toks).to(dev), self.kv.cache,
-                torch.from_numpy(pos).to(dev), self.cfg,
-                valid=torch.from_numpy(occ).to(dev), return_telemetry=True)
-            nxt = self._sample_rows(logits, rows)
+            with tr.span("serve.decode", active=len(active), slots=n):
+                logits, _, telem = lm.lm_decode(
+                    self.params, torch.from_numpy(toks).to(dev),
+                    self.kv.cache, torch.from_numpy(pos).to(dev), self.cfg,
+                    valid=torch.from_numpy(occ).to(dev),
+                    return_telemetry=True)
+                if self._trace_sync:
+                    torch.cuda.synchronize(dev)
+            with tr.span("serve.sample", rows=len(active)):
+                nxt = self._sample_rows(logits, rows)
             self.step_times["decode"].append(time.perf_counter() - t0)
             self._record_telemetry(telem, len(active))
-            self._stats["decode_steps"] += 1
-            self._stats["slot_steps_active"] += len(active)
-            self._stats["slot_steps_total"] += n
+            self._c["decode_steps"].inc()
+            self._c["slot_steps_active"].inc(len(active))
+            self._c["slot_steps_total"].inc(n)
             for slot, req in active:
                 self.kv.lengths[slot] = int(pos[slot]) + 1
                 self._append_token(req, nxt[slot], slot)
+        if tr.enabled:
+            tr.counter("serve.queue", depth=len(self.queue))
+            tr.counter("serve.slots", active=len(active))
         self.step_count += 1
         return len(active)
 
     def run(self, max_steps: int | None = None) -> None:
-        """Drive the step loop until every submitted request completes."""
+        """Drive the step loop until every submitted request completes;
+        with tracing on, the trace file is (re)written at the end."""
         steps = 0
         while self.queue or self.sched.active():
             self.step()
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
+        if self.tracer.enabled and self.tracer.path:
+            self.tracer.save()
 
     # -- telemetry --------------------------------------------------------
     def _record_telemetry(self, telem, n_active: int) -> None:
@@ -471,15 +545,21 @@ class ServeEngine:
         entry = {"step": self.step_count, "active": n_active}
         # MoE FFN counters and MoA head-group counters are independent
         # families; a model may have either or both.
-        for load, over, count, total in (
-                ("expert_load", "overflow", "n_moe", "overflow_total"),
-                ("moa_load", "moa_overflow", "n_moa",
-                 "moa_overflow_total")):
+        for load, over, count, total, hist, fam in (
+                ("expert_load", "overflow", "n_moe",
+                 self._c["overflow_total"], self._h_overflow,
+                 self._c_expert_load),
+                ("moa_load", "moa_overflow", "n_moa", self._c_moa_overflow,
+                 self._h_moa_overflow, self._c_moa_load)):
             if load in telem:
                 entry.update({load: telem[load].cpu().numpy(),
                               over: telem[over].cpu().numpy(),
                               count: float(telem[count])})
-                self._stats[total] += float(entry[over].sum())
+                total.inc(float(entry[over].sum()))
+                hist.observe(float(entry[over].sum()))
+                for e, n in enumerate(entry[load].tolist()):
+                    fam.child(expert=e).inc(float(n))
+        self._h_active.observe(n_active)
         self._telemetry.append(entry)
 
     @property
@@ -490,15 +570,14 @@ class ServeEngine:
 
     @property
     def stats(self) -> dict:
-        """Flat counters, with the reference's keys (ints where
-        integral)."""
-        return {k: int(v) if float(v).is_integer() else v
-                for k, v in self._stats.items()}
+        """The registry's flat view: the counters under the reference's
+        stats keys (ints where integral)."""
+        return self.metrics.stats()
 
     @property
     def slot_utilization(self) -> float:
-        total = self._stats["slot_steps_total"]
-        return self._stats["slot_steps_active"] / total if total else 0.0
+        total = self._c["slot_steps_total"].value
+        return self._c["slot_steps_active"].value / total if total else 0.0
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int
                  ) -> np.ndarray:

@@ -15,7 +15,14 @@ the paper's §4 balancing losses (already summed into the model loss).
 * heartbeat file, step times, and straggler events (a step slower than
   ``straggler_factor`` x the running median);
 * ``crash_at_step`` for the fault-tolerance tests;
-* ``metrics.jsonl`` at the end of a run.
+* ``metrics.jsonl`` at the end of a run;
+* with ``trace_path``, a chrome trace of the reference's spans
+  (``train.data``, ``train.step``, ``train.checkpoint``, with the kernel
+  backend's ``kernel.*`` spans inside the step), written at the end of
+  ``run()``.  ``train.step`` ends after the loss's copy to the host,
+  which waits for the device (the reference's ``block_until_ready``);
+  the kernel spans record the host side of each forward call, again in
+  the backward pass where remat recomputes a layer.
 
 Each step draws its randomness from a ``torch.Generator`` on the device
 seeded by :func:`step_seed` from ``(seed, step)``, as the reference
@@ -37,6 +44,7 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.common.param import tree_leaves, tree_map
+from repro_torch.obs import trace as trace_lib
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.train.checkpoint import CheckpointManager
 
@@ -106,11 +114,6 @@ class Trainer:
                  crash_at_step: int | None = None,
                  kernel_backend: str | None = None, router=None,
                  trace_path: str | None = None, device="cuda"):
-        if trace_path is not None:
-            raise NotImplementedError(
-                "trace_path: chrome-trace capture (repro.obs) is not "
-                "ported to repro_torch yet; it comes with the "
-                "observability slice")
         # Fail-fast validation of the backend and router policy the model
         # config is expected to use (selection stays in the config).
         if kernel_backend is not None:
@@ -134,6 +137,10 @@ class Trainer:
                                        microbatches=loop.microbatches)
         self.start_step = 0
         self.crash_at_step = crash_at_step
+        # None => the shared null tracer (one no-op context manager a
+        # span site).
+        self.tracer = (trace_lib.Tracer(trace_path, process_name="train")
+                       if trace_path else trace_lib.NULL)
         self.metrics_log: list[dict] = []
         self.step_times: list[float] = []
         self.straggler_events: list[dict] = []
@@ -176,12 +183,17 @@ class Trainer:
                 # the crash point is deterministic.
                 self.ckpt.wait()
                 raise RuntimeError(f"injected crash at step {step}")
-            batch = next(self.data_iter)
+            tr = self.tracer
+            with tr.span("train.data", step=step):
+                batch = next(self.data_iter)
             gen = torch.Generator(device=self.device)
             gen.manual_seed(step_seed(self.loop.seed, step))
             t0 = time.perf_counter()
-            self.state, metrics = self.step_fn(self.state, batch, gen)
-            loss = float(metrics["loss"])         # waits for the device
+            with trace_lib.use(tr), tr.span(
+                    "train.step", step=step,
+                    microbatches=self.loop.microbatches):
+                self.state, metrics = self.step_fn(self.state, batch, gen)
+                loss = float(metrics["loss"])     # waits for the device
             dt = time.perf_counter() - t0
             self._heartbeat(step)
             self._check_straggler(step, dt)
@@ -194,11 +206,14 @@ class Trainer:
                 print(f"[trainer] step {step+1} loss={loss:.4f} "
                       f"({dt:.3f}s)")
             if (step + 1) % self.loop.checkpoint_every == 0:
-                self.ckpt.save_async(step + 1, self.state,
-                                     {"data": self.data_iter.state()})
+                with tr.span("train.checkpoint", step=step + 1):
+                    self.ckpt.save_async(step + 1, self.state,
+                                         {"data": self.data_iter.state()})
         self.ckpt.wait()
         self.ckpt.save(self.loop.total_steps, self.state,
                        {"data": self.data_iter.state()})
+        if self.tracer.enabled and self.tracer.path:
+            self.tracer.save()
         with open(os.path.join(self.workdir, "metrics.jsonl"), "a") as f:
             for m in self.metrics_log:
                 f.write(json.dumps(m) + "\n")

@@ -1,7 +1,8 @@
 """The port's launchers on the CPU: ``launch.train`` trains, writes its
-metrics and checkpoints, resumes, and refuses the reference's flags that
-have no counterpart; ``launch.serve --ckpt`` serves what it trained; a
-dense model serves the JAX engine's greedy streams."""
+metrics and checkpoints, resumes, and refuses the two reference flags
+that have no counterpart (``--trace`` is tested in test_torch_obs.py);
+``launch.serve --ckpt`` serves what it trained; a dense model serves the
+JAX engine's greedy streams."""
 import json
 import os
 
@@ -45,8 +46,7 @@ def test_train_launcher_runs_writes_metrics_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,why", [
     (["--dispatch-vmem-limit", "1048576"], "no VMEM budget"),
-    (["--no-gmm-autotune"], "no GMM tuning table"),
-    (["--trace", "t.json"], "observability slice")])
+    (["--no-gmm-autotune"], "no GMM tuning table")])
 def test_train_launcher_refuses_unported_flags(tmp_path, flags, why):
     with pytest.raises(NotImplementedError, match=why):
         tlaunch.main(["--arch", "moa-demo", *TRAIN, "--steps", "1",

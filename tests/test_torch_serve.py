@@ -5,6 +5,8 @@
 * the port's ``ServeEngine`` against the JAX ``ServeEngine`` (ref
   backend) on a staggered, mixed-length trace with oversubscribed slots:
   greedy token streams and ``stats`` equal, continuous and static;
+  with ``trace_path`` and ``log_decisions``, a loadable trace and the
+  JAX engine's decision log;
 * ``repro_torch`` and ``chip_smoke.py`` import neither jax nor repro.
 
 Both packages get the same parameters: a JAX ``pm.materialize`` tree with
@@ -13,6 +15,7 @@ across with ``from_jax_tree``.  The port runs its ``"cuda"`` backend,
 whose wrappers take their plain versions on CPU tensors.
 """
 import ast
+import dataclasses
 import os
 
 import jax
@@ -31,6 +34,7 @@ from repro_torch.common.bridge import from_jax_tree
 from repro_torch.configs.base import get_config as tget_config
 from repro_torch.models import lm as tlm
 from repro_torch.models import transformer as ttransformer
+from repro_torch.obs import trace as trace_lib
 from repro_torch.serve import engine as tengine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -181,12 +185,28 @@ def test_temperature_streams_do_not_depend_on_batching(models):
     assert len({tuple(t) for t in streams[0]}) == 2
 
 
-def test_engine_refuses_unported_options(models):
-    _, tcfg, _, tparams = models
-    for kw in ({"trace_path": "t.json"}, {"log_decisions": True}):
-        with pytest.raises(NotImplementedError):
-            tengine.ServeEngine(tparams, tcfg, tengine.ServeConfig(**kw),
-                                device="cpu")
+def test_engine_refuses_unported_options(models, tmp_path):
+    """Once refused, now ported: ``trace_path`` gives a loadable chrome
+    trace of the reference's span names and ``log_decisions`` a decision
+    log equal to the JAX engine's, on whole-prompt traffic."""
+    jcfg, tcfg, tree, tparams = models
+    trace = _trace(jcfg.vocab_size)
+    kw = dict(max_len=32, n_slots=4, log_decisions=True)
+    path = str(tmp_path / "serve.json")
+    jeng = jengine.ServeEngine(tree, jcfg.replace(kernel_backend="ref"),
+                               jengine.ServeConfig(**kw))
+    teng = tengine.ServeEngine(
+        tparams, tcfg, tengine.ServeConfig(trace_path=path, **kw),
+        device="cpu")
+    assert _serve(teng, trace) == _serve(jeng, trace)
+    got, want = teng.sched.decision_log, jeng.sched.decision_log
+    assert len(got) >= 4
+    assert [dataclasses.astuple(d) for d in got] == \
+        [dataclasses.astuple(d) for d in want]
+    names = {e["name"] for e in trace_lib.load(path)}
+    assert {"serve.step", "serve.schedule", "serve.prefill",
+            "serve.kv_insert", "serve.decode", "serve.sample",
+            "serve.retire", "serve.queue", "kernel.dispatch"} <= names
 
 
 def _imports(path):

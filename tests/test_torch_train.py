@@ -239,7 +239,8 @@ def test_batch_at_matches_reference(dc):
 OPT = dict(learning_rate=1e-2, warmup_steps=5)
 
 
-def _jax_trainer(workdir, total_steps, params, checkpoint_every=50):
+def _jax_trainer(workdir, total_steps, params, checkpoint_every=50,
+                 trace_path=None):
     jcfg, _ = _cfgs()
     return jtrain.Trainer(
         loss_fn=lambda p, b, r: jpl.paper_lm_loss(p, b, jcfg, rng=r),
@@ -249,11 +250,11 @@ def _jax_trainer(workdir, total_steps, params, checkpoint_every=50):
                                     checkpoint_every=checkpoint_every,
                                     log_every=1),
         data_iter=jdata.DataIterator(jdata.DataConfig(**_dc())),
-        workdir=str(workdir))
+        workdir=str(workdir), trace_path=trace_path)
 
 
 def _torch_trainer(workdir, total_steps, params, loss_fn=None,
-                   checkpoint_every=50, crash_at=None):
+                   checkpoint_every=50, crash_at=None, trace_path=None):
     _, tcfg = _cfgs()
     loss_fn = loss_fn or (lambda p, b, g: tpl.paper_lm_loss(p, b, tcfg,
                                                             generator=g))
@@ -265,7 +266,8 @@ def _torch_trainer(workdir, total_steps, params, loss_fn=None,
                                     log_every=1),
         data_iter=tdata.DataIterator(tdata.DataConfig(**_dc()),
                                      device="cpu"),
-        workdir=str(workdir), crash_at_step=crash_at, device="cpu")
+        workdir=str(workdir), crash_at_step=crash_at,
+        trace_path=trace_path, device="cpu")
 
 
 def _assert_states_equal(tstate, jstate):
@@ -379,8 +381,34 @@ def test_microbatches_accumulate_to_the_full_batch_step():
 
 
 def test_trainer_refuses_unported_tracing(tmp_path):
-    with pytest.raises(NotImplementedError, match="observability"):
-        ttrain.Trainer(loss_fn=None, params={}, oc=topt.OptConfig(),
-                       loop=ttrain.TrainLoopConfig(), data_iter=None,
-                       workdir=str(tmp_path), trace_path="t.json",
-                       device="cpu")
+    """Once refused, now ported: with ``trace_path`` both Trainers write
+    the same sequence of ``train.*`` spans (names and attributes), and
+    the traced port run follows the traced JAX run's losses (1e-4
+    relative, as the loss-curve test)."""
+    from repro.obs import trace as jtrace
+    from repro_torch.obs import trace as ttrace
+    jcfg, tcfg = _cfgs()
+    params = _params(jcfg, seed=3)
+    paths = {k: str(tmp_path / f"{k}.json") for k in ("jax", "torch")}
+    jt = _jax_trainer(tmp_path / "j", 3, params, checkpoint_every=2,
+                      trace_path=paths["jax"])
+    jt.run()
+    base = jax.random.PRNGKey(0)
+    draws = {ttrain.step_seed(0, s): _jax_draws(jax.random.fold_in(base, s),
+                                                tcfg) for s in range(3)}
+    tt = _torch_trainer(
+        tmp_path / "t", 3, params, checkpoint_every=2,
+        trace_path=paths["torch"],
+        loss_fn=lambda p, b, g: tpl.paper_lm_loss(
+            p, b, tcfg, draws=draws[g.initial_seed()]))
+    tt.run()
+
+    def train_spans(events):
+        return [(e["name"], e["args"]) for e in events
+                if e["name"].startswith("train.")]
+    got = train_spans(ttrace.load(paths["torch"]))
+    assert got == train_spans(jtrace.load(paths["jax"]))
+    assert [n for n, _ in got].count("train.checkpoint") == 1
+    np.testing.assert_allclose([m["loss"] for m in tt.metrics_log],
+                               [m["loss"] for m in jt.metrics_log],
+                               rtol=1e-4)
