@@ -262,7 +262,23 @@ Phases, in order; any failure exits non-zero and prints no result:
              3 steps: finite metrics, every gradient present and finite,
              the optimizer timed alone, one more step with CUDA events
              around it and around every call of the scan (its share).
-23. report — one ``{"kernels": [...]}`` line, then the result line.
+23. distributed — the paper's Sec. 3.1 schedule (core/expert_parallel.py)
+             on MoE-256 at full width (vocab 793,471, f32, B = 16 x S =
+             128): (a) step 0 on this process at capacity factor 4 (no
+             token dropped), its loss, metrics and gradients kept, exact
+             launches; (b) two ranks spawned on the one card over gloo
+             (a file store), mesh (data 1, model 2) (EP 2, 128 experts a
+             rank) and then (2, 1) (data parallel, FSDP experts): step 0
+             against (a) (loss, metrics, every gradient a rank holds),
+             launch counts exactly phase 9's a step, 3 steps at the
+             config's factor (finite, every gradient present; the last
+             instrumented: each collective synchronized and timed, the
+             collectives' share, the all-to-all bytes), peak memory,
+             on (1, 2) one int8 error-feedback sync of the gradients
+             (within one quantization step of the mean); (c)
+             ``launch.train`` under ``torchrun`` on one NCCL rank against
+             the same launcher without it (kimi-k2 --reduce, 4 steps).
+24. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -5681,6 +5697,455 @@ def phase_jamba_train(floor) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the distributed MoE (Sec. 3.1) on two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# MoE-256 at full width (phase 9's config), first on one process, then on
+# two ranks sharing the card over gloo: mesh (data 1, model 2), EP = 2,
+# 128 experts a rank; then (data 2, model 1), pure data parallel with
+# FSDP experts.  The global batch is cut to DIST_B x TRAIN_S (phase 9:
+# 32 x 128): at 32 rows the two ranks' logits ([2048, 793471] f32, 6.5
+# GB, and the backward pass's temporaries of that size) ran out of the
+# card's 80 GB together (31.7 GiB a rank before a 6.05 GiB allocation,
+# measured on one H100).  Step 0 at DIST_CF, where neither run drops a
+# token (C = 128 on one process, 64 a rank); then DIST_STEPS steps at
+# the config's own factor.
+DIST_B = 16
+DIST_MESHES = ((1, 2), (2, 1))
+DIST_CF = 4.0
+DIST_STEPS = 3
+# Step 0 on two ranks against one process: the loss within
+# DIST_LOSS_TOL relative, the balancing metrics within DIST_METRIC_TOL
+# relative, each gradient leaf within DIST_GRAD_TOL normwise (||g_ranks
+# - g_one|| / ||g_one||).  Both runs are f32 on the same kernels; their
+# reductions run in other orders (two halves of the batch, the
+# gradients summed over the ranks, the combined batch's rows in other
+# GMM tiles, the embedding's atomics) and cuBLAS picks its algorithms
+# by the LSTMs' batch (16 rows a rank, 32 on one process).
+DIST_LOSS_TOL = 1e-5
+DIST_METRIC_TOL = 1e-4
+DIST_GRAD_TOL = 1e-4
+# The launcher on one NCCL rank (torchrun) against the same launcher
+# without torchrun: the last logged metrics within DIST_LAUNCH_TOL
+# relative.
+DIST_LAUNCH_ARGS = ("--arch", "kimi-k2-1t-a32b", "--reduce", "--steps", "4")
+DIST_LAUNCH_TOL = 1e-5
+
+
+def _dist_cfg(cf=None):
+    import dataclasses
+    from repro_torch.configs.moe_paper import paper_config
+    cfg = paper_config(TRAIN_CONFIG, vocab_size=TRAIN_VOCAB)
+    return cfg if cf is None else dataclasses.replace(cfg, capacity_factor=cf)
+
+
+def _dist_data():
+    from repro_torch.data.pipeline import DataConfig
+    return DataConfig(vocab_size=TRAIN_VOCAB, seq_len=TRAIN_S,
+                      batch_size=DIST_B, seed=SEED)
+
+
+def _dist_params(device="cuda"):
+    """MoE-256 drawn from SEED, as build_train_model draws it."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.models.paper_lm import paper_lm_defs
+    defs = paper_lm_defs(_dist_cfg())
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    return defs, pm.materialize(defs, gen, device)
+
+
+def dist_reference(workdir: str) -> dict:
+    """(a) Step 0 of MoE-256 at DIST_CF on this process: the loss, the
+    metrics and every gradient (written to ``workdir`` for the ranks,
+    with the step's draws), exact launch counts, no token dropped."""
+    import os
+    import torch
+    from repro_torch.common.param import tree_leaves, tree_map
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import paper_lm
+    from repro_torch.train.trainer import step_seed
+
+    cfg = _dist_cfg(DIST_CF)
+    _, params = _dist_params()
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    batch = batch_at(_dist_data(), 0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(step_seed(SEED, 0))
+    draws = paper_lm.make_draws(cfg, DIST_B, TRAIN_S, gen, "cuda")
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, metrics = paper_lm.paper_lm_loss(params, batch, cfg, draws=draws)
+    loss.backward()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    counts = cuda_lib.launch_counts()
+    check(counts == TRAIN_LAUNCHES,
+          f"dist reference launches {counts}, expected {TRAIN_LAUNCHES}")
+    metrics = {k: float(v.detach()) for k, v in metrics.items()}
+    check(metrics["fraction_dropped"] == 0.0,
+          f"dist reference dropped tokens at capacity factor {DIST_CF}: "
+          f"{metrics}")
+    grads = tree_map(lambda p: p.grad.detach().cpu(), params)
+    torch.save(grads, os.path.join(workdir, "ref_grads.pt"))
+    torch.save({"draws": {k: (v.cpu() if v is not None else None)
+                          for k, v in draws.items()}},
+               os.path.join(workdir, "ref_draws.pt"))
+    out = {"loss": float(loss), "metrics": metrics, "step_ms": step_ms,
+           "launches": counts,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log("dist (a) one process " + json.dumps(out))
+    del params, grads, loss, draws
+    return out
+
+
+class _CollectiveClock:
+    """Wraps torch.distributed's all_to_all_single / all_gather /
+    all_reduce while on: each call synchronized and timed on the host,
+    its bytes counted by op."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.on = dist, False
+        self.ms, self.bytes, self.calls = {}, {}, {}
+        for name in ("all_to_all_single", "all_gather", "all_reduce"):
+            setattr(dist, name, self._wrap(name, getattr(dist, name)))
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def call(*args, **kw):
+            if not self.on:
+                return fn(*args, **kw)
+            t = args[1] if name != "all_reduce" else args[0]
+            n = t.numel() * t.element_size()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms[name] = self.ms.get(name, 0.0) + 1e3 * (
+                time.perf_counter() - t0)
+            self.bytes[name] = self.bytes.get(name, 0) + n
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return out
+        return call
+
+
+def _leaf_errs(ctx, grads, ref_path: str, defs) -> dict:
+    """Each gradient leaf of this rank (its slice of the full gradient)
+    against the same slice of the one-process gradient: the normwise
+    relative and the largest absolute error."""
+    import torch
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    errs = {}
+
+    def walk(g, r, s, name):
+        if isinstance(g, dict):
+            for k in sorted(g):
+                walk(g[k], r[k], s[k], f"{name}.{k}" if name else k)
+            return
+        want = ctx.shard_leaf(r, s).to("cuda")
+        diff = torch.linalg.vector_norm((g - want).float())
+        norm = torch.linalg.vector_norm(want.float())
+        errs[name] = {"norm_rel": float(diff / torch.clamp(norm, min=1e-30)),
+                      "max_abs": float((g - want).abs().max()),
+                      "finite": bool(torch.isfinite(g).all())}
+        del want
+    walk(grads, ref, ctx.specs(defs), "")
+    return errs
+
+
+def _dist_rank(rank: int, world: int, model: int, workdir: str,
+               ef: bool) -> None:
+    """One of the two ranks of phase 23 (a spawned process)."""
+    import os
+    import traceback
+    import torch
+    import torch.distributed as dist
+    store = os.path.join(workdir, f"store_{world}_{model}")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        out = _dist_rank_body(rank, model, workdir, ef)
+        with open(os.path.join(workdir, f"rank{rank}_{model}.json"),
+                  "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_rank_body(rank: int, model: int, workdir: str, ef: bool) -> dict:
+    import math
+    import os
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common.param import tree_leaves
+    from repro_torch.core.dispatch import capacity_for
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import paper_lm
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.sharding.context import MeshContext
+    from repro_torch.train import compression
+    from repro_torch.train.trainer import make_grad_fn, step_seed
+
+    clock = _CollectiveClock()
+    ctx = MeshContext.for_mesh(make_host_mesh(model, device="cuda"),
+                               "dp_tp_ep")
+    res = {"rank": rank, "mesh": ctx.sizes}
+    defs, params = _dist_params()
+    local = ctx.shard(params, defs)
+    del params
+    torch.cuda.empty_cache()
+    for p in tree_leaves(local):
+        p.requires_grad_(True)
+    dc = _dist_data()
+
+    # Step 0 at DIST_CF from the reference's draws.
+    cfg = _dist_cfg(DIST_CF)
+    saved = torch.load(os.path.join(workdir, "ref_draws.pt"),
+                       weights_only=True)["draws"]
+    draws = {k: (v.to("cuda") if v is not None else None)
+             for k, v in saved.items()}
+    grads_fn = make_grad_fn(
+        lambda p, b, g: paper_lm.paper_lm_loss(p, b, cfg, draws=draws,
+                                               ctx=ctx), ctx=ctx, defs=defs)
+    batch = batch_at(dc, 0, device="cuda")
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    grads, metrics = grads_fn(local, batch, None)
+    torch.cuda.synchronize()
+    res["step0_launches"] = cuda_lib.launch_counts()
+    res["step0_metrics"] = {k: float(v) for k, v in metrics.items()}
+    res["step0_grads"] = _leaf_errs(ctx, grads,
+                                    os.path.join(workdir, "ref_grads.pt"),
+                                    defs)
+    if ef:
+        # One int8 error-feedback sync of the step's gradient tree over
+        # the two ranks; each leaf's error against the exact mean (an
+        # all-reduce), in quantization steps (the larger rank's scale).
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synced, _ = compression.ef_compress_sync(
+            grads, compression.init_ef_state(grads))
+        torch.cuda.synchronize()
+        ef_ms = 1e3 * (time.perf_counter() - t0)
+        worst, leaves = 0.0, tree_leaves(grads)
+        for g, s in zip(leaves, tree_leaves(synced)):
+            mean = g.detach().float().clone()
+            dist.all_reduce(mean)
+            step = compression.quantize_int8(g.detach())[1].clone()
+            dist.all_reduce(step, op=dist.ReduceOp.MAX)
+            err = (s.float() - mean / ctx.world).abs().max()
+            worst = max(worst, float(err / step))
+            del mean
+        n = sum(g.numel() for g in leaves)
+        res["ef"] = {"max_err_in_steps": worst, "ms": ef_ms, "elements": n,
+                     "wire_bytes_a_rank": (ctx.world - 1) * (n + 4 * len(
+                         leaves)),
+                     "allreduce_bytes_a_rank": 2 * (ctx.world - 1)
+                     / ctx.world * 4 * n}
+        del synced
+    del grads, draws, saved
+    for p in tree_leaves(local):
+        p.grad = None
+    torch.cuda.empty_cache()
+
+    # DIST_STEPS steps at the config's own capacity factor, the last one
+    # instrumented (each collective synchronized and timed).
+    cfg = _dist_cfg()
+    oc = opt_lib.OptConfig(kind="factored")
+    opt = opt_lib.init(local, oc)
+    grads_fn = make_grad_fn(
+        lambda p, b, g: paper_lm.paper_lm_loss(p, b, cfg, generator=g,
+                                               ctx=ctx), ctx=ctx, defs=defs)
+    a2a = []
+    plain_a2a = MeshContext.all_to_all
+
+    def counted_a2a(self, x, axis):
+        a2a.append(x.numel() * x.element_size())
+        return plain_a2a(self, x, axis)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    step_ms, losses, dropped = [], [], []
+    for i in range(DIST_STEPS):
+        if i == DIST_STEPS - 1:
+            clock.on = True
+            MeshContext.all_to_all = counted_a2a
+        batch = batch_at(dc, i, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(step_seed(SEED, i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, m = grads_fn(local, batch, gen)
+        ok = all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+        check(ok, f"rank {rank}: a non-finite gradient at step {i}")
+        check(all(p.grad is not None for p in tree_leaves(local)),
+              f"rank {rank}: a parameter without a gradient at step {i}")
+        opt_lib.apply_updates(local, grads, opt, oc, ctx=ctx, defs=defs)
+        for p in tree_leaves(local):
+            p.grad = None
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        dropped.append(float(m["fraction_dropped"]))
+        check(math.isfinite(loss), f"rank {rank}: loss {loss} at step {i}")
+    clock.on = False
+    MeshContext.all_to_all = plain_a2a
+    res["launches"] = cuda_lib.launch_counts()
+    t_local = DIST_B * TRAIN_S // ctx.world
+    c_local = capacity_for(t_local, cfg.n_experts, cfg.k,
+                           cfg.capacity_factor)
+    ep = ctx.sizes["model"]
+    res.update({
+        "losses": losses, "fraction_dropped": dropped, "step_ms": step_ms,
+        "step_ms_steady": statistics.median(step_ms[1:DIST_STEPS - 1]),
+        "collective_ms": clock.ms, "collective_bytes": clock.bytes,
+        "collective_calls": clock.calls,
+        "collective_share": sum(clock.ms.values()) / step_ms[-1],
+        "a2a_forward_bytes_each": a2a,
+        "a2a_bytes_leaving_rank_each": [b * (ep - 1) // ep for b in a2a],
+        "a2a_expected_bytes_each": cfg.n_experts * c_local * cfg.d_model * 4,
+        "a2a_formula_2kTd4": 2 * cfg.k * t_local * cfg.d_model * 4,
+        "capacity_local": c_local, "tokens_local": t_local,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return res
+
+
+def dist_ranks(workdir: str, data: int, model: int, ef: bool) -> list:
+    """(b) The two ranks on mesh (data, model), spawned; their reports."""
+    import os
+    import torch.multiprocessing as mp
+    world = data * model
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(_dist_rank, args=(world, model, workdir, ef), nprocs=world,
+                 join=True)
+    except Exception as err:       # a rank failed: the phase fails
+        raise SmokeFailure(f"dist ranks on mesh ({data}, {model}): {err}")
+    wall = time.perf_counter() - t0
+    reports = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}_{model}.json")) as f:
+            reports.append(json.load(f))
+    reports[0]["spawn_wall_s"] = wall
+    return reports
+
+
+def check_dist_ranks(what: str, reports: list, ref: dict) -> dict:
+    """Step 0 of every rank against the one-process reference, and the
+    launches, losses and gradients of its steps."""
+    worst = {"loss_rel": 0.0, "metric_rel": 0.0, "grad_norm_rel": 0.0}
+    for r in reports:
+        check(r["step0_launches"] == TRAIN_LAUNCHES,
+              f"{what} rank {r['rank']}: step 0 launches "
+              f"{r['step0_launches']}, expected {TRAIN_LAUNCHES}")
+        want = {k: DIST_STEPS * v for k, v in TRAIN_LAUNCHES.items()}
+        check(r["launches"] == want,
+              f"{what} rank {r['rank']}: launches {r['launches']} in "
+              f"{DIST_STEPS} steps, expected {want}")
+        m = r["step0_metrics"]
+        check(m["fraction_dropped"] == 0.0,
+              f"{what} rank {r['rank']}: step 0 dropped tokens: {m}")
+        rel = abs(m["loss"] - ref["loss"]) / abs(ref["loss"])
+        worst["loss_rel"] = max(worst["loss_rel"], rel)
+        check(rel <= DIST_LOSS_TOL, f"{what} rank {r['rank']}: loss "
+              f"{m['loss']} vs one process {ref['loss']} (rel {rel:.3g})")
+        for k in ("xent", "aux_loss", "cv_importance", "cv_load",
+                  "max_over_mean_load"):
+            want_k = ref["metrics"][k]
+            err = abs(m[k] - want_k) / max(abs(want_k), 1e-6)
+            worst["metric_rel"] = max(worst["metric_rel"], err)
+            check(err <= DIST_METRIC_TOL, f"{what} rank {r['rank']}: {k} "
+                  f"{m[k]} vs one process {want_k}")
+        for name, e in r["step0_grads"].items():
+            check(e["finite"], f"{what} rank {r['rank']}: {name} not finite")
+            worst["grad_norm_rel"] = max(worst["grad_norm_rel"],
+                                         e["norm_rel"])
+            check(e["norm_rel"] <= DIST_GRAD_TOL,
+                  f"{what} rank {r['rank']}: gradient {name} "
+                  f"{e['norm_rel']:.3g} normwise from one process")
+        if "ef" in r:
+            check(r["ef"]["max_err_in_steps"] <= 1.0,
+                  f"{what} rank {r['rank']}: int8 EF sync off the mean by "
+                  f"{r['ef']['max_err_in_steps']:.3g} quantization steps")
+    check(reports[0]["losses"] == reports[1]["losses"],
+          f"{what}: the ranks' losses differ: {reports[0]['losses']} vs "
+          f"{reports[1]['losses']}")
+    return worst
+
+
+def dist_launcher(workdir: str) -> dict:
+    """(c) launch.train under torchrun on one NCCL rank (a subprocess)
+    against the same launcher without torchrun (in this process): the
+    last logged metrics."""
+    import os
+    from repro_torch.launch import train as train_launch
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    work = os.path.join(workdir, "torchrun")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
+         *DIST_LAUNCH_ARGS, "--workdir", work], env=env, capture_output=True,
+        text=True, timeout=300)
+    torchrun_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"launcher under torchrun exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    check("1 rank(s) over nccl, mesh {'data': 1, 'model': 1}" in proc.stdout,
+          "the torchrun launcher did not run one NCCL rank on the mesh")
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        b = [json.loads(line) for line in f][-1]
+    t0 = time.perf_counter()
+    a = train_launch.main([*DIST_LAUNCH_ARGS, "--workdir",
+                           os.path.join(workdir, "plain")])
+    plain_s = time.perf_counter() - t0
+    errs = {}
+    for k in ("loss", "xent", "aux_loss", "grad_norm"):
+        errs[k] = abs(b[k] - a[k]) / max(abs(a[k]), 1e-9)
+        check(errs[k] <= DIST_LAUNCH_TOL, f"launcher under torchrun: {k} "
+              f"{b[k]} vs {a[k]} without")
+    out = {"plain": a, "torchrun": b, "rel_errs": errs,
+           "wall_s": {"torchrun": torchrun_s, "plain": plain_s}}
+    log("dist (c) launcher " + json.dumps(out))
+    return out
+
+
+def phase_distributed() -> dict:
+    """Phase 23: (a) one process, (b) two ranks on each mesh, (c) the
+    launcher on one NCCL rank."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        out["one"] = dist_reference(workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for data, model in DIST_MESHES:
+            what = f"dist ({data}, {model})"
+            reports = dist_ranks(workdir, data, model, ef=(model == 2))
+            worst = check_dist_ranks(what, reports, out["one"])
+            for r in reports:
+                r["step0_grads"] = {k: e["norm_rel"]
+                                    for k, e in r["step0_grads"].items()}
+            out[f"{data}x{model}"] = {"ranks": reports, "worst": worst}
+            log(f"{what} " + json.dumps(out[f"{data}x{model}"]))
+        out["launcher"] = dist_launcher(workdir)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"dist phase {out['wall_s']:.1f} s")
+    return out
+
+
 def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
     dev = [p["kernels"][name]["device_ms_per_launch"] for p in profiles
            if name in p["kernels"]]
@@ -5723,9 +6188,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+
+    def lap(what: str) -> None:
+        log(f"{what} done: {time.perf_counter() - t_start:.0f} s so far")
     try:
         setup = phase_setup()
         kernels = phase_kernels()
+        lap("kernels")
         served = run_serve(kernels["floor"])
         gc.collect()
         torch.cuda.empty_cache()
@@ -5733,11 +6202,13 @@ def main() -> int:
             f" GiB still allocated; {time.perf_counter() - t_start:.0f} s "
             "so far")
         moa = phase_moa()
+        lap("moa")
         cfg, params = build_train_model()
         with tempfile.TemporaryDirectory() as workdir:
             trained = phase_train(cfg, params, workdir)
         eblock = phase_eblock(cfg, params)
         grads = phase_grads(cfg, params, trained["dc"])
+        lap("train, eblock, grads")
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5748,36 +6219,49 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         hmoe["lm"] = phase_hmoe_lm()
+        lap("hmoe")
         acfg, aparams = build_arctic()
         arctic = phase_arctic(acfg, aparams, kernels["floor"])
+        lap("arctic")
         del aparams
         gc.collect()
         torch.cuda.empty_cache()
         qwen3 = phase_qwen3()
+        lap("qwen3")
         gc.collect()
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             moa_train = phase_moa_train(kernels["floor"], workdir)
+        lap("moa_train")
         gemma = phase_gemma_serve()
         gc.collect()
         torch.cuda.empty_cache()
         gemma["train"] = phase_gemma_train()
+        lap("gemma3")
         gc.collect()
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             launchers = phase_launchers(workdir)
+        lap("launchers")
         gc.collect()
         torch.cuda.empty_cache()
         falcon = phase_falcon_serve()
+        lap("falcon serve")
         gc.collect()
         torch.cuda.empty_cache()
         jamba = phase_jamba_serve(kernels["floor"])
         gc.collect()
         torch.cuda.empty_cache()
         jamba["train"] = phase_jamba_train(kernels["floor"])
+        lap("jamba")
         gc.collect()
         torch.cuda.empty_cache()
         falcon["train"] = phase_falcon_train()
+        lap("falcon train")
+        gc.collect()
+        torch.cuda.empty_cache()
+        distributed = phase_distributed()
+        lap("distributed")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -5794,7 +6278,9 @@ def main() -> int:
                 "train_arctic": arctic["counts"],
                 "serve_jamba": jamba["counts"],
                 "serve_jamba_fused": jamba["fused_counts"],
-                "train_jamba": jamba["train"]["counts"]}
+                "train_jamba": jamba["train"]["counts"],
+                "train_dist_ep2": distributed["1x2"]["ranks"][0]["launches"],
+                "train_dist_dp2": distributed["2x1"]["ranks"][0]["launches"]}
     profiles = [served["profile"], served["fused"]["profile"],
                 served["ec"]["profile"], moa["profile"],
                 moa_train["profile"], trained["profile"],
@@ -5830,6 +6316,12 @@ def main() -> int:
     rows = [kernel_row(name, measured[name], launches, profiles,
                        kernels["floor"]) for name in KERNELS]
     mt, gs, gt = moa_train["summary"], gemma["summary"], gemma["train"]
+
+    def dist_worst(key):
+        return max(distributed[m]["worst"][key] for m in ("1x2", "2x1"))
+
+    def dist_step_ms(mesh):
+        return distributed[mesh]["ranks"][0]["step_ms_steady"]
     obs = served["obs"]
     log(f"card {setup['card']}; serve cross-check max_abs_err "
         f"{served['cross']['max_abs_err']:.4g} (tol "
@@ -5864,7 +6356,11 @@ def main() -> int:
         f"{obs['fit']['predicted_wall_s']:.4f} s of recorded "
         f"{obs['fit']['recorded_charged_s']:.4f} s, decode step untraced "
         f"{obs['overhead']['untraced_ms']:.2f} / traced "
-        f"{obs['overhead']['traced_ms']:.2f} ms; "
+        f"{obs['overhead']['traced_ms']:.2f} ms; distributed MoE-256 "
+        f"step 0 worst loss rel err {dist_worst('loss_rel'):.3g}, "
+        f"gradients normwise {dist_worst('grad_norm_rel'):.3g}, rank step "
+        f"ms (1, 2) {dist_step_ms('1x2'):.1f} / (2, 1) "
+        f"{dist_step_ms('2x1'):.1f}, phase {distributed['wall_s']:.0f} s; "
         f"{time.perf_counter() - t_start:.0f} s in all")
     print(setup["card"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

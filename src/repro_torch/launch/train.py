@@ -25,24 +25,41 @@ Example:
       --arch kimi-k2-1t-a32b --reduce --device cpu --steps 4 --batch 4 \
       --seq 32 --trace /tmp/train_trace.json
 
+  # two ranks over gloo on the CPU; on cards, one rank a card over NCCL
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc_per_node 2 -m repro_torch.launch.train --device cpu \
+      --arch kimi-k2-1t-a32b --reduce --steps 2 --batch 4 --seq 32
+
 The flags are the reference launcher's, plus ``--device``.  Two of them
 raise: ``--dispatch-vmem-limit`` and ``--no-gmm-autotune`` have no
 counterpart in the port (the card has no VMEM budget, and the port has
 no GMM tuning table).
+
+Under ``torchrun`` (``WORLD_SIZE`` set in the environment) the launcher
+initializes the process group (NCCL for ``cuda``, one card a rank by
+``LOCAL_RANK``; gloo for ``cpu``), builds ``make_host_mesh()`` and the
+``dp_tp_ep`` context, draws the parameters from the same seed on every
+rank, keeps its slices and trains data-parallel with the expert-parallel
+MoE, as the reference does on a host mesh (``Trainer(ctx=...)``).  Rank
+0 alone prints and writes the checkpoints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.common import param as pm
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.core import router as router_lib
 from repro_torch.data.pipeline import DataConfig, DataIterator
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm
 from repro_torch.optim.optimizers import OptConfig
+from repro_torch.sharding.context import MeshContext
 from repro_torch.train.trainer import Trainer, TrainLoopConfig
 
 # Flags of the reference launcher that the port refuses, with the reason.
@@ -77,6 +94,23 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.n_prefix:
         kw.update(n_prefix=0, frontend="none")
     return cfg.replace(**kw)
+
+
+def init_distributed(device: torch.device) -> tuple[torch.device,
+                                                    MeshContext]:
+    """Under torchrun: the process group (the backend follows the
+    device), this rank's device, and the dp_tp_ep context on the host
+    mesh.  Without it: the device and the null context."""
+    if "WORLD_SIZE" not in os.environ:
+        return device, MeshContext.null()
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", device_id=device)
+    else:
+        dist.init_process_group("gloo")
+    mesh = make_host_mesh(device=device.type)
+    return device, MeshContext.for_mesh(mesh, "dp_tp_ep")
 
 
 def main(argv=None) -> dict:
@@ -114,7 +148,16 @@ def main(argv=None) -> dict:
     for flag, why in REFUSED.items():
         if getattr(args, flag) not in (None, False):
             raise NotImplementedError(why)
-    device = resolve_device(args.device)
+    device, ctx = init_distributed(resolve_device(args.device))
+    try:
+        return _train(args, device, ctx)
+    finally:
+        if ctx.mesh is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, device: torch.device, ctx: MeshContext) -> dict:
+    log = print if ctx.is_writer else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduced(cfg)
@@ -134,21 +177,25 @@ def main(argv=None) -> dict:
                 eval_capacity_factor=args.eval_capacity_factor)
         router_lib.get_policy(spec.policy)
         cfg = cfg.replace(router=spec)
-        print(f"[train] router: {spec}")
+        log(f"[train] router: {spec}")
     if args.moa_k is not None:
         if not cfg.moa_positions:
             raise SystemExit(f"--moa-k: arch {cfg.name!r} has no MoA layers "
                              "(moa_positions is empty)")
         cfg = cfg.replace(moa_k=args.moa_k)
-        print(f"[train] moa_k: {cfg.moa_k}/{cfg.moa_experts} head groups")
+        log(f"[train] moa_k: {cfg.moa_k}/{cfg.moa_experts} head groups")
     gen = torch.Generator(device=device).manual_seed(0)
-    params = pm.materialize(lm.lm_defs(cfg), gen, device)
+    defs = lm.lm_defs(cfg)
+    params = pm.materialize(defs, gen, device)
     n = sum(p.numel() for p in pm.tree_leaves(params))
-    print(f"[train] {cfg.name}: {n / 1e6:.1f}M params on {device}")
+    params = ctx.shard(params, defs)
+    where = (f"{ctx.world} rank(s) over {dist.get_backend()}, mesh "
+             f"{ctx.sizes}" if ctx.mesh is not None else str(device))
+    log(f"[train] {cfg.name}: {n / 1e6:.1f}M params on {where}")
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                     batch_size=args.batch, n_clusters=64)
     trainer = Trainer(
-        loss_fn=lambda p, b, g: lm.lm_loss(p, b, cfg, generator=g),
+        loss_fn=lambda p, b, g: lm.lm_loss(p, b, cfg, generator=g, ctx=ctx),
         params=params,
         oc=OptConfig(kind=args.optimizer, learning_rate=args.lr,
                      warmup_steps=max(args.steps // 10, 10)),
@@ -158,12 +205,12 @@ def main(argv=None) -> dict:
                              log_every=10),
         data_iter=DataIterator(dc, device=device), workdir=args.workdir,
         kernel_backend=cfg.kernel_backend, router=cfg.router,
-        trace_path=args.trace, device=device)
+        trace_path=args.trace, device=device, ctx=ctx, defs=defs)
     final = trainer.run()
     if args.trace:
-        print(f"[train] trace written: {args.trace} "
-              f"({len(trainer.tracer.events)} events; load in Perfetto)")
-    print(f"[train] done: {final}")
+        log(f"[train] trace written: {args.trace} "
+            f"({len(trainer.tracer.events)} events; load in Perfetto)")
+    log(f"[train] done: {final}")
     return final
 
 

@@ -22,7 +22,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import param as pm
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import expert_parallel as ep_lib
 from repro_torch.models import layers, transformer
+from repro_torch.sharding.context import MeshContext, local_draws, on_mesh
 
 
 def lm_defs(cfg: ModelConfig) -> dict:
@@ -111,7 +113,8 @@ def chunked_xent(params, x: torch.Tensor, labels: torch.Tensor,
 
 def lm_loss(params, batch: dict, cfg: ModelConfig, *,
             generator: torch.Generator | None = None,
-            draws: dict | None = None, train: bool = True):
+            draws: dict | None = None, train: bool = True,
+            ctx: MeshContext | None = None):
     """batch: tokens / labels [B, S] (+ ``prefix_embeds`` [B, n_prefix,
     d] for the frontend stubs).  Returns (loss, metrics) with the
     reference's keys: ``xent``, ``aux_loss``, ``loss`` and the balancing
@@ -120,17 +123,35 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, *,
 
     Gate noise comes from ``draws`` (:func:`make_draws`) or, when that is
     None, from ``generator``; with neither the gates are noiseless, as
-    with the reference's ``rng=None``."""
+    with the reference's ``rng=None``.
+
+    On a mesh (``ctx``) ``params`` are this rank's slices, gathered
+    here on use (``expert_parallel.gather_on_use``), ``batch`` is this
+    rank's rows of the global batch, the flat MoE layers run the
+    expert-parallel schedule, and
+    the draws are those of the global batch (``draws``, or drawn from
+    ``generator`` at the global size) of which the rank keeps its rows
+    (``sharding.context.local_draws``).  ``xent`` is then the rank's own
+    mean, while ``aux_loss`` and the balancing metrics are the combined
+    batch's; the hierarchical MoE and MoA mixers raise
+    (``transformer.refuse_undistributed``)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
+    mesh = on_mesh(ctx)
+    if mesh:
+        transformer.refuse_undistributed(cfg, ctx)
+        params = ep_lib.gather_on_use(params, lm_defs(cfg), ctx)
     if train and draws is None and generator is not None:
-        draws = make_draws(cfg, b, s, generator, tokens.device)
+        draws = make_draws(cfg, b * (ctx.world if mesh else 1), s,
+                           generator, tokens.device)
+    if train and draws is not None and mesh:
+        draws = local_draws(draws, ctx)
     x = _embed_with_prefix(params, tokens, cfg, batch.get("prefix_embeds"))
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     x, aux = transformer.stack_apply(params["blocks"], x, cfg,
                                      positions=positions,
                                      draws=draws if train else None,
-                                     train=train)
+                                     train=train, ctx=ctx)
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     xent = chunked_xent(params, x, batch["labels"], cfg)
     loss = xent + aux["aux_loss"]

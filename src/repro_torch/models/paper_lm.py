@@ -23,10 +23,13 @@ from typing import Any
 import torch
 
 from repro_torch.common.param import ParamDef
+from repro_torch.core import expert_parallel as ep_lib
 from repro_torch.core import hierarchical as hmoe_lib
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import layers
 from repro_torch.models import lstm as lstm_lib
+from repro_torch.sharding.context import (MeshContext, local_draws,
+                                          on_mesh, refuse_distributed)
 
 VARIANTS = ("moe", "moe_1_wide", "moe_1_deep", "lstm_4x", "lstm_2048_512")
 
@@ -138,12 +141,18 @@ def make_draws(cfg: PaperLMConfig, batch_size: int, seq_len: int,
 
 
 def _mid_layer(params, x2d: torch.Tensor, cfg: PaperLMConfig, *,
-               train: bool, noise):
-    """The capacity layer between the LSTMs.  x2d: [T, d]."""
+               train: bool, noise, ctx: MeshContext | None = None):
+    """The capacity layer between the LSTMs.  x2d: [T, d]; on a mesh
+    (``ctx``) this rank's rows, and the flat MoE runs the
+    expert-parallel schedule."""
     zero_aux = {"aux_loss": torch.zeros((), dtype=torch.float32,
                                         device=x2d.device), "metrics": {}}
     if cfg.variant == "moe" and cfg.hierarchical:
+        refuse_distributed(ctx, "the hierarchical MoE")
         return hmoe_lib.hmoe_apply(params["moe"], x2d, _hmoe_args(cfg),
+                                   train=train, noise=noise)
+    if cfg.variant == "moe" and on_mesh(ctx):
+        return ep_lib.moe_apply_ep(params["moe"], x2d, _moe_args(cfg), ctx,
                                    train=train, noise=noise)
     if cfg.variant == "moe":
         return moe_lib.moe_apply(params["moe"], x2d, _moe_args(cfg),
@@ -161,18 +170,29 @@ def _mid_layer(params, x2d: torch.Tensor, cfg: PaperLMConfig, *,
 
 def paper_lm_loss(params, batch, cfg: PaperLMConfig, *,
                   generator: torch.Generator | None = None,
-                  draws: dict | None = None, train: bool = True):
+                  draws: dict | None = None, train: bool = True,
+                  ctx: MeshContext | None = None):
     """batch: tokens / labels [B, S].  Returns (loss, metrics).
 
     Draws come from ``draws`` (see :func:`make_draws`) or, when that is
     None, from ``generator``; with neither (or ``train=False``) there is
     no dropout and no gate noise, as with the reference's ``rng=None``.
+    On a mesh (``ctx``), as ``lm.lm_loss``: ``params`` are this rank's
+    slices, gathered here on use, ``batch`` is this rank's rows, the
+    draws the global batch's of which it keeps its rows, and ``xent``
+    the rank's own mean.
     """
     _check(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = tokens.shape
+    mesh = on_mesh(ctx)
+    if mesh:
+        params = ep_lib.gather_on_use(params, paper_lm_defs(cfg), ctx)
     if train and draws is None and generator is not None:
-        draws = make_draws(cfg, b, s, generator, tokens.device)
+        draws = make_draws(cfg, b * (ctx.world if mesh else 1), s,
+                           generator, tokens.device)
+    if train and draws is not None and mesh:
+        draws = local_draws(draws, ctx)
     draws = draws if train else None
     keep = [None if draws is None else draws.get(f"keep{i}")
             for i in range(4)]
@@ -204,7 +224,7 @@ def paper_lm_loss(params, batch, cfg: PaperLMConfig, *,
             # dropout of the MoE output in the reference, so both come
             # from draw 2.
             y2d, aux = _mid_layer(params, x.reshape(b * s, -1), cfg,
-                                  train=train, noise=noise)
+                                  train=train, noise=noise, ctx=ctx)
             x = x + drop(y2d.reshape(b, s, -1), 2)
         h, _ = lstm_lib.lstm(params["lstm2"], x)
         x = x + drop(h, 3)

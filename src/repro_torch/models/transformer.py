@@ -28,10 +28,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.param import ParamDef, tree_map
 from repro_torch.configs.base import (LayerKind, ModelConfig, layer_kinds,
                                       n_periods)
+from repro_torch.core import expert_parallel as ep_lib
 from repro_torch.core import hierarchical as hmoe_lib
 from repro_torch.core import moa as moa_lib
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import attention, layers, ssm
+from repro_torch.sharding.context import (MeshContext, on_mesh,
+                                          refuse_distributed)
 
 
 def _moe_args(cfg: ModelConfig, *, decode: bool = False) -> moe_lib.MoEArgs:
@@ -210,10 +213,13 @@ def _flat_mask(valid, b: int, s: int):
 
 
 def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
-               decode: bool = False, train: bool = False, noise=None):
+               decode: bool = False, train: bool = False, noise=None,
+               ctx: MeshContext | None = None):
     """Post-mixer FFN with residual.  ``noise`` is the MoE gate's
     training noise ([B*S, E], or the hierarchical MoE's two-level dict).
-    Returns (x, aux)."""
+    On a mesh (``ctx``) a flat MoE runs the expert-parallel schedule on
+    this rank's tokens (``lm_loss`` refuses the layers that are not
+    distributed, :func:`refuse_undistributed`).  Returns (x, aux)."""
     if kind.ffn == "none":
         return x, None
     h = layers.rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -226,6 +232,11 @@ def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
             y, aux = hmoe_lib.hmoe_apply(params["moe"], flat,
                                          _hmoe_args(cfg), train=train,
                                          noise=noise, mask=mask)
+        elif on_mesh(ctx):
+            y, aux = ep_lib.moe_apply_ep(params["moe"], flat,
+                                         _moe_args(cfg, decode=decode), ctx,
+                                         train=train, noise=noise,
+                                         mask=mask)
         else:
             y, aux = moe_lib.moe_apply(params["moe"], flat,
                                        _moe_args(cfg, decode=decode),
@@ -280,11 +291,12 @@ def _merge_aux(a, b):
 
 
 def block_apply(params, x, kind: LayerKind, cfg: ModelConfig, *,
-                positions, noise=None, moa_noise=None, train: bool = True):
+                positions, noise=None, moa_noise=None, train: bool = True,
+                ctx: MeshContext | None = None):
     """Training block: the mixer, then the FFN.  ``noise`` (as in
     :func:`_apply_ffn`, or None) is the layer's MoE gate noise,
-    ``moa_noise`` ([B*S, moa_experts] or None) its MoA gate's.  Returns
-    (x, aux or None)."""
+    ``moa_noise`` ([B*S, moa_experts] or None) its MoA gate's; ``ctx``
+    the sharding context.  Returns (x, aux or None)."""
     h = layers.rmsnorm(params["ln1"], x, cfg.norm_eps)
     aux_mix = None
     if kind.mixer == "moa":
@@ -301,8 +313,21 @@ def block_apply(params, x, kind: LayerKind, cfg: ModelConfig, *,
                                 window=_window(cfg, kind),
                                 q_block=cfg.q_block, kv_block=cfg.kv_block,
                                 pad_heads=cfg.pad_attn_heads)
-    x, aux = _apply_ffn(params, x + y, kind, cfg, train=train, noise=noise)
+    x, aux = _apply_ffn(params, x + y, kind, cfg, train=train, noise=noise,
+                        ctx=ctx)
     return x, _merge_aux(aux_mix, aux)
+
+
+def refuse_undistributed(cfg: ModelConfig, ctx: MeshContext | None) -> None:
+    """Raise NotImplementedError, on a mesh of more than one rank, for a
+    config with a layer the port does not distribute (the hierarchical
+    MoE, MoA mixers)."""
+    kinds = layer_kinds(cfg)
+    if cfg.moe_hierarchical and any(k.ffn in ("moe", "moe+dense")
+                                    for k in kinds):
+        refuse_distributed(ctx, "the hierarchical MoE")
+    if any(k.mixer == "moa" for k in kinds):
+        refuse_distributed(ctx, "MoA")
 
 
 def layer_index(cfg: ModelConfig) -> list[tuple[int, LayerKind]]:
@@ -318,7 +343,7 @@ def layer_index(cfg: ModelConfig) -> list[tuple[int, LayerKind]]:
 
 
 def stack_apply(params, x, cfg: ModelConfig, *, positions, draws=None,
-                train: bool = True):
+                train: bool = True, ctx: MeshContext | None = None):
     """Run all layers for training.  ``draws`` is one step's draws
     (``lm.make_draws``: ``noise`` and ``moa_noise``, lists with one
     entry per layer number) or None for noiseless gates; a config with
@@ -330,7 +355,8 @@ def stack_apply(params, x, cfg: ModelConfig, *, positions, draws=None,
     a layer at a time recomputes the same work and holds one layer's
     activations, not a period's (a jamba period at S = 4096 would not
     fit beside its weights and gradients on one card).  Returns (x,
-    summed aux)."""
+    summed aux).  ``ctx`` is the sharding context: on a mesh ``x`` and
+    the draws are this rank's rows (see ``lm.lm_loss``)."""
     kinds = layer_kinds(cfg)
     full, rem = n_periods(cfg)
     aux = _zero_aux(x.device)
@@ -348,7 +374,7 @@ def stack_apply(params, x, cfg: ModelConfig, *, positions, draws=None,
 
     def layer(x, aux, block, kind, number):
         x, a = block_apply(block, x, kind, cfg, positions=positions,
-                           **draws_of(number), train=train)
+                           **draws_of(number), train=train, ctx=ctx)
         return x, aux if a is None else _add_aux(aux, a)
 
     if full:

@@ -1,0 +1,394 @@
+"""MeshContext: the explicit sharding context threaded through the
+program, counterpart of ``repro.sharding.context``.
+
+As in the reference, a :class:`MeshContext` bundles
+
+* ``mesh``        -- a ``torch.distributed`` ``DeviceMesh`` with named
+                    axes (``launch/mesh.py``), or ``None`` off-mesh: the
+                    single-process path, where every model call is
+                    today's;
+* ``rules``       -- the active :class:`~repro_torch.sharding.partition
+                    .ShardingRules` plan (logical axis -> mesh axes);
+* ``manual_axes`` -- mesh axes an enclosing per-shard body already holds;
+                    :meth:`resolve` strips them;
+
+and is passed down the layer stack as an ordinary argument, with a thin
+contextvar (:func:`current_ctx`, ``with ctx:``) beside it.
+
+Eager PyTorch has no partitioner, so what GSPMD derives from the
+reference's constraints is written out here in PyTorch's idiom:
+
+* :meth:`MeshContext.shard` cuts a full tree into this rank's slices by
+  the plan's resolved specs, and :meth:`MeshContext.gather` rebuilds the
+  full tree from them with an autograd-aware all-gather, whose backward
+  pass reduce-scatters the gradient (FSDP's gather on use);
+* :meth:`MeshContext.all_to_all`, :meth:`MeshContext.all_gather` and
+  :meth:`MeshContext.all_reduce` are autograd-aware collectives over the
+  process group of one or more mesh axes (the expert-parallel schedule of
+  ``core/expert_parallel.py`` and its balance statistics);
+* :meth:`MeshContext.with_constraint` is the identity.
+
+A collective over the ranks of a mesh axis of size 1 is the identity and
+is skipped (on a (data 1, model 2) mesh, FSDP over ``data`` costs
+nothing).
+
+The collectives are small ``torch.autograd.Function`` s over
+``torch.distributed``'s ``all_to_all_single``, ``all_gather`` and
+``all_reduce``: the backward of an all-gather is an ``all_to_all_single``
+and a sum over the sources (as ``torch.distributed.nn.functional``'s is
+on gloo), and of an all-reduce another all-reduce.  gloo takes CUDA
+tensors for all three (it moves them through host memory itself), so
+two ranks sharing one card run over gloo and nothing here stages a
+tensor by hand; NCCL is the backend wherever each rank has a card of
+its own.
+
+The reference's jax-version shims (abstract-mesh queries, ``make_mesh``
+with axis types, ``use_mesh``, ``shard_map``, ``axis_size``) have no
+counterpart: they probe JAX's API surface, which the port does not use.
+"""
+from __future__ import annotations
+
+import contextvars
+import dataclasses
+import math
+from typing import Callable, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.common.param import ParamDef, tree_map
+from repro_torch.sharding import partition
+
+Spec = partition.Spec
+
+_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_mesh_context", default=None)
+
+
+def _strip(spec: Spec, manual: frozenset) -> Spec:
+    """Drop manual mesh axes from a resolved spec."""
+    if not manual:
+        return spec
+    return tuple(tuple(a for a in axes if a not in manual) for axes in spec)
+
+
+# ---------------------------------------------------------------------------
+# autograd-aware collectives
+# ---------------------------------------------------------------------------
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` with equal splits of dim 0; its own adjoint."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllToAll.apply(grad, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """All ranks' ``x`` concatenated along ``dim`` in group-rank order;
+    the backward pass sends each rank its chunk of the gradient
+    (``all_to_all_single``) and sums what it receives."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = dist.get_world_size(group)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        chunks = torch.stack(torch.chunk(grad, n, dim=ctx.dim)).contiguous()
+        got = torch.empty_like(chunks)
+        dist.all_to_all_single(got, chunks, group=ctx.group)
+        return torch.sum(got, dim=0), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over the group; the backward pass sums the cotangents of every
+    rank's copy (so a loss that every rank adds counts once per rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduce.apply(grad, ctx.group), None
+
+
+# ---------------------------------------------------------------------------
+# MeshContext
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    """mesh + sharding plan + the axes an enclosing body holds."""
+
+    mesh: object | None            # torch DeviceMesh, or None off-mesh
+    rules: partition.ShardingRules
+    manual_axes: frozenset = frozenset()
+
+    # -- construction -----------------------------------------------------
+    @classmethod
+    def for_mesh(cls, mesh, plan="dp_tp_ep") -> "MeshContext":
+        """Context for a concrete mesh; ``plan`` is a PLANS name or rules."""
+        return cls(mesh=mesh, rules=_as_rules(plan))
+
+    @classmethod
+    def null(cls, plan="dp_tp_ep") -> "MeshContext":
+        """Off-mesh context: every path is the single-process one."""
+        return cls(mesh=None, rules=_as_rules(plan))
+
+    def with_plan(self, plan) -> "MeshContext":
+        return dataclasses.replace(self, rules=_as_rules(plan))
+
+    def manual(self, *axes: str) -> "MeshContext":
+        """Derived context for a body that holds ``axes`` itself."""
+        return dataclasses.replace(
+            self, manual_axes=self.manual_axes | frozenset(axes))
+
+    # -- the mesh ---------------------------------------------------------
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return () if self.mesh is None else tuple(self.mesh.mesh_dim_names)
+
+    @property
+    def sizes(self) -> dict[str, int]:
+        return {} if self.mesh is None else partition.axis_sizes(self.mesh)
+
+    def size(self, axes: Sequence[str] | None = None) -> int:
+        """Ranks along ``axes`` (default: every mesh axis)."""
+        axes = self.axis_names if axes is None else axes
+        return math.prod(self.sizes[a] for a in axes)
+
+    @property
+    def world(self) -> int:
+        return self.size()
+
+    def index(self, axes: Sequence[str] | None = None) -> int:
+        """This rank's coordinate over ``axes``, row-major (default: every
+        mesh axis, which is the token and batch sharding's order)."""
+        axes = self.axis_names if axes is None else axes
+        idx = 0
+        for a in axes:
+            idx = idx * self.sizes[a] + self.mesh.get_local_rank(a)
+        return idx
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device: the mesh's device type (and the current
+        CUDA device)."""
+        if self.mesh.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(self.mesh.device_type)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this rank prints and writes files (rank 0, or off-mesh)."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def barrier(self) -> None:
+        if self.mesh is not None:
+            dist.barrier()
+
+    # -- resolution -------------------------------------------------------
+    def resolve(self, shape, logical_axes, fallbacks: list | None = None
+                ) -> Spec:
+        """Logical axes -> :data:`Spec` (manual axes stripped)."""
+        if self.mesh is None:
+            raise RuntimeError("resolve() needs a concrete mesh")
+        spec = partition.resolve_spec(self.rules, self.mesh, shape,
+                                      logical_axes, fallbacks)
+        return _strip(spec, self.manual_axes)
+
+    def specs(self, defs, fallbacks: list | None = None):
+        """:data:`Spec` tree of a ParamDef tree."""
+        return tree_map(lambda d: self.resolve(d.shape, d.axes, fallbacks),
+                        defs)
+
+    def replicated_axes(self, spec: Spec) -> tuple[str, ...]:
+        """The mesh axes that shard no dimension of ``spec``."""
+        used = {a for axes in spec for a in axes}
+        return tuple(a for a in self.axis_names if a not in used)
+
+    # -- constraints ------------------------------------------------------
+    def with_constraint(self, x, logical_axes):
+        """The identity: eager PyTorch has no partitioner to hand a
+        layout to.  Where the reference's constraints make GSPMD move
+        data, the port moves it explicitly (:meth:`shard`,
+        :meth:`gather`, the collectives)."""
+        return x
+
+    # -- collectives ------------------------------------------------------
+    def group(self, axis: str):
+        return self.mesh.get_group(axis)
+
+    def _spread(self, axes: Sequence[str]) -> tuple[str, ...]:
+        """The axes of ``axes`` with more than one rank (a collective
+        over one rank is the identity, and is skipped)."""
+        return tuple(a for a in axes if self.sizes[a] > 1)
+
+    def _groups(self, axes: Sequence[str]) -> list:
+        """Process groups that together span ``axes``: the default group
+        when they are every mesh axis with more than one rank, else one
+        group per axis."""
+        axes = self._spread(axes)
+        if axes and set(axes) == set(self._spread(self.axis_names)):
+            return [dist.group.WORLD]
+        return [self.group(a) for a in axes]
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Equal chunks of dim 0 to each rank along ``axis``, chunk j to
+        the rank at coordinate j; the received chunks in source order."""
+        if self.sizes[axis] == 1:
+            return x
+        return _AllToAll.apply(x, self.group(axis))
+
+    def all_gather(self, x: torch.Tensor, axes: Sequence[str],
+                   dim: int) -> torch.Tensor:
+        """Concatenate the shards of a dimension sharded over ``axes``
+        (row-major, as :meth:`shard` cuts it) along ``dim``."""
+        for a in reversed(self._spread(axes)):
+            x = _AllGather.apply(x, self.group(a), dim)
+        return x
+
+    def all_reduce(self, x: torch.Tensor, axes: Sequence[str] | None = None
+                   ) -> torch.Tensor:
+        """Sum over the ranks along ``axes`` (default: every axis)."""
+        axes = self.axis_names if axes is None else tuple(axes)
+        for g in self._groups(axes):
+            x = _AllReduce.apply(x, g)
+        return x
+
+    def all_reduce_(self, t: torch.Tensor,
+                    axes: Sequence[str] | None = None) -> torch.Tensor:
+        """In-place sum of a tensor outside autograd (gradients, norms)."""
+        axes = self.axis_names if axes is None else tuple(axes)
+        for g in self._groups(axes):
+            dist.all_reduce(t, group=g)
+        return t
+
+    # -- trees ------------------------------------------------------------
+    def local_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's equal share of dim 0 (the batch / token sharding
+        over every mesh axis)."""
+        n = self.world
+        if t.shape[0] % n:
+            raise ValueError(f"{t.shape[0]} rows do not divide over "
+                             f"{n} ranks")
+        m = t.shape[0] // n
+        return t[self.index() * m:(self.index() + 1) * m]
+
+    def shard_leaf(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """This rank's slice of a full tensor, in storage of its own (a
+        replicated leaf is copied too: the optimizer updates shards in
+        place)."""
+        for dim, axes in enumerate(spec):
+            if axes:
+                n = self.size(axes)
+                m = t.shape[dim] // n
+                t = t.narrow(dim, self.index(axes) * m, m)
+        return t.clone(memory_format=torch.contiguous_format)
+
+    def gather_leaf(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """The full tensor from this rank's slice (autograd-aware)."""
+        for dim, axes in enumerate(spec):
+            if axes:
+                t = self.all_gather(t, axes, dim)
+        return t
+
+    def shard(self, tree, defs):
+        """This rank's slices of a full tree, by the plan's specs of the
+        ParamDef tree ``defs``; off-mesh the tree itself."""
+        if self.mesh is None:
+            return tree
+        specs = self.specs(defs)
+        return _zip_map(lambda t, s: self.shard_leaf(t, s), tree, specs)
+
+    def gather(self, tree, defs,
+               keep: Callable[[ParamDef], bool] | None = None):
+        """The full tree from this rank's slices, through an
+        autograd-aware all-gather (its backward reduce-scatters the
+        gradient); leaves whose def satisfies ``keep`` stay as they are.
+        Off-mesh the tree itself."""
+        if self.mesh is None:
+            return tree
+
+        def one(t, d):
+            if keep is not None and keep(d):
+                return t
+            return self.gather_leaf(t, self.resolve(d.shape, d.axes))
+        return _zip_map(one, tree, defs)
+
+    # -- contextvar plumbing ---------------------------------------------
+    def __enter__(self) -> "MeshContext":
+        tokens = getattr(self, "_tokens", None)
+        if tokens is None:
+            tokens = []
+            object.__setattr__(self, "_tokens", tokens)
+        tokens.append(_CTX.set(self))
+        return self
+
+    def __exit__(self, *exc):
+        _CTX.reset(getattr(self, "_tokens").pop())
+        return False
+
+
+def _zip_map(fn, tree, other):
+    """Map ``fn(leaf, other_leaf)`` over a nested dict and a tree of the
+    same structure (sorted keys)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, tree[k], other[k]) for k in sorted(tree)}
+    return fn(tree, other)
+
+
+def _as_rules(plan) -> partition.ShardingRules:
+    if isinstance(plan, str):
+        return partition.PLANS[plan]
+    return plan
+
+
+def current_ctx() -> MeshContext | None:
+    """The innermost active context (``with ctx:``), or ``None``."""
+    return _CTX.get()
+
+
+def on_mesh(ctx: MeshContext | None) -> bool:
+    """Whether ``ctx`` has a mesh (None and the null context have not)."""
+    return ctx is not None and ctx.mesh is not None
+
+
+def refuse_distributed(ctx: MeshContext | None, what: str) -> None:
+    """Raise NotImplementedError for a feature the port runs on one
+    process only, when ``ctx`` spans more than one rank."""
+    if on_mesh(ctx) and ctx.world > 1:
+        raise NotImplementedError(
+            f"{what} is not distributed: it runs on one process "
+            f"(ctx=None), not on a mesh of {ctx.world} ranks")
+
+
+def local_draws(draws: dict, ctx: MeshContext) -> dict:
+    """This rank's rows of one step's draws for the global batch: each
+    tensor's equal share of dim 0 (token rows of a [T, E] noise, batch
+    rows of a [B, S, d] mask), as ``ctx.local_rows`` gives the batch."""
+    def one(v):
+        if isinstance(v, dict):
+            return {k: one(t) for k, t in v.items()}
+        if isinstance(v, list):
+            return [one(t) for t in v]
+        return None if v is None else ctx.local_rows(v)
+    return {k: one(v) for k, v in draws.items()}

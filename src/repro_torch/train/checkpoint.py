@@ -13,6 +13,14 @@ checkpoint written by either package restores in the other:
 
 ``save_async`` copies the tree to host memory synchronously and writes
 it on a background thread.
+
+Topology changes (the reference's ``restore(..., shardings=)``): on a
+mesh, ``save(..., ctx=, defs=)`` gathers the full tree from every rank's
+slices and rank 0 writes it, the same files as a single-process save;
+``restore(step, defs, ctx=)`` reads the full leaves and returns this
+rank's slices under the new mesh and plan.  A checkpoint saved on one
+mesh therefore restores on another, or on one process, with identical
+values.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.bridge import from_jax_tree
+from repro_torch.sharding.context import on_mesh
 
 
 def _flatten(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
@@ -59,13 +68,24 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # -- write ----------------------------------------------------------
-    def save(self, step: int, tree, extra: dict | None = None):
+    def save(self, step: int, tree, extra: dict | None = None, *,
+             ctx=None, defs=None):
+        """Write ``tree``; on a mesh (``ctx``) every rank passes its
+        slices and the ParamDef tree ``defs``, and rank 0 writes the
+        gathered tree (the others return once it is on disk)."""
         self.wait()
-        self._write(step, self._snapshot(tree), extra or {})
+        snap = self._snapshot(tree, ctx, defs)
+        if snap is not None:
+            self._write(step, snap, extra or {})
+        if on_mesh(ctx):
+            ctx.barrier()
 
-    def save_async(self, step: int, tree, extra: dict | None = None):
+    def save_async(self, step: int, tree, extra: dict | None = None, *,
+                   ctx=None, defs=None):
         self.wait()
-        snap = self._snapshot(tree)           # sync device -> host copy
+        snap = self._snapshot(tree, ctx, defs)   # sync device -> host copy
+        if snap is None:
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, snap, extra or {}), daemon=True)
         self._thread.start()
@@ -75,7 +95,14 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def _snapshot(self, tree):
+    def _snapshot(self, tree, ctx=None, defs=None):
+        """Host copies of the leaves; on a mesh gathered from every rank,
+        and None on all but rank 0."""
+        if on_mesh(ctx):
+            with torch.no_grad():
+                tree = ctx.gather(tree, defs)
+            if not ctx.is_writer:
+                return None
         return [(k, _to_numpy(v), str(v.dtype).removeprefix("torch."))
                 for k, v in _flatten(tree)]
 
@@ -120,10 +147,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like_tree):
+    def restore(self, step: int, like_tree, ctx=None):
         """Restore into the structure of ``like_tree`` (a nested dict of
         tensors): each leaf comes back with the dtype and on the device
-        of its counterpart there.  Returns (tree, extra, step)."""
+        of its counterpart there.  On a mesh (``ctx``) ``like_tree`` is
+        the ParamDef tree, and each leaf comes back as this rank's slice
+        under ``ctx``'s mesh and plan, in the def's dtype, on the mesh's
+        device.  Returns (tree, extra, step)."""
+        mesh = on_mesh(ctx)
         path = os.path.join(self.directory, f"step_{step:010d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -141,7 +172,11 @@ class CheckpointManager:
                 raise ValueError(
                     f"shape mismatch for {key}: ckpt {tuple(t.shape)} vs "
                     f"model {tuple(like.shape)}")
-            leaves[key] = t.to(device=like.device, dtype=like.dtype)
+            if mesh:
+                t = ctx.shard_leaf(t, ctx.resolve(like.shape, like.axes))
+                leaves[key] = t.to(device=ctx.device, dtype=like.dtype)
+            else:
+                leaves[key] = t.to(device=like.device, dtype=like.dtype)
 
         def build(tree, prefix=""):
             if isinstance(tree, dict):

@@ -27,6 +27,24 @@ the paper's §4 balancing losses (already summed into the model loss).
 Each step draws its randomness from a ``torch.Generator`` on the device
 seeded by :func:`step_seed` from ``(seed, step)``, as the reference
 folds the step into its key, so a resumed run draws the same numbers.
+
+Data-parallel steps (``ctx``, a ``MeshContext`` with a mesh, and the
+parameters' ParamDef tree ``defs``): the state holds this rank's slices
+(``ctx.shard``).  The step splits the global batch into microbatches
+and each rank takes its rows of each (the ranks flattened in mesh
+order, the token sharding's order), so microbatch m holds the tokens it
+holds on one process.  The loss function, given ``ctx``, draws the
+global microbatch's noise from the step's generator and keeps the
+rank's rows, and gathers the parameters it uses from their shards
+(``expert_parallel.gather_on_use``); each rank back-propagates its loss
+divided by the number of ranks.  The gradients then sum over the ranks to the
+global batch's: the gathers' backward passes sum over the ranks that
+hold shards of a leaf, an all-reduce sums over the ranks that hold
+replicas of it, and the combined-batch balance loss, which every rank
+adds, counts once (each rank adds 1/n of it, and the backward pass of
+its all-reduce sums the n cotangents).  Metrics are the ranks' mean;
+rank 0 alone prints and writes the checkpoint (gathered: the same files
+as a single-process run), the heartbeat and ``metrics.jsonl``.
 On the CPU a resumed run is bit-identical to an uninterrupted one; on
 the card the embedding's backward pass accumulates with atomics, so a
 step there is not bit-reproducible.
@@ -46,6 +64,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.param import tree_leaves, tree_map
 from repro_torch.obs import trace as trace_lib
 from repro_torch.optim import optimizers as opt_lib
+from repro_torch.sharding.context import MeshContext, on_mesh
 from repro_torch.train.checkpoint import CheckpointManager
 
 
@@ -75,14 +94,21 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
             for i in range(n)]
 
 
-def make_train_step(loss_fn: Callable, oc: opt_lib.OptConfig, *,
-                    microbatches: int = 1):
-    """loss_fn(params, batch, generator) -> (loss, metrics dict of
-    scalars).  The step is ``step(state, batch, generator) -> (state,
-    metrics)``; ``state = {"params", "opt"}`` is updated in place."""
+def make_grad_fn(loss_fn: Callable, *, microbatches: int = 1,
+                 ctx: MeshContext | None = None, defs=None):
+    """``grads(params, batch, generator) -> (grads, metrics)``: the
+    gradient tree of the loss over ``batch`` (accumulated over
+    ``microbatches``) and its metrics.  On a mesh (``ctx``; ``defs`` the
+    parameters' ParamDef tree) ``params`` are this rank's slices,
+    ``batch`` the global batch, ``loss_fn`` runs the model with the same
+    ``ctx`` (gathering what it uses), and the gradients are this rank's
+    slices of the global batch's (see the module docstring)."""
+    mesh = on_mesh(ctx)
+    if mesh and defs is None:
+        raise ValueError("a step on a mesh needs the parameters' defs")
+    specs = ctx.specs(defs) if mesh else None
 
-    def step(state, batch, generator):
-        params = state["params"]
+    def grads_fn(params, batch, generator):
         leaves = tree_leaves(params)
         for p in leaves:
             p.grad = None
@@ -90,22 +116,75 @@ def make_train_step(loss_fn: Callable, oc: opt_lib.OptConfig, *,
                if microbatches > 1 else [batch])
         metrics = {}
         for mb in mbs:
-            loss, m = loss_fn(params, mb, generator)
-            loss.backward()
+            if mesh:
+                mb = {k: ctx.local_rows(v) for k, v in mb.items()}
+                loss, m = loss_fn(params, mb, generator)
+                (loss / ctx.world).backward()
+            else:
+                loss, m = loss_fn(params, mb, generator)
+                loss.backward()
             for k, v in m.items():
                 v = v.detach()
                 metrics[k] = v if k not in metrics else metrics[k] + v
         grads = tree_map(lambda p: (torch.zeros_like(p) if p.grad is None
                                     else p.grad), params)
+        if mesh:
+            _sum_replicas(ctx, grads, specs)
+            metrics = _rank_mean(ctx, metrics)
         if microbatches > 1:
             grads = tree_map(lambda g: g / microbatches, grads)
             metrics = {k: v / microbatches for k, v in metrics.items()}
-        _, _, info = opt_lib.apply_updates(params, grads, state["opt"], oc)
-        for p in leaves:
+        return grads, metrics
+
+    return grads_fn
+
+
+def make_train_step(loss_fn: Callable, oc: opt_lib.OptConfig, *,
+                    microbatches: int = 1, ctx: MeshContext | None = None,
+                    defs=None):
+    """loss_fn(params, batch, generator) -> (loss, metrics dict of
+    scalars).  The step is ``step(state, batch, generator) -> (state,
+    metrics)``; ``state = {"params", "opt"}`` is updated in place.  On a
+    mesh (``ctx``; ``defs`` the parameters' ParamDef tree) ``batch`` is
+    the global batch and the state this rank's slices (see the module
+    docstring); ``loss_fn`` must run the model with the same ``ctx``."""
+    grads_fn = make_grad_fn(loss_fn, microbatches=microbatches, ctx=ctx,
+                            defs=defs)
+
+    def step(state, batch, generator):
+        params = state["params"]
+        grads, metrics = grads_fn(params, batch, generator)
+        _, _, info = opt_lib.apply_updates(params, grads, state["opt"], oc,
+                                           ctx=ctx, defs=defs)
+        for p in tree_leaves(params):
             p.grad = None
         return state, dict(metrics, **info)
 
     return step
+
+
+def _sum_replicas(ctx: MeshContext, grads, specs) -> None:
+    """Sum each gradient, in place, over the mesh axes that shard none of
+    its leaf's dimensions (the ranks holding replicas of it)."""
+    if isinstance(grads, dict):
+        for k in sorted(grads):
+            _sum_replicas(ctx, grads[k], specs[k])
+        return
+    ctx.all_reduce_(grads, ctx.replicated_axes(specs))
+
+
+def _rank_mean(ctx: MeshContext, metrics: dict) -> dict:
+    """Each scalar metric's mean over the ranks, in one all-reduce (the
+    ranks' batches are equal shares, so the mean of their mean xent is
+    the global batch's); a perplexity is the exp of that xent."""
+    keys = sorted(metrics)
+    if not keys:
+        return metrics
+    total = ctx.all_reduce_(torch.stack([metrics[k].float() for k in keys]))
+    out = {k: v / ctx.world for k, v in zip(keys, total)}
+    if "perplexity" in out and "xent" in out:
+        out["perplexity"] = torch.exp(out["xent"])
+    return out
 
 
 class Trainer:
@@ -113,7 +192,8 @@ class Trainer:
                  loop: TrainLoopConfig, data_iter, workdir: str,
                  crash_at_step: int | None = None,
                  kernel_backend: str | None = None, router=None,
-                 trace_path: str | None = None, device="cuda"):
+                 trace_path: str | None = None, device="cuda",
+                 ctx: MeshContext | None = None, defs=None):
         # Fail-fast validation of the backend and router policy the model
         # config is expected to use (selection stays in the config).
         if kernel_backend is not None:
@@ -123,6 +203,13 @@ class Trainer:
             from repro_torch.core import router as router_lib
             router_lib.get_policy(router.policy)
         self.device = resolve_device(device)
+        self.ctx = ctx
+        self.writer = ctx is None or ctx.is_writer
+        # On a mesh: the ParamDefs of the state, which the checkpoint
+        # gathers and restores by.
+        self.state_defs = ({"params": defs,
+                            "opt": opt_lib.state_defs(defs, oc)}
+                           if on_mesh(ctx) else None)
         self.loop = loop
         self.data_iter = data_iter
         self.workdir = workdir
@@ -134,7 +221,8 @@ class Trainer:
                 p.requires_grad_(True)
         self.state = {"params": params, "opt": opt_lib.init(params, oc)}
         self.step_fn = make_train_step(loss_fn, oc,
-                                       microbatches=loop.microbatches)
+                                       microbatches=loop.microbatches,
+                                       ctx=ctx, defs=defs)
         self.start_step = 0
         self.crash_at_step = crash_at_step
         # None => the shared null tracer (one no-op context manager a
@@ -151,16 +239,28 @@ class Trainer:
         latest = self.ckpt.latest_step()
         if latest is None:
             return
-        restored, extra, step = self.ckpt.restore(latest, self.state)
+        restored, extra, step = self.ckpt.restore(
+            latest, self.state_defs or self.state, ctx=self.ctx)
         with torch.no_grad():
             for dst, src in zip(tree_leaves(self.state),
                                 tree_leaves(restored)):
                 dst.copy_(src)
         self.start_step = step
         self.data_iter.restore(extra["data"])
-        print(f"[trainer] restored checkpoint at step {step}")
+        self._log(f"[trainer] restored checkpoint at step {step}")
+
+    def _log(self, msg: str) -> None:
+        if self.writer:
+            print(msg)
+
+    def _save(self, step: int, *, wait: bool) -> None:
+        save = self.ckpt.save if wait else self.ckpt.save_async
+        save(step, self.state, {"data": self.data_iter.state()},
+             ctx=self.ctx, defs=self.state_defs)
 
     def _heartbeat(self, step: int):
+        if not self.writer:
+            return
         with open(os.path.join(self.workdir, "heartbeat.json"), "w") as f:
             json.dump({"step": step, "time": time.time()}, f)
 
@@ -171,7 +271,7 @@ class Trainer:
             if dt > self.loop.straggler_factor * med:
                 ev = {"step": step, "duration": dt, "median": med}
                 self.straggler_events.append(ev)
-                print(f"[trainer] STRAGGLER step {step}: {dt:.3f}s vs "
+                self._log(f"[trainer] STRAGGLER step {step}: {dt:.3f}s vs "
                       f"median {med:.3f}s")
 
     # -- main loop ---------------------------------------------------------
@@ -203,18 +303,17 @@ class Trainer:
                 last_metrics["step"] = step + 1
                 last_metrics["step_time_s"] = dt
                 self.metrics_log.append(last_metrics)
-                print(f"[trainer] step {step+1} loss={loss:.4f} "
-                      f"({dt:.3f}s)")
+                self._log(f"[trainer] step {step+1} loss={loss:.4f} "
+                          f"({dt:.3f}s)")
             if (step + 1) % self.loop.checkpoint_every == 0:
                 with tr.span("train.checkpoint", step=step + 1):
-                    self.ckpt.save_async(step + 1, self.state,
-                                         {"data": self.data_iter.state()})
+                    self._save(step + 1, wait=False)
         self.ckpt.wait()
-        self.ckpt.save(self.loop.total_steps, self.state,
-                       {"data": self.data_iter.state()})
+        self._save(self.loop.total_steps, wait=True)
         if self.tracer.enabled and self.tracer.path:
             self.tracer.save()
-        with open(os.path.join(self.workdir, "metrics.jsonl"), "a") as f:
-            for m in self.metrics_log:
-                f.write(json.dumps(m) + "\n")
+        if self.writer:
+            with open(os.path.join(self.workdir, "metrics.jsonl"), "a") as f:
+                for m in self.metrics_log:
+                    f.write(json.dumps(m) + "\n")
         return last_metrics

@@ -1,0 +1,284 @@
+"""The port's expert-parallel MoE (``core/expert_parallel.py``) on four
+CPU ranks over gloo, mesh (data 2, model 2), against the JAX package.
+
+One spawn of four ranks (``torch_dist_workers.py``, which imports the
+port only) runs every case; the JAX side runs here, or for the
+reference's own ``moe_apply_ep`` in one subprocess with four fake host
+devices.  Parameters come from a JAX-materialized tree (gates redrawn),
+moved across with ``from_jax_tree``; each rank takes its rows of the
+tokens and of the JAX noise.  Tolerances: the reference test's ``rtol
+2e-4, atol 2e-5`` (``tests/test_distributed.py``) for outputs, losses,
+metrics and every gradient.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch_dist_workers as workers
+
+from repro.common import param as jpm
+from repro.core import moe as jmoe
+from repro_torch.common.bridge import from_jax_tree
+from repro_torch.configs.base import get_config
+from repro_torch.core import router as trouter
+from repro_torch.launch.train import reduced
+
+E, K, D, F, T = 8, 2, 16, 32, 128      # 4 ranks x 32 tokens
+TOL = dict(rtol=2e-4, atol=2e-5)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _args(activation="relu", cf=8.0, **kw):
+    common = dict(n_experts=E, k=K, d_model=D, d_ff=F, activation=activation,
+                  capacity_factor=cf, **kw)
+    return (jmoe.MoEArgs(dtype=jnp.float32, kernel_backend="ref", **common),
+            dict(dtype=torch.float32, **common))
+
+
+def _params(ja, seed=0, wg=None):
+    tree = jax.tree_util.tree_map(
+        lambda a: np.array(a, copy=True),
+        jpm.materialize(jmoe.moe_defs(ja), jax.random.PRNGKey(seed)))
+    tree["gate"]["wg"] = (0.5 * np.random.RandomState(seed + 7).randn(D, E)
+                          if wg is None else wg).astype(np.float32)
+    if "wnoise" in tree["gate"]:
+        tree["gate"]["wnoise"] = (0.3 * np.random.RandomState(seed + 8)
+                                  .randn(D, E)).astype(np.float32)
+    return tree
+
+
+def _skewed_inputs():
+    """Each rank's 32 tokens all point along one feature, 2r, whose gate
+    logits peak equally at experts (2r, 2r + 1): every rank is maximally
+    skewed while the combined batch loads all 8 experts equally (the
+    reference's construction, for four ranks instead of eight)."""
+    wg = np.zeros((D, E), np.float32)
+    for r in range(4):
+        wg[2 * r, 2 * r] = wg[2 * r, 2 * r + 1] = 10.0
+    x = np.zeros((T, D), np.float32)
+    for r in range(4):
+        x[r * 32:(r + 1) * 32, 2 * r] = 4.0
+    x += 0.01 * np.random.RandomState(0).randn(T, D).astype(np.float32)
+    return wg, x
+
+
+def _jax_case(ja, params, x, dy, *, train, key):
+    def loss(p, x_):
+        y, aux = jmoe.moe_apply(p, x_, ja, train=train, rng=key)
+        return jnp.sum(y * dy) + aux["aux_loss"], (y, aux)
+    (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
+    return {"y": np.asarray(y), "aux_loss": float(aux["aux_loss"]),
+            "metrics": {k: float(v) for k, v in aux["metrics"].items()},
+            "grads": jax.tree_util.tree_map(np.asarray, gp),
+            "dx": np.asarray(gx)}
+
+
+def _reference_ep(tmp, cases: dict):
+    """Start the reference's ``moe_apply_ep`` (train=False) on four fake
+    devices, mesh (2, 2), for each case; the returned function waits
+    for it and gives each case's y, aux_loss and metrics."""
+    np.savez(os.path.join(tmp, "ref_in.npz"), **{
+        f"{name}/{k}": v for name, (_, p, x) in cases.items()
+        for k, v in [("x", x), *[(f"p/{a}/{b}", w)
+                                 for a, sub in p.items()
+                                 for b, w in (sub.items()
+                                              if isinstance(sub, dict)
+                                              else [("", sub)])]]})
+    arg_src = {name: repr({k: v for k, v in vars(ja).items()
+                           if k not in ("dtype", "router")})
+               for name, (ja, _, _) in cases.items()}
+    script = textwrap.dedent(f"""
+        import os
+        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+        import jax, jax.numpy as jnp, numpy as np
+        from repro.core.moe import MoEArgs
+        from repro.core.expert_parallel import moe_apply_ep
+        from repro.sharding import context
+        mesh = context.make_mesh((2, 2), ("data", "model"))
+        ctx = context.MeshContext.for_mesh(mesh, "dp_tp_ep")
+        data = np.load({os.path.join(tmp, "ref_in.npz")!r})
+        out = {{}}
+        for name, kw in {arg_src!r}.items():
+            a = MoEArgs(dtype=jnp.float32, **eval(kw))
+            p = {{}}
+            for key in data.files:
+                parts = key.split("/")
+                if parts[0] == name and parts[1] == "p":
+                    if parts[3]:
+                        p.setdefault(parts[2], {{}})[parts[3]] = data[key]
+                    else:
+                        p[parts[2]] = data[key]
+            y, aux = jax.jit(lambda p, x: moe_apply_ep(
+                p, x, a, train=False, ctx=ctx))(p, data[name + "/x"])
+            out[name + "/y"] = np.asarray(y)
+            out[name + "/aux_loss"] = np.asarray(aux["aux_loss"])
+            for k, v in aux["metrics"].items():
+                out[name + "/m/" + k] = np.asarray(v)
+        np.savez({os.path.join(tmp, "ref_out.npz")!r}, **out)
+    """)
+    proc = subprocess.Popen([sys.executable, "-c", script],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=dict(os.environ, PYTHONPATH=(
+                                os.path.join(REPO, "src"))))
+
+    def wait() -> dict:
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err[-3000:]
+        got = np.load(os.path.join(tmp, "ref_out.npz"))
+        return {name: {"y": got[name + "/y"],
+                       "aux_loss": float(got[name + "/aux_loss"]),
+                       "metrics": {k: float(got[f"{name}/m/{k}"])
+                                   for k in ("cv_importance", "cv_load",
+                                             "max_over_mean_load",
+                                             "fraction_dropped")}}
+                for name in cases}
+    return wait
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """Every case on the four ranks, and the JAX results beside them."""
+    tmp = str(tmp_path_factory.mktemp("ep"))
+    rs = np.random.RandomState(1)
+    key = jax.random.PRNGKey(3)
+    x = rs.randn(T, D).astype(np.float32)
+    dy = rs.randn(T, D).astype(np.float32)
+    noise = np.array(jax.random.normal(key, (T, E)))
+    cases, want, ref_cases = {}, {}, {}
+    for act in ("relu", "swiglu"):
+        ja, targs = _args(act)
+        params = _params(ja)
+        cases[f"nodrop_{act}"] = dict(
+            args=targs, params=from_jax_tree(params, device="cpu"),
+            x=torch.from_numpy(x), dy=torch.from_numpy(dy),
+            noise=torch.from_numpy(noise), train=True)
+        want[f"nodrop_{act}"] = _jax_case(ja, params, x, dy, train=True,
+                                          key=key)
+        ja, targs = _args(act, cf=1.0)
+        params = _params(ja, seed=2)
+        cases[f"drops_{act}"] = dict(
+            args=targs, params=from_jax_tree(params, device="cpu"),
+            x=torch.from_numpy(x), dy=torch.from_numpy(dy), train=False)
+        ref_cases[f"drops_{act}"] = (ja, params, x)
+    wg, xs = _skewed_inputs()
+    for policy in ("noisy_topk", "expert_choice"):
+        spec = trouter.RouterSpec(policy=policy, capacity_factor=8.0)
+        _, targs = _args(router=spec)
+        ja, _ = _args()
+        params = _params(ja, wg=wg)
+        if policy == "expert_choice":
+            params["gate"].pop("wnoise")
+        cases[f"skewed_{policy}"] = dict(
+            args=targs, params=from_jax_tree(params, device="cpu"),
+            x=torch.from_numpy(xs), dy=torch.zeros(T, D), train=False,
+            local_aux=True)
+    kimi = reduced(get_config("kimi-k2-1t-a32b"))
+    inputs = dict(moe_cases=cases, lm_refusals={
+        "hierarchical": kimi.replace(moe_hierarchical=(2, 4)),
+        "moa": reduced(get_config("moa-demo"))},
+        batch={"tokens": torch.zeros(4, 32, dtype=torch.int32),
+               "labels": torch.zeros(4, 32, dtype=torch.int32)})
+    ref_ep = _reference_ep(tmp, ref_cases)
+    ranks = workers.spawn("moe", tmp, inputs, 2, 2)
+    return {"ranks": ranks, "want": want, "ref_ep": ref_ep()}
+
+
+def _rows(run, name, key):
+    return np.concatenate([r[name][key].numpy() for r in run["ranks"]])
+
+
+def _same_on_every_rank(run, name):
+    r0 = run["ranks"][0][name]
+    for r in run["ranks"][1:]:
+        assert float(r[name]["aux_loss"]) == float(r0["aux_loss"])
+        for k, v in r0["metrics"].items():
+            assert float(r[name]["metrics"][k]) == float(v), k
+    return r0
+
+
+@pytest.mark.parametrize("act", ["relu", "swiglu"])
+def test_ep_matches_single_device_moe(run, act):
+    """No drops, train=True with the JAX draws split by rank: y, the
+    combined batch's aux loss and metrics, every parameter's gradient
+    (the experts' gathered from their shards) and x's."""
+    name = f"nodrop_{act}"
+    want = run["want"][name]
+    np.testing.assert_allclose(_rows(run, name, "y"), want["y"], **TOL)
+    r0 = _same_on_every_rank(run, name)
+    np.testing.assert_allclose(float(r0["aux_loss"]), want["aux_loss"],
+                               **TOL)
+    assert want["metrics"]["fraction_dropped"] == 0.0
+    for k, v in want["metrics"].items():
+        np.testing.assert_allclose(float(r0["metrics"][k]), v, **TOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(_rows(run, name, "dx"), want["dx"], **TOL)
+    for r in run["ranks"]:
+        flat = jax.tree_util.tree_flatten_with_path(r[name]["grads"])[0]
+        wflat = jax.tree_util.tree_flatten_with_path(want["grads"])[0]
+        assert [p for p, _ in flat] == [p for p, _ in wflat]
+        for (path, g), (_, w) in zip(flat, wflat):
+            np.testing.assert_allclose(g.numpy(), w, **TOL,
+                                       err_msg=str(path))
+
+
+@pytest.mark.parametrize("act", ["relu", "swiglu"])
+def test_ep_with_drops_matches_reference_ep(run, act):
+    """Capacity per shard at factor 1: tokens drop, and the port's
+    schedule drops the ones the reference's ``moe_apply_ep`` does."""
+    name = f"drops_{act}"
+    want = run["ref_ep"][name]
+    assert want["metrics"]["fraction_dropped"] > 0
+    np.testing.assert_allclose(_rows(run, name, "y"), want["y"], **TOL)
+    r0 = _same_on_every_rank(run, name)
+    np.testing.assert_allclose(float(r0["aux_loss"]), want["aux_loss"],
+                               **TOL)
+    for k, v in want["metrics"].items():
+        np.testing.assert_allclose(float(r0["metrics"][k]), v, **TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("policy", ["noisy_topk", "expert_choice"])
+def test_ep_balance_is_the_combined_batchs(run, policy):
+    """Every rank routes its tokens to one expert pair (maximally skewed
+    locally); the combined batch is balanced and the losses and metrics
+    say so (the reference's thresholds)."""
+    name = f"skewed_{policy}"
+    r0 = _same_on_every_rank(run, name)
+    global_aux = float(r0["aux_loss"])
+    assert np.isfinite(global_aux)
+    if policy == "noisy_topk":
+        local_mean = float(np.mean([float(r[name]["local_aux"])
+                                    for r in run["ranks"]]))
+        assert local_mean > 0.5, local_mean
+        assert global_aux < 0.05, global_aux
+        assert global_aux < local_mean / 10.0, (global_aux, local_mean)
+        assert float(r0["metrics"]["cv_load"]) < 0.2
+        assert abs(float(r0["metrics"]["max_over_mean_load"]) - 1.0) < 0.3
+    else:
+        assert float(r0["metrics"]["cv_load"]) < 1e-3
+
+
+@pytest.mark.parametrize("feature,why", [
+    ("fused_decode", "fused decode is not distributed"),
+    ("hierarchical", "the hierarchical MoE is not distributed"),
+    ("moa", "MoA is not distributed")])
+def test_unported_features_refuse_on_a_mesh(run, feature, why):
+    for r in run["ranks"]:
+        msg = r["refusals"][feature]
+        assert msg is not None and why in msg, msg
+
+
+def test_ep_refuses_experts_that_do_not_divide(run):
+    """An expert count that does not divide over the plan's expert axis
+    raises (the reference's check), not a silent fallback to replicated
+    experts."""
+    for r in run["ranks"]:
+        msg = r["refusals"]["indivisible_experts"]
+        assert msg is not None and "must divide over ep=2" in msg, msg

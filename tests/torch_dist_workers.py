@@ -1,0 +1,280 @@
+"""Ranks of the port's distributed CPU tests (gloo, spawned processes).
+
+    python tests/torch_dist_workers.py <case> <dir> <world> <data> <model>
+
+spawns ``world`` ranks with ``torch.multiprocessing`` over gloo, a
+``file://`` store in ``<dir>`` (never a fixed port: the tests run in
+parallel workers), and the host mesh (data, model).  Each rank runs
+``CASES[case]``: it reads ``<dir>/inputs.pt`` (written by the test, which
+runs the JAX side in its own process) and writes ``<dir>/out<rank>.pt``.
+This module imports the port only.  A rank that raises makes the
+command exit non-zero.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import traceback
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.common.param import tree_leaves, tree_map
+from repro_torch.core import expert_parallel as ep_lib
+from repro_torch.core import moe as moe_lib
+from repro_torch.core import router as router_lib
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import lm, paper_lm
+from repro_torch.optim import optimizers as opt_lib
+from repro_torch.sharding.context import MeshContext
+from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train import compression
+from repro_torch.train import trainer as trainer_lib
+
+
+def _full(ctx: MeshContext, tree, defs):
+    """The full tree of this rank's slices (no autograd)."""
+    with torch.no_grad():
+        return tree_map(lambda t: t.detach().clone(), ctx.gather(tree, defs))
+
+
+def _grad_leaves(tree):
+    for leaf in tree_leaves(tree):
+        leaf.requires_grad_(True)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel MoE
+# ---------------------------------------------------------------------------
+
+def _moe_case(ctx: MeshContext, case: dict) -> dict:
+    """One moe_apply_ep call: the rank's rows of ``x`` (and of the noise),
+    the parameters sharded by the plan and the gate gathered, as the
+    trainer hands them; the global loss ``sum(y * dy) + aux_loss`` back-
+    propagated as a sum over the ranks (each rank's own ``sum(y * dy)``
+    and 1/n of the aux loss that every rank holds), the replicas'
+    gradients summed.  Returns the rank's y, aux, metrics and the full
+    gradients of the parameters and of x."""
+    a = moe_lib.MoEArgs(**case["args"])
+    defs = moe_lib.moe_defs(a)
+    local = _grad_leaves(ctx.shard(case["params"], defs))
+    used = ep_lib.gather_on_use(local, defs, ctx)
+    x = ctx.local_rows(case["x"]).clone().requires_grad_(True)
+    noise = case.get("noise")
+    y, aux = ep_lib.moe_apply_ep(
+        used, x, a, ctx, train=case["train"],
+        noise=None if noise is None else ctx.local_rows(noise))
+    dy = ctx.local_rows(case["dy"])
+    loss = torch.sum(y * dy) + aux["aux_loss"] / ctx.world
+    loss.backward()
+    grads = tree_map(lambda p: (torch.zeros_like(p) if p.grad is None
+                                else p.grad), local)
+    trainer_lib._sum_replicas(ctx, grads, ctx.specs(defs))
+    out = {"y": y.detach(), "aux_loss": aux["aux_loss"].detach(),
+           "metrics": {k: v.detach() for k, v in aux["metrics"].items()},
+           "grads": _full(ctx, grads, defs), "dx": x.grad}
+    if case.get("local_aux"):
+        # The shard-local balance loss of the rank's tokens alone.
+        dec = router_lib.build(a).route(used, x.detach(), train=False)
+        out["local_aux"] = dec.aux_loss.detach()
+    return out
+
+
+def _refusals(ctx: MeshContext, inputs: dict) -> dict:
+    """Each feature the port does not distribute raises
+    NotImplementedError on this mesh, and experts that do not divide
+    over the expert axis a ValueError; the message of each."""
+    got = {}
+
+    def expect(name, fn, error=NotImplementedError):
+        try:
+            fn()
+        except error as err:
+            got[name] = str(err)
+        else:
+            got[name] = None
+
+    moe = next(iter(inputs["moe_cases"].values()))
+    a = moe_lib.MoEArgs(**moe["args"])
+    defs = moe_lib.moe_defs(a)
+    used = ep_lib.gather_on_use(ctx.shard(moe["params"], defs), defs, ctx)
+    x = ctx.local_rows(moe["x"])
+    odd = ctx.size(["model"]) + 1
+    expect("indivisible_experts", lambda: ep_lib.moe_apply_ep(
+        {}, x, moe_lib.MoEArgs(**dict(moe["args"], n_experts=odd)), ctx,
+        train=False), error=ValueError)
+    expect("fused_decode", lambda: ep_lib.moe_apply_ep(
+        used, x, moe_lib.MoEArgs(**dict(moe["args"], fused_decode=True)),
+        ctx, train=False))
+    batch = {k: ctx.local_rows(v) for k, v in inputs["batch"].items()}
+    for name, cfg in inputs["lm_refusals"].items():
+        # lm_loss refuses before it reads a parameter.
+        expect(name, lambda: lm.lm_loss({}, batch, cfg, ctx=ctx))
+    return got
+
+
+def case_moe(ctx: MeshContext, inputs: dict) -> dict:
+    out = {name: _moe_case(ctx, case)
+           for name, case in inputs["moe_cases"].items()}
+    out["refusals"] = _refusals(ctx, inputs)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _loss_fn(model: dict, ctx, draws=None):
+    cfg = model["cfg"]
+    fn = lm.lm_loss if model["kind"] == "lm" else paper_lm.paper_lm_loss
+    if draws is not None:
+        return lambda p, b, g: fn(p, b, cfg, draws=draws, ctx=ctx)
+    return lambda p, b, g: fn(p, b, cfg, generator=g, ctx=ctx)
+
+
+def _defs(model: dict):
+    if model["kind"] == "lm":
+        return lm.lm_defs(model["cfg"])
+    return paper_lm.paper_lm_defs(model["cfg"])
+
+
+def case_train(ctx: MeshContext, inputs: dict) -> dict:
+    """For each model: step 0's gradients and metrics from the JAX draws
+    (full gradients); each ``(optimizer, steps)`` of ``opts`` applied
+    ``steps`` times to the shards of the given full ``grads`` (the full
+    parameters and grad norms after them); then the factored optimizer's
+    first ``steps`` training steps from the step generators (losses,
+    full parameters), checkpointed under ``ckpt`` for ``ckpt_model``."""
+    out = {}
+    for name, model in inputs["models"].items():
+        defs = _defs(model)
+        local = _grad_leaves(ctx.shard(model["params"], defs))
+        grads_fn = trainer_lib.make_grad_fn(
+            _loss_fn(model, ctx, draws=model["jax_draws"]), ctx=ctx,
+            defs=defs)
+        grads, metrics = grads_fn(local, model["batches"][0], None)
+        res = {"grads0": _full(ctx, grads, defs),
+               "metrics0": {k: v.detach() for k, v in metrics.items()}}
+        for oc, n_steps in model["opts"]:
+            local = ctx.shard(model["params"], defs)
+            grads = ctx.shard(model["grads"], defs)
+            state = opt_lib.init(local, oc)
+            norms = [float(opt_lib.apply_updates(
+                local, grads, state, oc, ctx=ctx, defs=defs)[2]["grad_norm"])
+                for _ in range(n_steps)]
+            res[oc.kind] = {"grad_norms": norms,
+                            "params": _full(ctx, local, defs)}
+        oc, n_steps = model["opts"][0]
+        local = _grad_leaves(ctx.shard(model["params"], defs))
+        state = {"params": local, "opt": opt_lib.init(local, oc)}
+        step = trainer_lib.make_train_step(_loss_fn(model, ctx), oc,
+                                           ctx=ctx, defs=defs)
+        losses = []
+        for i, batch in enumerate(model["batches"][:n_steps]):
+            gen = torch.Generator().manual_seed(trainer_lib.step_seed(0, i))
+            state, m = step(state, batch, gen)
+            losses.append(float(m["loss"]))
+        res["steps"] = {"losses": losses,
+                        "params": _full(ctx, state["params"], defs)}
+        if name == inputs.get("ckpt_model"):
+            sdefs = {"params": defs, "opt": opt_lib.state_defs(defs, oc)}
+            mgr = ckpt_lib.CheckpointManager(inputs["ckpt"])
+            mgr.save(n_steps, state, {"mesh": dict(ctx.sizes)}, ctx=ctx,
+                     defs=sdefs)
+            res["state"] = _full(ctx, state, sdefs)
+        out[name] = res
+    return out
+
+
+def case_restore(ctx: MeshContext, inputs: dict) -> dict:
+    """The checkpoint restored on this mesh: this rank's slices (their
+    shapes) and the full tree gathered from them; then the int8
+    error-feedback sync over every rank of one gradient a step,
+    ``ef_grads[step, rank]``, with the feedback carried across steps."""
+    model = inputs["model"]
+    defs = _defs(model)
+    sdefs = {"params": defs, "opt": opt_lib.state_defs(defs, inputs["oc"])}
+    mgr = ckpt_lib.CheckpointManager(inputs["ckpt"])
+    tree, extra, step = mgr.restore(mgr.latest_step(), sdefs, ctx=ctx)
+    out = {"step": step, "extra": extra,
+           "local_shapes": tree_map(lambda t: tuple(t.shape), tree),
+           "full": _full(ctx, tree, sdefs)}
+    ef = None
+    synced = []
+    for g in inputs["ef_grads"]:
+        grads = {"g": g[ctx.index()]}
+        ef = compression.init_ef_state(grads) if ef is None else ef
+        mean, ef = compression.ef_compress_sync(grads, ef)
+        synced.append(mean["g"])
+    out["ef"] = {"synced": torch.stack(synced), "ef": ef["g"]}
+    return out
+
+
+CASES = {"moe": case_moe, "train": case_train, "restore": case_restore}
+
+
+# ---------------------------------------------------------------------------
+# spawning
+# ---------------------------------------------------------------------------
+
+def _rank(rank: int, case: str, path: str, world: int, model: int) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{path}/store",
+                            rank=rank, world_size=world)
+    try:
+        ctx = MeshContext.for_mesh(make_host_mesh(model, device="cpu"),
+                                   "dp_tp_ep")
+        inputs = torch.load(os.path.join(path, "inputs.pt"),
+                            weights_only=False)
+        out = CASES[case](ctx, inputs)
+        torch.save(out, os.path.join(path, f"out{rank}.pt"))
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv) -> int:
+    case, path, world, _data, model = argv
+    mp.spawn(_rank, args=(case, path, int(world), int(model)),
+             nprocs=int(world), join=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
+
+
+def start(case: str, path, inputs: dict, data: int, model: int,
+          timeout: float = 300.0):
+    """Start ``case`` on ``data * model`` spawned ranks (the test side):
+    writes ``inputs`` and runs this module in a fresh interpreter with
+    the port on its path.  The returned function waits for it and
+    returns every rank's output in rank order."""
+    import subprocess
+    path = str(path)
+    torch.save(inputs, os.path.join(path, "inputs.pt"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep))
+    world = data * model
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), case, path, str(world),
+         str(data), str(model)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def wait() -> list:
+        _, err = proc.communicate(timeout=timeout)
+        assert proc.returncode == 0, err[-4000:]
+        return [torch.load(os.path.join(path, f"out{r}.pt"),
+                           weights_only=False) for r in range(world)]
+    return wait
+
+
+def spawn(*args, **kw) -> list:
+    """:func:`start`, waited for."""
+    return start(*args, **kw)()
