@@ -278,7 +278,33 @@ Phases, in order; any failure exits non-zero and prints no result:
              (within one quantization step of the mean); (c)
              ``launch.train`` under ``torchrun`` on one NCCL rank against
              the same launcher without it (kimi-k2 --reduce, 4 steps).
-24. report — one ``{"kernels": [...]}`` line, then the result line.
+24. mesh_serve — serving on a mesh (ServeEngine(ctx=)): kimi-k2 at
+             full width cut to 1 layer, (a) on this process, then (b) on
+             two gloo ranks sharing the card, mesh (data 1, model 2):
+             EP 2 (192 experts a rank, the global dispatch plan, the
+             expert outputs all-gathered), the decode pool's kv_seq over
+             model, each rank building only its own slices from the
+             seed.  Phase 3's traffic unfused and fused, then 4 requests
+             of 1536 tokens sharing a 1024-token prompt (chunks of 512,
+             the prefix cache on).  Gates: each call's logits within
+             MESH_LOGIT_TOL of the logit scale of (a)'s where the inputs
+             are the same, reshards = completed prompts, launches of
+             kernels 1 / 2 / 4 / 6 (8 fused) exact on each rank, kernel
+             8 on a rank's slab (the plan restricted to its experts)
+             against its plain version.  Reported: stream agreement,
+             decode-step ms, each collective's time and bytes, peak
+             memory a rank.
+25. pipeline — the GPipe schedule (train/pipeline.py): qwen3-1.7b at
+             full size in f32, (a) lm_loss and its gradients on this
+             process, (b) pipelined over (stage 2, model 1), 4
+             microbatches of B 4 x S 1024: loss and every gradient
+             against (a), 2 make_pipeline_train_step steps (the last
+             one's forward ticks timed: the bubble share); (c) the
+             kimi-k2 family at --reduce widths (4 layers) on (stage 2,
+             model 2), four ranks: cuda against ref loss and gradients,
+             exact launches a step (one MoE layer's lm_loss launches x
+             microbatches x layers a stage).
+26. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -6146,6 +6172,752 @@ def phase_distributed() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: serving on a mesh (two ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+# kimi-k2 at full width cut to MESH_LAYERS layer, first on this process,
+# then on two gloo ranks sharing the card, mesh (data 1, model 2): EP 2
+# (192 experts a rank), the decode pool's kv_seq over model.  Phase 3's
+# traffic (N_REQUESTS x PROMPT_LEN, NEW_TOKENS greedy tokens) unfused and
+# fused, then the shared-prefix traffic of phase 7 cut to MESH_PREFIX_N
+# requests, chunks of PREFIX_CHUNK, the prefix cache on.  Each rank
+# builds only its own slices from SEED (the one-process tree's draws,
+# one whole leaf at a time).  Gates: every prefill and decode call whose
+# input tokens equal the one process's has logits within phase 4's
+# tolerance (MESH_LOGIT_TOL x the logit scale: the attention's partial
+# softmaxes merge in another rounding, the fused partial sums too), the
+# reshards counter equals the completed prompts, the launches of kernels
+# 1 / 2 / 4 / 6 (and 8 fused) are exact on every rank.
+MESH_LAYERS = 1
+MESH_SERVE = (1, 2)
+MESH_PREFIX_N = 4
+MESH_LOGIT_TOL = 0.05
+MESH_TRAFFIC = ("serve", "fused", "prefix")
+MESH_UNFUSED = {"topk_gating": 1, "dispatch": 1, "gmm": 3, "combine": 1}
+# Fused decode a layer: kernel 7 on one process (noisy_topk routes in
+# the kernel), the routing's top-k and kernel 8 on a mesh.
+MESH_FUSED_DECODE = {"one": {"fused_decode": 1},
+                     "mesh": {"topk_gating": 1, "fused_routed": 1}}
+
+
+def _mesh_cfg():
+    from repro_torch.configs.base import get_config
+    return get_config(ARCH, n_layers=MESH_LAYERS)
+
+
+def _mesh_params(cut=None):
+    """kimi-k2 at MESH_LAYERS layers drawn from SEED as build_model draws
+    it (the gate redrawn after the tree); with ``cut`` each leaf is
+    reduced to a rank's slice as it is drawn."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.models import lm
+    cfg = _mesh_cfg()
+    defs = lm.lm_defs(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = pm.materialize(defs, gen, "cuda", cut=cut)
+    gdef = defs["blocks"]["periods"]["pos0"]["moe"]["gate"]["wg"]
+    gate = torch.empty(gdef.shape, dtype=gdef.dtype, device="cuda")
+    gate.normal_(0.0, cfg.d_model ** -0.5, generator=gen)
+    params["blocks"]["periods"]["pos0"]["moe"]["gate"]["wg"] = (
+        gate if cut is None else cut(gdef, gate))
+    return cfg, params
+
+
+def _mesh_traffic():
+    """(ServeConfig fields, [(prompt, new tokens, arrival)]) of each
+    traffic: phase 3's prompts one step apart, unfused and fused; the
+    shared-prefix trace (request 0 retires before the others arrive)."""
+    import numpy as np
+    vocab = _mesh_cfg().vocab_size
+    rs = np.random.RandomState(SEED)
+    prompts = [rs.randint(1, vocab, (PROMPT_LEN,)) for _ in range(N_REQUESTS)]
+    plain = [(p, NEW_TOKENS, i) for i, p in enumerate(prompts)]
+    sc = dict(max_len=PROMPT_LEN + NEW_TOKENS, n_slots=N_REQUESTS)
+    rs = np.random.RandomState(SEED + 24)
+    shared = rs.randint(1, vocab, (PREFIX_SHARED,))
+    prefix = [(np.concatenate([shared, rs.randint(
+        1, vocab, (PREFIX_LEN - PREFIX_SHARED,))]), NEW_TOKENS,
+        0 if i == 0 else PREFIX_FIRST_ARRIVAL + i)
+        for i in range(MESH_PREFIX_N)]
+    return {"serve": (sc, plain), "fused": (dict(sc, fused_decode=True), plain),
+            "prefix": (dict(max_len=PREFIX_MAX_LEN, n_slots=MESH_PREFIX_N,
+                            prefill_chunk=PREFIX_CHUNK,
+                            prefill_budget=PREFIX_BUDGET, admission="aware",
+                            prefix_cache=True), prefix)}
+
+
+class _LogitRecorder:
+    """Wraps lm_prefill / lm_decode while on: each call's input tokens
+    (and decode positions) and its logits, on the host."""
+
+    def __init__(self):
+        from repro_torch.models import lm
+        self.lm, self.calls = lm, []
+        self.real = (lm.lm_prefill, lm.lm_decode)
+
+    def __enter__(self):
+        real_prefill, real_decode = self.real
+
+        def prefill(params, batch, cache, cfg, **kw):
+            logits, cache = real_prefill(params, batch, cache, cfg, **kw)
+            self.calls.append(("prefill", batch["tokens"].cpu(), None,
+                               logits.float().cpu()))
+            return logits, cache
+
+        def decode(params, tokens, cache, cur, cfg, **kw):
+            out = real_decode(params, tokens, cache, cur, cfg, **kw)
+            self.calls.append(("decode", tokens.cpu(), cur.cpu(),
+                               out[0].float().cpu()))
+            return out
+        self.lm.lm_prefill, self.lm.lm_decode = prefill, decode
+        return self
+
+    def __exit__(self, *exc):
+        self.lm.lm_prefill, self.lm.lm_decode = self.real
+        return False
+
+
+def _mesh_serve_run(what, cfg, params, sc_kw, trace, ctx=None) -> dict:
+    """One traffic through an engine (on ``ctx`` or one process): a
+    warm-up, then the run with the launches zeroed just before and read
+    just after, each call's logits recorded."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    engine = ServeEngine(params, cfg, ServeConfig(**sc_kw), device="cuda",
+                         ctx=ctx)
+    engine.generate(np.stack([p[:PROMPT_LEN] for p, _, _ in trace[:2]]), 2)
+    engine.reset()
+    reqs = [engine.submit(p, m, arrival=a) for p, m, a in trace]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _LogitRecorder() as rec:
+        engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda_lib.launch_counts()
+    for r in reqs:
+        check(r.done and len(r.tokens) == r.max_new_tokens,
+              f"{what}: request {r.rid} ended with {len(r.tokens)} tokens")
+    stats = engine.stats
+    fused = sc_kw.get("fused_decode", False)
+    want = expected_launches(
+        stats, MESH_UNFUSED, MESH_FUSED_DECODE["one" if ctx is None else
+                                               "mesh"]
+        if fused else MESH_UNFUSED)
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
+    if ctx is not None:
+        check(stats["reshards"] == stats["prefills"] == len(reqs),
+              f"{what}: {stats['reshards']} reshards for {stats['prefills']}"
+              f" prefills of {len(reqs)} prompts")
+    dec = engine.step_times["decode"]
+    return {"streams": [list(r.tokens) for r in reqs], "calls": rec.calls,
+            "first_slot": engine.kv.first_slot, "n_local": engine.kv.n_local,
+            "summary": {
+                "wall_s": wall, "launches": counts,
+                "decode_step_ms_median": 1e3 * statistics.median(dec),
+                "prefill_ms_median": (1e3 * statistics.median(
+                    engine.step_times["prefill"])
+                    if engine.step_times["prefill"] else None),
+                "chunk_call_ms_median": (1e3 * statistics.median(
+                    engine.step_times["chunk"])
+                    if engine.step_times["chunk"] else None),
+                "stats": {k: stats[k] for k in (
+                    "prefills", "prefill_chunks", "prefill_calls",
+                    "reshards", "decode_steps", "generated_tokens",
+                    "prefix_hits", "prefix_hit_tokens")},
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}}
+
+
+def _logit_errs(calls, ref_calls, first: int, n_local: int) -> dict:
+    """Each recorded call against the one-process call at the same place
+    in the run, where its input tokens (and positions) are the same: the
+    largest |difference| over the logit scale."""
+    worst, compared, scale_at = 0.0, 0, None
+    for (kind, tok, cur, logits), (rkind, rtok, rcur, rlogits) in zip(
+            calls, ref_calls):
+        if kind != rkind:
+            break
+        if kind == "decode":
+            rtok, rcur = rtok[first:first + n_local], rcur[first:first +
+                                                           n_local]
+            rlogits = rlogits[first:first + n_local]
+            if not (torch_equal(tok, rtok) and torch_equal(cur, rcur)):
+                continue
+        elif not torch_equal(tok, rtok):
+            continue
+        scale = float(rlogits.abs().max())
+        err = float((logits - rlogits).abs().max()) / max(scale, 1e-30)
+        if err >= worst:
+            worst, scale_at = err, scale
+        compared += 1
+    return {"worst_rel": worst, "calls_compared": compared,
+            "calls": len(calls), "logit_scale": scale_at}
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def mesh_serve_reference(workdir: str, floor: dict) -> dict:
+    """(a) The three traffics on this process; each call's logits saved
+    for the ranks.  Kernel 8 held against its plain version at the mesh's
+    shapes: a decode step's plan restricted to the first rank's 192
+    experts (local_plan)."""
+    import os
+    import torch
+    from repro_torch.core import expert_parallel as ep_lib
+    from repro_torch.core import router as router_lib
+    from repro_torch.kernels import backend as backend_lib
+    from repro_torch.models.transformer import _moe_args
+    cfg, params = _mesh_params()
+    out = {}
+    for name, (sc_kw, trace) in _mesh_traffic().items():
+        run = _mesh_serve_run(f"mesh one process {name}", cfg, params, sc_kw,
+                              trace)
+        torch.save(run["calls"], os.path.join(workdir, f"ref_{name}.pt"))
+        out[name] = {"streams": run["streams"], "summary": run["summary"]}
+    # Kernel 8 on a rank's slab at the decode shape.
+    a = _moe_args(cfg, decode=True)
+    moe = params["blocks"]["periods"]["pos0"]["moe"]
+    layer = {k: (v[0] if not isinstance(v, dict) else
+                 {kk: vv[0] for kk, vv in v.items()}) for k, v in moe.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    x = torch.randn((N_REQUESTS, cfg.d_model), generator=gen,
+                    device="cuda").to(layer["w1"].dtype)
+    bk = backend_lib.resolve(a)
+    dec = router_lib.build(a, topk_impl=bk.topk_impl).route(layer, x,
+                                                            train=False)
+    e_local = cfg.n_experts // MESH_SERVE[1]
+    p = ep_lib.local_plan(dec.plan, 0, e_local)
+    out["kernel8_mesh"] = _fused8_case(
+        x, p, layer["w1"][:e_local], layer["w2"][:e_local],
+        layer["w3"][:e_local], "mesh slab (192 experts, other rank's "
+        "entries dropped)")
+    # A rank's GMM on its slab of the dispatched buffer must give the
+    # slab's rows of the whole call bit for bit (the serving schedule's
+    # claim): both kernels, with the plan's rows.
+    from repro_torch.kernels import gmm as gmm_lib
+    buf = bk.dispatch(x, dec, a)
+    for kernel in ("stream", "tile"):
+        for half in (slice(0, e_local), slice(e_local, cfg.n_experts)):
+            whole = gmm_lib.gmm(buf, layer["w1"], activation="silu",
+                                rows=dec.rows, kernel=kernel)
+            slab = gmm_lib.gmm(buf[half], layer["w1"][half],
+                               activation="silu", rows=dec.rows[half],
+                               kernel=kernel)
+            check(bool(torch.equal(whole[half], slab)),
+                  f"gmm {kernel}: a slab's rows differ from the whole "
+                  "call's")
+    out["gmm_slab_bitwise"] = True
+    log("gmm stream / tile: each rank's slab of the decode buffer equals "
+        "the whole call's rows bit for bit")
+    del params, layer, moe, buf
+    log("mesh serve (a) one process " + json.dumps(
+        {k: out[k]["summary"] for k in MESH_TRAFFIC}))
+    return out
+
+
+def _mesh_serve_rank(rank: int, world: int, model: int, workdir: str) -> None:
+    """One rank of phase 24 (a spawned process)."""
+    import os
+    import traceback
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'store_serve')}",
+        rank=rank, world_size=world)
+    try:
+        out = _mesh_serve_rank_body(rank, model, workdir)
+        with open(os.path.join(workdir, f"serve_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_serve_rank_body(rank: int, model: int, workdir: str) -> dict:
+    import os
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.core import expert_parallel as ep_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding.context import MeshContext
+    ctx = MeshContext.for_mesh(make_host_mesh(model, device="cuda"),
+                               "decode_std")
+    res = {"rank": rank, "mesh": ctx.sizes}
+    t0 = time.perf_counter()
+    cfg, params = _mesh_params(
+        cut=lambda d, t: ctx.shard_leaf(t, ctx.resolve(d.shape, d.axes)))
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = ep_lib.serve_layout(params, lm.lm_defs(cfg), ctx)
+    torch.cuda.synchronize()
+    res["serve_layout_s"] = time.perf_counter() - t0
+    res["param_gib"] = pm.param_bytes(params) / 2**30
+    torch.cuda.empty_cache()
+    clock = _CollectiveClock()
+    for name, (sc_kw, trace) in _mesh_traffic().items():
+        clock.ms, clock.bytes, clock.calls = {}, {}, {}
+        clock.on = True
+        run = _mesh_serve_run(f"mesh rank {rank} {name}", cfg, params, sc_kw,
+                              trace, ctx=ctx)
+        clock.on = False
+        ref = torch.load(os.path.join(workdir, f"ref_{name}.pt"),
+                         weights_only=False)
+        errs = _logit_errs(run["calls"], ref, run["first_slot"],
+                           run["n_local"])
+        check(errs["worst_rel"] <= MESH_LOGIT_TOL,
+              f"mesh rank {rank} {name}: logits {errs['worst_rel']:.4g} of "
+              f"the scale from one process (tol {MESH_LOGIT_TOL})")
+        check(errs["calls_compared"] > 0,
+              f"mesh rank {rank} {name}: no call compared")
+        res[name] = dict(run["summary"], streams=run["streams"],
+                         logits=errs, collective_ms=dict(clock.ms),
+                         collective_bytes=dict(clock.bytes),
+                         collective_calls=dict(clock.calls))
+        del ref, run
+    return res
+
+
+def phase_mesh_serve(floor: dict) -> dict:
+    """Phase 24: (a) one process, (b) two ranks on mesh MESH_SERVE."""
+    import gc
+    import os
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        out["one"] = mesh_serve_reference(workdir, floor)
+        gc.collect()
+        torch.cuda.empty_cache()
+        data, model = MESH_SERVE
+        world = data * model
+        t1 = time.perf_counter()
+        try:
+            mp.spawn(_mesh_serve_rank, args=(world, model, workdir),
+                     nprocs=world, join=True)
+        except Exception as err:       # a rank failed: the phase fails
+            raise SmokeFailure(f"mesh serve ranks: {err}")
+        out["spawn_wall_s"] = time.perf_counter() - t1
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"serve_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for name in MESH_TRAFFIC:
+        one = out["one"][name]["streams"]
+        for r in ranks:
+            r[name]["stream_agreement"] = stream_agreement(r[name]["streams"],
+                                                           one)
+            check(r[name]["streams"] == ranks[0][name]["streams"],
+                  f"mesh {name}: the ranks sampled different streams")
+        log(f"mesh serve (b) {name} " + json.dumps(
+            [{k: v for k, v in r[name].items() if k != "streams"}
+             for r in ranks]))
+    out["ranks"] = ranks
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"mesh serve phase {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the GPipe pipeline
+# ---------------------------------------------------------------------------
+
+# qwen3-1.7b at full size in f32 (dense, homogeneous, 28 layers: no
+# full-width MoE transformer pipelines on one card, PERF.md section 7),
+# pipelined over (stage 2, model 1) with PP_MICRO microbatches of the
+# global batch PP_B x PP_S: the loss and every gradient against one
+# process's lm_loss on the same weights, then PP_STEPS steps of
+# make_pipeline_train_step (factored Adam), the last one's forward ticks
+# timed.  Then the kimi-k2 family at --reduce widths (PP_KIMI_LAYERS
+# layers) on (stage 2, model 2), four ranks: the cuda backend against
+# ref (loss, gradients) and exact launches a step.
+PP_B, PP_S, PP_MICRO, PP_STEPS = 4, 1024, 4, 2
+PP_MESH, PP_KIMI_MESH = (2, 1), (2, 2)
+PP_KIMI_LAYERS, PP_KIMI_B, PP_KIMI_S = 4, 8, 32
+# One process against the ranks, f32 with TF32 off: the loss within
+# PP_LOSS_TOL relative, each gradient leaf within PP_GRAD_TOL normwise
+# (the ranks reduce the embedding's and the softmax's gradients in
+# other orders); cuda against ref on the reduced kimi within
+# PP_KIMI_TOL (the GMM's 3xTF32 against f32 matmuls).
+PP_LOSS_TOL, PP_GRAD_TOL, PP_KIMI_TOL = 1e-5, 1e-4, 1e-4
+
+
+def _pp_qwen_cfg():
+    import torch
+    from repro_torch.configs.base import get_config
+    return get_config(QWEN, param_dtype=torch.float32,
+                      compute_dtype=torch.float32)
+
+
+def _pp_batch(vocab, b, s):
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    return batch_at(DataConfig(vocab_size=vocab, seq_len=s, batch_size=b,
+                               seed=SEED), 0, device="cuda")
+
+
+def _pp_cut(pp, n_stages):
+    """materialize's cut for the pipeline layout: a stacked [L, ...]
+    block leaf read as [n_stages, L / n_stages, ...] with a leading
+    stage axis, then each leaf this rank's slice by the pipeline plan."""
+    def cut(d, t):
+        shape, axes = d.shape, d.axes
+        if axes[0] == "layers":
+            shape = (n_stages, shape[0] // n_stages) + shape[1:]
+            axes = ("stage",) + axes
+            t = t.reshape(shape)
+        return pp.shard_leaf(t, pp.resolve(shape, axes))
+    return cut
+
+
+def _as_pipeline_tree(params):
+    return dict(params, blocks=params["blocks"]["periods"]["pos0"])
+
+
+def pp_reference(workdir: str) -> dict:
+    """(a) qwen3 f32 on this process: lm_loss of the global batch and its
+    gradients (saved in the pipeline layout for the ranks)."""
+    import os
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.models import lm
+    cfg = _pp_qwen_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    for p in pm.tree_leaves(params):
+        p.requires_grad_(True)
+    batch = _pp_batch(cfg.vocab_size, PP_B, PP_S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, m = lm.lm_loss(params, batch, cfg, train=False)
+    loss.backward()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    n_stages = PP_MESH[0]
+
+    def restack(t):
+        return t.reshape((n_stages, t.shape[0] // n_stages) + t.shape[1:])
+    grads = _as_pipeline_tree(pm.tree_map(lambda p: p.grad.detach().cpu(),
+                                          params))
+    grads["blocks"] = pm.tree_map(restack, grads["blocks"])
+    torch.save(grads, os.path.join(workdir, "pp_ref_grads.pt"))
+    out = {"loss": float(loss.detach()), "xent": float(m["xent"].detach()),
+           "fwd_bwd_ms": step_ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "parameters": sum(p.numel() for p in pm.tree_leaves(params))}
+    log("pipeline (a) one process " + json.dumps(out))
+    del params, grads, loss
+    return out
+
+
+class _TickClock:
+    """Wraps MeshContext.shift and pipeline_stack_apply while on: a
+    device sync and a host time stamp when each forward tick's shift has
+    delivered its input (each tick begins with one shift) and at the end
+    of the forward ticks (the outputs' stage sum), so a tick's time is
+    its own work and the wait for the next tick's input."""
+
+    def __init__(self):
+        import torch
+        from repro_torch.sharding.context import MeshContext
+        from repro_torch.train import pipeline as pp_lib
+        real_shift, real_apply = MeshContext.shift, pp_lib.pipeline_stack_apply
+        self.stamps, self.on = [], False
+        clock = self
+
+        def stamp():
+            if clock.on:
+                torch.cuda.synchronize()
+                clock.stamps.append(time.perf_counter())
+
+        def shift(ctx, x, axis, step=1):
+            out = real_shift(ctx, x, axis, step)
+            stamp()
+            return out
+
+        def apply(*args, **kw):
+            out = real_apply(*args, **kw)
+            stamp()
+            return out
+        MeshContext.shift = shift
+        pp_lib.pipeline_stack_apply = apply
+
+
+def _pp_rank(rank: int, world: int, model: int, workdir: str,
+             which: str) -> None:
+    """One rank of phase 25 (a spawned process)."""
+    import os
+    import traceback
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'store_' + which)}",
+        rank=rank, world_size=world)
+    try:
+        body = _pp_qwen_rank if which == "qwen" else _pp_kimi_rank
+        out = body(rank, model, workdir)
+        with open(os.path.join(workdir, f"{which}_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _pp_grads(pp, local, loss, defs):
+    """``loss / world`` back-propagated, each gradient summed over the
+    ranks that hold replicas of its leaf (make_pipeline_train_step's
+    gradients)."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.train.trainer import _sum_replicas
+    (loss / pp.world).backward()
+    grads = pm.tree_map(lambda p: (torch.zeros_like(p) if p.grad is None
+                                   else p.grad), local)
+    _sum_replicas(pp, grads, pp.specs(defs))
+    return grads
+
+
+def _pp_qwen_rank(rank: int, model: int, workdir: str) -> dict:
+    import math
+    import os
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.sharding.context import MeshContext
+    from repro_torch.train import pipeline as pp_lib
+    ctx = MeshContext.for_mesh(make_host_mesh(model, device="cuda"),
+                               "dp_tp_ep")
+    n_stages = ctx.sizes["data"]
+    pp = pp_lib.pipeline_context(ctx)
+    cfg = _pp_qwen_cfg()
+    defs = pp_lib.pipeline_param_defs(cfg, n_stages)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    local = _as_pipeline_tree(pm.materialize(lm.lm_defs(cfg), gen, "cuda",
+                                             cut=_pp_cut(pp, n_stages)))
+    for p in pm.tree_leaves(local):
+        p.requires_grad_(True)
+    batch = _pp_batch(cfg.vocab_size, PP_B, PP_S)
+    res = {"rank": rank, "mesh": ctx.sizes, "stage": pp.index(("data",))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, m = pp_lib.pipeline_lm_loss(local, batch, cfg, ctx=ctx,
+                                      n_stages=n_stages, n_micro=PP_MICRO,
+                                      train=False)
+    grads = _pp_grads(pp, local, loss, defs)
+    torch.cuda.synchronize()
+    res["fwd_bwd_ms"] = 1e3 * (time.perf_counter() - t0)
+    res["loss"] = float(m["loss"].detach())
+    res["grads"] = _leaf_errs(pp, grads, os.path.join(
+        workdir, "pp_ref_grads.pt"), defs)
+    del grads
+    for p in pm.tree_leaves(local):
+        p.grad = None
+    torch.cuda.empty_cache()
+    oc = opt_lib.OptConfig(kind="factored")
+    state = {"params": local, "opt": opt_lib.init(local, oc)}
+    step = pp_lib.make_pipeline_train_step(cfg, oc, ctx=ctx,
+                                           n_stages=n_stages,
+                                           n_micro=PP_MICRO)
+    ticks = _TickClock()
+    losses, times = [], []
+    for i in range(PP_STEPS):
+        ticks.on = i == PP_STEPS - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, sm = step(state, batch, None)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        ticks.on = False
+        losses.append(float(sm["loss"]))
+        check(math.isfinite(losses[-1]), f"pipeline rank {rank}: loss "
+              f"{losses[-1]} at step {i}")
+    sid = res["stage"]
+    stamps = ticks.stamps
+    tick_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    live = [PP_MICRO > t - sid >= 0 for t in range(len(tick_ms))]
+    res.update({
+        "step_ms": times, "step_losses": losses,
+        "forward_tick_ms": tick_ms, "forward_ms": sum(tick_ms),
+        "forward_bubble_share": (sum(t for t, ok in zip(tick_ms, live)
+                                     if not ok) / max(sum(tick_ms), 1e-9)),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return res
+
+
+def _pp_kimi_cfg(backend: str):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import reduced
+    return reduced(get_config(ARCH)).replace(n_layers=PP_KIMI_LAYERS,
+                                             kernel_backend=backend)
+
+
+def pp_kimi_launches() -> dict:
+    """One MoE layer's launches in a training step's forward and backward
+    (lm_loss of the reduced kimi on this process, over its layers)."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    cfg = _pp_kimi_cfg("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    for p in pm.tree_leaves(params):
+        p.requires_grad_(True)
+    batch = _pp_batch(cfg.vocab_size, PP_KIMI_B, PP_KIMI_S)
+    cuda_lib.reset_launch_counts()
+    loss, _ = lm.lm_loss(params, batch, cfg, generator=gen)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = cuda_lib.launch_counts()
+    per = {k: v // cfg.n_layers for k, v in counts.items()}
+    check(all(v == per[k] * cfg.n_layers for k, v in counts.items()),
+          f"reduced kimi launches {counts} do not divide by its layers")
+    return per
+
+
+def _pp_kimi_rank(rank: int, model: int, workdir: str) -> dict:
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding.context import MeshContext
+    from repro_torch.train import pipeline as pp_lib
+    ctx = MeshContext.for_mesh(make_host_mesh(model, device="cuda"),
+                               "dp_tp_ep")
+    n_stages = ctx.sizes["data"]
+    pp = pp_lib.pipeline_context(ctx)
+    res = {"rank": rank, "mesh": ctx.sizes}
+    out = {}
+    for backend in ("cuda", "ref"):
+        cfg = _pp_kimi_cfg(backend)
+        defs = pp_lib.pipeline_param_defs(cfg, n_stages)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        local = _as_pipeline_tree(pm.materialize(
+            lm.lm_defs(cfg), gen, "cuda", cut=_pp_cut(pp, n_stages)))
+        for p in pm.tree_leaves(local):
+            p.requires_grad_(True)
+        batch = _pp_batch(cfg.vocab_size, PP_KIMI_B, PP_KIMI_S)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        loss, m = pp_lib.pipeline_lm_loss(local, batch, cfg, ctx=ctx,
+                                          n_stages=n_stages,
+                                          n_micro=PP_MICRO, generator=gen)
+        grads = _pp_grads(pp, local, loss, defs)
+        torch.cuda.synchronize()
+        out[backend] = {"loss": float(m["loss"].detach()),
+                        "launches": cuda_lib.launch_counts(),
+                        "grads": pm.tree_map(lambda g: g.detach().clone(),
+                                             grads)}
+    errs = {}
+    for (name, g), r in zip(_named_leaves(out["cuda"]["grads"]),
+                            pm.tree_leaves(out["ref"]["grads"])):
+        errs[name] = norm_rel_err(g, r)
+    res.update({
+        "loss": {b: out[b]["loss"] for b in out},
+        "loss_rel_err": abs(out["cuda"]["loss"] - out["ref"]["loss"])
+        / abs(out["ref"]["loss"]),
+        "grad_norm_rel": errs, "launches": out["cuda"]["launches"],
+        "ref_launches": out["ref"]["launches"],
+        "per_stage_layers": pp_lib.stages_for(cfg, n_stages)[0]})
+    return res
+
+
+def _pp_spawn(workdir: str, mesh: tuple, which: str) -> list:
+    import os
+    import torch.multiprocessing as mp
+    data, model = mesh
+    world = data * model
+    try:
+        mp.spawn(_pp_rank, args=(world, model, workdir, which), nprocs=world,
+                 join=True)
+    except Exception as err:           # a rank failed: the phase fails
+        raise SmokeFailure(f"pipeline {which} ranks on {mesh}: {err}")
+    reports = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"{which}_rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def phase_pipeline() -> dict:
+    """Phase 25: (a) qwen3 on one process, (b) its pipeline on PP_MESH,
+    (c) the reduced kimi on PP_KIMI_MESH, cuda against ref."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        ref = pp_reference(workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = _pp_spawn(workdir, PP_MESH, "qwen")
+    worst = {"loss_rel": 0.0, "grad_norm_rel": 0.0}
+    for r in ranks:
+        rel = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+        worst["loss_rel"] = max(worst["loss_rel"], rel)
+        check(rel <= PP_LOSS_TOL, f"pipeline rank {r['rank']}: loss "
+              f"{r['loss']} vs one process {ref['loss']} (rel {rel:.3g})")
+        for name, e in r["grads"].items():
+            check(e["finite"], f"pipeline rank {r['rank']}: {name} not "
+                  "finite")
+            worst["grad_norm_rel"] = max(worst["grad_norm_rel"],
+                                         e["norm_rel"])
+            check(e["norm_rel"] <= PP_GRAD_TOL,
+                  f"pipeline rank {r['rank']}: gradient {name} "
+                  f"{e['norm_rel']:.3g} normwise from one process")
+        r["grads"] = {k: e["norm_rel"] for k, e in r["grads"].items()}
+    check(ranks[0]["step_losses"] == ranks[1]["step_losses"],
+          "pipeline: the ranks' step losses differ")
+    out["qwen"] = {"one": ref, "ranks": ranks, "worst": worst}
+    log("pipeline (b) qwen3 " + json.dumps(out["qwen"]))
+    per_layer = pp_kimi_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        kimi = _pp_spawn(workdir, PP_KIMI_MESH, "kimi")
+    for r in kimi:
+        want = {k: v * PP_MICRO * r["per_stage_layers"]
+                for k, v in per_layer.items()}
+        check(r["launches"] == want, f"pipeline kimi rank {r['rank']}: "
+              f"launches {r['launches']}, expected {want}")
+        check(not r["ref_launches"], f"pipeline kimi rank {r['rank']}: the "
+              f"ref backend launched {r['ref_launches']}")
+        check(r["loss_rel_err"] <= PP_KIMI_TOL, f"pipeline kimi rank "
+              f"{r['rank']}: cuda vs ref loss {r['loss_rel_err']:.3g}")
+        for name, e in r["grad_norm_rel"].items():
+            check(e <= PP_KIMI_TOL, f"pipeline kimi rank {r['rank']}: "
+                  f"gradient {name} cuda vs ref {e:.3g} normwise")
+    out["kimi"] = {"per_layer_launches": per_layer, "ranks": kimi}
+    log("pipeline (c) kimi " + json.dumps(out["kimi"]))
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"pipeline phase {out['wall_s']:.1f} s")
+    return out
+
+
 def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
     dev = [p["kernels"][name]["device_ms_per_launch"] for p in profiles
            if name in p["kernels"]]
@@ -6165,7 +6937,7 @@ def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
            if k.startswith(("max_abs_err_", "tol_", "used_", "moa_", "rows_",
                             "full_pool", "c72", "phase_split", "chunk_",
                             "train_", "stream_", "bound_ms_", "by_shape",
-                            "jamba_"))}}
+                            "jamba_", "mesh_"))}}
 
 
 def main() -> int:
@@ -6262,6 +7034,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         distributed = phase_distributed()
         lap("distributed")
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = phase_mesh_serve(kernels["floor"])
+        lap("mesh serve")
+        gc.collect()
+        torch.cuda.empty_cache()
+        pipeline = phase_pipeline()
+        lap("pipeline")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -6280,7 +7060,11 @@ def main() -> int:
                 "serve_jamba_fused": jamba["fused_counts"],
                 "train_jamba": jamba["train"]["counts"],
                 "train_dist_ep2": distributed["1x2"]["ranks"][0]["launches"],
-                "train_dist_dp2": distributed["2x1"]["ranks"][0]["launches"]}
+                "train_dist_dp2": distributed["2x1"]["ranks"][0]["launches"],
+                "serve_mesh": mesh["ranks"][0]["serve"]["launches"],
+                "serve_mesh_fused": mesh["ranks"][0]["fused"]["launches"],
+                "serve_mesh_prefix": mesh["ranks"][0]["prefix"]["launches"],
+                "train_pp_kimi": pipeline["kimi"]["ranks"][0]["launches"]}
     profiles = [served["profile"], served["fused"]["profile"],
                 served["ec"]["profile"], moa["profile"],
                 moa_train["profile"], trained["profile"],
@@ -6293,6 +7077,9 @@ def main() -> int:
         moa_proj=kernels["fused"]["moa_proj"])
     measured["fused_decode"]["max_abs_err_f32_ragged"] = \
         kernels["fused"]["fused_decode_f32_max_abs_err"]
+    k8 = mesh["one"]["kernel8_mesh"]
+    measured["fused_routed"].update(max_abs_err_mesh=k8["max_abs_err"],
+                                    tol_mesh=k8["tol"], mesh_slab=k8)
     for name, r in served["prefix"]["kernels"].items():
         measured[name]["chunk_prefill"] = r
     for name, (err, tol) in moa["kernel_errs"].items():
@@ -6361,6 +7148,16 @@ def main() -> int:
         f"gradients normwise {dist_worst('grad_norm_rel'):.3g}, rank step "
         f"ms (1, 2) {dist_step_ms('1x2'):.1f} / (2, 1) "
         f"{dist_step_ms('2x1'):.1f}, phase {distributed['wall_s']:.0f} s; "
+        "mesh serve (1, 2) decode step ms unfused / fused "
+        f"{mesh['ranks'][0]['serve']['decode_step_ms_median']:.1f} / "
+        f"{mesh['ranks'][0]['fused']['decode_step_ms_median']:.1f}, logits "
+        "worst rel "
+        f"{max(r[t]['logits']['worst_rel'] for r in mesh['ranks'] for t in MESH_TRAFFIC):.3g}"
+        f", phase {mesh['wall_s']:.0f} s; pipeline qwen3 loss rel "
+        f"{pipeline['qwen']['worst']['loss_rel']:.3g}, gradients "
+        f"{pipeline['qwen']['worst']['grad_norm_rel']:.3g}, step ms "
+        f"{pipeline['qwen']['ranks'][0]['step_ms'][-1]:.1f}, phase "
+        f"{pipeline['wall_s']:.0f} s; "
         f"{time.perf_counter() - t_start:.0f} s in all")
     print(setup["card"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -94,15 +94,20 @@ def _fill(d: ParamDef, out: torch.Tensor, gen: torch.Generator) -> None:
 
 
 def materialize(tree, generator: torch.Generator,
-                device: str | torch.device):
+                device: str | torch.device,
+                cut: Callable[[ParamDef, torch.Tensor], torch.Tensor]
+                | None = None):
     """Allocate every ParamDef leaf on ``device`` and draw its init from
-    ``generator`` (which must live on the same device type)."""
+    ``generator`` (which must live on the same device type).  With
+    ``cut`` each leaf is drawn whole and ``cut(def, leaf)`` kept in its
+    place (a rank's slice: one whole leaf exists at a time, and the
+    draws are those of the whole tree)."""
     device = torch.device(device)
 
     def one(d: ParamDef) -> torch.Tensor:
         out = torch.empty(d.shape, dtype=d.dtype, device=device)
         _fill(d, out, generator)
-        return out
+        return out if cut is None else cut(d, out)
 
     return tree_map(one, tree)
 

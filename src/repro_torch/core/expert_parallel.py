@@ -36,6 +36,29 @@ independent of E).  Gate noise is the rank's rows of the global ``[T,
 E]`` draw (the caller slices it), so a run on a mesh equals a
 single-process run of the same global batch wherever no shard drops a
 token.
+
+Serving (:func:`moe_apply_serve`, the prefill and decode calls of the
+engine on a mesh) runs another schedule.  The reference serves under
+GSPMD with the global dispatch plan (capacity from all of the step's
+tokens), so the port gives every rank the step's whole token set (an
+all-gather over the batch axes where the decode batch is split) and
+routes it: the plan is the one process's, identical on every rank.
+Each rank then runs only its own experts' GMM on its slab of the
+dispatched buffer (with the plan's ``rows``), the expert outputs are
+all-gathered over the expert axis, and every rank runs the combine on
+the whole ``[E, C, d]`` buffer.  The GMM kernels sum each row in a
+fixed order with no split-K (``csrc/gmm.cu``), so a slab's rows come
+out bit for bit as in the whole buffer and the MoE output on a mesh is
+one process's.  Fused decode on a mesh routes the same way and runs
+kernel 8 (``routed_apply``, ``ffn`` mode) on the plan restricted to
+the rank's experts (:func:`local_plan`: other ranks' entries dropped,
+expert ids renumbered into the slab), then sums the partial outputs
+over the expert axis in f32; that sum rounds otherwise than one
+launch's, so fused decode on a mesh is held to a tolerance.  Load and
+overflow telemetry come from the global plan: one process's.  Weights
+arrive in the serving layout (:func:`serve_layout`): every leaf whole
+but the experts' FFN weights, which are the rank's slab over the
+expert axis, whole over their other dims.
 """
 from __future__ import annotations
 
@@ -46,7 +69,7 @@ from repro_torch.core import losses
 from repro_torch.core import moe as moe_lib
 from repro_torch.core import router as router_lib
 from repro_torch.kernels import backend as backend_lib
-from repro_torch.sharding.context import MeshContext
+from repro_torch.sharding.context import MeshContext, zip_map
 
 
 def _is_expert_leaf(d: ParamDef) -> bool:
@@ -64,6 +87,114 @@ def gather_on_use(params, defs, ctx: MeshContext):
     return ctx.gather(params, defs, keep=_is_expert_leaf)
 
 
+def _expert_specs(a: moe_lib.MoEArgs, ctx: MeshContext) -> dict:
+    """The plan's specs of the experts' FFN weights."""
+    return {k: ctx.resolve(d.shape, d.axes)
+            for k, d in moe_lib.moe_defs(a).items()
+            if isinstance(d, ParamDef) and _is_expert_leaf(d)}
+
+
+def _expert_group(a: moe_lib.MoEArgs, ctx: MeshContext, specs: dict
+                  ) -> tuple[str, ...]:
+    """The mesh axes that shard the experts dim (at most one), checked:
+    the experts must divide over the plan's expert axes."""
+    ep_axes = ctx.axes_of("experts")
+    if a.n_experts % ctx.size(ep_axes) != 0:
+        raise ValueError(f"n_experts={a.n_experts} must divide over "
+                         f"ep={ctx.size(ep_axes)} shards ({ep_axes})")
+    group = specs["w1"][0]
+    if len(group) > 1:
+        raise NotImplementedError(
+            f"experts sharded over {group}: the schedule exchanges over "
+            "one mesh axis")
+    return group
+
+
+@torch.no_grad()
+def serve_layout(params, defs, ctx: MeshContext):
+    """The serving layout of a model's parameters: every leaf whole
+    except the experts' FFN weights, which are this rank's slab over the
+    expert axis, whole over their other dims.  ``params`` may hold each
+    leaf as this rank's slice by ``ctx``'s plan (``ctx.shard``'s cut),
+    which is gathered here, or already in the serving layout, which is
+    kept.  Done once when the engine is built, so no serve step gathers
+    a weight.  Off-mesh the tree itself."""
+    if ctx.mesh is None:
+        return params
+
+    def one(t, d):
+        spec = ctx.resolve(d.shape, d.axes)
+        if _is_expert_leaf(d):
+            # The experts dim (after a stacked leaf's layers dim) stays.
+            spec = tuple(() if ax == "experts" else s
+                         for ax, s in zip(d.axes, spec))
+        want = tuple(n // ctx.size(a)
+                     if ax == "experts" and _is_expert_leaf(d) else n
+                     for n, a, ax in zip(d.shape, ctx.resolve(d.shape,
+                                                              d.axes),
+                                         d.axes))
+        if tuple(t.shape) == want:
+            return t
+        return ctx.gather_leaf(t, spec)
+    return zip_map(one, params, defs)
+
+
+def local_plan(p, e0: int, e_local: int):
+    """The plan restricted to experts [e0, e0 + e_local), renumbered from
+    0: other experts' entries are dropped (slot = capacity, weight 0,
+    expert 0), which both kernel 8 and the plain ops skip."""
+    e = p.expert_index.long()
+    mine = (e >= e0) & (e < e0 + e_local)
+    return p._replace(
+        expert_index=torch.where(mine, e - e0, 0).to(torch.int32),
+        position=torch.where(mine, p.position,
+                             torch.full_like(p.position, p.capacity)),
+        weight=torch.where(mine, p.weight, 0.0), n_experts=e_local)
+
+
+def moe_apply_serve(params, x: torch.Tensor, a: moe_lib.MoEArgs,
+                    ctx: MeshContext, *, mask: torch.Tensor | None = None,
+                    rows_axes: tuple[str, ...] = ()
+                    ) -> tuple[torch.Tensor, dict]:
+    """The serving MoE on a mesh (the module docstring): ``params`` in
+    the serving layout (:func:`serve_layout`), ``x`` [T, d] and ``mask``
+    [T] the step's whole token set on every rank, or this rank's equal
+    share of its rows, split over ``rows_axes`` (a decode step's slots,
+    over the plan's ``batch`` axes).  Returns (y [T, d] for the rows given, aux with the
+    global plan's telemetry; the losses and metrics of an eval call)."""
+    specs = _expert_specs(a, ctx)
+    group = _expert_group(a, ctx, specs)
+    ep = ctx.size(group)
+    e_local = a.n_experts // ep
+    e0 = ctx.index(group) * e_local
+    t_local = x.shape[0]
+    x_all = ctx.all_gather(x, rows_axes, 0)
+    if mask is not None:
+        mask = ctx.all_gather(mask.reshape(-1), rows_axes, 0)
+    bk = backend_lib.resolve(a)
+    router = router_lib.build(a, topk_impl=bk.topk_impl)
+    dec = router.route(params, x_all, train=False, mask=mask)
+    w = {k: params[k] for k in specs}
+    if a.fused_decode:
+        part = bk.routed_ffn(w, x_all, local_plan(dec.plan, e0, e_local), a,
+                             dtype=torch.float32)
+        y = ctx.all_reduce(part, group).to(x.dtype)
+    else:
+        buf = bk.dispatch(x_all, dec, a)                   # [E, C, d]
+        rows = None if dec.rows is None else dec.rows[e0:e0 + e_local]
+        out = bk.expert_ffn(w, buf[e0:e0 + e_local], a, rows=rows)
+        out = ctx.all_gather(out, group, 0)
+        y = bk.combine(out, dec, a, dtype=x.dtype)
+    if rows_axes:
+        y = y.narrow(0, ctx.index(rows_axes) * t_local, t_local)
+    if a.sigmoid_output:
+        y = torch.sigmoid(y.float()).to(x.dtype)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return y, {"aux_loss": zero,
+               "metrics": {k: zero for k in moe_lib.ZERO_METRICS},
+               "telemetry": dec.telemetry}
+
+
 def moe_apply_ep(params, x: torch.Tensor, a: moe_lib.MoEArgs,
                  ctx: MeshContext, *, train: bool = True,
                  noise: torch.Tensor | None = None,
@@ -76,24 +207,17 @@ def moe_apply_ep(params, x: torch.Tensor, a: moe_lib.MoEArgs,
     [T_local, E] and ``mask`` [T_local] are the rank's rows of the
     global ones.  Returns (y [T_local, d], aux) with the combined
     batch's ``aux_loss`` and metrics, the same on every rank."""
-    defs = moe_lib.moe_defs(a)
-    specs = {k: ctx.resolve(d.shape, d.axes) for k, d in defs.items()
-             if isinstance(d, ParamDef) and _is_expert_leaf(d)}
-    # The plan's expert axes on this mesh; the experts must divide over
-    # them (the spec would fall back to replicated experts).
-    ep_axes = [ax for ax in ctx.rules.lookup("experts") if ax in ctx.sizes]
-    if a.n_experts % ctx.size(ep_axes) != 0:
-        raise ValueError(f"n_experts={a.n_experts} must divide over "
-                         f"ep={ctx.size(ep_axes)} shards ({ep_axes})")
-    ep_group = specs["w1"][0]         # the mesh axes of the experts dim
-    if len(ep_group) > 1:
-        raise NotImplementedError(
-            f"experts sharded over {ep_group}: the schedule exchanges over "
-            "one mesh axis")
+    specs = _expert_specs(a, ctx)
+    ep_group = _expert_group(a, ctx, specs)
     ep = ctx.size(ep_group)
     if a.fused_decode and not train:
-        raise NotImplementedError(
-            "fused decode is not distributed: it runs on one process")
+        # A decode-shaped eval call: the serving schedule over the
+        # tokens of every rank (its fused path), the experts gathered
+        # whole over their non-expert dims first.
+        w = {k: ctx.gather_leaf(params[k], ((),) + spec[1:])
+             for k, spec in specs.items()}
+        return moe_apply_serve(dict(params, **w), x, a, ctx, mask=mask,
+                               rows_axes=ctx.free_axes)
     e_local = a.n_experts // ep
     bk = backend_lib.resolve(a)
     router = router_lib.build(a, topk_impl=bk.topk_impl)

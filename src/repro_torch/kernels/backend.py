@@ -15,12 +15,15 @@ reference selects it against a 16 MiB VMEM budget.  The card has no
 VMEM, so here the resident kernels run unless ``MoEArgs.dispatch_e_block``
 forces the expert-blocked ones with that slab.
 
-Fused decode (``decode_step`` / ``decode_proj``, inference-only): on
+Fused decode (``decode_step`` / ``decode_proj`` / ``routed_ffn``,
+inference-only): on
 ``"cuda"`` each MoE decode layer is one launch of kernel 7
 (``noisy_topk`` without priority dispatch: routing in the kernel) or of
 kernel 8 (any other policy: routing outside as plain tensor ops, then
 scatter -> FFN -> combine in one launch); each MoA routed projection is
-one launch of kernel 8 in ``"proj"`` mode.  The reference guards the
+one launch of kernel 8 in ``"proj"`` mode; ``routed_ffn`` is one
+launch of kernel 8 in ``"ffn"`` mode on a plan routed outside (fused
+decode on a mesh, ``core/expert_parallel.py``).  The reference guards the
 fused slab against its VMEM budget and quietly runs the unfused
 pipeline past it; the card has no VMEM, so that guard is not ported and
 the fused kernels always run when asked for.  On ``"ref"`` both are the
@@ -79,6 +82,10 @@ class KernelBackend:
     # (x, w [E,K,N], plan_in, plan_out, a, *, dtype=None) -> [T_out, N]:
     # dispatch(plan_in) -> gmm -> combine(plan_out), MoA's projections.
     decode_proj: Callable
+    # (params, x [T,d], plan, a, *, dtype=None) -> [T, d]: dispatch ->
+    # expert FFN -> combine over one explicit plan (fused decode on a
+    # mesh, the plan restricted to a rank's experts).
+    routed_ffn: Callable
     topk_impl: Callable | None = None
 
 
@@ -135,6 +142,14 @@ def _decode_proj_via(bk: KernelBackend, x, w, plan_in, plan_out, a, *,
     ops (the MoA routed projections' sequence)."""
     buf = bk.dispatch(x, plan_in, a)
     return bk.combine(bk.gmm(buf, w, a), plan_out, a, dtype=dtype)
+
+
+def _routed_ffn_via(bk: KernelBackend, params, x, p, a, *, dtype=None):
+    """dispatch -> expert FFN -> combine over the plan ``p`` through
+    ``bk``'s ops."""
+    buf = bk.dispatch(x, p, a)
+    out = bk.expert_ffn(params, buf, a, rows=None)
+    return bk.combine(out, p, a, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -205,10 +220,18 @@ def _ref_decode_proj(x, w, plan_in, plan_out, a, *, dtype=None):
                                 dtype=dtype)
 
 
+def _ref_routed_ffn(params, x, p, a, *, dtype=None):
+    with trace_lib.current().span("kernel.decode_step", backend="ref",
+                                  tokens=int(x.shape[0])):
+        return _routed_ffn_via(get("ref"), params, x, _as_plan(p), a,
+                               dtype=dtype)
+
+
 register(KernelBackend(name="ref", expert_ffn=_ref_expert_ffn,
                        dispatch=_ref_dispatch, combine=_ref_combine,
                        gmm=_ref_gmm, decode_step=_ref_decode_step,
-                       decode_proj=_ref_decode_proj, topk_impl=None))
+                       decode_proj=_ref_decode_proj,
+                       routed_ffn=_ref_routed_ffn, topk_impl=None))
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +324,20 @@ def _cuda_decode_proj(x, w, plan_in, plan_out, a, *, dtype=None):
                                       out_dtype=dtype or x.dtype)
 
 
+def _cuda_routed_ffn(params, x, p, a, *, dtype=None):
+    """Kernel 8 in ``ffn`` mode on one plan."""
+    with trace_lib.current().span("kernel.decode_step", backend="cuda",
+                                  tokens=int(x.shape[0])):
+        p = _as_plan(p)
+        w3 = params["w3"] if a.activation == "swiglu" else None
+        return ops.fused_routed_apply(x.contiguous(), p, p, params["w1"],
+                                      params["w2"], w3, mode="ffn",
+                                      activation=a.activation,
+                                      out_dtype=dtype or x.dtype)
+
+
 register(KernelBackend(name="cuda", expert_ffn=_cuda_expert_ffn,
                        dispatch=_cuda_dispatch, combine=_cuda_combine,
                        gmm=_cuda_gmm, decode_step=_cuda_decode_step,
-                       decode_proj=_cuda_decode_proj, topk_impl=_cuda_topk))
+                       decode_proj=_cuda_decode_proj,
+                       routed_ffn=_cuda_routed_ffn, topk_impl=_cuda_topk))

@@ -35,12 +35,23 @@ Example (one H100; kimi-k2 at full width fits the card at 2 layers):
       --arch kimi-k2-1t-a32b --reduce --requests 4 --stagger 1 \
       --trace /tmp/serve_trace.json --trace-sync --log-decisions
 
+  # on a mesh: two ranks under torchrun (gloo on the CPU, NCCL on the
+  # cards), the host mesh on the decode_std plan; rank 0 prints:
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc_per_node 2 -m repro_torch.launch.serve --device cpu \
+      --arch kimi-k2-1t-a32b --reduce --requests 4 --stagger 1
+
 The flags are the reference launcher's, plus ``--device``,
-``--kernel-backend``, ``--n-layers`` and ``--seed``.
+``--kernel-backend``, ``--n-layers`` and ``--seed``.  Under ``torchrun``
+(``WORLD_SIZE`` set) every rank draws the same weights from ``--seed``,
+keeps its slices by the decode plan and serves the same requests
+(``ServeEngine(ctx=)``); only rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import builtins
+import os
 import time
 
 import numpy as np
@@ -50,10 +61,36 @@ from repro_torch.common import param as pm
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import get_config
 from repro_torch.core import router as router_lib
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.train import reduced
 from repro_torch.models import lm
 from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.sharding.context import MeshContext
 from repro_torch.train.checkpoint import CheckpointManager
+
+
+def init_distributed(device: torch.device) -> tuple[torch.device,
+                                                    MeshContext | None]:
+    """Under torchrun: the process group (NCCL on the cards, gloo on the
+    CPU, as ``launch.train`` does), this rank's device and the host mesh
+    on the decode_std plan.  Without it: the device and no mesh."""
+    if "WORLD_SIZE" not in os.environ:
+        return device, None
+    import torch.distributed as dist
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", device_id=device)
+    else:
+        dist.init_process_group("gloo")
+    ctx = MeshContext.for_mesh(make_host_mesh(device=device.type),
+                               "decode_std")
+    return device, ctx
+
+
+def _slicer(ctx: MeshContext):
+    """``materialize``'s cut: a leaf's slice by ``ctx``'s plan."""
+    return lambda d, t: ctx.shard_leaf(t, ctx.resolve(d.shape, d.axes))
 
 
 def main(argv=None) -> list:
@@ -103,7 +140,19 @@ def main(argv=None) -> list:
                     help="seed of the random weights and prompts")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device, ctx = init_distributed(resolve_device(args.device))
+    try:
+        return _serve(args, device, ctx)
+    finally:
+        if ctx is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _serve(args, device: torch.device, ctx: MeshContext | None) -> list:
+    # Only rank 0 prints (every rank serves the same requests).
+    print = (builtins.print if ctx is None or ctx.is_writer
+             else lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduced(cfg)
@@ -153,8 +202,17 @@ def main(argv=None) -> list:
         print(f"[serve] restored checkpoint step {step}")
     else:
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = pm.materialize(lm.lm_defs(cfg), gen, device)
-    engine = ServeEngine(params, cfg, sc, device=device)
+        # On a mesh each rank keeps its slices by the decode plan as the
+        # leaves are drawn (the draws are the whole tree's).
+        params = pm.materialize(lm.lm_defs(cfg), gen, device, cut=(
+            None if ctx is None else _slicer(ctx.with_plan(sc.decode_plan))))
+    if ctx is not None:
+        if args.ckpt:
+            params = ctx.with_plan(sc.decode_plan).shard(params,
+                                                         lm.lm_defs(cfg))
+        print(f"[serve] {ctx.world} rank(s) over "
+              f"{torch.distributed.get_backend()}, mesh {dict(ctx.sizes)}")
+    engine = ServeEngine(params, cfg, sc, device=device, ctx=ctx)
     rng = np.random.RandomState(args.seed)
     shared = rng.randint(1, cfg.vocab_size,
                          (min(args.shared_prefix, args.prompt_len),))

@@ -18,6 +18,13 @@ max_len)`` positions: position p lives in slot ``p % length``.
 
 Caches are updated in place: the engine owns one pool and the layers
 write their new K/V into it, where the reference returns new arrays.
+
+On a mesh (``ctx`` with the serving decode plan) a decode cache may be
+sharded over its sequence (``kv_seq``, over ``model`` under
+``decode_std``): each rank holds ``max_len / M`` consecutive positions
+of every page.  :func:`attend_cached_sharded` then writes the new K/V
+only on the rank that owns the row's position, attends over the local
+positions and combines the ranks' softmax in the flash-decoding way.
 """
 from __future__ import annotations
 
@@ -375,18 +382,29 @@ def init_cache_defs(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
 
 
 def decode_attention(params, x, cache, cur_index, *, rope_theta: float,
-                     qk_norm: bool, window: int = 0):
+                     qk_norm: bool, window: int = 0, ctx=None):
     """One-token decode.  x: [B, 1, d]; ``cur_index``: scalar or [B]
     per-row positions (slots of mixed age).  Writes the new K/V at each
     row's position in ``cache`` (in place; a windowed layer's ring
     buffer at the position modulo its length) and attends over positions
-    <= it (within the ring).  Returns (y [B, 1, d], cache)."""
+    <= it (within the ring).  With ``ctx`` (a mesh whose plan shards
+    ``kv_seq``) the cache holds this rank's positions of it.  Returns (y
+    [B, 1, d], cache)."""
     b = x.shape[0]
     cur = torch.as_tensor(cur_index, device=x.device).long().reshape(-1)
     cur = cur.expand(b)
     q, k_new, v_new = _qkv(params, x, cur[:, None], rope_theta=rope_theta,
                            qk_norm=qk_norm)
-    o = attend_cached(q, k_new, v_new, cache, cur, ring=window > 0)
+    seq_axes = () if ctx is None or ctx.mesh is None else tuple(
+        a for a in ctx.axes_of("kv_seq") if ctx.sizes[a] > 1)
+    if seq_axes:
+        if window:
+            raise NotImplementedError(
+                "sliding-window decode over a sequence-sharded cache")
+        o = attend_cached_sharded(q, k_new, v_new, cache, cur, ctx,
+                                  seq_axes)
+    else:
+        o = attend_cached(q, k_new, v_new, cache, cur, ring=window > 0)
     return _out(o, params["wo"]), cache
 
 
@@ -420,3 +438,49 @@ def attend_cached(q, k_new, v_new, cache: dict, cur: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(), v.float())
     return o.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def attend_cached_sharded(q, k_new, v_new, cache: dict, cur: torch.Tensor,
+                          ctx, axes: tuple[str, ...]) -> torch.Tensor:
+    """:func:`attend_cached` over a cache whose sequence is sharded over
+    the mesh ``axes``: this rank holds positions [lo, lo + L_local) of
+    every row, with ``lo = ctx.index(axes) * L_local``.  The row's new
+    K/V is written only where its position lies.  The softmax is
+    combined over the ranks in the flash-decoding way, in three small
+    all-gathers: the ranks' maxima (the global max, which every rank
+    then subtracts, as one process does), the sums of their
+    exponentials (each rank then normalizes its probabilities and casts
+    them to the values' type, as one process does), and the weighted
+    values, summed in rank order.  Only the two sums reassociate (f32),
+    so the output is one process's to f32 rounding, the same on every
+    rank.  Returns [B, 1, H, hd] in q's dtype."""
+    b, _, h, hd = q.shape
+    k, v = cache["k"], cache["v"]
+    length = k.shape[1]
+    lo = ctx.index(axes) * length
+    local = cur - lo
+    mine = (local >= 0) & (local < length)
+    rows = torch.arange(b, device=q.device)[mine]
+    k[rows, local[mine]] = k_new[mine, 0].to(k.dtype)
+    v[rows, local[mine]] = v_new[mine, 0].to(v.dtype)
+    kv_heads = k.shape[2]
+    qr = q.reshape(b, 1, kv_heads, h // kv_heads, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qr, k.float()) / (hd ** 0.5)
+    pos = lo + torch.arange(length, device=q.device)[None, :]
+    valid = pos <= cur[:, None]
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    m = _rank_gather(torch.amax(s, dim=-1, keepdim=True), ctx, axes)
+    p = torch.exp(s - torch.amax(m, dim=0))
+    total = torch.sum(_rank_gather(torch.sum(p, dim=-1, keepdim=True), ctx,
+                                   axes), dim=0)
+    p = (p / total).to(v.dtype).float()
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    o = torch.sum(_rank_gather(o, ctx, axes), dim=0)
+    return o.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def _rank_gather(t, ctx, axes):
+    """[n, ...]: every rank's ``t`` along ``axes``, in rank order (a sum
+    or max over dim 0 is then the same on every rank).  A rank with no
+    valid position holds a max of NEG_INF, whose exponentials are 0."""
+    return ctx.all_gather(t[None], axes, 0)

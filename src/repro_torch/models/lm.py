@@ -162,7 +162,8 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, *,
 
 
 def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
-               last_index=None, valid=None, start_pos: int | None = None):
+               last_index=None, valid=None, start_pos: int | None = None,
+               ctx: MeshContext | None = None):
     """Prompt ingestion.  batch: tokens [B, S] (+ ``prefix_embeds``, as
     in :func:`lm_loss`).  Writes K/V for
     positions [0, S) into ``cache``; returns (last_logits [B, V], cache).
@@ -175,7 +176,14 @@ def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
     Chunked prefill: ``start_pos`` ingests the prompt slice at absolute
     positions [start_pos, start_pos + S) against a cache already holding
     [0, start_pos); RoPE, the K/V writes and the causal mask use the
-    absolute positions, ``last_index`` stays chunk-local."""
+    absolute positions, ``last_index`` stays chunk-local.
+
+    On a mesh (``ctx``, the prefill plan) ``params`` are the serving
+    layout (``expert_parallel.serve_layout``) and every rank prefills the
+    same rows into a whole page: the logits are the same on every rank
+    and the MoE's expert work is split over the expert axis."""
+    if on_mesh(ctx):
+        transformer.refuse_unserved(cfg, ctx)
     tokens = batch["tokens"]
     x = _embed_with_prefix(params, tokens, cfg, batch.get("prefix_embeds"))
     b, s = tokens.shape
@@ -183,7 +191,7 @@ def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
     positions = positions[None, :].expand(b, s)
     x = transformer.stack_prefill(params["blocks"], x, cfg, cache,
                                   positions, valid=valid,
-                                  start_pos=start_pos)
+                                  start_pos=start_pos, ctx=ctx)
     if last_index is None:
         x = x[:, -1:, :]
     else:
@@ -195,15 +203,24 @@ def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
 
 
 def lm_decode(params, tokens, cache, cur_index, cfg: ModelConfig, *,
-              valid=None, return_telemetry: bool = False):
+              valid=None, return_telemetry: bool = False,
+              ctx: MeshContext | None = None):
     """One decode step.  tokens: [B]; ``cur_index``: scalar or [B]
     per-row positions of the new token; ``valid`` ([B] in {0,1}) is slot
     occupancy (dead slots route nowhere and take no expert capacity).
     Returns (logits [B, V], cache) plus, with ``return_telemetry``, the
-    per-expert load / overflow counters summed over MoE layers."""
+    per-expert load / overflow counters summed over MoE layers.
+
+    On a mesh (``ctx``, the decode plan) ``params`` are the serving
+    layout, the rows are this rank's slots (the plan's ``batch`` axes)
+    and ``cache`` is this rank's slice of the pool (``kv_seq`` sharded
+    as the plan says); the logits are this rank's rows, the telemetry
+    every slot's."""
+    if on_mesh(ctx):
+        transformer.refuse_unserved(cfg, ctx)
     x = layers.embed(params["embed"], tokens[:, None], cfg.compute_dtype)
     x, telem = transformer.stack_decode(params["blocks"], x, cfg, cache,
-                                        cur_index, valid=valid)
+                                        cur_index, valid=valid, ctx=ctx)
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = logits_fn(params, x, cfg)[:, 0, :]
     if return_telemetry:

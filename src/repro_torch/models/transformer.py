@@ -19,6 +19,14 @@ hierarchical (``cfg.moe_hierarchical``, Appendix B).
 ``cfg.fused_decode`` reaches decode-shaped flat MoE and MoA calls only;
 prefill stays unfused, and the hierarchical MoE has no fused decode (nor
 has the reference).
+
+On a mesh (``ctx``) training runs the expert-parallel schedule
+(``core/expert_parallel.py::moe_apply_ep``) on this rank's tokens;
+prefill and decode run the serving schedule (``moe_apply_serve``):
+prefill on the whole prompt or chunk rows, which every rank holds,
+decode on this rank's slots (the decode plan's ``batch`` axes) over a
+sequence-sharded cache (``attention.decode_attention``).  The weights
+are then the serving layout: whole, but for the experts' slabs.
 """
 from __future__ import annotations
 
@@ -214,12 +222,14 @@ def _flat_mask(valid, b: int, s: int):
 
 def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
                decode: bool = False, train: bool = False, noise=None,
-               ctx: MeshContext | None = None):
+               ctx: MeshContext | None = None, serve: bool = False):
     """Post-mixer FFN with residual.  ``noise`` is the MoE gate's
     training noise ([B*S, E], or the hierarchical MoE's two-level dict).
     On a mesh (``ctx``) a flat MoE runs the expert-parallel schedule on
     this rank's tokens (``lm_loss`` refuses the layers that are not
-    distributed, :func:`refuse_undistributed`).  Returns (x, aux)."""
+    distributed, :func:`refuse_undistributed`), or with ``serve`` the
+    serving schedule: prefill rows whole on every rank, a decode step's
+    rows split over the plan's ``batch`` axes.  Returns (x, aux)."""
     if kind.ffn == "none":
         return x, None
     h = layers.rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -232,6 +242,10 @@ def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
             y, aux = hmoe_lib.hmoe_apply(params["moe"], flat,
                                          _hmoe_args(cfg), train=train,
                                          noise=noise, mask=mask)
+        elif on_mesh(ctx) and serve:
+            y, aux = ep_lib.moe_apply_serve(
+                params["moe"], flat, _moe_args(cfg, decode=decode), ctx,
+                mask=mask, rows_axes=ctx.axes_of("batch") if decode else ())
         elif on_mesh(ctx):
             y, aux = ep_lib.moe_apply_ep(params["moe"], flat,
                                          _moe_args(cfg, decode=decode), ctx,
@@ -330,6 +344,18 @@ def refuse_undistributed(cfg: ModelConfig, ctx: MeshContext | None) -> None:
         refuse_distributed(ctx, "MoA")
 
 
+def refuse_unserved(cfg: ModelConfig, ctx: MeshContext | None) -> None:
+    """Raise NotImplementedError, on a mesh of more than one rank, for a
+    config the port does not serve there: the hierarchical MoE, MoA,
+    mamba mixers and sliding-window attention."""
+    refuse_undistributed(cfg, ctx)
+    kinds = layer_kinds(cfg)
+    if any(k.mixer == "mamba" for k in kinds):
+        refuse_distributed(ctx, "serving mamba mixers")
+    if any(k.mixer == "attn_local" for k in kinds):
+        refuse_distributed(ctx, "serving sliding-window attention")
+
+
 def layer_index(cfg: ModelConfig) -> list[tuple[int, LayerKind]]:
     """(layer number, kind) of every layer in the order the stack runs
     them: the stacked periods, then the tail.  Layer ``l``'s gate noise
@@ -403,12 +429,15 @@ def _write_state(cache: dict, state: dict) -> None:
 
 
 def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
-                  positions, valid=None, start_pos: int | None = None):
+                  positions, valid=None, start_pos: int | None = None,
+                  ctx: MeshContext | None = None):
     """Prefill block: causal attention (or MoA, or the mamba scan) +
     cache fill.  Returns x.  ``start_pos`` is chunked-prefill mode: K/V
     lands at cache positions [start_pos, start_pos + S) and attention
     resumes against the cached prefix (attention mixers only).  A mamba
-    mixer copies its final scan and conv state into ``cache``."""
+    mixer copies its final scan and conv state into ``cache``.  On a
+    mesh (``ctx``, the prefill plan) every rank prefills the whole rows
+    into a whole page; the MoE runs the serving schedule."""
     if kind.mixer == "mamba" and start_pos is not None:
         raise ValueError(
             "chunked prefill requires attention mixers (ssm/hybrid state "
@@ -429,15 +458,17 @@ def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
             params["attn"], h, positions, rope_theta=cfg.rope_theta,
             qk_norm=cfg.qk_norm, cache=cache, window=_window(cfg, kind),
             offset=start_pos)
-    x, _ = _apply_ffn(params, x + y, kind, cfg, valid=valid)
+    x, _ = _apply_ffn(params, x + y, kind, cfg, valid=valid, ctx=ctx,
+                      serve=True)
     return x
 
 
 def block_decode(params, x, kind: LayerKind, cfg: ModelConfig, cache,
-                 cur_index, valid=None):
+                 cur_index, valid=None, ctx: MeshContext | None = None):
     """One-token decode block.  Returns (x, telemetry): the MoE layer's
     expert_load / overflow and the MoA mixer's moa_load / moa_overflow,
-    whichever the block has."""
+    whichever the block has.  On a mesh (``ctx``, the decode plan) the
+    rows are this rank's slots and the cache its slice of their pages."""
     h = layers.rmsnorm(params["ln1"], x, cfg.norm_eps)
     telem = {}
     if kind.mixer == "moa":
@@ -453,22 +484,24 @@ def block_decode(params, x, kind: LayerKind, cfg: ModelConfig, cache,
     else:
         y, _ = attention.decode_attention(
             params["attn"], h, cache, cur_index, rope_theta=cfg.rope_theta,
-            qk_norm=cfg.qk_norm, window=_window(cfg, kind))
-    x, aux = _apply_ffn(params, x + y, kind, cfg, valid=valid, decode=True)
+            qk_norm=cfg.qk_norm, window=_window(cfg, kind), ctx=ctx)
+    x, aux = _apply_ffn(params, x + y, kind, cfg, valid=valid, decode=True,
+                        ctx=ctx, serve=True)
     if aux is not None:
         telem.update(aux["telemetry"])
     return x, telem
 
 
 def stack_prefill(params, x, cfg: ModelConfig, cache, positions, valid=None,
-                  start_pos: int | None = None):
+                  start_pos: int | None = None,
+                  ctx: MeshContext | None = None):
     """Prefill all layers, writing K/V into ``cache``.  ``start_pos`` is
     the chunked-prefill offset: this call ingests prompt positions
     [start_pos, start_pos + S) against a cache already holding [0,
-    start_pos).  Returns x."""
+    start_pos).  ``ctx``: as :func:`block_prefill`.  Returns x."""
     for p, c, kind in _layers(params, cache, cfg):
         x = block_prefill(p, x, kind, cfg, c, positions, valid=valid,
-                          start_pos=start_pos)
+                          start_pos=start_pos, ctx=ctx)
     return x
 
 
@@ -496,11 +529,14 @@ _FAMILIES = (("expert_load", "overflow", "n_moe"),
              ("moa_load", "moa_overflow", "n_moa"))
 
 
-def stack_decode(params, x, cfg: ModelConfig, cache, cur_index, valid=None):
+def stack_decode(params, x, cfg: ModelConfig, cache, cur_index, valid=None,
+                 ctx: MeshContext | None = None):
     """One-token decode through all layers.  Returns (x, telemetry): the
     per-expert load / overflow counters summed over MoE layers and, for a
     model with MoA mixers, the per-head-group ``moa_load`` /
-    ``moa_overflow`` summed over them (None for a model with neither)."""
+    ``moa_overflow`` summed over them (None for a model with neither).
+    ``ctx``: as :func:`block_decode` (the telemetry is then the global
+    plan's, every rank's slots)."""
     dev = x.device
     telem = {}
     for (load, over, count), width in zip(
@@ -512,7 +548,8 @@ def stack_decode(params, x, cfg: ModelConfig, cache, cur_index, valid=None):
                                       device=dev)
             telem[count] = torch.zeros((), dtype=torch.float32, device=dev)
     for p, c, kind in _layers(params, cache, cfg):
-        x, t = block_decode(p, x, kind, cfg, c, cur_index, valid=valid)
+        x, t = block_decode(p, x, kind, cfg, c, cur_index, valid=valid,
+                            ctx=ctx)
         for load, over, count in _FAMILIES:
             if load in t and load in telem:
                 telem[load] = telem[load] + t[load]

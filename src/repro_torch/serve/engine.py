@@ -40,8 +40,8 @@ reference's spans (``serve.step``, ``serve.schedule``,
 ``serve.decode``, ``serve.sample``, ``serve.prefix_probe`` /
 ``serve.prefix_hit``, ``serve.retire``; the counters ``serve.queue`` and
 ``serve.slots``) with the kernel backend's ``kernel.*`` spans inside
-them, and ``run()`` writes the chrome trace at its end.  There is no
-``serve.reshard``: the port has no mesh.  The launches are
+them, and ``run()`` writes the chrome trace at its end (on a mesh also
+``serve.reshard``, below).  The launches are
 asynchronous, so without ``trace_sync`` a prefill or decode span ends
 when its launches return and the device time lands in the
 ``serve.sample`` that copies the tokens to the host; ``trace_sync``
@@ -50,6 +50,27 @@ fits on).  ``log_decisions`` keeps the scheduler's ``StepDecision`` log
 on ``sched.decision_log``.  ``metrics`` is the reference's typed
 registry (the stats counters, the per-step overflow and active-slot
 histograms, per-expert load families); ``stats`` is its flat view.
+
+On a mesh (``ctx``, a ``MeshContext`` over every rank) each rank runs
+its own engine on the same request stream, as the reference's
+``ServeEngine(ctx=)`` serves under GSPMD: the scheduler is host code
+and reaches the same decisions on every rank.  ``prefill_ctx`` and
+``decode_ctx`` are ``ctx`` on ``ServeConfig.prefill_plan`` and
+``decode_plan``.  The parameters come in as this rank's slices by the
+decode plan and are gathered once, here, into the serving layout
+(``expert_parallel.serve_layout``: every weight whole but the experts,
+which stay sharded over the expert axis).  Every rank prefills the whole
+prompt or chunk rows into a whole page (the prefill plan), and each
+completed prompt's page is relaid once onto the decode plan (the
+``serve.reshard`` span, the ``reshards`` counter) before it joins the
+pool: slots over the plan's ``batch`` axes, each page's positions over
+its ``kv_seq`` axes (``kv_cache``'s docstring).  A decode step runs each
+rank's own slots, and the sampled tokens are all-gathered over the slot
+axes, so every rank's scheduler sees every token.  Greedy sampling is
+an argmax of logits equal on the ranks that hold a slot; temperature
+sampling draws each row from a generator seeded by the request, the
+same on every rank.  The hierarchical MoE, MoA, mamba mixers and
+sliding-window attention raise on a mesh of more than one rank.
 
 ``step_times`` holds the wall time (seconds, host clock) of each
 whole-prompt prefill and each decode step, ending at the sampled
@@ -70,7 +91,8 @@ import torch
 from repro_torch.common import param as pm
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import ModelConfig, layer_kinds
-from repro_torch.models import lm
+from repro_torch.core import expert_parallel as ep_lib
+from repro_torch.models import lm, transformer
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs import trace as trace_lib
 from repro_torch.serve.kv_cache import PrefixCache, SlotKVCache
@@ -85,6 +107,10 @@ class ServeConfig:
     seed: int = 0
     n_slots: int = 8             # slot-pool size == decode batch width
     policy: str = "continuous"   # "continuous" | "static" (drain baseline)
+    # Sharding plans of prefill and decode on a mesh (finished pages move
+    # from the first to the second, the serve.reshard span).
+    prefill_plan: str = "prefill_tp"
+    decode_plan: str = "decode_std"
     mask_dead_slots: bool = True
     prefill_buckets: bool = True
     min_bucket: int = 8
@@ -116,7 +142,7 @@ class ServeConfig:
 
 class ServeEngine:
     def __init__(self, params, cfg: ModelConfig, sc: ServeConfig, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", ctx=None):
         if sc.fused_decode:
             # The model layer passes it to decode-shaped calls only.
             cfg = cfg.replace(fused_decode=True)
@@ -125,6 +151,15 @@ class ServeEngine:
         if table.device.type != self.device.type:
             raise ValueError(f"params live on {table.device}, engine on "
                              f"{self.device}")
+        self.ctx = ctx if ctx is not None and ctx.mesh is not None else None
+        self.prefill_ctx = self.decode_ctx = None
+        if self.ctx is not None:
+            transformer.refuse_unserved(cfg, self.ctx)
+            self.prefill_ctx = self.ctx.with_plan(sc.prefill_plan)
+            self.decode_ctx = self.ctx.with_plan(sc.decode_plan)
+            self._fit_decode_plan(cfg, sc)
+            params = ep_lib.serve_layout(params, lm.lm_defs(cfg),
+                                         self.decode_ctx)
         self.params = params
         self.cfg = cfg
         self.sc = sc
@@ -186,12 +221,33 @@ class ServeEngine:
                 stacklevel=2)
         self.reset()
 
+    def _fit_decode_plan(self, cfg: ModelConfig, sc: ServeConfig) -> None:
+        """Fit the decode plan to the pool, and check that both plans put
+        the experts on the same axes (one serving layout).  A pool whose
+        slots (or page length) do not divide over the plan's ``batch``
+        (or ``kv_seq``) axes keeps them whole, as the reference's
+        resolution falls back; the fitted plan says so, so the model's
+        decode reads the pool's layout from it."""
+        ctx = self.decode_ctx
+        leaf = pm.tree_leaves(transformer.cache_defs(cfg, sc.n_slots,
+                                                     sc.max_len))[0]
+        spec = dict(zip(leaf.axes, ctx.resolve(leaf.shape, leaf.axes)))
+        table = dict(ctx.rules.table, batch=spec["batch"],
+                     kv_seq=spec.get("kv_seq", ()))
+        self.decode_ctx = ctx.with_plan(
+            dataclasses.replace(ctx.rules, table=table))
+        if cfg.n_experts and (self.prefill_ctx.axes_of("experts")
+                              != ctx.axes_of("experts")):
+            raise ValueError(f"plans {sc.prefill_plan} and "
+                             f"{sc.decode_plan} shard the experts over "
+                             "different axes")
+
     # -- lifecycle --------------------------------------------------------
     def reset(self) -> None:
         """Fresh queue / pool / stats / request ids."""
         self._rid = 0
         self.kv = SlotKVCache(self.cfg, self.sc.n_slots, self.sc.max_len,
-                              self.device)
+                              self.device, ctx=self.decode_ctx)
         # Shared-prefix radix cache over retired pages, charged one
         # seq_defs page per entry.
         self.prefix: PrefixCache | None = None
@@ -339,9 +395,11 @@ class ServeEngine:
                 self.params,
                 {"tokens": torch.from_numpy(padded).to(self.device)},
                 self.kv.new_page(), self.cfg, last_index=plen - 1,
-                valid=torch.from_numpy(valid).to(self.device))
+                valid=torch.from_numpy(valid).to(self.device),
+                ctx=self.prefill_ctx)
             if self._trace_sync:
                 torch.cuda.synchronize(self.device)
+        page = self._reshard(page, req, slot)
         with tr.span("serve.kv_insert", slot=slot):
             self.kv.insert(slot, page, plen)
         self._c["prefills"].inc()
@@ -353,6 +411,16 @@ class ServeEngine:
             tok = self._sample_rows(logits, [req])[0]
         self.step_times["prefill"].append(time.perf_counter() - t0)
         self._append_token(req, tok, slot)
+
+    def _reshard(self, page, req: Request, slot: int):
+        """On a mesh, relay a finished page from the prefill plan onto
+        the decode plan (once per completed prompt); else the page."""
+        if self.ctx is None:
+            return page
+        with self.tracer.span("serve.reshard", rid=req.rid, slot=slot):
+            page = self.kv.reshard(page)
+        self._c["reshards"].inc()
+        return page
 
     # -- shared-prefix cache hooks ----------------------------------------
     def _prefix_probe(self, req: Request) -> int:
@@ -427,7 +495,8 @@ class ServeEngine:
             logits, page_out = lm.lm_prefill(
                 self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
                 page_in, self.cfg, last_index=torch.from_numpy(li).to(dev),
-                valid=torch.from_numpy(valid).to(dev), start_pos=off)
+                valid=torch.from_numpy(valid).to(dev), start_pos=off,
+                ctx=self.prefill_ctx)
             if self._trace_sync:
                 torch.cuda.synchronize(dev)
         self._c["prefill_calls"].inc()
@@ -441,9 +510,13 @@ class ServeEngine:
             req.prefill_pos = w.start + w.length
             self._c["prefill_tokens"].inc(w.length)
             done = not req.prefilling
+            page = out_pages[i]
+            if done:
+                # Staged pages stay whole (the prefill plan); the
+                # finished one reshards once, as a whole prompt's does.
+                page = self._reshard(page, req, slot)
             with tr.span("serve.kv_insert", slot=slot):
-                self.kv.append(slot, out_pages[i], req.prefill_pos,
-                               last=done)
+                self.kv.append(slot, page, req.prefill_pos, last=done)
             if done:
                 self._c["prefills"].inc()
                 req.first_token_step = self.step_count
@@ -502,16 +575,24 @@ class ServeEngine:
             if not self.sc.mask_dead_slots:
                 occ[:] = 1.0
             dev = self.device
+            # This rank's slots (all of them off a mesh).
+            mine = slice(self.kv.first_slot,
+                         self.kv.first_slot + self.kv.n_local)
             with tr.span("serve.decode", active=len(active), slots=n):
                 logits, _, telem = lm.lm_decode(
-                    self.params, torch.from_numpy(toks).to(dev),
-                    self.kv.cache, torch.from_numpy(pos).to(dev), self.cfg,
-                    valid=torch.from_numpy(occ).to(dev),
-                    return_telemetry=True)
+                    self.params, torch.from_numpy(toks[mine]).to(dev),
+                    self.kv.cache, torch.from_numpy(pos[mine]).to(dev),
+                    self.cfg, valid=torch.from_numpy(occ[mine]).to(dev),
+                    return_telemetry=True, ctx=self.decode_ctx)
                 if self._trace_sync:
                     torch.cuda.synchronize(dev)
             with tr.span("serve.sample", rows=len(active)):
-                nxt = self._sample_rows(logits, rows)
+                nxt = self._sample_rows(logits, rows[mine])
+                if self.kv.n_local != n:
+                    # Every rank's scheduler sees every slot's token.
+                    nxt = self.decode_ctx.all_gather(
+                        torch.from_numpy(nxt).to(dev), self.kv.slot_axes,
+                        0).cpu().numpy()
             self.step_times["decode"].append(time.perf_counter() - t0)
             self._record_telemetry(telem, len(active))
             self._c["decode_steps"].inc()

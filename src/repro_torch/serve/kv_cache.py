@@ -15,6 +15,16 @@ where a later in-place write could reach it: ``extract`` returns a copy
 pool, and the serving engine stages a copy of a prefix hit's page (the
 tail chunk writes into the page it resumes from).
 
+On a mesh (``ctx``, the serving decode plan) the pool lives on that
+plan: each rank holds the slots its ``batch`` axes give it (slots
+``[i * n_local, (i + 1) * n_local)`` on the rank at coordinate i) and,
+of each page, the positions its ``kv_seq`` axes give it.  Pages handed
+around outside the pool (prefill's, staged chunk pages, the prefix
+cache's) are whole: ``insert`` and ``append(last=True)`` take a page
+already resharded onto the decode plan (the engine's ``serve.reshard``),
+only the rank that owns the slot stores it, and ``extract`` gathers a
+slot's page back to whole on every rank.
+
 ``PrefixCache`` is pure host code, a line-for-line copy of the
 reference's (whose module imports jax, so the port keeps its own).
 """
@@ -32,7 +42,7 @@ class SlotKVCache:
     """Fixed pool of per-sequence cache pages with slot-indexed updates."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int,
-                 device: torch.device):
+                 device: torch.device, ctx=None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
@@ -43,19 +53,50 @@ class SlotKVCache:
         self.seq_defs = transformer.cache_defs(cfg, 1, max_len)
         self._axes = [d.axes.index("batch")
                       for d in pm.tree_leaves(self.defs)]
-        self.cache = pm.zeros(self.defs, device)
+        self._seq = [d.axes.index("kv_seq") if "kv_seq" in d.axes else None
+                     for d in pm.tree_leaves(self.defs)]
+        self.ctx = ctx if ctx is not None and ctx.mesh is not None else None
+        # The mesh axes that split the slots and each page's positions,
+        # this rank's slot count and its first slot.
+        self.slot_axes: tuple[str, ...] = ()
+        self.seq_axes: tuple[str, ...] = ()
+        self.n_local, self.first_slot = n_slots, 0
+        defs = self.defs
+        if self.ctx is not None:
+            leaf = pm.tree_leaves(self.defs)[0]
+            spec = self.ctx.resolve(leaf.shape, leaf.axes)
+            self.slot_axes = spec[self._axes[0]]
+            if self._seq[0] is not None:
+                self.seq_axes = spec[self._seq[0]]
+            self.n_local = n_slots // self.ctx.size(self.slot_axes)
+            self.first_slot = self.ctx.index(self.slot_axes) * self.n_local
+            defs = pm.tree_map(self._local_def, self.defs)
+        self.cache = pm.zeros(defs, device)
         self.lengths = np.zeros((n_slots,), np.int64)
         # In-flight partial pages (chunked prefill), staged per slot and
         # copied into the pool only when the prompt completes.
         self._staged: dict[int, object] = {}
 
+    def _local_def(self, d: pm.ParamDef) -> pm.ParamDef:
+        """A pool leaf's def cut to this rank's slice by the plan."""
+        spec = self.ctx.resolve(d.shape, d.axes)
+        shape = tuple(n // self.ctx.size(axes)
+                      for n, axes in zip(d.shape, spec))
+        return pm.ParamDef(shape, d.axes, init=d.init, dtype=d.dtype)
+
+    def _local_slot(self, slot: int) -> int | None:
+        """The slot's index in this rank's pool, None if another rank
+        holds it."""
+        i = slot - self.first_slot
+        return i if 0 <= i < self.n_local else None
+
     def new_page(self):
-        """A blank batch-1 page for one prefill."""
+        """A blank batch-1 page for one prefill (whole, on a mesh too)."""
         return pm.zeros(self.seq_defs, self.device)
 
     @property
     def page_bytes(self) -> int:
-        """Bytes of one batch-1 page (every leaf of ``seq_defs``)."""
+        """Bytes of one whole batch-1 page (every leaf of ``seq_defs``)."""
         return pm.param_bytes(self.seq_defs)
 
     def _unflatten(self, leaves):
@@ -66,11 +107,22 @@ class SlotKVCache:
         return zip(self._axes, pm.tree_leaves(self.cache),
                    pm.tree_leaves(tree))
 
+    def reshard(self, page):
+        """A whole page relaid onto the decode plan (each rank keeps its
+        positions of it); off a mesh the page itself."""
+        if self.ctx is None:
+            return page
+        return self.ctx.reshard(page, self.seq_defs)
+
     def insert(self, slot: int, seq_cache, length: int) -> None:
         """Copy a prefilled batch-1 page into ``slot`` (the whole page, so
-        stale data from the previous tenant cannot leak)."""
-        for ax, pool, page in self._pairs(seq_cache):
-            pool.select(ax, slot).copy_(page.select(ax, 0))
+        stale data from the previous tenant cannot leak).  On a mesh the
+        page is already resharded onto the decode plan, and only the
+        rank that holds the slot stores it."""
+        i = self._local_slot(slot)
+        if i is not None:
+            for ax, pool, page in self._pairs(seq_cache):
+                pool.select(ax, i).copy_(page.select(ax, 0))
         self.lengths[slot] = length
         self._staged.pop(slot, None)
 
@@ -78,11 +130,11 @@ class SlotKVCache:
                last: bool = True) -> None:
         """Deliver a partial-prompt batch-1 page for ``slot`` (chunked
         prefill: each page holds the prompt prefix [0, length)).
-        Intermediate pages are staged, and the next chunk resumes from
-        :meth:`staged`; ``last=True`` copies the finished page into the
-        pool.  A shrinking ``length`` means an earlier chunk was replayed
-        over a later page, so it raises (a real exception, which
-        ``python -O`` keeps)."""
+        Intermediate pages are staged (whole, on a mesh too), and the
+        next chunk resumes from :meth:`staged`; ``last=True`` copies the
+        finished page, resharded on a mesh, into the pool.  A shrinking
+        ``length`` means an earlier chunk was replayed over a later page,
+        so it raises (a real exception, which ``python -O`` keeps)."""
         if length < self.lengths[slot]:
             raise ValueError(
                 f"append shrank slot {slot}: {length} < "
@@ -105,35 +157,57 @@ class SlotKVCache:
 
     def evict(self, slot: int) -> None:
         """Zero a slot's page (release plus hygiene)."""
-        for ax, pool in zip(self._axes, pm.tree_leaves(self.cache)):
-            pool.select(ax, slot).zero_()
+        i = self._local_slot(slot)
+        if i is not None:
+            for ax, pool in zip(self._axes, pm.tree_leaves(self.cache)):
+                pool.select(ax, i).zero_()
         self.release(slot)
 
     def compact(self, perm) -> None:
         """Permute slots: page i of the new pool is page perm[i] of the
-        old one."""
+        old one (one process, or slots that no mesh axis splits)."""
         perm = np.asarray(perm)
         if sorted(perm.tolist()) != list(range(self.n_slots)):
             # A gather by a non-permutation would duplicate one page and
             # drop another.
             raise ValueError(f"compact perm {perm} is not a permutation "
                              f"of range({self.n_slots})")
+        if self.n_local != self.n_slots:
+            raise NotImplementedError(
+                "compact across ranks: the slots are split over "
+                f"{self.slot_axes}")
         idx = torch.as_tensor(perm, dtype=torch.long, device=self.device)
         leaves = [pool.index_select(ax, idx) for ax, pool in
                   zip(self._axes, pm.tree_leaves(self.cache))]
         it = iter(leaves)
-        self.cache = pm.tree_map(lambda _: next(it), self.defs)
+        self.cache = pm.tree_map(lambda _: next(it), self.cache)
         self.lengths = self.lengths[perm]
         self._staged = {i: self._staged[int(p)] for i, p in enumerate(perm)
                         if int(p) in self._staged}
 
     def extract(self, slot: int):
-        """A copy of one slot's page as a batch-1 page (the retirement
-        path of the shared-prefix cache).  A copy, not a view: the next
-        tenant's ``insert`` overwrites the slot in place."""
-        return self._unflatten(
-            pool.narrow(ax, slot, 1).clone()
-            for ax, pool in zip(self._axes, pm.tree_leaves(self.cache)))
+        """A copy of one slot's page as a whole batch-1 page (the
+        retirement path of the shared-prefix cache).  A copy, not a
+        view: the next tenant's ``insert`` overwrites the slot in place.
+        On a mesh every rank calls it and gets the whole page: the
+        holder's over the slot axes, the positions gathered over the
+        sequence axes."""
+        if self.ctx is None:
+            return self._unflatten(
+                pool.narrow(ax, slot, 1).clone()
+                for ax, pool in zip(self._axes, pm.tree_leaves(self.cache)))
+        owner, i = divmod(slot, self.n_local)
+        leaves = []
+        for ax, seq, pool in zip(self._axes, self._seq,
+                                 pm.tree_leaves(self.cache)):
+            page = pool.narrow(ax, i, 1).clone()
+            if self.slot_axes:
+                page = self.ctx.all_gather(page, self.slot_axes, ax).narrow(
+                    ax, owner, 1)
+            if self.seq_axes and seq is not None:
+                page = self.ctx.all_gather(page, self.seq_axes, seq)
+            leaves.append(page.contiguous())
+        return self._unflatten(leaves)
 
     def stack_pages(self, pages: list):
         """Concatenate G batch-1 pages into one batch-G page (a new

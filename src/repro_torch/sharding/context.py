@@ -26,7 +26,18 @@ reference's constraints is written out here in PyTorch's idiom:
   :meth:`MeshContext.all_reduce` are autograd-aware collectives over the
   process group of one or more mesh axes (the expert-parallel schedule of
   ``core/expert_parallel.py`` and its balance statistics);
+* :meth:`MeshContext.reshard` relays a materialized tree onto this
+  context's plan (each rank keeps the slice its plan resolves: the
+  serving prefill_tp -> decode_std handoff; ``serve/kv_cache.py``'s
+  ``SlotKVCache.extract`` gathers a pool slot's page back to whole);
+* :meth:`MeshContext.shift` moves a tensor one rank along an axis (the
+  pipeline's stage ring; its backward pass is the reverse shift);
 * :meth:`MeshContext.with_constraint` is the identity.
+
+A body that holds axes itself (:meth:`MeshContext.manual`, the
+pipeline's stage body) sees the mesh without them: its rank count,
+coordinate and default collectives span the other axes only, and its
+specs strip them, as the reference's manual axes do.
 
 A collective over the ranks of a mesh axis of size 1 is the identity and
 is skipped (on a (data 1, model 2) mesh, FSDP over ``data`` costs
@@ -130,6 +141,42 @@ class _AllReduce(torch.autograd.Function):
         return _AllReduce.apply(grad, ctx.group), None
 
 
+def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """Rank i's ``x`` to rank i + step of the group (ranks past either
+    end send or receive nothing; a rank that receives nothing gets
+    zeros): one ``all_to_all_single`` with a single non-empty split each
+    way, which gloo takes with CUDA tensors (it has no CUDA send /
+    recv) and NCCL with its own."""
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    flat = x.contiguous().reshape(-1)
+    m = flat.numel()
+    dst, src = i + step, i - step
+    if not 0 <= dst < n:
+        flat = flat[:0]
+    send = [m if j == dst else 0 for j in range(n)]
+    recv = [m if j == src else 0 for j in range(n)]
+    out = torch.empty((sum(recv),), dtype=x.dtype, device=x.device)
+    dist.all_to_all_single(out, flat, output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
+    if 0 <= src < n:
+        return out.reshape(x.shape)
+    return torch.zeros_like(x)
+
+
+class _Shift(torch.autograd.Function):
+    """The pipeline's stage shift (the reference's ``ppermute`` i -> i+1):
+    its backward pass is the reverse shift."""
+
+    @staticmethod
+    def forward(ctx, x, group, step):
+        ctx.group, ctx.step = group, step
+        return _shift(x, group, step)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Shift.apply(grad, ctx.group, -ctx.step), None, None
+
+
 # ---------------------------------------------------------------------------
 # MeshContext
 # ---------------------------------------------------------------------------
@@ -167,12 +214,18 @@ class MeshContext:
         return () if self.mesh is None else tuple(self.mesh.mesh_dim_names)
 
     @property
+    def free_axes(self) -> tuple[str, ...]:
+        """The mesh axes this context's body does not hold itself (every
+        axis outside a :meth:`manual` body)."""
+        return tuple(a for a in self.axis_names if a not in self.manual_axes)
+
+    @property
     def sizes(self) -> dict[str, int]:
         return {} if self.mesh is None else partition.axis_sizes(self.mesh)
 
     def size(self, axes: Sequence[str] | None = None) -> int:
-        """Ranks along ``axes`` (default: every mesh axis)."""
-        axes = self.axis_names if axes is None else axes
+        """Ranks along ``axes`` (default: every free mesh axis)."""
+        axes = self.free_axes if axes is None else axes
         return math.prod(self.sizes[a] for a in axes)
 
     @property
@@ -181,8 +234,8 @@ class MeshContext:
 
     def index(self, axes: Sequence[str] | None = None) -> int:
         """This rank's coordinate over ``axes``, row-major (default: every
-        mesh axis, which is the token and batch sharding's order)."""
-        axes = self.axis_names if axes is None else axes
+        free mesh axis, which is the token and batch sharding's order)."""
+        axes = self.free_axes if axes is None else axes
         idx = 0
         for a in axes:
             idx = idx * self.sizes[a] + self.mesh.get_local_rank(a)
@@ -266,10 +319,16 @@ class MeshContext:
             x = _AllGather.apply(x, self.group(a), dim)
         return x
 
+    def axes_of(self, logical: str) -> tuple[str, ...]:
+        """The free mesh axes the plan maps a logical axis to (before
+        any divisibility fallback)."""
+        return tuple(a for a in self.rules.lookup(logical)
+                     if a in self.sizes and a not in self.manual_axes)
+
     def all_reduce(self, x: torch.Tensor, axes: Sequence[str] | None = None
                    ) -> torch.Tensor:
-        """Sum over the ranks along ``axes`` (default: every axis)."""
-        axes = self.axis_names if axes is None else tuple(axes)
+        """Sum over the ranks along ``axes`` (default: every free axis)."""
+        axes = self.free_axes if axes is None else tuple(axes)
         for g in self._groups(axes):
             x = _AllReduce.apply(x, g)
         return x
@@ -277,10 +336,19 @@ class MeshContext:
     def all_reduce_(self, t: torch.Tensor,
                     axes: Sequence[str] | None = None) -> torch.Tensor:
         """In-place sum of a tensor outside autograd (gradients, norms)."""
-        axes = self.axis_names if axes is None else tuple(axes)
+        axes = self.free_axes if axes is None else tuple(axes)
         for g in self._groups(axes):
             dist.all_reduce(t, group=g)
         return t
+
+    def shift(self, x: torch.Tensor, axis: str, step: int = 1
+              ) -> torch.Tensor:
+        """Rank i's ``x`` to the rank at coordinate i + ``step`` along
+        ``axis`` (autograd-aware: the backward pass shifts the gradient
+        back); the first ``step`` ranks receive zeros."""
+        if self.sizes[axis] == 1:
+            return torch.zeros_like(x)
+        return _Shift.apply(x, self.group(axis), step)
 
     # -- trees ------------------------------------------------------------
     def local_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -317,7 +385,7 @@ class MeshContext:
         if self.mesh is None:
             return tree
         specs = self.specs(defs)
-        return _zip_map(lambda t, s: self.shard_leaf(t, s), tree, specs)
+        return zip_map(lambda t, s: self.shard_leaf(t, s), tree, specs)
 
     def gather(self, tree, defs,
                keep: Callable[[ParamDef], bool] | None = None):
@@ -332,7 +400,15 @@ class MeshContext:
             if keep is not None and keep(d):
                 return t
             return self.gather_leaf(t, self.resolve(d.shape, d.axes))
-        return _zip_map(one, tree, defs)
+        return zip_map(one, tree, defs)
+
+    @torch.no_grad()
+    def reshard(self, tree, defs):
+        """Relay a materialized tree, whole on every rank, onto this
+        context's plan: each rank keeps the slice that :meth:`resolve`
+        gives for the leaf's def (the serving prefill_tp -> decode_std
+        handoff of a finished page).  Off-mesh the tree itself."""
+        return self.shard(tree, defs)
 
     # -- contextvar plumbing ---------------------------------------------
     def __enter__(self) -> "MeshContext":
@@ -348,11 +424,11 @@ class MeshContext:
         return False
 
 
-def _zip_map(fn, tree, other):
+def zip_map(fn, tree, other):
     """Map ``fn(leaf, other_leaf)`` over a nested dict and a tree of the
     same structure (sorted keys)."""
     if isinstance(tree, dict):
-        return {k: _zip_map(fn, tree[k], other[k]) for k in sorted(tree)}
+        return {k: zip_map(fn, tree[k], other[k]) for k in sorted(tree)}
     return fn(tree, other)
 
 

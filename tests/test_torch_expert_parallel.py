@@ -10,6 +10,7 @@ tokens and of the JAX noise.  Tolerances: the reference test's ``rtol
 2e-4, atol 2e-5`` (``tests/test_distributed.py``) for outputs, losses,
 metrics and every gradient.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -180,9 +181,26 @@ def run(tmp_path_factory):
             x=torch.from_numpy(xs), dy=torch.zeros(T, D), train=False,
             local_aux=True)
     kimi = reduced(get_config("kimi-k2-1t-a32b"))
+    # Fused decode at a decode shape (T = 8, two rows a rank, one dead).
+    ja, targs = _args("swiglu", cf=2.0)
+    ja = dataclasses.replace(ja, fused_decode=True)
+    params = _params(ja, seed=3)
+    xd = rs.randn(8, D).astype(np.float32)
+    mask = np.ones((8,), np.float32)
+    mask[5] = 0.0
+    y, aux = jmoe.moe_apply(params, jnp.asarray(xd), ja, train=False,
+                            mask=jnp.asarray(mask))
+    want["fused_decode"] = {"y": np.asarray(y), **{
+        k: np.asarray(v) for k, v in aux["telemetry"].items()}}
     inputs = dict(moe_cases=cases, lm_refusals={
         "hierarchical": kimi.replace(moe_hierarchical=(2, 4)),
         "moa": reduced(get_config("moa-demo"))},
+        serve_refusals={
+            "mamba_serving": reduced(get_config("falcon-mamba-7b")),
+            "window_serving": reduced(get_config("gemma3-27b"))},
+        fused_case=dict(args=targs, params=from_jax_tree(params,
+                                                         device="cpu"),
+                        x=torch.from_numpy(xd), mask=torch.from_numpy(mask)),
         batch={"tokens": torch.zeros(4, 32, dtype=torch.int32),
                "labels": torch.zeros(4, 32, dtype=torch.int32)})
     ref_ep = _reference_ep(tmp, ref_cases)
@@ -266,10 +284,27 @@ def test_ep_balance_is_the_combined_batchs(run, policy):
 
 
 @pytest.mark.parametrize("feature,why", [
-    ("fused_decode", "fused decode is not distributed"),
+    ("fused_decode", None),
     ("hierarchical", "the hierarchical MoE is not distributed"),
-    ("moa", "MoA is not distributed")])
+    ("moa", "MoA is not distributed"),
+    ("mamba_serving", "serving mamba mixers is not distributed"),
+    ("window_serving", "serving sliding-window attention is not distributed")])
 def test_unported_features_refuse_on_a_mesh(run, feature, why):
+    """The features the port does not distribute raise on a mesh of four
+    ranks.  Fused decode is distributed now: a decode-shaped eval call
+    on the mesh (routed globally, kernel 8's plain version on each
+    rank's experts, the partial outputs summed) gives the rows and the
+    load / overflow telemetry of JAX's fused decode on one process."""
+    if feature == "fused_decode":
+        want = run["want"]["fused_decode"]
+        got = np.concatenate([r["fused_decode"]["y"].numpy()
+                              for r in run["ranks"]])
+        np.testing.assert_allclose(got, want["y"], **TOL)
+        for r in run["ranks"]:
+            for k in ("expert_load", "overflow"):
+                np.testing.assert_array_equal(
+                    r["fused_decode"]["telemetry"][k].numpy(), want[k])
+        return
     for r in run["ranks"]:
         msg = r["refusals"][feature]
         assert msg is not None and why in msg, msg

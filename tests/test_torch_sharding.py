@@ -125,3 +125,74 @@ def test_manual_axes_are_stripped_as_in_the_reference():
                                        "expert_mlp")),
                         ((16, 8), ("tokens", "embed"))]:
         assert ctx.resolve(shape, axes) == _as_spec(jc.resolve(shape, axes))
+
+
+def _serving_and_pipeline_defs():
+    """Decode caches (batch, kv_seq) of a small kimi-k2 family model, one
+    page and a pool of 4 slots, and its pipeline blocks on 2 stages
+    (stage, layers): the reference's defs and the port's."""
+    from repro.models import transformer as jtr
+    from repro.train import pipeline as jpp
+    from repro_torch.models import transformer as ttr
+    from repro_torch.train import pipeline as tpp
+    jcfg = small_config("kimi-k2-1t-a32b")
+    tcfg = _tcfg(jcfg)
+    return {"page": (jtr.cache_defs(jcfg, 1, 64), ttr.cache_defs(tcfg, 1, 64)),
+            "pool": (jtr.cache_defs(jcfg, 4, 64), ttr.cache_defs(tcfg, 4, 64)),
+            "pipeline": (jpp.pipeline_param_defs(jcfg, 2),
+                         tpp.pipeline_param_defs(tcfg, 2))}
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("plan", ["prefill_tp", "decode_std", "dp_tp_ep"])
+def test_cache_and_pipeline_specs_match_reference(plan, mesh):
+    """The serving plans' specs of the decode caches (``decode_std`` puts
+    the batch over data and ``kv_seq`` over model; a page of one row
+    falls back to a replicated batch) and every plan's specs of the
+    pipeline's stacked blocks (``stage`` and ``layers`` map to no mesh
+    axis), with their fallbacks, equal the reference's."""
+    sizes = MESHES[mesh]
+    stand_in = types.SimpleNamespace(shape=sizes)
+    for name, (jdefs, tdefs) in _serving_and_pipeline_defs().items():
+        jleaves = jax.tree_util.tree_leaves(
+            jdefs, is_leaf=lambda d: hasattr(d, "axes"))
+        tleaves = tree_leaves(tdefs)
+        assert len(jleaves) == len(tleaves), name
+        jfall, tfall = [], []
+        for jd, td in zip(jleaves, tleaves):
+            assert (tuple(jd.shape), tuple(jd.axes)) == (td.shape, td.axes)
+            want = jpart.resolve_spec(jpart.PLANS[plan], stand_in, jd.shape,
+                                      jd.axes, jfall)
+            got = tpart.resolve_spec(tpart.PLANS[plan], sizes, td.shape,
+                                     td.axes, tfall)
+            assert got == _as_spec(want), (name, td)
+            if "stage" in td.axes:
+                assert got[:2] == ((), ())
+            if plan == "decode_std" and name == "pool" and mesh == "2x4":
+                assert got[1:3] == (("data",), ("model",))
+        assert tfall == jfall, name
+
+
+def test_pipeline_context_and_manual_world():
+    """The pipeline's own plan puts the stacked blocks' stage dim over the
+    stage axis (so the other dims cannot take it); a body manual over an
+    axis counts ranks, coordinates and default collectives over the
+    other axes only."""
+    from repro_torch.train import pipeline as tpp
+    sizes = {"data": 2, "model": 4}
+    mesh = types.SimpleNamespace(mesh_dim_names=tuple(sizes),
+                                 shape=tuple(sizes.values()))
+    ctx = tctx.MeshContext.for_mesh(mesh, "dp_tp_ep")
+    pp = tpp.pipeline_context(ctx)
+    assert ctx.resolve((2, 3, 8, 16), ("stage", "layers", "embed_fsdp",
+                                       "mlp")) == ((), (), ("data",),
+                                                   ("model",))
+    assert pp.resolve((2, 3, 8, 16), ("stage", "layers", "embed_fsdp",
+                                      "mlp")) == (("data",), (), (),
+                                                  ("model",))
+    body = pp.manual("data")
+    assert body.resolve((2, 3, 8, 16), ("stage", "layers", "embed_fsdp",
+                                        "mlp")) == ((), (), (), ("model",))
+    assert ctx.world == 8 and body.world == 4
+    assert body.free_axes == ("model",) and body.axes_of("batch") == ()
+    assert ctx.axes_of("batch") == ("data",)

@@ -105,20 +105,34 @@ def _refusals(ctx: MeshContext, inputs: dict) -> dict:
     expect("indivisible_experts", lambda: ep_lib.moe_apply_ep(
         {}, x, moe_lib.MoEArgs(**dict(moe["args"], n_experts=odd)), ctx,
         train=False), error=ValueError)
-    expect("fused_decode", lambda: ep_lib.moe_apply_ep(
-        used, x, moe_lib.MoEArgs(**dict(moe["args"], fused_decode=True)),
-        ctx, train=False))
     batch = {k: ctx.local_rows(v) for k, v in inputs["batch"].items()}
     for name, cfg in inputs["lm_refusals"].items():
         # lm_loss refuses before it reads a parameter.
         expect(name, lambda: lm.lm_loss({}, batch, cfg, ctx=ctx))
+    for name, cfg in inputs["serve_refusals"].items():
+        # So do lm_prefill and lm_decode on a mesh.
+        expect(name, lambda: lm.lm_prefill({}, batch, None, cfg, ctx=ctx))
     return got
+
+
+def _fused_decode(ctx: MeshContext, case: dict) -> dict:
+    """A decode-shaped eval call of moe_apply_ep with fused_decode on this
+    mesh: the rank's rows of y and the global plan's telemetry."""
+    a = moe_lib.MoEArgs(**dict(case["args"], fused_decode=True))
+    defs = moe_lib.moe_defs(a)
+    used = ep_lib.gather_on_use(ctx.shard(case["params"], defs), defs, ctx)
+    with torch.no_grad():
+        y, aux = ep_lib.moe_apply_ep(used, ctx.local_rows(case["x"]), a, ctx,
+                                     train=False,
+                                     mask=ctx.local_rows(case["mask"]))
+    return {"y": y, "telemetry": aux["telemetry"]}
 
 
 def case_moe(ctx: MeshContext, inputs: dict) -> dict:
     out = {name: _moe_case(ctx, case)
            for name, case in inputs["moe_cases"].items()}
     out["refusals"] = _refusals(ctx, inputs)
+    out["fused_decode"] = _fused_decode(ctx, inputs["fused_case"])
     return out
 
 
@@ -212,7 +226,78 @@ def case_restore(ctx: MeshContext, inputs: dict) -> dict:
     return out
 
 
-CASES = {"moe": case_moe, "train": case_train, "restore": case_restore}
+# ---------------------------------------------------------------------------
+# serving on a mesh
+# ---------------------------------------------------------------------------
+
+def case_serve(ctx: MeshContext, inputs: dict) -> dict:
+    """Each serving case: the rank's engine (``ServeEngine(ctx=)``, the
+    parameters sliced by the decode plan) on the case's trace; its
+    greedy streams, stats, the shape of its pool's first leaf and of a
+    page relaid onto the decode plan."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    out = {}
+    for name, case in inputs["cases"].items():
+        cfg = case["cfg"]
+        sc = ServeConfig(**case["sc"])
+        local = ctx.with_plan(sc.decode_plan).shard(case["params"],
+                                                    lm.lm_defs(cfg))
+        eng = ServeEngine(local, cfg, sc, device="cpu", ctx=ctx)
+        reqs = [eng.submit(p, m, arrival=a) for p, m, a in case["trace"]]
+        eng.run()
+        page = eng.kv.reshard(eng.kv.new_page())
+        out[name] = {
+            "streams": [list(r.tokens) for r in reqs],
+            "done": all(r.done for r in reqs), "stats": dict(eng.stats),
+            "pool_shape": tuple(tree_leaves(eng.kv.cache)[0].shape),
+            "page_shape": tuple(tree_leaves(page)[0].shape),
+            "slot_axes": eng.kv.slot_axes, "seq_axes": eng.kv.seq_axes}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the pipeline
+# ---------------------------------------------------------------------------
+
+def case_pipeline(ctx: MeshContext, inputs: dict) -> dict:
+    """Each case: the pipelined loss of the global batch on this rank,
+    back-propagated as a training step does (``loss / world``, then the
+    replica sums); this rank's loss, xent and aux and the full
+    gradients.  Then ``steps`` steps of ``make_pipeline_train_step``
+    (noiseless gates): the ranks' mean losses."""
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train import pipeline as pp_lib
+    out = {}
+    for name, case in inputs["cases"].items():
+        cfg, n_stages, n_micro = case["cfg"], case["n_stages"], case["n_micro"]
+        pp = pp_lib.pipeline_context(ctx)
+        defs = pp_lib.pipeline_param_defs(cfg, n_stages)
+        local = _grad_leaves(pp.shard(case["params"], defs))
+        loss, m = pp_lib.pipeline_lm_loss(
+            local, case["batch"], cfg, ctx=ctx, n_stages=n_stages,
+            n_micro=n_micro, draws=case.get("draws"), train=case["train"])
+        (loss / pp.world).backward()
+        grads = tree_map(lambda p: (torch.zeros_like(p) if p.grad is None
+                                    else p.grad), local)
+        trainer_lib._sum_replicas(pp, grads, pp.specs(defs))
+        res = {k: float(v) for k, v in m.items()}
+        res["grads"] = _full(pp, grads, defs)
+        if case.get("steps"):
+            oc = opt_lib.OptConfig(kind="adam", learning_rate=1e-2,
+                                   warmup_steps=1)
+            state = {"params": _grad_leaves(pp.shard(case["params"], defs))}
+            state["opt"] = opt_lib.init(state["params"], oc)
+            step = pp_lib.make_pipeline_train_step(
+                cfg, oc, ctx=ctx, n_stages=n_stages, n_micro=n_micro)
+            res["step_losses"] = [
+                float(step(state, case["batch"], None)[1]["loss"])
+                for _ in range(case["steps"])]
+        out[name] = res
+    return out
+
+
+CASES = {"moe": case_moe, "train": case_train, "restore": case_restore,
+         "serve": case_serve, "pipeline": case_pipeline}
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +315,10 @@ def _rank(rank: int, case: str, path: str, world: int, model: int) -> None:
                             weights_only=False)
         out = CASES[case](ctx, inputs)
         torch.save(out, os.path.join(path, f"out{rank}.pt"))
+        # Every rank done with its groups before any tears them down (a
+        # rank that destroys the groups while another still holds them
+        # can abort the other).
+        dist.barrier()
     except BaseException:
         traceback.print_exc()
         raise
