@@ -56,7 +56,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    unprofiled decode step (the profiled window itself runs slower).
 4. cross   — one full-width prefill under the "cuda" and the "ref"
              backends; last-position logits must agree within a bf16
-             tolerance.
+             tolerance; the 8 prompts as one prefill under "ref", its
+             products counted by FlopCounterMode (phase 26 (b)).
 5. fused   — kernels 7 and 8 at full width on layer 0's weights against
              their plain versions, each case repeated bitwise and timed:
              kernel 7 with two dead slots and with all 8 live (a full
@@ -184,7 +185,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              head shape (S = 2048, 4 x 4 blocks); then qwen3-1.7b at full
              size (28 layers, qk_norm, vocab 151,936, bf16) trained 4
              steps at B = 4 x S = 2048: finite metrics, every gradient
-             present, step time and peak memory.
+             present, step time and peak memory; one more forward and
+             backward counted by FlopCounterMode (phase 26 (b)).
 15. moa_train — moa-demo at its published widths (no cut: 4 layers, d
              512, vocab 32,000, bf16, gates redrawn) trained: first every
              kernel of its training step against its plain version at the
@@ -292,8 +294,9 @@ Phases, in order; any failure exits non-zero and prints no result:
              kernels 1 / 2 / 4 / 6 (8 fused) exact on each rank, kernel
              8 on a rank's slab (the plan restricted to its experts)
              against its plain version.  Reported: stream agreement,
-             decode-step ms, each collective's time and bytes, peak
-             memory a rank.
+             decode-step ms, each collective's time and bytes (those
+             inside decode calls apart, for phase 26 (c)), peak memory a
+             rank.
 25. pipeline — the GPipe schedule (train/pipeline.py): qwen3-1.7b at
              full size in f32, (a) lm_loss and its gradients on this
              process, (b) pipelined over (stage 2, model 1), 4
@@ -304,7 +307,27 @@ Phases, in order; any failure exits non-zero and prints no result:
              model 2), four ranks: cuda against ref loss and gradients,
              exact launches a step (one MoE layer's lm_loss launches x
              microbatches x layers a stage).
-26. report — one ``{"kernels": [...]}`` line, then the result line.
+26. roofline — arithmetic on the host over what the phases above
+             measured (it times nothing): (a) for each full-width
+             transformer path (kimi-k2's prefill, unfused and fused
+             decode steps and 512-token chunk call; arctic-480b, qwen3-
+             1.7b trained; gemma3-27b, falcon-mamba-7b and jamba served
+             (jamba unfused and fused) and trained) a record of
+             ``launch/analytic.py`` and ``launch/roofline.py`` at the
+             phase's own B and S on one card: FLOPs, HBM bytes, compute
+             and memory ms, the bound and what dominates, the measured
+             median, bound_share = bound / measured, mfu = model FLOPs /
+             (measured x the dtype's peak), the resident estimate beside
+             the measured peak; printed, written as JSON lines to
+             chiprun_out/roofline.jsonl and as ``launch/report.py``'s
+             tables; gate: every term finite and positive, bound <=
+             measured.  (b) the analytic FLOPs against FlopCounterMode's
+             count of qwen3-1.7b's train step (phase 14) and of kimi-k2's
+             prefill of phase 3's 8 x 32 tokens on the ref backend (phase
+             4), within 0.7-1.45.  (c) the analytic wire bytes of a
+             decode step of phase 24's cell against the bytes its ranks'
+             lm_decode calls sent, unfused and fused, within 10 %.
+27. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -319,10 +342,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
-# Dense peaks; "tf32" is the tensor cores' rate, which 3xTF32 spends
-# three times per f32 product.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 REPS = 20
 QUEUED_RUN = 200         # calls between two events in queued_ms
 PROFILED_RUN = 50        # calls under the profiler in device_ms
@@ -661,14 +680,23 @@ def shape_times(what: str, fn, symbol: str, n_bytes: float, flops,
     return res
 
 
+def h100() -> dict:
+    """The card's constants: ``launch/roofline.py``'s table (the H100
+    SXM data sheet's HBM rate and dense peaks; "tf32" is the tensor
+    cores' rate, which 3xTF32 spends three times per f32 product)."""
+    from repro_torch.launch.roofline import H100
+    return H100
+
+
 def bound_ms(n_bytes: float, flops, dtype_name: str | None = None):
     """(least time in ms, what bounds it) for moving ``n_bytes`` once and
     doing ``flops`` at the card's peak for the type; ``flops`` may be a
     {type name: operations} dict for work in several types."""
     if not isinstance(flops, dict):
         flops = {dtype_name: flops}
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(n / PEAK_FLOPS[dt] * 1e3 for dt, n in flops.items())
+    card = h100()
+    t_bytes = n_bytes / card["hbm_bandwidth"] * 1e3
+    t_ops = sum(n / card["peak_flops"][dt] * 1e3 for dt, n in flops.items())
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1170,7 +1198,7 @@ def check_gmm(gen) -> dict:
         b, _ = bound_ms((ee * cc * kk + ee * kk * nn + ee * cc * nn) * 2,
                         2 * ee * cc * kk * nn, "bfloat16")
         bnd += b
-    b_bytes = (3 * e * d * f * 2) / HBM_BYTES_PER_S * 1e3
+    b_bytes, _ = bound_ms(3 * e * d * f * 2, 0, "bfloat16")
     # The same layer with rows from a decode plan (T = 8 tokens, k = 8,
     # C = 8): the buffer dispatched from the plan, h zero past rows.
     # Against the plain version with rows and the kernel without rows
@@ -1704,6 +1732,7 @@ def serve_run(engine, prompts, vocab_size: int, *,
         "decode_step_ms_median": 1e3 * statistics.median(
             engine.step_times["decode"]),
         "decode_steps": stats["decode_steps"], "prefills": stats["prefills"],
+        "prefill_lengths": sorted(engine.prefill_lengths),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": counts, "sample_tokens": reqs[0].tokens[:8]}
     return reqs, counts, summary
@@ -1912,6 +1941,26 @@ def phase_cross(cfg, params, prompt, engine) -> dict:
     log("cross " + json.dumps(res))
     check(err <= tol, f"cuda vs ref logits differ by {err} > {tol}")
     return res
+
+
+def kimi_prefill_flops(cfg, params, prompts) -> dict:
+    """Phase 3's prompts as one prefill of N_REQUESTS x PROMPT_LEN
+    tokens through the plain versions (``kernel_backend="ref"``: every
+    product an aten op), counted by FlopCounterMode."""
+    import numpy as np
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.models import lm, transformer
+    tokens = torch.as_tensor(np.stack(prompts), dtype=torch.int32,
+                             device="cuda")
+    cache = pm.zeros(transformer.cache_defs(cfg, *tokens.shape), "cuda")
+    out = flop_count(
+        f"kimi-k2 prefill of {tuple(tokens.shape)} tokens, ref backend",
+        lambda: lm.lm_prefill(params, {"tokens": tokens}, cache,
+                              cfg.replace(kernel_backend="ref")))
+    del cache
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3026,6 +3075,7 @@ def run_serve(floor: dict) -> dict:
     profiled = phase_profile(served["engine"], served["prompts"],
                              served["summary"]["decode_step_ms_median"])
     cross = phase_cross(cfg, params, served["prompts"][0], served["engine"])
+    flops = kimi_prefill_flops(cfg, params, served["prompts"])
     fused = phase_fused(cfg, params, served)
     ec = phase_expert_choice(cfg, params, served["prompts"])
     prefix = phase_prefix(cfg, params, floor)
@@ -3033,7 +3083,7 @@ def run_serve(floor: dict) -> dict:
         obs = phase_obs(cfg, params, served, fused, prefix, workdir)
     return {"counts": served["counts"], "summary": served["summary"],
             "profile": profiled, "cross": cross, "fused": fused, "ec": ec,
-            "prefix": prefix, "obs": obs}
+            "prefix": prefix, "obs": obs, "flops": flops}
 
 
 # ---------------------------------------------------------------------------
@@ -4291,6 +4341,13 @@ def phase_qwen3() -> dict:
           f"qwen3 (dense) launched MoE kernels: {run['counts']}")
     _grad_check(cfg, params, batch_at(dc, QWEN_STEPS, device="cuda"),
                 None, "qwen3")
+    for p in pm.tree_leaves(params):
+        p.grad = None
+    batch = batch_at(dc, QWEN_STEPS + 1, device="cuda")
+    flops = flop_count("qwen3 train step (lm_loss forward + backward)",
+                       lambda: lm.lm_loss(params, batch, cfg)[0].backward())
+    for p in pm.tree_leaves(params):
+        p.grad = None
     median = statistics.median(run["times"][1:])
     out = {"config": f"{QWEN}, full size, bf16, remat, B={QWEN_B} x "
                      f"S={QWEN_S}, factored Adam",
@@ -4299,7 +4356,7 @@ def phase_qwen3() -> dict:
            "step_ms_all": [1e3 * t for t in run["times"]],
            "tokens_per_s": QWEN_B * QWEN_S / median,
            "max_memory_allocated_gib": run["peak"] / 2 ** 30,
-           "losses": [m["loss"] for m in run["rows"]]}
+           "losses": [m["loss"] for m in run["rows"]], "flops": flops}
     log("qwen3 train " + json.dumps(out))
     return out
 
@@ -4998,7 +5055,7 @@ def phase_gemma_serve() -> dict:
     ring_gate = engine_vs_forward("gemma3", cfg, params, prompts, streams,
                                   records)
     out.update(config=f"{GEMMA}, {cfg.n_layers} layers, bf16, window "
-                      f"{cfg.sliding_window}",
+                      f"{cfg.sliding_window}", n_layers=cfg.n_layers,
                cache_bytes=cache_bytes, cache_bytes_full_length=full_len,
                ring=ring_gate, sample_tokens=streams[0][:8])
     log("gemma3 serve " + json.dumps(out))
@@ -5859,6 +5916,27 @@ class _CollectiveClock:
             return out
         return call
 
+    @contextlib.contextmanager
+    def in_decode(self):
+        """While on: the bytes of the collectives that ``lm.lm_decode``
+        calls run, by op, and the number of calls (one a decode step)."""
+        from repro_torch.models import lm
+        real, dec = lm.lm_decode, {"calls": 0, "bytes": {}}
+
+        def decode(*args, **kw):
+            before = dict(self.bytes)
+            out = real(*args, **kw)
+            for name, n in self.bytes.items():
+                dec["bytes"][name] = (dec["bytes"].get(name, 0) + n
+                                      - before.get(name, 0))
+            dec["calls"] += 1
+            return out
+        lm.lm_decode = decode
+        try:
+            yield dec
+        finally:
+            lm.lm_decode = real
+
 
 def _leaf_errs(ctx, grads, ref_path: str, defs) -> dict:
     """Each gradient leaf of this rank (its slice of the full gradient)
@@ -6472,8 +6550,9 @@ def _mesh_serve_rank_body(rank: int, model: int, workdir: str) -> dict:
     for name, (sc_kw, trace) in _mesh_traffic().items():
         clock.ms, clock.bytes, clock.calls = {}, {}, {}
         clock.on = True
-        run = _mesh_serve_run(f"mesh rank {rank} {name}", cfg, params, sc_kw,
-                              trace, ctx=ctx)
+        with clock.in_decode() as dec:
+            run = _mesh_serve_run(f"mesh rank {rank} {name}", cfg, params,
+                                  sc_kw, trace, ctx=ctx)
         clock.on = False
         ref = torch.load(os.path.join(workdir, f"ref_{name}.pt"),
                          weights_only=False)
@@ -6487,7 +6566,8 @@ def _mesh_serve_rank_body(rank: int, model: int, workdir: str) -> dict:
         res[name] = dict(run["summary"], streams=run["streams"],
                          logits=errs, collective_ms=dict(clock.ms),
                          collective_bytes=dict(clock.bytes),
-                         collective_calls=dict(clock.calls))
+                         collective_calls=dict(clock.calls),
+                         decode_collectives=dec)
         del ref, run
     return res
 
@@ -6918,6 +6998,228 @@ def phase_pipeline() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the roofline of every full-width path the smoke runs
+# ---------------------------------------------------------------------------
+
+# Every record is a cell of one card: the mesh (data 1, model 1) under
+# the plan of its kind.  FlopCounterMode against the analytic FLOPs: the
+# reference's band against XLA (tests/test_roofline.py).  The decode
+# step's wire bytes on phase 24's mesh against the analytic's.
+ROOF_MESH = {"data": 1, "model": 1}
+ROOF_PLANS = {"train": "dp_tp_ep", "prefill": "prefill_tp",
+              "decode": "decode_std"}
+ROOF_FLOP_BAND = (0.7, 1.45)
+ROOF_WIRE_TOL = 0.10
+
+
+def flop_count(what: str, fn) -> dict:
+    """FlopCounterMode's count of the aten products ``fn`` runs (the
+    port's ctypes launches are invisible to it): the total and the top
+    ops."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with counter:
+        fn()
+    by_op = counter.get_flop_counts().get("Global", {})
+    top = sorted(((str(op), n) for op, n in by_op.items()),
+                 key=lambda kv: -kv[1])[:6]
+    out = {"flops": counter.get_total_flops(), "top_ops": top}
+    log(f"{what}: FlopCounterMode " + json.dumps(out))
+    return out
+
+
+def roofline_record(path: str, cfg, kind: str, batch: int, seq: int,
+                    ms: float, peak_gib: float) -> dict:
+    """One path's roofline on this card: the analytic counts of one step
+    (``launch/analytic.py``) at its own B and S (a decode step's S is
+    its page length), the terms and bound (``launch/roofline.py``), and
+    the step's measured median: bound_share = bound / measured, mfu =
+    model FLOPs / (measured x the peak of the compute dtype); the
+    resident estimate beside the measured peak."""
+    import math
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import analytic, roofline
+    plan = ROOF_PLANS[kind]
+    ana = analytic.analyze_cell(cfg, ShapeSpec(path, kind, seq, batch),
+                                ROOF_MESH, plan)
+    rec = {"arch": cfg.name, "shape": path, "mesh": "h100", "plan": plan,
+           "status": "ok", "kind": kind, "global_batch": batch,
+           "seq_len": seq, "n_layers": cfg.n_layers, "n_devices": 1,
+           "analytic": dict(flops_per_dev=ana.flops_per_dev,
+                            hbm_bytes_per_dev=ana.hbm_bytes_per_dev,
+                            wire_bytes_per_dev=ana.wire_bytes_per_dev,
+                            **ana.detail)}
+    ro = roofline.analyze(rec, cfg)
+    bound = 1e3 * ro.bound_step_s
+    rec["roofline"] = {
+        "compute_s": ro.compute_s, "memory_s": ro.memory_s,
+        "collective_s": ro.collective_s, "dominant": ro.dominant,
+        "model_flops": ro.model_flops, "useful_ratio": ro.useful_ratio,
+        "roofline_fraction": roofline.roofline_fraction(ro, 1)}
+    rec.update(bound_ms=bound, measured_ms=ms, bound_share=bound / ms,
+               mfu=ro.model_flops / (ms / 1e3 * ro.peak_flops),
+               resident_gib=ana.detail["resident_bytes_per_dev"] / 2**30,
+               measured_peak_bytes=peak_gib * 2**30)
+    log("roofline " + json.dumps({k: rec[k] for k in (
+        "arch", "shape", "kind", "global_batch", "seq_len", "n_layers",
+        "bound_ms", "measured_ms", "bound_share", "mfu", "resident_gib")}
+        | {"measured_peak_gib": peak_gib, "flops": ana.flops_per_dev,
+           "hbm_bytes": ana.hbm_bytes_per_dev,
+           "compute_ms": 1e3 * ro.compute_s, "memory_ms": 1e3 * ro.memory_s,
+           "dominant": ro.dominant}))
+    terms = (ana.flops_per_dev, ana.hbm_bytes_per_dev, ro.compute_s,
+             ro.memory_s, bound, ms, rec["bound_share"], rec["mfu"],
+             rec["resident_gib"])
+    check(all(math.isfinite(t) and t > 0 for t in terms),
+          f"roofline {path}: a term is not finite and positive {terms}")
+    check(math.isfinite(ana.wire_bytes_per_dev),
+          f"roofline {path}: wire bytes {ana.wire_bytes_per_dev}")
+    return rec
+
+
+def phase_roofline(paths: list, flops: dict, mesh: dict) -> dict:
+    """Phase 26: arithmetic on the host over what earlier phases
+    measured; times nothing.  (a) a roofline record of each path in
+    ``paths`` ((name, cfg, kind, B, S, measured ms, measured peak GiB)),
+    printed as a line, written as JSON lines under chiprun_out/ and as
+    launch/report.py's tables; gate: bound <= measured (a bound above a
+    measured time is a wrong count).  moa-demo is left out (the
+    reference's analytic has no branch for the moa mixer) and so is the
+    paper LM (the reference has no analyze_cell for PaperLMConfig).
+    (b) FlopCounterMode's counts (``flops``: name -> (cfg, kind, B, S,
+    count)) against the analytic FLOPs of the same step, within
+    ROOF_FLOP_BAND.  (c) phase 24's collective bytes a decode step
+    (rank 0, inside lm_decode calls) against the analytic wire bytes
+    of the same cell on mesh (data 1, model 2) under decode_std, within
+    ROOF_WIRE_TOL.  Both sides count what a rank sends: the analytic
+    ring-algorithm bytes ((g-1)/g of an all-gather's result, 2(g-1)/g of
+    an all-reduce's tensor), the clock each call's input; at g = 2 the
+    two are the same bytes."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import analytic, report
+    t0 = time.perf_counter()
+    recs = [roofline_record(*p) for p in paths]
+    for r in recs:
+        check(r["bound_ms"] <= r["measured_ms"],
+              f"roofline {r['shape']}: bound {r['bound_ms']:.4g} ms above "
+              f"the measured {r['measured_ms']:.4g} ms")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with open(out_dir / "roofline.jsonl", "w") as f:
+        for r in recs:
+            f.write(json.dumps(r) + "\n")
+    print(report.roofline_table(recs, "h100"), flush=True)
+    print(report.dryrun_table(recs, "h100"), flush=True)
+    ratios = {}
+    for name, (cfg, kind, b, s, count) in flops.items():
+        ana = analytic.analyze_cell(cfg, ShapeSpec(name, kind, s, b),
+                                    ROOF_MESH, ROOF_PLANS[kind])
+        ratios[name] = ana.flops_per_dev / count["flops"]
+        log(f"roofline (b) {name}: analytic {ana.flops_per_dev:.6g} / "
+            f"FlopCounterMode {count['flops']:.6g} = {ratios[name]:.4f}; "
+            f"top ops {count['top_ops']}")
+        lo, hi = ROOF_FLOP_BAND
+        check(lo <= ratios[name] <= hi,
+              f"roofline (b) {name}: analytic / counted FLOPs "
+              f"{ratios[name]:.4f} outside {ROOF_FLOP_BAND}")
+    wire = {}
+    for traffic, fused in (("serve", False), ("fused", True)):
+        dec = mesh["ranks"][0][traffic]["decode_collectives"]
+        measured = sum(dec["bytes"].values()) / dec["calls"]
+        ana = analytic.analyze_cell(
+            _mesh_cfg().replace(fused_decode=fused),
+            ShapeSpec("mesh decode", "decode", PROMPT_LEN + NEW_TOKENS,
+                      N_REQUESTS), dict(zip(("data", "model"), MESH_SERVE)),
+            "decode_std")
+        wire[traffic] = {"measured_bytes": measured,
+                         "by_op": {k: v / dec["calls"]
+                                   for k, v in dec["bytes"].items()},
+                         "decode_calls": dec["calls"],
+                         "analytic_bytes": ana.wire_bytes_per_dev,
+                         "ratio": ana.wire_bytes_per_dev / measured}
+        log(f"roofline (c) {traffic} decode step on {MESH_SERVE}: "
+            + json.dumps(wire[traffic]))
+        check(abs(wire[traffic]["ratio"] - 1) <= ROOF_WIRE_TOL,
+              f"roofline (c) {traffic}: analytic wire "
+              f"{ana.wire_bytes_per_dev:.6g} B against the measured "
+              f"{measured:.6g} B a decode step")
+    wall = time.perf_counter() - t0
+    log(f"roofline phase {wall:.2f} s")
+    return {"records": recs, "flop_ratios": ratios, "wire": wire,
+            "wall_s": wall}
+
+
+def roofline_counts(served, qwen3) -> dict:
+    """name -> (cfg, kind, B, S, FlopCounterMode count) of the two
+    counted steps: phase 4's kimi-k2 prefill on "ref", phase 14's qwen3
+    forward and backward."""
+    from repro_torch.configs.base import get_config
+    return {"kimi-k2 prefill (ref)": (get_config(ARCH, n_layers=N_LAYERS),
+                                      "prefill", N_REQUESTS, PROMPT_LEN,
+                                      served["flops"]),
+            "qwen3-1.7b train": (get_config(QWEN), "train", QWEN_B, QWEN_S,
+                                 qwen3["flops"])}
+
+
+def roofline_paths(served, arctic, qwen3, gemma, falcon, jamba) -> list:
+    """(name, cfg, kind, B, S, measured ms, measured peak GiB) of each
+    full-width transformer path: a prefill is one request (B 1) at the
+    engine's prefill length, a decode step the whole slot pool over its
+    page length, a chunk call one 512-token row."""
+    from repro_torch.configs.base import get_config
+
+    def serve(name, cfg, summary, slots, page, fused=None):
+        out = [(f"{name} prefill", cfg, "prefill", 1,
+                max(summary["prefill_lengths"]),
+                summary["prefill_ms_median"],
+                summary["max_memory_allocated_gib"]),
+               (f"{name} decode", cfg, "decode", slots, page,
+                summary["decode_step_ms_median"],
+                summary["max_memory_allocated_gib"])]
+        if fused is not None:
+            out.append((f"{name} fused decode",
+                        cfg.replace(fused_decode=True), "decode", slots,
+                        page, fused["decode_step_ms_median"],
+                        fused["max_memory_allocated_gib"]))
+        return out
+
+    def train(name, cfg, b, s, summary, key):
+        return (f"{name} train", cfg, "train", b, s, summary[key],
+                summary["max_memory_allocated_gib"])
+    kimi = get_config(ARCH, n_layers=N_LAYERS)
+    prefix = served["prefix"]["on"]
+    gcfg = get_config(GEMMA, n_layers=gemma["summary"]["n_layers"])
+    fcfg = get_config(FALCON)
+    jcfg = get_config(JAMBA, n_layers=JAMBA_SERVE_LAYERS)
+    js = jamba["summary"]
+    return [
+        *serve("kimi-k2", kimi, served["summary"], N_REQUESTS,
+               PROMPT_LEN + NEW_TOKENS, served["fused"]["summary"]),
+        ("kimi-k2 chunk", kimi, "prefill", 1, PREFIX_CHUNK,
+         prefix["chunk_call_ms_median"], prefix["max_memory_allocated_gib"]),
+        train("arctic-480b", get_config(ARCTIC, n_layers=ARCTIC_LAYERS),
+              ARCTIC_B, ARCTIC_S, arctic["summary"],
+              "step_ms_median_steps_2_to_6"),
+        train("qwen3-1.7b", get_config(QWEN), QWEN_B, QWEN_S, qwen3,
+              "step_ms_median_steps_2_to_4"),
+        *serve("gemma3-27b", gcfg, gemma["summary"], GEMMA_REQUESTS,
+               GEMMA_PROMPT + GEMMA_NEW),
+        train("gemma3-27b", get_config(GEMMA).replace(
+            n_layers=gcfg.period), GEMMA_TRAIN_B, GEMMA_TRAIN_S,
+            gemma["train"], "step_ms_median_steps_2_to_3"),
+        *serve("falcon-mamba-7b", fcfg, falcon["summary"], SSM_REQUESTS,
+               SSM_PROMPT + SSM_NEW),
+        train("falcon-mamba-7b", fcfg, FALCON_TRAIN_B, FALCON_TRAIN_S,
+              falcon["train"]["summary"], "step_ms_median_steps_2_on"),
+        *serve("jamba-v0.1-52b", jcfg, js, SSM_REQUESTS,
+               SSM_PROMPT + SSM_NEW, js["fused"]),
+        train("jamba-v0.1-52b", get_config(JAMBA,
+                                           n_layers=JAMBA_TRAIN_LAYERS),
+              JAMBA_TRAIN_B, JAMBA_TRAIN_S, jamba["train"]["summary"],
+              "step_ms_median_steps_2_on")]
+
+
 def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
     dev = [p["kernels"][name]["device_ms_per_launch"] for p in profiles
            if name in p["kernels"]]
@@ -7042,6 +7344,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         pipeline = phase_pipeline()
         lap("pipeline")
+        roof = phase_roofline(
+            roofline_paths(served, arctic, qwen3, gemma, falcon, jamba),
+            roofline_counts(served, qwen3), mesh)
+        lap("roofline")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -7157,8 +7463,14 @@ def main() -> int:
         f"{pipeline['qwen']['worst']['loss_rel']:.3g}, gradients "
         f"{pipeline['qwen']['worst']['grad_norm_rel']:.3g}, step ms "
         f"{pipeline['qwen']['ranks'][0]['step_ms'][-1]:.1f}, phase "
-        f"{pipeline['wall_s']:.0f} s; "
-        f"{time.perf_counter() - t_start:.0f} s in all")
+        f"{pipeline['wall_s']:.0f} s; roofline: bound share "
+        + ", ".join(f"{r['shape']} {r['bound_share']:.3f}"
+                    for r in roof["records"])
+        + "; FLOPs analytic / counted "
+        + ", ".join(f"{k} {v:.3f}" for k, v in roof["flop_ratios"].items())
+        + "; decode wire analytic / measured "
+        + ", ".join(f"{k} {v['ratio']:.3f}" for k, v in roof["wire"].items())
+        + f"; {time.perf_counter() - t_start:.0f} s in all")
     print(setup["card"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

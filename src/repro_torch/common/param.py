@@ -2,7 +2,10 @@
 
 Architectures declare parameters as nested dicts of :class:`ParamDef`
 (shape / logical axes / init / dtype, no allocation).
-:func:`materialize` allocates them.
+:func:`materialize` allocates them; :func:`abstract` gives ``meta``
+tensors of the same shapes and dtypes (no storage: a full kimi-k2 tree
+costs nothing); :func:`logical_specs` the tree of logical axes, which
+``repro_torch.sharding.partition`` resolves to mesh axes.
 
 Unlike the JAX version, which draws every leaf in float32 and then
 casts, :func:`materialize` draws each leaf directly in its own dtype, on
@@ -116,6 +119,24 @@ def zeros(tree, device: str | torch.device):
     """Zero tensors for every ParamDef leaf (caches, buffers)."""
     return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
                                           device=device), tree)
+
+
+def abstract(tree, dtype_override: torch.dtype | None = None):
+    """``meta``-device stand-ins for every ParamDef leaf: shape and
+    dtype (``dtype_override`` if given), no storage."""
+    return tree_map(lambda d: torch.empty(
+        d.shape, dtype=dtype_override or d.dtype, device="meta"), tree)
+
+
+def logical_specs(tree):
+    """The tree of each leaf's logical axes (``ParamDef.axes``)."""
+    return tree_map(lambda d: d.axes, tree)
+
+
+def param_count(tree) -> int:
+    """Elements of a tree of ParamDefs or of tensors."""
+    return sum(l.size if isinstance(l, ParamDef) else l.numel()
+               for l in tree_leaves(tree))
 
 
 def param_bytes(tree) -> int:

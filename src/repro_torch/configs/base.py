@@ -96,6 +96,15 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run 500k-token contexts? (ssm / hybrid, or
+        sliding-window attention on some positions)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return bool(self.sliding_window and self.global_attn_positions !=
+                    tuple(range(self.period)))
+
 
 def layer_kinds(cfg: ModelConfig) -> list[LayerKind]:
     """One LayerKind per position-in-period."""

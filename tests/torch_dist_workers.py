@@ -255,6 +255,54 @@ def case_serve(ctx: MeshContext, inputs: dict) -> dict:
     return out
 
 
+def case_decode_wire(ctx: MeshContext, inputs: dict) -> dict:
+    """Each case: the rank's engine on the case's trace, with the bytes
+    of every collective's input summed inside ``lm.lm_decode`` calls;
+    returns those bytes and the number of calls (one a decode step)."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    real = {n: getattr(dist, n) for n in ("all_gather", "all_reduce",
+                                          "all_to_all_single")}
+    real_decode = lm.lm_decode
+    seen = {"on": False}
+
+    def counted(name):
+        def call(*args, **kw):
+            if seen["on"]:
+                t = args[0] if name == "all_reduce" else args[1]
+                seen["bytes"] += t.numel() * t.element_size()
+            return real[name](*args, **kw)
+        return call
+
+    def decode(*args, **kw):
+        seen["on"] = True
+        try:
+            return real_decode(*args, **kw)
+        finally:
+            seen["on"] = False
+            seen["calls"] += 1
+    out = {}
+    try:
+        for name in real:
+            setattr(dist, name, counted(name))
+        lm.lm_decode = decode
+        for name, case in inputs["cases"].items():
+            cfg = case["cfg"]
+            sc = ServeConfig(**case["sc"])
+            local = ctx.with_plan(sc.decode_plan).shard(case["params"],
+                                                        lm.lm_defs(cfg))
+            eng = ServeEngine(local, cfg, sc, device="cpu", ctx=ctx)
+            for p, m, a in case["trace"]:
+                eng.submit(p, m, arrival=a)
+            seen.update(bytes=0, calls=0)
+            eng.run()
+            out[name] = {"bytes": seen["bytes"], "calls": seen["calls"]}
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+        lm.lm_decode = real_decode
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the pipeline
 # ---------------------------------------------------------------------------
@@ -297,7 +345,8 @@ def case_pipeline(ctx: MeshContext, inputs: dict) -> dict:
 
 
 CASES = {"moe": case_moe, "train": case_train, "restore": case_restore,
-         "serve": case_serve, "pipeline": case_pipeline}
+         "serve": case_serve, "decode_wire": case_decode_wire,
+         "pipeline": case_pipeline}
 
 
 # ---------------------------------------------------------------------------
