@@ -155,7 +155,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              16,384 slot rows of 256 experts, dispatch / combine at both
              levels, the GMMs over all 4096 experts at C = 16), timed
              beside its bound, the launch floor and torch.bmm; then 12
-             steps through the Trainer as in phase 9 (launch counts
+             steps through the Trainer as in phase 9, with one
+             checkpoint, at step 12 (HMOE_CKPT; launch counts
              exactly HMOE_LAUNCHES a step: one launch of each kernel per
              level and pass, whatever the number of groups), a profile
              of two more; one more batch's loss and gradients under
@@ -327,7 +328,35 @@ Phases, in order; any failure exits non-zero and prints no result:
              4), within 0.7-1.45.  (c) the analytic wire bytes of a
              decode step of phase 24's cell against the bytes its ranks'
              lm_decode calls sent, unfused and fused, within 10 %.
-27. report — one ``{"kernels": [...]}`` line, then the result line.
+27. dryrun — the dry run (``launch/steps.py``, ``launch/dryrun.py``)
+             against the card.  (a) every kernel wrapper (rows 1-8, the
+             VJPs B5-B8) on the card and its meta branch
+             (``cuda_lib.meta_trace``) on ``meta`` copies of the same
+             inputs, at the kernels phase's training shapes and each
+             full-width path's (META_SHAPES): outputs' shapes, dtypes and
+             strides, and the bytes allocated over the call (held after
+             it, and at its peak: ``memory_allocated`` /
+             ``max_memory_allocated`` against ``MemTrace``, both in the
+             caching allocator's 512-byte blocks) equal; the fused
+             kernels' host workspace mirror equal to the library's.  (b)
+             on each single-card full-width path (``dryrun_plan``), the
+             phase that holds the model runs one call of the step that
+             ``launch/steps.py`` builds on its parameters
+             (``dryrun_peak``); the same steps, traced on ``meta``
+             (``trace_path``, host work) by TRACE_WORKERS spawned
+             processes beside phase 1's kernel build, before any timed
+             phase (the phases' configs and shapes are known up front;
+             a path whose phase ran another is traced again here): the
+             card's peak (the parameters plus the rise over the call)
+             against the dry run's, gate DRYRUN_BAND, the
+             analytic resident estimate's ratio beside it; records to
+             chiprun_out/dryrun.jsonl and ``launch/report.py``'s tables.
+             (c) ``python -m repro_torch.launch.dryrun`` on a fake (data
+             1, model 2) group at phase 24's decode cell, unfused and
+             fused, run beside (a): its collective bytes a step equal to
+             phase 24's measured bytes and to ``analyze_cell``'s wire
+             bytes.
+28. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -381,6 +410,10 @@ TRAIN_LAUNCHES = {"topk_gating": 1, "topk_gating_bwd": 1, "dispatch": 2,
 # capacity_for(1024, 256, 2, 2.0) slots an expert.
 HMOE_CONFIG, HMOE_PARAMS = "moe-4096-h", 4_336_144_384
 HMOE_CP, HMOE_CS = 1024, 16
+# One checkpoint (17.3 GB), at the last step: two of them after phase 9's
+# write 45 GiB to the disk (freed files included), more than a
+# measurement machine may take from one command.
+HMOE_CKPT = TRAIN_STEPS
 # Launches per hierarchical training step: at each level the forward
 # top-k, dispatch and combine, and in the backward pass the top-k
 # backward (B5), the combine's backward dispatch (B7) and the dispatch's
@@ -3081,6 +3114,11 @@ def run_serve(floor: dict) -> dict:
     prefix = phase_prefix(cfg, params, floor)
     with tempfile.TemporaryDirectory() as workdir:
         obs = phase_obs(cfg, params, served, fused, prefix, workdir)
+    page = PROMPT_LEN + NEW_TOKENS
+    dryrun_peak("kimi-k2 prefill", cfg, "prefill", 1, PROMPT_LEN, params)
+    dryrun_peak("kimi-k2 decode", cfg, "decode", N_REQUESTS, page, params)
+    dryrun_peak("kimi-k2 fused decode", cfg.replace(fused_decode=True),
+                "decode", N_REQUESTS, page, params)
     return {"counts": served["counts"], "summary": served["summary"],
             "profile": profiled, "cross": cross, "fused": fused, "ec": ec,
             "prefix": prefix, "obs": obs, "flops": flops}
@@ -3328,9 +3366,10 @@ def _loss_fn(cfg):
 
 
 def phase_train(cfg, params, workdir, name: str = TRAIN_CONFIG,
-                launches: dict = TRAIN_LAUNCHES, what: str = "train") -> dict:
+                launches: dict = TRAIN_LAUNCHES, what: str = "train",
+                ckpt_every: int = TRAIN_CKPT) -> dict:
     """TRAIN_STEPS steps of the paper LM ``cfg`` through the Trainer
-    (factored Adam, a checkpoint every TRAIN_CKPT steps), traced: launch
+    (factored Adam, a checkpoint every ``ckpt_every`` steps), traced: launch
     counts exactly ``launches`` a step, every metric finite, peak memory
     under the card's, the trace's train.step spans one a step, its
     train.checkpoint spans one a checkpoint, kernel spans present, the
@@ -3351,7 +3390,7 @@ def phase_train(cfg, params, workdir, name: str = TRAIN_CONFIG,
     trainer = Trainer(
         loss_fn=_loss_fn(cfg), params=params, oc=oc,
         loop=TrainLoopConfig(total_steps=TRAIN_STEPS,
-                             checkpoint_every=TRAIN_CKPT,
+                             checkpoint_every=ckpt_every,
                              keep_checkpoints=2, log_every=1, seed=SEED),
         data_iter=DataIterator(dc, device="cuda"), workdir=workdir,
         kernel_backend="cuda",
@@ -3377,7 +3416,8 @@ def phase_train(cfg, params, workdir, name: str = TRAIN_CONFIG,
         check(all(math.isfinite(m[k]) for k in ("loss", "xent", "aux_loss",
                                                 "grad_norm")),
               f"non-finite metrics at step {m['step']}: {m}")
-    check(trainer.ckpt.all_steps() == [TRAIN_CKPT, TRAIN_STEPS],
+    check(trainer.ckpt.all_steps() == list(range(
+        ckpt_every, TRAIN_STEPS + 1, ckpt_every)),
           f"checkpoints {trainer.ckpt.all_steps()}")
     events = trace_lib.load(trainer.tracer.path)
     spans = span_counts(events)
@@ -3386,7 +3426,7 @@ def phase_train(cfg, params, workdir, name: str = TRAIN_CONFIG,
     check(spans.get("train.step") == TRAIN_STEPS
           and spans.get("train.data") == TRAIN_STEPS,
           f"{what}: train spans {spans}")
-    check(spans.get("train.checkpoint") == TRAIN_STEPS // TRAIN_CKPT,
+    check(spans.get("train.checkpoint") == TRAIN_STEPS // ckpt_every,
           f"{what}: {spans.get('train.checkpoint')} checkpoint spans")
     check(kernel_spans, f"{what}: no kernel spans in the trace")
     span_ms = statistics.median(e["dur"] / 1e3 for e in events
@@ -3955,7 +3995,8 @@ def phase_hmoe(cfg, params, floor, workdir) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     kernels = check_hmoe_kernels(cfg, params, gen, floor)
     trained = phase_train(cfg, params, workdir, name=HMOE_CONFIG,
-                          launches=HMOE_LAUNCHES, what="hmoe")
+                          launches=HMOE_LAUNCHES, what="hmoe",
+                          ckpt_every=HMOE_CKPT)
     grads = hmoe_grads(cfg, params, trained)
     return {"kernels": kernels, "summary": trained["summary"],
             "counts": trained["counts"], "profile": trained["profile"],
@@ -4263,6 +4304,7 @@ def phase_arctic(cfg, params, floor) -> dict:
            "loss_tol": ARCTIC_LOSS_TOL, "loss_after_its_own_update": after}
     log("arctic train " + json.dumps(out))
     log("arctic profile " + json.dumps(prof))
+    dryrun_peak("arctic-480b train", cfg, "train", ARCTIC_B, ARCTIC_S, params)
     return {"summary": out, "kernels": kernels, "counts": run["counts"],
             "profile": prof}
 
@@ -4358,6 +4400,7 @@ def phase_qwen3() -> dict:
            "max_memory_allocated_gib": run["peak"] / 2 ** 30,
            "losses": [m["loss"] for m in run["rows"]], "flops": flops}
     log("qwen3 train " + json.dumps(out))
+    dryrun_peak("qwen3-1.7b train", cfg, "train", QWEN_B, QWEN_S, params)
     return out
 
 
@@ -5059,6 +5102,10 @@ def phase_gemma_serve() -> dict:
                cache_bytes=cache_bytes, cache_bytes_full_length=full_len,
                ring=ring_gate, sample_tokens=streams[0][:8])
     log("gemma3 serve " + json.dumps(out))
+    dryrun_peak("gemma3-27b prefill", cfg, "prefill", 1, GEMMA_PROMPT,
+                params)
+    dryrun_peak("gemma3-27b decode", cfg, "decode", GEMMA_REQUESTS, max_len,
+                params)
     del params
     torch.cuda.empty_cache()
     return {"summary": out, "counts": counts, "profile": prof}
@@ -5133,7 +5180,9 @@ def phase_gemma_train() -> dict:
            "max_memory_allocated_gib": run["peak"] / 2 ** 30,
            "losses": [m["loss"] for m in run["rows"]]}
     log("gemma3 train " + json.dumps(out))
-    del params, run
+    del run
+    dryrun_peak("gemma3-27b train", cfg, "train", GEMMA_TRAIN_B, s, params)
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -5369,6 +5418,11 @@ def phase_falcon_serve() -> dict:
     prof = serve_profiles("falcon", engine, params, cfg, prompts, out,
                           scan=_scan_shape(cfg))
     del engine
+    torch.cuda.empty_cache()
+    dryrun_peak("falcon-mamba-7b prefill", cfg, "prefill", 1, SSM_PROMPT,
+                params)
+    dryrun_peak("falcon-mamba-7b decode", cfg, "decode", SSM_REQUESTS,
+                max_len, params)
     records, _ = fallback_records("falcon", cfg, params, prompts, SSM_NEW,
                                   max_len, streams)
     torch.cuda.empty_cache()
@@ -5526,7 +5580,10 @@ def phase_falcon_train() -> dict:
                                  f"S={FALCON_TRAIN_S}, factored Adam",
                           parameters=n)
     log("falcon train " + json.dumps(res["summary"]))
-    del params, run
+    del run
+    dryrun_peak("falcon-mamba-7b train", cfg, "train", FALCON_TRAIN_B,
+                FALCON_TRAIN_S, params)
+    del params
     torch.cuda.empty_cache()
     return res
 
@@ -5642,6 +5699,12 @@ def phase_jamba_serve(floor) -> dict:
     fused_cross = compare_fused_logits("jamba", decode_logits(
         cfg, params, prompts))
     torch.cuda.empty_cache()
+    dryrun_peak("jamba-v0.1-52b prefill", cfg, "prefill", 1, SSM_PROMPT,
+                params)
+    dryrun_peak("jamba-v0.1-52b decode", cfg, "decode", SSM_REQUESTS,
+                max_len, params)
+    dryrun_peak("jamba-v0.1-52b fused decode", cfg.replace(fused_decode=True),
+                "decode", SSM_REQUESTS, max_len, params)
     xcfg = cfg.replace(capacity_factor=JAMBA_CROSS_CF)
     pin = _RoutingPin(prompts)
     with pin.record():
@@ -5775,7 +5838,10 @@ def phase_jamba_train(floor) -> dict:
                           grads=grads)
     log("jamba train " + json.dumps(res["summary"]))
     res.update(kernels=kernels, counts=run["counts"])
-    del params, run
+    del run
+    dryrun_peak("jamba-v0.1-52b train", cfg, "train", JAMBA_TRAIN_B,
+                JAMBA_TRAIN_S, params)
+    del params
     torch.cuda.empty_cache()
     return res
 
@@ -7220,6 +7286,483 @@ def roofline_paths(served, arctic, qwen3, gemma, falcon, jamba) -> list:
               "step_ms_median_steps_2_on")]
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the dry run (launch/steps, launch/dryrun) against the card
+# ---------------------------------------------------------------------------
+
+# (b): the dry run's peak over the card's, on every path, within this band.
+DRYRUN_BAND = (0.85, 1.15)
+# (b)'s card peaks, one a path, appended by the phases that hold the
+# models, and the traces of dryrun_plan(), made before phase 2.
+DRYRUN_PATHS: list = []
+DRYRUN_TRACED: dict = {}
+# (a): each kernel wrapper against its meta branch at each path's shapes:
+# name -> (T, E, k, d, f, C, dtype, expert activation, the cases run).
+META_TRAIN = ("topk_gating", "topk_gating_bwd", "dispatch", "combine", "gmm",
+              "gmm_bwd", "dispatch_bwd", "combine_bwd")
+META_SERVE = ("topk_gating", "dispatch", "combine", "gmm")
+META_FUSED = ("fused_decode", "fused_routed")
+META_SHAPES = {
+    "MoE-256 train": (TRAIN_B * TRAIN_S, 256, 4, 512, 1024, 128, "float32",
+                      "relu", META_TRAIN + ("dispatch_eblock",
+                                            "combine_eblock")),
+    "kimi-k2 prefill": (PROMPT_LEN, 384, 8, 7168, 2048, 8, "bfloat16",
+                        "swiglu", META_SERVE),
+    "kimi-k2 decode": (N_REQUESTS, 384, 8, 7168, 2048, 8, "bfloat16",
+                       "swiglu", META_SERVE + META_FUSED),
+    "kimi-k2 chunk": (2 * PREFIX_CHUNK, 384, 8, 7168, 2048, PREFIX_C,
+                      "bfloat16", "swiglu", META_SERVE),
+    "arctic-480b train": (ARCTIC_B * ARCTIC_S, 128, 2, 7168, 4864, ARCTIC_C,
+                          "bfloat16", "swiglu", META_TRAIN),
+    "jamba prefill": (SSM_PROMPT, 16, 2, 4096, 14336, JAMBA_PREFILL_C,
+                      "bfloat16", "swiglu", META_SERVE),
+    "jamba decode": (SSM_REQUESTS, 16, 2, 4096, 14336, JAMBA_DECODE_C,
+                     "bfloat16", "swiglu", META_SERVE + META_FUSED),
+    "jamba train": (JAMBA_TRAIN_B * JAMBA_TRAIN_S, 16, 2, 4096, 14336,
+                    JAMBA_TRAIN_C, "bfloat16", "swiglu", META_TRAIN),
+}
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes the caching allocator holds for the storages of ``tree``."""
+    from repro_torch.common.param import tree_leaves
+    from repro_torch.launch.dryrun import alloc_bytes
+    return sum({id(t.untyped_storage()): alloc_bytes(
+        t.untyped_storage().nbytes()) for t in tree_leaves(tree)}.values())
+
+
+def _card_args(spec, cfg, params) -> tuple:
+    """``spec``'s arguments on the card: the phase's parameters, a fresh
+    optimizer state (build_step's OptConfig), random tokens, zero
+    caches."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.optim import optimizers as opt_lib
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+
+    def card(t):
+        if t.dtype == torch.int32:
+            return torch.randint(1, cfg.vocab_size, t.shape, generator=gen,
+                                 device="cuda", dtype=torch.int32)
+        return torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype)
+    if spec.kind == "train":
+        return ({"params": params, "opt": opt_lib.init(
+            params, opt_lib.OptConfig(kind="factored"))},
+            {k: card(v) for k, v in spec.args[1].items()}, SEED)
+    _, inputs, cache, *rest = spec.args
+    cache = pm.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                              device="cuda"), cache)
+    if spec.kind == "prefill":
+        return (params, {k: card(v) for k, v in inputs.items()}, cache)
+    return (params, card(inputs), cache, rest[0].to("cuda"))
+
+
+# (b)'s traces are host work only (over a minute for falcon's 64-layer
+# training step), run in this many spawned processes beside phase 1's
+# kernel build, so that no timed phase shares the host with them.
+TRACE_WORKERS = 3
+_TRACES: dict = {}
+
+
+def trace_pool():
+    """TRACE_WORKERS worker processes (spawned: no CUDA) that trace the
+    (b) paths on ``meta``.  Stopped by :func:`stop_trace_pool`."""
+    if "pool" not in _TRACES:
+        import multiprocessing
+        # The workers inherit sys.path, which main() gave ROOT / "src".
+        _TRACES["pool"] = multiprocessing.get_context("spawn").Pool(
+            TRACE_WORKERS)
+    return _TRACES["pool"]
+
+
+def stop_trace_pool() -> None:
+    pool = _TRACES.pop("pool", None)
+    if pool is not None:
+        pool.terminate()
+        pool.join()
+
+
+def trace_path(path: str, cfg, kind: str, b: int, s: int) -> dict:
+    """``launch/steps.py``'s step for (``kind``, B ``b`` x S ``s``) on one
+    card (mesh (1, 1): no process group), traced on ``meta``: its dry-run
+    record (``launch/dryrun.py::cell_record``)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun, steps
+    plan = ROOF_PLANS[kind]
+    shape = ShapeSpec(path, kind, s, b)
+    spec = steps.build_step(cfg, shape, None, plan=plan)
+    tr = dryrun.trace_step(spec, flops=False)
+    return dryrun.cell_record(
+        {"arch": cfg.name, "shape": path, "mesh": "h100", "plan": plan,
+         "kind": kind, "global_batch": b, "seq_len": s,
+         "n_layers": cfg.n_layers}, cfg, shape, ROOF_MESH, plan, spec, tr)
+
+
+def dryrun_peak(path: str, cfg, kind: str, b: int, s: int, params) -> None:
+    """Phase 27 (b) for one single-card full-width path, run by the phase
+    that holds its model: one call of ``launch/steps.py``'s step for
+    (``kind``, B ``b`` x S ``s``) on the card, on the phase's
+    ``params`` (a training step updates them), its peak the bytes of
+    the parameters plus what ``max_memory_allocated`` rose by over the
+    call from before its other arguments were made.  (path, card peak,
+    the arguments of :func:`trace_path`) goes to DRYRUN_PATHS; phase 27
+    traces them and gates the ratio."""
+    import torch
+    from repro_torch.common.param import tree_leaves
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import steps
+    t0 = time.perf_counter()
+    shape = ShapeSpec(path, kind, s, b)
+    plan = ROOF_PLANS[kind]
+    spec = steps.build_step(cfg, shape, None, plan=plan)
+    for p in tree_leaves(params):
+        p.grad = None
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = _card_args(spec, cfg, params)
+    torch.cuda.reset_peak_memory_stats()
+    out = spec.fn(*args)
+    torch.cuda.synchronize()
+    card = torch.cuda.max_memory_allocated() - base + _storage_bytes(params)
+    del out, args
+    for p in tree_leaves(params):
+        p.grad = None
+    torch.cuda.empty_cache()
+    card_s = time.perf_counter() - t0
+    log(f"dryrun (b) {path}: the card's step peak {card / 2**30:.3f} GiB "
+        f"({spec.microbatches} microbatch(es), {card_s:.1f} s)")
+    DRYRUN_PATHS.append((path, card, card_s, (path, cfg, kind, b, s)))
+
+
+def dryrun_plan() -> list:
+    """Phase 27 (b)'s paths as their phases run them, the arguments of
+    :func:`trace_path`: the phases' configs and shapes (gemma3 served at
+    all its layers, as ``build_gemma`` does when they fit)."""
+    from repro_torch.configs.base import get_config
+    kimi = get_config(ARCH, n_layers=N_LAYERS)
+    gemma = get_config(GEMMA)
+    falcon = get_config(FALCON)
+    jamba = get_config(JAMBA, n_layers=JAMBA_SERVE_LAYERS)
+    page, ssm_page = PROMPT_LEN + NEW_TOKENS, SSM_PROMPT + SSM_NEW
+    return [
+        ("kimi-k2 prefill", kimi, "prefill", 1, PROMPT_LEN),
+        ("kimi-k2 decode", kimi, "decode", N_REQUESTS, page),
+        ("kimi-k2 fused decode", kimi.replace(fused_decode=True), "decode",
+         N_REQUESTS, page),
+        ("arctic-480b train", get_config(ARCTIC, n_layers=ARCTIC_LAYERS),
+         "train", ARCTIC_B, ARCTIC_S),
+        ("qwen3-1.7b train", get_config(QWEN), "train", QWEN_B, QWEN_S),
+        ("gemma3-27b prefill", gemma, "prefill", 1, GEMMA_PROMPT),
+        ("gemma3-27b decode", gemma, "decode", GEMMA_REQUESTS,
+         GEMMA_PROMPT + GEMMA_NEW),
+        ("gemma3-27b train", gemma.replace(n_layers=gemma.period), "train",
+         GEMMA_TRAIN_B, GEMMA_TRAIN_S),
+        ("falcon-mamba-7b prefill", falcon, "prefill", 1, SSM_PROMPT),
+        ("falcon-mamba-7b decode", falcon, "decode", SSM_REQUESTS, ssm_page),
+        ("falcon-mamba-7b train", falcon, "train", FALCON_TRAIN_B,
+         FALCON_TRAIN_S),
+        ("jamba-v0.1-52b prefill", jamba, "prefill", 1, SSM_PROMPT),
+        ("jamba-v0.1-52b decode", jamba, "decode", SSM_REQUESTS, ssm_page),
+        ("jamba-v0.1-52b fused decode", jamba.replace(fused_decode=True),
+         "decode", SSM_REQUESTS, ssm_page),
+        ("jamba-v0.1-52b train", get_config(JAMBA,
+                                            n_layers=JAMBA_TRAIN_LAYERS),
+         "train", JAMBA_TRAIN_B, JAMBA_TRAIN_S)]
+
+
+def start_traces() -> list:
+    """Every path of :func:`dryrun_plan` sent to :func:`trace_pool`, the
+    training steps and the deepest first (the longest traces):
+    (arguments, pending record) in the plan's order."""
+    plan = dryrun_plan()
+    pool = trace_pool()
+    order = sorted(plan, key=lambda a: (a[2] != "train", -a[1].n_layers))
+    pending = {a[0]: pool.apply_async(trace_path, a) for a in order}
+    return [(a, pending[a[0]]) for a in plan]
+
+
+def finish_traces(started: list) -> None:
+    """Waits for :func:`start_traces`' records (DRYRUN_TRACED: path ->
+    (arguments, record)) and stops the workers."""
+    t0 = time.perf_counter()
+    for args, pending in started:
+        DRYRUN_TRACED[args[0]] = (args, pending.get(timeout=900))
+    stop_trace_pool()
+    log(f"dryrun (b): {len(started)} paths traced on meta in "
+        f"{TRACE_WORKERS} workers, "
+        f"{sum(r['trace_s'] for _, r in DRYRUN_TRACED.values()):.1f} s of "
+        f"traces; waited {time.perf_counter() - t0:.1f} s for them after "
+        "the kernel build")
+
+
+def dryrun_records() -> list:
+    """Phase 27 (b): each path's trace joined with its card peak; a path
+    whose phase ran other arguments than the plan's is traced now."""
+    recs = []
+    for path, card, card_s, args in DRYRUN_PATHS:
+        planned, rec = DRYRUN_TRACED.get(path, (None, None))
+        if planned != args:
+            log(f"dryrun (b) {path}: the phase ran other arguments than "
+                f"dryrun_plan()'s ({args[1].name}, {args[1].n_layers} "
+                f"layers, {args[2]} {args[3]} x {args[4]}); traced now")
+            rec = trace_path(*args)
+        peak = rec["memory"]["peak_bytes_per_device"]
+        resident = rec["analytic"]["resident_bytes_per_dev"]
+        rec.update(measured_peak_bytes=card, peak_ratio=peak / card,
+                   resident_ratio=resident / card, card_s=card_s)
+        log(f"dryrun (b) {path}: dry run {peak / 2**30:.3f} GiB, card "
+            f"{card / 2**30:.3f} GiB, ratio {rec['peak_ratio']:.4f}; "
+            f"analytic resident {resident / 2**30:.3f} GiB, ratio "
+            f"{rec['resident_ratio']:.4f}; at the peak "
+            + json.dumps({k: round(v / 2**30, 3)
+                          for k, v in rec["memory"].items()})
+            + f"; trace {rec['trace_s']:.1f} s")
+        recs.append(rec)
+    return recs
+
+
+def _meta_inputs(t, e, k, d, f, c, dtype_name, gen) -> dict:
+    """A path's kernel inputs on the card: a top-k plan of random logits
+    at capacity ``c``, the expert weights zero (the bytes, not the
+    values, are under test), cotangents of the outputs."""
+    import torch
+    from repro_torch.core import dispatch as dsp
+    from repro_torch.kernels.topk_gating import topk_gating_plain
+    dt = getattr(torch, dtype_name)
+    logits = torch.randn(t, e, device="cuda", generator=gen)
+    w, idx, _ = topk_gating_plain(logits, k, k + 1)
+    p = dsp.plan(idx[:, :k].contiguous(), w, e, c)
+
+    def z(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device="cuda")
+    return dict(logits=logits, w=p.weight, idx=idx, eidx=p.expert_index,
+                pos=p.position, rows=dsp.filled_rows(p),
+                x=torch.randn(t, d, device="cuda", generator=gen).to(dt),
+                buf=z(e, c, d), w1=z(e, d, f), w2=z(e, f, d), w3=z(e, d, f),
+                wg=z(d, e, dtype=torch.float32),
+                valid=torch.ones(t, device="cuda"),
+                dw=z(t, k, dtype=torch.float32),
+                dvals=z(t, k + 1, dtype=torch.float32), dy=z(t, d),
+                dbuf=z(e, c, d), dh=z(e, c, f))
+
+
+def _meta_run(name, e, k, c, act, e_block):
+    """The call of case ``name`` on a dict of inputs (any device)."""
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels import fused_decode as kf
+    from repro_torch.kernels import gmm as kg
+    from repro_torch.kernels import topk_gating as kt
+
+    def grads(fn, inputs, cotangent):
+        import torch
+        inputs = [x.detach().requires_grad_(True) for x in inputs]
+        return torch.autograd.grad(fn(*inputs), inputs, cotangent)
+    gmm_act = "silu" if act == "swiglu" else act
+    return {
+        "topk_gating": lambda a: kt.topk_gating(a["logits"], k, k + 1),
+        "topk_gating_bwd": lambda a: kt.topk_gating_bwd(
+            a["w"], a["idx"], a["dw"], a["dvals"], e),
+        "dispatch": lambda a: kd.dispatch(a["x"], a["eidx"], a["pos"],
+                                          n_experts=e, capacity=c),
+        "combine": lambda a: kd.combine(a["buf"], a["w"], a["eidx"],
+                                        a["pos"]),
+        "dispatch_eblock": lambda a: kd.dispatch_eblock(
+            a["x"], a["eidx"], a["pos"], n_experts=e, capacity=c,
+            e_block=e_block),
+        "combine_eblock": lambda a: kd.combine_eblock(
+            a["buf"], a["w"], a["eidx"], a["pos"], e_block=e_block),
+        "gmm": lambda a: kg.gmm(a["buf"], a["w1"], activation=gmm_act,
+                                rows=a["rows"]),
+        "gmm_bwd": lambda a: grads(
+            lambda x, w: kg.GMMFn.apply(x, w, gmm_act, a["rows"]),
+            [a["buf"], a["w1"]], a["dh"]),
+        "dispatch_bwd": lambda a: grads(
+            lambda x: kd.DispatchFn.apply(x, a["eidx"], a["pos"], e, c,
+                                          None), [a["x"]], a["dbuf"]),
+        "combine_bwd": lambda a: grads(
+            lambda buf, w: kd.CombineFn.apply(buf, w, a["eidx"], a["pos"],
+                                              buf.dtype, None),
+            [a["buf"], a["w"]], a["dy"]),
+        "fused_decode": lambda a: kf.decode_step(
+            a["x"], a["valid"], a["wg"], a["w1"], a["w2"], a["w3"], k=k,
+            capacity=c, activation=act),
+        "fused_routed": lambda a: kf.routed_apply(
+            a["x"], a["eidx"], a["pos"], a["eidx"], a["pos"], a["w"],
+            a["w1"], a["w2"], a["w3"], n_experts=e, capacity=c,
+            activation=act),
+    }[name]
+
+
+def _out_specs(out) -> list:
+    out = out if isinstance(out, (tuple, list)) else (out,)
+    return [(tuple(t.shape), str(t.dtype), tuple(t.stride())) for t in out]
+
+
+def meta_branch_case(what: str, run, inputs: dict) -> dict:
+    """``run(inputs)`` on the card, then on ``meta`` copies of the inputs
+    in ``cuda_lib.meta_trace()`` under ``MemTrace``: the outputs' shapes,
+    dtypes and strides, and the bytes allocated over the call (held
+    after it and at its peak) must be equal."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import dryrun
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run(inputs)
+    torch.cuda.synchronize()
+    card = {"held": torch.cuda.memory_allocated() - base,
+            "peak": torch.cuda.max_memory_allocated() - base,
+            "outputs": _out_specs(out)}
+    del out
+    meta = {k: v.to("meta") for k, v in inputs.items()}
+    mt = dryrun.MemTrace()
+    mt.track(list(meta.values()), "inputs")
+    b0 = mt.current
+    with cuda_lib.meta_trace(), mt:
+        out = run(meta)
+    traced = {"held": mt.current - b0, "peak": mt.peak - b0,
+              "outputs": _out_specs(out)}
+    del out
+    check(card == traced, f"dryrun (a) {what}: the card {card} against "
+          f"the meta branch {traced}")
+    return {"held": card["held"], "peak": card["peak"]}
+
+
+def phase_meta_kernels() -> dict:
+    """Phase 27 (a): every kernel wrapper (rows 1-8 and the VJPs B5-B8)
+    against its meta branch at each path's shapes (META_SHAPES), and the
+    fused kernels' host workspace mirror against the library."""
+    import gc
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import fused_decode as kf
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    out = {}
+    for what, (t, e, k, d, f, c, dt, act, names) in META_SHAPES.items():
+        inputs = _meta_inputs(t, e, k, d, f, c, dt, gen)
+        row = {}
+        for name in names:
+            row[name] = meta_branch_case(f"{what} {name}", _meta_run(
+                name, e, k, c, act, E_BLOCK), inputs)
+        for decode, name in ((1, "fused_decode"), (0, "fused_routed")):
+            if name not in names:
+                continue
+            args = (decode, t, k, d, d, f, e, c,
+                    0 if decode else kf.MODES["ffn"], kf.ACTIVATIONS[act],
+                    cuda_lib.DTYPE_CODES[getattr(torch, dt)])
+            mirror, lib = kf.workspace_bytes(*args), kf._workspace_bytes(*args)
+            check(mirror == lib, f"dryrun (a) {what} {name}: workspace "
+                  f"mirror {mirror} bytes, the library {lib}")
+            row[name]["workspace_bytes"] = lib
+        out[what] = row
+        log(f"dryrun (a) {what} (T {t}, E {e}, k {k}, d {d}, f {f}, C {c}, "
+            f"{dt}): card = meta branch, bytes held / peak "
+            + json.dumps(row))
+        del inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_mesh_cell(fused: bool):
+    """Phase 27 (c): start ``python -m repro_torch.launch.dryrun`` on a
+    fake (data 1, model 2) group at phase 24's decode cell (kimi-k2 cut
+    to MESH_LAYERS layer, N_REQUESTS slots, pages of PROMPT_LEN +
+    NEW_TOKENS); returns a function that waits for it and returns its
+    record.  Host work only: it runs beside (a) on the card."""
+    import os
+    traffic = "fused" if fused else "serve"
+    out = ROOT / "chiprun_out" / f"dryrun_mesh_{traffic}.jsonl"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           ARCH, "--shape", f"decode:{N_REQUESTS}x{PROMPT_LEN + NEW_TOKENS}",
+           "--mesh", "x".join(map(str, MESH_SERVE)), "--set",
+           f"n_layers={MESH_LAYERS}", "--set",
+           f"fused_decode={'true' if fused else 'false'}", "--out", str(out),
+           "--force"]
+    out.parent.mkdir(exist_ok=True)
+    proc = subprocess.Popen(
+        cmd, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def wait() -> dict:
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        log(f"dryrun (c) {' '.join(cmd[1:])}: exit {proc.returncode}\n"
+            + stdout[-3000:] + stderr[-3000:])
+        check(proc.returncode == 0, "dryrun (c): the dry-run CLI failed")
+        with open(out) as f:
+            rec = [json.loads(line) for line in f][-1]
+        check(rec["status"] == "ok", f"dryrun (c): {rec.get('error')}")
+        return rec
+    return wait
+
+
+def phase_dryrun(mesh: dict) -> dict:
+    """Phase 27: (a) :func:`phase_meta_kernels`; (b) the dry run's peak
+    (the trace workers') against the card's on every path of
+    DRYRUN_PATHS, within DRYRUN_BAND, written to chiprun_out/dryrun.jsonl
+    and as ``launch/report.py``'s tables; (c) the dry-run CLI's
+    collective bytes a decode step on (1, 2), unfused and fused (run
+    beside (a)), against phase 24's measured bytes and
+    ``analyze_cell``'s wire bytes: equal."""
+    from repro_torch.launch import dryrun, report
+    t0 = time.perf_counter()
+    cells = {"serve": dryrun_mesh_cell(False),
+             "fused": dryrun_mesh_cell(True)}
+    try:
+        meta = phase_meta_kernels()
+    finally:
+        cell_recs = {traffic: wait() for traffic, wait in cells.items()}
+    recs = dryrun_records()
+    names = [a[0] for a in dryrun_plan()]
+    check(sorted(r["shape"] for r in recs) == sorted(names),
+          f"dryrun (b): records of {[r['shape'] for r in recs]}, "
+          f"expected {names}")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with open(out_dir / "dryrun.jsonl", "w") as f:
+        for r in recs:
+            f.write(json.dumps(r) + "\n")
+    print(report.dryrun_table(recs, "h100"), flush=True)
+    print(report.roofline_table(recs, "h100"), flush=True)
+    for r in recs:
+        log(f"dryrun (b) {r['shape']}: dry-run peak / card peak "
+            f"{r['peak_ratio']:.4f}, analytic resident / card peak "
+            f"{r['resident_ratio']:.4f}")
+    lo, hi = DRYRUN_BAND
+    for r in recs:
+        check(lo <= r["peak_ratio"] <= hi,
+              f"dryrun (b) {r['shape']}: dry-run peak / card peak "
+              f"{r['peak_ratio']:.4f} outside {DRYRUN_BAND}")
+    wire = {}
+    for traffic, rec in cell_recs.items():
+        dec = mesh["ranks"][0][traffic]["decode_collectives"]
+        measured = sum(dec["bytes"].values()) / dec["calls"]
+        traced = dryrun.collective_bytes(rec)
+        ana = rec["analytic"]["wire_bytes_per_dev"]
+        wire[traffic] = {"traced_bytes": traced, "measured_bytes": measured,
+                         "analytic_bytes": ana,
+                         "traced_by_op": rec["collectives"],
+                         "peak_bytes_per_rank":
+                             rec["memory"]["peak_bytes_per_device"]}
+        log(f"dryrun (c) {traffic} decode step on {MESH_SERVE}: "
+            + json.dumps(wire[traffic]))
+        check(abs(traced - measured) <= 1e-9 * measured
+              and abs(traced - ana) <= 1e-9 * ana,
+              f"dryrun (c) {traffic}: traced {traced} B, measured "
+              f"{measured} B, analytic {ana} B a decode step")
+    wall = time.perf_counter() - t0
+    log(f"dryrun phase {wall:.1f} s (the (b) paths' card calls "
+        f"{sum(r['card_s'] for r in recs):.1f} s inside their phases, "
+        f"their traces {sum(r['trace_s'] for r in recs):.1f} s beside "
+        "the kernel build)")
+    return {"meta": meta, "records": recs, "wire": wire, "wall_s": wall}
+
+
 def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
     dev = [p["kernels"][name]["device_ms_per_launch"] for p in profiles
            if name in p["kernels"]]
@@ -7266,7 +7809,9 @@ def main() -> int:
     def lap(what: str) -> None:
         log(f"{what} done: {time.perf_counter() - t_start:.0f} s so far")
     try:
+        traces = start_traces()
         setup = phase_setup()
+        finish_traces(traces)
         kernels = phase_kernels()
         lap("kernels")
         served = run_serve(kernels["floor"])
@@ -7348,9 +7893,15 @@ def main() -> int:
             roofline_paths(served, arctic, qwen3, gemma, falcon, jamba),
             roofline_counts(served, qwen3), mesh)
         lap("roofline")
+        gc.collect()
+        torch.cuda.empty_cache()
+        dry = phase_dryrun(mesh)
+        lap("dryrun")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
+    finally:
+        stop_trace_pool()
     launches = {"serve": served["counts"],
                 "serve_fused": served["fused"]["counts"],
                 "serve_expert_choice": served["ec"]["counts"],
@@ -7470,6 +8021,10 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in roof["flop_ratios"].items())
         + "; decode wire analytic / measured "
         + ", ".join(f"{k} {v['ratio']:.3f}" for k, v in roof["wire"].items())
+        + "; dry-run peak / card peak "
+        + ", ".join(f"{r['shape']} {r['peak_ratio']:.3f}"
+                    for r in dry["records"])
+        + f", phase {dry['wall_s']:.0f} s"
         + f"; {time.perf_counter() - t_start:.0f} s in all")
     print(setup["card"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

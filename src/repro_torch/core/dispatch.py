@@ -57,7 +57,12 @@ def plan(expert_index: torch.Tensor, weight: torch.Tensor, n_experts: int,
         order = torch.argsort(flat_e * 2 + (flat_w <= 0).long(), stable=True)
     sorted_e = flat_e[order]
     sorted_w = flat_w[order]
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    # Assignments an expert receives, counted by a scatter: bincount
+    # sizes its output from the data's maximum (a host sync on the card,
+    # and no meta kernel to trace).
+    counts = torch.zeros((n_experts,), dtype=torch.int64,
+                         device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(t * k, device=dev) - starts[sorted_e]
     pos_sorted = torch.where(sorted_w > 0, rank,
@@ -91,17 +96,20 @@ def filled_rows(p: DispatchPlan) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def dispatch(x: torch.Tensor, p: DispatchPlan) -> torch.Tensor:
-    """[T, d] -> [E, C, d].  Out-of-capacity assignments are dropped."""
+    """[T, d] -> [E, C, d].  Out-of-capacity assignments are dropped:
+    they write a sink row past the buffer's end, which is cut off (kept
+    assignments own unique slots), so no shape depends on the plan's
+    values and the scatter traces on ``meta``."""
     t, d = x.shape
     k = p.expert_index.shape[1]
-    buf = torch.zeros((p.n_experts, p.capacity, d), dtype=x.dtype,
-                      device=x.device)
+    n = p.n_experts * p.capacity
+    buf = torch.zeros((n + 1, d), dtype=x.dtype, device=x.device)
     flat_e = p.expert_index.reshape(-1).long()
     flat_pos = p.position.reshape(-1).long()
-    kept = flat_pos < p.capacity
-    rows = x.repeat_interleave(k, dim=0)
-    buf[flat_e[kept], flat_pos[kept]] = rows[kept]
-    return buf
+    slot = torch.where(flat_pos < p.capacity, flat_e * p.capacity + flat_pos,
+                       n)
+    buf[slot] = x.repeat_interleave(k, dim=0)
+    return buf[:n].view(p.n_experts, p.capacity, d)
 
 
 def combine(expert_out: torch.Tensor, p: DispatchPlan,

@@ -12,10 +12,18 @@ CUDA toolkit, and a build or load failure raises
 
 Each kernel wrapper calls :func:`count` once per launch; the counts let a
 run show that its main path went through the kernels.
+
+Inside :func:`meta_trace` a wrapper given ``meta`` tensors traces its
+CUDA path instead of launching: the same checks, the same outputs (shape,
+dtype, strides) and the same temporaries, allocated and freed, so a
+memory trace of a step on ``meta`` (``launch/dryrun.py``) sees what the
+card's allocator would.  Outside it a ``meta`` tensor raises like any
+other device without a kernel (:func:`launches`).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -80,6 +88,9 @@ class KernelLaunchError(RuntimeError):
 
 _launches: collections.Counter = collections.Counter()
 _state: dict = {}
+# Depth of nested meta_trace() blocks (a global, not a context variable:
+# the autograd engine may run a backward pass on another thread).
+_meta_depth = [0]
 
 
 def count(name: str) -> None:
@@ -92,6 +103,29 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     _launches.clear()
+
+
+@contextlib.contextmanager
+def meta_trace():
+    """Within the block, wrappers given ``meta`` tensors trace their CUDA
+    path: every check and allocation, no launch, no count."""
+    _meta_depth[0] += 1
+    try:
+        yield
+    finally:
+        _meta_depth[0] -= 1
+
+
+def launches(name: str, device: torch.device) -> bool:
+    """Whether a wrapper given tensors on ``device`` (not the CPU, whose
+    tensors take the plain version) launches its kernel: True on CUDA,
+    False on ``meta`` inside :func:`meta_trace` (the trace of the
+    launch); any other device raises :class:`KernelLaunchError`."""
+    if device.type == "cuda":
+        return True
+    if device.type == "meta" and _meta_depth[0]:
+        return False
+    raise KernelLaunchError(f"{name}: no kernel for device {device}")
 
 
 def _nvcc() -> str:
@@ -198,7 +232,8 @@ def call(name: str, *args) -> None:
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Every tensor on one CUDA device and contiguous."""
+    """Every tensor on one device (CUDA, or ``meta`` in a trace) and
+    contiguous."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:

@@ -80,15 +80,14 @@ def dispatch(x: torch.Tensor, eidx: torch.Tensor, pos: torch.Tensor,
     """[T, d] -> [E, C, d]: zeroed buffer with ``x[t] * scale[t, j]``
     copied into slot ``(eidx[t, j], pos[t, j])`` for kept assignments.
     ``scale=None`` means 1.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise; meta tensors in
+    ``cuda_lib.meta_trace()`` trace the launch."""
     if x.dim() != 2:
         raise ValueError(f"dispatch: x must be [T, d], got {tuple(x.shape)}")
     _check_plan("dispatch", eidx, pos, x.shape[0])
     if x.device.type == "cpu":
         return dispatch_plain(x, eidx, pos, scale, n_experts, capacity)
-    if x.device.type != "cuda":
-        raise cuda_lib.KernelLaunchError(
-            f"dispatch: no kernel for device {x.device}")
+    launch = cuda_lib.launches("dispatch", x.device)
     if x.dtype not in cuda_lib.DTYPE_CODES:
         raise ValueError(f"dispatch: unsupported dtype {x.dtype}")
     tensors = [x, eidx, pos]
@@ -100,6 +99,8 @@ def dispatch(x: torch.Tensor, eidx: torch.Tensor, pos: torch.Tensor,
     t, d = x.shape
     buf = torch.empty((n_experts, capacity, d), dtype=x.dtype,
                       device=x.device)
+    if not launch:
+        return buf
     cuda_lib.call("repro_dispatch", x.data_ptr(), eidx.data_ptr(),
                   pos.data_ptr(), 0 if scale is None else scale.data_ptr(),
                   buf.data_ptr(), t, eidx.shape[1], d, n_experts, capacity,
@@ -113,7 +114,8 @@ def combine(buf: torch.Tensor, w: torch.Tensor, eidx: torch.Tensor,
             ) -> torch.Tensor:
     """[E, C, d] -> [T, d]: ``y[t] = sum_j w[t, j] * buf[eidx, pos]``
     over kept slots, f32 accumulation in ascending j.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+    the plain version; CUDA tensors launch the kernel or raise; meta
+    tensors in ``cuda_lib.meta_trace()`` trace the launch."""
     out_dtype = out_dtype or buf.dtype
     if buf.dim() != 3:
         raise ValueError(f"combine: buf must be [E, C, d], got "
@@ -123,9 +125,7 @@ def combine(buf: torch.Tensor, w: torch.Tensor, eidx: torch.Tensor,
         raise ValueError("combine: w must be shaped like eidx")
     if buf.device.type == "cpu":
         return combine_plain(buf, w, eidx, pos, out_dtype)
-    if buf.device.type != "cuda":
-        raise cuda_lib.KernelLaunchError(
-            f"combine: no kernel for device {buf.device}")
+    launch = cuda_lib.launches("combine", buf.device)
     if buf.dtype not in cuda_lib.DTYPE_CODES or \
             out_dtype not in cuda_lib.DTYPE_CODES:
         raise ValueError(f"combine: unsupported dtypes {buf.dtype} -> "
@@ -136,6 +136,8 @@ def combine(buf: torch.Tensor, w: torch.Tensor, eidx: torch.Tensor,
     n_experts, capacity, d = buf.shape
     t, k = eidx.shape
     y = torch.empty((t, d), dtype=out_dtype, device=buf.device)
+    if not launch:
+        return y
     cuda_lib.call("repro_combine", buf.data_ptr(), w.data_ptr(),
                   eidx.data_ptr(), pos.data_ptr(), y.data_ptr(), t, k, d,
                   n_experts, capacity, cuda_lib.DTYPE_CODES[buf.dtype],
@@ -196,7 +198,8 @@ def dispatch_eblock(x: torch.Tensor, eidx: torch.Tensor, pos: torch.Tensor,
                     capacity: int, e_block: int) -> torch.Tensor:
     """[T, d] -> [E, C, d] through the slot table, one buffer row at a
     time, slab by slab: bit-identical to :func:`dispatch`.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    take the plain version; CUDA tensors launch the kernel or raise; meta
+    tensors in ``cuda_lib.meta_trace()`` trace the launch."""
     if x.dim() != 2:
         raise ValueError(f"dispatch_eblock: x must be [T, d], got "
                          f"{tuple(x.shape)}")
@@ -206,9 +209,7 @@ def dispatch_eblock(x: torch.Tensor, eidx: torch.Tensor, pos: torch.Tensor,
     if x.device.type == "cpu":
         return dispatch_eblock_plain(x, eidx, pos, scale, n_experts,
                                      capacity, e_block)
-    if x.device.type != "cuda":
-        raise cuda_lib.KernelLaunchError(
-            f"dispatch_eblock: no kernel for device {x.device}")
+    launch = cuda_lib.launches("dispatch_eblock", x.device)
     if x.dtype not in cuda_lib.DTYPE_CODES:
         raise ValueError(f"dispatch_eblock: unsupported dtype {x.dtype}")
     if scale is not None and (scale.dtype != torch.float32
@@ -221,6 +222,8 @@ def dispatch_eblock(x: torch.Tensor, eidx: torch.Tensor, pos: torch.Tensor,
     d = x.shape[1]
     buf = torch.empty((n_experts, capacity, d), dtype=x.dtype,
                       device=x.device)
+    if not launch:
+        return buf
     cuda_lib.call("repro_dispatch_eblock", x.data_ptr(), btok.data_ptr(),
                   bscale.data_ptr(), buf.data_ptr(), d, n_experts, capacity,
                   e_block, cuda_lib.DTYPE_CODES[x.dtype])
@@ -255,7 +258,8 @@ def combine_eblock(buf: torch.Tensor, w: torch.Tensor, eidx: torch.Tensor,
                    e_block: int) -> torch.Tensor:
     """[E, C, d] -> [T, d] walking the experts in slabs of ``e_block``.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise (the kernel sorts a token's slots in 48 KB of shared
+    or raise; meta tensors in ``cuda_lib.meta_trace()`` trace the launch
+    (the kernel sorts a token's slots in 48 KB of shared
     memory, 28 bytes a slot: k <= 1755)."""
     out_dtype = out_dtype or buf.dtype
     if buf.dim() != 3:
@@ -268,9 +272,7 @@ def combine_eblock(buf: torch.Tensor, w: torch.Tensor, eidx: torch.Tensor,
         raise ValueError("combine_eblock: w must be shaped like eidx")
     if buf.device.type == "cpu":
         return combine_eblock_plain(buf, w, eidx, pos, out_dtype, e_block)
-    if buf.device.type != "cuda":
-        raise cuda_lib.KernelLaunchError(
-            f"combine_eblock: no kernel for device {buf.device}")
+    launch = cuda_lib.launches("combine_eblock", buf.device)
     if buf.dtype not in cuda_lib.DTYPE_CODES or \
             out_dtype not in cuda_lib.DTYPE_CODES or w.dtype != torch.float32:
         raise ValueError(f"combine_eblock: unsupported dtypes {buf.dtype} "
@@ -279,6 +281,8 @@ def combine_eblock(buf: torch.Tensor, w: torch.Tensor, eidx: torch.Tensor,
     n_experts, capacity, d = buf.shape
     t, k = eidx.shape
     y = torch.empty((t, d), dtype=out_dtype, device=buf.device)
+    if not launch:
+        return y
     cuda_lib.call("repro_combine_eblock", buf.data_ptr(), w.data_ptr(),
                   eidx.data_ptr(), pos.data_ptr(), y.data_ptr(), t, k, d,
                   n_experts, capacity, e_block,

@@ -153,18 +153,18 @@ def _check_activation(activation, w3):
         raise ValueError("activation='swiglu' needs w3")
 
 
-def _on_card(name: str, x: torch.Tensor, weights) -> None:
+def _on_card(name: str, x: torch.Tensor, weights) -> bool:
     """The CUDA launch's dtype checks (the kernels read weights in the
-    activations' type, as the reference casts them)."""
-    if x.device.type != "cuda":
-        raise cuda_lib.KernelLaunchError(
-            f"{name}: no kernel for device {x.device}")
+    activations' type, as the reference casts them); whether the call
+    launches (``cuda_lib.launches``: False for a meta trace)."""
+    launch = cuda_lib.launches(name, x.device)
     if x.dtype not in cuda_lib.DTYPE_CODES:
         raise ValueError(f"{name}: unsupported dtype {x.dtype}")
     for w in weights:
         if w is not None and w.dtype != x.dtype:
             raise ValueError(f"{name}: weights ({w.dtype}) must be in the "
                              f"activations' type ({x.dtype})")
+    return launch
 
 
 @functools.lru_cache(maxsize=256)
@@ -180,9 +180,43 @@ def _workspace_bytes(*args) -> int:
     return max(n.value, 1)
 
 
-def _workspace(x, *args) -> torch.Tensor:
-    return torch.empty((_workspace_bytes(*args),), dtype=torch.uint8,
-                       device=x.device)
+# csrc/fused_decode.cu's tiling constants that size the workspace.
+FD_KC, FD_RT = 1024, 64
+
+
+def workspace_bytes(decode: int, t_in: int, k_in: int, d_in: int,
+                    d_out: int, f: int, n_experts: int, capacity: int,
+                    mode: int, activation: int, dtype: int) -> int:
+    """``repro_fused_workspace_bytes`` on the host: csrc/fused_decode.cu's
+    ``layout()`` (each region rounded up to 256 bytes), at least 1.  A
+    meta trace sizes its workspace with it; chip_smoke.py holds it to
+    the library's answer."""
+    del activation
+    if t_in < 0 or k_in < 1 or n_experts < 1 or capacity < 1 or \
+            dtype not in cuda_lib.DTYPE_CODES.values():
+        raise cuda_lib.KernelLaunchError(
+            f"fused workspace: rejected {(t_in, k_in, n_experts, capacity)}")
+    ffn = bool(decode) or mode == MODES["ffn"]
+    elt = 2 if dtype == cuda_lib.DTYPE_CODES[torch.bfloat16] else 4
+    n_assign = t_in * k_in
+    max_used = min(n_experts, n_assign)
+    n_ctr = max_used * -(-capacity // FD_RT)
+    n_chunks = -(-d_in // FD_KC) if decode else 0
+    regions = [n_chunks * t_in * n_experts * 4 if decode else 0,   # part
+               t_in * n_experts * 4 if decode else 0,              # logits
+               *([n_assign * 4 if decode else 0] * 3),             # fe fp fw
+               n_experts * 4,                                      # uidx
+               max_used * 4, max_used * 4, 4,                      # nrows ..
+               max_used * capacity * 4,                            # slot_tok
+               max_used * capacity * f * elt if ffn else 0,        # hs
+               max_used * capacity * d_out * elt,                  # outb
+               4, n_ctr * 4, n_ctr * 4]                            # tickets
+    return max(sum(-(-r // 256) * 256 for r in regions), 1)
+
+
+def _workspace(x, launch: bool, *args) -> torch.Tensor:
+    n = _workspace_bytes(*args) if launch else workspace_bytes(*args)
+    return torch.empty((n,), dtype=torch.uint8, device=x.device)
 
 
 def decode_step(x: torch.Tensor, valid: torch.Tensor, wg: torch.Tensor,
@@ -192,7 +226,8 @@ def decode_step(x: torch.Tensor, valid: torch.Tensor, wg: torch.Tensor,
     """One fused MoE decode step.  x [T, d]; valid [T] slot occupancy;
     wg [d, E] gate; w1 / w3 [E, d, f], w2 [E, f, d].  Returns (y [T, d],
     expert_load [E] f32, overflow [E] f32).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel or raise; meta tensors in
+    ``cuda_lib.meta_trace()`` trace the launch."""
     if x.dim() != 2 or wg.dim() != 2 or wg.shape[0] != x.shape[1]:
         raise ValueError(f"decode_step: x {tuple(x.shape)} and wg "
                          f"{tuple(wg.shape)} are not [T, d] and [d, E]")
@@ -216,7 +251,7 @@ def decode_step(x: torch.Tensor, valid: torch.Tensor, wg: torch.Tensor,
     if x.device.type == "cpu":
         return decode_step_plain(x, valid, wg, w1, w2, w3, k=k,
                                  capacity=capacity, activation=activation)
-    _on_card("decode_step", x, (w1, w2, w3))
+    launch = _on_card("decode_step", x, (w1, w2, w3))
     if t == 0:
         zero = torch.zeros((e,), dtype=torch.float32, device=x.device)
         return x.clone(), zero, zero.clone()
@@ -226,10 +261,12 @@ def decode_step(x: torch.Tensor, valid: torch.Tensor, wg: torch.Tensor,
                         *([w3] if w3 is not None else []))
     code = cuda_lib.DTYPE_CODES[x.dtype]
     act = ACTIVATIONS[activation]
-    ws = _workspace(x, 1, t, k, d, d, f, e, capacity, 0, act, code)
+    ws = _workspace(x, launch, 1, t, k, d, d, f, e, capacity, 0, act, code)
     y = torch.empty_like(x)
     load = torch.empty((e,), dtype=torch.float32, device=x.device)
     overflow = torch.empty((e,), dtype=torch.float32, device=x.device)
+    if not launch:
+        return y, load, overflow
     cuda_lib.call("repro_fused_decode", x.data_ptr(), valid.data_ptr(),
                   wg.data_ptr(), w1.data_ptr(), w2.data_ptr(),
                   0 if w3 is None else w3.data_ptr(), y.data_ptr(),
@@ -259,7 +296,8 @@ def routed_apply(x: torch.Tensor, in_eidx: torch.Tensor,
     and w3 for swiglu), ``mode="proj"`` the projection w1 [E, d_in,
     d_out]; ``out_eidx`` / ``out_pos`` / ``out_w`` ([T_out, k_out])
     gather the rows back, weighted.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel or raise; meta tensors in
+    ``cuda_lib.meta_trace()`` trace the launch."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} (expected one of "
                          f"{sorted(MODES)})")
@@ -297,7 +335,7 @@ def routed_apply(x: torch.Tensor, in_eidx: torch.Tensor,
                                   capacity=capacity, mode=mode,
                                   activation=activation,
                                   out_dtype=out_dtype)
-    _on_card("routed_apply", x, (w1, w2, w3))
+    launch = _on_card("routed_apply", x, (w1, w2, w3))
     if out_dtype not in cuda_lib.DTYPE_CODES:
         raise ValueError(f"routed_apply: unsupported out dtype {out_dtype}")
     plans = [t.to(torch.int32).contiguous()
@@ -309,9 +347,11 @@ def routed_apply(x: torch.Tensor, in_eidx: torch.Tensor,
     t_out, k_out = out_eidx.shape
     code = cuda_lib.DTYPE_CODES[x.dtype]
     act = ACTIVATIONS[activation] if mode == "ffn" else 0
-    ws = _workspace(x, 0, t_in, k_in, d_in, d_out, f, n_experts, capacity,
-                    MODES[mode], act, code)
+    ws = _workspace(x, launch, 0, t_in, k_in, d_in, d_out, f, n_experts,
+                    capacity, MODES[mode], act, code)
     y = torch.empty((t_out, d_out), dtype=out_dtype, device=x.device)
+    if not launch:
+        return y
     cuda_lib.call("repro_fused_routed", x.data_ptr(),
                   *(t.data_ptr() for t in plans), out_w.data_ptr(), w1.data_ptr(), 0 if w2 is None else w2.data_ptr(),
                   0 if w3 is None else w3.data_ptr(), y.data_ptr(),

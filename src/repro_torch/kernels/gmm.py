@@ -103,7 +103,8 @@ def gmm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
     ``trans_x``, where they are the reduction, it stops there).
     ``kernel`` forces ``"stream"`` or ``"tile"`` (measurements and
     tests); ``None`` takes :func:`kernel_for`'s choice.  CPU tensors take
-    the plain version; CUDA tensors launch a kernel or raise."""
+    the plain version; CUDA tensors launch a kernel or raise; meta
+    tensors in ``cuda_lib.meta_trace()`` trace the launch."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown gmm activation {activation!r} "
                          f"(expected one of {sorted(ACTIVATIONS)})")
@@ -139,13 +140,13 @@ def gmm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
                          f"{x.dtype}, C = {c}, transposed = {transposed}")
     if x.device.type == "cpu":
         return gmm_plain(x, w, activation, trans_x, trans_w, rows)
-    if x.device.type != "cuda":
-        raise cuda_lib.KernelLaunchError(
-            f"gmm: no kernel for device {x.device}")
+    launch = cuda_lib.launches("gmm", x.device)
     if x.dtype not in cuda_lib.DTYPE_CODES:
         raise ValueError(f"gmm: unsupported dtype {x.dtype}")
     cuda_lib.check_cuda("gmm", x, w, *(() if rows is None else (rows,)))
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
+    if not launch:
+        return out
     cuda_lib.call("repro_gmm", x.data_ptr(), w.data_ptr(), out.data_ptr(),
                   None if rows is None else rows.data_ptr(), e, c, k, n,
                   ACTIVATIONS[activation], cuda_lib.DTYPE_CODES[x.dtype],

@@ -41,7 +41,7 @@ def topk_gating(logits: torch.Tensor, k: int, kk: int | None = None):
     idx [T,kk] int32, vals [T,kk] f32 raw top values).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise."""
+    or raise; meta tensors in ``cuda_lib.meta_trace()`` trace the launch."""
     kk = k if kk is None else kk
     if logits.dim() != 2:
         raise ValueError(f"logits must be [T, E], got {tuple(logits.shape)}")
@@ -51,9 +51,7 @@ def topk_gating(logits: torch.Tensor, k: int, kk: int | None = None):
                          f"k={k}, kk={kk}, E={e}")
     if logits.device.type == "cpu":
         return topk_gating_plain(logits, k, kk)
-    if logits.device.type != "cuda":
-        raise cuda_lib.KernelLaunchError(
-            f"topk_gating: no kernel for device {logits.device}")
+    launch = cuda_lib.launches("topk_gating", logits.device)
     if logits.dtype != torch.float32:
         raise ValueError(f"topk_gating: logits must be float32, got "
                          f"{logits.dtype}")
@@ -65,7 +63,7 @@ def topk_gating(logits: torch.Tensor, k: int, kk: int | None = None):
     w = torch.empty((t, k), dtype=torch.float32, device=dev)
     idx = torch.empty((t, kk), dtype=torch.int32, device=dev)
     vals = torch.empty((t, kk), dtype=torch.float32, device=dev)
-    if t:
+    if t and launch:
         cuda_lib.call("repro_topk_gating", logits.data_ptr(), w.data_ptr(),
                       idx.data_ptr(), vals.data_ptr(), t, e, k, kk)
         cuda_lib.count("topk_gating")
@@ -100,7 +98,8 @@ def topk_gating_bwd(w: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,
     w, dw [T,k] f32, idx, dvals [T,kk] -> dlogits [T, E] f32 with
     ``dvals + [w (dw - <w, dw>), 0]`` at the kk winning columns and zero
     elsewhere.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    the kernel or raise; meta tensors in ``cuda_lib.meta_trace()`` trace
+    the launch."""
     t, k = w.shape
     kk = idx.shape[1]
     if dw.shape != w.shape or idx.shape != dvals.shape or idx.shape[0] != t \
@@ -110,9 +109,7 @@ def topk_gating_bwd(w: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,
                          f"{tuple(dvals.shape)} and E={n_experts} disagree")
     if w.device.type == "cpu":
         return topk_gating_bwd_plain(w, idx, dw, dvals, n_experts)
-    if w.device.type != "cuda":
-        raise cuda_lib.KernelLaunchError(
-            f"topk_gating_bwd: no kernel for device {w.device}")
+    launch = cuda_lib.launches("topk_gating_bwd", w.device)
     if any(a.dtype != torch.float32 for a in (w, dw, dvals)) \
             or idx.dtype != torch.int32:
         raise ValueError("topk_gating_bwd: w, dw, dvals must be float32 and "
@@ -121,7 +118,7 @@ def topk_gating_bwd(w: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,
         raise ValueError(f"topk_gating_bwd kernel takes kk <= {MAX_KK}")
     cuda_lib.check_cuda("topk_gating_bwd", w, idx, dw, dvals)
     out = torch.empty((t, n_experts), dtype=torch.float32, device=w.device)
-    if t:
+    if t and launch:
         cuda_lib.call("repro_topk_gating_bwd", w.data_ptr(), idx.data_ptr(),
                       dw.data_ptr(), dvals.data_ptr(), out.data_ptr(), t,
                       n_experts, k, kk)

@@ -7,9 +7,10 @@ A record is one JSON line: ``arch``, ``shape``, ``mesh`` (a name),
 ``status`` (ok | skipped | error), and for an ok record ``analytic``
 (``launch.analytic.Analytic``'s counts and detail) and ``roofline``
 (``launch.roofline.Roofline``'s terms with ``roofline_fraction``);
-``measured_peak_bytes`` where a run measured the device's peak.  The
-port compiles nothing, so the dry-run table has no compile seconds, no
-compiler's peak and no collective op counts.
+``measured_peak_bytes`` where a run measured the device's peak; from
+``launch/dryrun.py``, ``memory`` (the traced peak a rank), ``fits`` and
+``trace_s``.  The port compiles nothing, so the dry-run table has no
+compile seconds and no collective op counts.
 """
 from __future__ import annotations
 
@@ -31,26 +32,38 @@ def load(path):
 
 
 def dryrun_table(recs, mesh):
-    rows = ["| arch | shape | status | resident GiB/dev "
-            "| measured peak GiB/dev | fallbacks |",
-            "|---|---|---|---|---|---|"]
+    """One row a cell of ``mesh``.  Where the records hold a dry run's
+    trace (``memory``, of ``launch/dryrun.py``) the table gains its
+    peak, whether that fits the card and the trace's host seconds."""
+    recs = [r for r in recs if r["mesh"] == mesh]
+    traced = any("memory" in r for r in recs)
+    head = ["arch", "shape", "status", "resident GiB/dev"]
+    head += ["dry-run peak GiB/dev", "fits 80 GB"] if traced else []
+    head += ["measured peak GiB/dev", "fallbacks"]
+    head += ["trace s"] if traced else []
+    rows = ["| " + " | ".join(head) + " |", "|" + "---|" * len(head)]
     for r in recs:
-        if r["mesh"] != mesh:
-            continue
+        cells = [r["arch"], r["shape"]]
         if r["status"] == "skipped":
-            rows.append(f"| {r['arch']} | {r['shape']} | skipped "
-                        f"(sub-quadratic gate) | — | — | — |")
-            continue
-        if r["status"] == "error":
-            rows.append(f"| {r['arch']} | {r['shape']} | ERROR | — | — "
-                        f"| {r['error'][:40]} |")
-            continue
-        peak = r.get("measured_peak_bytes")
-        rows.append(
-            f"| {r['arch']} | {r['shape']} | ok "
-            f"| {fmt_bytes(r['analytic']['resident_bytes_per_dev'])} "
-            f"| {'—' if peak is None else fmt_bytes(peak)} "
-            f"| {len(r.get('sharding_fallbacks', []))} |")
+            cells += ["skipped (sub-quadratic gate)"]
+            cells += ["—"] * (len(head) - len(cells))
+        elif r["status"] == "error":
+            cells += ["ERROR"] + ["—"] * (len(head) - 4)
+            cells.insert(head.index("fallbacks"), r["error"][:40])
+        else:
+            peak = r.get("measured_peak_bytes")
+            mem = r.get("memory")
+            cells += ["ok",
+                      fmt_bytes(r["analytic"]["resident_bytes_per_dev"])]
+            if traced:
+                cells += ["—", "—"] if mem is None else [
+                    fmt_bytes(mem["peak_bytes_per_device"]),
+                    "yes" if r["fits"] else "no"]
+            cells += ["—" if peak is None else fmt_bytes(peak),
+                      str(len(r.get("sharding_fallbacks", [])))]
+            if traced:
+                cells += ["—" if mem is None else str(r["trace_s"])]
+        rows.append("| " + " | ".join(cells) + " |")
     return "\n".join(rows)
 
 

@@ -36,6 +36,7 @@ H100 = {
     "hbm_bandwidth": 3.35e12,          # bytes/s
     "peak_flops": {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12},
     "nvlink_bandwidth": 450e9,         # bytes/s a direction
+    "hbm_bytes": 80 * 2**30,           # the 80 GB card's memory
 }
 
 

@@ -459,10 +459,14 @@ def attend_cached_sharded(q, k_new, v_new, cache: dict, cur: torch.Tensor,
     length = k.shape[1]
     lo = ctx.index(axes) * length
     local = cur - lo
-    mine = (local >= 0) & (local < length)
-    rows = torch.arange(b, device=q.device)[mine]
-    k[rows, local[mine]] = k_new[mine, 0].to(k.dtype)
-    v[rows, local[mine]] = v_new[mine, 0].to(v.dtype)
+    mine = ((local >= 0) & (local < length))[:, None, None]
+    # A row whose position lies on another rank writes its own slot's
+    # value back (no shape depends on the positions: no host sync, and
+    # the write traces on meta).
+    rows = torch.arange(b, device=q.device)
+    at = local.clamp(0, length - 1)
+    k[rows, at] = torch.where(mine, k_new[:, 0].to(k.dtype), k[rows, at])
+    v[rows, at] = torch.where(mine, v_new[:, 0].to(v.dtype), v[rows, at])
     kv_heads = k.shape[2]
     qr = q.reshape(b, 1, kv_heads, h // kv_heads, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qr, k.float()) / (hd ** 0.5)

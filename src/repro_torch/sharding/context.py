@@ -53,12 +53,21 @@ two ranks sharing one card run over gloo and nothing here stages a
 tensor by hand; NCCL is the backend wherever each rank has a card of
 its own.
 
+:func:`record_collectives` counts, per op (``all_to_all``,
+``all_gather``, ``all_reduce``, ``shift``), the calls and the bytes this
+rank sends (ring-algorithm bytes: (g-1)/g of an all-to-all's buffer,
+g-1 times an all-gather's input, 2(g-1)/g of an all-reduce's tensor,
+the tensor a shift sends), backward passes included: the dry run's
+collective schedule (``launch/dryrun.py``), in ``launch/analytic.py``'s
+convention.
+
 The reference's jax-version shims (abstract-mesh queries, ``make_mesh``
 with axis types, ``use_mesh``, ``shard_map``, ``axis_size``) have no
 counterpart: they probe JAX's API surface, which the port does not use.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 import math
@@ -84,6 +93,44 @@ def _strip(spec: Spec, manual: frozenset) -> Spec:
 
 
 # ---------------------------------------------------------------------------
+# the collective recorder
+# ---------------------------------------------------------------------------
+
+# Open record_collectives() tables (a list, not a context variable: the
+# autograd engine may run a backward pass on another thread).
+_RECORDS: list = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Within the block, each collective of this module adds one call
+    and the bytes this rank sends to the yielded table, ``{op: {"calls",
+    "bytes"}}``."""
+    table: dict = {}
+    _RECORDS.append(table)
+    try:
+        yield table
+    finally:
+        _RECORDS.remove(table)
+
+
+def _record(op: str, t: torch.Tensor, group, share) -> None:
+    """One call of ``op`` on ``t`` over ``group``; ``share(g)`` is the
+    fraction of ``t``'s bytes a rank sends in a group of ``g``."""
+    if not _RECORDS:
+        return
+    sent = t.numel() * t.element_size() * share(dist.get_world_size(group))
+    for table in _RECORDS:
+        row = table.setdefault(op, {"calls": 0, "bytes": 0})
+        row["calls"] += 1
+        row["bytes"] += sent
+
+
+def _a2a_share(g):
+    return (g - 1) / g
+
+
+# ---------------------------------------------------------------------------
 # autograd-aware collectives
 # ---------------------------------------------------------------------------
 
@@ -95,6 +142,7 @@ class _AllToAll(torch.autograd.Function):
         ctx.group = group
         x = x.contiguous()
         out = torch.empty_like(x)
+        _record("all_to_all", x, group, _a2a_share)
         dist.all_to_all_single(out, x, group=group)
         return out
 
@@ -113,6 +161,7 @@ class _AllGather(torch.autograd.Function):
         ctx.group, ctx.dim = group, dim
         n = dist.get_world_size(group)
         parts = [torch.empty_like(x) for _ in range(n)]
+        _record("all_gather", x, group, lambda g: g - 1)
         dist.all_gather(parts, x.contiguous(), group=group)
         return torch.cat(parts, dim=dim)
 
@@ -121,6 +170,7 @@ class _AllGather(torch.autograd.Function):
         n = dist.get_world_size(ctx.group)
         chunks = torch.stack(torch.chunk(grad, n, dim=ctx.dim)).contiguous()
         got = torch.empty_like(chunks)
+        _record("all_to_all", chunks, ctx.group, _a2a_share)
         dist.all_to_all_single(got, chunks, group=ctx.group)
         return torch.sum(got, dim=0), None, None
 
@@ -133,6 +183,7 @@ class _AllReduce(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = x.clone(memory_format=torch.contiguous_format)
+        _record("all_reduce", out, group, lambda g: 2 * (g - 1) / g)
         dist.all_reduce(out, group=group)
         return out
 
@@ -156,6 +207,7 @@ def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
     send = [m if j == dst else 0 for j in range(n)]
     recv = [m if j == src else 0 for j in range(n)]
     out = torch.empty((sum(recv),), dtype=x.dtype, device=x.device)
+    _record("shift", flat, group, lambda g: 1)
     dist.all_to_all_single(out, flat, output_split_sizes=recv,
                            input_split_sizes=send, group=group)
     if 0 <= src < n:
@@ -338,6 +390,7 @@ class MeshContext:
         """In-place sum of a tensor outside autograd (gradients, norms)."""
         axes = self.free_axes if axes is None else tuple(axes)
         for g in self._groups(axes):
+            _record("all_reduce", t, g, lambda n: 2 * (n - 1) / n)
             dist.all_reduce(t, group=g)
         return t
 
