@@ -356,7 +356,23 @@ Phases, in order; any failure exits non-zero and prints no result:
              fused, run beside (a): its collective bytes a step equal to
              phase 24's measured bytes and to ``analyze_cell``'s wire
              bytes.
-28. report — one ``{"kernels": [...]}`` line, then the result line.
+28. mesh_routed — MoA and the hierarchical MoE on a mesh, their global
+             plan (``core/expert_parallel.py::GlobalPlan``): two gloo
+             ranks sharing the card against one process on the same
+             weights and draws.  (a) moa-demo at its published widths
+             in f32, step 0 of B 8 x S 1024 on (1, 2) and (2, 1) at its
+             own capacity factor, and on (1, 2) at MoA capacity factor
+             1 (tokens drop); (b) moa-demo served (bf16) on (1, 2)
+             under decode_std, phase 8's traffic unfused and fused; (c)
+             moe-4096-h at full width in f32, step 0 of B 32 x S 128 on
+             (1, 2), 8 groups a rank.  Gates: loss, metrics and every
+             gradient a rank holds to phase 23's tolerances (for (c)
+             the non-expert gradients and the expert gradients of each
+             rank's first and last group), fraction_dropped equal,
+             streams equal, logits within one bf16 unit of the logit
+             scale, exact launches on every rank.  Reported: the
+             collectives' calls, bytes and share of each step.
+29. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -6004,27 +6020,37 @@ class _CollectiveClock:
             lm.lm_decode = real
 
 
-def _leaf_errs(ctx, grads, ref_path: str, defs) -> dict:
+def _leaf_errs(ctx, grads, ref, defs, expert=None) -> dict:
     """Each gradient leaf of this rank (its slice of the full gradient)
-    against the same slice of the one-process gradient: the normwise
-    relative and the largest absolute error."""
+    against the same slice of the one process's (``ref``, on the host):
+    the normwise relative and the largest absolute error, and the one
+    process's norm.  ``expert(path, g, r)`` gives the (tag, rank's, one
+    process's) pairs of a leaf whose one-process gradient holds some
+    expert groups only (None: the leaf is whole)."""
     import torch
-    ref = torch.load(ref_path, mmap=True, weights_only=True)
     errs = {}
 
-    def walk(g, r, s, name):
-        if isinstance(g, dict):
-            for k in sorted(g):
-                walk(g[k], r[k], s[k], f"{name}.{k}" if name else k)
-            return
-        want = ctx.shard_leaf(r, s).to("cuda")
+    def one(name, g, want):
+        want = want.to("cuda")
         diff = torch.linalg.vector_norm((g - want).float())
         norm = torch.linalg.vector_norm(want.float())
         errs[name] = {"norm_rel": float(diff / torch.clamp(norm, min=1e-30)),
                       "max_abs": float((g - want).abs().max()),
-                      "finite": bool(torch.isfinite(g).all())}
-        del want
-    walk(grads, ref, ctx.specs(defs), "")
+                      "finite": bool(torch.isfinite(g).all()),
+                      "norm": float(norm)}
+
+    def walk(g, r, s, path):
+        if isinstance(g, dict):
+            for k in sorted(g):
+                walk(g[k], r[k], s[k], path + (k,))
+            return
+        pairs = None if expert is None else expert(path, g, r)
+        if pairs is None:
+            one(".".join(path), g, ctx.shard_leaf(r, s))
+        else:
+            for tag, mine, want in pairs:
+                one(f"{'.'.join(path)}[{tag}]", mine, want)
+    walk(grads, ref, ctx.specs(defs), ())
     return errs
 
 
@@ -6096,9 +6122,9 @@ def _dist_rank_body(rank: int, model: int, workdir: str, ef: bool) -> dict:
     torch.cuda.synchronize()
     res["step0_launches"] = cuda_lib.launch_counts()
     res["step0_metrics"] = {k: float(v) for k, v in metrics.items()}
-    res["step0_grads"] = _leaf_errs(ctx, grads,
-                                    os.path.join(workdir, "ref_grads.pt"),
-                                    defs)
+    res["step0_grads"] = _leaf_errs(
+        ctx, grads, torch.load(os.path.join(workdir, "ref_grads.pt"),
+                               mmap=True, weights_only=True), defs)
     if ef:
         # One int8 error-feedback sync of the step's gradient tree over
         # the two ranks; each leaf's error against the exact mean (an
@@ -6423,10 +6449,13 @@ class _LogitRecorder:
         return False
 
 
-def _mesh_serve_run(what, cfg, params, sc_kw, trace, ctx=None) -> dict:
+def _mesh_serve_run(what, cfg, params, sc_kw, trace, ctx=None,
+                    launches=None) -> dict:
     """One traffic through an engine (on ``ctx`` or one process): a
     warm-up, then the run with the launches zeroed just before and read
-    just after, each call's logits recorded."""
+    just after, each call's logits recorded.  ``launches``: (a model
+    call's unfused launches, a fused decode step's on one process, on a
+    mesh); phase 24's kimi-k2 layer by default."""
     import numpy as np
     import torch
     from repro_torch.kernels import cuda_lib
@@ -6450,10 +6479,11 @@ def _mesh_serve_run(what, cfg, params, sc_kw, trace, ctx=None) -> dict:
               f"{what}: request {r.rid} ended with {len(r.tokens)} tokens")
     stats = engine.stats
     fused = sc_kw.get("fused_decode", False)
+    unfused, fused_one, fused_mesh = launches or (
+        MESH_UNFUSED, MESH_FUSED_DECODE["one"], MESH_FUSED_DECODE["mesh"])
     want = expected_launches(
-        stats, MESH_UNFUSED, MESH_FUSED_DECODE["one" if ctx is None else
-                                               "mesh"]
-        if fused else MESH_UNFUSED)
+        stats, unfused, (fused_one if ctx is None else fused_mesh)
+        if fused else unfused)
     check(counts == want, f"{what}: launches {counts}, expected {want}")
     if ctx is not None:
         check(stats["reshards"] == stats["prefills"] == len(reqs),
@@ -6875,8 +6905,9 @@ def _pp_qwen_rank(rank: int, model: int, workdir: str) -> dict:
     torch.cuda.synchronize()
     res["fwd_bwd_ms"] = 1e3 * (time.perf_counter() - t0)
     res["loss"] = float(m["loss"].detach())
-    res["grads"] = _leaf_errs(pp, grads, os.path.join(
-        workdir, "pp_ref_grads.pt"), defs)
+    res["grads"] = _leaf_errs(pp, grads, torch.load(
+        os.path.join(workdir, "pp_ref_grads.pt"), mmap=True,
+        weights_only=True), defs)
     del grads
     for p in pm.tree_leaves(local):
         p.grad = None
@@ -7785,6 +7816,567 @@ def kernel_row(name, r, launches_by_path, profiles, floor) -> dict:
                             "jamba_", "mesh_"))}}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: MoA and the hierarchical MoE on a mesh (their global plan)
+# ---------------------------------------------------------------------------
+
+# Two gloo ranks sharing the card, one spawn for the three parts, each
+# held to one process on the same weights and draws (the references run
+# first, on this process):
+# (a) moa-demo at its published widths in f32 (as phase 25 runs qwen3),
+# step 0 of B x S = MOA_TRAIN_B x MOA_TRAIN_S on meshes (1, 2) and (2, 1)
+# at the config's own capacity factor, and on (1, 2) with MoA's tokens
+# dropping (ROUTED_MOA_CASES): loss, metrics and every gradient leaf a
+# rank holds to phase 23's DIST_* tolerances, fraction_dropped equal,
+# MOA_TRAIN_LAUNCHES on every rank (the global plan launches what one
+# process does);
+# (b) moa-demo (bf16) served on (1, 2) under decode_std, phase 8's 8
+# requests unfused and fused: streams equal to one process's, every
+# call's logits within ROUTED_LOGIT_TOL (one bf16 unit) of the logit
+# scale, exact launches (fused: kernel 8 twice a MoA layer, the MoE
+# layers' top-k and kernel 8 "ffn" on the rank's experts);
+# (c) moe-4096-h at full width (f32, vocab 32,000), step 0 of TRAIN_B x
+# TRAIN_S on (1, 2), 8 groups a rank: loss, metrics and fraction_dropped
+# as (a), every non-expert gradient and the expert gradients of each
+# rank's first and last group (ROUTED_HMOE_GROUPS of the one process's,
+# the only expert gradients moved to the host), HMOE_LAUNCHES on every
+# rank; the step's collectives (calls, bytes, share of the step) printed.
+# The references reach the ranks as one file in the phase's temporary
+# directory (4.3 GB of expert gradients: the four groups).  The ranks
+# start with the phase and warm up (ROUTED_WARMUP: a small moa-demo and
+# hierarchical paper LM step on (1, 2), noiseless) while this process
+# computes the references, so a fresh process's first-use costs (8-15 s
+# of its first moa-demo step on the H100 host) fall outside the
+# compared steps and beside the references.
+ROUTED_WARMUP = {"b": 2, "s": 128, "hierarchical": (16, 4),
+                 "vocab": 1024}
+# (a)'s cases: (name, MoA's capacity factor (None: the config's), the
+# meshes).  At moa-demo's own factor 2 no token drops; at MoA factor 1
+# (its own router, moa_router) the MoA layers drop, the flat MoE FFN's
+# per-shard capacity stays at the config's factor.
+ROUTED_MOA_CASES = (("moa", None, ((1, 2), (2, 1))),
+                    ("moa_drops", 1.0, ((1, 2),)))
+ROUTED_SERVE_MESH = (1, 2)
+ROUTED_LOGIT_TOL = 2.0 ** -7
+ROUTED_TRAFFIC = ("serve", "fused")
+ROUTED_HMOE_GROUPS = (0, 7, 8, 15)
+# The metrics compared (the ranks' mean of a rank's perplexity is not
+# the batch's).
+ROUTED_METRICS = ("xent", "aux_loss", "cv_importance", "cv_load",
+                  "max_over_mean_load")
+MOA_GATES = (("blocks", "periods", "pos0", "moe", "gate", "wg"),
+             ("blocks", "periods", "pos1", "moa", "gate", "wg"))
+HMOE_GATES = (("moe", "gate_primary", "wg"), ("moe", "gate_secondary", "wg"))
+
+
+def _seeded(defs, seed: int, gates, d_model: int, cut=None):
+    """The tree of ``defs`` drawn from ``seed``, the ``gates`` (paths)
+    redrawn after it with std d_model^-1/2; with ``cut`` each leaf is
+    drawn whole and a rank's slice kept (the one process's draws)."""
+    import torch
+    from repro_torch.common import param as pm
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = pm.materialize(defs, gen, "cuda", cut=cut)
+    for path in gates:
+        d, node = defs, params
+        for key in path[:-1]:
+            d, node = d[key], node[key]
+        d = d[path[-1]]
+        t = torch.empty(d.shape, dtype=d.dtype, device="cuda")
+        t.normal_(0.0, d_model ** -0.5, generator=gen)
+        node[path[-1]] = t if cut is None else cut(d, t)
+    return params
+
+
+def _routed_moa_cfg(f32: bool, moa_cf=None):
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.router import RouterSpec
+    cfg = get_config(MOA_ARCH)
+    if f32:
+        cfg = cfg.replace(param_dtype=torch.float32,
+                          compute_dtype=torch.float32)
+    if moa_cf is not None:
+        cfg = cfg.replace(moa_router=RouterSpec(capacity_factor=moa_cf))
+    return cfg
+
+
+def _routed_moa_params(f32: bool, cut=None, moa_cf=None):
+    from repro_torch.models import lm
+    cfg = _routed_moa_cfg(f32, moa_cf)
+    return cfg, _seeded(lm.lm_defs(cfg), SEED + 28, MOA_GATES, cfg.d_model,
+                        cut)
+
+
+def _routed_moa_data():
+    from repro_torch.data.pipeline import DataConfig
+    return DataConfig(vocab_size=_routed_moa_cfg(True).vocab_size,
+                      seq_len=MOA_TRAIN_S, batch_size=MOA_TRAIN_B, seed=SEED)
+
+
+def _routed_hmoe_params(cut=None):
+    from repro_torch.configs.moe_paper import paper_config
+    from repro_torch.models.paper_lm import paper_lm_defs
+    cfg = paper_config(HMOE_CONFIG)
+    return cfg, _seeded(paper_lm_defs(cfg), SEED + 29, HMOE_GATES,
+                        cfg.d_model, cut)
+
+
+def _routed_hmoe_data():
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.configs.moe_paper import paper_config
+    return DataConfig(vocab_size=paper_config(HMOE_CONFIG).vocab_size,
+                      seq_len=TRAIN_S, batch_size=TRAIN_B, seed=SEED)
+
+
+def _routed_serve_launches(cfg):
+    """(unfused a model call, fused a decode step on one process, on a
+    mesh) for moa-demo: phase 8's tables; on a mesh each MoE layer's
+    fused decode is its top-k and kernel 8 on the rank's experts."""
+    from repro_torch.configs.base import layer_kinds
+    kinds = layer_kinds(cfg)
+    n_rep = cfg.n_layers // cfg.period
+    n_moe = n_rep * sum(k.ffn == "moe" for k in kinds)
+    n_moa = n_rep * sum(k.mixer == "moa" for k in kinds)
+    unfused = {"topk_gating": n_moe + n_moa, "dispatch": n_moe + 2 * n_moa,
+               "combine": n_moe + 2 * n_moa, "gmm": 3 * n_moe + 2 * n_moa}
+    return (unfused, {"topk_gating": n_moa, "fused_routed": 2 * n_moa,
+                      "fused_decode": n_moe},
+            {"topk_gating": n_moe + n_moa,
+             "fused_routed": n_moe + 2 * n_moa})
+
+
+def _routed_traffic(cfg):
+    """Phase 8's traffic: N_REQUESTS prompts of PROMPT_LEN, NEW_TOKENS
+    greedy tokens, one step apart."""
+    import numpy as np
+    rs = np.random.RandomState(SEED + 1)
+    prompts = [rs.randint(1, cfg.vocab_size, (PROMPT_LEN,))
+               for _ in range(N_REQUESTS)]
+    sc = dict(max_len=PROMPT_LEN + NEW_TOKENS, n_slots=N_REQUESTS)
+    plain = [(p, NEW_TOKENS, i) for i, p in enumerate(prompts)]
+    return {"serve": (sc, plain), "fused": (dict(sc, fused_decode=True),
+                                            plain)}
+
+
+def _to(tree, device):
+    """A tree of dicts, lists and tensors (None kept) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return None if tree is None else tree.to(device)
+
+
+def _grad_step(loss_fn, params):
+    """One forward and backward on this process with the launches
+    zeroed just before and read just after: (loss, metrics, launches,
+    ms)."""
+    import torch
+    from repro_torch.common.param import tree_leaves
+    from repro_torch.kernels import cuda_lib
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, metrics = loss_fn(params)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return (float(loss), {k: float(v.detach()) for k, v in metrics.items()},
+            cuda_lib.launch_counts(), ms)
+
+
+def routed_reference(path: str) -> dict:
+    """The one-process runs of (a), (b) and (c) on this process; what
+    the ranks compare with saved to ``path``."""
+    import gc
+    import torch
+    from repro_torch.common.param import tree_map
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models import lm, paper_lm
+    from repro_torch.train.trainer import step_seed
+    ref, out = {}, {}
+    # (a) moa-demo f32.
+    for name, moa_cf, _ in ROUTED_MOA_CASES:
+        cfg, params = _routed_moa_params(True, moa_cf=moa_cf)
+        gen = torch.Generator(device="cuda").manual_seed(step_seed(SEED, 0))
+        draws = lm.make_draws(cfg, MOA_TRAIN_B, MOA_TRAIN_S, gen, "cuda")
+        batch = batch_at(_routed_moa_data(), 0, device="cuda")
+        loss, metrics, counts, ms = _grad_step(
+            lambda p: lm.lm_loss(p, batch, cfg, draws=draws), params)
+        check_launches(f"mesh routed (a) {name} one process", counts,
+                       MOA_TRAIN_LAUNCHES)
+        check((metrics["fraction_dropped"] > 0) == (moa_cf is not None),
+              f"mesh routed (a) {name}: fraction_dropped "
+              f"{metrics['fraction_dropped']}")
+        ref[name] = {"loss": loss, "metrics": metrics,
+                     "grads": tree_map(lambda p: p.grad.detach().cpu(),
+                                       params),
+                     "draws": _to(draws, "cpu")}
+        out[name] = {"loss": loss, "metrics": metrics, "step_ms": ms,
+                     "launches": counts}
+        del params, draws, batch
+    # (b) moa-demo bf16 served.
+    cfg, params = _routed_moa_params(False)
+    ref["serve"] = {}
+    for name, (sc_kw, trace) in _routed_traffic(cfg).items():
+        run = _mesh_serve_run(f"mesh routed (b) one process {name}", cfg,
+                              params, sc_kw, trace,
+                              launches=_routed_serve_launches(cfg))
+        ref["serve"][name] = {"streams": run["streams"],
+                              "calls": run["calls"]}
+        out[f"serve_{name}"] = run["summary"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) moe-4096-h f32 at full width.
+    cfg, params = _routed_hmoe_params()
+    gen = torch.Generator(device="cuda").manual_seed(step_seed(SEED, 0))
+    draws = paper_lm.make_draws(cfg, TRAIN_B, TRAIN_S, gen, "cuda")
+    batch = batch_at(_routed_hmoe_data(), 0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    loss, metrics, counts, ms = _grad_step(
+        lambda p: paper_lm.paper_lm_loss(p, batch, cfg, draws=draws), params)
+    check_launches("mesh routed (c) moe-4096-h one process", counts,
+                   HMOE_LAUNCHES)
+    groups = torch.tensor(ROUTED_HMOE_GROUPS, device="cuda")
+
+    def host(path, p):
+        if path[-1] in ("w1", "w2") and path[0] == "moe":
+            return p.grad.detach().index_select(0, groups).cpu()
+        return p.grad.detach().cpu()
+    ref["hmoe"] = {"loss": loss, "metrics": metrics,
+                   "grads": _map_path(host, params),
+                   "draws": _to(draws, "cpu")}
+    out["hmoe"] = {"loss": loss, "metrics": metrics, "step_ms": ms,
+                   "launches": counts,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log("mesh routed one process " + json.dumps(out))
+    del params, draws, batch, groups
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(ref, path)
+    return out
+
+
+def _map_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _routed_check(what: str, got: dict, ref: dict) -> dict:
+    """Loss within DIST_LOSS_TOL, metrics within DIST_METRIC_TOL,
+    fraction_dropped equal and every gradient within DIST_GRAD_TOL
+    normwise; the worst of each."""
+    worst = {"loss_rel": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+             "metric_rel": 0.0, "grad_norm_rel": 0.0}
+    check(worst["loss_rel"] <= DIST_LOSS_TOL,
+          f"{what}: loss {got['loss']} vs one process {ref['loss']}")
+    check(got["metrics"]["fraction_dropped"]
+          == ref["metrics"]["fraction_dropped"],
+          f"{what}: fraction_dropped {got['metrics']['fraction_dropped']} "
+          f"vs one process {ref['metrics']['fraction_dropped']}")
+    for k in ROUTED_METRICS:
+        want = ref["metrics"][k]
+        err = abs(got["metrics"][k] - want) / max(abs(want), 1e-6)
+        worst["metric_rel"] = max(worst["metric_rel"], err)
+        check(err <= DIST_METRIC_TOL, f"{what}: {k} {got['metrics'][k]} "
+                                      f"vs one process {want}")
+    for name, e in got["grads"].items():
+        check(e["finite"], f"{what}: gradient {name} not finite")
+        check(e["norm"] > 0, f"{what}: one process's gradient {name} is 0")
+        worst["grad_norm_rel"] = max(worst["grad_norm_rel"], e["norm_rel"])
+        check(e["norm_rel"] <= DIST_GRAD_TOL, f"{what}: gradient {name} "
+              f"{e['norm_rel']:.3g} normwise from one process")
+    return worst
+
+
+def _routed_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of phase 28 (a spawned process)."""
+    import os
+    import traceback
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'store_routed')}",
+        rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        _routed_warmup()
+        warm_s = time.perf_counter() - t0
+        path = os.path.join(workdir, "routed_ref.pt")
+        while not os.path.exists(path):
+            check(time.perf_counter() - t0 < 900,
+                  "mesh routed: no reference file after 900 s")
+            time.sleep(0.05)
+        ref = torch.load(path, mmap=True, weights_only=False)
+        out = _routed_rank_body(rank, ref)
+        out["warmup_s"] = warm_s
+        with open(os.path.join(workdir, f"routed_rank{rank}.json"),
+                  "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _routed_warmup() -> None:
+    """One noiseless forward and backward of moa-demo f32 and of a small
+    hierarchical paper LM on (1, 2) at ROUTED_WARMUP's size (nothing is
+    compared or counted)."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, paper_lm
+    from repro_torch.sharding.context import MeshContext
+    w = ROUTED_WARMUP
+    ctx = MeshContext.for_mesh(make_host_mesh(2, device="cuda"), "dp_tp_ep")
+
+    def cut(d, t):
+        return ctx.shard_leaf(t, ctx.resolve(d.shape, d.axes))
+    cfg, params = _routed_moa_params(True, cut=cut)
+    hcfg = paper_lm.PaperLMConfig(vocab_size=w["vocab"], variant="moe",
+                                  n_experts=w["hierarchical"][0]
+                                  * w["hierarchical"][1],
+                                  hierarchical=w["hierarchical"])
+    hdefs = paper_lm.paper_lm_defs(hcfg)
+    hparams = pm.materialize(hdefs, torch.Generator(device="cuda"), "cuda",
+                             cut=cut)
+    for c, p, fn in ((cfg, params, lm.lm_loss),
+                     (hcfg, hparams, paper_lm.paper_lm_loss)):
+        for leaf in pm.tree_leaves(p):
+            leaf.requires_grad_(True)
+        batch = batch_at(DataConfig(vocab_size=min(c.vocab_size, w["vocab"]),
+                                    seq_len=w["s"], batch_size=w["b"]), 0,
+                         device="cuda")
+        loss, _ = fn(p, {k: ctx.local_rows(v) for k, v in batch.items()}, c,
+                     ctx=ctx)
+        loss.backward()
+    torch.cuda.synchronize()
+
+
+def _routed_train(ctx, loss_fn, params, defs, batch, clock):
+    """Step 0 on this rank (make_grad_fn: the trainer's gradients of the
+    global ``batch``, of which the rank takes its rows), the launches
+    zeroed just before and read just after, the collectives clocked:
+    (grads, metrics, launches, ms)."""
+    import torch
+    from repro_torch.common.param import tree_leaves
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.train.trainer import make_grad_fn
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    grads_fn = make_grad_fn(loss_fn, ctx=ctx, defs=defs)
+    clock.ms, clock.bytes, clock.calls = {}, {}, {}
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    clock.on = True
+    t0 = time.perf_counter()
+    grads, metrics = grads_fn(params, batch, None)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    clock.on = False
+    return grads, {k: float(v) for k, v in metrics.items()}, \
+        cuda_lib.launch_counts(), ms
+
+
+def _routed_rank_body(rank: int, ref: dict) -> dict:
+    import gc
+    import torch
+    from repro_torch.core import expert_parallel as ep_lib
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, paper_lm
+    from repro_torch.sharding.context import MeshContext
+
+    clock = _CollectiveClock()
+    res = {"rank": rank}
+
+    def report(ms):
+        return {"collective_ms": dict(clock.ms),
+                "collective_bytes": dict(clock.bytes),
+                "collective_calls": dict(clock.calls),
+                "collective_share": sum(clock.ms.values()) / ms}
+
+    # (a) moa-demo f32, step 0 on each mesh.
+    for (name, moa_cf, meshes), (data, model) in (
+            (case, mesh) for case in ROUTED_MOA_CASES for mesh in case[2]):
+        ctx = MeshContext.for_mesh(make_host_mesh(model, device="cuda"),
+                                   "dp_tp_ep")
+        cfg, params = _routed_moa_params(True, cut=lambda d, t: ctx.shard_leaf(
+            t, ctx.resolve(d.shape, d.axes)), moa_cf=moa_cf)
+        defs = lm.lm_defs(cfg)
+        draws = _to(ref[name]["draws"], "cuda")
+        grads, metrics, counts, ms = _routed_train(
+            ctx, lambda p, b, g: lm.lm_loss(p, b, cfg, draws=draws, ctx=ctx),
+            params, defs, batch_at(_routed_moa_data(), 0, device="cuda"),
+            clock)
+        what = f"mesh routed (a) {name} ({data}, {model}) rank {rank}"
+        check_launches(what, counts, MOA_TRAIN_LAUNCHES)
+        got = {"loss": metrics["loss"], "metrics": metrics,
+               "grads": _leaf_errs(ctx, grads, ref[name]["grads"], defs)}
+        worst = _routed_check(what, got, ref[name])
+        res[f"{name}_{data}x{model}"] = dict(
+            metrics=metrics, launches=counts, step_ms=ms, worst=worst,
+            grads={k: e["norm_rel"] for k, e in got["grads"].items()},
+            **report(ms))
+        del params, grads, draws
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) moa-demo bf16 served on ROUTED_SERVE_MESH.
+    ctx = MeshContext.for_mesh(make_host_mesh(ROUTED_SERVE_MESH[1],
+                                              device="cuda"), "decode_std")
+    cfg, params = _routed_moa_params(False, cut=lambda d, t: ctx.shard_leaf(
+        t, ctx.resolve(d.shape, d.axes)))
+    params = ep_lib.serve_layout(params, lm.lm_defs(cfg), ctx)
+    for name, (sc_kw, trace) in _routed_traffic(cfg).items():
+        clock.ms, clock.bytes, clock.calls = {}, {}, {}
+        clock.on = True
+        run = _mesh_serve_run(f"mesh routed (b) rank {rank} {name}", cfg,
+                              params, sc_kw, trace, ctx=ctx,
+                              launches=_routed_serve_launches(cfg))
+        clock.on = False
+        one = ref["serve"][name]
+        agree = stream_agreement(run["streams"], one["streams"])
+        if agree != 1.0:
+            _log_divergence(f"mesh routed (b) rank {rank} {name}",
+                            run["streams"], one["streams"], one["calls"])
+        check(agree == 1.0, f"mesh routed (b) rank {rank} {name}: streams "
+                            f"agree {agree:.4f} with one process")
+        errs = _logit_errs(run["calls"], one["calls"], run["first_slot"],
+                           run["n_local"])
+        check(errs["calls_compared"] > 0,
+              f"mesh routed (b) rank {rank} {name}: no call compared")
+        check(errs["worst_rel"] <= ROUTED_LOGIT_TOL,
+              f"mesh routed (b) rank {rank} {name}: logits "
+              f"{errs['worst_rel']:.4g} of the scale from one process (tol "
+              f"{ROUTED_LOGIT_TOL})")
+        res[f"serve_{name}"] = dict(
+            run["summary"], stream_agreement=agree, logits=errs,
+            collective_ms=dict(clock.ms), collective_bytes=dict(clock.bytes),
+            collective_calls=dict(clock.calls))
+        del run
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) moe-4096-h f32 at full width on (1, 2).
+    ctx = MeshContext.for_mesh(make_host_mesh(2, device="cuda"), "dp_tp_ep")
+    cfg, params = _routed_hmoe_params(cut=lambda d, t: ctx.shard_leaf(
+        t, ctx.resolve(d.shape, d.axes)))
+    defs = paper_lm.paper_lm_defs(cfg)
+    draws = _to(ref["hmoe"]["draws"], "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    grads, metrics, counts, ms = _routed_train(
+        ctx, lambda p, b, g: paper_lm.paper_lm_loss(p, b, cfg, draws=draws,
+                                                    ctx=ctx),
+        params, defs, batch_at(_routed_hmoe_data(), 0, device="cuda"), clock)
+    what = f"mesh routed (c) {HMOE_CONFIG} (1, 2) rank {rank}"
+    check_launches(what, counts, HMOE_LAUNCHES)
+    n_local = cfg.hierarchical[0] // ctx.size(["model"])
+    g0 = ctx.index(["model"]) * n_local
+
+    def expert(path, g, r):
+        if path[0] != "moe" or path[-1] not in ("w1", "w2"):
+            return None
+        return [(f"group {g0 + i}", g[i], r[ROUTED_HMOE_GROUPS.index(g0 + i)])
+                for i in (0, n_local - 1)]
+    got = {"loss": metrics["loss"], "metrics": metrics,
+           "grads": _leaf_errs(ctx, grads, ref["hmoe"]["grads"], defs,
+                               expert)}
+    worst = _routed_check(what, got, ref["hmoe"])
+    res["hmoe"] = dict(
+        metrics=metrics, launches=counts, step_ms=ms, worst=worst,
+        grads={k: e["norm_rel"] for k, e in got["grads"].items()},
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, **report(ms))
+    log(f"{what} collectives " + json.dumps(report(ms)))
+    del params, grads, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _log_divergence(what, streams, ref_streams, ref_calls) -> None:
+    """The first token where a rank's stream leaves one process's, and
+    the one process's gap there between its top two logits (a routing
+    near tie, ROADMAP C.3, moves logits by about one bf16 unit: a
+    sampled token whose gap is within that unit may flip)."""
+    for r, (a, b) in enumerate(zip(streams, ref_streams)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                gaps = []
+                for kind, _, _, logits in ref_calls:
+                    if kind != "decode" or r >= logits.shape[0]:
+                        continue
+                    top = logits[r].float().topk(2).values
+                    gaps.append(float((top[0] - top[1]).abs()
+                                      / logits.abs().max()))
+                log(f"{what}: request {r} token {i}: {x} against one "
+                    f"process's {y}; its decode calls' smallest top-2 logit "
+                    f"gap {min(gaps) if gaps else float('nan'):.3g} of the "
+                    "scale")
+                return
+
+
+def phase_mesh_routed() -> dict:
+    """Phase 28: the one-process references, then the two ranks."""
+    import gc
+    import os
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    world = 2
+    with tempfile.TemporaryDirectory() as workdir:
+        procs = mp.spawn(_routed_rank, args=(world, workdir), nprocs=world,
+                         join=False)
+        try:
+            path = os.path.join(workdir, "routed_ref.pt")
+            out = routed_reference(path + ".tmp")
+            gc.collect()
+            torch.cuda.empty_cache()
+            os.replace(path + ".tmp", path)
+            out["reference_s"] = time.perf_counter() - t0
+            while not procs.join():
+                pass
+        except Exception as err:       # a rank failed: the phase fails
+            for proc in procs.processes:
+                proc.terminate()
+            if isinstance(err, SmokeFailure):
+                raise
+            raise SmokeFailure(f"mesh routed ranks: {err}")
+        out["ranks_after_reference_s"] = (time.perf_counter() - t0
+                                          - out["reference_s"])
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"routed_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for key in ranks[0]:
+        if key in ("rank", "warmup_s"):
+            continue
+        log(f"mesh routed {key} " + json.dumps(
+            [{"rank": r["rank"], **r[key]} for r in ranks]))
+    for name in ROUTED_TRAFFIC:
+        check(ranks[0][f"serve_{name}"]["stats"]
+              == ranks[1][f"serve_{name}"]["stats"],
+              f"mesh routed (b) {name}: the ranks' engine stats differ")
+    out["ranks"] = ranks
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"mesh routed phase {out['wall_s']:.1f} s (the references "
+        f"{out['reference_s']:.1f} s, then the ranks "
+        f"{out['ranks_after_reference_s']:.1f} s; their warm-ups "
+        + ", ".join(f"{r['warmup_s']:.1f}" for r in ranks) + " s)")
+    return out
+
+
 def main() -> int:
     import gc
     import os
@@ -7897,6 +8489,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         dry = phase_dryrun(mesh)
         lap("dryrun")
+        gc.collect()
+        torch.cuda.empty_cache()
+        routed = phase_mesh_routed()
+        lap("mesh routed")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -7921,7 +8517,18 @@ def main() -> int:
                 "serve_mesh": mesh["ranks"][0]["serve"]["launches"],
                 "serve_mesh_fused": mesh["ranks"][0]["fused"]["launches"],
                 "serve_mesh_prefix": mesh["ranks"][0]["prefix"]["launches"],
-                "train_pp_kimi": pipeline["kimi"]["ranks"][0]["launches"]}
+                "train_pp_kimi": pipeline["kimi"]["ranks"][0]["launches"],
+                "train_mesh_moa_ep2": routed["ranks"][0]["moa_1x2"][
+                    "launches"],
+                "train_mesh_moa_dp2": routed["ranks"][0]["moa_2x1"][
+                    "launches"],
+                "train_mesh_moa_drops_ep2": routed["ranks"][0][
+                    "moa_drops_1x2"]["launches"],
+                "serve_mesh_moa": routed["ranks"][0]["serve_serve"][
+                    "launches"],
+                "serve_mesh_moa_fused": routed["ranks"][0]["serve_fused"][
+                    "launches"],
+                "train_mesh_hmoe": routed["ranks"][0]["hmoe"]["launches"]}
     profiles = [served["profile"], served["fused"]["profile"],
                 served["ec"]["profile"], moa["profile"],
                 moa_train["profile"], trained["profile"],
@@ -7966,6 +8573,11 @@ def main() -> int:
 
     def dist_step_ms(mesh):
         return distributed[mesh]["ranks"][0]["step_ms_steady"]
+
+    def routed_worst(key):
+        return max(r[path]["worst"][key] for r in routed["ranks"]
+                   for path in ("moa_1x2", "moa_2x1", "moa_drops_1x2",
+                                "hmoe"))
     obs = served["obs"]
     log(f"card {setup['card']}; serve cross-check max_abs_err "
         f"{served['cross']['max_abs_err']:.4g} (tol "
@@ -8025,6 +8637,15 @@ def main() -> int:
         + ", ".join(f"{r['shape']} {r['peak_ratio']:.3f}"
                     for r in dry["records"])
         + f", phase {dry['wall_s']:.0f} s"
+        + "; mesh routed (moa-demo (1, 2) / (2, 1), moe-4096-h (1, 2)) "
+        f"step 0 worst loss rel {routed_worst('loss_rel'):.3g}, "
+        f"gradients normwise {routed_worst('grad_norm_rel'):.3g}, "
+        "moe-4096-h rank step ms "
+        f"{routed['ranks'][0]['hmoe']['step_ms']:.1f} (collectives "
+        f"{routed['ranks'][0]['hmoe']['collective_share']:.3f} of it), "
+        "moa-demo served logits worst rel "
+        f"{max(r['serve_' + t]['logits']['worst_rel'] for r in routed['ranks'] for t in ROUTED_TRAFFIC):.3g}"
+        f", phase {routed['wall_s']:.0f} s"
         + f"; {time.perf_counter() - t_start:.0f} s in all")
     print(setup["card"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

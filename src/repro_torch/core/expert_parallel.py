@@ -59,8 +59,26 @@ overflow telemetry come from the global plan: one process's.  Weights
 arrive in the serving layout (:func:`serve_layout`): every leaf whole
 but the experts' FFN weights, which are the rank's slab over the
 expert axis, whole over their other dims.
+
+MoA's two routed projections and the hierarchical MoE's groups run the
+serving schedule in training too (:class:`GlobalPlan`), where the
+reference's mesh run is its one process (GSPMD over the one-process
+code, capacity from the global token count): the tokens are
+all-gathered over the axes that split them (autograd-aware, so the
+backward pass reduce-scatters their gradient), every rank routes the
+global plan, runs its slab of the experts on it and all-gathers the
+slab outputs over the expert axis before the combine.  The plan, the
+drops and the balance statistics are one process's on every rank; a
+rank keeps its own rows of the output.  Its wire cost is the tokens
+plus the ``[E, C, ·]`` outputs, more than :func:`moe_apply_ep`'s two
+all-to-alls, so the flat MoE keeps its per-shard capacity.  Where the
+expert dim does not divide over its mesh axis the plan's resolution
+falls back to replicated experts (every rank runs them all), as the
+reference's ``resolve_spec`` does.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -87,10 +105,16 @@ def gather_on_use(params, defs, ctx: MeshContext):
     return ctx.gather(params, defs, keep=_is_expert_leaf)
 
 
-def _expert_specs(a: moe_lib.MoEArgs, ctx: MeshContext) -> dict:
-    """The plan's specs of the experts' FFN weights."""
-    return {k: ctx.resolve(d.shape, d.axes)
-            for k, d in moe_lib.moe_defs(a).items()
+# The logical axes of an expert leaf's expert dims (the flat MoE's and
+# MoA's ``experts``, the hierarchical MoE's ``expert_groups``): serving
+# keeps them as this rank's slab.
+_EXPERT_DIMS = ("experts", "expert_groups")
+
+
+def _expert_specs(defs: dict, ctx: MeshContext) -> dict:
+    """The plan's specs of a layer's expert leaves (``defs``: the
+    layer's ParamDef dict)."""
+    return {k: ctx.resolve(d.shape, d.axes) for k, d in defs.items()
             if isinstance(d, ParamDef) and _is_expert_leaf(d)}
 
 
@@ -113,29 +137,28 @@ def _expert_group(a: moe_lib.MoEArgs, ctx: MeshContext, specs: dict
 @torch.no_grad()
 def serve_layout(params, defs, ctx: MeshContext):
     """The serving layout of a model's parameters: every leaf whole
-    except the experts' FFN weights, which are this rank's slab over the
-    expert axis, whole over their other dims.  ``params`` may hold each
-    leaf as this rank's slice by ``ctx``'s plan (``ctx.shard``'s cut),
-    which is gathered here, or already in the serving layout, which is
-    kept.  Done once when the engine is built, so no serve step gathers
-    a weight.  Off-mesh the tree itself."""
+    except the expert leaves (the FFN experts', MoA's routed
+    projections, the hierarchical MoE's), which are this rank's slab
+    over their expert dim (``experts``, or ``expert_groups`` where the
+    groups take the expert axis), whole over their other dims.
+    ``params`` may hold each leaf as this rank's slice by ``ctx``'s
+    plan (``ctx.shard``'s cut), which is gathered here, or already in
+    the serving layout, which is kept.  Done once when the engine is
+    built, so no serve step gathers a weight.  Off-mesh the tree
+    itself."""
     if ctx.mesh is None:
         return params
 
     def one(t, d):
         spec = ctx.resolve(d.shape, d.axes)
-        if _is_expert_leaf(d):
-            # The experts dim (after a stacked leaf's layers dim) stays.
-            spec = tuple(() if ax == "experts" else s
-                         for ax, s in zip(d.axes, spec))
-        want = tuple(n // ctx.size(a)
-                     if ax == "experts" and _is_expert_leaf(d) else n
-                     for n, a, ax in zip(d.shape, ctx.resolve(d.shape,
-                                                              d.axes),
-                                         d.axes))
+        slab = _is_expert_leaf(d)
+        keep = tuple(s if slab and ax in _EXPERT_DIMS else ()
+                     for ax, s in zip(d.axes, spec))
+        want = tuple(n // ctx.size(s) for n, s in zip(d.shape, keep))
         if tuple(t.shape) == want:
             return t
-        return ctx.gather_leaf(t, spec)
+        return ctx.gather_leaf(t, tuple(() if k else s
+                                        for k, s in zip(keep, spec)))
     return zip_map(one, params, defs)
 
 
@@ -152,41 +175,129 @@ def local_plan(p, e0: int, e_local: int):
         weight=torch.where(mine, p.weight, 0.0), n_experts=e_local)
 
 
+@dataclasses.dataclass(frozen=True)
+class GlobalPlan:
+    """A routed layer's global plan on one rank (the module docstring):
+    the step's tokens gathered over ``token_axes``, this rank's experts
+    ``[e0, e0 + n)`` of the leading expert dim, split over
+    ``expert_axes`` (``()``: every rank holds them all).  ``ctx`` None
+    is one process: every method is then the one-process op."""
+    ctx: MeshContext | None
+    token_axes: tuple[str, ...]
+    expert_axes: tuple[str, ...]
+    e0: int
+    n: int
+    # key -> (spec, full shape) of the layer's expert leaves
+    leaves: dict
+
+    @classmethod
+    def build(cls, ctx: MeshContext | None, defs: dict, n_experts: int,
+              token_axes=None) -> "GlobalPlan":
+        """The plan of a layer with ParamDefs ``defs`` whose expert dim
+        (dim 0 of its expert leaves) holds ``n_experts``; ``token_axes``
+        the mesh axes this rank's rows are split over (None: every free
+        axis, a training step's token sharding)."""
+        if ctx is None or ctx.mesh is None:
+            return cls(None, (), (), 0, n_experts, {})
+        specs = _expert_specs(defs, ctx)
+        axes = next(iter(specs.values()))[0]
+        if len(axes) > 1:
+            raise NotImplementedError(
+                f"experts sharded over {axes}: the schedule gathers over "
+                "one mesh axis")
+        n = n_experts // ctx.size(axes)
+        return cls(ctx, ctx.free_axes if token_axes is None
+                   else tuple(token_axes), axes, ctx.index(axes) * n, n,
+                   {k: (s, tuple(defs[k].shape)) for k, s in specs.items()})
+
+    def gather(self, t: torch.Tensor | None) -> torch.Tensor | None:
+        """This rank's rows -> the step's rows (in ``ctx.local_rows``'s
+        order)."""
+        if t is None or self.ctx is None:
+            return t
+        return self.ctx.all_gather(t, self.token_axes, 0)
+
+    def own(self, t: torch.Tensor, rows: int) -> torch.Tensor:
+        """The step's rows -> this rank's ``rows`` of them."""
+        if self.ctx is None or t.shape[0] == rows:
+            return t
+        return t.narrow(0, self.ctx.index(self.token_axes) * rows, rows)
+
+    def weights(self, params: dict) -> dict:
+        """The layer's expert leaves as this rank's slab, whole over
+        their other dims: a training shard is gathered over them
+        (FSDP; the backward pass reduce-scatters), a leaf already in
+        the serving layout kept."""
+        out = dict(params)
+        for k, (spec, shape) in self.leaves.items():
+            if tuple(params[k].shape[1:]) != shape[1:]:
+                out[k] = self.ctx.gather_leaf(params[k], ((),) + spec[1:])
+        return out
+
+    def slab(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's experts of a tensor with a leading expert dim."""
+        return t if t.shape[0] == self.n else t.narrow(0, self.e0, self.n)
+
+    def apply(self, x_all: torch.Tensor, plan, a, ffn, *, out_plan=None,
+              dtype=None) -> torch.Tensor:
+        """dispatch ``x_all`` by ``plan`` into ``[E, C, ·]``, ``ffn`` on
+        this rank's slab ``[n, C, ·]``, the slab outputs all-gathered
+        over the expert axis, combined by ``out_plan`` (default
+        ``plan``): the step's rows."""
+        bk = backend_lib.resolve(a)
+        out = ffn(self.slab(bk.dispatch(x_all, plan, a)))
+        if self.ctx is not None:
+            out = self.ctx.all_gather(out, self.expert_axes, 0)
+        return bk.combine(out, plan if out_plan is None else out_plan, a,
+                          dtype=dtype)
+
+    def local(self, p):
+        """The plan restricted to this rank's experts (kernel 8's)."""
+        return p if self.ctx is None else local_plan(p, self.e0, self.n)
+
+    def reduce(self, part: torch.Tensor) -> torch.Tensor:
+        """Sum the ranks' partial outputs over the expert axis."""
+        if self.ctx is None:
+            return part
+        return self.ctx.all_reduce(part, self.expert_axes)
+
+    def gather_experts(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slab of a per-expert statistic -> every
+        expert's."""
+        if self.ctx is None:
+            return t
+        return self.ctx.all_gather(t, self.expert_axes, 0)
+
+
 def moe_apply_serve(params, x: torch.Tensor, a: moe_lib.MoEArgs,
                     ctx: MeshContext, *, mask: torch.Tensor | None = None,
                     rows_axes: tuple[str, ...] = ()
                     ) -> tuple[torch.Tensor, dict]:
     """The serving MoE on a mesh (the module docstring): ``params`` in
-    the serving layout (:func:`serve_layout`), ``x`` [T, d] and ``mask``
-    [T] the step's whole token set on every rank, or this rank's equal
-    share of its rows, split over ``rows_axes`` (a decode step's slots,
-    over the plan's ``batch`` axes).  Returns (y [T, d] for the rows given, aux with the
-    global plan's telemetry; the losses and metrics of an eval call)."""
-    specs = _expert_specs(a, ctx)
-    group = _expert_group(a, ctx, specs)
-    ep = ctx.size(group)
-    e_local = a.n_experts // ep
-    e0 = ctx.index(group) * e_local
-    t_local = x.shape[0]
-    x_all = ctx.all_gather(x, rows_axes, 0)
-    if mask is not None:
-        mask = ctx.all_gather(mask.reshape(-1), rows_axes, 0)
+    the serving layout (:func:`serve_layout`) or this rank's training
+    shards, ``x`` [T, d] and ``mask`` [T] the step's whole token set on
+    every rank, or this rank's equal share of its rows, split over
+    ``rows_axes`` (a decode step's slots, over the plan's ``batch``
+    axes).  Returns (y [T, d] for the rows given, aux with the global
+    plan's telemetry; the losses and metrics of an eval call)."""
+    defs = moe_lib.moe_defs(a)
+    _expert_group(a, ctx, _expert_specs(defs, ctx))
+    gp = GlobalPlan.build(ctx, defs, a.n_experts, rows_axes)
+    x_all = gp.gather(x)
+    mask = gp.gather(None if mask is None else mask.reshape(-1))
     bk = backend_lib.resolve(a)
     router = router_lib.build(a, topk_impl=bk.topk_impl)
     dec = router.route(params, x_all, train=False, mask=mask)
-    w = {k: params[k] for k in specs}
+    w = gp.weights(params)
     if a.fused_decode:
-        part = bk.routed_ffn(w, x_all, local_plan(dec.plan, e0, e_local), a,
+        part = bk.routed_ffn(w, x_all, gp.local(dec.plan), a,
                              dtype=torch.float32)
-        y = ctx.all_reduce(part, group).to(x.dtype)
+        y = gp.reduce(part).to(x.dtype)
     else:
-        buf = bk.dispatch(x_all, dec, a)                   # [E, C, d]
-        rows = None if dec.rows is None else dec.rows[e0:e0 + e_local]
-        out = bk.expert_ffn(w, buf[e0:e0 + e_local], a, rows=rows)
-        out = ctx.all_gather(out, group, 0)
-        y = bk.combine(out, dec, a, dtype=x.dtype)
-    if rows_axes:
-        y = y.narrow(0, ctx.index(rows_axes) * t_local, t_local)
+        rows = None if dec.rows is None else gp.slab(dec.rows)
+        y = gp.apply(x_all, dec, a, lambda buf: bk.expert_ffn(
+            w, buf, a, rows=rows), dtype=x.dtype)
+    y = gp.own(y, x.shape[0])
     if a.sigmoid_output:
         y = torch.sigmoid(y.float()).to(x.dtype)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -207,16 +318,14 @@ def moe_apply_ep(params, x: torch.Tensor, a: moe_lib.MoEArgs,
     [T_local, E] and ``mask`` [T_local] are the rank's rows of the
     global ones.  Returns (y [T_local, d], aux) with the combined
     batch's ``aux_loss`` and metrics, the same on every rank."""
-    specs = _expert_specs(a, ctx)
+    specs = _expert_specs(moe_lib.moe_defs(a), ctx)
     ep_group = _expert_group(a, ctx, specs)
     ep = ctx.size(ep_group)
     if a.fused_decode and not train:
         # A decode-shaped eval call: the serving schedule over the
-        # tokens of every rank (its fused path), the experts gathered
-        # whole over their non-expert dims first.
-        w = {k: ctx.gather_leaf(params[k], ((),) + spec[1:])
-             for k, spec in specs.items()}
-        return moe_apply_serve(dict(params, **w), x, a, ctx, mask=mask,
+        # tokens of every rank (its fused path; it gathers the experts
+        # whole over their non-expert dims).
+        return moe_apply_serve(params, x, a, ctx, mask=mask,
                                rows_axes=ctx.free_axes)
     e_local = a.n_experts // ep
     bk = backend_lib.resolve(a)

@@ -22,6 +22,18 @@ for slot the reference's per-group plans, so dispatch, the expert FFN
 groups, as the reference's ``vmap`` of a ``pallas_call`` is one kernel
 with a leading grid axis.
 
+On a mesh (``ctx``) the primary plan is global (``core/expert_parallel
+.py::GlobalPlan``): every rank gathers the step's tokens, routes them
+and dispatches the one-process ``[a, Cp, d]`` buffer, of which it keeps
+its slab of groups (the groups take the expert axis, ``expert_groups``
+over ``model`` in every plan).  The secondary level runs on that slab
+with its slab of the secondary gates, noise and valid rows, at the
+one-process capacity; the slab's outputs are all-gathered over the
+expert axis before the primary combine, and Eq. (13)/(14)'s per-group
+statistics and the telemetry before the CV².  Output, losses, metrics
+and telemetry are then one process's on every rank (its own rows of
+the output).
+
 Randomness: ``noise`` is ``{"primary": [T, a], "secondary": [a, Cp,
 b]}`` standard normals (the reference draws the primary level's from
 the first half of ``split(rng)`` and group g's from ``split(rng_s,
@@ -35,9 +47,11 @@ import dataclasses
 import torch
 
 from repro_torch.common.param import ParamDef
+from repro_torch.core import expert_parallel as ep_lib
 from repro_torch.core import gating, losses
 from repro_torch.core import router as router_lib
 from repro_torch.kernels import backend as backend_lib
+from repro_torch.sharding.context import MeshContext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,45 +150,68 @@ def _kept_slots(plan, n_groups: int) -> torch.Tensor:
 
 def hmoe_apply(params, x: torch.Tensor, a: HMoEArgs, *, train: bool = True,
                noise: dict | None = None,
-               mask: torch.Tensor | None = None
+               mask: torch.Tensor | None = None,
+               ctx: MeshContext | None = None,
+               token_axes: tuple[str, ...] | None = None
                ) -> tuple[torch.Tensor, dict]:
     """x: [T, d_model] -> (y [T, d_model], aux).  ``noise`` is the
     two-level dict of the module docstring (None: noiseless gates, as
     the reference's ``rng=None``); ``mask`` ([T] in {0,1}) marks valid
-    tokens (dead serving slots route nowhere)."""
+    tokens (dead serving slots route nowhere).  On a mesh (``ctx``)
+    ``x`` and ``mask`` are this rank's rows, split over ``token_axes``
+    (None: every free axis, a training step's; ``()``: the rows are
+    whole on every rank), ``noise`` the global batch's, the expert
+    leaves this rank's slab (a training shard or the serving layout)
+    and the gates whole."""
     g, b = a.n_groups, a.n_experts_per_group
     d = x.shape[-1]
     noise = noise or {}
     bk = backend_lib.resolve(a)
     spec_p, spec_s = _level_specs(a)
+    gp = ep_lib.GlobalPlan.build(ctx, hmoe_defs(a), g, token_axes)
+    x_all = gp.gather(x)
     router_p = router_lib.Router(spec_p, g, topk_impl=bk.topk_impl)
-    dec_p = router_p.route({"gate": params["gate_primary"]}, x, train=train,
-                           noise=noise.get("primary"), mask=mask)
-    buf = bk.dispatch(x, dec_p, a)                          # [a, Cp, d]
-    cp = buf.shape[1]
+    dec_p = router_p.route({"gate": params["gate_primary"]}, x_all,
+                           train=train, noise=noise.get("primary"),
+                           mask=gp.gather(mask))
     valid = _kept_slots(dec_p.plan, g)                      # [a, Cp]
-
-    # Every group's secondary MoE at once, over the flat a·b experts.
+    cp = valid.shape[1]
+    weights = gp.weights(params)
     router_s = router_lib.Router(spec_s, b, topk_impl=bk.topk_impl)
-    dec_s = router_s.route({"gate": params["gate_secondary"]}, buf,
-                           train=train, noise=noise.get("secondary"),
-                           mask=valid,
-                           capacity=spec_s.capacity(cp, b, train=train))
-    flat = {k: w.reshape((g * b,) + w.shape[2:])
-            for k, w in params.items() if k in ("w1", "w2", "w3")}
-    xs = buf.reshape(g * cp, d)
-    out = bk.expert_ffn(flat, bk.dispatch(xs, dec_s, a), a, rows=dec_s.rows)
-    y_grp = bk.combine(out, dec_s, a, dtype=x.dtype).reshape(g, cp, d)
-    y = bk.combine(y_grp, dec_p, a, dtype=x.dtype)          # primary
+    sec = {}
+
+    def secondary(buf):
+        # This rank's groups' secondary MoEs at once, over their flat
+        # n·b experts.
+        n = buf.shape[0]
+        nz = noise.get("secondary")
+        dec_s = router_s.route(
+            {"gate": {k: gp.slab(w)
+                      for k, w in params["gate_secondary"].items()}},
+            buf, train=train, noise=None if nz is None else gp.slab(nz),
+            mask=gp.slab(valid), capacity=spec_s.capacity(cp, b,
+                                                          train=train))
+        flat = {k: w.reshape((n * b,) + w.shape[2:])
+                for k, w in weights.items() if k in ("w1", "w2", "w3")}
+        xs = buf.reshape(n * cp, d)
+        out = bk.expert_ffn(flat, bk.dispatch(xs, dec_s, a), a,
+                            rows=dec_s.rows)
+        sec["dec"] = dec_s
+        return bk.combine(out, dec_s, a, dtype=x.dtype).reshape(n, cp, d)
+
+    y = gp.own(gp.apply(x_all, dec_p, a, secondary, dtype=x.dtype),
+               x.shape[0])                                  # primary
+    dec_s = sec["dec"]
 
     # Eq. (13): the secondary importance sums the secondary gates of the
     # dispatched tokens; scale by the mean primary gate mass per group.
     n_valid = torch.clamp(valid.sum(dim=1), min=1.0)        # [a]
     imp_primary = losses.importance(dec_p.gates)            # [a]
-    imp_h = losses.importance(dec_s.gates) * (imp_primary
-                                              / n_valid)[:, None]
+    imp_h = gp.gather_experts(losses.importance(dec_s.gates)) * (
+        imp_primary / n_valid)[:, None]
     # Eq. (14): Load_H = Load_p_i * Load_i / |X^(i)|.
-    load_h = dec_p.load[:, None] * dec_s.load / n_valid[:, None]
+    load_h = dec_p.load[:, None] * gp.gather_experts(dec_s.load) \
+        / n_valid[:, None]
 
     cv_imp = losses.cv_squared(imp_h.reshape(-1))
     cv_load = losses.cv_squared(load_h.reshape(-1))
@@ -188,5 +225,6 @@ def hmoe_apply(params, x: torch.Tensor, a: HMoEArgs, *, train: bool = True,
     }
     # Serving telemetry over the flat (group, expert) grid; primary-level
     # drops show in metrics["fraction_dropped"].
+    telemetry = {k: gp.gather_experts(v) for k, v in dec_s.telemetry.items()}
     return y, {"aux_loss": aux_loss, "metrics": metrics,
-               "telemetry": dec_s.telemetry}
+               "telemetry": telemetry}

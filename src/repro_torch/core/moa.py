@@ -18,6 +18,19 @@ of query heads against one shared K/V projection:
   the backend's ``decode_proj`` (kernel 8 in ``"proj"`` mode on
   ``"cuda"``).
 
+On a mesh (``ctx``) the plan is global (``core/expert_parallel.py::
+GlobalPlan``, the reference's GSPMD run of the one-process code): each
+routed projection gathers the step's rows, dispatches them by the
+global plan, runs this rank's slab of the head groups and all-gathers
+the slab outputs over the expert axis before the combine; a rank keeps
+its own rows.  Attention stays local (a rank's batch rows are whole
+sequences), and decode attends over the decode plan's sequence-sharded
+cache (``attention.attend_cached_sharded``).  Fused decode on a mesh
+runs kernel 8 on the plans restricted to the rank's head groups and
+sums the partial projections over the expert axis in f32: exact for
+the Q projection (each row comes from one group), one cast after a
+partial sum for the O projection.
+
 Training (``moa_apply``) attends through the port's
 ``attention.FlashAttentionFn`` (the reference's flash-attention custom
 VJP), so gradients reach the gate, both routed projections and the
@@ -33,10 +46,12 @@ import torch
 
 from repro_torch.common.param import ParamDef
 from repro_torch.core import dispatch as dsp
+from repro_torch.core import expert_parallel as ep_lib
 from repro_torch.core import router as router_lib
 from repro_torch.kernels import backend as backend_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
+from repro_torch.sharding.context import MeshContext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,18 +153,32 @@ def assignment_plan(p: dsp.DispatchPlan) -> dsp.DispatchPlan:
         fraction_dropped=p.fraction_dropped)
 
 
-def _routed_q(params, flat, dec, a: MoAArgs, bk):
-    """[T, d] tokens -> [T·k, Hg·hd] selected head-group queries."""
-    buf = bk.dispatch(flat, dec, a)                        # [E, C, d]
-    qbuf = bk.gmm(buf, params["wq"], a)                    # [E, C, Hg·hd]
-    return bk.combine(qbuf, assignment_plan(dec.plan), a, dtype=flat.dtype)
+def _routed_q(params, flat, dec, a: MoAArgs, bk, gp):
+    """[T, d] tokens (every row of the step's plan) -> this rank's rows
+    of the [T·k, Hg·hd] selected head-group queries."""
+    w = gp.weights(params)["wq"]
+    return gp.apply(flat, dec, a, lambda buf: bk.gmm(buf, w, a),
+                    out_plan=assignment_plan(dec.plan), dtype=flat.dtype)
 
 
-def _routed_o(params, o_sel, dec, a: MoAArgs, bk, dtype):
-    """[T·k, Hg·hd] attention outputs -> [T, d] gate-weighted output."""
-    obuf = bk.dispatch(o_sel, assignment_plan(dec.plan), a)
-    out = bk.gmm(obuf, params["wo"], a)                    # [E, C, d]
-    return bk.combine(out, dec, a, dtype=dtype)
+def _routed_o(params, o_sel, dec, a: MoAArgs, bk, gp, dtype):
+    """This rank's rows of the [T·k, Hg·hd] attention outputs -> the
+    [T, d] gate-weighted output of every row of the step's plan."""
+    w = gp.weights(params)["wo"]
+    return gp.apply(gp.gather(o_sel), assignment_plan(dec.plan), a,
+                    lambda buf: bk.gmm(buf, w, a), out_plan=dec,
+                    dtype=dtype)
+
+
+def _fused_proj(x, w, plan_in, plan_out, a: MoAArgs, bk, gp, dtype):
+    """One routed projection as kernel 8 (``decode_proj``); on a mesh
+    over this rank's head groups, the partial outputs summed over the
+    expert axis in f32."""
+    if gp.ctx is None:
+        return bk.decode_proj(x, w, plan_in, plan_out, a, dtype=dtype)
+    part = bk.decode_proj(x, w, gp.local(plan_in), gp.local(plan_out), a,
+                          dtype=torch.float32)
+    return gp.reduce(part).to(dtype)
 
 
 def _norm_rope_q(params, q_sel, positions, a: MoAArgs):
@@ -203,6 +232,11 @@ def _route(params, flat, a: MoAArgs, bk, *, mask, train=False, noise=None):
     return router.route(params, flat, train=train, noise=noise, mask=mask)
 
 
+def _plan(ctx, a: MoAArgs, token_axes) -> ep_lib.GlobalPlan:
+    return ep_lib.GlobalPlan.build(ctx, moa_defs(a), a.n_experts,
+                                   token_axes)
+
+
 def _aux(dec: router_lib.RouteDecision) -> dict:
     return {"aux_loss": dec.aux_loss, "metrics": dec.metrics,
             "telemetry": dec.telemetry}
@@ -222,20 +256,26 @@ def _queries(q_sel, positions, params, a: MoAArgs, kk: int):
 
 def moa_apply(params, x, a: MoAArgs, *, positions, train: bool = True,
               noise: torch.Tensor | None = None,
-              mask: torch.Tensor | None = None):
+              mask: torch.Tensor | None = None,
+              ctx: MeshContext | None = None):
     """Full-sequence MoA for training.  x: [B, S, d]; positions: [B, S];
     ``noise`` ([B·S, E] standard normals) is the gate's training noise
     (None: a noiseless gate, as the reference's ``rng=None``); ``mask``
     ([B·S]) marks the tokens that route.  Attention is the causal
-    ``FlashAttentionFn`` over the virtual heads.  Returns (y [B, S, d],
+    ``FlashAttentionFn`` over the virtual heads.  On a mesh (``ctx``)
+    ``x``, ``positions`` and ``mask`` are this rank's batch rows of the
+    global batch, ``noise`` the global batch's.  Returns (y [B, S, d],
     aux) with ``moe_apply``'s aux keys."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     bk = backend_lib.resolve(a)
-    dec = _route(params, flat, a, bk, mask=mask, train=train, noise=noise)
+    gp = _plan(ctx, a, None)
+    flat_all = gp.gather(flat)
+    dec = _route(params, flat_all, a, bk, mask=gp.gather(mask), train=train,
+                 noise=noise)
     kk = dec.plan.expert_index.shape[1]
-    q = _queries(_routed_q(params, flat, dec, a, bk), positions, params, a,
-                 kk)
+    q_sel = gp.own(_routed_q(params, flat_all, dec, a, bk, gp), b * s * kk)
+    q = _queries(q_sel, positions, params, a, kk)
     k, v = _shared_kv(params, x, positions, a)
     kvh, hd = a.n_kv_heads, a.head_dim
     g = q.shape[2] // kvh
@@ -246,62 +286,81 @@ def moa_apply(params, x, a: MoAArgs, *, positions, train: bool = True,
     o = o.permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, hd)
     o = _from_virtual(o, kvh, kk, a.n_heads_per_expert)
     y = _routed_o(params, o.reshape(b * s * kk, a.d_head_group), dec, a,
-                  bk, x.dtype)
-    return y.reshape(b, s, d), _aux(dec)
+                  bk, gp, x.dtype)
+    return gp.own(y, b * s).reshape(b, s, d), _aux(dec)
 
 
 def moa_prefill(params, x, positions, a: MoAArgs, *, cache: dict,
                 mask: torch.Tensor | None = None,
-                start_pos: int | None = None):
+                start_pos: int | None = None,
+                ctx: MeshContext | None = None):
     """Prefill: routed attention that also writes K/V for positions
     [0, S) into ``cache`` (in place).  ``mask`` ([B·S]) keeps bucketed
     or chunk padding out of routing.  ``start_pos`` is chunked-prefill
     mode, as ``attention.prefill_attention``'s ``offset``: the shared
     K/V lands at [start_pos, start_pos + S) and the chunk attends over
-    the cached prefix.  Returns (y, cache)."""
+    the cached prefix.  On a mesh (``ctx``, the prefill plan) the rows
+    and the page are whole on every rank and the head groups are split
+    over the expert axis.  Returns (y, cache)."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     bk = backend_lib.resolve(a)
+    gp = _plan(ctx, a, ())
     dec = _route(params, flat, a, bk, mask=mask)
     kk = dec.plan.expert_index.shape[1]
-    q = _queries(_routed_q(params, flat, dec, a, bk), positions, params, a,
-                 kk)
+    q = _queries(_routed_q(params, flat, dec, a, bk, gp), positions, params,
+                 a, kk)
     k, v = _shared_kv(params, x, positions, a)
     o = attn_lib.attend_chunk(q, k, v, cache,
                               0 if start_pos is None else int(start_pos))
     o = _from_virtual(o, a.n_kv_heads, kk, a.n_heads_per_expert)
     y = _routed_o(params, o.reshape(b * s * kk, a.d_head_group), dec, a,
-                  bk, x.dtype)
+                  bk, gp, x.dtype)
     return y.reshape(b, s, d), cache
 
 
 def moa_decode(params, x, cache: dict, cur_index, a: MoAArgs, *,
-               mask: torch.Tensor | None = None):
+               mask: torch.Tensor | None = None,
+               ctx: MeshContext | None = None):
     """One-token routed decode.  x: [B, 1, d]; ``cur_index``: scalar or
-    [B] per-slot positions; ``mask`` ([B]) is slot occupancy.  Returns
-    (y [B, 1, d], cache, aux) with this step's routing telemetry."""
+    [B] per-slot positions; ``mask`` ([B]) is slot occupancy.  On a mesh
+    (``ctx``, the decode plan) the rows are this rank's slots (the
+    plan's ``batch`` axes), routed with every rank's, and ``cache`` is
+    this rank's slice of their pages (``kv_seq`` sharded as the plan
+    says).  Returns (y [B, 1, d], cache, aux) with this step's routing
+    telemetry (every slot's)."""
     b, _, d = x.shape
     cur = torch.as_tensor(cur_index, device=x.device).long().reshape(-1)
     cur = cur.expand(b)
     positions = cur[:, None]
     bk = backend_lib.resolve(a)
+    gp = _plan(ctx, a, None if ctx is None else ctx.axes_of("batch"))
     flat = x.reshape(b, d)
-    dec = _route(params, flat, a, bk, mask=mask)
+    flat_all = gp.gather(flat)
+    dec = _route(params, flat_all, a, bk,
+                 mask=gp.gather(None if mask is None else mask.reshape(-1)))
     kk = dec.plan.expert_index.shape[1]
     ap = assignment_plan(dec.plan)
+    w = gp.weights(params)
     if a.fused_decode:
-        q_sel = bk.decode_proj(flat, params["wq"], dec.plan, ap, a,
-                               dtype=flat.dtype)
+        q_sel = _fused_proj(flat_all, w["wq"], dec.plan, ap, a, bk, gp,
+                            flat.dtype)
     else:
-        q_sel = _routed_q(params, flat, dec, a, bk)         # [B·k, Hg·hd]
-    q = _queries(q_sel, positions, params, a, kk)
+        q_sel = _routed_q(params, flat_all, dec, a, bk, gp)  # [B·k, Hg·hd]
+    q = _queries(gp.own(q_sel, b * kk), positions, params, a, kk)
     k_new, v_new = _shared_kv(params, x, positions, a)
-    o = attn_lib.attend_cached(q, k_new, v_new, cache, cur)
+    seq_axes = () if gp.ctx is None else tuple(
+        ax for ax in ctx.axes_of("kv_seq") if ctx.sizes[ax] > 1)
+    if seq_axes:
+        o = attn_lib.attend_cached_sharded(q, k_new, v_new, cache, cur, ctx,
+                                           seq_axes)
+    else:
+        o = attn_lib.attend_cached(q, k_new, v_new, cache, cur)
     o = _from_virtual(o, a.n_kv_heads, kk, a.n_heads_per_expert)
     o_sel = o.reshape(b * kk, a.d_head_group)
     if a.fused_decode:
-        y = bk.decode_proj(o_sel, params["wo"], ap, dec.plan, a,
-                           dtype=x.dtype)
+        y = _fused_proj(gp.gather(o_sel), w["wo"], ap, dec.plan, a, bk, gp,
+                        x.dtype)
     else:
-        y = _routed_o(params, o_sel, dec, a, bk, x.dtype)
-    return y.reshape(b, 1, d), cache, _aux(dec)
+        y = _routed_o(params, o_sel, dec, a, bk, gp, x.dtype)
+    return gp.own(y, b).reshape(b, 1, d), cache, _aux(dec)

@@ -128,24 +128,25 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, *,
     On a mesh (``ctx``) ``params`` are this rank's slices, gathered
     here on use (``expert_parallel.gather_on_use``), ``batch`` is this
     rank's rows of the global batch, the flat MoE layers run the
-    expert-parallel schedule, and
-    the draws are those of the global batch (``draws``, or drawn from
-    ``generator`` at the global size) of which the rank keeps its rows
-    (``sharding.context.local_draws``).  ``xent`` is then the rank's own
+    expert-parallel schedule, MoA mixers and the hierarchical MoE their
+    global plan, and the draws are those of the global batch (``draws``,
+    or drawn from ``generator`` at the global size) of which the rank
+    keeps the flat MoE's rows (``sharding.context.local_draws``); a
+    global plan's noise stays whole.  ``xent`` is then the rank's own
     mean, while ``aux_loss`` and the balancing metrics are the combined
-    batch's; the hierarchical MoE and MoA mixers raise
-    (``transformer.refuse_undistributed``)."""
+    batch's (a global plan's: one process's)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     mesh = on_mesh(ctx)
     if mesh:
-        transformer.refuse_undistributed(cfg, ctx)
         params = ep_lib.gather_on_use(params, lm_defs(cfg), ctx)
     if train and draws is None and generator is not None:
         draws = make_draws(cfg, b * (ctx.world if mesh else 1), s,
                            generator, tokens.device)
     if train and draws is not None and mesh:
-        draws = local_draws(draws, ctx)
+        whole = ("moa_noise",) + (("noise",) if cfg.moe_hierarchical
+                                  else ())
+        draws = local_draws(draws, ctx, whole=whole)
     x = _embed_with_prefix(params, tokens, cfg, batch.get("prefix_embeds"))
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     x, aux = transformer.stack_apply(params["blocks"], x, cfg,

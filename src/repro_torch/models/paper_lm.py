@@ -28,8 +28,7 @@ from repro_torch.core import hierarchical as hmoe_lib
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import layers
 from repro_torch.models import lstm as lstm_lib
-from repro_torch.sharding.context import (MeshContext, local_draws,
-                                          on_mesh, refuse_distributed)
+from repro_torch.sharding.context import MeshContext, local_draws, on_mesh
 
 VARIANTS = ("moe", "moe_1_wide", "moe_1_deep", "lstm_4x", "lstm_2048_512")
 
@@ -143,14 +142,14 @@ def make_draws(cfg: PaperLMConfig, batch_size: int, seq_len: int,
 def _mid_layer(params, x2d: torch.Tensor, cfg: PaperLMConfig, *,
                train: bool, noise, ctx: MeshContext | None = None):
     """The capacity layer between the LSTMs.  x2d: [T, d]; on a mesh
-    (``ctx``) this rank's rows, and the flat MoE runs the
-    expert-parallel schedule."""
+    (``ctx``) this rank's rows, the flat MoE runs the expert-parallel
+    schedule and the hierarchical MoE its global plan (``noise`` the
+    global batch's)."""
     zero_aux = {"aux_loss": torch.zeros((), dtype=torch.float32,
                                         device=x2d.device), "metrics": {}}
     if cfg.variant == "moe" and cfg.hierarchical:
-        refuse_distributed(ctx, "the hierarchical MoE")
         return hmoe_lib.hmoe_apply(params["moe"], x2d, _hmoe_args(cfg),
-                                   train=train, noise=noise)
+                                   train=train, noise=noise, ctx=ctx)
     if cfg.variant == "moe" and on_mesh(ctx):
         return ep_lib.moe_apply_ep(params["moe"], x2d, _moe_args(cfg), ctx,
                                    train=train, noise=noise)
@@ -192,7 +191,8 @@ def paper_lm_loss(params, batch, cfg: PaperLMConfig, *,
         draws = make_draws(cfg, b * (ctx.world if mesh else 1), s,
                            generator, tokens.device)
     if train and draws is not None and mesh:
-        draws = local_draws(draws, ctx)
+        draws = local_draws(draws, ctx, whole=("noise",) if cfg.hierarchical
+                            else ())
     draws = draws if train else None
     keep = [None if draws is None else draws.get(f"keep{i}")
             for i in range(4)]

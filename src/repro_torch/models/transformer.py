@@ -20,13 +20,16 @@ hierarchical (``cfg.moe_hierarchical``, Appendix B).
 prefill stays unfused, and the hierarchical MoE has no fused decode (nor
 has the reference).
 
-On a mesh (``ctx``) training runs the expert-parallel schedule
-(``core/expert_parallel.py::moe_apply_ep``) on this rank's tokens;
-prefill and decode run the serving schedule (``moe_apply_serve``):
-prefill on the whole prompt or chunk rows, which every rank holds,
-decode on this rank's slots (the decode plan's ``batch`` axes) over a
-sequence-sharded cache (``attention.decode_attention``).  The weights
-are then the serving layout: whole, but for the experts' slabs.
+On a mesh (``ctx``) training runs the flat MoE's expert-parallel
+schedule (``core/expert_parallel.py::moe_apply_ep``) on this rank's
+tokens; prefill and decode run the serving schedule
+(``moe_apply_serve``): prefill on the whole prompt or chunk rows, which
+every rank holds, decode on this rank's slots (the decode plan's
+``batch`` axes) over a sequence-sharded cache
+(``attention.decode_attention``).  The weights are then the serving
+layout: whole, but for the experts' slabs.  MoA mixers and the
+hierarchical MoE run their global plan (``expert_parallel.GlobalPlan``)
+in training and serving alike: one process's routing on every rank.
 """
 from __future__ import annotations
 
@@ -43,6 +46,15 @@ from repro_torch.core import moe as moe_lib
 from repro_torch.models import attention, layers, ssm
 from repro_torch.sharding.context import (MeshContext, on_mesh,
                                           refuse_distributed)
+
+
+def _token_axes(ctx: MeshContext | None, serve: bool, decode: bool):
+    """The mesh axes that split a routed layer's rows: every free axis
+    in training (None), none in prefill (the rows are whole on every
+    rank), the plan's ``batch`` axes at decode."""
+    if ctx is None or not serve:
+        return None
+    return ctx.axes_of("batch") if decode else ()
 
 
 def _moe_args(cfg: ModelConfig, *, decode: bool = False) -> moe_lib.MoEArgs:
@@ -226,10 +238,10 @@ def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
     """Post-mixer FFN with residual.  ``noise`` is the MoE gate's
     training noise ([B*S, E], or the hierarchical MoE's two-level dict).
     On a mesh (``ctx``) a flat MoE runs the expert-parallel schedule on
-    this rank's tokens (``lm_loss`` refuses the layers that are not
-    distributed, :func:`refuse_undistributed`), or with ``serve`` the
-    serving schedule: prefill rows whole on every rank, a decode step's
-    rows split over the plan's ``batch`` axes.  Returns (x, aux)."""
+    this rank's tokens, or with ``serve`` the serving schedule: prefill
+    rows whole on every rank, a decode step's rows split over the plan's
+    ``batch`` axes; the hierarchical MoE runs its global plan over the
+    same rows.  Returns (x, aux)."""
     if kind.ffn == "none":
         return x, None
     h = layers.rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -239,13 +251,14 @@ def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
         b, s, d = h.shape
         flat, mask = h.reshape(b * s, d), _flat_mask(valid, b, s)
         if cfg.moe_hierarchical:
-            y, aux = hmoe_lib.hmoe_apply(params["moe"], flat,
-                                         _hmoe_args(cfg), train=train,
-                                         noise=noise, mask=mask)
+            y, aux = hmoe_lib.hmoe_apply(
+                params["moe"], flat, _hmoe_args(cfg), train=train,
+                noise=noise, mask=mask, ctx=ctx,
+                token_axes=_token_axes(ctx, serve, decode))
         elif on_mesh(ctx) and serve:
             y, aux = ep_lib.moe_apply_serve(
                 params["moe"], flat, _moe_args(cfg, decode=decode), ctx,
-                mask=mask, rows_axes=ctx.axes_of("batch") if decode else ())
+                mask=mask, rows_axes=_token_axes(ctx, serve, decode))
         elif on_mesh(ctx):
             y, aux = ep_lib.moe_apply_ep(params["moe"], flat,
                                          _moe_args(cfg, decode=decode), ctx,
@@ -316,7 +329,7 @@ def block_apply(params, x, kind: LayerKind, cfg: ModelConfig, *,
     if kind.mixer == "moa":
         y, aux = moa_lib.moa_apply(params["moa"], h, _moa_args(cfg),
                                    positions=positions, train=train,
-                                   noise=moa_noise)
+                                   noise=moa_noise, ctx=ctx)
         aux_mix = _moa_aux(aux)
     elif kind.mixer == "mamba":
         y = ssm.mamba(params["mamba"], h, d_state=cfg.ssm_d_state)
@@ -332,23 +345,10 @@ def block_apply(params, x, kind: LayerKind, cfg: ModelConfig, *,
     return x, _merge_aux(aux_mix, aux)
 
 
-def refuse_undistributed(cfg: ModelConfig, ctx: MeshContext | None) -> None:
-    """Raise NotImplementedError, on a mesh of more than one rank, for a
-    config with a layer the port does not distribute (the hierarchical
-    MoE, MoA mixers)."""
-    kinds = layer_kinds(cfg)
-    if cfg.moe_hierarchical and any(k.ffn in ("moe", "moe+dense")
-                                    for k in kinds):
-        refuse_distributed(ctx, "the hierarchical MoE")
-    if any(k.mixer == "moa" for k in kinds):
-        refuse_distributed(ctx, "MoA")
-
-
 def refuse_unserved(cfg: ModelConfig, ctx: MeshContext | None) -> None:
     """Raise NotImplementedError, on a mesh of more than one rank, for a
-    config the port does not serve there: the hierarchical MoE, MoA,
-    mamba mixers and sliding-window attention."""
-    refuse_undistributed(cfg, ctx)
+    config the port does not serve there: mamba mixers and
+    sliding-window attention."""
     kinds = layer_kinds(cfg)
     if any(k.mixer == "mamba" for k in kinds):
         refuse_distributed(ctx, "serving mamba mixers")
@@ -448,7 +448,7 @@ def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
         y, _ = moa_lib.moa_prefill(params["moa"], h, positions,
                                    _moa_args(cfg), cache=cache,
                                    mask=_flat_mask(valid, b, s),
-                                   start_pos=start_pos)
+                                   start_pos=start_pos, ctx=ctx)
     elif kind.mixer == "mamba":
         y, state = ssm.mamba(params["mamba"], h, d_state=cfg.ssm_d_state,
                              return_state=True)
@@ -475,7 +475,7 @@ def block_decode(params, x, kind: LayerKind, cfg: ModelConfig, cache,
         mask = None if valid is None else valid.float().reshape(-1)
         y, _, aux = moa_lib.moa_decode(params["moa"], h, cache, cur_index,
                                        _moa_args(cfg, decode=True),
-                                       mask=mask)
+                                       mask=mask, ctx=ctx)
         telem.update(_moa_aux(aux)["telemetry"])
     elif kind.mixer == "mamba":
         y, state = ssm.mamba_decode(params["mamba"], h, cache,

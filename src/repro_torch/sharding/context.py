@@ -510,14 +510,17 @@ def refuse_distributed(ctx: MeshContext | None, what: str) -> None:
             f"(ctx=None), not on a mesh of {ctx.world} ranks")
 
 
-def local_draws(draws: dict, ctx: MeshContext) -> dict:
+def local_draws(draws: dict, ctx: MeshContext,
+                whole: Sequence[str] = ()) -> dict:
     """This rank's rows of one step's draws for the global batch: each
     tensor's equal share of dim 0 (token rows of a [T, E] noise, batch
-    rows of a [B, S, d] mask), as ``ctx.local_rows`` gives the batch."""
+    rows of a [B, S, d] mask), as ``ctx.local_rows`` gives the batch.
+    The keys in ``whole`` stay the global batch's (the noise of a layer
+    that routes the global plan on every rank)."""
     def one(v):
         if isinstance(v, dict):
             return {k: one(t) for k, t in v.items()}
         if isinstance(v, list):
             return [one(t) for t in v]
         return None if v is None else ctx.local_rows(v)
-    return {k: one(v) for k, v in draws.items()}
+    return {k: v if k in whole else one(v) for k, v in draws.items()}

@@ -148,6 +148,22 @@ def make_draws(cfg: ModelConfig, n_micro: int, n_stages: int,
                        for _ in range(n_stages)] for _ in range(n_micro)]}
 
 
+def refuse_routed(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a config with MoA mixers or the
+    hierarchical MoE: the stage body passes a layer no MoA gate noise,
+    and it keeps its rows of each draw, where a global plan needs the
+    whole (``expert_parallel.GlobalPlan``)."""
+    kinds = layer_kinds(cfg)
+    if any(k.mixer == "moa" for k in kinds):
+        raise NotImplementedError(
+            "MoA is not pipelined: the stage body passes no MoA gate noise")
+    if cfg.moe_hierarchical and any(k.ffn in ("moe", "moe+dense")
+                                    for k in kinds):
+        raise NotImplementedError(
+            "the hierarchical MoE is not pipelined: a stage keeps its rows "
+            "of each draw, and the global plan needs the whole")
+
+
 def _check_mesh(ctx: MeshContext | None, n_stages: int, stage_axis: str):
     if not on_mesh(ctx):
         raise ValueError("the pipeline runs on a mesh (ctx with a mesh)")
@@ -238,7 +254,7 @@ def pipeline_lm_loss(params, batch: dict, cfg: ModelConfig, *,
     the gates are noiseless.  Returns (loss, metrics) with this rank's
     rows' ``xent``, the ``aux_loss`` and ``loss``."""
     _check_mesh(ctx, n_stages, stage_axis)
-    transformer.refuse_undistributed(cfg, ctx)
+    refuse_routed(cfg)
     pp = pipeline_context(ctx, stage_axis)
     stage_ctx = pp.manual(stage_axis)
     defs = pipeline_param_defs(cfg, n_stages)

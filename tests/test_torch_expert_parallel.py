@@ -22,9 +22,15 @@ import numpy as np
 import pytest
 import torch
 import torch_dist_workers as workers
+from conftest import small_config
+from test_torch_lm import _params as lm_params
+from test_torch_lm import _tcfg
 
 from repro.common import param as jpm
 from repro.core import moe as jmoe
+from repro.core import router as jrouter
+from repro.data import pipeline as jdata
+from repro.models import lm as jlm
 from repro_torch.common.bridge import from_jax_tree
 from repro_torch.configs.base import get_config
 from repro_torch.core import router as trouter
@@ -181,6 +187,31 @@ def run(tmp_path_factory):
             x=torch.from_numpy(xs), dy=torch.zeros(T, D), train=False,
             local_aux=True)
     kimi = reduced(get_config("kimi-k2-1t-a32b"))
+    # Tokens drop in the global-plan layers; moa-demo's flat MoE FFN
+    # (per-shard capacity) at a factor where no shard drops.
+    lm_eval = {}
+    for feature, jcfg in (
+            ("hierarchical", small_config("kimi-k2-1t-a32b",
+                                          moe_hierarchical=(4, 4),
+                                          capacity_factor=1.0)),
+            ("moa", small_config("moa-demo", capacity_factor=4.0,
+                                 moa_router=jrouter.RouterSpec(
+                                     capacity_factor=1.0)))):
+        tree = lm_params(jcfg, seed=5)
+        dc = jdata.DataConfig(vocab_size=jcfg.vocab_size, seq_len=32,
+                              batch_size=4, n_clusters=4)
+        jbatch = jdata.batch_at(dc, 0)
+        _, jm = jax.jit(lambda p, b, c=jcfg: jlm.lm_loss(
+            p, b, c, train=False))(tree, jbatch)
+        want[f"lm_{feature}"] = {k: float(v) for k, v in jm.items()}
+        tcfg = _tcfg(jcfg)
+        if jcfg.moa_router is not None:
+            tcfg = tcfg.replace(moa_router=trouter.RouterSpec(
+                capacity_factor=1.0))
+        lm_eval[feature] = dict(
+            cfg=tcfg, params=from_jax_tree(tree, device="cpu"),
+            batch={k: torch.from_numpy(np.array(v))
+                   for k, v in jbatch.items()})
     # Fused decode at a decode shape (T = 8, two rows a rank, one dead).
     ja, targs = _args("swiglu", cf=2.0)
     ja = dataclasses.replace(ja, fused_decode=True)
@@ -192,9 +223,10 @@ def run(tmp_path_factory):
                             mask=jnp.asarray(mask))
     want["fused_decode"] = {"y": np.asarray(y), **{
         k: np.asarray(v) for k, v in aux["telemetry"].items()}}
-    inputs = dict(moe_cases=cases, lm_refusals={
-        "hierarchical": kimi.replace(moe_hierarchical=(2, 4)),
-        "moa": reduced(get_config("moa-demo"))},
+    inputs = dict(moe_cases=cases, lm_eval=lm_eval,
+        pipeline_refusals={
+            "pipeline_hierarchical": kimi.replace(moe_hierarchical=(2, 4)),
+            "pipeline_moa": reduced(get_config("moa-demo"))},
         serve_refusals={
             "mamba_serving": reduced(get_config("falcon-mamba-7b")),
             "window_serving": reduced(get_config("gemma3-27b"))},
@@ -285,16 +317,35 @@ def test_ep_balance_is_the_combined_batchs(run, policy):
 
 @pytest.mark.parametrize("feature,why", [
     ("fused_decode", None),
-    ("hierarchical", "the hierarchical MoE is not distributed"),
-    ("moa", "MoA is not distributed"),
+    # Parity checks, under the ids of the refusals they replaced.
+    pytest.param("hierarchical", None,
+                 id="hierarchical-the hierarchical MoE is not distributed"),
+    pytest.param("moa", None, id="moa-MoA is not distributed"),
     ("mamba_serving", "serving mamba mixers is not distributed"),
-    ("window_serving", "serving sliding-window attention is not distributed")])
+    ("window_serving", "serving sliding-window attention is not distributed"),
+    ("pipeline_hierarchical", "the hierarchical MoE is not pipelined"),
+    ("pipeline_moa", "MoA is not pipelined")])
 def test_unported_features_refuse_on_a_mesh(run, feature, why):
     """The features the port does not distribute raise on a mesh of four
-    ranks.  Fused decode is distributed now: a decode-shaped eval call
-    on the mesh (routed globally, kernel 8's plain version on each
-    rank's experts, the partial outputs summed) gives the rows and the
-    load / overflow telemetry of JAX's fused decode on one process."""
+    ranks.  Fused decode is distributed: a decode-shaped eval call on the
+    mesh (routed globally, kernel 8's plain version on each rank's
+    experts, the partial outputs summed) gives the rows and the load /
+    overflow telemetry of JAX's fused decode on one process.  So are the
+    hierarchical MoE and MoA (their global plan): ``lm_loss`` on the
+    mesh, with tokens dropped, gives JAX's one-process eval loss (the
+    ranks' mean xent) and the same aux loss and metrics on every rank."""
+    if feature in ("hierarchical", "moa"):
+        want = run["want"][f"lm_{feature}"]
+        got = [r["lm_eval"][feature] for r in run["ranks"]]
+        assert want["fraction_dropped"] > 0
+        np.testing.assert_allclose(np.mean([g["xent"] for g in got]),
+                                   want["xent"], **TOL)
+        for k, v in want.items():
+            if k in ("xent", "loss"):
+                continue
+            for g in got:
+                np.testing.assert_allclose(g[k], v, **TOL, err_msg=k)
+        return
     if feature == "fused_decode":
         want = run["want"]["fused_decode"]
         got = np.concatenate([r["fused_decode"]["y"].numpy()

@@ -84,8 +84,10 @@ def _moe_case(ctx: MeshContext, case: dict) -> dict:
 
 def _refusals(ctx: MeshContext, inputs: dict) -> dict:
     """Each feature the port does not distribute raises
-    NotImplementedError on this mesh, and experts that do not divide
-    over the expert axis a ValueError; the message of each."""
+    NotImplementedError on this mesh (serving mamba mixers and
+    sliding-window attention; MoA and the hierarchical MoE in the
+    pipeline), and experts that do not divide over the expert axis a
+    ValueError; the message of each."""
     got = {}
 
     def expect(name, fn, error=NotImplementedError):
@@ -106,13 +108,27 @@ def _refusals(ctx: MeshContext, inputs: dict) -> dict:
         {}, x, moe_lib.MoEArgs(**dict(moe["args"], n_experts=odd)), ctx,
         train=False), error=ValueError)
     batch = {k: ctx.local_rows(v) for k, v in inputs["batch"].items()}
-    for name, cfg in inputs["lm_refusals"].items():
-        # lm_loss refuses before it reads a parameter.
-        expect(name, lambda: lm.lm_loss({}, batch, cfg, ctx=ctx))
     for name, cfg in inputs["serve_refusals"].items():
-        # So do lm_prefill and lm_decode on a mesh.
+        # lm_prefill (and lm_decode) refuse before they read a parameter.
         expect(name, lambda: lm.lm_prefill({}, batch, None, cfg, ctx=ctx))
+    from repro_torch.train import pipeline as pp_lib
+    for name, cfg in inputs["pipeline_refusals"].items():
+        # So does the pipelined loss.
+        expect(name, lambda: pp_lib.pipeline_lm_loss(
+            {}, inputs["batch"], cfg, ctx=ctx, n_stages=ctx.sizes["data"],
+            n_micro=2))
     return got
+
+
+def _lm_eval(ctx: MeshContext, case: dict) -> dict:
+    """lm_loss (train=False) on this mesh from the rank's parameter
+    slices and batch rows: the rank's metrics."""
+    cfg = case["cfg"]
+    local = ctx.shard(case["params"], lm.lm_defs(cfg))
+    batch = {k: ctx.local_rows(v) for k, v in case["batch"].items()}
+    with torch.no_grad():
+        _, metrics = lm.lm_loss(local, batch, cfg, train=False, ctx=ctx)
+    return {k: float(v) for k, v in metrics.items()}
 
 
 def _fused_decode(ctx: MeshContext, case: dict) -> dict:
@@ -132,6 +148,8 @@ def case_moe(ctx: MeshContext, inputs: dict) -> dict:
     out = {name: _moe_case(ctx, case)
            for name, case in inputs["moe_cases"].items()}
     out["refusals"] = _refusals(ctx, inputs)
+    out["lm_eval"] = {name: _lm_eval(ctx, case)
+                      for name, case in inputs["lm_eval"].items()}
     out["fused_decode"] = _fused_decode(ctx, inputs["fused_case"])
     return out
 
@@ -344,9 +362,145 @@ def case_pipeline(ctx: MeshContext, inputs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# MoA and the hierarchical MoE on a mesh (their global plan)
+# ---------------------------------------------------------------------------
+
+def _routed_layer(ctx: MeshContext, case: dict) -> dict:
+    """One MoA or hierarchical-MoE layer on this mesh at train=True: the
+    rank's rows of x (and of the positions), the global noise, the
+    parameters sharded by the plan and gathered on use; ``sum(y * dy) +
+    aux_loss`` back-propagated as a sum over the ranks (as
+    :func:`_moe_case`).  Returns the rank's y, aux, metrics, telemetry
+    and the full gradients of the parameters and of x."""
+    from repro_torch.core import hierarchical as hmoe_lib
+    from repro_torch.core import moa as moa_lib
+    if case["kind"] == "moa":
+        a = moa_lib.MoAArgs(**case["args"])
+        defs = moa_lib.moa_defs(a)
+    else:
+        a = hmoe_lib.HMoEArgs(**case["args"])
+        defs = hmoe_lib.hmoe_defs(a)
+    local = _grad_leaves(ctx.shard(case["params"], defs))
+    used = ep_lib.gather_on_use(local, defs, ctx)
+    x = ctx.local_rows(case["x"]).clone().requires_grad_(True)
+    if case["kind"] == "moa":
+        y, aux = moa_lib.moa_apply(used, x, a,
+                                   positions=ctx.local_rows(case["pos"]),
+                                   train=True, noise=case["noise"], ctx=ctx)
+    else:
+        y, aux = hmoe_lib.hmoe_apply(used, x, a, train=True,
+                                     noise=case["noise"], ctx=ctx)
+    loss = torch.sum(y * ctx.local_rows(case["dy"])) \
+        + aux["aux_loss"] / ctx.world
+    loss.backward()
+    grads = tree_map(lambda p: (torch.zeros_like(p) if p.grad is None
+                                else p.grad), local)
+    trainer_lib._sum_replicas(ctx, grads, ctx.specs(defs))
+    return {"y": y.detach(), "aux_loss": aux["aux_loss"].detach(),
+            "metrics": {k: v.detach() for k, v in aux["metrics"].items()},
+            "telemetry": aux["telemetry"], "grads": _full(ctx, grads, defs),
+            "dx": x.grad}
+
+
+def _routed_logits(ctx: MeshContext, case: dict) -> dict:
+    """lm_prefill of the whole prompt rows on every rank (the prefill
+    plan, a whole page), the page relaid onto the decode plan, then one
+    lm_decode step of this rank's slots: both calls' logits."""
+    from repro_torch.common import param as pm
+    from repro_torch.models import transformer
+    cfg = case["cfg"]
+    defs = lm.lm_defs(cfg)
+    pre, dec = ctx.with_plan("prefill_tp"), ctx.with_plan("decode_std")
+    params = ep_lib.serve_layout(dec.shard(case["params"], defs), defs, dec)
+    tokens = case["tokens"]
+    b, s = tokens.shape
+    cdefs = transformer.cache_defs(cfg, b, case["max_len"])
+    with torch.no_grad():
+        cache = pm.materialize(cdefs, torch.Generator(), "cpu")
+        logits, cache = lm.lm_prefill(params, {"tokens": tokens}, cache, cfg,
+                                      ctx=pre)
+        cache = dec.reshard(cache, cdefs)
+        nxt = dec.shard_leaf(case["next"], dec.resolve((b,), ("batch",)))
+        step, _ = lm.lm_decode(params, nxt, cache, s, cfg, ctx=dec)
+    return {"prefill": logits, "decode": step}
+
+
+def _routed_record(ctx: MeshContext, case: dict) -> dict:
+    """One training step (``launch/steps.py``'s train step at the
+    cell's shape) under the collective recorder; beside it what this
+    rank handed torch.distributed, in the recorder's convention (the
+    bytes a rank sends of each call's tensors in its group)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import analytic, steps
+    from repro_torch.sharding.context import record_collectives
+    cfg = case["cfg"]
+    shape = ShapeSpec("t", "train", case["seq"], case["batch"])
+    oc = opt_lib.OptConfig(kind="factored")
+    defs = lm.lm_defs(cfg)
+    local = _grad_leaves(ctx.shard(case["params"], defs))
+    state = {"params": local, "opt": opt_lib.init(local, oc)}
+    fn = steps.make_train_step_fn(
+        cfg, oc, ctx, microbatches=analytic.cfg_microbatches(cfg, shape,
+                                                             ctx.world))
+    real = {n: getattr(dist, n) for n in ("all_gather", "all_reduce",
+                                          "all_to_all_single")}
+    sent: dict = {}
+
+    def counted(name, op, share):
+        def call(*args, **kw):
+            t = args[0] if name == "all_reduce" else args[1]
+            g = dist.get_world_size(kw.get("group"))
+            row = sent.setdefault(op, {"calls": 0, "bytes": 0})
+            row["calls"] += 1
+            row["bytes"] += t.numel() * t.element_size() * share(g)
+            return real[name](*args, **kw)
+        return call
+    try:
+        dist.all_gather = counted("all_gather", "all_gather",
+                                  lambda g: g - 1)
+        dist.all_reduce = counted("all_reduce", "all_reduce",
+                                  lambda g: 2 * (g - 1) / g)
+        dist.all_to_all_single = counted("all_to_all_single", "all_to_all",
+                                         lambda g: (g - 1) / g)
+        with record_collectives() as table:
+            fn(state, case["batch_data"], 0)
+    finally:
+        for name, f in real.items():
+            setattr(dist, name, f)
+    return {"recorded": table, "sent": sent}
+
+
+def case_routed(ctx: MeshContext, inputs: dict) -> dict:
+    """MoA and the hierarchical MoE on this mesh: each layer case, each
+    model's step-0 gradients and metrics from the JAX draws (as
+    :func:`case_train`), each serving case (as :func:`case_serve`), the
+    prefill / decode logits and the recorded train steps."""
+    out = {"layers": {name: _routed_layer(ctx, case)
+                      for name, case in inputs.get("layers", {}).items()}}
+    out["train"] = {}
+    for name, model in inputs.get("models", {}).items():
+        defs = _defs(model)
+        local = _grad_leaves(ctx.shard(model["params"], defs))
+        grads_fn = trainer_lib.make_grad_fn(
+            _loss_fn(model, ctx, draws=model["jax_draws"]), ctx=ctx,
+            defs=defs)
+        grads, metrics = grads_fn(local, model["batch"], None)
+        out["train"][name] = {
+            "grads0": _full(ctx, grads, defs),
+            "metrics0": {k: float(v) for k, v in metrics.items()}}
+    if inputs.get("serve"):
+        out["serve"] = case_serve(ctx, {"cases": inputs["serve"]})
+    out["logits"] = {name: _routed_logits(ctx, case)
+                     for name, case in inputs.get("logits", {}).items()}
+    out["record"] = {name: _routed_record(ctx, case)
+                     for name, case in inputs.get("record", {}).items()}
+    return out
+
+
 CASES = {"moe": case_moe, "train": case_train, "restore": case_restore,
          "serve": case_serve, "decode_wire": case_decode_wire,
-         "pipeline": case_pipeline}
+         "pipeline": case_pipeline, "routed": case_routed}
 
 
 # ---------------------------------------------------------------------------
