@@ -261,7 +261,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              from a pinned ref run with the compute in f32); 3
              steps, launch counts exactly 4 x ARCTIC_LAUNCHES a step; one
              more step timed as in phase 22.
-22. falcon_train — falcon-mamba-7b trained at B = 2 x S = 2048, remat,
+22. falcon_train — falcon-mamba-7b cut to 16 layers, trained at B = 2 x
+             S = 2048, remat,
              3 steps: finite metrics, every gradient present and finite,
              the optimizer timed alone, one more step with CUDA events
              around it and around every call of the scan (its share).
@@ -372,7 +373,26 @@ Phases, in order; any failure exits non-zero and prints no result:
              streams equal, logits within one bf16 unit of the logit
              scale, exact launches on every rank.  Reported: the
              collectives' calls, bytes and share of each step.
-29. report — one ``{"kernels": [...]}`` line, then the result line.
+29. mesh_mixers — mamba mixers and sliding-window attention served on
+             a mesh (ServeEngine(ctx=), the decode plan fitted to the
+             pool): two gloo ranks sharing the card against one process
+             on the same weights and traffic, bf16 at full width.  (a)
+             jamba-v0.1-52b cut to one period on (1, 2) (8 experts a
+             rank, the mamba states whole, the attention page over
+             model), phase 20's traffic unfused and fused; (b)
+             falcon-mamba-7b cut to 4 layers on (2, 1) (2 slots a rank);
+             (c) gemma3-27b cut to one period on (1, 2), phase 16's
+             prompts wrapping its 1024-token ring (512 slots a rank).
+             The ranks are handed one process's tokens (jamba's also
+             its kernel-1 choices).  Gates: every call's logits within
+             two bf16 units of one process's, own greedy tokens one
+             process's but at near ties, the ranks' engine stats equal,
+             exact launches a rank, kernels 1, 2, 4, 6 and 8 against
+             their plain versions at (a)'s mesh shapes.  Reported: a
+             rank's decode-step ms, the collectives' calls, bytes and
+             share of the decode time, peak memory a rank, the routing
+             flips.
+30. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -546,7 +566,9 @@ SMOLLM = "smollm-135m"
 # The Mamba mixer (models/ssm.py).  falcon-mamba-7b at full size (64
 # layers, 7,270,825,984 parameters, 14.54 GB in bf16): served with 4
 # slots, 4 prompts of 1024 tokens and 32 greedy tokens; trained at B x S
-# tokens a step with remat.  Its decode state is n_layers x slots x
+# tokens a step with remat, cut to FALCON_TRAIN_LAYERS (16: phase 29
+# takes the time of the other layers; at 32 the smoke ran over its
+# budget).  Its decode state is n_layers x slots x
 # (d_in·N·4 + (d_conv - 1)·d_in·2) bytes at any page length:
 # 64 x 4 x (8192·16·4 + 3·8192·2).  SCAN_S: the one-layer scan-vs-decode
 # gate's length (two chunks of 128), SCAN_TOL its tolerance a dtype,
@@ -555,6 +577,7 @@ FALCON, FALCON_PARAMS = "falcon-mamba-7b", 7_270_825_984
 SSM_REQUESTS, SSM_PROMPT, SSM_NEW = 4, 1024, 32
 FALCON_STATE_BYTES = 146_800_640
 FALCON_TRAIN_B, FALCON_TRAIN_S, FALCON_TRAIN_STEPS = 2, 2048, 3
+FALCON_TRAIN_LAYERS = 16
 SCAN_S, SCAN_TOL = 256, {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 # The engine against the training forward at falcon's 64 layers: in bf16
 # the forward itself moves 10-15 % of the logit scale from the same
@@ -5577,14 +5600,15 @@ def train_tail(what, cfg, params, dc, run, steps: int,
 
 
 def phase_falcon_train() -> dict:
-    """falcon-mamba-7b at full size, B x S = FALCON_TRAIN_B x
-    FALCON_TRAIN_S, remat: FALCON_TRAIN_STEPS steps (finite metrics, no
+    """falcon-mamba-7b at full width cut to FALCON_TRAIN_LAYERS, B x S =
+    FALCON_TRAIN_B x FALCON_TRAIN_S, remat: FALCON_TRAIN_STEPS steps
+    (finite metrics, no
     kernel launch), every gradient present and finite, the optimizer
     timed alone, one step profiled (the scan's share)."""
     import torch
     from repro_torch.data.pipeline import DataConfig
 
-    cfg, params, n = build_ssm(FALCON)
+    cfg, params, n = build_ssm(FALCON, FALCON_TRAIN_LAYERS)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=FALCON_TRAIN_S,
                     batch_size=FALCON_TRAIN_B, seed=SEED)
     run = _train_loop(cfg, params, dc, FALCON_TRAIN_STEPS, "falcon train")
@@ -6000,17 +6024,22 @@ class _CollectiveClock:
 
     @contextlib.contextmanager
     def in_decode(self):
-        """While on: the bytes of the collectives that ``lm.lm_decode``
-        calls run, by op, and the number of calls (one a decode step)."""
+        """While on: the bytes, synchronized ms and calls of the
+        collectives that ``lm.lm_decode`` calls run, by op, and the number
+        of decode calls (one a decode step)."""
         from repro_torch.models import lm
-        real, dec = lm.lm_decode, {"calls": 0, "bytes": {}}
+        real = lm.lm_decode
+        dec = {"calls": 0, "bytes": {}, "ms": {}, "op_calls": {}}
+        mine = (("bytes", self.bytes), ("ms", self.ms),
+                ("op_calls", self.calls))
 
         def decode(*args, **kw):
-            before = dict(self.bytes)
+            before = [dict(table) for _, table in mine]
             out = real(*args, **kw)
-            for name, n in self.bytes.items():
-                dec["bytes"][name] = (dec["bytes"].get(name, 0) + n
-                                      - before.get(name, 0))
+            for (key, table), was in zip(mine, before):
+                for name, n in table.items():
+                    dec[key][name] = (dec[key].get(name, 0) + n
+                                      - was.get(name, 0))
             dec["calls"] += 1
             return out
         lm.lm_decode = decode
@@ -6420,42 +6449,68 @@ def _mesh_traffic():
 
 class _LogitRecorder:
     """Wraps lm_prefill / lm_decode while on: each call's input tokens
-    (and decode positions) and its logits, on the host."""
+    (and decode positions) and its logits, on the host; and in
+    ``routes``, a call's kernel-1 choices (the indices of each
+    ``ops.topk_gating`` it makes, with ``gates`` (index, the gate logits
+    it was given) pairs)."""
 
-    def __init__(self):
+    def __init__(self, gates: bool = False):
+        from repro_torch.kernels import ops
         from repro_torch.models import lm
-        self.lm, self.calls = lm, []
-        self.real = (lm.lm_prefill, lm.lm_decode)
+        self.lm, self.ops, self.calls, self.routes = lm, ops, [], []
+        self.real = (lm.lm_prefill, lm.lm_decode, ops.topk_gating)
+        self.gates = gates
+        self._route = []
 
     def __enter__(self):
-        real_prefill, real_decode = self.real
+        real_prefill, real_decode, real_topk = self.real
 
         def prefill(params, batch, cache, cfg, **kw):
             logits, cache = real_prefill(params, batch, cache, cfg, **kw)
             self.calls.append(("prefill", batch["tokens"].cpu(), None,
                                logits.float().cpu()))
+            self.routes.append(self._route)
+            self._route = []
             return logits, cache
 
         def decode(params, tokens, cache, cur, cfg, **kw):
             out = real_decode(params, tokens, cache, cur, cfg, **kw)
             self.calls.append(("decode", tokens.cpu(), cur.cpu(),
                                out[0].float().cpu()))
+            self.routes.append(self._route)
+            self._route = []
+            return out
+
+        def topk(logits, k, kk=None):
+            out = real_topk(logits, k, kk)
+            self._route.append((out[1].cpu(), logits.float().cpu())
+                               if self.gates else out[1].cpu())
             return out
         self.lm.lm_prefill, self.lm.lm_decode = prefill, decode
+        self.ops.topk_gating = topk
         return self
 
     def __exit__(self, *exc):
-        self.lm.lm_prefill, self.lm.lm_decode = self.real
+        self.lm.lm_prefill, self.lm.lm_decode, self.ops.topk_gating = \
+            self.real
         return False
 
 
 def _mesh_serve_run(what, cfg, params, sc_kw, trace, ctx=None,
-                    launches=None) -> dict:
+                    launches=None, follow=None, pin=None,
+                    clock=None, gates=False) -> dict:
     """One traffic through an engine (on ``ctx`` or one process): a
     warm-up, then the run with the launches zeroed just before and read
     just after, each call's logits recorded.  ``launches``: (a model
     call's unfused launches, a fused decode step's on one process, on a
-    mesh); phase 24's kimi-k2 layer by default."""
+    mesh); phase 24's kimi-k2 layer by default.  Each sampling's greedy
+    tokens are kept (``samples``); with ``follow`` (a one-process run's
+    ``samples``) the engine is handed those tokens instead of its own,
+    so every call's inputs are that run's.  ``pin``: a :class:`_TopkPin`
+    active during the run; ``clock``: a :class:`_CollectiveClock` on
+    during the run alone (its tables reset, the decode calls' part in
+    ``decode_collectives``); ``gates``: keep each top-k call's gate
+    logits in ``routes`` (:class:`_LogitRecorder`)."""
     import numpy as np
     import torch
     from repro_torch.kernels import cuda_lib
@@ -6465,12 +6520,34 @@ def _mesh_serve_run(what, cfg, params, sc_kw, trace, ctx=None,
     engine.generate(np.stack([p[:PROMPT_LEN] for p, _, _ in trace[:2]]), 2)
     engine.reset()
     reqs = [engine.submit(p, m, arrival=a) for p, m, a in trace]
+    samples, real_sample = [], engine._sample_rows
+
+    def sample(logits, rows):
+        toks = real_sample(logits, rows)
+        samples.append(toks.tolist())
+        if follow is None:
+            return toks
+        want = np.asarray(follow[len(samples) - 1], np.int32)
+        first = engine.kv.first_slot
+        return want if len(want) == len(toks) else want[first:first
+                                                         + len(toks)]
+    engine._sample_rows = sample
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
-    with _LogitRecorder() as rec:
+    with contextlib.ExitStack() as stack:
+        in_decode = None
+        if clock is not None:
+            clock.ms, clock.bytes, clock.calls = {}, {}, {}
+            in_decode = stack.enter_context(clock.in_decode())
+            clock.on = True
+        if pin is not None:
+            stack.enter_context(pin.pinned())
+        rec = stack.enter_context(_LogitRecorder(gates))
         engine.run()
+    if clock is not None:
+        clock.on = False
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = cuda_lib.launch_counts()
@@ -6491,10 +6568,13 @@ def _mesh_serve_run(what, cfg, params, sc_kw, trace, ctx=None,
               f" prefills of {len(reqs)} prompts")
     dec = engine.step_times["decode"]
     return {"streams": [list(r.tokens) for r in reqs], "calls": rec.calls,
+            "routes": rec.routes, "samples": samples,
+            "decode_collectives": in_decode,
             "first_slot": engine.kv.first_slot, "n_local": engine.kv.n_local,
             "summary": {
                 "wall_s": wall, "launches": counts,
                 "decode_step_ms_median": 1e3 * statistics.median(dec),
+                "decode_ms_total": 1e3 * sum(dec),
                 "prefill_ms_median": (1e3 * statistics.median(
                     engine.step_times["prefill"])
                     if engine.step_times["prefill"] else None),
@@ -6511,8 +6591,10 @@ def _mesh_serve_run(what, cfg, params, sc_kw, trace, ctx=None,
 def _logit_errs(calls, ref_calls, first: int, n_local: int) -> dict:
     """Each recorded call against the one-process call at the same place
     in the run, where its input tokens (and positions) are the same: the
-    largest |difference| over the logit scale."""
-    worst, compared, scale_at = 0.0, 0, None
+    largest |difference| over the logit scale, and in bf16 units in the
+    last place at the binade of the call's logit scale."""
+    import math
+    worst, compared, scale_at, units = 0.0, 0, None, 0.0
     for (kind, tok, cur, logits), (rkind, rtok, rcur, rlogits) in zip(
             calls, ref_calls):
         if kind != rkind:
@@ -6525,13 +6607,15 @@ def _logit_errs(calls, ref_calls, first: int, n_local: int) -> dict:
                 continue
         elif not torch_equal(tok, rtok):
             continue
-        scale = float(rlogits.abs().max())
-        err = float((logits - rlogits).abs().max()) / max(scale, 1e-30)
-        if err >= worst:
-            worst, scale_at = err, scale
+        scale = max(float(rlogits.abs().max()), 1e-30)
+        diff = float((logits - rlogits).abs().max())
+        if diff / scale >= worst:
+            worst, scale_at = diff / scale, scale
+        units = max(units, diff / 2.0 ** (math.floor(math.log2(scale)) - 7))
         compared += 1
     return {"worst_rel": worst, "calls_compared": compared,
-            "calls": len(calls), "logit_scale": scale_at}
+            "calls": len(calls), "logit_scale": scale_at,
+            "worst_bf16_units": units}
 
 
 def torch_equal(a, b) -> bool:
@@ -7307,7 +7391,9 @@ def roofline_paths(served, arctic, qwen3, gemma, falcon, jamba) -> list:
             gemma["train"], "step_ms_median_steps_2_to_3"),
         *serve("falcon-mamba-7b", fcfg, falcon["summary"], SSM_REQUESTS,
                SSM_PROMPT + SSM_NEW),
-        train("falcon-mamba-7b", fcfg, FALCON_TRAIN_B, FALCON_TRAIN_S,
+        train("falcon-mamba-7b", get_config(
+            FALCON, n_layers=FALCON_TRAIN_LAYERS), FALCON_TRAIN_B,
+            FALCON_TRAIN_S,
               falcon["train"]["summary"], "step_ms_median_steps_2_on"),
         *serve("jamba-v0.1-52b", jcfg, js, SSM_REQUESTS,
                SSM_PROMPT + SSM_NEW, js["fused"]),
@@ -7491,7 +7577,8 @@ def dryrun_plan() -> list:
          GEMMA_TRAIN_B, GEMMA_TRAIN_S),
         ("falcon-mamba-7b prefill", falcon, "prefill", 1, SSM_PROMPT),
         ("falcon-mamba-7b decode", falcon, "decode", SSM_REQUESTS, ssm_page),
-        ("falcon-mamba-7b train", falcon, "train", FALCON_TRAIN_B,
+        ("falcon-mamba-7b train", get_config(
+            FALCON, n_layers=FALCON_TRAIN_LAYERS), "train", FALCON_TRAIN_B,
          FALCON_TRAIN_S),
         ("jamba-v0.1-52b prefill", jamba, "prefill", 1, SSM_PROMPT),
         ("jamba-v0.1-52b decode", jamba, "decode", SSM_REQUESTS, ssm_page),
@@ -8377,6 +8464,522 @@ def phase_mesh_routed() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 29: mamba mixers and sliding-window attention served on a mesh
+# ---------------------------------------------------------------------------
+
+# Three models served by ServeEngine(ctx=) on two gloo ranks sharing the
+# card, bf16 at full width, each held to one process (this one) on the
+# same weights (drawn from SEED, the MoE gates redrawn after the tree, as
+# build_ssm draws them; a rank keeps its serving slices of each leaf) and
+# the traffic of its own phase (all prompts at step 0, a slot each):
+# (a) jamba-v0.1-52b cut to one period (JAMBA_TRAIN_LAYERS: 7 mamba, 1
+# attention, 4 MoE layers of 16 experts top-2) on (1, 2): 8 experts a
+# rank, the scan and conv states whole, the attention page's positions
+# over model; phase 20's SSM_REQUESTS x SSM_PROMPT prompts and SSM_NEW
+# tokens, unfused and fused;
+# (b) falcon-mamba-7b cut to 4 layers on (2, 1): 2 slots a rank; phase
+# 19's traffic;
+# (c) gemma3-27b cut to one period (5 window layers, 1 global) on (1, 2):
+# phase 16's GEMMA_REQUESTS x GEMMA_PROMPT prompts against its 1024-token
+# window, so the ring wraps (512 ring slots a rank), GEMMA_NEW tokens.
+# One process serves each model unfused; the ranks are handed its tokens
+# (so every call's inputs are its), and jamba's ranks its kernel-1
+# choices (_TopkPin).  The decode attention's merge rounds otherwise than
+# one process (phase 24), by one or two bf16 units of the logits; one
+# process's logits hold exact top-2 ties (bf16 logits), and a rounding
+# that small tips some of jamba's top-2 routings (measured on one H100),
+# after which no logit compares.  Gates: every call's logits within
+# MIXER_LOGIT_UNITS bf16 units in the last place, at the binade of the
+# call's logit scale, of one process's (ROUTED_LOGIT_TOL x the scale is
+# one to two such units; the merge moved jamba's and gemma3's by 1.4 and
+# 1.5, measured on one H100); each rank's own greedy tokens one
+# process's, but where one process's gap to the rank's pick is within
+# twice that call's logit difference (a near tie); each pinned routing
+# flip a near tie of one process's gate logits (_TopkPin), and at most
+# MIXER_MAX_FLIPS of them a run (4 a run of the ~17,000 rows routed, on
+# one H100, 3x that allowed); the ranks' engine
+# stats equal; a reshard a prompt; exact launches a rank (MESH_UNFUSED a
+# model call and MESH_FUSED_DECODE["mesh"] a fused decode step, a MoE
+# layer, for (a); none for (b) and (c)); kernels 1, 2, 4, 6 and 8
+# against their plain versions at (a)'s mesh shapes.  The ranks start
+# with the phase, build (a) and warm it up beside the references, then
+# serve once the references are done.
+MIXER_LOGIT_UNITS = 2
+MIXER_MAX_FLIPS = 12
+MIXER_MODELS = {"jamba": (JAMBA, JAMBA_TRAIN_LAYERS, (1, 2)),
+                "falcon": (FALCON, 4, (2, 1)),
+                "gemma": (GEMMA, 6, (1, 2))}
+
+
+def _mixer_cfg(name: str):
+    from repro_torch.configs.base import get_config
+    arch, layers, _ = MIXER_MODELS[name]
+    return get_config(arch, n_layers=layers)
+
+
+def _mixer_params(name: str, cut=None):
+    """``name``'s config and weights drawn from SEED, the MoE gates
+    redrawn at std d^-1/2 in layer order (as build_ssm draws them); with
+    ``cut`` a rank's slices (see _seeded)."""
+    from repro_torch.configs.base import layer_kinds
+    from repro_torch.models import lm
+    cfg = _mixer_cfg(name)
+    gates = tuple(("blocks", "periods", f"pos{p}", "moe", "gate", "wg")
+                  for p, kind in enumerate(layer_kinds(cfg))
+                  if kind.ffn == "moe")
+    return cfg, _seeded(lm.lm_defs(cfg), SEED, gates, cfg.d_model, cut)
+
+
+def _mixer_traffic(name: str, cfg) -> dict:
+    """traffic -> (ServeConfig fields, [(prompt, new tokens, arrival)]):
+    the prompts of phases 20, 19 and 16, all at step 0; a model with MoE
+    layers also with fused decode (on the ranks)."""
+    import numpy as np
+    seed, n, plen, new = {
+        "jamba": (SEED + 11, SSM_REQUESTS, SSM_PROMPT, SSM_NEW),
+        "falcon": (SEED + 9, SSM_REQUESTS, SSM_PROMPT, SSM_NEW),
+        "gemma": (SEED + 6, GEMMA_REQUESTS, GEMMA_PROMPT, GEMMA_NEW)}[name]
+    rs = np.random.RandomState(seed)
+    trace = [(rs.randint(1, cfg.vocab_size, (plen,)), new, 0)
+             for _ in range(n)]
+    sc = dict(max_len=plen + new, n_slots=n)
+    out = {"serve": (sc, trace)}
+    if cfg.n_experts:
+        out["fused"] = (dict(sc, fused_decode=True), trace)
+    return out
+
+
+def _mixer_launches(cfg) -> tuple:
+    """(unfused a model call, fused a decode step on one process, on a
+    mesh): phase 24's tables a MoE layer."""
+    from repro_torch.configs.base import layer_kinds
+    n_moe = (cfg.n_layers // cfg.period) * sum(
+        kind.ffn == "moe" for kind in layer_kinds(cfg))
+    return tuple({k: n_moe * v for k, v in table.items()}
+                 for table in (MESH_UNFUSED, MESH_FUSED_DECODE["one"],
+                               MESH_FUSED_DECODE["mesh"]))
+
+
+class _TopkPin:
+    """Pins kernel 1's choices to a recorded run's (``choices``: the
+    (indices, gate logits) of each of its ``ops.topk_gating`` calls, in
+    order).  Each call launches the kernel and keeps its output where
+    its top-k set is the recorded one; a row whose set differs (a flip)
+    takes the recorded indices, its own logits gathered at them and
+    their softmax as the weights.  A flip is a near tie only if the
+    recorded run's gap between its weakest pick and the strongest of
+    this run's other picks is at most twice the largest difference of
+    the two runs' gate logits at those experts, on that row: no smaller
+    drift of the gate's inputs can reorder them (in float64, where the
+    difference of two float32 logits is exact, so a flip at an exact tie
+    passes).  ``flips``: the flipped rows a call; ``worst_ratio``: the
+    largest such gap over twice the difference (at most 1 where every
+    flip is a near tie)."""
+
+    def __init__(self, choices: list):
+        self.choices = choices
+        self.flips: list = []
+        self.worst_ratio = 0.0
+
+    @contextlib.contextmanager
+    def pinned(self):
+        import torch
+        from repro_torch.kernels import ops
+        real = ops.topk_gating
+        counts, ratios = [], []
+
+        def topk(logits, k, kk=None):
+            w, idx, vals = real(logits, k, kk)
+            n = len(counts)
+            check(n < len(self.choices), "a pinned run made more top-k "
+                                         "calls than the recorded one")
+            want, rec = self.choices[n]
+            want, rec = want.to(idx.device), rec.to(idx.device).double()
+            check(want.shape == idx.shape, f"top-k call {n}: recorded "
+                  f"{tuple(want.shape)}, made {tuple(idx.shape)}")
+            g = logits.double()
+            theirs_set = torch.zeros_like(g, dtype=torch.bool).scatter_(
+                1, want[:, :k].long(), True)
+            own_set = torch.zeros_like(theirs_set).scatter_(
+                1, idx[:, :k].long(), True)
+            flip = (theirs_set != own_set).any(dim=-1)
+            inf = torch.tensor(float("inf"), device=g.device)
+            gap = (torch.where(theirs_set, rec, inf).amin(dim=-1)
+                   - torch.where(own_set & ~theirs_set, rec,
+                                 -inf).amax(dim=-1))
+            drift = torch.where(theirs_set | own_set, (g - rec).abs(),
+                                0.0).amax(dim=-1)
+            counts.append(flip.sum())
+            ratios.append(torch.where(
+                flip, gap / torch.clamp(2 * drift, min=1e-30), 0.0).amax())
+            theirs = logits.float().gather(-1, want.long())
+            row = flip[:, None]
+            return (torch.where(row, torch.softmax(theirs[:, :k], dim=-1),
+                                w),
+                    torch.where(row, want, idx),
+                    torch.where(row, theirs, vals))
+        ops.topk_gating = topk
+        try:
+            yield self
+        finally:
+            ops.topk_gating = real
+            self.flips = [int(c) for c in counts]
+            self.worst_ratio = max((float(r) for r in ratios), default=0.0)
+
+
+def _mesh_case(what, fn, plain, n_bytes, flops, dtype, tol=None,
+               plain_reps=REPS) -> dict:
+    """A kernel's wrapper ``fn`` against its plain version on the same
+    inputs: bitwise, or within ``tol(plain output)``; both timed with
+    CUDA events, beside the byte / operation bound."""
+    got, want = fn(), plain()
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    lim = 0.0 if tol is None else tol(want[0])
+    check(err <= lim, f"mesh mixers {what}: {err} from its plain version "
+                      f"(tol {lim})")
+    b, by = bound_ms(n_bytes, flops, dtype)
+    row = dict(max_abs_err=err, tol=lim, ms=cuda_ms(fn),
+               plain_ms=cuda_ms(plain, reps=plain_reps, warmup=1),
+               bound_ms=b, bound_by=by, shape=what)
+    log(f"mesh mixers kernel {what}: " + json.dumps(row))
+    return row
+
+
+def check_mesh_jamba_kernels(cfg, params) -> dict:
+    """Kernels 1, 2, 4, 6 and 8 at the shapes jamba's MoE layers give
+    them on (1, 2), on its first MoE layer's weights: a SSM_PROMPT-token
+    prefill and a decode step of SSM_REQUESTS slots, each routed whole
+    on every rank (top-k [T, 16], dispatch / combine [T, 4096] <-> [16,
+    C, 4096]), the three GMMs on rank 0's slab of 8 experts with the
+    plan's rows (each rank's slab bit for bit the whole call's rows),
+    and kernel 8 on the decode plan restricted to each rank's experts.
+    Phase 2's tolerances (top-k values 1e-6, its indices, dispatch and
+    combine bit for bit; the GMMs and kernel 8 two bf16 units); timed
+    with CUDA events beside the plain versions."""
+    import torch
+    from repro_torch.core import expert_parallel as ep_lib
+    from repro_torch.core import router as router_lib
+    from repro_torch.kernels import backend as backend_lib
+    from repro_torch.kernels import dispatch as dk
+    from repro_torch.kernels import gmm as gk
+    from repro_torch.kernels import topk_gating as tk
+    from repro_torch.models.transformer import _moe_args
+    layer = _layer(params["blocks"]["periods"]["pos1"]["moe"], 0)
+    wg, w1, w2, w3 = (layer["gate"]["wg"], layer["w1"], layer["w2"],
+                      layer["w3"])
+    e, k, d, f = cfg.n_experts, cfg.moe_k, cfg.d_model, cfg.moe_d_ff
+    ranks = MIXER_MODELS["jamba"][2][1]
+    e_local = e // ranks
+    a = _moe_args(cfg, decode=True)
+    router = router_lib.build(a, topk_impl=backend_lib.resolve(a).topk_impl)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    out: dict = {}
+    for label, t in (("prefill", SSM_PROMPT), ("decode", SSM_REQUESTS)):
+        x = torch.randn(t, d, device="cuda", generator=gen).to(torch.bfloat16)
+        logits = x.float() @ wg.float()
+        out[f"topk_gating_{label}"] = _mesh_case(
+            f"topk_gating [{t},{e}] k={k}",
+            lambda: tk.topk_gating(logits, k, k + 1),
+            lambda: tk.topk_gating_plain(logits, k, k + 1),
+            t * e * 4 + t * k * 4 + t * (k + 1) * 8, 0, "float32",
+            tol=lambda _: 1e-6)
+        dec = router.route(layer, x, train=False)
+        p, rows = dec.plan, dec.rows
+        ei, po, w = (v.contiguous() for v in (p.expert_index, p.position,
+                                              p.weight))
+        cap = p.capacity
+        kept = po < cap
+        n_kept, rows_read = int(kept.sum()), int(kept.any(dim=1).sum())
+        shape = f"[{t},{d}] <-> [{e},{cap},{d}]"
+        out[f"dispatch_{label}"] = _mesh_case(
+            f"dispatch {shape}",
+            lambda: dk.dispatch(x, ei, po, n_experts=e, capacity=cap),
+            lambda: dk.dispatch_plain(x, ei, po, None, e, cap),
+            (rows_read * d + e * cap * d) * 2 + t * k * 8, 0, "bfloat16")
+        buf = dk.dispatch(x, ei, po, n_experts=e, capacity=cap)
+        ybuf = torch.randn(e, cap, d, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+        out[f"combine_{label}"] = _mesh_case(
+            f"combine {shape}", lambda: dk.combine(ybuf, w, ei, po),
+            lambda: dk.combine_plain(ybuf, w, ei, po, x.dtype),
+            n_kept * d * 2 + t * k * 12 + t * d * 2, 2 * n_kept * d,
+            "bfloat16")
+        h = gk.mask_rows(torch.randn(e, cap, f, device="cuda",
+                                     generator=gen).to(torch.bfloat16), rows)
+        calls = (("w1", buf, w1, "silu"), ("w3", buf, w3, "none"),
+                 ("w2", h, w2, "none"))
+        for r in range(ranks):
+            half = slice(r * e_local, (r + 1) * e_local)
+            for name, xi, wi, act in calls:
+                whole = gk.gmm(xi, wi, activation=act, rows=rows)
+                check(bool(torch.equal(whole[half], gk.gmm(
+                    xi[half], wi[half], activation=act, rows=rows[half]))),
+                      f"mesh mixers gmm {name} {label}: rank {r}'s slab "
+                      "differs from the whole call's rows")
+        slab, srows = slice(0, e_local), rows[:e_local]
+        used, filled = int((srows > 0).sum()), int(srows.sum())
+        for name, xi, wi, act in calls:
+            kd, nd = wi.shape[1], wi.shape[2]
+            out[f"gmm_{name}_{label}"] = _mesh_case(
+                f"gmm {name} slab [{e_local},{cap},{kd}] x "
+                f"[{e_local},{kd},{nd}] rows",
+                lambda: gk.gmm(xi[slab], wi[slab], activation=act,
+                               rows=srows),
+                lambda: gk.gmm_plain(xi[slab], wi[slab], act, False, False,
+                                     srows),
+                (filled * kd + used * kd * nd + e_local * cap * nd) * 2,
+                2 * filled * kd * nd, "bfloat16", tol=bf16_tol,
+                plain_reps=3)
+        if label == "decode":
+            for r in range(ranks):
+                e0 = r * e_local
+                out[f"fused_routed_rank{r}"] = _fused8_case(
+                    x, ep_lib.local_plan(p, e0, e_local),
+                    w1[e0:e0 + e_local], w2[e0:e0 + e_local],
+                    w3[e0:e0 + e_local],
+                    f"jamba mesh slab of rank {r} ({e_local} experts)")
+        del buf, ybuf, h
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixer_reference(workdir: str) -> dict:
+    """Kernels at jamba's mesh shapes, then each model's unfused traffic
+    on this process: its greedy tokens, every call's logits and kernel-1
+    choices saved for the ranks, a file a model, then a file that says
+    all are there."""
+    import gc
+    import os
+    import torch
+    out = {}
+    for name in MIXER_MODELS:
+        t0 = time.perf_counter()
+        cfg, params = _mixer_params(name)
+        if name == "jamba":
+            out["kernels"] = check_mesh_jamba_kernels(cfg, params)
+        sc_kw, trace = _mixer_traffic(name, cfg)["serve"]
+        run = _mesh_serve_run(f"mesh mixers one process {name}", cfg,
+                              params, sc_kw, trace,
+                              launches=_mixer_launches(cfg),
+                              gates=bool(cfg.n_experts))
+        path = os.path.join(workdir, f"mixer_{name}.pt")
+        torch.save({k: run[k] for k in ("calls", "routes", "samples")},
+                   path + ".tmp")
+        os.replace(path + ".tmp", path)
+        out[name] = dict(run["summary"], reference_s=time.perf_counter() - t0)
+        del params, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("mesh mixers one process " + json.dumps(
+        {k: v for k, v in out.items() if k != "kernels"}))
+    return out
+
+
+def _greedy_errs(run, ref) -> dict:
+    """Each sampling's own greedy tokens of a rank's run against one
+    process's, with the decode rows of the rank's slots: the tokens that
+    differ, and of those the largest gap (one process's logit of its
+    token less that of the rank's pick) over twice the call's largest
+    logit difference (at most 1 where a near tie explains the pick)."""
+    first, n = run["first_slot"], run["n_local"]
+    out = {"tokens": 0, "differ": 0, "worst_gap_ratio": 0.0}
+    for own, want, (kind, _, _, logits), (_, _, _, rlogits) in zip(
+            run["samples"], ref["samples"], run["calls"], ref["calls"]):
+        if len(want) != len(own):
+            want, rlogits = want[first:first + n], rlogits[first:first + n]
+        diff = float((logits - rlogits).abs().max())
+        for row, (a, b) in enumerate(zip(own, want)):
+            out["tokens"] += 1
+            if a != b:
+                gap = float(rlogits[row, b] - rlogits[row, a])
+                out["differ"] += 1
+                out["worst_gap_ratio"] = max(out["worst_gap_ratio"],
+                                             gap / max(2 * diff, 1e-30))
+    return out
+
+
+def _mixer_build(name: str) -> tuple:
+    """(ctx, cfg, params) of ``name`` on this rank: the serving layout
+    drawn directly (the experts' slab of this rank, every other leaf
+    whole), on the model's mesh under decode_std."""
+    from repro_torch.core import expert_parallel as ep_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding.context import MeshContext
+    ctx = MeshContext.for_mesh(make_host_mesh(MIXER_MODELS[name][2][1],
+                                              device="cuda"), "decode_std")
+
+    def cut(d, t):
+        slab = "expert_embed" in d.axes
+        return ctx.shard_leaf(t, tuple(
+            s if slab and ax == "experts" else ()
+            for ax, s in zip(d.axes, ctx.resolve(d.shape, d.axes))))
+    cfg, params = _mixer_params(name, cut=cut)
+    return ctx, cfg, ep_lib.serve_layout(params, lm.lm_defs(cfg), ctx)
+
+
+def _mixer_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of phase 29 (a spawned process)."""
+    import os
+    import traceback
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'store_mixer')}",
+        rank=rank, world_size=world)
+    try:
+        out = _mixer_rank_body(rank, workdir)
+        with open(os.path.join(workdir, f"mixer_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _mixer_rank_body(rank: int, workdir: str) -> dict:
+    import gc
+    import os
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    clock = _CollectiveClock()
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    built = _mixer_build("jamba")
+    ctx, cfg, params = built
+    for sc_kw, trace in _mixer_traffic("jamba", cfg).values():
+        ServeEngine(params, cfg, ServeConfig(**sc_kw), device="cuda",
+                    ctx=ctx).generate(np.stack([p[:PROMPT_LEN]
+                                                for p, _, _ in trace]), 2)
+    torch.cuda.synchronize()
+    res["warmup_s"] = time.perf_counter() - t0
+    done = os.path.join(workdir, "mixer_done")
+    while not os.path.exists(done):
+        check(time.perf_counter() - t0 < 900,
+              "mesh mixers: the references not done after 900 s")
+        time.sleep(0.05)
+    for name in MIXER_MODELS:
+        ctx, cfg, params = built if name == "jamba" else _mixer_build(name)
+        built = None
+        ref = torch.load(os.path.join(workdir, f"mixer_{name}.pt"),
+                         weights_only=False)
+        for traffic, (sc_kw, trace) in _mixer_traffic(name, cfg).items():
+            what = f"mesh mixers rank {rank} {name} {traffic}"
+            pin = (_TopkPin([c for call in ref["routes"] for c in call])
+                   if cfg.n_experts else None)
+            run = _mesh_serve_run(what, cfg, params, sc_kw, trace, ctx=ctx,
+                                  launches=_mixer_launches(cfg),
+                                  follow=ref["samples"], pin=pin,
+                                  clock=clock)
+            dec = run["decode_collectives"]
+            errs = _logit_errs(run["calls"], ref["calls"],
+                               run["first_slot"], run["n_local"])
+            check(errs["calls_compared"] == len(ref["calls"]),
+                  f"{what}: {errs['calls_compared']} of "
+                  f"{len(ref['calls'])} calls compared")
+            check(errs["worst_bf16_units"] <= MIXER_LOGIT_UNITS,
+                  f"{what}: logits {errs['worst_bf16_units']:.3g} bf16 units "
+                  f"({errs['worst_rel']:.4g} of the scale) from one process "
+                  f"(tol {MIXER_LOGIT_UNITS} units)")
+            greedy = _greedy_errs(run, ref)
+            check(greedy["worst_gap_ratio"] <= 1.0,
+                  f"{what}: a greedy token differs from one process's "
+                  f"beyond a near tie ({json.dumps(greedy)})")
+            if pin is not None:
+                check(pin.worst_ratio <= 1.0,
+                      f"{what}: a routing flip is no near tie (the "
+                      f"recorded gap {pin.worst_ratio:.3g} x twice the "
+                      "gate logits' difference)")
+                check(sum(pin.flips) <= MIXER_MAX_FLIPS,
+                      f"{what}: {sum(pin.flips)} routing flips pinned "
+                      f"(at most {MIXER_MAX_FLIPS})")
+            s = run["summary"]
+            res[f"{name}_{traffic}"] = dict(
+                s, mesh=ctx.sizes, logits=errs, greedy=greedy,
+                routing_flips=None if pin is None else pin.flips,
+                flip_gap_ratio=None if pin is None else pin.worst_ratio,
+                collective_ms=dict(clock.ms),
+                collective_bytes=dict(clock.bytes),
+                collective_calls=dict(clock.calls), decode_collectives=dec,
+                decode_collective_share=(sum(dec["ms"].values())
+                                         / s["decode_ms_total"]))
+            del run
+        del params, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_mesh_mixers() -> dict:
+    """Phase 29: the references on this process (the ranks warming up
+    beside them), then the two ranks."""
+    import gc
+    import os
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    world = 2
+    with tempfile.TemporaryDirectory() as workdir:
+        procs = mp.spawn(_mixer_rank, args=(world, workdir), nprocs=world,
+                         join=False)
+        try:
+            out = mixer_reference(workdir)
+            gc.collect()
+            torch.cuda.empty_cache()
+            open(os.path.join(workdir, "mixer_done"), "w").close()
+            out["reference_s"] = time.perf_counter() - t0
+            while not procs.join():
+                pass
+        except Exception as err:       # a rank failed: the phase fails
+            for proc in procs.processes:
+                proc.terminate()
+            if isinstance(err, SmokeFailure):
+                raise
+            raise SmokeFailure(f"mesh mixers ranks: {err}")
+        out["ranks_after_reference_s"] = (time.perf_counter() - t0
+                                          - out["reference_s"])
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"mixer_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    runs = [key for key in ranks[0] if key not in ("rank", "warmup_s")]
+    for key in runs:
+        check(ranks[0][key]["stats"] == ranks[1][key]["stats"],
+              f"mesh mixers {key}: the ranks' engine stats differ")
+        r0 = ranks[0][key]
+        log(f"mesh mixers {key} " + json.dumps(
+            [{"rank": r["rank"], **r[key]} for r in ranks]))
+        log(f"mesh mixers {key} a rank: decode step "
+            f"{r0['decode_step_ms_median']:.2f} ms (one process "
+            f"{out[key.split('_')[0]]['decode_step_ms_median']:.2f}); "
+            "collectives in decode (calls, bytes, share of the decode time) "
+            f"{json.dumps(r0['decode_collectives']['op_calls'])}, "
+            f"{json.dumps(r0['decode_collectives']['bytes'])}, "
+            f"{r0['decode_collective_share']:.3f}; peak "
+            + ", ".join(f"{r[key]['peak_gib']:.2f}" for r in ranks)
+            + " GiB a rank; logits "
+            + ", ".join(f"{r[key]['logits']['worst_rel']:.4g} "
+                        f"({r[key]['logits']['worst_bf16_units']:.3g} bf16 "
+                        "units)" for r in ranks)
+            + f" of the scale; greedy {json.dumps(r0['greedy'])}; routing "
+            f"flips {sum(r0['routing_flips'] or [])} (worst gap ratio "
+            f"{r0['flip_gap_ratio']}); launches "
+            + json.dumps(r0["launches"]))
+    out["ranks"] = ranks
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"mesh mixers phase {out['wall_s']:.1f} s (the references "
+        f"{out['reference_s']:.1f} s, then the ranks "
+        f"{out['ranks_after_reference_s']:.1f} s; their warm-ups "
+        + ", ".join(f"{r['warmup_s']:.1f}" for r in ranks) + " s)")
+    return out
+
+
 def main() -> int:
     import gc
     import os
@@ -8493,6 +9096,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         routed = phase_mesh_routed()
         lap("mesh routed")
+        gc.collect()
+        torch.cuda.empty_cache()
+        mixers = phase_mesh_mixers()
+        lap("mesh mixers")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -8528,7 +9135,11 @@ def main() -> int:
                     "launches"],
                 "serve_mesh_moa_fused": routed["ranks"][0]["serve_fused"][
                     "launches"],
-                "train_mesh_hmoe": routed["ranks"][0]["hmoe"]["launches"]}
+                "train_mesh_hmoe": routed["ranks"][0]["hmoe"]["launches"],
+                "serve_mesh_jamba": mixers["ranks"][0]["jamba_serve"][
+                    "launches"],
+                "serve_mesh_jamba_fused": mixers["ranks"][0]["jamba_fused"][
+                    "launches"]}
     profiles = [served["profile"], served["fused"]["profile"],
                 served["ec"]["profile"], moa["profile"],
                 moa_train["profile"], trained["profile"],
@@ -8557,6 +9168,10 @@ def main() -> int:
     for name in ("topk_gating", "dispatch", "combine", "gmm",
                  "fused_decode"):
         measured[name]["jamba_serve"] = jamba["kernels"][name]
+    for key, r in mixers["kernels"].items():
+        name = next(n for n in ("topk_gating", "dispatch", "combine", "gmm",
+                                "fused_routed") if key.startswith(n))
+        measured[name].setdefault("mesh_jamba", {})[key] = r
     dw = {what: run["kernels"]["gmm_bwd"]["calls"]["dw_w1"]
           for what, run in (("hmoe", hmoe), ("arctic", arctic))}
     log("the dw layout (x^T dz, dev ms a call / torch.bmm ms / bound ms): "
@@ -8579,6 +9194,10 @@ def main() -> int:
                    for path in ("moa_1x2", "moa_2x1", "moa_drops_1x2",
                                 "hmoe"))
     obs = served["obs"]
+    r0 = mixers["ranks"][0]
+    mixer_runs = [k for k in r0 if k not in ("rank", "warmup_s")]
+    mixer_units = max(r[k]["logits"]["worst_bf16_units"]
+                      for r in mixers["ranks"] for k in mixer_runs)
     log(f"card {setup['card']}; serve cross-check max_abs_err "
         f"{served['cross']['max_abs_err']:.4g} (tol "
         f"{served['cross']['tol']:.4g}); moa-demo train step "
@@ -8646,6 +9265,12 @@ def main() -> int:
         "moa-demo served logits worst rel "
         f"{max(r['serve_' + t]['logits']['worst_rel'] for r in routed['ranks'] for t in ROUTED_TRAFFIC):.3g}"
         f", phase {routed['wall_s']:.0f} s"
+        + "; mesh mixers decode step ms a rank / one process: "
+        + ", ".join(f"{k} {r0[k]['decode_step_ms_median']:.1f} / "
+                    f"{mixers[k.split('_')[0]]['decode_step_ms_median']:.1f}"
+                    for k in mixer_runs)
+        + f", logits worst {mixer_units:.3g} bf16 units"
+        f", phase {mixers['wall_s']:.0f} s"
         + f"; {time.perf_counter() - t_start:.0f} s in all")
     print(setup["card"], flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

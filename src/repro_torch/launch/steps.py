@@ -15,7 +15,8 @@ allocating a byte), laid out as one rank holds them:
   weight whole but the experts' slab) and the whole batch and page:
   every rank prefills the same rows;
 * decode: the serving layout, the rank's rows of the slots and its
-  slice of the cache (the decode plan's ``batch`` and ``kv_seq``).
+  slice of the cache (the decode plan fitted to the cache, as the
+  engine fits it: ``serve/kv_cache.py::fit_decode_plan``).
 
 There is nothing to lower: a "lowering" is one call of the step on
 those tensors (``launch/dryrun.py`` runs it under a memory tracker).
@@ -35,6 +36,7 @@ from repro_torch.core import expert_parallel as ep_lib
 from repro_torch.launch.analytic import cfg_microbatches
 from repro_torch.models import lm
 from repro_torch.optim import optimizers as opt_lib
+from repro_torch.serve.kv_cache import fit_decode_plan
 from repro_torch.sharding import partition
 from repro_torch.sharding.context import MeshContext, on_mesh
 from repro_torch.train import trainer
@@ -143,6 +145,8 @@ def build_step(cfg: ModelConfig, shape: shp.ShapeSpec, mesh=None,
                         fallbacks=fallbacks)
 
     cache, cache_defs = shp.cache_specs(cfg, shape)
+    if mesh is not None and shape.kind == "decode":
+        ctx = fit_decode_plan(ctx, cache_defs)
     params = ep_lib.serve_layout(ctx.shard(pm.abstract(defs), defs), defs,
                                  ctx)
     if shape.kind == "prefill":

@@ -22,9 +22,11 @@ write their new K/V into it, where the reference returns new arrays.
 On a mesh (``ctx`` with the serving decode plan) a decode cache may be
 sharded over its sequence (``kv_seq``, over ``model`` under
 ``decode_std``): each rank holds ``max_len / M`` consecutive positions
-of every page.  :func:`attend_cached_sharded` then writes the new K/V
-only on the rank that owns the row's position, attends over the local
-positions and combines the ranks' softmax in the flash-decoding way.
+of every page, and of a sliding-window ring whose length divides, ``L /
+M`` consecutive slots.  :func:`attend_cached_sharded` then writes the
+new K/V only on the rank that owns the row's position (or ring slot),
+attends over the local positions and combines the ranks' softmax in the
+flash-decoding way.
 """
 from __future__ import annotations
 
@@ -373,10 +375,15 @@ def attend_chunk(q, k, v, cache: dict, off: int) -> torch.Tensor:
 def init_cache_defs(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
                     *, window: int = 0, dtype=torch.bfloat16) -> dict:
     """Zero K/V pages; a sliding-window layer's is a ring buffer of
-    ``min(window, max_len)`` positions."""
+    ``min(window, max_len)`` positions, on its own logical axis
+    ``kv_ring`` where the reference's says ``kv_seq``: no plan maps it,
+    and the decode plan fitted to a pool (``serve/kv_cache.py::
+    fit_decode_plan``) splits it over the ``kv_seq`` axes as far as its
+    length divides."""
     length = min(window, max_len) if window > 0 else max_len
     shape = (batch, length, n_kv_heads, head_dim)
-    axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    axes = ("batch", "kv_ring" if window > 0 else "kv_seq", "kv_heads",
+            "head_dim")
     return {"k": ParamDef(shape, axes, init="zeros", dtype=dtype),
             "v": ParamDef(shape, axes, init="zeros", dtype=dtype)}
 
@@ -388,21 +395,20 @@ def decode_attention(params, x, cache, cur_index, *, rope_theta: float,
     row's position in ``cache`` (in place; a windowed layer's ring
     buffer at the position modulo its length) and attends over positions
     <= it (within the ring).  With ``ctx`` (a mesh whose plan shards
-    ``kv_seq``) the cache holds this rank's positions of it.  Returns (y
-    [B, 1, d], cache)."""
+    ``kv_seq``, a ring ``kv_ring``: the plan fitted to the pool) the
+    cache holds this rank's positions of it.  Returns (y [B, 1, d],
+    cache)."""
     b = x.shape[0]
     cur = torch.as_tensor(cur_index, device=x.device).long().reshape(-1)
     cur = cur.expand(b)
     q, k_new, v_new = _qkv(params, x, cur[:, None], rope_theta=rope_theta,
                            qk_norm=qk_norm)
     seq_axes = () if ctx is None or ctx.mesh is None else tuple(
-        a for a in ctx.axes_of("kv_seq") if ctx.sizes[a] > 1)
+        a for a in ctx.axes_of("kv_ring" if window else "kv_seq")
+        if ctx.sizes[a] > 1)
     if seq_axes:
-        if window:
-            raise NotImplementedError(
-                "sliding-window decode over a sequence-sharded cache")
         o = attend_cached_sharded(q, k_new, v_new, cache, cur, ctx,
-                                  seq_axes)
+                                  seq_axes, ring=window > 0)
     else:
         o = attend_cached(q, k_new, v_new, cache, cur, ring=window > 0)
     return _out(o, params["wo"]), cache
@@ -441,11 +447,16 @@ def attend_cached(q, k_new, v_new, cache: dict, cur: torch.Tensor, *,
 
 
 def attend_cached_sharded(q, k_new, v_new, cache: dict, cur: torch.Tensor,
-                          ctx, axes: tuple[str, ...]) -> torch.Tensor:
+                          ctx, axes: tuple[str, ...], *,
+                          ring: bool = False) -> torch.Tensor:
     """:func:`attend_cached` over a cache whose sequence is sharded over
     the mesh ``axes``: this rank holds positions [lo, lo + L_local) of
     every row, with ``lo = ctx.index(axes) * L_local``.  The row's new
-    K/V is written only where its position lies.  The softmax is
+    K/V is written only where its position lies.  A ``ring`` cache of
+    ``L = L_local * n`` slots over n ranks holds ring slots [lo, lo +
+    L_local) here: the new K/V goes to slot ``cur % L`` on the rank that
+    owns it, and slot ``lo + j`` is valid by :func:`attend_cached`'s
+    ring formula at that global slot.  The softmax is
     combined over the ranks in the flash-decoding way, in three small
     all-gathers: the ranks' maxima (the global max, which every rank
     then subtracts, as one process does), the sums of their
@@ -457,8 +468,9 @@ def attend_cached_sharded(q, k_new, v_new, cache: dict, cur: torch.Tensor,
     b, _, h, hd = q.shape
     k, v = cache["k"], cache["v"]
     length = k.shape[1]
-    lo = ctx.index(axes) * length
-    local = cur - lo
+    lo, ring_len = ctx.index(axes) * length, length * ctx.size(axes)
+    slot = cur % ring_len if ring else cur
+    local = slot - lo
     mine = ((local >= 0) & (local < length))[:, None, None]
     # A row whose position lies on another rank writes its own slot's
     # value back (no shape depends on the positions: no host sync, and
@@ -471,7 +483,12 @@ def attend_cached_sharded(q, k_new, v_new, cache: dict, cur: torch.Tensor,
     qr = q.reshape(b, 1, kv_heads, h // kv_heads, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qr, k.float()) / (hd ** 0.5)
     pos = lo + torch.arange(length, device=q.device)[None, :]
-    valid = pos <= cur[:, None]
+    if ring:
+        abs_pos = (cur[:, None] - slot[:, None] + pos
+                   - ring_len * (pos > slot[:, None]).long())
+        valid = abs_pos >= 0
+    else:
+        valid = pos <= cur[:, None]
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     m = _rank_gather(torch.amax(s, dim=-1, keepdim=True), ctx, axes)
     p = torch.exp(s - torch.amax(m, dim=0))

@@ -183,8 +183,6 @@ def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
     layout (``expert_parallel.serve_layout``) and every rank prefills the
     same rows into a whole page: the logits are the same on every rank
     and the MoE's expert work is split over the expert axis."""
-    if on_mesh(ctx):
-        transformer.refuse_unserved(cfg, ctx)
     tokens = batch["tokens"]
     x = _embed_with_prefix(params, tokens, cfg, batch.get("prefix_embeds"))
     b, s = tokens.shape
@@ -214,11 +212,10 @@ def lm_decode(params, tokens, cache, cur_index, cfg: ModelConfig, *,
 
     On a mesh (``ctx``, the decode plan) ``params`` are the serving
     layout, the rows are this rank's slots (the plan's ``batch`` axes)
-    and ``cache`` is this rank's slice of the pool (``kv_seq`` sharded
-    as the plan says); the logits are this rank's rows, the telemetry
-    every slot's."""
-    if on_mesh(ctx):
-        transformer.refuse_unserved(cfg, ctx)
+    and ``cache`` is this rank's slice of the pool on the plan fitted to
+    it (``serve/kv_cache.py::fit_decode_plan``: positions over
+    ``kv_seq``, mamba states whole); the logits are this rank's rows,
+    the telemetry every slot's."""
     x = layers.embed(params["embed"], tokens[:, None], cfg.compute_dtype)
     x, telem = transformer.stack_decode(params["blocks"], x, cfg, cache,
                                         cur_index, valid=valid, ctx=ctx)

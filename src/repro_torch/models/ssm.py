@@ -190,7 +190,11 @@ def mamba(params, x: torch.Tensor, *, d_state: int, chunk: int = CHUNK,
     """Training / prefill forward.  x: [B, S, d_model] -> [B, S,
     d_model]; S must be a multiple of ``min(chunk, S)``, as in the
     reference.  With ``return_state`` also returns ``{"ssm": [B, d_in,
-    N] f32, "conv": [B, d_conv - 1, d_in]}`` for the decode handoff."""
+    N] f32, "conv": [B, d_conv - 1, d_in]}`` for the decode handoff.
+    It takes no ``ctx``, unlike the reference's, whose only use of it is
+    a layout hint to GSPMD: here the mixer runs on whole weights over the
+    rows it is given, so its state comes out whole (ROADMAP's port
+    decisions)."""
     dt = x.dtype
     b, s, _ = x.shape
     xz = torch.matmul(x, params["in_proj"].to(dt))
@@ -223,6 +227,9 @@ def mamba(params, x: torch.Tensor, *, d_state: int, chunk: int = CHUNK,
 
 def init_state_defs(batch: int, d_model: int, *, d_state: int, d_conv: int,
                     expand: int, dtype: torch.dtype = torch.float32) -> dict:
+    """Zero scan and conv state pages.  On a mesh the serving decode plan
+    splits their slots (``batch``) and keeps the rest whole
+    (``serve/kv_cache.py::fit_decode_plan``)."""
     d_in = expand * d_model
     return {
         "ssm": ParamDef((batch, d_in, d_state),
@@ -237,7 +244,9 @@ def init_state_defs(batch: int, d_model: int, *, d_state: int, d_conv: int,
 def mamba_decode(params, x: torch.Tensor, state: dict, *, d_state: int
                  ) -> tuple[torch.Tensor, dict]:
     """One-token step.  x: [B, 1, d_model] -> (y [B, 1, d_model], the new
-    state); ``state`` is read, not written."""
+    state); ``state`` is read, not written.  On a mesh the rows are the
+    rank's slots and ``state`` their whole scan and conv state: one
+    process's arithmetic, row for row."""
     dt = x.dtype
     xz = torch.matmul(x, params["in_proj"].to(dt))
     u, z = xz.chunk(2, dim=-1)

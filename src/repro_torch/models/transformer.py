@@ -26,8 +26,10 @@ tokens; prefill and decode run the serving schedule
 (``moe_apply_serve``): prefill on the whole prompt or chunk rows, which
 every rank holds, decode on this rank's slots (the decode plan's
 ``batch`` axes) over a sequence-sharded cache
-(``attention.decode_attention``).  The weights are then the serving
-layout: whole, but for the experts' slabs.  MoA mixers and the
+(``attention.decode_attention``; a sliding-window ring is split over the
+same axes where its length divides) and their whole mamba scan and conv
+states.  The weights are then the serving layout: whole, but for the
+experts' slabs.  MoA mixers and the
 hierarchical MoE run their global plan (``expert_parallel.GlobalPlan``)
 in training and serving alike: one process's routing on every rank.
 """
@@ -44,8 +46,7 @@ from repro_torch.core import hierarchical as hmoe_lib
 from repro_torch.core import moa as moa_lib
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import attention, layers, ssm
-from repro_torch.sharding.context import (MeshContext, on_mesh,
-                                          refuse_distributed)
+from repro_torch.sharding.context import MeshContext, on_mesh
 
 
 def _token_axes(ctx: MeshContext | None, serve: bool, decode: bool):
@@ -345,17 +346,6 @@ def block_apply(params, x, kind: LayerKind, cfg: ModelConfig, *,
     return x, _merge_aux(aux_mix, aux)
 
 
-def refuse_unserved(cfg: ModelConfig, ctx: MeshContext | None) -> None:
-    """Raise NotImplementedError, on a mesh of more than one rank, for a
-    config the port does not serve there: mamba mixers and
-    sliding-window attention."""
-    kinds = layer_kinds(cfg)
-    if any(k.mixer == "mamba" for k in kinds):
-        refuse_distributed(ctx, "serving mamba mixers")
-    if any(k.mixer == "attn_local" for k in kinds):
-        refuse_distributed(ctx, "serving sliding-window attention")
-
-
 def layer_index(cfg: ModelConfig) -> list[tuple[int, LayerKind]]:
     """(layer number, kind) of every layer in the order the stack runs
     them: the stacked periods, then the tail.  Layer ``l``'s gate noise
@@ -437,7 +427,8 @@ def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
     resumes against the cached prefix (attention mixers only).  A mamba
     mixer copies its final scan and conv state into ``cache``.  On a
     mesh (``ctx``, the prefill plan) every rank prefills the whole rows
-    into a whole page; the MoE runs the serving schedule."""
+    into a whole page (the mamba state too); the MoE runs the serving
+    schedule."""
     if kind.mixer == "mamba" and start_pos is not None:
         raise ValueError(
             "chunked prefill requires attention mixers (ssm/hybrid state "
@@ -468,7 +459,8 @@ def block_decode(params, x, kind: LayerKind, cfg: ModelConfig, cache,
     """One-token decode block.  Returns (x, telemetry): the MoE layer's
     expert_load / overflow and the MoA mixer's moa_load / moa_overflow,
     whichever the block has.  On a mesh (``ctx``, the decode plan) the
-    rows are this rank's slots and the cache its slice of their pages."""
+    rows are this rank's slots and the cache its slice of their pages: a
+    mamba mixer steps their whole state, as one process does."""
     h = layers.rmsnorm(params["ln1"], x, cfg.norm_eps)
     telem = {}
     if kind.mixer == "moa":

@@ -69,8 +69,11 @@ rank's own slots, and the sampled tokens are all-gathered over the slot
 axes, so every rank's scheduler sees every token.  Greedy sampling is
 an argmax of logits equal on the ranks that hold a slot; temperature
 sampling draws each row from a generator seeded by the request, the
-same on every rank.  The hierarchical MoE, MoA, mamba mixers and
-sliding-window attention raise on a mesh of more than one rank.
+same on every rank.  The decode plan is fitted to the pool
+(``kv_cache.fit_decode_plan``): a mamba mixer's scan and conv state
+stays whole, each rank stepping its own slots', and a sliding-window
+ring (``kv_ring``) splits over the ``kv_seq`` axes where its length
+divides.
 
 ``step_times`` holds the wall time (seconds, host clock) of each
 whole-prompt prefill and each decode step, ending at the sampled
@@ -95,7 +98,8 @@ from repro_torch.core import expert_parallel as ep_lib
 from repro_torch.models import lm, transformer
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs import trace as trace_lib
-from repro_torch.serve.kv_cache import PrefixCache, SlotKVCache
+from repro_torch.serve.kv_cache import (PrefixCache, SlotKVCache,
+                                        fit_decode_plan)
 from repro_torch.serve.scheduler import (Request, RequestQueue, Scheduler,
                                          chunk_rounds)
 
@@ -154,12 +158,14 @@ class ServeEngine:
         self.ctx = ctx if ctx is not None and ctx.mesh is not None else None
         self.prefill_ctx = self.decode_ctx = None
         if self.ctx is not None:
-            transformer.refuse_unserved(cfg, self.ctx)
             self.prefill_ctx = self.ctx.with_plan(sc.prefill_plan)
             self.decode_ctx = self.ctx.with_plan(sc.decode_plan)
-            self._fit_decode_plan(cfg, sc)
+            # The slices come by the plan as named; the fit then changes
+            # the pool's layout only (the mamba weights are whole in the
+            # serving layout either way).
             params = ep_lib.serve_layout(params, lm.lm_defs(cfg),
                                          self.decode_ctx)
+            self._fit_decode_plan(cfg, sc)
         self.params = params
         self.cfg = cfg
         self.sc = sc
@@ -222,20 +228,14 @@ class ServeEngine:
         self.reset()
 
     def _fit_decode_plan(self, cfg: ModelConfig, sc: ServeConfig) -> None:
-        """Fit the decode plan to the pool, and check that both plans put
-        the experts on the same axes (one serving layout).  A pool whose
-        slots (or page length) do not divide over the plan's ``batch``
-        (or ``kv_seq``) axes keeps them whole, as the reference's
-        resolution falls back; the fitted plan says so, so the model's
-        decode reads the pool's layout from it."""
+        """Fit the decode plan to the pool (``kv_cache.fit_decode_plan``:
+        its slots, its pages' positions, its rings' slots, the mamba
+        state whole),
+        and check that both plans put the experts on the same axes (one
+        serving layout)."""
         ctx = self.decode_ctx
-        leaf = pm.tree_leaves(transformer.cache_defs(cfg, sc.n_slots,
-                                                     sc.max_len))[0]
-        spec = dict(zip(leaf.axes, ctx.resolve(leaf.shape, leaf.axes)))
-        table = dict(ctx.rules.table, batch=spec["batch"],
-                     kv_seq=spec.get("kv_seq", ()))
-        self.decode_ctx = ctx.with_plan(
-            dataclasses.replace(ctx.rules, table=table))
+        self.decode_ctx = fit_decode_plan(
+            ctx, transformer.cache_defs(cfg, sc.n_slots, sc.max_len))
         if cfg.n_experts and (self.prefill_ctx.axes_of("experts")
                               != ctx.axes_of("experts")):
             raise ValueError(f"plans {sc.prefill_plan} and "

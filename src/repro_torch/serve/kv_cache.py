@@ -15,10 +15,14 @@ where a later in-place write could reach it: ``extract`` returns a copy
 pool, and the serving engine stages a copy of a prefix hit's page (the
 tail chunk writes into the page it resumes from).
 
-On a mesh (``ctx``, the serving decode plan) the pool lives on that
-plan: each rank holds the slots its ``batch`` axes give it (slots
-``[i * n_local, (i + 1) * n_local)`` on the rank at coordinate i) and,
-of each page, the positions its ``kv_seq`` axes give it.  Pages handed
+On a mesh (``ctx``, the serving decode plan fitted to the pool by
+:func:`fit_decode_plan`) the pool lives on that plan: each rank holds
+the slots its ``batch`` axes give it (slots ``[i * n_local, (i + 1) *
+n_local)`` on the rank at coordinate i) and, of each page, the
+positions its ``kv_seq`` axes give it, of a sliding-window ring the
+slots its ``kv_ring`` axes give it (none where its length does not
+divide); a mamba mixer's scan and conv state has no positions and stays
+whole.  Pages handed
 around outside the pool (prefill's, staged chunk pages, the prefix
 cache's) are whole: ``insert`` and ``append(last=True)`` take a page
 already resharded onto the decode plan (the engine's ``serve.reshard``),
@@ -30,12 +34,38 @@ reference's (whose module imports jax, so the port keeps its own).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.common import param as pm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
+
+
+def fit_decode_plan(ctx, defs):
+    """The decode plan of ``ctx`` fitted to a pool whose cache ParamDefs
+    are ``defs``, the one place that decides the pool's layout:
+    ``batch`` (the slots), ``kv_seq`` (the pages' positions) and
+    ``kv_ring`` (a sliding-window ring's slots, which resolves as a page
+    of its length would) each mapped to the mesh axes that hold for
+    every leaf that has it, as the reference's per-leaf resolution falls
+    back where a length does not divide; the mamba state's
+    ``ssm_inner``, ``ssm_state`` and ``conv`` whole, so every rank steps
+    its slots' whole state, where the reference's ``decode_std`` splits
+    ``ssm_inner`` over ``model``.  The model's decode and the pool read
+    their layout from the fitted plan."""
+    leaves = pm.tree_leaves(defs)
+    table = dict(ctx.rules.table, ssm_inner=(), ssm_state=(), conv=())
+    for name, like in (("batch", "batch"), ("kv_seq", "kv_seq"),
+                       ("kv_ring", "kv_seq")):
+        # Each resolution is a prefix of the plan's axes for ``like``:
+        # the shortest holds for every leaf.
+        table[name] = min((ctx.resolve(d.shape, tuple(
+            like if a == name else a for a in d.axes))[d.axes.index(name)]
+            for d in leaves if name in d.axes), key=len, default=())
+    return ctx.with_plan(dataclasses.replace(ctx.rules, table=table))
 
 
 class SlotKVCache:
@@ -53,21 +83,25 @@ class SlotKVCache:
         self.seq_defs = transformer.cache_defs(cfg, 1, max_len)
         self._axes = [d.axes.index("batch")
                       for d in pm.tree_leaves(self.defs)]
-        self._seq = [d.axes.index("kv_seq") if "kv_seq" in d.axes else None
+        self._seq = [next((d.axes.index(a) for a in ("kv_seq", "kv_ring")
+                           if a in d.axes), None)
                      for d in pm.tree_leaves(self.defs)]
         self.ctx = ctx if ctx is not None and ctx.mesh is not None else None
-        # The mesh axes that split the slots and each page's positions,
-        # this rank's slot count and its first slot.
+        # The mesh axes that split the slots and the pages' positions
+        # (each leaf's own in _seq_axes: a ring's may be fewer), this
+        # rank's slot count and its first slot.
         self.slot_axes: tuple[str, ...] = ()
         self.seq_axes: tuple[str, ...] = ()
+        self._seq_axes = [()] * len(self._seq)
         self.n_local, self.first_slot = n_slots, 0
         defs = self.defs
         if self.ctx is not None:
-            leaf = pm.tree_leaves(self.defs)[0]
-            spec = self.ctx.resolve(leaf.shape, leaf.axes)
-            self.slot_axes = spec[self._axes[0]]
-            if self._seq[0] is not None:
-                self.seq_axes = spec[self._seq[0]]
+            specs = [self.ctx.resolve(d.shape, d.axes)
+                     for d in pm.tree_leaves(self.defs)]
+            self.slot_axes = specs[0][self._axes[0]]
+            self._seq_axes = [() if seq is None else spec[seq]
+                              for seq, spec in zip(self._seq, specs)]
+            self.seq_axes = self.ctx.axes_of("kv_seq")
             self.n_local = n_slots // self.ctx.size(self.slot_axes)
             self.first_slot = self.ctx.index(self.slot_axes) * self.n_local
             defs = pm.tree_map(self._local_def, self.defs)
@@ -198,14 +232,15 @@ class SlotKVCache:
                 for ax, pool in zip(self._axes, pm.tree_leaves(self.cache)))
         owner, i = divmod(slot, self.n_local)
         leaves = []
-        for ax, seq, pool in zip(self._axes, self._seq,
-                                 pm.tree_leaves(self.cache)):
+        for ax, seq, seq_axes, pool in zip(self._axes, self._seq,
+                                           self._seq_axes,
+                                           pm.tree_leaves(self.cache)):
             page = pool.narrow(ax, i, 1).clone()
             if self.slot_axes:
                 page = self.ctx.all_gather(page, self.slot_axes, ax).narrow(
                     ax, owner, 1)
-            if self.seq_axes and seq is not None:
-                page = self.ctx.all_gather(page, self.seq_axes, seq)
+            if seq_axes:
+                page = self.ctx.all_gather(page, seq_axes, seq)
             leaves.append(page.contiguous())
         return self._unflatten(leaves)
 

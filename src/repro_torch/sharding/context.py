@@ -501,15 +501,6 @@ def on_mesh(ctx: MeshContext | None) -> bool:
     return ctx is not None and ctx.mesh is not None
 
 
-def refuse_distributed(ctx: MeshContext | None, what: str) -> None:
-    """Raise NotImplementedError for a feature the port runs on one
-    process only, when ``ctx`` spans more than one rank."""
-    if on_mesh(ctx) and ctx.world > 1:
-        raise NotImplementedError(
-            f"{what} is not distributed: it runs on one process "
-            f"(ctx=None), not on a mesh of {ctx.world} ranks")
-
-
 def local_draws(draws: dict, ctx: MeshContext,
                 whole: Sequence[str] = ()) -> dict:
     """This rank's rows of one step's draws for the global batch: each

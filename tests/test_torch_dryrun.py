@@ -428,6 +428,8 @@ step, args = dryrun_pp.build_pp_step(
     cfg, ShapeSpec("t", "train", 32, 8), dryrun.fake_mesh(
         {"data": 2, "model": 2}), n_micro=2)
 out["pp"] = dryrun.trace_step(StepSpec(step, args, "train", 2, []))
+out["jamba"] = dryrun.run_cell("jamba-v0.1-52b", "decode_32k", "pod",
+                               overrides={"n_layers": 8})
 json.dump(out, sys.stdout)
 """
 
@@ -486,6 +488,26 @@ def test_decode_cell_sends_the_analytic_and_the_gloo_bytes(cells, fused):
     for rank in ranks:
         sent = rank[f"fused={fused}"]
         assert sent["bytes"] / sent["calls"] == pytest.approx(got, rel=REL)
+
+
+def test_jamba_decode_cell_traces_on_a_fake_mesh(cells):
+    """jamba at full width cut to one period (8 layers: 7 mamba, 1
+    attention, 4 MoE) at decode_32k on the (16, 16) pod: the decode step
+    traces, its state whole and its attention page over model (the
+    inputs: 8 slots a rank of 7 whole states and 2,048 positions of one
+    page), the experts' slab outputs and the attention merge gathered."""
+    rec = cells[0]["jamba"]
+    assert rec["status"] == "ok", rec
+    assert rec["n_devices"] == 256 and rec["fits"]
+    cfg = get_config("jamba-v0.1-52b")
+    d_in, slots = cfg.ssm_expand * cfg.d_model, 128 // 16
+    state = 7 * slots * (d_in * cfg.ssm_d_state * 4
+                         + (cfg.ssm_d_conv - 1) * d_in * 2)
+    page = 2 * slots * (32768 // 16) * cfg.n_kv_heads * cfg.head_dim * 2
+    assert rec["memory"]["inputs"] == pytest.approx(state + page, rel=1e-3)
+    assert rec["memory"]["peak_bytes_per_device"] > \
+        rec["memory"]["parameters"] > 0
+    assert rec["collectives"]["all_gather"]["calls"] > 0
 
 
 def test_pipelined_step_traces_on_a_fake_mesh(cells):

@@ -31,6 +31,7 @@ from repro.core import moe as jmoe
 from repro.core import router as jrouter
 from repro.data import pipeline as jdata
 from repro.models import lm as jlm
+from repro.models import transformer as jtransformer
 from repro_torch.common.bridge import from_jax_tree
 from repro_torch.configs.base import get_config
 from repro_torch.core import router as trouter
@@ -223,13 +224,31 @@ def run(tmp_path_factory):
                             mask=jnp.asarray(mask))
     want["fused_decode"] = {"y": np.asarray(y), **{
         k: np.asarray(v) for k, v in aux["telemetry"].items()}}
+    # Mamba mixers and sliding-window attention served on the mesh:
+    # prompts longer than gemma3's 32-token window, so its ring wraps.
+    serve_logits = {}
+    for feature, arch, s in (("mamba_serving", "falcon-mamba-7b", 16),
+                             ("window_serving", "gemma3-27b", 64)):
+        jcfg = small_config(arch)
+        tree = lm_params(jcfg, seed=6)
+        tokens = rs.randint(1, jcfg.vocab_size, (4, s)).astype(np.int32)
+        cache = jpm.materialize(jtransformer.cache_defs(jcfg, 4, s + 8),
+                                jax.random.PRNGKey(0))
+        pre, cache = jlm.lm_prefill(tree, {"tokens": jnp.asarray(tokens)},
+                                    cache, jcfg)
+        nxt = np.asarray(jnp.argmax(pre, axis=-1)).astype(np.int32)
+        step, _ = jlm.lm_decode(tree, jnp.asarray(nxt), cache, s, jcfg)
+        want[feature] = {"prefill": np.asarray(pre),
+                         "decode": np.asarray(step)}
+        serve_logits[feature] = {
+            "cfg": _tcfg(jcfg), "params": from_jax_tree(tree, device="cpu"),
+            "tokens": torch.from_numpy(tokens),
+            "next": torch.from_numpy(nxt), "max_len": s + 8}
     inputs = dict(moe_cases=cases, lm_eval=lm_eval,
         pipeline_refusals={
             "pipeline_hierarchical": kimi.replace(moe_hierarchical=(2, 4)),
             "pipeline_moa": reduced(get_config("moa-demo"))},
-        serve_refusals={
-            "mamba_serving": reduced(get_config("falcon-mamba-7b")),
-            "window_serving": reduced(get_config("gemma3-27b"))},
+        serve_logits=serve_logits,
         fused_case=dict(args=targs, params=from_jax_tree(params,
                                                          device="cpu"),
                         x=torch.from_numpy(xd), mask=torch.from_numpy(mask)),
@@ -321,8 +340,11 @@ def test_ep_balance_is_the_combined_batchs(run, policy):
     pytest.param("hierarchical", None,
                  id="hierarchical-the hierarchical MoE is not distributed"),
     pytest.param("moa", None, id="moa-MoA is not distributed"),
-    ("mamba_serving", "serving mamba mixers is not distributed"),
-    ("window_serving", "serving sliding-window attention is not distributed"),
+    pytest.param("mamba_serving", None,
+                 id="mamba_serving-serving mamba mixers is not distributed"),
+    pytest.param("window_serving", None,
+                 id="window_serving-serving sliding-window attention is not "
+                    "distributed"),
     ("pipeline_hierarchical", "the hierarchical MoE is not pipelined"),
     ("pipeline_moa", "MoA is not pipelined")])
 def test_unported_features_refuse_on_a_mesh(run, feature, why):
@@ -333,7 +355,22 @@ def test_unported_features_refuse_on_a_mesh(run, feature, why):
     overflow telemetry of JAX's fused decode on one process.  So are the
     hierarchical MoE and MoA (their global plan): ``lm_loss`` on the
     mesh, with tokens dropped, gives JAX's one-process eval loss (the
-    ranks' mean xent) and the same aux loss and metrics on every rank."""
+    ranks' mean xent) and the same aux loss and metrics on every rank.
+    So is serving mamba mixers (their state whole, each rank its slots)
+    and sliding-window attention (the ring over ``model``): a whole
+    prefill on every rank and a decode step of each rank's slots give
+    JAX's one-process logits."""
+    if feature in ("mamba_serving", "window_serving"):
+        want = run["want"][feature]
+        for rank, r in enumerate(run["ranks"]):
+            got = r["serve_logits"][feature]
+            np.testing.assert_allclose(got["prefill"].numpy(),
+                                       want["prefill"], **TOL)
+            d = rank // 2
+            np.testing.assert_allclose(got["decode"].numpy(),
+                                       want["decode"][2 * d:2 * d + 2],
+                                       **TOL)
+        return
     if feature in ("hierarchical", "moa"):
         want = run["want"][f"lm_{feature}"]
         got = [r["lm_eval"][feature] for r in run["ranks"]]

@@ -109,7 +109,6 @@ def test_context_without_a_mesh():
     assert tctx.current_ctx() is None
     with pytest.raises(RuntimeError, match="concrete mesh"):
         ctx.resolve((8, 8), ("embed_fsdp", "mlp"))
-    tctx.refuse_distributed(ctx, "anything")          # off-mesh: no-op
 
 
 def test_manual_axes_are_stripped_as_in_the_reference():

@@ -84,9 +84,8 @@ def _moe_case(ctx: MeshContext, case: dict) -> dict:
 
 def _refusals(ctx: MeshContext, inputs: dict) -> dict:
     """Each feature the port does not distribute raises
-    NotImplementedError on this mesh (serving mamba mixers and
-    sliding-window attention; MoA and the hierarchical MoE in the
-    pipeline), and experts that do not divide over the expert axis a
+    NotImplementedError on this mesh (MoA and the hierarchical MoE in
+    the pipeline), and experts that do not divide over the expert axis a
     ValueError; the message of each."""
     got = {}
 
@@ -107,10 +106,6 @@ def _refusals(ctx: MeshContext, inputs: dict) -> dict:
     expect("indivisible_experts", lambda: ep_lib.moe_apply_ep(
         {}, x, moe_lib.MoEArgs(**dict(moe["args"], n_experts=odd)), ctx,
         train=False), error=ValueError)
-    batch = {k: ctx.local_rows(v) for k, v in inputs["batch"].items()}
-    for name, cfg in inputs["serve_refusals"].items():
-        # lm_prefill (and lm_decode) refuse before they read a parameter.
-        expect(name, lambda: lm.lm_prefill({}, batch, None, cfg, ctx=ctx))
     from repro_torch.train import pipeline as pp_lib
     for name, cfg in inputs["pipeline_refusals"].items():
         # So does the pipelined loss.
@@ -151,6 +146,8 @@ def case_moe(ctx: MeshContext, inputs: dict) -> dict:
     out["lm_eval"] = {name: _lm_eval(ctx, case)
                       for name, case in inputs["lm_eval"].items()}
     out["fused_decode"] = _fused_decode(ctx, inputs["fused_case"])
+    out["serve_logits"] = {name: _routed_logits(ctx, case)
+                           for name, case in inputs["serve_logits"].items()}
     return out
 
 
@@ -251,8 +248,8 @@ def case_restore(ctx: MeshContext, inputs: dict) -> dict:
 def case_serve(ctx: MeshContext, inputs: dict) -> dict:
     """Each serving case: the rank's engine (``ServeEngine(ctx=)``, the
     parameters sliced by the decode plan) on the case's trace; its
-    greedy streams, stats, the shape of its pool's first leaf and of a
-    page relaid onto the decode plan."""
+    greedy streams, stats, the shapes of its pool's leaves (the first
+    one's apart) and of a page relaid onto the decode plan."""
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     out = {}
     for name, case in inputs["cases"].items():
@@ -268,6 +265,8 @@ def case_serve(ctx: MeshContext, inputs: dict) -> dict:
             "streams": [list(r.tokens) for r in reqs],
             "done": all(r.done for r in reqs), "stats": dict(eng.stats),
             "pool_shape": tuple(tree_leaves(eng.kv.cache)[0].shape),
+            "pool_shapes": [tuple(t.shape)
+                            for t in tree_leaves(eng.kv.cache)],
             "page_shape": tuple(tree_leaves(page)[0].shape),
             "slot_axes": eng.kv.slot_axes, "seq_axes": eng.kv.seq_axes}
     return out
@@ -405,17 +404,20 @@ def _routed_layer(ctx: MeshContext, case: dict) -> dict:
 
 def _routed_logits(ctx: MeshContext, case: dict) -> dict:
     """lm_prefill of the whole prompt rows on every rank (the prefill
-    plan, a whole page), the page relaid onto the decode plan, then one
-    lm_decode step of this rank's slots: both calls' logits."""
+    plan, a whole page), the page relaid onto the decode plan fitted to
+    the cache, then one lm_decode step of this rank's slots: both calls'
+    logits."""
     from repro_torch.common import param as pm
     from repro_torch.models import transformer
+    from repro_torch.serve.kv_cache import fit_decode_plan
     cfg = case["cfg"]
     defs = lm.lm_defs(cfg)
-    pre, dec = ctx.with_plan("prefill_tp"), ctx.with_plan("decode_std")
-    params = ep_lib.serve_layout(dec.shard(case["params"], defs), defs, dec)
     tokens = case["tokens"]
     b, s = tokens.shape
     cdefs = transformer.cache_defs(cfg, b, case["max_len"])
+    pre = ctx.with_plan("prefill_tp")
+    dec = fit_decode_plan(ctx.with_plan("decode_std"), cdefs)
+    params = ep_lib.serve_layout(dec.shard(case["params"], defs), defs, dec)
     with torch.no_grad():
         cache = pm.materialize(cdefs, torch.Generator(), "cpu")
         logits, cache = lm.lm_prefill(params, {"tokens": tokens}, cache, cfg,
