@@ -308,7 +308,17 @@ Phases, in order; any failure exits non-zero and prints no result:
              kimi-k2 family at --reduce widths (4 layers) on (stage 2,
              model 2), four ranks: cuda against ref loss and gradients,
              exact launches a step (one MoE layer's lm_loss launches x
-             microbatches x layers a stage).
+             microbatches x layers a stage); in the same ranks, (d) the
+             row split: the reduced kimi with one row a microbatch
+             (whole on both model ranks, its tokens split), the ranks'
+             mean loss against one process's lm_loss, cuda against
+             ref, exact launches; (e) moa-demo's period-1 variant at
+             its own widths in f32, 4 microbatches of B 8 x S 128, MoA
+             dropping: the mean loss and every gradient against one
+             process's lm_loss, cuda against ref, exact launches of
+             kernels 1, 2, 4, 6 and B5-B8; then the reduced kimi with a
+             (2, 4) hierarchical MoE one step, cuda against ref; the
+             seconds (d) and (e) added.
 26. roofline — arithmetic on the host over what the phases above
              measured (it times nothing): (a) for each full-width
              transformer path (kimi-k2's prefill, unfused and fused
@@ -963,6 +973,23 @@ def topk_times(gen, floor: dict) -> dict:
     return out
 
 
+def combine_library(buf, w, ei, po):
+    """The one PyTorch call that computes combine on the same plan,
+    ``F.embedding_bag`` (mode "sum"): the buffer flattened to [E*C, d]
+    with one more row, each token's k slots a bag of row e*C + p weighted
+    by its weight, a dropped slot pointing at the extra row (the call's
+    ``padding_idx``, left out of the sum).  The table and the indices are
+    built here, once; the returned closure is the call to time."""
+    import torch
+    import torch.nn.functional as F
+    e, c, d = buf.shape
+    table = torch.cat([buf.reshape(e * c, d), buf.new_zeros(1, d)])
+    idx = torch.where(po < c, ei.long() * c + po.long(), e * c)
+    wl = w.to(buf.dtype)
+    return lambda: F.embedding_bag(idx, table, mode="sum",
+                                   per_sample_weights=wl, padding_idx=e * c)
+
+
 def dispatch_combine_times(gen, floor: dict) -> dict:
     """Combine and dispatch at the decode, prefill, moa-demo and training
     shapes: device and queued time per launch (dispatch's memset apart),
@@ -998,7 +1025,8 @@ def dispatch_combine_times(gen, floor: dict) -> dict:
         res = out["combine"][name]
         res.update(dev_ms_l2_warm=res.pop("dev_ms"),
                    queued_ms_l2_warm=res.pop("queued_ms"),
-                   dev_ms=cold["combine_kernel"], kept_slots=n_kept)
+                   dev_ms=cold["combine_kernel"], kept_slots=n_kept,
+                   library_ms=cuda_ms(combine_library(buf, w, ei, po)))
         log(f"combine {name}, L2 cold: {cold['combine_kernel']} ms a launch")
         del x, buf
     return out
@@ -1050,7 +1078,8 @@ def combine_eblock_times(gen, floor: dict) -> dict:
         res.update(dev_ms_l2_warm=res.pop("dev_ms"),
                    queued_ms_l2_warm=res.pop("queued_ms"),
                    dev_ms=cold["combine_eblock_kernel"], kept_slots=n_kept,
-                   e_block=e_block)
+                   e_block=e_block,
+                   library_ms=cuda_ms(combine_library(buf, w, ei, po)))
         log(f"combine_eblock {name}, L2 cold: {res['dev_ms']} ms a launch")
         out[name] = res
         del buf
@@ -1108,6 +1137,7 @@ def check_dispatch_combine(gen, floor: dict) -> list[dict]:
     ms_c = cuda_ms(lambda: dk.combine(buf, w, ei, po))
     plain_c = cuda_ms(lambda: dk.combine_plain(buf, w, ei, po,
                                                torch.bfloat16))
+    lib_c = cuda_ms(combine_library(buf, w, ei, po))
     b_c, by_c = bound_ms(n_kept * d * 2 + t * k * 12 + t * d * 2,
                          2 * n_kept * d, "bfloat16")
     shape = f"x [{t},{d}] bf16 <-> buf [{e},{c},{d}], k={k}"
@@ -1117,7 +1147,7 @@ def check_dispatch_combine(gen, floor: dict) -> list[dict]:
                  library_ms=None, shape=shape, by_shape=times["dispatch"]),
             dict(name="combine", max_abs_err=worst_c, tol=tol_c, ms=ms_c,
                  plain_ms=plain_c, bound_ms=b_c, bound_by=by_c,
-                 library_ms=None, shape=shape, by_shape=times["combine"])]
+                 library_ms=lib_c, shape=shape, by_shape=times["combine"])]
 
 
 def check_gmm(gen) -> dict:
@@ -1467,6 +1497,7 @@ def check_eblock(gen, floor: dict) -> list[dict]:
                                                       E_BLOCK))
     b_c, by_c = bound_ms(n_kept * d * 4 + t * k * 12 + t * d * 4,
                          2 * n_kept * d, "float32")
+    lib_c = cuda_ms(combine_library(buf, w, ei, po))
     shape = (f"x [{t},{d}] f32 <-> buf [{e},{c},{d}], k={k}, "
              f"e_block={E_BLOCK}, {n_kept} kept")
     # The resident kernels as the two VJPs run them at this shape (the
@@ -1479,6 +1510,7 @@ def check_eblock(gen, floor: dict) -> list[dict]:
             ms=cuda_ms(lambda: dk.combine(buf, unit, ei, po)),
             plain_ms=cuda_ms(lambda: dk.combine_plain(buf, unit, ei, po,
                                                       torch.float32)),
+            library_ms=cuda_ms(combine_library(buf, unit, ei, po)),
             bound_ms=b_c, bound_by=by_c),
         "B7_combine_bwd": dict(
             ms=cuda_ms(lambda: dk.dispatch(x, ei, po, w, n_experts=e,
@@ -1493,7 +1525,7 @@ def check_eblock(gen, floor: dict) -> list[dict]:
                  library_ms=None, shape=shape),
             dict(name="combine_eblock", max_abs_err=worst_c, tol=0.0,
                  ms=ms_c, plain_ms=plain_c, bound_ms=b_c, bound_by=by_c,
-                 library_ms=None, shape=shape, train_vjps=vjps,
+                 library_ms=lib_c, shape=shape, train_vjps=vjps,
                  by_shape=combine_eblock_times(gen, floor))]
 
 
@@ -6804,8 +6836,23 @@ def phase_mesh_serve(floor: dict) -> dict:
 # process's lm_loss on the same weights, then PP_STEPS steps of
 # make_pipeline_train_step (factored Adam), the last one's forward ticks
 # timed.  Then the kimi-k2 family at --reduce widths (PP_KIMI_LAYERS
-# layers) on (stage 2, model 2), four ranks: the cuda backend against
-# ref (loss, gradients) and exact launches a step.
+# layers) on (stage 2, model 2), four ranks: (c) the cuda backend
+# against ref (loss, gradients) and exact launches a step; in the same
+# ranks, after (c), (d) the row split: the reduced kimi with one row a
+# microbatch (PP_ROW_B rows in as many microbatches), each row whole on
+# both model ranks and its MoE layers splitting its tokens, at capacity
+# factor PP_ROW_CF (no shard drops: the flat MoE's capacity is per
+# shard), cuda against ref, the ranks' mean loss against one process's
+# lm_loss (the mean over the microbatches, each with the pipeline's
+# draws of it), exact launches; (e) the slice: moa-demo's period-1
+# variant (every layer an MoA mixer and an MoE FFN) at its own widths
+# in f32, PP_MICRO microbatches of PP_MOA_B x PP_MOA_S, MoA dropping at
+# its own router's factor PP_MOA_CF (its global plan: one process's
+# drops), the flat MoE FFN at PP_MOA_FFN_CF: the mean loss and every
+# gradient leaf against one process's lm_loss on the card, cuda
+# against ref, exact launches; then the reduced kimi with a (2, 4)
+# hierarchical MoE one step, cuda against ref.  The one-process runs
+# of (d) and (e) are on this process, before the spawn.
 PP_B, PP_S, PP_MICRO, PP_STEPS = 4, 1024, 4, 2
 PP_MESH, PP_KIMI_MESH = (2, 1), (2, 2)
 PP_KIMI_LAYERS, PP_KIMI_B, PP_KIMI_S = 4, 8, 32
@@ -6815,6 +6862,11 @@ PP_KIMI_LAYERS, PP_KIMI_B, PP_KIMI_S = 4, 8, 32
 # other orders); cuda against ref on the reduced kimi within
 # PP_KIMI_TOL (the GMM's 3xTF32 against f32 matmuls).
 PP_LOSS_TOL, PP_GRAD_TOL, PP_KIMI_TOL = 1e-5, 1e-4, 1e-4
+PP_ROW_B, PP_ROW_CF = 4, 8.0
+PP_MOA_B, PP_MOA_S, PP_MOA_CF, PP_MOA_FFN_CF = 8, 128, 1.0, 4.0
+PP_MOA_GATES = (("blocks", "periods", "pos0", "moe", "gate", "wg"),
+                ("blocks", "periods", "pos0", "moa", "gate", "wg"))
+PP_HMOE = (2, 4)
 
 
 def _pp_qwen_cfg():
@@ -7061,7 +7113,6 @@ def pp_kimi_launches() -> dict:
 def _pp_kimi_rank(rank: int, model: int, workdir: str) -> dict:
     import torch
     from repro_torch.common import param as pm
-    from repro_torch.kernels import cuda_lib
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import lm
     from repro_torch.sharding.context import MeshContext
@@ -7070,9 +7121,8 @@ def _pp_kimi_rank(rank: int, model: int, workdir: str) -> dict:
                                "dp_tp_ep")
     n_stages = ctx.sizes["data"]
     pp = pp_lib.pipeline_context(ctx)
-    res = {"rank": rank, "mesh": ctx.sizes}
-    out = {}
-    for backend in ("cuda", "ref"):
+
+    def run(backend):
         cfg = _pp_kimi_cfg(backend)
         defs = pp_lib.pipeline_param_defs(cfg, n_stages)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -7082,28 +7132,192 @@ def _pp_kimi_rank(rank: int, model: int, workdir: str) -> dict:
             p.requires_grad_(True)
         batch = _pp_batch(cfg.vocab_size, PP_KIMI_B, PP_KIMI_S)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-        torch.cuda.synchronize()
-        cuda_lib.reset_launch_counts()
         loss, m = pp_lib.pipeline_lm_loss(local, batch, cfg, ctx=ctx,
                                           n_stages=n_stages,
                                           n_micro=PP_MICRO, generator=gen)
-        grads = _pp_grads(pp, local, loss, defs)
+        return float(m["loss"].detach()), _pp_grads(pp, local, loss, defs)
+    res = {"rank": rank, "mesh": ctx.sizes, **_pp_backends(run),
+           "per_stage_layers": pp_lib.stages_for(_pp_kimi_cfg("cuda"),
+                                                 n_stages)[0]}
+    del res["grads"]
+    res["slice"] = _pp_slice_rank(ctx, pp, n_stages, workdir)
+    return res
+
+
+def _pp_moa_cfg(backend: str):
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.router import RouterSpec
+    return get_config(MOA_ARCH, period=1, moa_positions=(0,),
+                      moe_positions=(0,), param_dtype=torch.float32,
+                      compute_dtype=torch.float32,
+                      capacity_factor=PP_MOA_FFN_CF,
+                      moa_router=RouterSpec(capacity_factor=PP_MOA_CF),
+                      kernel_backend=backend)
+
+
+def _pp_slice_cfg(name: str, backend: str):
+    if name == "rows":
+        return _pp_kimi_cfg(backend).replace(capacity_factor=PP_ROW_CF)
+    return _pp_moa_cfg(backend)
+
+
+def _pp_slice_case(name: str, backend: str, pp=None) -> tuple:
+    """(d)'s ("rows") or (e)'s ("moa") config, parameters (whole, or
+    with ``pp`` this rank's slices in the pipeline layout), global batch,
+    the pipeline's draws and microbatch count."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.models import lm
+    from repro_torch.train import pipeline as pp_lib
+    n_stages = PP_KIMI_MESH[0]
+    cut = None if pp is None else _pp_cut(pp, n_stages)
+    cfg = _pp_slice_cfg(name, backend)
+    if name == "rows":
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = pm.materialize(lm.lm_defs(cfg), gen, "cuda", cut=cut)
+        b, s, n_micro = PP_ROW_B, PP_KIMI_S, PP_ROW_B
+    else:
+        params = _seeded(lm.lm_defs(cfg), SEED + 30, PP_MOA_GATES,
+                         cfg.d_model, cut)
+        b, s, n_micro = PP_MICRO * PP_MOA_B, PP_MOA_S, PP_MICRO
+    if pp is not None:
+        params = _as_pipeline_tree(params)
+    for p in pm.tree_leaves(params):
+        p.requires_grad_(True)
+    batch = _pp_batch(cfg.vocab_size, b, s)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    draws = pp_lib.make_draws(cfg, n_micro, n_stages, b // n_micro, s, gen,
+                              "cuda")
+    return cfg, params, batch, draws, n_micro
+
+
+def pp_slice_reference(workdir: str) -> dict:
+    """(d) and (e) on this process: the mean over the microbatches of
+    lm_loss, microbatch mb's layer l drawing the pipeline's noise of
+    (mb, l // per, l % per), back-propagated with the launches zeroed
+    just before and read just after; (e)'s gradients saved in the
+    pipeline layout for the ranks."""
+    import os
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.train import pipeline as pp_lib
+    n_stages = PP_KIMI_MESH[0]
+    t0 = time.perf_counter()
+    out = {}
+    for name in ("rows", "moa"):
+        cfg, params, batch, draws, n_micro = _pp_slice_case(name, "cuda")
+        per = pp_lib.stages_for(cfg, n_stages)[0]
+        b = batch["tokens"].shape[0] // n_micro
         torch.cuda.synchronize()
-        out[backend] = {"loss": float(m["loss"].detach()),
-                        "launches": cuda_lib.launch_counts(),
+        cuda_lib.reset_launch_counts()
+        total = 0.0
+        for mb in range(n_micro):
+            d = {k: [v[mb][i // per][i % per] for i in range(cfg.n_layers)]
+                 for k, v in draws.items()}
+            loss, _ = lm.lm_loss(params, {k: v[mb * b:(mb + 1) * b]
+                                          for k, v in batch.items()}, cfg,
+                                 draws=d)
+            total = total + loss
+        loss = total / n_micro
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(loss.detach()),
+                     "launches": cuda_lib.launch_counts()}
+        if name == "moa":
+            grads = _as_pipeline_tree(pm.tree_map(
+                lambda p: p.grad.detach().cpu(), params))
+            grads["blocks"] = pm.tree_map(
+                lambda t: t.reshape((n_stages, per) + t.shape[1:]),
+                grads["blocks"])
+            torch.save(grads, os.path.join(workdir, "pp_moa_grads.pt"))
+        del params, loss, total
+    out["s"] = time.perf_counter() - t0
+    log("pipeline (d)/(e) one process " + json.dumps(out))
+    return out
+
+
+def _pp_backends(run) -> dict:
+    """``run(backend) -> (loss, grads)`` for cuda and ref, the launches
+    zeroed just before each and read just after: the cuda run's loss,
+    launches and gradients against ref's."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.kernels import cuda_lib
+    out = {}
+    for backend in ("cuda", "ref"):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        loss, grads = run(backend)
+        torch.cuda.synchronize()
+        out[backend] = {"loss": loss, "launches": cuda_lib.launch_counts(),
                         "grads": pm.tree_map(lambda g: g.detach().clone(),
                                              grads)}
-    errs = {}
-    for (name, g), r in zip(_named_leaves(out["cuda"]["grads"]),
-                            pm.tree_leaves(out["ref"]["grads"])):
-        errs[name] = norm_rel_err(g, r)
-    res.update({
-        "loss": {b: out[b]["loss"] for b in out},
-        "loss_rel_err": abs(out["cuda"]["loss"] - out["ref"]["loss"])
-        / abs(out["ref"]["loss"]),
-        "grad_norm_rel": errs, "launches": out["cuda"]["launches"],
-        "ref_launches": out["ref"]["launches"],
-        "per_stage_layers": pp_lib.stages_for(cfg, n_stages)[0]})
+    return {"loss": {b: out[b]["loss"] for b in out},
+            "loss_rel_err": abs(out["cuda"]["loss"] - out["ref"]["loss"])
+            / abs(out["ref"]["loss"]),
+            "grad_norm_rel": {
+                name: norm_rel_err(g, r) for (name, g), r in zip(
+                    _named_leaves(out["cuda"]["grads"]),
+                    pm.tree_leaves(out["ref"]["grads"]))},
+            "launches": out["cuda"]["launches"],
+            "ref_launches": out["ref"]["launches"],
+            "grads": out["cuda"]["grads"]}
+
+
+def _pp_slice_rank(ctx, pp, n_stages: int, workdir: str) -> dict:
+    """(d) and (e) on this rank (the one-process references beside the
+    spawn), then the hierarchical kimi's step."""
+    import os
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.models import lm
+    from repro_torch.train import pipeline as pp_lib
+    t0 = time.perf_counter()
+    res = {}
+    for name in ("rows", "moa"):
+        cfg = _pp_slice_cfg(name, "cuda")
+        defs = pp_lib.pipeline_param_defs(cfg, n_stages)
+
+        def run(backend):
+            cfg, local, batch, draws, n_micro = _pp_slice_case(
+                name, backend, pp)
+            loss, m = pp_lib.pipeline_lm_loss(
+                local, batch, cfg, ctx=ctx, n_stages=n_stages,
+                n_micro=n_micro, draws=draws)
+            return float(m["loss"].detach()), _pp_grads(pp, local, loss,
+                                                        defs)
+        r = _pp_backends(run)
+        grads = r.pop("grads")
+        r["per_stage_layers"] = pp_lib.stages_for(cfg, n_stages)[0]
+        if name == "moa":
+            errs = _leaf_errs(pp, grads, torch.load(
+                os.path.join(workdir, "pp_moa_grads.pt"), mmap=True,
+                weights_only=True), defs)
+            r["grads_vs_one"] = {k: e["norm_rel"] for k, e in errs.items()}
+            r["finite"] = all(e["finite"] for e in errs.values())
+        res[name] = r
+        del grads
+
+    def hmoe(backend):
+        cfg = _pp_kimi_cfg(backend).replace(moe_hierarchical=PP_HMOE)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        local = _as_pipeline_tree(pm.materialize(
+            lm.lm_defs(cfg), gen, "cuda", cut=_pp_cut(pp, n_stages)))
+        for p in pm.tree_leaves(local):
+            p.requires_grad_(True)
+        batch = _pp_batch(cfg.vocab_size, PP_KIMI_B, PP_KIMI_S)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        loss, m = pp_lib.pipeline_lm_loss(local, batch, cfg, ctx=ctx,
+                                          n_stages=n_stages,
+                                          n_micro=PP_MICRO, generator=gen)
+        return (float(m["loss"].detach()), _pp_grads(
+            pp, local, loss, pp_lib.pipeline_param_defs(cfg, n_stages)))
+    res["hmoe"] = _pp_backends(hmoe)
+    del res["hmoe"]["grads"]
+    res["s"] = time.perf_counter() - t0
     return res
 
 
@@ -7159,6 +7373,9 @@ def phase_pipeline() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
+        one = pp_slice_reference(workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
         kimi = _pp_spawn(workdir, PP_KIMI_MESH, "kimi")
     for r in kimi:
         want = {k: v * PP_MICRO * r["per_stage_layers"]
@@ -7172,10 +7389,87 @@ def phase_pipeline() -> dict:
         for name, e in r["grad_norm_rel"].items():
             check(e <= PP_KIMI_TOL, f"pipeline kimi rank {r['rank']}: "
                   f"gradient {name} cuda vs ref {e:.3g} normwise")
+    slices = [r.pop("slice") for r in kimi]
     out["kimi"] = {"per_layer_launches": per_layer, "ranks": kimi}
     log("pipeline (c) kimi " + json.dumps(out["kimi"]))
+    out.update(check_pp_slice(one, slices, per_layer))
     out["wall_s"] = time.perf_counter() - t0
     log(f"pipeline phase {out['wall_s']:.1f} s")
+    return out
+
+
+def check_pp_slice(one: dict, ranks: list, per_layer: dict) -> dict:
+    """Phase 25 (d) and (e)'s gates on the ranks' reports (``one``: the
+    one-process runs): the ranks' mean loss against one process's,
+    cuda against ref, the launches a step; (e)'s gradients against one
+    process's; the hierarchical step cuda against ref.  Logs the table
+    and the seconds the parts added."""
+    out = {}
+    for name, what in (("rows", "(d) one row a microbatch"),
+                       ("moa", "(e) moa-demo period 1")):
+        reps = [r[name] for r in ranks]
+        mean = statistics.fmean(r["loss"]["cuda"] for r in reps)
+        rel = abs(mean - one[name]["loss"]) / abs(one[name]["loss"])
+        check(rel <= PP_LOSS_TOL, f"pipeline {what}: the ranks' mean loss "
+              f"{mean} vs one process {one[name]['loss']} (rel {rel:.3g})")
+        per = reps[0]["per_stage_layers"]
+        if name == "rows":
+            want = {k: v * PP_ROW_B * per for k, v in per_layer.items()}
+        else:
+            n = _pp_moa_cfg("cuda").n_layers
+            check(all(v * per % n == 0
+                      for v in one[name]["launches"].values()),
+                  f"pipeline {what}: one process's launches "
+                  f"{one[name]['launches']} do not divide by its layers")
+            want = {k: v * per // n for k, v in one[name]["launches"].items()}
+        worst = {"cuda_vs_ref_loss": 0.0, "cuda_vs_ref_grad": 0.0,
+                 "vs_one_grad": 0.0}
+        for i, r in enumerate(reps):
+            check(r["launches"] == want, f"pipeline {what} rank {i}: "
+                  f"launches {r['launches']}, expected {want}")
+            check(not r["ref_launches"], f"pipeline {what} rank {i}: the ref "
+                  f"backend launched {r['ref_launches']}")
+            check(r["loss_rel_err"] <= PP_KIMI_TOL, f"pipeline {what} rank "
+                  f"{i}: cuda vs ref loss {r['loss_rel_err']:.3g}")
+            worst["cuda_vs_ref_loss"] = max(worst["cuda_vs_ref_loss"],
+                                            r["loss_rel_err"])
+            for leaf, e in r["grad_norm_rel"].items():
+                check(e <= PP_KIMI_TOL, f"pipeline {what} rank {i}: "
+                      f"gradient {leaf} cuda vs ref {e:.3g} normwise")
+                worst["cuda_vs_ref_grad"] = max(worst["cuda_vs_ref_grad"],
+                                                e)
+            if name == "moa":
+                check(r["finite"], f"pipeline {what} rank {i}: a gradient is "
+                      "not finite")
+                for leaf, e in r["grads_vs_one"].items():
+                    check(e <= PP_GRAD_TOL, f"pipeline {what} rank {i}: "
+                          f"gradient {leaf} {e:.3g} normwise from one "
+                          "process")
+                    worst["vs_one_grad"] = max(worst["vs_one_grad"], e)
+        out[name] = {"one": one[name], "mean_loss": mean, "loss_rel": rel,
+                     "launches": reps[0]["launches"], "worst": worst,
+                     "ranks": reps}
+        log(f"pipeline {what}: mean loss {mean} vs one process "
+            f"{one[name]['loss']} (rel {rel:.3g}); worst "
+            f"{json.dumps(worst)}; launches a rank {json.dumps(want)}")
+    hm = [r["hmoe"] for r in ranks]
+    for i, r in enumerate(hm):
+        check(not r["ref_launches"], f"pipeline (e) hierarchical rank {i}: "
+              f"the ref backend launched {r['ref_launches']}")
+        check(r["loss_rel_err"] <= PP_KIMI_TOL, f"pipeline (e) hierarchical "
+              f"rank {i}: cuda vs ref loss {r['loss_rel_err']:.3g}")
+        for leaf, e in r["grad_norm_rel"].items():
+            check(e <= PP_KIMI_TOL, f"pipeline (e) hierarchical rank {i}: "
+                  f"gradient {leaf} cuda vs ref {e:.3g} normwise")
+    out["hmoe"] = {"ranks": hm, "launches": hm[0]["launches"],
+                   "worst_grad": max(max(r["grad_norm_rel"].values())
+                                     for r in hm),
+                   "worst_loss": max(r["loss_rel_err"] for r in hm)}
+    log("pipeline (e) hierarchical kimi " + json.dumps(out["hmoe"]))
+    slowest = max(r["s"] for r in ranks)
+    out["added_s"] = one["s"] + slowest
+    log(f"pipeline (d)/(e) added {out['added_s']:.1f} s (one process "
+        f"{one['s']:.1f} s, the ranks' slowest {slowest:.1f} s)")
     return out
 
 
@@ -9125,6 +9419,9 @@ def main() -> int:
                 "serve_mesh_fused": mesh["ranks"][0]["fused"]["launches"],
                 "serve_mesh_prefix": mesh["ranks"][0]["prefix"]["launches"],
                 "train_pp_kimi": pipeline["kimi"]["ranks"][0]["launches"],
+                "train_pp_rows": pipeline["rows"]["launches"],
+                "train_pp_moa": pipeline["moa"]["launches"],
+                "train_pp_hmoe": pipeline["hmoe"]["launches"],
                 "train_mesh_moa_ep2": routed["ranks"][0]["moa_1x2"][
                     "launches"],
                 "train_mesh_moa_dp2": routed["ranks"][0]["moa_2x1"][

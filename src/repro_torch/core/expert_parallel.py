@@ -32,10 +32,13 @@ the other dims over theirs (``data``: FSDP).  :func:`moe_apply_ep` then
 
 Each all-to-all moves ``k * T_local * capacity_factor * d`` elements a
 rank (``2 * k * T * d`` per layer for the combined batch at factor 1,
-independent of E).  Gate noise is the rank's rows of the global ``[T,
-E]`` draw (the caller slices it), so a run on a mesh equals a
+independent of E).  Gate noise is the rank's tokens of the global
+``[T, E]`` draw (the caller slices it), so a run on a mesh equals a
 single-process run of the same global batch wherever no shard drops a
-token.
+token.  A rank whose rows are whole on several ranks (a microbatch of
+fewer rows than ranks: ``MeshContext.split_rows``) routes its
+contiguous share of their tokens and all-gathers the output over those
+ranks.
 
 Serving (:func:`moe_apply_serve`, the prefill and decode calls of the
 engine on a mesh) runs another schedule.  The reference serves under
@@ -195,8 +198,9 @@ class GlobalPlan:
               token_axes=None) -> "GlobalPlan":
         """The plan of a layer with ParamDefs ``defs`` whose expert dim
         (dim 0 of its expert leaves) holds ``n_experts``; ``token_axes``
-        the mesh axes this rank's rows are split over (None: every free
-        axis, a training step's token sharding)."""
+        the mesh axes this rank's rows are split over (None: a training
+        step's, ``ctx.rows_over``; a rank that holds its rows whole on
+        several ranks gathers them over the row axes only)."""
         if ctx is None or ctx.mesh is None:
             return cls(None, (), (), 0, n_experts, {})
         specs = _expert_specs(defs, ctx)
@@ -206,7 +210,7 @@ class GlobalPlan:
                 f"experts sharded over {axes}: the schedule gathers over "
                 "one mesh axis")
         n = n_experts // ctx.size(axes)
-        return cls(ctx, ctx.free_axes if token_axes is None
+        return cls(ctx, ctx.rows_over if token_axes is None
                    else tuple(token_axes), axes, ctx.index(axes) * n, n,
                    {k: (s, tuple(defs[k].shape)) for k, s in specs.items()})
 
@@ -315,9 +319,23 @@ def moe_apply_ep(params, x: torch.Tensor, a: moe_lib.MoEArgs,
 
     ``params``: the gate (and an Appendix-F policy's thresholds) in full,
     ``w1`` / ``w2`` (/ ``w3``) as this rank's shards.  ``noise``
-    [T_local, E] and ``mask`` [T_local] are the rank's rows of the
-    global ones.  Returns (y [T_local, d], aux) with the combined
-    batch's ``aux_loss`` and metrics, the same on every rank."""
+    [T_local / M, E] is the rank's share of the global one
+    (``ctx.local_tokens``) and ``mask`` [T_local] its rows'.  Where
+    ``ctx`` holds the rows whole on M ranks (``ctx.whole_over``), the
+    layer runs on this rank's contiguous share of ``x``'s tokens and
+    all-gathers its output over those ranks (the reference's ``tokens``
+    axis: its entry reshard a slice, its exit one all-gather).
+    Returns (y [T_local, d], aux) with the combined batch's
+    ``aux_loss`` and metrics, the same on every rank."""
+    whole = ctx.whole_over
+    if whole:
+        m = x.shape[0] // ctx.size(whole)
+        i = ctx.index(whole) * m
+        y, aux = moe_apply_ep(
+            params, x.narrow(0, i, m), a,
+            dataclasses.replace(ctx, row_axes=None), train=train,
+            noise=noise, mask=None if mask is None else mask.narrow(0, i, m))
+        return ctx.all_gather(y, whole, 0), aux
     specs = _expert_specs(moe_lib.moe_defs(a), ctx)
     ep_group = _expert_group(a, ctx, specs)
     ep = ctx.size(ep_group)

@@ -10,7 +10,9 @@ allocating a byte), laid out as one rank holds them:
 
 * train: the parameters and the optimizer state are the rank's slices
   by the plan (``MeshContext.shard``), the batch the global one (the
-  trainer takes each rank's rows of each microbatch);
+  trainer takes each rank's rows of each microbatch); the microbatch
+  count is the reference's, ``cfg_microbatches`` of the ranks of the
+  ``batch`` axes;
 * prefill: the serving layout (``expert_parallel.serve_layout``: every
   weight whole but the experts' slab) and the whole batch and page:
   every rank prefills the same rows;
@@ -137,8 +139,13 @@ def build_step(cfg: ModelConfig, shape: shp.ShapeSpec, mesh=None,
         for p in pm.tree_leaves(params):
             if p.is_floating_point():
                 p.requires_grad_(True)
-        # The trainer takes each microbatch's rows over every rank.
-        mb = cfg_microbatches(cfg, shape, ctx.world if mesh else 1)
+        # The reference's depth: by the ranks of the ``batch`` axes the
+        # global batch resolves to (the trainer then splits each
+        # microbatch's rows by ``MeshContext.split_rows``).
+        n_bsh = (ctx.size(ctx.resolve((shape.global_batch,),
+                                      ("batch",))[0])
+                 if mesh is not None else 1)
+        mb = cfg_microbatches(cfg, shape, n_bsh)
         fn = make_train_step_fn(cfg, oc, ctx, microbatches=mb)
         return StepSpec(fn=fn, args=({"params": params, "opt": opt}, batch,
                                      0), kind="train", microbatches=mb,

@@ -24,7 +24,8 @@ from repro_torch.common import param as pm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import expert_parallel as ep_lib
 from repro_torch.models import layers, transformer
-from repro_torch.sharding.context import MeshContext, local_draws, on_mesh
+from repro_torch.sharding.context import (MeshContext, local_draws,
+                                         on_mesh, with_step_rows)
 
 
 def lm_defs(cfg: ModelConfig) -> dict:
@@ -131,18 +132,21 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, *,
     expert-parallel schedule, MoA mixers and the hierarchical MoE their
     global plan, and the draws are those of the global batch (``draws``,
     or drawn from ``generator`` at the global size) of which the rank
-    keeps the flat MoE's rows (``sharding.context.local_draws``); a
-    global plan's noise stays whole.  ``xent`` is then the rank's own
-    mean, while ``aux_loss`` and the balancing metrics are the combined
+    keeps the flat MoE's tokens (``sharding.context.local_draws``); a
+    global plan's noise stays whole.  The rows split as the enclosing
+    training step split them (``sharding.context.with_step_rows``; over
+    every rank outside one).  ``xent`` is then the rank's own mean,
+    while ``aux_loss`` and the balancing metrics are the combined
     batch's (a global plan's: one process's)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     mesh = on_mesh(ctx)
     if mesh:
+        ctx = with_step_rows(ctx)
         params = ep_lib.gather_on_use(params, lm_defs(cfg), ctx)
     if train and draws is None and generator is not None:
-        draws = make_draws(cfg, b * (ctx.world if mesh else 1), s,
-                           generator, tokens.device)
+        draws = make_draws(cfg, b * (ctx.size(ctx.rows_over) if mesh
+                                     else 1), s, generator, tokens.device)
     if train and draws is not None and mesh:
         whole = ("moa_noise",) + (("noise",) if cfg.moe_hierarchical
                                   else ())

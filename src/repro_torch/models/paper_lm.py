@@ -28,7 +28,8 @@ from repro_torch.core import hierarchical as hmoe_lib
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import layers
 from repro_torch.models import lstm as lstm_lib
-from repro_torch.sharding.context import MeshContext, local_draws, on_mesh
+from repro_torch.sharding.context import (MeshContext, local_draws,
+                                         on_mesh, with_step_rows)
 
 VARIANTS = ("moe", "moe_1_wide", "moe_1_deep", "lstm_4x", "lstm_2048_512")
 
@@ -177,22 +178,24 @@ def paper_lm_loss(params, batch, cfg: PaperLMConfig, *,
     None, from ``generator``; with neither (or ``train=False``) there is
     no dropout and no gate noise, as with the reference's ``rng=None``.
     On a mesh (``ctx``), as ``lm.lm_loss``: ``params`` are this rank's
-    slices, gathered here on use, ``batch`` is this rank's rows, the
-    draws the global batch's of which it keeps its rows, and ``xent``
-    the rank's own mean.
+    slices, gathered here on use, ``batch`` is this rank's rows (split
+    as the enclosing training step split them), the draws the global
+    batch's of which it keeps its rows' masks and its tokens' noise,
+    and ``xent`` the rank's own mean.
     """
     _check(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = tokens.shape
     mesh = on_mesh(ctx)
     if mesh:
+        ctx = with_step_rows(ctx)
         params = ep_lib.gather_on_use(params, paper_lm_defs(cfg), ctx)
     if train and draws is None and generator is not None:
-        draws = make_draws(cfg, b * (ctx.world if mesh else 1), s,
-                           generator, tokens.device)
+        draws = make_draws(cfg, b * (ctx.size(ctx.rows_over) if mesh
+                                     else 1), s, generator, tokens.device)
     if train and draws is not None and mesh:
         draws = local_draws(draws, ctx, whole=("noise",) if cfg.hierarchical
-                            else ())
+                            else (), rows=[f"keep{i}" for i in range(4)])
     draws = draws if train else None
     keep = [None if draws is None else draws.get(f"keep{i}")
             for i in range(4)]

@@ -371,8 +371,8 @@ def stack_apply(params, x, cfg: ModelConfig, *, positions, draws=None,
     a layer at a time recomputes the same work and holds one layer's
     activations, not a period's (a jamba period at S = 4096 would not
     fit beside its weights and gradients on one card).  Returns (x,
-    summed aux).  ``ctx`` is the sharding context: on a mesh ``x`` and
-    the draws are this rank's rows (see ``lm.lm_loss``)."""
+    summed aux).  ``ctx`` is the sharding context: on a mesh ``x`` is
+    this rank's rows and the draws its share (see ``lm.lm_loss``)."""
     kinds = layer_kinds(cfg)
     full, rem = n_periods(cfg)
     aux = _zero_aux(x.device)

@@ -39,6 +39,18 @@ pipeline's stage body) sees the mesh without them: its rank count,
 coordinate and default collectives span the other axes only, and its
 specs strip them, as the reference's manual axes do.
 
+The row split (:meth:`MeshContext.split_rows`, the one rule the trainer,
+the pipeline and :func:`local_draws` follow): a (micro)batch's rows
+split over every free axis where they divide, as before.  Where they do
+not, they split over the plan's ``batch`` axes (the reference's ``("pod",
+"data")``; none inside a pipeline stage) and stay whole on each rank of
+the others (``model``); a flat MoE layer then takes this rank's
+contiguous share of the rows' flattened tokens (the reference's
+``tokens`` axis, over every axis) and all-gathers its output over those
+ranks when it exits.  A contiguous token share of row-major ``[R, S]``
+tokens is exactly a row share where R divides, so the tokens' order
+(:attr:`MeshContext.token_axes`) is one rule in both cases.
+
 A collective over the ranks of a mesh axis of size 1 is the identity and
 is skipped (on a (data 1, model 2) mesh, FSDP over ``data`` costs
 nothing).
@@ -240,6 +252,9 @@ class MeshContext:
     mesh: object | None            # torch DeviceMesh, or None off-mesh
     rules: partition.ShardingRules
     manual_axes: frozenset = frozenset()
+    # The free axes the rows are split over (None: every free axis);
+    # :meth:`split_rows` sets it.
+    row_axes: tuple[str, ...] | None = None
 
     # -- construction -----------------------------------------------------
     @classmethod
@@ -404,15 +419,74 @@ class MeshContext:
         return _Shift.apply(x, self.group(axis), step)
 
     # -- trees ------------------------------------------------------------
-    def local_rows(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's equal share of dim 0 (the batch / token sharding
-        over every mesh axis)."""
-        n = self.world
+    @property
+    def rows_over(self) -> tuple[str, ...]:
+        """The free mesh axes this context's rows are split over."""
+        if self.row_axes is None:
+            return self.free_axes
+        return tuple(a for a in self.row_axes if a not in self.manual_axes)
+
+    @property
+    def whole_over(self) -> tuple[str, ...]:
+        """The free mesh axes whose ranks each hold this context's rows
+        whole (none where the rows split over every free axis)."""
+        rows = self.rows_over
+        return tuple(a for a in self.free_axes if a not in rows)
+
+    @property
+    def token_axes(self) -> tuple[str, ...]:
+        """The order of the token sharding over every free axis: the
+        rows' axes, then the axes that hold them whole."""
+        return self.rows_over + self.whole_over
+
+    def split_rows(self, rows: int, seq: int = 1) -> "MeshContext":
+        """This context with the row split of a (micro)batch of ``rows``
+        rows of ``seq`` tokens (the module docstring): every free axis
+        where the rows divide over them; else the largest prefix of the
+        plan's ``batch`` axes that divides them, the rows whole over the
+        other axes, whose ranks then split each row's tokens.  Raises
+        ValueError where those tokens do not divide either."""
+        if rows % self.world == 0:
+            return dataclasses.replace(self, row_axes=None)
+        axes: list[str] = []
+        n = 1
+        for a in self.axes_of("batch"):
+            if rows % (n * self.sizes[a]):
+                break
+            axes.append(a)
+            n *= self.sizes[a]
+        whole = tuple(a for a in self.free_axes if a not in axes)
+        tokens = rows // n * seq
+        if tokens % self.size(whole):
+            raise ValueError(
+                f"{rows} rows do not divide over {self.world} ranks "
+                f"({self.free_axes}), and the {tokens} tokens of the "
+                f"{rows // n} rows a rank holds over {tuple(axes)} do not "
+                f"divide over the {self.size(whole)} ranks of {whole}")
+        return dataclasses.replace(self, row_axes=tuple(axes))
+
+    def _share(self, t: torch.Tensor, axes: tuple[str, ...],
+               what: str) -> torch.Tensor:
+        n = self.size(axes)
         if t.shape[0] % n:
-            raise ValueError(f"{t.shape[0]} rows do not divide over "
-                             f"{n} ranks")
+            raise ValueError(f"{t.shape[0]} {what} do not divide over "
+                             f"{n} ranks ({axes})")
         m = t.shape[0] // n
-        return t[self.index() * m:(self.index() + 1) * m]
+        i = self.index(axes)
+        return t[i * m:(i + 1) * m]
+
+    def local_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's equal share of dim 0 over the axes the rows are
+        split over (:attr:`rows_over`; every free axis unless
+        :meth:`split_rows` chose fewer)."""
+        return self._share(t, self.rows_over, "rows")
+
+    def local_tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's equal share of dim 0 of a tensor over the step's
+        flattened tokens (a [T, E] gate noise), over every free axis in
+        :attr:`token_axes` order: the tokens of its rows, or its share
+        of them where they are whole on several ranks."""
+        return self._share(t, self.token_axes, "tokens")
 
     def shard_leaf(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
         """This rank's slice of a full tensor, in storage of its own (a
@@ -502,16 +576,47 @@ def on_mesh(ctx: MeshContext | None) -> bool:
 
 
 def local_draws(draws: dict, ctx: MeshContext,
-                whole: Sequence[str] = ()) -> dict:
-    """This rank's rows of one step's draws for the global batch: each
-    tensor's equal share of dim 0 (token rows of a [T, E] noise, batch
-    rows of a [B, S, d] mask), as ``ctx.local_rows`` gives the batch.
-    The keys in ``whole`` stay the global batch's (the noise of a layer
-    that routes the global plan on every rank)."""
-    def one(v):
+                whole: Sequence[str] = (), rows: Sequence[str] = ()) -> dict:
+    """This rank's share of one step's draws for the global batch: a
+    token-indexed tensor's (a [T, E] gate noise) by ``ctx.local_tokens``,
+    the keys in ``rows`` (a [B, S, d] dropout mask) by
+    ``ctx.local_rows``, as the trainer takes the batch.  The keys in
+    ``whole`` stay the global batch's (the noise of a layer that routes
+    the global plan on every rank)."""
+    def one(v, share):
         if isinstance(v, dict):
-            return {k: one(t) for k, t in v.items()}
+            return {k: one(t, share) for k, t in v.items()}
         if isinstance(v, list):
-            return [one(t) for t in v]
-        return None if v is None else ctx.local_rows(v)
-    return {k: v if k in whole else one(v) for k, v in draws.items()}
+            return [one(t, share) for t in v]
+        return None if v is None else share(v)
+    return {k: v if k in whole else one(
+        v, ctx.local_rows if k in rows else ctx.local_tokens)
+            for k, v in draws.items()}
+
+
+# The row split of the training step being run (``split_rows``'s
+# axes), for the loss function it calls.
+_STEP_ROWS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_step_rows", default=None)
+
+
+@contextlib.contextmanager
+def step_rows(ctx: MeshContext):
+    """Within the block, :func:`with_step_rows` hands a loss function's
+    context the row split of ``ctx`` (the trainer's microbatch)."""
+    token = _STEP_ROWS.set(ctx.row_axes)
+    try:
+        yield
+    finally:
+        _STEP_ROWS.reset(token)
+
+
+def with_step_rows(ctx: MeshContext) -> MeshContext:
+    """``ctx`` with the row split of the enclosing :func:`step_rows`
+    block, or ``ctx`` itself.  A loss function reads it once, as its
+    forward pass starts, and passes the result down (a backward pass
+    may run on another thread)."""
+    axes = _STEP_ROWS.get()
+    if axes is None or ctx.row_axes is not None:
+        return ctx
+    return dataclasses.replace(ctx, row_axes=axes)

@@ -31,22 +31,32 @@ Where the port differs from the reference's SPMD body:
   ``stage -> stage_axis`` for the pipeline's own trees, so
   ``MeshContext.shard`` / ``gather``, the trainer's replica sums and the
   shard-aware optimizer cut and update them like any other tree.
-* Within a stage each ``model`` rank takes its share of every
-  microbatch's rows (the reference's body holds the microbatch whole on
-  every model rank and lets GSPMD split the MoE); the MoE's combined
-  batch is then the stage's whole microbatch, so its capacity and
-  balance losses are per microbatch, as the reference's.
+* Within a stage the rows split by ``MeshContext.split_rows``: each
+  ``model`` rank takes its share of every microbatch's rows where they
+  divide, else holds them whole and its flat MoE layers take its share
+  of their tokens (the reference's body holds the microbatch whole on
+  every model rank and lets GSPMD split the MoE's tokens).  The MoE's
+  combined batch is the stage's whole microbatch either way, so its
+  capacity and balance losses are per microbatch, as the reference's;
+  MoA mixers and the hierarchical MoE route the whole microbatch on
+  every ``model`` rank (their global plan, gathered over the rows'
+  axes of the stage: ``model`` or none).
 * Bubble ticks run no layer (the reference computes them and masks the
   result): a stage that is not live passes its input through.  Every
   rank still calls every shift, in the same order, so the collectives
   of the stage ring match; stage 0 adds the zeros it receives to its
   microbatch, so its shift is part of the graph on every rank and the
   reverse shift runs everywhere.
-* Gate noise comes in as tensors (the port's convention): one ``[B_mb
-  * S, E]`` draw per (microbatch, stage, layer), ``draws["noise"][mb]
-  [stage][layer]``; the tests pass the reference's ``fold_in(rng, mb *
-  n_stages + stage)`` then ``fold_in(layer)`` draws, and
-  :func:`make_draws` draws them from a generator.
+* Gate noise comes in as tensors (the port's convention): per
+  (microbatch, stage, layer) ``draws["noise"][mb][stage][layer]``, the
+  MoE's ``[B_mb * S, E]`` draw (the hierarchical MoE's two-level dict),
+  and ``draws["moa_noise"][mb][stage][layer]``, an MoA mixer's ``[B_mb
+  * S, moa_experts]``; the tests pass the reference's ``fold_in(rng, mb
+  * n_stages + stage)`` then ``fold_in(layer)`` draws (MoA's from
+  ``fold_in(·, 1)`` of the layer's key, the hierarchical MoE's from the
+  split of it), and :func:`make_draws` draws them from a generator.
+  The flat MoE keeps the rank's tokens of its draw; MoA's and the
+  hierarchical MoE's stay whole (``sharding.context.local_draws``).
 * ``cfg.remat`` checkpoints each layer (the port's decision of PR 22),
   where the reference checkpoints the stage body.
 
@@ -57,6 +67,10 @@ cotangents (``n_stages / world = 1 / model`` of each column's loss
 reaches the last stage), and the trainer's replica sums
 (``_sum_replicas``) add what the ranks of a replicated leaf computed,
 so every gradient is the gradient of the mean loss over the ranks.
+Rows held whole on the ``model`` ranks keep the rule, as in the
+trainer (``train/trainer.py``'s docstring): each of the M copies of a
+row counts 1/world, M / world of it in all, its weight among the
+``model / M`` row groups.
 """
 from __future__ import annotations
 
@@ -69,7 +83,7 @@ from repro_torch.core import expert_parallel as ep_lib
 from repro_torch.models import layers, lm, transformer
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.sharding import partition
-from repro_torch.sharding.context import MeshContext, on_mesh
+from repro_torch.sharding.context import MeshContext, local_draws, on_mesh
 from repro_torch.train import trainer as trainer_lib
 
 
@@ -136,32 +150,30 @@ def pipeline_context(ctx: MeshContext, stage_axis: str = "data"
 def make_draws(cfg: ModelConfig, n_micro: int, n_stages: int,
                micro_batch: int, seq_len: int, generator: torch.Generator,
                device) -> dict:
-    """One step's gate noise: ``noise[mb][stage][layer]``, a [micro_batch
-    * seq_len, E] standard normal for each MoE layer (None elsewhere),
-    drawn in that order (every rank draws them all and keeps its own)."""
+    """One step's gate noise for the whole microbatches: ``noise[mb]
+    [stage][layer]``, an MoE layer's (``transformer.moe_noise``: [T, E],
+    or the hierarchical MoE's two-level dict), and ``moa_noise[mb]
+    [stage][layer]``, an MoA mixer's [T, moa_experts], T = micro_batch *
+    seq_len; None elsewhere.  Drawn layer by layer in that order, the
+    MoE's before MoA's (every rank draws them all and keeps its
+    share)."""
     per, _ = stages_for(cfg, n_stages)
     kind = layer_kinds(cfg)[0]
     moe = kind.ffn in ("moe", "moe+dense")
     t = micro_batch * seq_len
-    return {"noise": [[[transformer.moe_noise(cfg, t, generator, device)
-                        if moe else None for _ in range(per)]
-                       for _ in range(n_stages)] for _ in range(n_micro)]}
-
-
-def refuse_routed(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config with MoA mixers or the
-    hierarchical MoE: the stage body passes a layer no MoA gate noise,
-    and it keeps its rows of each draw, where a global plan needs the
-    whole (``expert_parallel.GlobalPlan``)."""
-    kinds = layer_kinds(cfg)
-    if any(k.mixer == "moa" for k in kinds):
-        raise NotImplementedError(
-            "MoA is not pipelined: the stage body passes no MoA gate noise")
-    if cfg.moe_hierarchical and any(k.ffn in ("moe", "moe+dense")
-                                    for k in kinds):
-        raise NotImplementedError(
-            "the hierarchical MoE is not pipelined: a stage keeps its rows "
-            "of each draw, and the global plan needs the whole")
+    noise = [[[None] * per for _ in range(n_stages)] for _ in range(n_micro)]
+    moa = [[[None] * per for _ in range(n_stages)] for _ in range(n_micro)]
+    for mb in range(n_micro):
+        for sid in range(n_stages):
+            for i in range(per):
+                if moe:
+                    noise[mb][sid][i] = transformer.moe_noise(
+                        cfg, t, generator, device)
+                if kind.mixer == "moa":
+                    moa[mb][sid][i] = torch.randn(
+                        (t, cfg.moa_experts), generator=generator,
+                        device=device)
+    return {"noise": noise, "moa_noise": moa}
 
 
 def _check_mesh(ctx: MeshContext | None, n_stages: int, stage_axis: str):
@@ -175,44 +187,57 @@ def _check_mesh(ctx: MeshContext | None, n_stages: int, stage_axis: str):
 def pipeline_stack_apply(block_params, x_mb, cfg: ModelConfig, *,
                          ctx: MeshContext, n_stages: int,
                          stage_axis: str = "data", positions, draws=None,
-                         train: bool = True):
+                         train: bool = True, rows: int | None = None):
     """Run the pipelined layer stack on this rank.
 
     ``block_params``: this rank's ``[1, per, ...]`` stage slice, whole
     but for the experts' FFN weights (this rank's shard over ``model``).
     ``x_mb``: [n_micro, B_local, S, d], this rank's rows of every
-    microbatch (its ``model`` share).  ``draws``: :func:`make_draws`'s
-    (the global microbatch's rows; each rank keeps its own) or None.
-    Returns (y_mb [n_micro, B_local, S, d], aux_loss scalar)."""
+    microbatch of ``rows`` rows, split over the stage's ``model`` ranks
+    by ``MeshContext.split_rows`` (None: B_local times those ranks, a
+    split that divides).  ``draws``: :func:`make_draws`'s (the global
+    microbatch's; each rank keeps its share) or None.  Returns (y_mb
+    [n_micro, B_local, S, d], aux_loss scalar)."""
     _check_mesh(ctx, n_stages, stage_axis)
     pp = pipeline_context(ctx, stage_axis)
+    n_micro, b_local, s = x_mb.shape[:3]
     stage_ctx = pp.manual(stage_axis)
-    n_micro = x_mb.shape[0]
+    stage_ctx = stage_ctx.split_rows(
+        b_local * stage_ctx.world if rows is None else rows, s)
     kind = layer_kinds(cfg)[0]
     per, _ = stages_for(cfg, n_stages)
     sid = pp.index((stage_axis,))
     last = n_stages - 1
     stage_layers = transformer._unstack(
         pm.tree_map(lambda t: t.squeeze(0), block_params), per)
+    # The global plans' noise stays whole (they route the whole
+    # microbatch on every model rank); the flat MoE's is the rank's.
+    whole = ("moa_noise",) + (("noise",) if cfg.moe_hierarchical else ())
+    if (draws is not None and kind.mixer == "moa"
+            and "moa_noise" not in draws):
+        raise ValueError("draws for a config with MoA mixers need "
+                         "'moa_noise' (see make_draws)")
 
-    def layer(x, aux, block, noise):
+    def layer(x, aux, block, noise, moa_noise):
         x, a = transformer.block_apply(block, x, kind, cfg,
                                        positions=positions, noise=noise,
-                                       train=train, ctx=stage_ctx)
+                                       moa_noise=moa_noise, train=train,
+                                       ctx=stage_ctx)
         return x, aux if a is None else aux + a["aux_loss"]
 
     def stage_body(x, mb):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, block in enumerate(stage_layers):
-            noise = None
-            if draws is not None and draws["noise"][mb][sid][i] is not None:
-                noise = stage_ctx.local_rows(draws["noise"][mb][sid][i])
+            got = {"noise": None, "moa_noise": None}
+            if draws is not None:
+                got = local_draws({k: draws[k][mb][sid][i] for k in got
+                                   if k in draws}, stage_ctx, whole=whole)
+            args = (x, aux, block, got.get("noise"), got.get("moa_noise"))
             if cfg.remat:
-                x, aux = checkpoint(layer, x, aux, block, noise,
-                                    use_reentrant=False,
+                x, aux = checkpoint(layer, *args, use_reentrant=False,
                                     preserve_rng_state=False)
             else:
-                x, aux = layer(x, aux, block, noise)
+                x, aux = layer(*args)
         return x, aux
 
     state = x_mb[0] * 0.0
@@ -249,14 +274,13 @@ def pipeline_lm_loss(params, batch: dict, cfg: ModelConfig, *,
     tree (``pipeline_context(ctx).shard``'s cut), gathered here on use
     (the experts stay shards).  ``batch``: the global tokens / labels
     [B, S]; B splits into ``n_micro`` microbatches of consecutive rows,
-    of which each ``model`` rank takes its share.  Gate noise comes from
-    ``draws`` (:func:`make_draws`), else from ``generator``; with neither
-    the gates are noiseless.  Returns (loss, metrics) with this rank's
-    rows' ``xent``, the ``aux_loss`` and ``loss``."""
+    of which each ``model`` rank takes its share where they divide, and
+    else holds them whole (``MeshContext.split_rows``).  Gate noise
+    comes from ``draws`` (:func:`make_draws`), else from ``generator``;
+    with neither the gates are noiseless.  Returns (loss, metrics) with
+    this rank's rows' ``xent``, the ``aux_loss`` and ``loss``."""
     _check_mesh(ctx, n_stages, stage_axis)
-    refuse_routed(cfg)
     pp = pipeline_context(ctx, stage_axis)
-    stage_ctx = pp.manual(stage_axis)
     defs = pipeline_param_defs(cfg, n_stages)
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = tokens.shape
@@ -264,6 +288,7 @@ def pipeline_lm_loss(params, batch: dict, cfg: ModelConfig, *,
         raise ValueError(
             f"batch size {b} not divisible into {n_micro} microbatches")
     b_mb = b // n_micro
+    stage_ctx = pp.manual(stage_axis).split_rows(b_mb, s)
     if train and draws is None and generator is not None:
         draws = make_draws(cfg, n_micro, n_stages, b_mb, s, generator,
                            tokens.device)
@@ -282,7 +307,8 @@ def pipeline_lm_loss(params, batch: dict, cfg: ModelConfig, *,
     positions = torch.arange(s, device=x.device)[None, :].expand(b_local, s)
     y_mb, aux = pipeline_stack_apply(
         blocks, x, cfg, ctx=ctx, n_stages=n_stages, stage_axis=stage_axis,
-        positions=positions, draws=draws if train else None, train=train)
+        positions=positions, draws=draws if train else None, train=train,
+        rows=b_mb)
     y = layers.rmsnorm(used["ln_f"], y_mb.reshape(n_micro * b_local, s, -1),
                        cfg.norm_eps)
     xent = lm.chunked_xent(used, y, lab.reshape(n_micro * b_local, s), cfg,

@@ -31,20 +31,44 @@ folds the step into its key, so a resumed run draws the same numbers.
 Data-parallel steps (``ctx``, a ``MeshContext`` with a mesh, and the
 parameters' ParamDef tree ``defs``): the state holds this rank's slices
 (``ctx.shard``).  The step splits the global batch into microbatches
-and each rank takes its rows of each (the ranks flattened in mesh
-order, the token sharding's order), so microbatch m holds the tokens it
-holds on one process.  The loss function, given ``ctx``, draws the
+and each rank takes its rows of each by the one row-split rule
+(``MeshContext.split_rows``): over every rank (the ranks flattened in
+mesh order, the token sharding's order) where a microbatch's rows
+divide, else over the plan's ``batch`` axes, each row whole on the
+ranks of the others (``model``), whose flat MoE layers split its tokens
+(the reference's ``batch`` and ``tokens`` axes).  The loss function
+runs under ``step_rows`` and reads that split
+(``sharding.context.with_step_rows``); given ``ctx``, it draws the
 global microbatch's noise from the step's generator and keeps the
-rank's rows, and gathers the parameters it uses from their shards
-(``expert_parallel.gather_on_use``); each rank back-propagates its loss
-divided by the number of ranks.  The gradients then sum over the ranks to the
-global batch's: the gathers' backward passes sum over the ranks that
+rank's tokens, and gathers the parameters it uses from their shards
+(``expert_parallel.gather_on_use``).
+
+The loss scale.  With W ranks, R row groups (the product of the axes
+the rows split over) and M = W / R ranks holding each group's rows
+whole, the global loss is the mean over the R groups of their mean
+xent, plus the combined batch's balance losses.  Each rank
+back-propagates its own loss divided by W, and the gradients then sum
+over every rank: the gathers' backward passes sum over the ranks that
 hold shards of a leaf, an all-reduce sums over the ranks that hold
-replicas of it, and the combined-batch balance loss, which every rank
-adds, counts once (each rank adds 1/n of it, and the backward pass of
-its all-reduce sums the n cotangents).  Metrics are the ranks' mean;
-rank 0 alone prints and writes the checkpoint (gathered: the same files
-as a single-process run), the heartbeat and ``metrics.jsonl``.
+replicas of it (``_sum_replicas``).  A row held on M ranks is in M of
+those losses, each at 1/W: M / W = 1/R, its weight in the global mean.
+This holds through every layer because each copy's backward pass is
+linear in its cotangent and the M copies ran the same forward pass, so
+the sum over ranks is the backward pass of the summed cotangent; where
+the copies' paths part (a flat MoE's token share, whose exit
+all-gather's backward pass sums the M ranks' cotangents of each token,
+or a global plan's gather over the row axes only), every token's
+cotangent still arrives M times at 1/W.  The combined batch's balance
+loss, which every rank adds, counts once: its statistics are summed
+over all W ranks (each token once), each rank adds it at 1/W, and the
+backward pass of that all-reduce sums the W cotangents; a global
+plan's balance loss is computed whole on every rank, so its W copies
+at 1/W add to one.  So the rule is ``loss / W`` with the replica sums,
+whether rows divide or not (``tests/test_torch_row_split.py`` holds it
+to JAX's one process on (1, 4) and (2, 2) with 2 rows).  Metrics are
+the ranks' mean (each group's xent on M ranks: the global mean); rank 0
+alone prints and writes the checkpoint (gathered: the same files as a
+single-process run), the heartbeat and ``metrics.jsonl``.
 On the CPU a resumed run is bit-identical to an uninterrupted one; on
 the card the embedding's backward pass accumulates with atomics, so a
 step there is not bit-reproducible.
@@ -64,7 +88,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.param import tree_leaves, tree_map
 from repro_torch.obs import trace as trace_lib
 from repro_torch.optim import optimizers as opt_lib
-from repro_torch.sharding.context import MeshContext, on_mesh
+from repro_torch.sharding.context import MeshContext, on_mesh, step_rows
 from repro_torch.train.checkpoint import CheckpointManager
 
 
@@ -117,8 +141,12 @@ def make_grad_fn(loss_fn: Callable, *, microbatches: int = 1,
         metrics = {}
         for mb in mbs:
             if mesh:
-                mb = {k: ctx.local_rows(v) for k, v in mb.items()}
-                loss, m = loss_fn(params, mb, generator)
+                tokens = mb["tokens"] if "tokens" in mb else next(
+                    iter(mb.values()))
+                rows = ctx.split_rows(*tokens.shape[:2])
+                mb = {k: rows.local_rows(v) for k, v in mb.items()}
+                with step_rows(rows):
+                    loss, m = loss_fn(params, mb, generator)
                 (loss / ctx.world).backward()
             else:
                 loss, m = loss_fn(params, mb, generator)

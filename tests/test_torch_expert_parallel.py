@@ -32,6 +32,7 @@ from repro.core import router as jrouter
 from repro.data import pipeline as jdata
 from repro.models import lm as jlm
 from repro.models import transformer as jtransformer
+from repro.train import pipeline as jpp
 from repro_torch.common.bridge import from_jax_tree
 from repro_torch.configs.base import get_config
 from repro_torch.core import router as trouter
@@ -150,6 +151,49 @@ def _reference_ep(tmp, cases: dict):
     return wait
 
 
+PP_B, PP_S, PP_MICRO = 2, 16, 2
+
+
+def _pipeline_case(jcfg, seed):
+    """A pipelined eval (``train=False``) of ``jcfg``'s 2 layers on (stage
+    2 x model 2), one row a microbatch (whole on both ``model`` ranks):
+    the ranks' case, and JAX's mean over the microbatches of its
+    one-process ``lm_loss`` with its gradients (the blocks as the
+    pipeline stacks them, [2, 1, ...])."""
+    tree = lm_params(jcfg, seed=seed)
+    tokens = np.random.RandomState(seed).randint(
+        1, jcfg.vocab_size, (PP_B, PP_S)).astype(np.int32)
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, 1)}
+    b_mb = PP_B // PP_MICRO
+    mbs = [{k: jnp.asarray(v[i * b_mb:(i + 1) * b_mb])
+            for k, v in batch.items()} for i in range(PP_MICRO)]
+
+    def mean_loss(p):
+        out = [jlm.lm_loss(p, mb, jcfg, train=False) for mb in mbs]
+        return sum(o[0] for o in out) / PP_MICRO, [o[1] for o in out]
+    (loss, ms), g = jax.jit(jax.value_and_grad(mean_loss, has_aux=True))(
+        tree)
+
+    def staged(t):
+        return jax.tree_util.tree_map(
+            lambda a: np.asarray(a).reshape((2, 1) + a.shape[1:]),
+            t["blocks"]["periods"]["pos0"])
+    tcfg = _tcfg(jcfg)
+    if jcfg.moa_router is not None:
+        tcfg = tcfg.replace(moa_router=trouter.RouterSpec(
+            capacity_factor=jcfg.moa_router.capacity_factor))
+    case = dict(cfg=tcfg, n_stages=2, n_micro=PP_MICRO, train=False,
+                params=from_jax_tree(dict(tree, blocks=staged(tree)),
+                                     device="cpu"),
+                batch={k: torch.from_numpy(v) for k, v in batch.items()})
+    want = {"loss": float(loss),
+            **{k: float(np.mean([float(m[k]) for m in ms]))
+               for k in ("xent", "aux_loss", "fraction_dropped")},
+            "grads": jax.tree_util.tree_map(
+                np.asarray, dict(g, blocks=staged(g)))}
+    return case, want
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """Every case on the four ranks, and the JAX results beside them."""
@@ -187,7 +231,6 @@ def run(tmp_path_factory):
             args=targs, params=from_jax_tree(params, device="cpu"),
             x=torch.from_numpy(xs), dy=torch.zeros(T, D), train=False,
             local_aux=True)
-    kimi = reduced(get_config("kimi-k2-1t-a32b"))
     # Tokens drop in the global-plan layers; moa-demo's flat MoE FFN
     # (per-shard capacity) at a factor where no shard drops.
     lm_eval = {}
@@ -244,10 +287,22 @@ def run(tmp_path_factory):
             "cfg": _tcfg(jcfg), "params": from_jax_tree(tree, device="cpu"),
             "tokens": torch.from_numpy(tokens),
             "next": torch.from_numpy(nxt), "max_len": s + 8}
-    inputs = dict(moe_cases=cases, lm_eval=lm_eval,
-        pipeline_refusals={
-            "pipeline_hierarchical": kimi.replace(moe_hierarchical=(2, 4)),
-            "pipeline_moa": reduced(get_config("moa-demo"))},
+    # MoA and the hierarchical MoE pipelined, tokens dropped in their
+    # global plans; moa-demo's period-1 variant (every layer MoA and an
+    # MoE FFN, the FFN at a factor where no shard drops).
+    pipeline = {}
+    for i, (feature, jcfg) in enumerate((
+            ("pipeline_hierarchical", small_config(
+                "kimi-k2-1t-a32b", n_layers=2, moe_hierarchical=(4, 4),
+                capacity_factor=0.5)),
+            ("pipeline_moa", small_config(
+                "moa-demo", n_layers=2, period=1, moa_positions=(0,),
+                moe_positions=(0,), capacity_factor=4.0,
+                moa_router=jrouter.RouterSpec(capacity_factor=0.5))))):
+        pipeline[feature], want[feature] = _pipeline_case(jcfg, seed=i + 7)
+    inputs = dict(moe_cases=cases, lm_eval=lm_eval, pipeline=pipeline,
+        pipeline_refusals={"pipeline_period2": reduced(
+            get_config("moa-demo"))},
         serve_logits=serve_logits,
         fused_case=dict(args=targs, params=from_jax_tree(params,
                                                          device="cpu"),
@@ -345,11 +400,15 @@ def test_ep_balance_is_the_combined_batchs(run, policy):
     pytest.param("window_serving", None,
                  id="window_serving-serving sliding-window attention is not "
                     "distributed"),
-    ("pipeline_hierarchical", "the hierarchical MoE is not pipelined"),
-    ("pipeline_moa", "MoA is not pipelined")])
+    pytest.param("pipeline_hierarchical", None,
+                 id="pipeline_hierarchical-the hierarchical MoE is not "
+                    "pipelined"),
+    pytest.param("pipeline_moa", None, id="pipeline_moa-MoA is not pipelined"),
+    ("pipeline_period2", "pipeline stages require homogeneous layers")])
 def test_unported_features_refuse_on_a_mesh(run, feature, why):
-    """The features the port does not distribute raise on a mesh of four
-    ranks.  Fused decode is distributed: a decode-shaped eval call on the
+    """Each feature the port once refused on a mesh, now distributed and
+    held to JAX, under the refusal's id (four ranks).  Fused decode is
+    distributed: a decode-shaped eval call on the
     mesh (routed globally, kernel 8's plain version on each rank's
     experts, the partial outputs summed) gives the rows and the load /
     overflow telemetry of JAX's fused decode on one process.  So are the
@@ -359,7 +418,13 @@ def test_unported_features_refuse_on_a_mesh(run, feature, why):
     So is serving mamba mixers (their state whole, each rank its slots)
     and sliding-window attention (the ring over ``model``): a whole
     prefill on every rank and a decode step of each rank's slots give
-    JAX's one-process logits."""
+    JAX's one-process logits.  So is the pipeline of MoA mixers (moa-demo's
+    period-1 variant) and of the hierarchical MoE, with tokens dropped and
+    one row a microbatch, whole on both ``model`` ranks: the ranks' mean
+    loss and xent, every rank's aux loss and every gradient are the mean
+    over the microbatches of JAX's one-process ``lm_loss``.  A pipelined
+    config of period 2 (moa-demo itself) raises the reference's
+    ValueError."""
     if feature in ("mamba_serving", "window_serving"):
         want = run["want"][feature]
         for rank, r in enumerate(run["ranks"]):
@@ -383,6 +448,30 @@ def test_unported_features_refuse_on_a_mesh(run, feature, why):
             for g in got:
                 np.testing.assert_allclose(g[k], v, **TOL, err_msg=k)
         return
+    if feature in ("pipeline_hierarchical", "pipeline_moa"):
+        want = run["want"][feature]
+        got = [r["pipeline"][feature] for r in run["ranks"]]
+        assert want["fraction_dropped"] > 0
+        for k in ("loss", "xent"):
+            np.testing.assert_allclose(np.mean([g[k] for g in got]), want[k],
+                                       **TOL, err_msg=k)
+        for g in got:
+            np.testing.assert_allclose(g["aux_loss"], want["aux_loss"],
+                                       **TOL)
+            flat = jax.tree_util.tree_flatten_with_path(g["grads"])[0]
+            wflat = jax.tree_util.tree_flatten_with_path(want["grads"])[0]
+            assert [p for p, _ in flat] == [p for p, _ in wflat]
+            for (path, t), (_, w) in zip(flat, wflat):
+                np.testing.assert_allclose(t.numpy(), w, **TOL,
+                                           err_msg=str(path))
+        return
+    if feature == "pipeline_period2":
+        with pytest.raises(ValueError) as err:
+            jpp.pipeline_block_defs(small_config("moa-demo"), 2)
+        assert why in str(err.value)
+        for r in run["ranks"]:
+            assert r["refusals"][feature] == str(err.value)
+        return
     if feature == "fused_decode":
         want = run["want"]["fused_decode"]
         got = np.concatenate([r["fused_decode"]["y"].numpy()
@@ -393,9 +482,6 @@ def test_unported_features_refuse_on_a_mesh(run, feature, why):
                 np.testing.assert_array_equal(
                     r["fused_decode"]["telemetry"][k].numpy(), want[k])
         return
-    for r in run["ranks"]:
-        msg = r["refusals"][feature]
-        assert msg is not None and why in msg, msg
 
 
 def test_ep_refuses_experts_that_do_not_divide(run):

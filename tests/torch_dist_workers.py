@@ -83,10 +83,9 @@ def _moe_case(ctx: MeshContext, case: dict) -> dict:
 
 
 def _refusals(ctx: MeshContext, inputs: dict) -> dict:
-    """Each feature the port does not distribute raises
-    NotImplementedError on this mesh (MoA and the hierarchical MoE in
-    the pipeline), and experts that do not divide over the expert axis a
-    ValueError; the message of each."""
+    """Experts that do not divide over the expert axis raise a
+    ValueError on this mesh, and so does a pipelined config of period 2
+    (the reference's refusal); the message of each."""
     got = {}
 
     def expect(name, fn, error=NotImplementedError):
@@ -108,10 +107,9 @@ def _refusals(ctx: MeshContext, inputs: dict) -> dict:
         train=False), error=ValueError)
     from repro_torch.train import pipeline as pp_lib
     for name, cfg in inputs["pipeline_refusals"].items():
-        # So does the pipelined loss.
         expect(name, lambda: pp_lib.pipeline_lm_loss(
             {}, inputs["batch"], cfg, ctx=ctx, n_stages=ctx.sizes["data"],
-            n_micro=2))
+            n_micro=2), error=ValueError)
     return got
 
 
@@ -143,6 +141,7 @@ def case_moe(ctx: MeshContext, inputs: dict) -> dict:
     out = {name: _moe_case(ctx, case)
            for name, case in inputs["moe_cases"].items()}
     out["refusals"] = _refusals(ctx, inputs)
+    out["pipeline"] = case_pipeline(ctx, {"cases": inputs["pipeline"]})
     out["lm_eval"] = {name: _lm_eval(ctx, case)
                       for name, case in inputs["lm_eval"].items()}
     out["fused_decode"] = _fused_decode(ctx, inputs["fused_case"])
@@ -328,8 +327,10 @@ def case_pipeline(ctx: MeshContext, inputs: dict) -> dict:
     """Each case: the pipelined loss of the global batch on this rank,
     back-propagated as a training step does (``loss / world``, then the
     replica sums); this rank's loss, xent and aux and the full
-    gradients.  Then ``steps`` steps of ``make_pipeline_train_step``
-    (noiseless gates): the ranks' mean losses."""
+    gradients.  With ``pad`` the port's ``zero_identity_padding`` cuts
+    the padding layers first.  Then ``steps`` steps of
+    ``make_pipeline_train_step`` (noiseless gates): the ranks' mean
+    losses."""
     from repro_torch.optim import optimizers as opt_lib
     from repro_torch.train import pipeline as pp_lib
     out = {}
@@ -337,7 +338,11 @@ def case_pipeline(ctx: MeshContext, inputs: dict) -> dict:
         cfg, n_stages, n_micro = case["cfg"], case["n_stages"], case["n_micro"]
         pp = pp_lib.pipeline_context(ctx)
         defs = pp_lib.pipeline_param_defs(cfg, n_stages)
-        local = _grad_leaves(pp.shard(case["params"], defs))
+        params = case["params"]
+        if case.get("pad"):
+            params = dict(params, blocks=pp_lib.zero_identity_padding(
+                params["blocks"], cfg, n_stages))
+        local = _grad_leaves(pp.shard(params, defs))
         loss, m = pp_lib.pipeline_lm_loss(
             local, case["batch"], cfg, ctx=ctx, n_stages=n_stages,
             n_micro=n_micro, draws=case.get("draws"), train=case["train"])
@@ -500,9 +505,36 @@ def case_routed(ctx: MeshContext, inputs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# rows that do not divide over the ranks
+# ---------------------------------------------------------------------------
+
+def case_rows(ctx: MeshContext, inputs: dict) -> dict:
+    """For each model, a global batch whose rows do not divide over the
+    ranks: the trainer's gradients and metrics from the JAX draws (full
+    gradients), and the metrics from a generator seeded with ``seed``
+    (the rank draws the global batch's noise)."""
+    out = {}
+    for name, model in inputs["models"].items():
+        defs = _defs(model)
+        res = {}
+        for how, draws in (("draws", model["jax_draws"]), ("gen", None)):
+            local = _grad_leaves(ctx.shard(model["params"], defs))
+            grads_fn = trainer_lib.make_grad_fn(
+                _loss_fn(model, ctx, draws=draws), ctx=ctx, defs=defs)
+            gen = torch.Generator().manual_seed(inputs["seed"])
+            grads, metrics = grads_fn(local, model["batch"], gen)
+            res[how] = {k: float(v) for k, v in metrics.items()}
+            if draws is not None:
+                res["grads"] = _full(ctx, grads, defs)
+        out[name] = res
+    return out
+
+
 CASES = {"moe": case_moe, "train": case_train, "restore": case_restore,
          "serve": case_serve, "decode_wire": case_decode_wire,
-         "pipeline": case_pipeline, "routed": case_routed}
+         "pipeline": case_pipeline, "routed": case_routed,
+         "rows": case_rows}
 
 
 # ---------------------------------------------------------------------------
