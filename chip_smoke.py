@@ -188,6 +188,19 @@ Phases, in order; any failure exits non-zero and prints no result:
              steps at B = 4 x S = 2048: finite metrics, every gradient
              present, step time and peak memory; one more forward and
              backward counted by FlopCounterMode (phase 26 (b)).
+14b. blockwise — the blockwise prefill attention
+    (``attention.blockwise_attention``, which every serving prefill
+    runs) against the plain whole-matrix ``causal_attention`` on the
+    same bf16 inputs at gemma3-27b's prefill (1 x 1,536, a windowed and
+    a global layer) and kimi-k2's chunk call (512 queries at offset
+    1,024), within two bf16 units of the output's scale; then one
+    32,768-token prompt through qwen3-1.7b at full width (28 layers,
+    2,080 block pairs a layer), whole and in chunks of 4,096: its peak
+    ``max_memory_allocated`` (traced on ``meta`` in phase 27 (b)), its
+    time, and its last logits against the chunked prefill's within
+    LONG_LOGIT_TOL of their scale (and whether they are bitwise equal).
+    Reported after phase 21: the gemma3, jamba and kimi-k2 prefill and
+    chunk-call medians beside the card's name and power limit.
 15. moa_train — moa-demo at its published widths (no cut: 4 layers, d
              512, vocab 32,000, bf16, gates redrawn) trained: first every
              kernel of its training step against its plain version at the
@@ -572,6 +585,24 @@ ARCTIC_LOSS_TOL = 2.0 ** -8
 # qwen3-1.7b at full size (2,031,739,904 parameters); smollm-135m
 # (162,826,560) through the launchers.
 QWEN, QWEN_B, QWEN_S, QWEN_STEPS = "qwen3-1.7b", 4, 2048, 4
+# Phase 14b: (a) the blockwise prefill against causal_attention, bf16:
+# (what, heads, kv heads, head dim, queries, query offset, window);
+# (b) one LONG_S-token qwen3-1.7b prompt, whole and in LONG_CHUNK
+# chunks, whose last logits agree within LONG_LOGIT_TOL of their largest
+# magnitude (five bf16 units: both run the same 512 x 512 blocks, but a
+# projection over 4,096 rows may round otherwise than over 32,768).
+BLOCKWISE_CASES = (
+    ("gemma3-27b prefill, windowed layer", 32, 16, 128, GEMMA_PROMPT, 0,
+     1024),
+    ("gemma3-27b prefill, global layer", 32, 16, 128, GEMMA_PROMPT, 0, 0),
+    ("kimi-k2 chunk call", 64, 8, 128, PREFIX_CHUNK, PREFIX_SHARED, 0))
+LONG_S, LONG_CHUNK, LONG_LOGIT_TOL = 32_768, 4_096, 0.02
+# PERF.md's medians (PR 30's table, PR 26's chip run 1) that phase 14b
+# reprints beside this run's: gemma3, jamba and kimi-k2 prefill, the
+# kimi-k2 chunk call.
+PREFILL_MEDIANS_BEFORE = {"gemma3-27b prefill": 379.6,
+                          "jamba-v0.1-52b prefill": 242.6,
+                          "kimi-k2 prefill": 20.2, "kimi-k2 chunk call": 34.4}
 SMOLLM = "smollm-135m"
 # The Mamba mixer (models/ssm.py).  falcon-mamba-7b at full size (64
 # layers, 7,270,825,984 parameters, 14.54 GB in bf16): served with 4
@@ -4476,6 +4507,120 @@ def phase_qwen3() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14b: the blockwise prefill; one 32,768-token qwen3-1.7b prompt
+# ---------------------------------------------------------------------------
+
+def check_blockwise(gen) -> dict:
+    """(a): blockwise_attention against causal_attention on the same
+    bf16 inputs at each BLOCKWISE_CASES shape (blocks of 512): the error
+    within two bf16 units of the output's scale, and both times."""
+    import torch
+    from repro_torch.models import attention as at
+    out = {}
+    for what, h, kvh, hd, sq, off, window in BLOCKWISE_CASES:
+        q = torch.randn(1, sq, h, hd, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        k = torch.randn(1, off + sq, kvh, hd, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        v = torch.randn(1, off + sq, kvh, hd, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+
+        def block():
+            return at.blockwise_attention(q, k, v, window=window,
+                                          q_block=512, kv_block=512,
+                                          q_offset=off)
+
+        def plain():
+            return at.causal_attention(q, k, v, window=window, q_offset=off)
+        got, want = block(), plain()
+        err, tol = max_err(got, want), bf16_tol(want)
+        check(got.dtype == torch.bfloat16 and all_finite(got),
+              f"blockwise {what}: not finite bf16")
+        check(err <= tol, f"blockwise {what}: differs from causal_attention "
+              f"by {err} > {tol}")
+        out[what] = {"shape": f"1 x {sq} queries at offset {off}, {h} / "
+                              f"{kvh} heads x {hd}, window {window}, bf16",
+                     "max_abs_err": err, "tol": tol,
+                     "blockwise_ms": cuda_ms(block, reps=5, warmup=1),
+                     "causal_attention_ms": cuda_ms(plain, reps=5,
+                                                    warmup=1)}
+        log(f"blockwise (a) {what}: " + json.dumps(out[what]))
+    return out
+
+
+def phase_blockwise() -> dict:
+    """Phase 14b (the module docstring): (a) :func:`check_blockwise`;
+    (b) one LONG_S-token qwen3-1.7b prompt at full width: phase 27
+    (b)'s step peak (``dryrun_peak``, its first call), then one timed
+    whole prefill and the same prompt in LONG_CHUNK chunks."""
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm, transformer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    blockwise = check_blockwise(gen)
+    cfg = get_config(QWEN)
+    params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
+    dryrun_peak("qwen3-1.7b prefill 32k", cfg, "prefill", 1, LONG_S, params)
+    tokens = torch.randint(1, cfg.vocab_size, (1, LONG_S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+
+    def prefill(chunk: int):
+        cache = pm.zeros(transformer.cache_defs(cfg, 1, LONG_S), "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with torch.no_grad():
+            for off in range(0, LONG_S, chunk):
+                logits, cache = lm.lm_prefill(
+                    params, {"tokens": tokens[:, off:off + chunk]}, cache,
+                    cfg, start_pos=off if chunk < LONG_S else None)
+        torch.cuda.synchronize()
+        return (logits, 1e3 * (time.perf_counter() - t),
+                torch.cuda.max_memory_allocated())
+    whole, whole_ms, peak = prefill(LONG_S)
+    chunked, chunked_ms, chunked_peak = prefill(LONG_CHUNK)
+    err = max_err(chunked, whole)
+    tol = LONG_LOGIT_TOL * abs_max(whole)
+    check(all_finite(whole) and tuple(whole.shape) == (1, cfg.vocab_size),
+          f"qwen3 32k prefill logits: shape {tuple(whole.shape)} or not "
+          "finite")
+    check(err <= tol, f"qwen3 32k prefill: chunks of {LONG_CHUNK} move the "
+          f"last logits by {err} > {tol}")
+    nq = LONG_S // cfg.q_block
+    out = {"config": f"{QWEN}, full width ({cfg.n_layers} layers), bf16, "
+                     f"1 x {LONG_S} tokens, blocks {cfg.q_block} x "
+                     f"{cfg.kv_block}",
+           "block_pairs_a_layer": nq * (nq + 1) // 2,
+           "prefill_ms": whole_ms, "chunked_prefill_ms": chunked_ms,
+           "max_memory_allocated_gib": peak / 2**30,
+           "chunked_max_memory_allocated_gib": chunked_peak / 2**30,
+           "chunked_vs_whole_max_abs_err": err, "tol": tol,
+           "bitwise_equal": bool(torch.equal(chunked, whole)),
+           "blockwise": blockwise, "wall_s": time.perf_counter() - t0}
+    log("blockwise (b) qwen3 32k prefill " + json.dumps(
+        {k: v for k, v in out.items() if k != "blockwise"}))
+    del params
+    return out
+
+
+def log_prefill_medians(card: str, served, gemma, jamba) -> dict:
+    """The prefill and chunk-call medians of this run beside
+    PREFILL_MEDIANS_BEFORE, with the card's name and power limit."""
+    now = {"gemma3-27b prefill": gemma["summary"]["prefill_ms_median"],
+           "jamba-v0.1-52b prefill": jamba["summary"]["prefill_ms_median"],
+           "kimi-k2 prefill": served["summary"]["prefill_ms_median"],
+           "kimi-k2 chunk call": served["prefix"]["on"][
+               "chunk_call_ms_median"]}
+    log(f"prefill medians ({card}), ms this run / PERF.md before: "
+        + ", ".join(f"{k} {v:.1f} / {PREFILL_MEDIANS_BEFORE[k]}"
+                    for k, v in now.items()))
+    return now
+
+
+# ---------------------------------------------------------------------------
 # phase 15: train moa-demo (MoA's backward passes through the kernels)
 # ---------------------------------------------------------------------------
 
@@ -7637,11 +7782,13 @@ def roofline_counts(served, qwen3) -> dict:
                                  qwen3["flops"])}
 
 
-def roofline_paths(served, arctic, qwen3, gemma, falcon, jamba) -> list:
+def roofline_paths(served, arctic, qwen3, gemma, falcon, jamba,
+                   blockwise) -> list:
     """(name, cfg, kind, B, S, measured ms, measured peak GiB) of each
     full-width transformer path: a prefill is one request (B 1) at the
     engine's prefill length, a decode step the whole slot pool over its
-    page length, a chunk call one 512-token row."""
+    page length, a chunk call one 512-token row; phase 14b's qwen3
+    prompt of LONG_S tokens."""
     from repro_torch.configs.base import get_config
 
     def serve(name, cfg, summary, slots, page, fused=None):
@@ -7678,6 +7825,8 @@ def roofline_paths(served, arctic, qwen3, gemma, falcon, jamba) -> list:
               "step_ms_median_steps_2_to_6"),
         train("qwen3-1.7b", get_config(QWEN), QWEN_B, QWEN_S, qwen3,
               "step_ms_median_steps_2_to_4"),
+        ("qwen3-1.7b prefill 32k", get_config(QWEN), "prefill", 1, LONG_S,
+         blockwise["prefill_ms"], blockwise["max_memory_allocated_gib"]),
         *serve("gemma3-27b", gcfg, gemma["summary"], GEMMA_REQUESTS,
                GEMMA_PROMPT + GEMMA_NEW),
         train("gemma3-27b", get_config(GEMMA).replace(
@@ -7864,6 +8013,7 @@ def dryrun_plan() -> list:
         ("arctic-480b train", get_config(ARCTIC, n_layers=ARCTIC_LAYERS),
          "train", ARCTIC_B, ARCTIC_S),
         ("qwen3-1.7b train", get_config(QWEN), "train", QWEN_B, QWEN_S),
+        ("qwen3-1.7b prefill 32k", get_config(QWEN), "prefill", 1, LONG_S),
         ("gemma3-27b prefill", gemma, "prefill", 1, GEMMA_PROMPT),
         ("gemma3-27b decode", gemma, "decode", GEMMA_REQUESTS,
          GEMMA_PROMPT + GEMMA_NEW),
@@ -7885,11 +8035,14 @@ def dryrun_plan() -> list:
 
 def start_traces() -> list:
     """Every path of :func:`dryrun_plan` sent to :func:`trace_pool`, the
-    training steps and the deepest first (the longest traces):
-    (arguments, pending record) in the plan's order."""
+    longest traces first: phase 14b's LONG_S-token prompt (83.2 s on
+    the H100's host: 58,240 block pairs), then the training steps and
+    the deepest paths: (arguments, pending record) in the plan's
+    order."""
     plan = dryrun_plan()
     pool = trace_pool()
-    order = sorted(plan, key=lambda a: (a[2] != "train", -a[1].n_layers))
+    order = sorted(plan, key=lambda a: (a[4] < LONG_S, a[2] != "train",
+                                        -a[1].n_layers))
     pending = {a[0]: pool.apply_async(trace_path, a) for a in order}
     return [(a, pending[a[0]]) for a in plan]
 
@@ -9338,6 +9491,10 @@ def main() -> int:
         lap("qwen3")
         gc.collect()
         torch.cuda.empty_cache()
+        blockwise = phase_blockwise()
+        lap("blockwise")
+        gc.collect()
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as workdir:
             moa_train = phase_moa_train(kernels["floor"], workdir)
         lap("moa_train")
@@ -9362,6 +9519,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         jamba["train"] = phase_jamba_train(kernels["floor"])
         lap("jamba")
+        log_prefill_medians(setup["card"], served, gemma, jamba)
         gc.collect()
         torch.cuda.empty_cache()
         falcon["train"] = phase_falcon_train()
@@ -9379,7 +9537,8 @@ def main() -> int:
         pipeline = phase_pipeline()
         lap("pipeline")
         roof = phase_roofline(
-            roofline_paths(served, arctic, qwen3, gemma, falcon, jamba),
+            roofline_paths(served, arctic, qwen3, gemma, falcon, jamba,
+                           blockwise),
             roofline_counts(served, qwen3), mesh)
         lap("roofline")
         gc.collect()
@@ -9512,7 +9671,10 @@ def main() -> int:
         f"{arctic['summary']['step_ms_median_steps_2_to_6']:.1f} ms, peak "
         f"{arctic['summary']['max_memory_allocated_gib']:.2f} GiB, cuda-vs-"
         f"ref loss rel err {arctic['summary']['loss_rel_err']:.3g}; qwen3 "
-        f"step {qwen3['step_ms_median_steps_2_to_4']:.1f} ms; falcon "
+        f"step {qwen3['step_ms_median_steps_2_to_4']:.1f} ms, 32k prefill "
+        f"{blockwise['prefill_ms']:.1f} ms (chunks of {LONG_CHUNK} "
+        f"{blockwise['chunked_prefill_ms']:.1f} ms), peak "
+        f"{blockwise['max_memory_allocated_gib']:.2f} GiB; falcon "
         f"prefill {falcon['summary']['prefill_ms_median']:.1f} ms, decode "
         f"step {falcon['summary']['decode_step_ms_median']:.1f} ms, train "
         f"step {falcon['train']['summary']['step_ms_median_steps_2_on']:.1f}"

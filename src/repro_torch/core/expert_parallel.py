@@ -282,8 +282,10 @@ def moe_apply_serve(params, x: torch.Tensor, a: moe_lib.MoEArgs,
     shards, ``x`` [T, d] and ``mask`` [T] the step's whole token set on
     every rank, or this rank's equal share of its rows, split over
     ``rows_axes`` (a decode step's slots, over the plan's ``batch``
-    axes).  Returns (y [T, d] for the rows given, aux with the global
-    plan's telemetry; the losses and metrics of an eval call)."""
+    axes; a prefill step's rows, over the axes ``launch/steps.py::
+    prefill_rows`` splits them over).  Returns (y [T, d] for the rows
+    given, aux with the global plan's telemetry; the losses and metrics
+    of an eval call)."""
     defs = moe_lib.moe_defs(a)
     _expert_group(a, ctx, _expert_specs(defs, ctx))
     gp = GlobalPlan.build(ctx, defs, a.n_experts, rows_axes)

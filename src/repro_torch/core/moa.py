@@ -34,9 +34,9 @@ partial sum for the O projection.
 Training (``moa_apply``) attends through the port's
 ``attention.FlashAttentionFn`` (the reference's flash-attention custom
 VJP), so gradients reach the gate, both routed projections and the
-shared K/V through the kernels' backward passes.  Prefill attention is
-the port's plain ``attention.causal_attention`` (the reference's
-``blockwise_attention`` is plain jnp too).
+shared K/V through the kernels' backward passes.  Prefill attends
+through the port's ``attention.blockwise_attention`` with the
+reference's blocks and query offset (the reference's is plain jnp too).
 """
 from __future__ import annotations
 
@@ -82,7 +82,7 @@ class MoAArgs:
     # Decode-shaped calls only (set by the model layer): each routed
     # projection is one launch of the backend's decode_proj.
     fused_decode: bool = False
-    # Training attention's blocks (FlashAttentionFn).
+    # Attention's blocks (FlashAttentionFn; blockwise prefill).
     q_block: int = 512
     kv_block: int = 512
     dtype: torch.dtype = torch.bfloat16
@@ -293,30 +293,37 @@ def moa_apply(params, x, a: MoAArgs, *, positions, train: bool = True,
 def moa_prefill(params, x, positions, a: MoAArgs, *, cache: dict,
                 mask: torch.Tensor | None = None,
                 start_pos: int | None = None,
-                ctx: MeshContext | None = None):
+                ctx: MeshContext | None = None, token_axes=()):
     """Prefill: routed attention that also writes K/V for positions
     [0, S) into ``cache`` (in place).  ``mask`` ([B·S]) keeps bucketed
     or chunk padding out of routing.  ``start_pos`` is chunked-prefill
     mode, as ``attention.prefill_attention``'s ``offset``: the shared
     K/V lands at [start_pos, start_pos + S) and the chunk attends over
-    the cached prefix.  On a mesh (``ctx``, the prefill plan) the rows
-    and the page are whole on every rank and the head groups are split
-    over the expert axis.  Returns (y, cache)."""
+    the cached prefix.  Attention is ``attention.blockwise_attention``
+    over the reference's blocks (``_block`` of the chunk's and of the
+    context's length) at ``q_offset = start_pos``.  On a mesh (``ctx``,
+    the prefill plan) the head groups are split over the expert axis,
+    and ``x`` is the rank's rows, split over ``token_axes`` (none: the
+    rows and the page are whole on every rank); the plan routes every
+    rank's rows.  Returns (y, cache)."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     bk = backend_lib.resolve(a)
-    gp = _plan(ctx, a, ())
-    dec = _route(params, flat, a, bk, mask=mask)
+    gp = _plan(ctx, a, token_axes)
+    flat_all = gp.gather(flat)
+    dec = _route(params, flat_all, a, bk, mask=gp.gather(mask))
     kk = dec.plan.expert_index.shape[1]
-    q = _queries(_routed_q(params, flat, dec, a, bk, gp), positions, params,
-                 a, kk)
+    q_sel = gp.own(_routed_q(params, flat_all, dec, a, bk, gp), b * s * kk)
+    q = _queries(q_sel, positions, params, a, kk)
     k, v = _shared_kv(params, x, positions, a)
-    o = attn_lib.attend_chunk(q, k, v, cache,
-                              0 if start_pos is None else int(start_pos))
+    off = 0 if start_pos is None else int(start_pos)
+    o = attn_lib.attend_chunk(q, k, v, cache, off,
+                              q_block=_block(a.q_block, s),
+                              kv_block=_block(a.kv_block, off + s))
     o = _from_virtual(o, a.n_kv_heads, kk, a.n_heads_per_expert)
     y = _routed_o(params, o.reshape(b * s * kk, a.d_head_group), dec, a,
                   bk, gp, x.dtype)
-    return y.reshape(b, s, d), cache
+    return gp.own(y, b * s).reshape(b, s, d), cache
 
 
 def moa_decode(params, x, cache: dict, cur_index, a: MoAArgs, *,

@@ -14,8 +14,11 @@ allocating a byte), laid out as one rank holds them:
   count is the reference's, ``cfg_microbatches`` of the ranks of the
   ``batch`` axes;
 * prefill: the serving layout (``expert_parallel.serve_layout``: every
-  weight whole but the experts' slab) and the whole batch and page:
-  every rank prefills the same rows;
+  weight whole but the experts' slab), and the rank's rows of the batch
+  and of the cache by :func:`prefill_rows` (``MeshContext.split_rows``,
+  the rule training follows; the routed layers' global plans gather the
+  rows over the axes that split them, so the plan, the drops and each
+  row's logits are one process's);
 * decode: the serving layout, the rank's rows of the slots and its
   slice of the cache (the decode plan fitted to the cache, as the
   engine fits it: ``serve/kv_cache.py::fit_decode_plan``).
@@ -108,6 +111,16 @@ def make_decode_step_fn(cfg: ModelConfig, ctx: MeshContext | None):
     return serve_step
 
 
+def prefill_rows(ctx: MeshContext, rows: int, seq: int) -> MeshContext:
+    """The row split of a prefill step of ``rows`` rows of ``seq``
+    tokens: :meth:`MeshContext.split_rows`, with the axes named even
+    where the rows split over every free axis, so the model reads them
+    as split (``models/transformer.py::_token_axes``); the engine's
+    prefill context, whose ``row_axes`` is None, holds its rows whole."""
+    split = ctx.split_rows(rows, seq)
+    return dataclasses.replace(split, row_axes=split.rows_over)
+
+
 def build_step(cfg: ModelConfig, shape: shp.ShapeSpec, mesh=None,
                oc: opt_lib.OptConfig | None = None,
                plan: str | None = None) -> StepSpec:
@@ -157,6 +170,12 @@ def build_step(cfg: ModelConfig, shape: shp.ShapeSpec, mesh=None,
     params = ep_lib.serve_layout(ctx.shard(pm.abstract(defs), defs), defs,
                                  ctx)
     if shape.kind == "prefill":
+        if mesh is not None:
+            ctx = prefill_rows(ctx, shape.global_batch, shape.seq_len)
+            mine = dataclasses.replace(shape, global_batch=(
+                shape.global_batch // ctx.size(ctx.rows_over)))
+            batch = shp.batch_inputs(cfg, mine)
+            cache, _ = shp.cache_specs(cfg, mine)
         return StepSpec(fn=make_prefill_step_fn(cfg, ctx),
                         args=(params, batch, cache), kind="prefill",
                         microbatches=1, fallbacks=fallbacks)

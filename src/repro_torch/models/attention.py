@@ -8,10 +8,14 @@ NEG_INF.  Training runs :class:`FlashAttentionFn`, the reference's
 key / value blocks with an online softmax, only the blocks at or below
 the diagonal, and a backward pass that recomputes the probabilities
 from the saved log-sum-exp, so no ``[S, S]`` tensor is ever kept.
-Prefill keeps the masking semantics of the reference's
-``blockwise_attention`` (causal, a sliding window, optional ``kv_len``,
-a query offset, GQA) but forms the whole score matrix of a prompt, or
-of a chunk against its cached prefix, at once.  Decode attends one
+Prefill runs :func:`blockwise_attention`, the reference's: the same
+online softmax over the same static block ranges, with a query offset
+for a chunk against its cached prefix, a sliding window and an optional
+``kv_len``, so a prompt's attention holds one ``[q_block, kv_block]``
+block of scores a kv head at a time, never the whole ``[Sq, Skv]``
+matrix.  :func:`causal_attention` forms that whole matrix at once; it
+serves no path, and stays as the plain version that tests and the card's
+smoke hold the blockwise one against.  Decode attends one
 query per row against the slot cache at the row's own position.  A
 sliding-window layer's cache is a ring buffer of ``min(window,
 max_len)`` positions: position p lives in slot ``p % length``.
@@ -87,13 +91,15 @@ def _qkv(params, x, positions, *, rope_theta, qk_norm, eps=1e-6):
 
 
 def _kv_range(i: int, nkv: int, q_block: int, kv_block: int, causal: bool,
-              window: int) -> tuple[int, int]:
-    """Static kv-block range visible to query block i."""
+              window: int, q_offset: int = 0) -> tuple[int, int]:
+    """Static kv-block range visible to query block i, whose first query
+    sits at position ``q_offset + i * q_block``."""
+    first = q_offset + i * q_block
     if causal:
-        hi = min(nkv, (i * q_block + q_block + kv_block - 1) // kv_block)
+        hi = min(nkv, (first + q_block + kv_block - 1) // kv_block)
     else:
         hi = nkv
-    lo = max(0, (i * q_block + 1 - window) // kv_block) if window > 0 else 0
+    lo = max(0, (first + 1 - window) // kv_block) if window > 0 else 0
     return lo, hi
 
 
@@ -117,19 +123,102 @@ def _gmat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(bsz, kvh, g, r, -1)
 
 
+def _mask(i: int, j: int, q_block: int, kv_block: int, causal: bool,
+          window: int, q_offset: int = 0, kv_len=None, device=None):
+    """The [qb, kvb] visibility of query block i (query r at position
+    ``q_offset + i * q_block + r``) against kv block j, or None where the
+    block is wholly visible: a mask is built only for a block that
+    crosses the diagonal (its last key after its first query), the
+    window's lower edge (its first key at or below its last query's
+    minus the window) or ``kv_len``, as the reference's masks leave the
+    others whole."""
+    first_q, first_k = q_offset + i * q_block, j * kv_block
+    causal_cut = causal and first_k + kv_block - 1 > first_q
+    window_cut = window > 0 and first_k <= first_q + q_block - 1 - window
+    if not (causal_cut or window_cut or kv_len is not None):
+        return None
+    pos_q = first_q + torch.arange(q_block, device=device)
+    pos_k = first_k + torch.arange(kv_block, device=device)
+    mask = torch.ones((q_block, kv_block), dtype=torch.bool, device=device)
+    if causal_cut:
+        mask &= pos_k[None, :] <= pos_q[:, None]
+    if window_cut:
+        mask &= pos_k[None, :] > pos_q[:, None] - window
+    if kv_len is not None:
+        mask &= (pos_k < kv_len)[None, :]
+    return mask
+
+
 def _scores(q_i, k_j, i, j, q_block, kv_block, causal, window, scale):
-    """f32 scores of query block i against kv block j, masked:
-    q_i [B,KV,G,qb,hd], k_j [B,KV,hd,kvb] -> [B,KV,G,qb,kvb]."""
+    """f32 scores of query block i against kv block j, masked (the
+    backward pass's): q_i [B,KV,G,qb,hd], k_j [B,KV,hd,kvb] ->
+    [B,KV,G,qb,kvb]."""
     s = _gmat(q_i, k_j) * scale
-    pos_q = i * q_block + torch.arange(q_block, device=s.device)
-    pos_k = j * kv_block + torch.arange(kv_block, device=s.device)
-    mask = None
-    if causal and (j + 1) * kv_block - 1 > i * q_block:
-        mask = pos_k[None, :] <= pos_q[:, None]
-    if window > 0:
-        inside = pos_k[None, :] > pos_q[:, None] - window
-        mask = inside if mask is None else mask & inside
+    mask = _mask(i, j, q_block, kv_block, causal, window, device=s.device)
     return s if mask is None else torch.where(mask, s, NEG_INF)
+
+
+def _block_forward(qr, kr, vr, causal: bool, window: int, q_block: int,
+                   kv_block: int, q_offset: int = 0, kv_len=None):
+    """The one blockwise forward (the reference's ``_flash_fwd_impl``
+    and ``blockwise_attention``): qr [B,KV,G,Sq,hd], kr [B,KV,hd,Skv],
+    vr [B,KV,Skv,hd] -> (out [B,KV,G,Sq,hd] in qr's dtype, lse
+    [B,KV,G,Sq] f32).  For each query block an online softmax over the
+    kv blocks of its static range (``_kv_range`` at ``q_offset``):
+    scores in f32, the probabilities meet v in v's dtype.  K, V and each
+    query block are cast to f32 once, and a kv head's G query heads
+    and the block's queries are one [G*qb, hd] operand of a batched
+    matmul over the B*KV heads, so a block pair costs a score product,
+    the online update and a value product, each a few ops.  A length
+    its block does not divide raises, as in the reference."""
+    b, kvh, g, sq, hd = qr.shape
+    skv = kr.shape[-1]
+    if sq % q_block or skv % kv_block:
+        raise ValueError(
+            f"sequence lengths must divide the attention blocks: "
+            f"sq={sq} % q_block={q_block}, skv={skv} % kv_block={kv_block}")
+    nq, nkv = sq // q_block, skv // kv_block
+    bkv, rows = b * kvh, g * q_block
+    scale = 1.0 / (hd ** 0.5)
+    kf = kr.float().reshape(bkv, hd, skv)
+    vf = vr.float().reshape(bkv, skv, hd)
+    low = vr.dtype != torch.float32
+    out = torch.empty_like(qr)
+    lse = torch.empty((b, kvh, g, sq), dtype=torch.float32,
+                      device=qr.device)
+    for i in range(nq):
+        qs = slice(i * q_block, (i + 1) * q_block)
+        q_i = qr[:, :, :, qs].float().reshape(bkv, rows, hd)
+        acc = torch.zeros((bkv, rows, hd), dtype=torch.float32,
+                          device=qr.device)
+        m = torch.full((bkv, rows), NEG_INF, dtype=torch.float32,
+                       device=qr.device)
+        l = torch.zeros_like(m)
+        lo, hi = _kv_range(i, nkv, q_block, kv_block, causal, window,
+                           q_offset)
+        for j in range(lo, hi):
+            ks = slice(j * kv_block, (j + 1) * kv_block)
+            s = torch.bmm(q_i, kf[:, :, ks]).mul_(scale)
+            mask = _mask(i, j, q_block, kv_block, causal, window, q_offset,
+                         kv_len, qr.device)
+            if mask is not None:
+                s = torch.where(mask, s.view(bkv, g, q_block, kv_block),
+                                NEG_INF).view(bkv, rows, kv_block)
+            # In place where the old value is dead (m becomes alpha):
+            # the same values, fewer allocations.
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = m.sub_(m_new).exp_()
+            p = s.sub_(m_new.unsqueeze(-1)).exp_()
+            l.mul_(alpha).add_(p.sum(dim=-1))
+            if low:
+                p = p.to(vr.dtype).float()
+            acc.mul_(alpha.unsqueeze(-1)).add_(torch.bmm(p, vf[:, ks]))
+            m = m_new
+        lsafe = torch.clamp(l, min=1e-30)
+        out[:, :, :, qs] = (acc / lsafe.unsqueeze(-1)).to(qr.dtype).view(
+            b, kvh, g, q_block, hd)
+        lse[:, :, :, qs] = (m + torch.log(lsafe)).view(b, kvh, g, q_block)
+    return out, lse
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -138,8 +227,9 @@ class FlashAttentionFn(torch.autograd.Function):
     kv_block)`` with qr [B,KV,G,Sq,hd], kr [B,KV,hd,Skv], vr
     [B,KV,Skv,hd] -> [B,KV,G,Sq,hd] in qr's dtype.
 
-    Forward: for each query block, an online softmax over the kv blocks
-    of its static range (``_kv_range``); scores in f32, the
+    Forward (:func:`_block_forward`, the one blockwise forward prefill
+    runs too): for each query block, an online softmax over the kv
+    blocks of its static range (``_kv_range``); scores in f32, the
     probabilities meet v in v's dtype; it saves only (q, k, v, out,
     lse).  Backward: delta = rowsum(dout * out); dq query-block-major
     over the same ranges, dk / dv kv-block-major over ``_q_range``, each
@@ -148,41 +238,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qr, kr, vr, causal, window, q_block, kv_block):
-        b, kvh, g, sq, hd = qr.shape
-        skv = kr.shape[-1]
-        if sq % q_block or skv % kv_block:
-            raise ValueError(
-                f"sequence lengths must divide the attention blocks: "
-                f"sq={sq} % q_block={q_block}, skv={skv} % "
-                f"kv_block={kv_block}")
-        nq, nkv = sq // q_block, skv // kv_block
-        scale = 1.0 / (hd ** 0.5)
-        out = torch.empty_like(qr)
-        lse = torch.empty((b, kvh, g, sq), dtype=torch.float32,
-                          device=qr.device)
-        for i in range(nq):
-            qs = slice(i * q_block, (i + 1) * q_block)
-            q_i = qr[:, :, :, qs]
-            acc = torch.zeros((b, kvh, g, q_block, hd), dtype=torch.float32,
-                              device=qr.device)
-            m = torch.full((b, kvh, g, q_block), NEG_INF,
-                           dtype=torch.float32, device=qr.device)
-            l = torch.zeros_like(m)
-            lo, hi = _kv_range(i, nkv, q_block, kv_block, causal, window)
-            for j in range(lo, hi):
-                ks = slice(j * kv_block, (j + 1) * kv_block)
-                s = _scores(q_i, kr[..., ks], i, j, q_block, kv_block,
-                            causal, window, scale)
-                m_new = torch.maximum(m, s.amax(dim=-1))
-                alpha = torch.exp(m - m_new)
-                p = torch.exp(s - m_new[..., None])
-                l = l * alpha + p.sum(dim=-1)
-                pv = _gmat(p.to(vr.dtype), vr[:, :, ks])
-                acc = acc * alpha[..., None] + pv
-                m = m_new
-            lsafe = torch.clamp(l, min=1e-30)
-            out[:, :, :, qs] = (acc / lsafe[..., None]).to(qr.dtype)
-            lse[:, :, :, qs] = m + torch.log(lsafe)
+        out, lse = _block_forward(qr, kr, vr, causal, window, q_block,
+                                  kv_block)
         ctx.save_for_backward(qr, kr, vr, out, lse)
         ctx.blocks = (causal, window, q_block, kv_block)
         return out
@@ -256,6 +313,27 @@ def flash_attention(qr, kr, vr, causal: bool = True, window: int = 0,
                                   kv_block)
 
 
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_block: int = 512, kv_block: int = 512,
+                        kv_len=None, q_offset: int = 0) -> torch.Tensor:
+    """The reference's ``blockwise_attention``: q [B,Sq,H,hd], k / v
+    [B,Skv,KV,hd] -> [B,Sq,H,hd] in q's dtype, through
+    :func:`_block_forward`.  Query i sits at position ``q_offset + i``
+    against kv positions ``0..Skv`` (a chunk against its cached prefix);
+    the static per-block kv ranges prune above the shifted diagonal and
+    below the window.  ``kv_len`` (an int or a 0-d tensor) masks a padded
+    cache tail.  The blocks are ``min(block, length)``; a length they do
+    not divide raises, as in the reference."""
+    b, sq, h, hd = q.shape
+    skv, kv_heads = k.shape[1], k.shape[2]
+    g = h // kv_heads
+    qr = q.reshape(b, sq, kv_heads, g, hd).permute(0, 2, 3, 1, 4)
+    out, _ = _block_forward(qr, k.permute(0, 2, 3, 1), v.permute(0, 2, 1, 3),
+                            causal, window, min(q_block, sq),
+                            min(kv_block, skv), q_offset, kv_len)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+
+
 def attention(params, x, positions, *, rope_theta: float, qk_norm: bool,
               window: int = 0, q_block: int = 512, kv_block: int = 512,
               pad_heads: int = 0) -> torch.Tensor:
@@ -286,7 +364,9 @@ def attention(params, x, positions, *, rope_theta: float, qk_norm: bool,
 
 def causal_attention(q, k, v, *, kv_len: int | None = None,
                      q_offset: int = 0, window: int = 0) -> torch.Tensor:
-    """q: [B,Sq,H,hd]; k,v: [B,Skv,KV,hd] -> [B,Sq,H,hd].
+    """q: [B,Sq,H,hd]; k,v: [B,Skv,KV,hd] -> [B,Sq,H,hd]: the plain
+    whole-matrix version of :func:`blockwise_attention`, which tests and
+    the card's smoke hold it against (no serving path calls it).
 
     Query i sits at position ``q_offset + i`` and sees kv positions
     <= its own (and < ``kv_len`` when given; with ``window`` > 0, only
@@ -316,9 +396,11 @@ def causal_attention(q, k, v, *, kv_len: int | None = None,
 
 def prefill_attention(params, x, positions, *, rope_theta: float,
                       qk_norm: bool, cache: dict, window: int = 0,
+                      q_block: int = 512, kv_block: int = 512,
                       offset: int | None = None):
-    """Prefill: causal attention that also writes K/V for positions
-    [0, S) into ``cache`` (in place).  Returns (y, cache).
+    """Prefill: causal :func:`blockwise_attention` over blocks of
+    ``min(q_block, S)`` x ``min(kv_block, S)`` that also writes K/V for
+    positions [0, S) into ``cache`` (in place).  Returns (y, cache).
 
     A sliding-window layer (``window`` > 0) attends within its window
     and writes its ring buffer: the last ``length`` positions at slots
@@ -337,8 +419,11 @@ def prefill_attention(params, x, positions, *, rope_theta: float,
                    qk_norm=qk_norm)
     if not window:
         o = attend_chunk(q, k, v, cache,
-                         0 if offset is None else int(offset))
+                         0 if offset is None else int(offset),
+                         q_block=q_block, kv_block=kv_block)
         return _out(o, params["wo"]), cache
+    o = blockwise_attention(q, k, v, window=window, q_block=q_block,
+                            kv_block=kv_block)
     s, length = k.shape[1], cache["k"].shape[1]
     if s >= length:
         tail = torch.arange(s - length, s, device=k.device)
@@ -348,14 +433,16 @@ def prefill_attention(params, x, positions, *, rope_theta: float,
     else:
         cache["k"][:, :s] = k.to(cache["k"].dtype)
         cache["v"][:, :s] = v.to(cache["v"].dtype)
-    o = causal_attention(q, k, v, window=window)
     return _out(o, params["wo"]), cache
 
 
-def attend_chunk(q, k, v, cache: dict, off: int) -> torch.Tensor:
+def attend_chunk(q, k, v, cache: dict, off: int, *, q_block: int = 512,
+                 kv_block: int = 512) -> torch.Tensor:
     """Write the chunk's K/V ([B, S, KV, hd]) at cache positions [off,
     off + S) in place, then attend its queries over [cached prefix
-    [0, off), the chunk].  The prefix is read back at the cache's
+    [0, off), the chunk] through :func:`blockwise_attention` at
+    ``q_offset = off`` (blocks of ``min(q_block, S)`` x
+    ``min(kv_block, off + S)``).  The prefix is read back at the cache's
     precision, as in the reference."""
     s = k.shape[1]
     if off + s > cache["k"].shape[1]:
@@ -369,7 +456,8 @@ def attend_chunk(q, k, v, cache: dict, off: int) -> torch.Tensor:
         k_ctx, v_ctx = k, v
     cache["k"][:, off:off + s] = k.to(cache["k"].dtype)
     cache["v"][:, off:off + s] = v.to(cache["v"].dtype)
-    return causal_attention(q, k_ctx, v_ctx, q_offset=off)
+    return blockwise_attention(q, k_ctx, v_ctx, q_block=q_block,
+                               kv_block=kv_block, q_offset=off)
 
 
 def init_cache_defs(batch: int, max_len: int, n_kv_heads: int, head_dim: int,

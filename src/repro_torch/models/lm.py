@@ -184,9 +184,13 @@ def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
     absolute positions, ``last_index`` stays chunk-local.
 
     On a mesh (``ctx``, the prefill plan) ``params`` are the serving
-    layout (``expert_parallel.serve_layout``) and every rank prefills the
-    same rows into a whole page: the logits are the same on every rank
-    and the MoE's expert work is split over the expert axis."""
+    layout (``expert_parallel.serve_layout``) and the MoE's expert work
+    is split over the expert axis.  With the engine's context every rank
+    prefills the same rows into a whole page, and the logits are the
+    same on every rank.  A context whose ``row_axes`` split the rows
+    (``launch/steps.py::prefill_rows``) gives ``batch`` and ``cache`` as
+    this rank's rows, and the logits are theirs (one process's rows:
+    the routed layers route every rank's rows)."""
     tokens = batch["tokens"]
     x = _embed_with_prefix(params, tokens, cfg, batch.get("prefix_embeds"))
     b, s = tokens.shape

@@ -24,7 +24,10 @@ On a mesh (``ctx``) training runs the flat MoE's expert-parallel
 schedule (``core/expert_parallel.py::moe_apply_ep``) on this rank's
 tokens; prefill and decode run the serving schedule
 (``moe_apply_serve``): prefill on the whole prompt or chunk rows, which
-every rank holds, decode on this rank's slots (the decode plan's
+every rank of the engine holds, or on this rank's rows of a prefill
+step that split them (``launch/steps.py``; the routed layers gather the
+rows they route over the axes that split them), decode on this rank's
+slots (the decode plan's
 ``batch`` axes) over a sequence-sharded cache
 (``attention.decode_attention``; a sliding-window ring is split over the
 same axes where its length divides) and their whole mamba scan and conv
@@ -51,11 +54,16 @@ from repro_torch.sharding.context import MeshContext, on_mesh
 
 def _token_axes(ctx: MeshContext | None, serve: bool, decode: bool):
     """The mesh axes that split a routed layer's rows: every free axis
-    in training (None), none in prefill (the rows are whole on every
-    rank), the plan's ``batch`` axes at decode."""
+    in training (None), the plan's ``batch`` axes at decode.  A prefill
+    step's are the axes its rows were split over where the step split
+    them (``ctx.row_axes`` set, as ``launch/steps.py::prefill_rows``
+    sets it), and none where every rank holds the whole rows (the
+    engine's prefill context, whose ``row_axes`` is None)."""
     if ctx is None or not serve:
         return None
-    return ctx.axes_of("batch") if decode else ()
+    if decode:
+        return ctx.axes_of("batch")
+    return () if ctx.row_axes is None else ctx.rows_over
 
 
 def _moe_args(cfg: ModelConfig, *, decode: bool = False) -> moe_lib.MoEArgs:
@@ -425,10 +433,13 @@ def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
     cache fill.  Returns x.  ``start_pos`` is chunked-prefill mode: K/V
     lands at cache positions [start_pos, start_pos + S) and attention
     resumes against the cached prefix (attention mixers only).  A mamba
-    mixer copies its final scan and conv state into ``cache``.  On a
-    mesh (``ctx``, the prefill plan) every rank prefills the whole rows
-    into a whole page (the mamba state too); the MoE runs the serving
-    schedule."""
+    mixer copies its final scan and conv state into ``cache``.
+    Attention runs :func:`attention.blockwise_attention` over the
+    config's ``q_block`` x ``kv_block`` blocks, as the reference's.  On a
+    mesh (``ctx``, the prefill plan) a rank prefills its rows (the whole
+    rows, or its share where ``ctx.row_axes`` splits them:
+    :func:`_token_axes`) into their pages (the mamba state too); the
+    routed layers run the serving schedule over every rank's rows."""
     if kind.mixer == "mamba" and start_pos is not None:
         raise ValueError(
             "chunked prefill requires attention mixers (ssm/hybrid state "
@@ -439,7 +450,8 @@ def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
         y, _ = moa_lib.moa_prefill(params["moa"], h, positions,
                                    _moa_args(cfg), cache=cache,
                                    mask=_flat_mask(valid, b, s),
-                                   start_pos=start_pos, ctx=ctx)
+                                   start_pos=start_pos, ctx=ctx,
+                                   token_axes=_token_axes(ctx, True, False))
     elif kind.mixer == "mamba":
         y, state = ssm.mamba(params["mamba"], h, d_state=cfg.ssm_d_state,
                              return_state=True)
@@ -448,7 +460,7 @@ def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
         y, _ = attention.prefill_attention(
             params["attn"], h, positions, rope_theta=cfg.rope_theta,
             qk_norm=cfg.qk_norm, cache=cache, window=_window(cfg, kind),
-            offset=start_pos)
+            q_block=cfg.q_block, kv_block=cfg.kv_block, offset=start_pos)
     x, _ = _apply_ffn(params, x + y, kind, cfg, valid=valid, ctx=ctx,
                       serve=True)
     return x

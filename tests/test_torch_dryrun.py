@@ -23,6 +23,14 @@
   whose recorded collective bytes equal ``analyze_cell``'s wire bytes
   and what two gloo ranks send (``torch_dist_workers.case_decode_wire``);
   a pipelined step traced on (2, 2).
+* A prefill step with its rows split (``steps.prefill_rows``) on two
+  gloo ranks (``torch_dist_workers.case_prefill_rows``, mesh (1, 2)):
+  2 rows (one a rank) and 1 row (whole on both ``model`` ranks) of a
+  flat-MoE (kimi-k2) and a MoA (moa-demo) config; each rank's last
+  logits and cache rows against JAX's ``lm_prefill`` of the whole
+  batch, at 1e-5.  On a fake (2, 2) group a ``prefill`` cell of 8 and
+  of 2 rows gives a rank 8 / 4 and 2 / 2 rows of the batch and of the
+  cache.
 * ``pp_analytic`` against the reference's on the production sizes (the
   reference's module in a fresh interpreter: it must be imported before
   jax).
@@ -413,8 +421,10 @@ import json, sys
 from repro_torch.configs.base import get_config
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.launch import dryrun, dryrun_pp
-from repro_torch.launch.steps import StepSpec, build_step
+from repro_torch.common.param import tree_leaves
+from repro_torch.launch.steps import StepSpec, build_step, prefill_rows
 from repro_torch.launch.train import reduced
+from repro_torch.sharding.context import MeshContext
 out = {"smoke": dryrun.run_cell("smollm-135m", "decode_32k", "4x4")}
 slots, page = (int(a) for a in sys.argv[1:])
 for fused in (False, True):
@@ -430,6 +440,18 @@ step, args = dryrun_pp.build_pp_step(
 out["pp"] = dryrun.trace_step(StepSpec(step, args, "train", 2, []))
 out["jamba"] = dryrun.run_cell("jamba-v0.1-52b", "decode_32k", "pod",
                                overrides={"n_layers": 8})
+cfg = reduced(get_config("kimi-k2-1t-a32b")).replace(kernel_backend="ref")
+mesh = dryrun.fake_mesh({"data": 2, "model": 2})
+for rows in (8, 2):
+    spec = build_step(cfg, ShapeSpec("prefill", "prefill", 32, rows), mesh)
+    params, batch, cache = spec.args
+    rec = dryrun.trace_step(spec)
+    split = prefill_rows(MeshContext.for_mesh(mesh, "prefill_tp"), rows, 32)
+    out[f"prefill{rows}"] = {
+        "tokens": list(batch["tokens"].shape), "row_axes": split.row_axes,
+        "cache": [list(t.shape) for t in tree_leaves(cache)],
+        "peak": rec["memory"]["peak_bytes_per_device"],
+        "gathers": rec["collectives"]["all_gather"]["calls"]}
 json.dump(out, sys.stdout)
 """
 
@@ -510,11 +532,87 @@ def test_jamba_decode_cell_traces_on_a_fake_mesh(cells):
     assert rec["collectives"]["all_gather"]["calls"] > 0
 
 
+@pytest.mark.parametrize("rows,mine,axes", [(8, 2, ["data", "model"]),
+                                             (2, 1, ["data"])])
+def test_prefill_cell_holds_its_rows_on_a_fake_mesh(cells, rows, mine,
+                                                    axes):
+    """The reduced kimi-k2 (32 tokens a row) on a fake (2, 2) group: 8
+    rows split over every rank, 2 rows over ``data`` (whole on both
+    ``model`` ranks); a rank's tokens and cache are its ``rows / n``
+    rows (the cache of that many rows, leaf for leaf), the step traces
+    and the MoE layers gather the rows they route."""
+    from repro_torch.launch.train import reduced
+    rec = cells[0][f"prefill{rows}"]
+    assert rec["row_axes"] == axes
+    assert rec["tokens"] == [mine, 32]
+    cfg = reduced(get_config(KIMI))
+    want = tpm.tree_leaves(ttransformer.cache_defs(cfg, mine, 32))
+    assert rec["cache"] == [list(d.shape) for d in want]
+    assert rec["peak"] > 0 and rec["gathers"] > 0
+
+
 def test_pipelined_step_traces_on_a_fake_mesh(cells):
     pp = cells[0]["pp"]
     assert pp["memory"]["peak_bytes_per_device"] > 0
     assert pp["collectives"]["shift"]["calls"] > 0
     assert pp["memory"]["activations"] > 0
+
+
+# ---------------------------------------------------------------------------
+# a prefill step's rows on two gloo ranks
+# ---------------------------------------------------------------------------
+
+PREFILL_MAX_LEN = 40
+
+
+@pytest.fixture(scope="module")
+def prefill_ranks(tmp_path_factory, kimi):
+    """The ranks' rows of each case (started first), and JAX's
+    ``lm_prefill`` of each case's whole batch."""
+    moa_j = small_config("moa-demo")
+    models = {"kimi": kimi, "moa": (moa_j, _tcfg(moa_j), _params(moa_j))}
+    cases, want = {}, {}
+    for name, (jcfg, tcfg, tree) in models.items():
+        for b in (2, 1):
+            tokens = _tokens(jcfg.vocab_size, (b, 32), seed=b)
+            cases[f"{name}-{b}"] = {"cfg": tcfg, "tokens": torch.from_numpy(
+                tokens), "params": from_jax_tree(tree, device="cpu"),
+                "max_len": PREFILL_MAX_LEN}
+            want[f"{name}-{b}"] = (jcfg, tree, tokens)
+    wait = workers.start("prefill_rows", tmp_path_factory.mktemp("prefill"),
+                         cases, 1, 2)
+    for key, (jcfg, tree, tokens) in want.items():
+        cache = jpm.materialize(jtransformer.cache_defs(
+            jcfg, tokens.shape[0], PREFILL_MAX_LEN), jax.random.PRNGKey(0))
+        want[key] = jax.jit(jsteps.make_prefill_step_fn(jcfg, None))(
+            tree, {"tokens": jnp.asarray(tokens)}, cache)
+    return wait(), want
+
+
+@pytest.mark.parametrize("case", ["kimi-2", "kimi-1", "moa-2", "moa-1"])
+def test_prefill_rows_on_two_ranks_match_jax(prefill_ranks, case):
+    """2 rows split one a rank (over ``data`` and ``model``), or 1 row
+    whole on both ``model`` ranks (over ``data``, of size 1): each
+    rank's last logits and cache rows are JAX's one process's rows."""
+    ranks, want = prefill_ranks
+    jl, jcache = want[case]
+    b = int(case[-1])
+    for rank in ranks:
+        got = rank[case]
+        rows = got["rows"].numpy()
+        assert got["row_axes"] == (("data", "model") if b == 2
+                                   else ("data",))
+        assert len(rows) == (1 if b == 2 else b)
+        _close(got["logits"], np.asarray(jl)[rows], f"{case} logits")
+        for (path, g), (_, w) in zip(_leaves(got["cache"]),
+                                     _leaves(jcache)):
+            # The stacked periods lead with the layers, the tail with
+            # the rows.
+            w = np.asarray(w)
+            _close(g, w[rows] if "tail" in path else w[:, rows],
+                   f"{case} cache {path}")
+    if b == 2:
+        assert [int(r[case]["rows"][0]) for r in ranks] == [0, 1]
 
 
 # ---------------------------------------------------------------------------

@@ -531,10 +531,42 @@ def case_rows(ctx: MeshContext, inputs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# a prefill step's rows
+# ---------------------------------------------------------------------------
+
+def case_prefill_rows(ctx: MeshContext, inputs: dict) -> dict:
+    """For each case, ``launch/steps.py``'s prefill step on this rank's
+    rows of the case's prompts (``steps.prefill_rows`` on the
+    ``prefill_tp`` plan, as ``build_step`` splits them) into pages of
+    those rows: the rows' global indices, the split's axes, the last
+    logits and the cache."""
+    from repro_torch.common import param as pm
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    out = {}
+    for name, case in inputs.items():
+        cfg, tokens = case["cfg"], case["tokens"]
+        b, s = tokens.shape
+        pre = steps.prefill_rows(ctx.with_plan("prefill_tp"), b, s)
+        defs = lm.lm_defs(cfg)
+        params = ep_lib.serve_layout(pre.shard(case["params"], defs), defs,
+                                     pre)
+        rows = pre.local_rows(torch.arange(b))
+        cache = pm.zeros(transformer.cache_defs(cfg, rows.numel(),
+                                                case["max_len"]), "cpu")
+        with torch.no_grad():
+            logits, cache = steps.make_prefill_step_fn(cfg, pre)(
+                params, {"tokens": tokens[rows]}, cache)
+        out[name] = {"rows": rows, "row_axes": pre.row_axes,
+                     "logits": logits, "cache": cache}
+    return out
+
+
 CASES = {"moe": case_moe, "train": case_train, "restore": case_restore,
          "serve": case_serve, "decode_wire": case_decode_wire,
          "pipeline": case_pipeline, "routed": case_routed,
-         "rows": case_rows}
+         "rows": case_rows, "prefill_rows": case_prefill_rows}
 
 
 # ---------------------------------------------------------------------------
