@@ -311,9 +311,19 @@ Phases, in order; any failure exits non-zero and prints no result:
              against its plain version.  Reported: stream agreement,
              decode-step ms, each collective's time and bytes (those
              inside decode calls apart, for phase 26 (c)), peak memory a
-             rank.
+             rank.  (c) the same traffic on two ranks on mesh (data 2,
+             model 1): the experts tensor-parallel, each rank holding
+             d_ff 1024 of every expert, its f32 partial sums all-reduced
+             over data.  Gates: the ranks' streams equal, every call's
+             logits within two bf16 units of (a)'s with its inputs and
+             routing pinned to (a)'s (each flip a near tie, at most 12 a
+             run; fused decode against (a)'s unfused run, as phase 29),
+             each rank's resident experts half of (a)'s, exact
+             launches; kernel 6's f32 output and kernel 8 on a d_ff
+             slice against their plain versions.
 25. pipeline — the GPipe schedule (train/pipeline.py): qwen3-1.7b at
-             full size in f32, (a) lm_loss and its gradients on this
+             full width in f32, cut to 8 layers, (a) lm_loss and its
+             gradients on this
              process, (b) pipelined over (stage 2, model 1), 4
              microbatches of B 4 x S 1024: loss and every gradient
              against (a), 2 make_pipeline_train_step steps (the last
@@ -369,7 +379,9 @@ Phases, in order; any failure exits non-zero and prints no result:
              (``dryrun_peak``); the same steps, traced on ``meta``
              (``trace_path``, host work) by TRACE_WORKERS spawned
              processes beside phase 1's kernel build, before any timed
-             phase (the phases' configs and shapes are known up front;
+             phase on the host (the LONG_S path's trace runs on beside
+             phase 2, whose times are the card's own; the phases'
+             configs and shapes are known up front;
              a path whose phase ran another is traced again here): the
              card's peak (the parameters plus the rise over the call)
              against the dry run's, gate DRYRUN_BAND, the
@@ -510,11 +522,11 @@ SOURCES = {
     "topk_gating": "src/repro_torch/csrc/topk_gating.cu",
     "dispatch": "src/repro_torch/csrc/dispatch.cu",
     "combine": "src/repro_torch/csrc/dispatch.cu",
-    "gmm": "src/repro_torch/csrc/gmm.cu",
+    "gmm": "src/repro_torch/csrc/gmm.cuh",
     "topk_gating_bwd": "src/repro_torch/csrc/topk_gating.cu",
     "dispatch_eblock": "src/repro_torch/csrc/dispatch.cu",
     "combine_eblock": "src/repro_torch/csrc/dispatch.cu",
-    "gmm_bwd": "src/repro_torch/csrc/gmm.cu",
+    "gmm_bwd": "src/repro_torch/csrc/gmm.cuh",
     "fused_decode": "src/repro_torch/csrc/fused_decode.cu",
     "fused_routed": "src/repro_torch/csrc/fused_decode.cu",
 }
@@ -719,7 +731,10 @@ def queued_ms(fn, n: int = QUEUED_RUN) -> float:
 # of one profile seen on the card, more often after the training
 # phases), so a profile is repeated when a kernel has none, and a
 # profile of multi-ms calls takes enough of them that some survive.
-PROFILE_ATTEMPTS = 3     # profiles of one run before device_ms gives up
+# The first profile of a big call's ``device_ms`` held no device record
+# at all in 14 to 29 of a run's ~51 big calls (a discarded profile
+# before it changed nothing), and up to three profiles in a row did.
+PROFILE_ATTEMPTS = 5     # profiles of one run before device_ms gives up
 PROFILED_BIG_RUN = 20    # calls of a multi-ms kernel in device_ms
 
 
@@ -1967,11 +1982,19 @@ def device_profile(fn, scan=None) -> dict:
                                     sum(ms for _, ms in hits) / calls}
         missing = sorted(k for k, n in launched.items()
                          if n and k not in per_kernel)
+        short = {k: (per_kernel[k]["launches"], n) for k, n in
+                 launched.items() if k in per_kernel
+                 and per_kernel[k]["launches"] != n}
+        if short:
+            log(f"device_profile: records / launches of {short}")
         if not missing:
             break
+        others = [(key[:60], n) for key, n, _ in dev
+                  if not any(sym in key for syms in KERNEL_SYMBOLS.values()
+                             for sym in syms)]
         log(f"device_profile: profile {attempt} of {PROFILE_ATTEMPTS} has "
             f"no device records of {missing} ({len(dev)} device ops in "
-            f"all; launch counts {launched})")
+            f"all; launch counts {launched}; the other ops {others})")
     busy = sum(ms for _, _, ms in dev)
     check(not missing, f"kernels launched in the profiled window with no "
                        f"device time in the profile: {missing} (launch "
@@ -3850,13 +3873,17 @@ def phase_eblock(cfg, params) -> dict:
         check(errs[k] <= 1e-5, f"e-blocked {k} differs by {errs[k]} of its "
                                "largest entry > 1e-5")
 
-    def eblock_step():
-        xg.grad = None
-        y, aux = moe_lib.moe_apply(
-            mp, xg, dataclasses.replace(a, dispatch_e_block=E_BLOCK),
-            train=True, noise=noise)
-        ((y * gy).sum() + aux["aux_loss"]).backward()
-    prof = device_profile(eblock_step)
+    # Two steps in the profiled window, so each kernel launches at least
+    # twice there: in some processes CUPTI lost the one top-k record of a
+    # one-step window in every profile.
+    def eblock_steps():
+        for _ in range(2):
+            xg.grad = None
+            y, aux = moe_lib.moe_apply(
+                mp, xg, dataclasses.replace(a, dispatch_e_block=E_BLOCK),
+                train=True, noise=noise)
+            ((y * gy).sum() + aux["aux_loss"]).backward()
+    prof = device_profile(eblock_steps)
     for v in leaves.values():
         v.grad = None
     out = {"dispatch_bitwise": same, "rel_err": errs, "tol": 1e-5,
@@ -6486,24 +6513,33 @@ def check_dist_ranks(what: str, reports: list, ref: dict) -> dict:
     return worst
 
 
-def dist_launcher(workdir: str) -> dict:
-    """(c) launch.train under torchrun on one NCCL rank (a subprocess)
-    against the same launcher without torchrun (in this process): the
-    last logged metrics."""
+def dist_launcher_start(workdir: str) -> tuple:
+    """(c)'s launch.train under torchrun on one NCCL rank, a subprocess
+    started with the phase, so that its start-up (the interpreter, CUDA,
+    NCCL: ~30 s of the phase on a slow host) overlaps (a) and (b)."""
     import os
-    from repro_torch.launch import train as train_launch
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     work = os.path.join(workdir, "torchrun")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
-         *DIST_LAUNCH_ARGS, "--workdir", work], env=env, capture_output=True,
-        text=True, timeout=300)
+         *DIST_LAUNCH_ARGS, "--workdir", work], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, work, time.perf_counter()
+
+
+def dist_launcher(workdir: str, started: tuple) -> dict:
+    """(c) the torchrun subprocess of :func:`dist_launcher_start` against
+    the same launcher without torchrun (in this process): the last
+    logged metrics.  ``wall_s`` of torchrun spans (a) and (b)."""
+    import os
+    from repro_torch.launch import train as train_launch
+    proc, work, t0 = started
+    stdout, stderr = proc.communicate(timeout=300)
     torchrun_s = time.perf_counter() - t0
     check(proc.returncode == 0, f"launcher under torchrun exited "
-          f"{proc.returncode}: {proc.stderr[-3000:]}")
-    check("1 rank(s) over nccl, mesh {'data': 1, 'model': 1}" in proc.stdout,
+          f"{proc.returncode}: {stderr[-3000:]}")
+    check("1 rank(s) over nccl, mesh {'data': 1, 'model': 1}" in stdout,
           "the torchrun launcher did not run one NCCL rank on the mesh")
     with open(os.path.join(work, "metrics.jsonl")) as f:
         b = [json.loads(line) for line in f][-1]
@@ -6522,27 +6558,39 @@ def dist_launcher(workdir: str) -> dict:
     return out
 
 
-def phase_distributed() -> dict:
-    """Phase 23: (a) one process, (b) two ranks on each mesh, (c) the
-    launcher on one NCCL rank."""
+def _dist_meshes(workdir: str) -> dict:
+    """(a) one process, then (b) two ranks on each mesh."""
     import gc
     import torch
+    out = {"one": dist_reference(workdir)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for data, model in DIST_MESHES:
+        what = f"dist ({data}, {model})"
+        reports = dist_ranks(workdir, data, model, ef=(model == 2))
+        worst = check_dist_ranks(what, reports, out["one"])
+        for r in reports:
+            r["step0_grads"] = {k: e["norm_rel"]
+                                for k, e in r["step0_grads"].items()}
+        out[f"{data}x{model}"] = {"ranks": reports, "worst": worst}
+        log(f"{what} " + json.dumps(out[f"{data}x{model}"]))
+    return out
+
+
+def phase_distributed() -> dict:
+    """Phase 23: (a) one process, (b) two ranks on each mesh, (c) the
+    launcher on one NCCL rank, started with the phase."""
     t0 = time.perf_counter()
     out = {}
     with tempfile.TemporaryDirectory() as workdir:
-        out["one"] = dist_reference(workdir)
-        gc.collect()
-        torch.cuda.empty_cache()
-        for data, model in DIST_MESHES:
-            what = f"dist ({data}, {model})"
-            reports = dist_ranks(workdir, data, model, ef=(model == 2))
-            worst = check_dist_ranks(what, reports, out["one"])
-            for r in reports:
-                r["step0_grads"] = {k: e["norm_rel"]
-                                    for k, e in r["step0_grads"].items()}
-            out[f"{data}x{model}"] = {"ranks": reports, "worst": worst}
-            log(f"{what} " + json.dumps(out[f"{data}x{model}"]))
-        out["launcher"] = dist_launcher(workdir)
+        launcher = dist_launcher_start(workdir)
+        try:
+            out.update(_dist_meshes(workdir))
+        except BaseException:
+            launcher[0].kill()
+            launcher[0].communicate()
+            raise
+        out["launcher"] = dist_launcher(workdir, launcher)
     out["wall_s"] = time.perf_counter() - t0
     log(f"dist phase {out['wall_s']:.1f} s")
     return out
@@ -6567,6 +6615,13 @@ def phase_distributed() -> dict:
 # 1 / 2 / 4 / 6 (and 8 fused) are exact on every rank.
 MESH_LAYERS = 1
 MESH_SERVE = (1, 2)
+# (c): the experts' d_ff over data (the reference's expert_mlp).  Each
+# call's logits within MIXER_LOGIT_UNITS bf16 units of (a)'s, its
+# routing pinned to (a)'s (_TopkPin) and its inputs (a)'s.  Kernel 6's
+# f32 output within GMM_F32_TOL of the output's scale of its plain
+# version (f32 sums over K = 1024 bf16 products in another order).
+MESH_TP = (2, 1)
+GMM_F32_TOL = 2.0 ** -12
 MESH_PREFIX_N = 4
 MESH_LOGIT_TOL = 0.05
 MESH_TRAFFIC = ("serve", "fused", "prefix")
@@ -6812,11 +6867,12 @@ def mesh_serve_reference(workdir: str, floor: dict) -> dict:
     from repro_torch.kernels import backend as backend_lib
     from repro_torch.models.transformer import _moe_args
     cfg, params = _mesh_params()
-    out = {}
+    out = {"expert_bytes": _expert_bytes(params)}
     for name, (sc_kw, trace) in _mesh_traffic().items():
         run = _mesh_serve_run(f"mesh one process {name}", cfg, params, sc_kw,
-                              trace)
-        torch.save(run["calls"], os.path.join(workdir, f"ref_{name}.pt"))
+                              trace, gates=True)
+        torch.save({k: run[k] for k in ("calls", "routes", "samples")},
+                   os.path.join(workdir, f"ref_{name}.pt"))
         out[name] = {"streams": run["streams"], "summary": run["summary"]}
     # Kernel 8 on a rank's slab at the decode shape.
     a = _moe_args(cfg, decode=True)
@@ -6853,25 +6909,87 @@ def mesh_serve_reference(workdir: str, floor: dict) -> dict:
     out["gmm_slab_bitwise"] = True
     log("gmm stream / tile: each rank's slab of the decode buffer equals "
         "the whole call's rows bit for bit")
+    out["tp_kernels"] = check_mesh_tp_kernels(x, dec, buf, layer)
     del params, layer, moe, buf
     log("mesh serve (a) one process " + json.dumps(
         {k: out[k]["summary"] for k in MESH_TRAFFIC}))
     return out
 
 
-def _mesh_serve_rank(rank: int, world: int, model: int, workdir: str) -> None:
-    """One rank of phase 24 (a spawned process)."""
+def _expert_bytes(params) -> int:
+    """Bytes of the flat MoE's FFN leaves (w1, w2, w3) a process holds."""
+    return sum(t.numel() * t.element_size()
+               for layer in params["blocks"]["periods"].values()
+               for k, t in layer["moe"].items() if k in ("w1", "w2", "w3"))
+
+
+def check_mesh_tp_kernels(x, dec, buf, layer) -> dict:
+    """(c)'s kernels at its shapes, on layer 0's weights: a rank's d_ff
+    slice (the first 1024 of 2048 columns).  Kernel 6's f32 output (the
+    down-projection of the decode buffer's up-projected slice, with the
+    plan's rows, the streaming and the tiled kernel) against its plain
+    version within GMM_F32_TOL of the output's scale, its bf16 output
+    the f32 output's cast bit for bit; kernel 8 on the decode plan with
+    the sliced weights against its plain version (two bf16 units)."""
+    import torch
+    from repro_torch.kernels import gmm as gmm_lib
+    half = layer["w1"].shape[-1] // MESH_TP[0]
+    w1, w3 = (layer[k][..., :half].contiguous() for k in ("w1", "w3"))
+    w2 = layer["w2"][:, :half].contiguous()
+    rows = dec.rows
+    h = gmm_lib.gmm(buf, w1, activation="silu", rows=rows)
+    h = (h.float() * gmm_lib.gmm(buf, w3, rows=rows).float()).to(h.dtype)
+    want = gmm_lib.gmm_plain(h, w2, rows=rows, out_dtype=torch.float32)
+    scale = float(want.abs().max())
+    used = int((rows > 0).sum())
+    e, c, _ = h.shape
+    d = w2.shape[-1]
+    b, by = bound_ms(used * half * d * 2 + e * c * half * 2 + e * c * d * 4,
+                     2 * int(rows.sum()) * half * d, "bfloat16")
+    out = {"scale": scale, "used_experts": used, "bound_ms": b,
+           "bound_by": by}
+    for kernel in ("stream", "tile"):
+        def fn(kernel=kernel):
+            return gmm_lib.gmm(h, w2, rows=rows, kernel=kernel,
+                               out_dtype=torch.float32)
+        got = fn()
+        err = max_err(got, want)
+        check(got.dtype == torch.float32 and err <= GMM_F32_TOL * scale,
+              f"gmm {kernel} f32 output on a d_ff slice: {err} from its "
+              f"plain version (tol {GMM_F32_TOL * scale})")
+        cast = gmm_lib.gmm(h, w2, rows=rows, kernel=kernel)
+        check(bool(torch.equal(cast, got.to(cast.dtype))),
+              f"gmm {kernel}: the bf16 output is not the f32 output's cast")
+        out[kernel] = dict(max_abs_err=err, tol=GMM_F32_TOL * scale,
+                           ms=cuda_ms(fn),
+                           bf16_ms=cuda_ms(lambda k=kernel: gmm_lib.gmm(
+                               h, w2, rows=rows, kernel=k)))
+    out["plain_ms"] = cuda_ms(lambda: gmm_lib.gmm_plain(
+        h, w2, rows=rows, out_dtype=torch.float32), reps=3, warmup=1)
+    log("mesh serve (c) gmm f32 output, d_ff slice [384, 8, 1024] x "
+        "[384, 1024, 7168], rows: " + json.dumps(out))
+    out["kernel8"] = _fused8_case(x, dec.plan, w1, w2, w3,
+                                  f"d_ff slice ({half} of {2 * half})")
+    return out
+
+
+def _mesh_serve_rank(rank: int, world: int, model: int, workdir: str,
+                     tp: bool = False) -> None:
+    """One rank of phase 24 (a spawned process); ``tp``: part (c)."""
     import os
     import traceback
     import torch
     import torch.distributed as dist
     torch.cuda.set_device(0)
+    tag = "tp" if tp else "ep"
     dist.init_process_group(
-        "gloo", init_method=f"file://{os.path.join(workdir, 'store_serve')}",
+        "gloo",
+        init_method=f"file://{os.path.join(workdir, f'store_serve_{tag}')}",
         rank=rank, world_size=world)
     try:
-        out = _mesh_serve_rank_body(rank, model, workdir)
-        with open(os.path.join(workdir, f"serve_rank{rank}.json"), "w") as f:
+        out = _mesh_serve_rank_body(rank, model, workdir, tp)
+        with open(os.path.join(workdir, f"serve_{tag}_rank{rank}.json"),
+                  "w") as f:
             json.dump(out, f)
         dist.barrier()
     except BaseException:
@@ -6881,7 +6999,8 @@ def _mesh_serve_rank(rank: int, world: int, model: int, workdir: str) -> None:
         dist.destroy_process_group()
 
 
-def _mesh_serve_rank_body(rank: int, model: int, workdir: str) -> dict:
+def _mesh_serve_rank_body(rank: int, model: int, workdir: str,
+                          tp: bool = False) -> dict:
     import os
     import torch
     from repro_torch.common import param as pm
@@ -6902,8 +7021,11 @@ def _mesh_serve_rank_body(rank: int, model: int, workdir: str) -> dict:
     torch.cuda.synchronize()
     res["serve_layout_s"] = time.perf_counter() - t0
     res["param_gib"] = pm.param_bytes(params) / 2**30
+    res["expert_bytes"] = _expert_bytes(params)
     torch.cuda.empty_cache()
     clock = _CollectiveClock()
+    if tp:
+        return _mesh_tp_runs(res, ctx, cfg, params, workdir, clock)
     for name, (sc_kw, trace) in _mesh_traffic().items():
         clock.ms, clock.bytes, clock.calls = {}, {}, {}
         clock.on = True
@@ -6912,7 +7034,7 @@ def _mesh_serve_rank_body(rank: int, model: int, workdir: str) -> dict:
                                   sc_kw, trace, ctx=ctx)
         clock.on = False
         ref = torch.load(os.path.join(workdir, f"ref_{name}.pt"),
-                         weights_only=False)
+                         weights_only=False)["calls"]
         errs = _logit_errs(run["calls"], ref, run["first_slot"],
                            run["n_local"])
         check(errs["worst_rel"] <= MESH_LOGIT_TOL,
@@ -6929,31 +7051,99 @@ def _mesh_serve_rank_body(rank: int, model: int, workdir: str) -> dict:
     return res
 
 
-def phase_mesh_serve(floor: dict) -> dict:
-    """Phase 24: (a) one process, (b) two ranks on mesh MESH_SERVE."""
-    import gc
+def _mesh_tp_runs(res, ctx, cfg, params, workdir, clock) -> dict:
+    """(c) on one rank: each traffic with its inputs and routing pinned
+    to (a)'s, its logits within MIXER_LOGIT_UNITS bf16 units of (a)'s
+    on every call.  The fused traffic is held to (a)'s unfused run, as
+    phase 29 holds jamba's: one process's fused decode routes inside
+    kernel 7, with no top-k call to pin.  Each greedy token the rank
+    picks is one process's or a near tie of its logits, where prompts
+    are whole."""
     import os
     import torch
+    for name, (sc_kw, trace) in _mesh_traffic().items():
+        what = f"mesh tp rank {res['rank']} {name}"
+        ref = torch.load(os.path.join(
+            workdir, f"ref_{'serve' if name == 'fused' else name}.pt"),
+            weights_only=False)
+        pin = _TopkPin([c for call in ref["routes"] for c in call])
+        run = _mesh_serve_run(what, cfg, params, sc_kw, trace, ctx=ctx,
+                              follow=ref["samples"], pin=pin, clock=clock)
+        errs = _logit_errs(run["calls"], ref["calls"], run["first_slot"],
+                           run["n_local"])
+        check(errs["calls_compared"] == len(ref["calls"]),
+              f"{what}: {errs['calls_compared']} of {len(ref['calls'])} "
+              "calls compared")
+        check(errs["worst_bf16_units"] <= MIXER_LOGIT_UNITS,
+              f"{what}: logits {errs['worst_bf16_units']:.3g} bf16 units "
+              f"({errs['worst_rel']:.4g} of the scale) from one process "
+              f"(tol {MIXER_LOGIT_UNITS} units)")
+        # A chunk call that ends no prompt samples nothing, so the
+        # samples pair with the calls only where prompts are whole.
+        greedy = (None if sc_kw.get("prefill_chunk")
+                  else _greedy_errs(run, ref))
+        check(greedy is None or greedy["worst_gap_ratio"] <= 1.0,
+              f"{what}: a greedy token differs from one process's beyond "
+              f"a near tie ({json.dumps(greedy)})")
+        check(pin.worst_ratio <= 1.0,
+              f"{what}: a routing flip is no near tie (the recorded gap "
+              f"{pin.worst_ratio:.3g} x twice the gate logits' difference)")
+        check(sum(pin.flips) <= MIXER_MAX_FLIPS,
+              f"{what}: {sum(pin.flips)} routing flips pinned (at most "
+              f"{MIXER_MAX_FLIPS})")
+        dec = run["decode_collectives"]
+        res[name] = dict(run["summary"], streams=run["streams"],
+                         logits=errs, greedy=greedy,
+                         routing_flips=pin.flips,
+                         flip_gap_ratio=pin.worst_ratio,
+                         collective_ms=dict(clock.ms),
+                         collective_bytes=dict(clock.bytes),
+                         collective_calls=dict(clock.calls),
+                         decode_collectives=dec,
+                         decode_collective_share=(
+                             sum(dec["ms"].values())
+                             / run["summary"]["decode_ms_total"]))
+        del ref, run
+    return res
+
+
+def _mesh_spawn(workdir: str, mesh: tuple, tp: bool) -> list:
+    """The ranks of (b) or (c) on ``mesh``; their reports in rank
+    order."""
+    import os
     import torch.multiprocessing as mp
+    data, model = mesh
+    world = data * model
+    try:
+        mp.spawn(_mesh_serve_rank, args=(world, model, workdir, tp),
+                 nprocs=world, join=True)
+    except Exception as err:       # a rank failed: the phase fails
+        raise SmokeFailure(f"mesh serve ranks {mesh}: {err}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"serve_{'tp' if tp else 'ep'}_rank"
+                                        f"{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def phase_mesh_serve(floor: dict) -> dict:
+    """Phase 24: (a) one process, (b) two ranks on mesh MESH_SERVE, (c)
+    two ranks on MESH_TP."""
+    import gc
+    import torch
     t0 = time.perf_counter()
     out = {}
     with tempfile.TemporaryDirectory() as workdir:
         out["one"] = mesh_serve_reference(workdir, floor)
         gc.collect()
         torch.cuda.empty_cache()
-        data, model = MESH_SERVE
-        world = data * model
         t1 = time.perf_counter()
-        try:
-            mp.spawn(_mesh_serve_rank, args=(world, model, workdir),
-                     nprocs=world, join=True)
-        except Exception as err:       # a rank failed: the phase fails
-            raise SmokeFailure(f"mesh serve ranks: {err}")
+        ranks = _mesh_spawn(workdir, MESH_SERVE, False)
         out["spawn_wall_s"] = time.perf_counter() - t1
-        ranks = []
-        for r in range(world):
-            with open(os.path.join(workdir, f"serve_rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        t1 = time.perf_counter()
+        tp = _mesh_spawn(workdir, MESH_TP, True)
+        out["tp_spawn_wall_s"] = time.perf_counter() - t1
     for name in MESH_TRAFFIC:
         one = out["one"][name]["streams"]
         for r in ranks:
@@ -6965,8 +7155,47 @@ def phase_mesh_serve(floor: dict) -> dict:
             [{k: v for k, v in r[name].items() if k != "streams"}
              for r in ranks]))
     out["ranks"] = ranks
+    want = out["one"]["expert_bytes"]
+    for r in tp:
+        check(r["expert_bytes"] * MESH_TP[0] == want,
+              f"mesh tp rank {r['rank']}: {r['expert_bytes']} expert bytes, "
+              f"one process {want}")
+    for name in MESH_TRAFFIC:
+        one = out["one"][name]["streams"]
+        for r in tp:
+            r[name]["stream_agreement"] = stream_agreement(r[name]["streams"],
+                                                           one)
+            check(r[name]["streams"] == tp[0][name]["streams"],
+                  f"mesh tp {name}: the ranks sampled different streams")
+            check(r[name]["stats"] == tp[0][name]["stats"],
+                  f"mesh tp {name}: the ranks' engine stats differ")
+        r0 = tp[0][name]
+        log(f"mesh serve (c) {name} " + json.dumps(
+            [{k: v for k, v in r[name].items() if k != "streams"}
+             for r in tp]))
+        log(f"mesh serve (c) {name} on {MESH_TP}: decode step "
+            f"{r0['decode_step_ms_median']:.2f} ms a rank (one process "
+            f"{out['one'][name]['summary']['decode_step_ms_median']:.2f}); "
+            "collectives in decode (calls, bytes, share) "
+            f"{json.dumps(r0['decode_collectives']['op_calls'])}, "
+            f"{json.dumps(r0['decode_collectives']['bytes'])}, "
+            f"{r0['decode_collective_share']:.3f}; peak "
+            + ", ".join(f"{r[name]['peak_gib']:.2f}" for r in tp)
+            + " GiB a rank; logits "
+            + ", ".join(f"{r[name]['logits']['worst_bf16_units']:.3g}"
+                        for r in tp)
+            + f" bf16 units; stream agreement {r0['stream_agreement']:.3f}; "
+            f"greedy {json.dumps(r0['greedy'])}; routing flips "
+            f"{sum(r0['routing_flips'])} (worst gap ratio "
+            f"{r0['flip_gap_ratio']:.3g})")
+    log(f"mesh serve (c) resident experts a rank "
+        + ", ".join(f"{r['expert_bytes']}" for r in tp)
+        + f" B of one process's {want} (param GiB a rank "
+        + ", ".join(f"{r['param_gib']:.2f}" for r in tp) + ")")
+    out["tp"] = tp
     out["wall_s"] = time.perf_counter() - t0
-    log(f"mesh serve phase {out['wall_s']:.1f} s")
+    log(f"mesh serve phase {out['wall_s']:.1f} s ((c)'s ranks "
+        f"{out['tp_spawn_wall_s']:.1f} s)")
     return out
 
 
@@ -6974,8 +7203,10 @@ def phase_mesh_serve(floor: dict) -> dict:
 # phase 25: the GPipe pipeline
 # ---------------------------------------------------------------------------
 
-# qwen3-1.7b at full size in f32 (dense, homogeneous, 28 layers: no
-# full-width MoE transformer pipelines on one card, PERF.md section 7),
+# qwen3-1.7b at full width in f32 (dense, homogeneous: no full-width
+# MoE transformer pipelines on one card, PERF.md section 7), cut 28 ->
+# PP_QWEN_LAYERS layers (to pay for phase 24 (c): the two ranks' first
+# pipelined step took 26-33 s at 28 layers, PERF.md section 6),
 # pipelined over (stage 2, model 1) with PP_MICRO microbatches of the
 # global batch PP_B x PP_S: the loss and every gradient against one
 # process's lm_loss on the same weights, then PP_STEPS steps of
@@ -6999,6 +7230,7 @@ def phase_mesh_serve(floor: dict) -> dict:
 # hierarchical MoE one step, cuda against ref.  The one-process runs
 # of (d) and (e) are on this process, before the spawn.
 PP_B, PP_S, PP_MICRO, PP_STEPS = 4, 1024, 4, 2
+PP_QWEN_LAYERS = 8
 PP_MESH, PP_KIMI_MESH = (2, 1), (2, 2)
 PP_KIMI_LAYERS, PP_KIMI_B, PP_KIMI_S = 4, 8, 32
 # One process against the ranks, f32 with TF32 off: the loss within
@@ -7017,8 +7249,8 @@ PP_HMOE = (2, 4)
 def _pp_qwen_cfg():
     import torch
     from repro_torch.configs.base import get_config
-    return get_config(QWEN, param_dtype=torch.float32,
-                      compute_dtype=torch.float32)
+    return get_config(QWEN, n_layers=PP_QWEN_LAYERS,
+                      param_dtype=torch.float32, compute_dtype=torch.float32)
 
 
 def _pp_batch(vocab, b, s):
@@ -7919,7 +8151,9 @@ def _card_args(spec, cfg, params) -> tuple:
 
 # (b)'s traces are host work only (over a minute for falcon's 64-layer
 # training step), run in this many spawned processes beside phase 1's
-# kernel build, so that no timed phase shares the host with them.
+# kernel build, so that no timed phase shares the host with them but
+# phase 2, whose times are the card's own, beside the LONG_S path's
+# (finish_traces).
 TRACE_WORKERS = 3
 _TRACES: dict = {}
 
@@ -8047,18 +8281,29 @@ def start_traces() -> list:
     return [(a, pending[a[0]]) for a in plan]
 
 
-def finish_traces(started: list) -> None:
+def finish_traces(started: list, late: bool = False) -> list:
     """Waits for :func:`start_traces`' records (DRYRUN_TRACED: path ->
-    (arguments, record)) and stops the workers."""
+    (arguments, record)), but not, unless ``late``, for the LONG_S-token
+    path's: its one worker (83-110 s of trace on the H100's hosts, the
+    longest by far) runs on beside phase 2, whose times are the card's
+    own, and main calls this again with ``late`` for it after phase 2,
+    before any phase timed on the host.  Stops the workers once nothing
+    is pending; returns what still is."""
     t0 = time.perf_counter()
-    for args, pending in started:
-        DRYRUN_TRACED[args[0]] = (args, pending.get(timeout=900))
-    stop_trace_pool()
-    log(f"dryrun (b): {len(started)} paths traced on meta in "
-        f"{TRACE_WORKERS} workers, "
+    pending = []
+    for args, rec in started:
+        if args[4] >= LONG_S and not late:
+            pending.append((args, rec))
+        else:
+            DRYRUN_TRACED[args[0]] = (args, rec.get(timeout=900))
+    if not pending:
+        stop_trace_pool()
+    log(f"dryrun (b): {len(started) - len(pending)} paths traced on meta "
+        f"in {TRACE_WORKERS} workers ({len(pending)} still tracing), "
         f"{sum(r['trace_s'] for _, r in DRYRUN_TRACED.values()):.1f} s of "
-        f"traces; waited {time.perf_counter() - t0:.1f} s for them after "
-        "the kernel build")
+        f"traces; waited {time.perf_counter() - t0:.1f} s for them "
+        + ("after phase 2" if late else "after the kernel build"))
+    return pending
 
 
 def dryrun_records() -> list:
@@ -9453,8 +9698,9 @@ def main() -> int:
     try:
         traces = start_traces()
         setup = phase_setup()
-        finish_traces(traces)
+        late_traces = finish_traces(traces)
         kernels = phase_kernels()
+        finish_traces(late_traces, late=True)
         lap("kernels")
         served = run_serve(kernels["floor"])
         gc.collect()
@@ -9577,6 +9823,9 @@ def main() -> int:
                 "serve_mesh": mesh["ranks"][0]["serve"]["launches"],
                 "serve_mesh_fused": mesh["ranks"][0]["fused"]["launches"],
                 "serve_mesh_prefix": mesh["ranks"][0]["prefix"]["launches"],
+                "serve_mesh_tp": mesh["tp"][0]["serve"]["launches"],
+                "serve_mesh_tp_fused": mesh["tp"][0]["fused"]["launches"],
+                "serve_mesh_tp_prefix": mesh["tp"][0]["prefix"]["launches"],
                 "train_pp_kimi": pipeline["kimi"]["ranks"][0]["launches"],
                 "train_pp_rows": pipeline["rows"]["launches"],
                 "train_pp_moa": pipeline["moa"]["launches"],
@@ -9611,6 +9860,9 @@ def main() -> int:
     k8 = mesh["one"]["kernel8_mesh"]
     measured["fused_routed"].update(max_abs_err_mesh=k8["max_abs_err"],
                                     tol_mesh=k8["tol"], mesh_slab=k8)
+    tpk = dict(mesh["one"]["tp_kernels"])
+    measured["fused_routed"]["mesh_tp_slice"] = tpk.pop("kernel8")
+    measured["gmm"]["mesh_tp_f32_out"] = tpk
     for name, r in served["prefix"]["kernels"].items():
         measured[name]["chunk_prefill"] = r
     for name, (err, tol) in moa["kernel_errs"].items():
@@ -9700,7 +9952,10 @@ def main() -> int:
         f"{mesh['ranks'][0]['fused']['decode_step_ms_median']:.1f}, logits "
         "worst rel "
         f"{max(r[t]['logits']['worst_rel'] for r in mesh['ranks'] for t in MESH_TRAFFIC):.3g}"
-        f", phase {mesh['wall_s']:.0f} s; pipeline qwen3 loss rel "
+        f"; (2, 1) experts over d_ff {mesh['tp'][0]['serve']['decode_step_ms_median']:.1f}"
+        f" / {mesh['tp'][0]['fused']['decode_step_ms_median']:.1f}, logits "
+        f"{max(r[t]['logits']['worst_bf16_units'] for r in mesh['tp'] for t in MESH_TRAFFIC):.3g}"
+        f" bf16 units, phase {mesh['wall_s']:.0f} s; pipeline qwen3 loss rel "
         f"{pipeline['qwen']['worst']['loss_rel']:.3g}, gradients "
         f"{pipeline['qwen']['worst']['grad_norm_rel']:.3g}, step ms "
         f"{pipeline['qwen']['ranks'][0]['step_ms'][-1]:.1f}, phase "

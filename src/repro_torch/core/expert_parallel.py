@@ -46,22 +46,34 @@ GSPMD with the global dispatch plan (capacity from all of the step's
 tokens), so the port gives every rank the step's whole token set (an
 all-gather over the batch axes where the decode batch is split) and
 routes it: the plan is the one process's, identical on every rank.
-Each rank then runs only its own experts' GMM on its slab of the
-dispatched buffer (with the plan's ``rows``), the expert outputs are
+Weights arrive in the serving layout (:func:`serve_layout`): every
+leaf whole but the experts' FFN weights, which are the rank's block
+over ``experts`` and ``expert_mlp``, as the reference's serving plans
+lay them out (``expert_mlp`` over ``data``: tensor parallelism within
+each expert).  Each rank then runs its own experts' GMMs on its slab of
+the dispatched buffer (with the plan's ``rows``) over its slice of
+each expert's d_ff.  Where ``expert_mlp`` splits d_ff, the
+down-projection comes out in f32 (kernel 6's ``out_dtype``), that
+partial ``[n, C, d]`` is all-reduced over the ``expert_mlp`` axes and
+cast once to the buffer's dtype; the expert outputs are then
 all-gathered over the expert axis, and every rank runs the combine on
 the whole ``[E, C, d]`` buffer.  The GMM kernels sum each row in a
-fixed order with no split-K (``csrc/gmm.cu``), so a slab's rows come
-out bit for bit as in the whole buffer and the MoE output on a mesh is
-one process's.  Fused decode on a mesh routes the same way and runs
-kernel 8 (``routed_apply``, ``ffn`` mode) on the plan restricted to
-the rank's experts (:func:`local_plan`: other ranks' entries dropped,
-expert ids renumbered into the slab), then sums the partial outputs
-over the expert axis in f32; that sum rounds otherwise than one
-launch's, so fused decode on a mesh is held to a tolerance.  Load and
-overflow telemetry come from the global plan: one process's.  Weights
-arrive in the serving layout (:func:`serve_layout`): every leaf whole
-but the experts' FFN weights, which are the rank's slab over the
-expert axis, whole over their other dims.
+fixed order with no split-K (``csrc/gmm.cuh``), so where d_ff is whole
+a slab's rows come out bit for bit as in the whole buffer and the MoE
+output on a mesh is one process's; a sum split over d_ff rounds
+otherwise, so a mesh with ``data`` > 1 is held to a tolerance.  Fused
+decode on a mesh routes the same way and runs kernel 8
+(``routed_apply``, ``ffn`` mode) on the plan restricted to the rank's
+experts (:func:`local_plan`: other ranks' entries dropped, expert ids
+renumbered into the slab) with its d_ff slice of the weights, then sums
+the partial outputs over the expert and ``expert_mlp`` axes in f32, in
+one all-reduce; that sum rounds otherwise than one launch's, so fused
+decode on a mesh is held to a tolerance.  Where ``expert_mlp`` has one
+shard every path is the one above with d_ff whole: no f32 output and
+no new collective.  Load and overflow telemetry come from the global
+plan: one process's.  MoA's routed projections (whose d_ff is the
+heads' width, which feeds attention) and the hierarchical MoE's groups
+keep the slab over their expert dim, whole over the other dims.
 
 MoA's two routed projections and the hierarchical MoE's groups run the
 serving schedule in training too (:class:`GlobalPlan`), where the
@@ -112,6 +124,28 @@ def gather_on_use(params, defs, ctx: MeshContext):
 # MoA's ``experts``, the hierarchical MoE's ``expert_groups``): serving
 # keeps them as this rank's slab.
 _EXPERT_DIMS = ("experts", "expert_groups")
+# The flat MoE's FFN leaves also keep their ``expert_mlp`` dim (d_ff) as
+# this rank's slice: the reference's tensor parallelism within each
+# expert.
+_TP_DIMS = _EXPERT_DIMS + ("expert_mlp",)
+
+
+def _block(t: torch.Tensor, d: ParamDef, spec, dims, ctx: MeshContext,
+           start: int = 0) -> torch.Tensor:
+    """``t`` (each dim whole or this rank's slice by ``spec``, the
+    plan's cut) as this rank's block over the dims whose logical axis
+    is in ``dims`` and whole over the others, from dim ``start`` on: a
+    slice that should be whole is gathered (autograd-aware), a whole dim
+    that should be a block is cut to this rank's block."""
+    cut = False
+    for dim in range(start, len(spec)):
+        n, s = d.shape[dim], spec[dim]
+        if d.axes[dim] in dims and t.shape[dim] == n and ctx.size(s) > 1:
+            m = n // ctx.size(s)
+            t, cut = t.narrow(dim, ctx.index(s) * m, m), True
+        elif d.axes[dim] not in dims and t.shape[dim] != n:
+            t = ctx.all_gather(t, s, dim)
+    return t.contiguous() if cut else t
 
 
 def _expert_specs(defs: dict, ctx: MeshContext) -> dict:
@@ -140,29 +174,37 @@ def _expert_group(a: moe_lib.MoEArgs, ctx: MeshContext, specs: dict
 @torch.no_grad()
 def serve_layout(params, defs, ctx: MeshContext):
     """The serving layout of a model's parameters: every leaf whole
-    except the expert leaves (the FFN experts', MoA's routed
-    projections, the hierarchical MoE's), which are this rank's slab
-    over their expert dim (``experts``, or ``expert_groups`` where the
-    groups take the expert axis), whole over their other dims.
-    ``params`` may hold each leaf as this rank's slice by ``ctx``'s
-    plan (``ctx.shard``'s cut), which is gathered here, or already in
-    the serving layout, which is kept.  Done once when the engine is
-    built, so no serve step gathers a weight.  Off-mesh the tree
-    itself."""
+    except the expert leaves, which are this rank's block.  The flat
+    MoE's FFN leaves (``w1`` / ``w2`` / ``w3`` of a ``moe`` layer
+    without ``expert_groups``) are its block over ``experts`` and
+    ``expert_mlp`` (the reference's ``expert_mlp`` over ``data``: each
+    rank runs a d_ff slice of its experts, :func:`moe_apply_serve`),
+    whole over ``expert_embed``; MoA's routed projections (the same
+    axes, under ``moa``: their d_ff is the heads' width, which feeds
+    attention) and the hierarchical MoE's leaves are the slab over
+    their expert dim (``experts``, or ``expert_groups`` where the
+    groups take the expert axis), whole over their other dims.  A dim
+    that does not divide over its axes is whole, as the plan's
+    resolution falls back.  Each dim of a leaf in ``params`` may be
+    whole or this rank's slice by ``ctx``'s plan (``ctx.shard``'s cut):
+    a slice the layout keeps whole is gathered, a whole dim the layout
+    keeps as a block is cut to this rank's block, the rest is kept (so
+    the full tree, the plan's slices and the serving layout all give
+    the serving layout).  Done once when the engine is built, so no
+    serve step gathers a weight.  Off-mesh the tree itself."""
     if ctx.mesh is None:
         return params
 
-    def one(t, d):
-        spec = ctx.resolve(d.shape, d.axes)
-        slab = _is_expert_leaf(d)
-        keep = tuple(s if slab and ax in _EXPERT_DIMS else ()
-                     for ax, s in zip(d.axes, spec))
-        want = tuple(n // ctx.size(s) for n, s in zip(d.shape, keep))
-        if tuple(t.shape) == want:
-            return t
-        return ctx.gather_leaf(t, tuple(() if k else s
-                                        for k, s in zip(keep, spec)))
-    return zip_map(one, params, defs)
+    def one(t, d, tp):
+        dims = ((_TP_DIMS if tp else _EXPERT_DIMS) if _is_expert_leaf(d)
+                else ())
+        return _block(t, d, ctx.resolve(d.shape, d.axes), dims, ctx)
+
+    def walk(p, d, moe):      # moe: d is a "moe" layer's dict
+        return {k: walk(p[k], d[k], k == "moe") if isinstance(d[k], dict)
+                else one(p[k], d[k], moe and "expert_groups" not in d[k].axes)
+                for k in sorted(d)}
+    return walk(params, defs, False)
 
 
 def local_plan(p, e0: int, e_local: int):
@@ -183,24 +225,30 @@ class GlobalPlan:
     """A routed layer's global plan on one rank (the module docstring):
     the step's tokens gathered over ``token_axes``, this rank's experts
     ``[e0, e0 + n)`` of the leading expert dim, split over
-    ``expert_axes`` (``()``: every rank holds them all).  ``ctx`` None
+    ``expert_axes`` (``()``: every rank holds them all), and, for the
+    flat MoE served tensor-parallel, its slice of d_ff, split over
+    ``mlp_axes`` (``()``: d_ff whole, or on one rank).  ``ctx`` None
     is one process: every method is then the one-process op."""
     ctx: MeshContext | None
     token_axes: tuple[str, ...]
     expert_axes: tuple[str, ...]
     e0: int
     n: int
-    # key -> (spec, full shape) of the layer's expert leaves
+    # key -> (ParamDef, spec) of the layer's expert leaves
     leaves: dict
+    mlp_axes: tuple[str, ...] = ()
 
     @classmethod
     def build(cls, ctx: MeshContext | None, defs: dict, n_experts: int,
-              token_axes=None) -> "GlobalPlan":
+              token_axes=None, tp: bool = False) -> "GlobalPlan":
         """The plan of a layer with ParamDefs ``defs`` whose expert dim
         (dim 0 of its expert leaves) holds ``n_experts``; ``token_axes``
         the mesh axes this rank's rows are split over (None: a training
         step's, ``ctx.rows_over``; a rank that holds its rows whole on
-        several ranks gathers them over the row axes only)."""
+        several ranks gathers them over the row axes only).  ``tp``:
+        the layer runs this rank's slice of each expert's d_ff (the flat
+        MoE's serving layout, :func:`serve_layout`) where its
+        ``expert_mlp`` dim is split over more than one rank."""
         if ctx is None or ctx.mesh is None:
             return cls(None, (), (), 0, n_experts, {})
         specs = _expert_specs(defs, ctx)
@@ -209,10 +257,14 @@ class GlobalPlan:
             raise NotImplementedError(
                 f"experts sharded over {axes}: the schedule gathers over "
                 "one mesh axis")
+        mlp: tuple[str, ...] = ()
+        if tp:
+            mlp = specs["w1"][defs["w1"].axes.index("expert_mlp")]
+            mlp = mlp if ctx.size(mlp) > 1 else ()
         n = n_experts // ctx.size(axes)
         return cls(ctx, ctx.rows_over if token_axes is None
                    else tuple(token_axes), axes, ctx.index(axes) * n, n,
-                   {k: (s, tuple(defs[k].shape)) for k, s in specs.items()})
+                   {k: (defs[k], s) for k, s in specs.items()}, mlp)
 
     def gather(self, t: torch.Tensor | None) -> torch.Tensor | None:
         """This rank's rows -> the step's rows (in ``ctx.local_rows``'s
@@ -228,14 +280,15 @@ class GlobalPlan:
         return t.narrow(0, self.ctx.index(self.token_axes) * rows, rows)
 
     def weights(self, params: dict) -> dict:
-        """The layer's expert leaves as this rank's slab, whole over
-        their other dims: a training shard is gathered over them
-        (FSDP; the backward pass reduce-scatters), a leaf already in
-        the serving layout kept."""
+        """The layer's expert leaves as this rank's slab (and d_ff
+        slice, where ``mlp_axes`` split it), whole over their other
+        dims (:func:`_block` from dim 1): a training shard is gathered
+        over them (FSDP; the backward pass reduce-scatters), a leaf
+        already in the serving layout kept."""
         out = dict(params)
-        for k, (spec, shape) in self.leaves.items():
-            if tuple(params[k].shape[1:]) != shape[1:]:
-                out[k] = self.ctx.gather_leaf(params[k], ((),) + spec[1:])
+        dims = ("expert_mlp",) if self.mlp_axes else ()
+        for k, (d, spec) in self.leaves.items():
+            out[k] = _block(params[k], d, spec, dims, self.ctx, start=1)
         return out
 
     def slab(self, t: torch.Tensor) -> torch.Tensor:
@@ -245,11 +298,15 @@ class GlobalPlan:
     def apply(self, x_all: torch.Tensor, plan, a, ffn, *, out_plan=None,
               dtype=None) -> torch.Tensor:
         """dispatch ``x_all`` by ``plan`` into ``[E, C, ·]``, ``ffn`` on
-        this rank's slab ``[n, C, ·]``, the slab outputs all-gathered
-        over the expert axis, combined by ``out_plan`` (default
-        ``plan``): the step's rows."""
+        this rank's slab ``[n, C, ·]`` (a d_ff slice's f32 partial sums,
+        summed over ``mlp_axes`` and cast once to the buffer's dtype),
+        the slab outputs all-gathered over the expert axis, combined by
+        ``out_plan`` (default ``plan``): the step's rows."""
         bk = backend_lib.resolve(a)
+        # The slab is a view: no name holds the dispatch buffer past ffn.
         out = ffn(self.slab(bk.dispatch(x_all, plan, a)))
+        if self.mlp_axes:
+            out = self.ctx.all_reduce(out, self.mlp_axes).to(x_all.dtype)
         if self.ctx is not None:
             out = self.ctx.all_gather(out, self.expert_axes, 0)
         return bk.combine(out, plan if out_plan is None else out_plan, a,
@@ -260,10 +317,11 @@ class GlobalPlan:
         return p if self.ctx is None else local_plan(p, self.e0, self.n)
 
     def reduce(self, part: torch.Tensor) -> torch.Tensor:
-        """Sum the ranks' partial outputs over the expert axis."""
+        """Sum the ranks' partial outputs over the expert axis and the
+        d_ff slices, in one all-reduce."""
         if self.ctx is None:
             return part
-        return self.ctx.all_reduce(part, self.expert_axes)
+        return self.ctx.all_reduce(part, self.expert_axes + self.mlp_axes)
 
     def gather_experts(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's slab of a per-expert statistic -> every
@@ -288,7 +346,7 @@ def moe_apply_serve(params, x: torch.Tensor, a: moe_lib.MoEArgs,
     of an eval call)."""
     defs = moe_lib.moe_defs(a)
     _expert_group(a, ctx, _expert_specs(defs, ctx))
-    gp = GlobalPlan.build(ctx, defs, a.n_experts, rows_axes)
+    gp = GlobalPlan.build(ctx, defs, a.n_experts, rows_axes, tp=True)
     x_all = gp.gather(x)
     mask = gp.gather(None if mask is None else mask.reshape(-1))
     bk = backend_lib.resolve(a)
@@ -301,8 +359,10 @@ def moe_apply_serve(params, x: torch.Tensor, a: moe_lib.MoEArgs,
         y = gp.reduce(part).to(x.dtype)
     else:
         rows = None if dec.rows is None else gp.slab(dec.rows)
+        # A d_ff slice's partial sums stay f32 until gp.apply sums them.
+        out_dtype = torch.float32 if gp.mlp_axes else None
         y = gp.apply(x_all, dec, a, lambda buf: bk.expert_ffn(
-            w, buf, a, rows=rows), dtype=x.dtype)
+            w, buf, a, rows=rows, out_dtype=out_dtype), dtype=x.dtype)
     y = gp.own(y, x.shape[0])
     if a.sigmoid_output:
         y = torch.sigmoid(y.float()).to(x.dtype)
@@ -344,7 +404,7 @@ def moe_apply_ep(params, x: torch.Tensor, a: moe_lib.MoEArgs,
     if a.fused_decode and not train:
         # A decode-shaped eval call: the serving schedule over the
         # tokens of every rank (its fused path; it gathers the experts
-        # whole over their non-expert dims).
+        # over expert_embed and keeps their d_ff slices).
         return moe_apply_serve(params, x, a, ctx, mask=mask,
                                rows_axes=ctx.free_axes)
     e_local = a.n_experts // ep

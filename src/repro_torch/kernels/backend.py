@@ -70,8 +70,10 @@ class KernelBackend:
     ``topk_impl`` is None for the sort-based top-k, else ``(noisy, k,
     kk) -> (combine [T,k], idx [T,k], raw top values [T,kk])``."""
     name: str
-    # (params, x, a, *, rows=None) -> [E, C, d]; rows [E] int32: each
-    # expert's filled leading rows (core/dispatch.py::filled_rows).
+    # (params, x, a, *, rows=None, out_dtype=None) -> [E, C, d]; rows
+    # [E] int32: each expert's filled leading rows (core/dispatch.py::
+    # filled_rows); out_dtype float32 keeps the down-projection's
+    # accumulator (a d_ff slice's partial sums).
     expert_ffn: Callable
     dispatch: Callable       # (x, plan, a) -> [E, C, d]
     combine: Callable        # (buf, plan, a, *, dtype=None) -> [T, d]
@@ -156,9 +158,10 @@ def _routed_ffn_via(bk: KernelBackend, params, x, p, a, *, dtype=None):
 # "ref" — plain PyTorch
 # ---------------------------------------------------------------------------
 
-def _ref_expert_ffn(params, x, a, *, rows=None):
+def _ref_expert_ffn(params, x, a, *, rows=None, out_dtype=None):
     """The reference's order of roundings: f32 up-projections, the gate
-    product in f32, one cast, the f32 down-projection, one cast.  Walked
+    product in f32, one cast, the f32 down-projection, one cast (to
+    ``out_dtype``, default ``a.dtype``; float32 keeps it).  Walked
     over expert chunks so weights are upcast a chunk at a time.  Rows at
     or beyond ``rows[e]`` come out as zeros, as on the kernel path."""
     with trace_lib.current().span("kernel.gmm", backend="ref",
@@ -166,7 +169,7 @@ def _ref_expert_ffn(params, x, a, *, rows=None):
         dt = a.dtype
         e = x.shape[0]
         out = torch.empty((e, x.shape[1], params["w2"].shape[-1]),
-                          dtype=dt, device=x.device)
+                          dtype=out_dtype or dt, device=x.device)
         step = gmm_lib.expert_chunk(params["w1"].shape[1],
                                     params["w1"].shape[2])
         for e0 in range(0, e, step):
@@ -179,7 +182,8 @@ def _ref_expert_ffn(params, x, a, *, rows=None):
             else:
                 h = torch.relu(h)
             h = h.to(dt).float()
-            out[sl] = torch.bmm(h, params["w2"][sl].to(dt).float()).to(dt)
+            out[sl] = torch.bmm(h, params["w2"][sl].to(dt).float()).to(
+                out.dtype)
         return gmm_lib.mask_rows(out, rows)
 
 
@@ -248,10 +252,11 @@ def plan_e_block(a) -> int | None:
     return forced
 
 
-def _cuda_expert_ffn(params, x, a, *, rows=None):
+def _cuda_expert_ffn(params, x, a, *, rows=None, out_dtype=None):
     with trace_lib.current().span("kernel.gmm", backend="cuda",
                                   shape=tuple(x.shape)):
-        return ops.expert_ffn(params, x, activation=a.activation, rows=rows)
+        return ops.expert_ffn(params, x, activation=a.activation, rows=rows,
+                              out_dtype=out_dtype)
 
 
 def _cuda_dispatch(x, p, a):

@@ -1,5 +1,6 @@
 """Grouped (per-expert) matmul with a fused activation: the CUDA kernels
-of ``csrc/gmm.cu`` and their plain PyTorch version, and its custom VJP.
+of ``csrc/gmm.cuh`` (instantiated by ``csrc/gmm*.cu``) and their plain
+PyTorch version, and its custom VJP.
 
 Replaces ``repro/kernels/gmm.py::_gmm_kernel``: ``[E, C, K] x [E, K, N]
 -> [E, C, N]`` with an f32 accumulator and a none / relu / silu
@@ -11,7 +12,9 @@ picks one per call): the streaming kernel for bf16 with at most
 everything else (f32 as 3xTF32, bf16 above that, every transposed
 layout).  ``rows`` (``[E]`` int32, the filled leading rows of each
 expert, :func:`repro_torch.core.dispatch.filled_rows`) lets both skip
-what holds no token.  The reference's tiling table
+what holds no token.  ``out_dtype=torch.float32`` stores the forward
+layout's f32 accumulator without the cast (a d_ff slice's partial sums,
+``core/expert_parallel.py``).  The reference's tiling table
 (``gmm_tunings.json``) was measured in CPU interpret mode and is not
 carried over; the CUDA source carries the design notes.
 """
@@ -22,7 +25,7 @@ import torch
 from repro_torch.kernels import cuda_lib
 
 ACTIVATIONS = {"none": 0, "relu": 1, "silu": 2}
-# Kernel codes of csrc/gmm.cu (GmmKernel).
+# Kernel codes of csrc/gmm.cuh (GmmKernel).
 KERNELS = {"stream": 1, "tile": 2}
 # The streaming kernel's range: bf16, forward layout, C at most this.
 STREAM_MAX_C = 64
@@ -65,20 +68,21 @@ def mask_rows(t: torch.Tensor, rows: torch.Tensor | None) -> torch.Tensor:
 
 def gmm_plain(x: torch.Tensor, w: torch.Tensor, activation: str = "none",
               trans_x: bool = False, trans_w: bool = False,
-              rows: torch.Tensor | None = None) -> torch.Tensor:
+              rows: torch.Tensor | None = None,
+              out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain PyTorch version: f32 products over expert chunks, then the
-    epilogue and one cast to x.dtype.  The flags read x / w transposed
-    (as views); ``rows`` zeroes x's stored rows at or beyond ``rows[e]``
-    and, unless x is read transposed, the output's, as the kernels
-    do."""
+    epilogue and one cast to ``out_dtype`` (default x.dtype).  The flags
+    read x / w transposed (as views); ``rows`` zeroes x's stored rows at
+    or beyond ``rows[e]`` and, unless x is read transposed, the
+    output's, as the kernels do."""
     xl, wl = _logical(mask_rows(x, rows), trans_x), _logical(w, trans_w)
     e, c, k = xl.shape
     n = wl.shape[-1]
-    out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((e, c, n), dtype=out_dtype or x.dtype, device=x.device)
     step = expert_chunk(k, n)
     for e0 in range(0, e, step):
         z = torch.bmm(xl[e0:e0 + step].float(), wl[e0:e0 + step].float())
-        out[e0:e0 + step] = activate(z, activation).to(x.dtype)
+        out[e0:e0 + step] = activate(z, activation).to(out.dtype)
     return out if trans_x else mask_rows(out, rows)
 
 
@@ -93,8 +97,11 @@ def kernel_for(dtype: torch.dtype, c: int, transposed: bool) -> str:
 def gmm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
         trans_x: bool = False, trans_w: bool = False,
         rows: torch.Tensor | None = None,
-        kernel: str | None = None) -> torch.Tensor:
-    """[E, C, K] x [E, K, N] -> [E, C, N] in x.dtype.  ``trans_x`` reads x
+        kernel: str | None = None,
+        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """[E, C, K] x [E, K, N] -> [E, C, N] in ``out_dtype``: x.dtype
+    (default), or float32 in the forward layout, the accumulator stored
+    without the cast.  ``trans_x`` reads x
     stored as [E, K, C], ``trans_w`` reads w stored as [E, N, K], in
     place (the backward pass's layouts, one operand at a time).
     ``rows`` ([E] int32, e.g. a dispatch buffer's filled slots): x's
@@ -123,6 +130,11 @@ def gmm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
     if x.dtype != w.dtype:
         raise ValueError(f"gmm: x {x.dtype} and w {w.dtype} differ")
     transposed = trans_x or trans_w
+    out_dtype = out_dtype or x.dtype
+    if out_dtype != x.dtype and (out_dtype != torch.float32 or transposed):
+        raise ValueError(f"gmm: out_dtype {out_dtype} for {x.dtype} "
+                         f"operands (transposed = {transposed}); only the "
+                         "forward layout stores f32 instead")
     if rows is not None:
         if rows.shape != (e,) or rows.dtype != torch.int32:
             raise ValueError(f"gmm: rows must be [{e}] int32, got "
@@ -139,18 +151,20 @@ def gmm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
                          f"forward layout with C <= {STREAM_MAX_C}, got "
                          f"{x.dtype}, C = {c}, transposed = {transposed}")
     if x.device.type == "cpu":
-        return gmm_plain(x, w, activation, trans_x, trans_w, rows)
+        return gmm_plain(x, w, activation, trans_x, trans_w, rows,
+                         out_dtype)
     launch = cuda_lib.launches("gmm", x.device)
     if x.dtype not in cuda_lib.DTYPE_CODES:
         raise ValueError(f"gmm: unsupported dtype {x.dtype}")
     cuda_lib.check_cuda("gmm", x, w, *(() if rows is None else (rows,)))
-    out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
+    out = torch.empty((e, c, n), dtype=out_dtype, device=x.device)
     if not launch:
         return out
     cuda_lib.call("repro_gmm", x.data_ptr(), w.data_ptr(), out.data_ptr(),
                   None if rows is None else rows.data_ptr(), e, c, k, n,
                   ACTIVATIONS[activation], cuda_lib.DTYPE_CODES[x.dtype],
-                  int(trans_x), int(trans_w), KERNELS[kernel])
+                  cuda_lib.DTYPE_CODES[out_dtype], int(trans_x),
+                  int(trans_w), KERNELS[kernel])
     # Counted by layout, whichever kernel ran: the backward pass's
     # transposed products are "gmm_bwd".
     cuda_lib.count("gmm_bwd" if transposed else "gmm")
@@ -170,7 +184,9 @@ def act_grad(z: torch.Tensor, activation: str) -> torch.Tensor:
 
 
 class GMMFn(torch.autograd.Function):
-    """Differentiable :func:`gmm`: ``apply(x, w, activation, rows)``.
+    """Differentiable :func:`gmm`: ``apply(x, w, activation, rows,
+    out_dtype)``; an f32 output's cotangent is cast to x's dtype, the
+    operands' type of the backward products.
     Backward (the reference's ``_gmm_bwd``): the pre-activation z is
     recomputed with one more forward GMM (``activation="none"``), ``dz =
     g * act'(z)`` in f32 cast to g's dtype, then ``dx = gmm(dz, w^T)`` and
@@ -180,15 +196,16 @@ class GMMFn(torch.autograd.Function):
     stops there."""
 
     @staticmethod
-    def forward(ctx, x, w, activation, rows=None):
+    def forward(ctx, x, w, activation, rows=None, out_dtype=None):
         ctx.save_for_backward(x, w, rows)
         ctx.activation = activation
-        return gmm(x, w, activation=activation, rows=rows)
+        return gmm(x, w, activation=activation, rows=rows,
+                   out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, w, rows = ctx.saved_tensors
-        g = g.contiguous()
+        g = g.to(x.dtype).contiguous()
         if ctx.activation != "none":
             z = gmm(x, w, activation="none", rows=rows)
             g = (g.float() * act_grad(z.float(), ctx.activation)).to(g.dtype)
@@ -197,4 +214,4 @@ class GMMFn(torch.autograd.Function):
             dx = gmm(g, w, trans_w=True, rows=rows).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = gmm(x, g, trans_x=True, rows=rows).to(w.dtype)
-        return dx, dw, None, None
+        return dx, dw, None, None, None

@@ -39,13 +39,17 @@ def combine(buf: torch.Tensor, w: torch.Tensor, eidx: torch.Tensor,
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor, *, activation: str = "none",
-        rows: torch.Tensor | None = None) -> torch.Tensor:
-    return GMMFn.apply(x, w, activation, rows)
+        rows: torch.Tensor | None = None,
+        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    return GMMFn.apply(x, w, activation, rows, out_dtype)
 
 
 def expert_ffn(params, x: torch.Tensor, *, activation: str = "relu",
-               rows: torch.Tensor | None = None) -> torch.Tensor:
-    """Up-projection GMM (+ fused activation), then the down-projection.
+               rows: torch.Tensor | None = None,
+               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Up-projection GMM (+ fused activation), then the down-projection,
+    stored in ``out_dtype`` (default x's: float32 keeps the accumulator
+    of a d_ff slice's partial sum).
 
     x: [E, C, d]; params carries w1 [E,d,f], w2 [E,f,d] (w3 for swiglu).
     swiglu is silu(x w1) * (x w3): two GMMs, the product in f32, one
@@ -61,7 +65,7 @@ def expert_ffn(params, x: torch.Tensor, *, activation: str = "relu",
         h = (h.float() * g.float()).to(dt)
     else:
         h = gmm(x, w1, activation="relu", rows=rows)
-    return gmm(h, w2, activation="none", rows=rows)
+    return gmm(h, w2, activation="none", rows=rows, out_dtype=out_dtype)
 
 
 def _inference_only(name: str, *tensors) -> None:

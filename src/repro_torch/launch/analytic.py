@@ -32,11 +32,16 @@ charges:
   (``core/expert_parallel.py::moe_apply_ep``), the reference's branch
   without wide dispatch, which the port does not have.
 * Prefill / decode wire: serving runs ``moe_apply_serve`` and keeps
-  every weight but the experts' whole on every rank, so no layer
-  all-reduces a tensor-parallel output.  A decode step all-gathers its
-  rows (and their routing mask) over the batch axes, and each MoE layer
-  all-gathers its expert outputs over the expert axis, or, fused,
-  all-reduces the f32 partial sums of its experts.  Decode attention
+  every weight but the experts' whole on every rank, so no dense layer
+  all-reduces a tensor-parallel output.  The flat MoE's experts are a
+  rank's block over ``experts`` x ``expert_mlp`` (the reference's
+  layout).  A decode step all-gathers its rows (and their routing mask)
+  over the batch axes, and each MoE layer all-reduces its d_ff slice's
+  f32 partial sums ``[E/g, C, d]`` over the ``expert_mlp`` axes (where
+  they split d_ff) and all-gathers its expert outputs over the expert
+  axis, or, fused, all-reduces the f32 partial sums of its experts
+  over both (``_all_reduce_share``: one group where they are every
+  axis with more than one device).  Decode attention
   over a cache whose sequence is sharded
   (``attention.attend_cached_sharded``) all-gathers three f32 tensors:
   the ranks' score maxima, their exponential sums (each [B, H]) and
@@ -98,6 +103,18 @@ def _dim_shards(rules, sizes: dict, shape, axes, dim: int) -> int:
     """Number of devices dimension ``dim`` of the tensor is split across."""
     spec = partition.resolve_spec(rules, sizes, shape, axes)
     return math.prod(sizes[ax] for ax in spec[dim])
+
+
+def _all_reduce_share(sizes: dict, axes) -> float:
+    """Ring bytes a device sends a byte of a tensor all-reduced over the
+    mesh axes ``axes``, as ``MeshContext.all_reduce`` groups them: one
+    group where they are every axis with more than one device, else one
+    all-reduce an axis, in turn."""
+    spread = [a for a in axes if sizes[a] > 1]
+    if set(spread) == {a for a, n in sizes.items() if n > 1}:
+        n = math.prod(sizes[a] for a in spread)
+        return 2 * (n - 1) / n
+    return sum(2 * (sizes[a] - 1) / sizes[a] for a in spread)
 
 
 def analyze_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
@@ -279,17 +296,25 @@ def analyze_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
                     * (M - 1) / M
                 w += 2 * 2 * a2a * r
             else:
-                # moe_apply_serve: one plan over tokens_global tokens; the
-                # experts' outputs gathered over the expert axis, or the
-                # fused path's f32 partial sums all-reduced.
-                g_e = _dim_shards(rules, sizes, (E, d, ff),
-                                  ("experts", "expert_embed", "expert_mlp"),
-                                  0)
+                # moe_apply_serve: one plan over tokens_global tokens;
+                # each rank runs its experts' d_ff slice.  Unfused, the
+                # slice's f32 partial sums are all-reduced over the
+                # expert_mlp axes, then the experts' outputs gathered
+                # over the expert axis; fused, the f32 partial outputs
+                # are all-reduced over both.
+                e_ax, _, f_ax = partition.resolve_spec(
+                    rules, sizes, (E, d, ff),
+                    ("experts", "expert_embed", "expert_mlp"))
+                g_e = math.prod(sizes[a] for a in e_ax)
+                d_e = math.prod(sizes[a] for a in f_ax)
+                f_ax = f_ax if d_e > 1 else ()
                 if kind == "decode" and cfg.fused_decode:
-                    w += r * 2 * (g_e - 1) / g_e * tokens_global * d \
-                        * F32_BYTES
+                    w += r * _all_reduce_share(sizes, e_ax + f_ax) \
+                        * tokens_global * d * F32_BYTES
                 else:
                     w += r * (g_e - 1) * (E / g_e) * cap * d * bytes_p
+                    w += r * _all_reduce_share(sizes, f_ax) * (E / g_e) \
+                        * cap * d * F32_BYTES
                 w += r * rows_wire
                 unread_bytes += p_here * (1 - min(E, k * tokens_global) / E)
             act_bytes += r * (slots * mbs / cap_shards) * (2 * d + ff) \

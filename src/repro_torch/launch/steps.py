@@ -14,7 +14,7 @@ allocating a byte), laid out as one rank holds them:
   count is the reference's, ``cfg_microbatches`` of the ranks of the
   ``batch`` axes;
 * prefill: the serving layout (``expert_parallel.serve_layout``: every
-  weight whole but the experts' slab), and the rank's rows of the batch
+  weight whole but the experts' block), and the rank's rows of the batch
   and of the cache by :func:`prefill_rows` (``MeshContext.split_rows``,
   the rule training follows; the routed layers' global plans gather the
   rows over the axes that split them, so the plan, the drops and each

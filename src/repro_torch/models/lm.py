@@ -185,7 +185,7 @@ def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
 
     On a mesh (``ctx``, the prefill plan) ``params`` are the serving
     layout (``expert_parallel.serve_layout``) and the MoE's expert work
-    is split over the expert axis.  With the engine's context every rank
+    is split over the expert axis (the flat MoE's also over its d_ff).  With the engine's context every rank
     prefills the same rows into a whole page, and the logits are the
     same on every rank.  A context whose ``row_axes`` split the rows
     (``launch/steps.py::prefill_rows``) gives ``batch`` and ``cache`` as

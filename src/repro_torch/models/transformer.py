@@ -32,7 +32,8 @@ slots (the decode plan's
 (``attention.decode_attention``; a sliding-window ring is split over the
 same axes where its length divides) and their whole mamba scan and conv
 states.  The weights are then the serving layout: whole, but for the
-experts' slabs.  MoA mixers and the
+experts' blocks (the flat MoE's over ``experts`` and its d_ff).  MoA
+mixers and the
 hierarchical MoE run their global plan (``expert_parallel.GlobalPlan``)
 in training and serving alike: one process's routing on every rank.
 """

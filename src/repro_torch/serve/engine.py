@@ -59,7 +59,8 @@ and reaches the same decisions on every rank.  ``prefill_ctx`` and
 ``decode_plan``.  The parameters come in as this rank's slices by the
 decode plan and are gathered once, here, into the serving layout
 (``expert_parallel.serve_layout``: every weight whole but the experts,
-which stay sharded over the expert axis).  Every rank prefills the whole
+which stay sharded over the expert axis, the flat MoE's also over its
+d_ff, as the reference's ``expert_mlp``).  Every rank prefills the whole
 prompt or chunk rows into a whole page (the prefill plan), and each
 completed prompt's page is relaid once onto the decode plan (the
 ``serve.reshard`` span, the ``reshards`` counter) before it joins the

@@ -99,6 +99,34 @@ def test_gmm_kernels_ragged_match_plain(gen, dtype, tol, c, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 8, 17, 130])
+@pytest.mark.parametrize("k,n", [(75, 46), (64, 136)])
+def test_gmm_f32_output_matches_plain(gen, c, k, n):
+    """bf16 operands stored in f32 (``out_dtype``): both kernels against
+    the plain version's f32 output (f32 sums in another order), rows
+    past ``rows[e]`` exactly 0, and the bf16 output the f32 output's
+    cast bit for bit (the same accumulator)."""
+    e = 3
+    rows = torch.tensor([c, 0, (c + 1) // 2], dtype=torch.int32,
+                        device="cuda")
+    x = torch.randn(e, c, k, device="cuda", generator=gen).to(torch.bfloat16)
+    w = (torch.randn(e, k, n, device="cuda", generator=gen)
+         / k ** 0.5).to(torch.bfloat16)
+    for kernel in _kernels_for(torch.bfloat16, c):
+        for act in sorted(tgmm.ACTIVATIONS):
+            got = tgmm.gmm(x, w, activation=act, rows=rows, kernel=kernel,
+                           out_dtype=torch.float32)
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(
+                got, tgmm.gmm_plain(x, w, act, rows=rows,
+                                    out_dtype=torch.float32),
+                rtol=1e-5, atol=1e-5)
+            assert torch.equal(tgmm.gmm(x, w, activation=act, rows=rows,
+                                        kernel=kernel),
+                               got.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("c", [8, 17, 130])

@@ -6,8 +6,9 @@
   16), with the reference's ``resolve_spec`` fed a stand-in mesh that
   carries only ``shape`` and ``size``.  Two terms are the port's own and
   are held to hand counts here: the serving wire bytes
-  (``moe_apply_serve``'s gathers and fused all-reduce, the decode rows'
-  gathers, ``attend_cached_sharded``'s three gathers; no tensor-parallel
+  (``moe_apply_serve``'s gathers, its all-reduce of the d_ff slices'
+  f32 partial sums and its fused all-reduce, the decode rows' gathers,
+  ``attend_cached_sharded``'s three gathers; no dense tensor-parallel
   all-reduce) and the serving MoE weight bytes (``min(E, k x T)``
   experts read).
 * ``configs.shapes`` and the ``common.param`` helpers equal the
@@ -120,14 +121,25 @@ def _serve_counts(cfg, shape, sizes, plan) -> tuple[float, float]:
             E, k, ff = cfg.n_experts, cfg.moe_k, cfg.moe_d_ff
             g = _nshards(plan, sizes, (E, d, ff),
                          ("experts", "expert_embed", "expert_mlp"), 0)
+            # the d_ff slices of each expert (expert_mlp over data)
+            f_sh = _nshards(plan, sizes, (E, d, ff),
+                            ("experts", "expert_embed", "expert_mlp"), 2)
             cap = jcapacity(tokens, E, k, cfg.capacity_factor)
             if kind == "decode":
                 # this rank's rows [B/bs, d] bf16 and mask [B/bs] f32
                 wire += r * (bs - 1) * (B // bs) * (2 * d + 4)
             if kind == "decode" and cfg.fused_decode:
-                wire += r * 2 * (g - 1) / g * tokens * d * 4
+                # [T, d] f32 over the g x f_sh ranks in one group where
+                # they are the whole mesh, else over each axis in turn
+                n = g * f_sh
+                spread = math.prod(v for v in sizes.values() if v > 1)
+                share = (2 * (n - 1) / n if n == spread else
+                         2 * (g - 1) / g + 2 * (f_sh - 1) / f_sh)
+                wire += r * share * tokens * d * 4
             else:
                 wire += r * (g - 1) * (E // g) * cap * d * 2
+                # the slices' f32 partial sums [E/g, C, d], all-reduced
+                wire += r * 2 * (f_sh - 1) / f_sh * (E // g) * cap * d * 4
             m_e = _nshards(plan, sizes, (E, d, ff),
                            ("experts", "expert_embed", "expert_mlp"))
             n_mat = 3 if cfg.activation in ("swiglu", "geglu") else 2
@@ -223,10 +235,12 @@ def decode_wire(tmp_path_factory):
 @pytest.mark.parametrize("fused", [False, True], ids=["gather", "fused"])
 @pytest.mark.parametrize("mesh", WIRE_MESHES, ids=["1x2", "2x2"])
 def test_decode_wire_equals_what_the_ranks_send(decode_wire, mesh, fused):
-    """The analytic wire bytes of a decode step against the bytes each
-    rank's collectives take in (every group here has two ranks, where a
-    ring sends exactly its input: (g-1) x the input of an all-gather,
-    2(g-1)/g x an all-reduce's tensor)."""
+    """The analytic wire bytes of a decode step against the ring bytes
+    each rank's collectives send ((g-1) x the input of an all-gather,
+    2(g-1)/g x an all-reduce's tensor, by the size g of the call's
+    group): on (2, 2) the unfused step all-reduces the d_ff slices'
+    partial sums over ``data`` (g = 2), the fused one its partial
+    outputs over both axes (g = 4)."""
     shape = tshp.ShapeSpec("decode", "decode", WIRE_PROMPT + WIRE_NEW,
                            WIRE_SLOTS)
     want = tana.analyze_cell(_wire_cfg(fused), shape,

@@ -271,13 +271,21 @@ def case_serve(ctx: MeshContext, inputs: dict) -> dict:
     return out
 
 
+# The ring bytes a rank sends of a collective's tensor in a group of g
+# (launch/analytic.py's convention): g - 1 x an all-gather's input,
+# 2 (g - 1) / g x an all-reduce's tensor, (g - 1) / g x an all-to-all's.
+_RING_SHARE = {"all_gather": lambda g: g - 1,
+               "all_reduce": lambda g: 2 * (g - 1) / g,
+               "all_to_all_single": lambda g: (g - 1) / g}
+
+
 def case_decode_wire(ctx: MeshContext, inputs: dict) -> dict:
-    """Each case: the rank's engine on the case's trace, with the bytes
-    of every collective's input summed inside ``lm.lm_decode`` calls;
+    """Each case: the rank's engine on the case's trace, with the ring
+    bytes this rank sends of every collective's tensor summed inside
+    ``lm.lm_decode`` calls (``_RING_SHARE`` of its group's size);
     returns those bytes and the number of calls (one a decode step)."""
     from repro_torch.serve.engine import ServeConfig, ServeEngine
-    real = {n: getattr(dist, n) for n in ("all_gather", "all_reduce",
-                                          "all_to_all_single")}
+    real = {n: getattr(dist, n) for n in _RING_SHARE}
     real_decode = lm.lm_decode
     seen = {"on": False}
 
@@ -285,7 +293,9 @@ def case_decode_wire(ctx: MeshContext, inputs: dict) -> dict:
         def call(*args, **kw):
             if seen["on"]:
                 t = args[0] if name == "all_reduce" else args[1]
-                seen["bytes"] += t.numel() * t.element_size()
+                g = dist.get_world_size(kw.get("group"))
+                seen["bytes"] += (t.numel() * t.element_size()
+                                  * _RING_SHARE[name](g))
             return real[name](*args, **kw)
         return call
 
@@ -563,10 +573,63 @@ def case_prefill_rows(ctx: MeshContext, inputs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the experts served tensor-parallel (d_ff over data)
+# ---------------------------------------------------------------------------
+
+def _moe_leaves(params) -> dict:
+    """The first MoE layer's FFN leaves of a stacked tree."""
+    moe = params["blocks"]["periods"]["pos0"]["moe"]
+    return {k: moe[k][0] for k in ("w1", "w2", "w3") if k in moe}
+
+
+def case_expert_tp(ctx: MeshContext, inputs: dict) -> dict:
+    """The flat MoE's serving layout and the engine on it: for each
+    layout case, ``serve_layout`` of the decode plan's slices, of that
+    layout again (kept) and of the whole tree (the same layout), with
+    this rank's coordinates; for each
+    serving case, the rank's engine on the trace (its streams, stats
+    and the expert leaves' shapes it serves from); each logits case as
+    :func:`_routed_logits`."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    dec = ctx.with_plan("decode_std")
+    out = {"coords": {"data": dec.index(("data",)),
+                      "model": dec.index(("model",))},
+           "layout": {}, "serve": {}}
+    for name, case in inputs["layout"].items():
+        defs = lm.lm_defs(case["cfg"])
+        params = ep_lib.serve_layout(dec.shard(case["params"], defs), defs,
+                                     dec)
+        again = ep_lib.serve_layout(params, defs, dec)
+        whole = ep_lib.serve_layout(case["params"], defs, dec)
+        out["layout"][name] = {
+            "leaves": _moe_leaves(params),
+            "kept": all(a is b for a, b in zip(tree_leaves(params),
+                                               tree_leaves(again))),
+            "from_whole": all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(params), tree_leaves(whole)))}
+    for name, case in inputs["serve"].items():
+        cfg, sc = case["cfg"], ServeConfig(**case["sc"])
+        local = ctx.with_plan(sc.decode_plan).shard(case["params"],
+                                                    lm.lm_defs(cfg))
+        eng = ServeEngine(local, cfg, sc, device="cpu", ctx=ctx)
+        reqs = [eng.submit(p, m, arrival=a) for p, m, a in case["trace"]]
+        eng.run()
+        out["serve"][name] = {
+            "streams": [list(r.tokens) for r in reqs],
+            "done": all(r.done for r in reqs), "stats": dict(eng.stats),
+            "expert_shapes": {k: tuple(v.shape) for k, v in
+                              _moe_leaves(eng.params).items()}}
+    out["logits"] = {name: _routed_logits(ctx, case)
+                     for name, case in inputs["logits"].items()}
+    return out
+
+
 CASES = {"moe": case_moe, "train": case_train, "restore": case_restore,
          "serve": case_serve, "decode_wire": case_decode_wire,
          "pipeline": case_pipeline, "routed": case_routed,
-         "rows": case_rows, "prefill_rows": case_prefill_rows}
+         "rows": case_rows, "prefill_rows": case_prefill_rows,
+         "expert_tp": case_expert_tp}
 
 
 # ---------------------------------------------------------------------------
