@@ -274,7 +274,7 @@ Phases, in order; any failure exits non-zero and prints no result:
              from a pinned ref run with the compute in f32); 3
              steps, launch counts exactly 4 x ARCTIC_LAUNCHES a step; one
              more step timed as in phase 22.
-22. falcon_train — falcon-mamba-7b cut to 16 layers, trained at B = 2 x
+22. falcon_train — falcon-mamba-7b cut to 8 layers, trained at B = 2 x
              S = 2048, remat,
              3 steps: finite metrics, every gradient present and finite,
              the optimizer timed alone, one more step with CUDA events
@@ -326,8 +326,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              gradients on this
              process, (b) pipelined over (stage 2, model 1), 4
              microbatches of B 4 x S 1024: loss and every gradient
-             against (a), 2 make_pipeline_train_step steps (the last
-             one's forward ticks timed: the bubble share); (c) the
+             against (a), one make_pipeline_train_step step (its
+             forward ticks timed: the bubble share); (c) the
              kimi-k2 family at --reduce widths (4 layers) on (stage 2,
              model 2), four ranks: cuda against ref loss and gradients,
              exact launches a step (one MoE layer's lm_loss launches x
@@ -427,7 +427,24 @@ Phases, in order; any failure exits non-zero and prints no result:
              rank's decode-step ms, the collectives' calls, bytes and
              share of the decode time, peak memory a rank, the routing
              flips.
-30. report — one ``{"kernels": [...]}`` line, then the result line.
+30. dense_tp — the dense layers tensor-parallel where a step's rows are
+             whole (``MeshContext.tp_axes``): gemma3-27b at full width
+             cut to one period (5 windowed layers, 1 global), bf16,
+             remat, factored Adam, B 1 x S 4096 on two gloo ranks
+             sharing the card on (data 1, model 2), each drawing its
+             slices from phase 17's generator state: 16 of 32 query
+             heads, 8 of 16 key / value heads, 10,752 of 21,504 d_ff,
+             131,072 of 262,144 words a rank.  Gates: the dense leaves a
+             rank gathers exactly half of one process's bytes; step 0's
+             loss within DENSE_TP_LOSS_TOL of phase 17's one process,
+             each gradient leaf's slice norm and sample within
+             DENSE_TP_NORM_TOL / DENSE_TP_SAMPLE_TOL of one process's;
+             the all-reduce calls of the gradient step exactly
+             ``dense_tp_all_reduces``; no kernel launch; each rank's card
+             peak within DRYRUN_BAND of its step traced on ``meta`` under
+             a fake (1, 2) group.  Reported: the all-reduce bytes beside
+             the exits' prediction, a rank's gradient and update time.
+31. report — one ``{"kernels": [...]}`` line, then the result line.
 """
 from __future__ import annotations
 
@@ -619,8 +636,8 @@ SMOLLM = "smollm-135m"
 # The Mamba mixer (models/ssm.py).  falcon-mamba-7b at full size (64
 # layers, 7,270,825,984 parameters, 14.54 GB in bf16): served with 4
 # slots, 4 prompts of 1024 tokens and 32 greedy tokens; trained at B x S
-# tokens a step with remat, cut to FALCON_TRAIN_LAYERS (16: phase 29
-# takes the time of the other layers; at 32 the smoke ran over its
+# tokens a step with remat, cut to FALCON_TRAIN_LAYERS (8: phases 29
+# and 30 take the time of the other layers; at 32 the smoke ran over its
 # budget).  Its decode state is n_layers x slots x
 # (d_in·N·4 + (d_conv - 1)·d_in·2) bytes at any page length:
 # 64 x 4 x (8192·16·4 + 3·8192·2).  SCAN_S: the one-layer scan-vs-decode
@@ -630,7 +647,7 @@ FALCON, FALCON_PARAMS = "falcon-mamba-7b", 7_270_825_984
 SSM_REQUESTS, SSM_PROMPT, SSM_NEW = 4, 1024, 32
 FALCON_STATE_BYTES = 146_800_640
 FALCON_TRAIN_B, FALCON_TRAIN_S, FALCON_TRAIN_STEPS = 2, 2048, 3
-FALCON_TRAIN_LAYERS = 16
+FALCON_TRAIN_LAYERS = 8
 SCAN_S, SCAN_TOL = 256, {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 # The engine against the training forward at falcon's 64 layers: in bf16
 # the forward itself moves 10-15 % of the logit scale from the same
@@ -5400,13 +5417,17 @@ def phase_gemma_train() -> dict:
         f"{kvh * g}/{kvh} heads x {hd}, S={s}, blocks {cfg.q_block}: "
         + json.dumps({**attn_ms, "block_pairs": visits}))
     del q, k, v
+    # Phase 30's ranks draw the same weights from this state.
+    DENSE_TP_REF["gen_state"] = gen.get_state()
     params = pm.materialize(lm.lm_defs(cfg), gen, "cuda")
     n = sum(p.numel() for p in pm.tree_leaves(params))
     log(f"materialized {GEMMA} (one period: {cfg.n_layers} layers) for "
         f"training: {n} parameters, {pm.param_bytes(params) / 1e9:.2f} GB")
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
                     batch_size=GEMMA_TRAIN_B, seed=SEED)
+    dense_tp_reference(cfg, params, batch_at(dc, 0, device="cuda"))
     run = _train_loop(cfg, params, dc, GEMMA_TRAIN_STEPS, "gemma3 train")
+    DENSE_TP_REF["step0_loss"] = run["rows"][0]["loss"]
     check(not any(run["counts"].values()),
           f"gemma3 (dense) launched MoE kernels: {run['counts']}")
     _grad_check(cfg, params, batch_at(dc, GEMMA_TRAIN_STEPS, device="cuda"),
@@ -6960,12 +6981,25 @@ def check_mesh_tp_kernels(x, dec, buf, layer) -> dict:
         cast = gmm_lib.gmm(h, w2, rows=rows, kernel=kernel)
         check(bool(torch.equal(cast, got.to(cast.dtype))),
               f"gmm {kernel}: the bf16 output is not the f32 output's cast")
+        sym = f"gmm_{kernel}_kernel"
         out[kernel] = dict(max_abs_err=err, tol=GMM_F32_TOL * scale,
                            ms=cuda_ms(fn),
                            bf16_ms=cuda_ms(lambda k=kernel: gmm_lib.gmm(
-                               h, w2, rows=rows, kernel=k)))
+                               h, w2, rows=rows, kernel=k)),
+                           dev_ms=device_ms(fn, (sym,)).get(sym))
     out["plain_ms"] = cuda_ms(lambda: gmm_lib.gmm_plain(
         h, w2, rows=rows, out_dtype=torch.float32), reps=3, warmup=1)
+    # The library's product on the same bf16 operands with an f32 result
+    # (every expert: bmm reads no rows), through bmm's out_dtype where
+    # this torch has it.
+    try:
+        torch.bmm(h[:1], w2[:1], out_dtype=torch.float32)
+        out["library"] = "torch.bmm(out_dtype=torch.float32)"
+        out["library_ms"] = cuda_ms(lambda: torch.bmm(
+            h, w2, out_dtype=torch.float32))
+    except (TypeError, RuntimeError):
+        out["library"] = "torch.bmm(...).float()"
+        out["library_ms"] = cuda_ms(lambda: torch.bmm(h, w2).float())
     log("mesh serve (c) gmm f32 output, d_ff slice [384, 8, 1024] x "
         "[384, 1024, 7168], rows: " + json.dumps(out))
     out["kernel8"] = _fused8_case(x, dec.plan, w1, w2, w3,
@@ -7206,7 +7240,8 @@ def phase_mesh_serve(floor: dict) -> dict:
 # qwen3-1.7b at full width in f32 (dense, homogeneous: no full-width
 # MoE transformer pipelines on one card, PERF.md section 7), cut 28 ->
 # PP_QWEN_LAYERS layers (to pay for phase 24 (c): the two ranks' first
-# pipelined step took 26-33 s at 28 layers, PERF.md section 6),
+# pipelined step took 26-33 s at 28 layers, PERF.md section 6), with
+# PP_STEPS 1 (2 until phase 30 needed the time),
 # pipelined over (stage 2, model 1) with PP_MICRO microbatches of the
 # global batch PP_B x PP_S: the loss and every gradient against one
 # process's lm_loss on the same weights, then PP_STEPS steps of
@@ -7229,7 +7264,7 @@ def phase_mesh_serve(floor: dict) -> dict:
 # against ref, exact launches; then the reduced kimi with a (2, 4)
 # hierarchical MoE one step, cuda against ref.  The one-process runs
 # of (d) and (e) are on this process, before the spawn.
-PP_B, PP_S, PP_MICRO, PP_STEPS = 4, 1024, 4, 2
+PP_B, PP_S, PP_MICRO, PP_STEPS = 4, 1024, 4, 1
 PP_QWEN_LAYERS = 8
 PP_MESH, PP_KIMI_MESH = (2, 1), (2, 2)
 PP_KIMI_LAYERS, PP_KIMI_B, PP_KIMI_S = 4, 8, 32
@@ -9672,6 +9707,359 @@ def phase_mesh_mixers() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the dense layers tensor-parallel (gemma3-27b one period on two
+# gloo ranks whose row is whole on both)
+# ---------------------------------------------------------------------------
+
+# (data, model): the one B 1 x S 4096 row whole on both model ranks, as
+# a (16, 16) rank holds its row of train_4k.
+DENSE_TP_MESH = (1, 2)
+# Step 0's loss against phase 17's one process (relative): one bf16 unit.
+DENSE_TP_LOSS_TOL = 2.0 ** -8
+# Each gradient leaf's norm on a rank's slice (relative), and the
+# normwise error of a fixed sample of its elements, against one process:
+# bf16 gradients whose partial sums meet in another order.  The first two
+# card runs (64 samples a leaf): worst norm 0.0025 / 0.0036 (a q_norm
+# scale's), worst sample 0.038 / 0.058 (the embedding's, whose sample is
+# mostly rows no token of the batch reaches); the gates are about twice
+# those, the sample now 4096 elements a leaf.
+DENSE_TP_NORM_TOL = 0.01
+DENSE_TP_SAMPLE_TOL = 0.1
+DENSE_TP_SAMPLES = 4096
+# Phase 17's one-process step 0 (its generator's state before the
+# weights, the loss, each leaf's slice norms and samples a rank).
+DENSE_TP_REF: dict = {}
+
+
+def _dense_tp_slices(t, d, rank: int) -> object:
+    """The slice of a leaf ``t`` (ParamDef ``d``) that rank ``rank`` of
+    DENSE_TP_MESH holds by the dp_tp_ep plan (``MeshContext.shard``'s
+    cut), as a view."""
+    from repro_torch.sharding import partition
+    sizes = dict(zip(("data", "model"), DENSE_TP_MESH))
+    coords = {"data": rank // sizes["model"], "model": rank % sizes["model"]}
+    spec = partition.resolve_spec(partition.PLANS["dp_tp_ep"], sizes,
+                                  d.shape, d.axes)
+    for dim, axes in enumerate(spec):
+        if axes:
+            n, idx = 1, 0
+            for a in axes:
+                n, idx = n * sizes[a], idx * sizes[a] + coords[a]
+            m = t.shape[dim] // n
+            t = t.narrow(dim, idx * m, m)
+    return t
+
+
+def _dense_tp_sample(g) -> tuple:
+    """(f32 norm, a fixed sample of DENSE_TP_SAMPLES elements) of a
+    gradient slice."""
+    import torch
+    flat = g.reshape(-1)
+    idx = (torch.arange(DENSE_TP_SAMPLES, device=flat.device)
+           * (flat.numel() - 1)) // (DENSE_TP_SAMPLES - 1)
+    return float(g.float().norm()), flat[idx].float().cpu()
+
+
+def dense_tp_reference(cfg, params, batch) -> None:
+    """Phase 30's one-process reference, in phase 17 on its weights before
+    its first step: step 0's gradient (``lm_loss``, one backward pass),
+    and of each leaf, a rank's slice's norm and sample for each rank."""
+    import math
+    import torch
+    from repro_torch.common.param import tree_leaves
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+        p.grad = None
+    loss, _ = lm.lm_loss(params, batch, cfg)
+    loss.backward()
+    leaves = {}
+    defs = lm.lm_defs(cfg)
+    for (path, d), p in zip(_named_leaves(defs), tree_leaves(params)):
+        leaves[path] = [_dense_tp_sample(_dense_tp_slices(p.grad, d, r))
+                        for r in range(math.prod(DENSE_TP_MESH))]
+    for p in tree_leaves(params):
+        p.grad = None
+    torch.cuda.empty_cache()
+    DENSE_TP_REF.update(loss=float(loss), leaves=leaves,
+                        reference_s=time.perf_counter() - t0)
+    log(f"dense tp reference: one process's step-0 loss {float(loss):.6f}, "
+        f"{len(leaves)} leaves in {DENSE_TP_REF['reference_s']:.1f} s")
+
+
+def dense_tp_all_reduces(cfg, seq: int, n_replicated: int) -> int:
+    """The all-reduce calls of a rank's gradient step on DENSE_TP_MESH,
+    derived from the code: the vocab-parallel embedding's exit (forward,
+    backward); each layer's attention and FFN exits, forward and
+    backward, and under remat the attention's again in the recompute
+    (``torch.utils.checkpoint`` stops its recompute at the last tensor
+    the backward pass saved, the FFN's second product, before the FFN's
+    exit); each loss chunk's max and packed sum (forward, the
+    checkpoint's recompute) and the sum's backward; the replica sum of
+    each leaf whole on ``model``; the metrics' mean."""
+    chunks = seq // min(512, seq)
+    per_layer = 5 if cfg.remat else 4
+    return 2 + cfg.n_layers * per_layer + chunks * 5 + n_replicated + 1
+
+
+def _dense_tp_trace(path: str) -> None:
+    """A spawned process (no CUDA): the rank's training step traced on
+    ``meta`` under a fake DENSE_TP_MESH group (``launch/steps.py``'s
+    step, as the dry run traces a cell); its record to ``path``."""
+    from repro_torch.configs.base import get_config
+    import os
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun, steps
+    cfg = get_config(GEMMA)
+    cfg = cfg.replace(n_layers=cfg.period)
+    spec = steps.build_step(
+        cfg, ShapeSpec("gemma3-27b train tp", "train", GEMMA_TRAIN_S,
+                       GEMMA_TRAIN_B),
+        dryrun.fake_mesh(dict(zip(("data", "model"), DENSE_TP_MESH))))
+    tr = dryrun.trace_step(spec, flops=False)
+    with open(path + ".tmp", "w") as f:
+        json.dump({k: tr[k] for k in ("memory", "collectives", "trace_s")},
+                  f)
+    os.replace(path + ".tmp", path)
+
+
+def _dense_tp_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of phase 30 (a spawned process)."""
+    import os
+    import traceback
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'store_tp')}",
+        rank=rank, world_size=world)
+    try:
+        out = _dense_tp_rank_body(rank, workdir)
+        with open(os.path.join(workdir, f"tp_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _dense_tp_rank_body(rank: int, workdir: str) -> dict:
+    """The rank's slices drawn from phase 17's generator state (each leaf
+    drawn whole, the rank's slice kept), the dense leaves the loss gets,
+    then one training step (``make_train_step``'s gradients, then the
+    update) under the collective recorder: loss, each leaf's slice
+    against one process, the all-reduces, the card's peak."""
+    import math
+    import os
+    import torch
+    from repro_torch.common import param as pm
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import expert_parallel as ep_lib
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, transformer
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.sharding.context import MeshContext, record_collectives
+    from repro_torch.train.trainer import make_grad_fn, step_seed
+    t0 = time.perf_counter()
+    ref = torch.load(os.path.join(workdir, "tp_ref.pt"), weights_only=False)
+    cfg = get_config(GEMMA)
+    cfg = cfg.replace(n_layers=cfg.period)
+    defs = lm.lm_defs(cfg)
+    ctx = MeshContext.for_mesh(make_host_mesh(DENSE_TP_MESH[1],
+                                              device="cuda"), "dp_tp_ep")
+    gen = torch.Generator(device="cuda")
+    gen.set_state(ref["gen_state"])
+    local = pm.materialize(defs, gen, "cuda", cut=lambda d, t: ctx.shard_leaf(
+        t, ctx.resolve(d.shape, d.axes)))
+    for p in pm.tree_leaves(local):
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    res = {"rank": rank, "build_s": time.perf_counter() - t0}
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=GEMMA_TRAIN_S,
+                    batch_size=GEMMA_TRAIN_B, seed=SEED)
+    rows = ctx.split_rows(GEMMA_TRAIN_B, GEMMA_TRAIN_S)
+    res["tp_axes"] = transformer.dense_tp(cfg, rows)
+    with torch.no_grad():
+        used = ep_lib.gather_on_use(local, defs, rows, tp=True)
+    dense = {"used": 0, "whole": 0}
+    for (path, d), t in zip(_named_leaves(defs), pm.tree_leaves(used)):
+        if ep_lib._tp_dims(d, path.split(".")[-2], rows):
+            dense["used"] += t.numel() * t.element_size()
+            dense["whole"] += math.prod(d.shape) * t.element_size()
+    res["dense_bytes"] = dense
+    del used
+    specs = ctx.specs(defs)
+    res["replicated_leaves"] = sum(
+        1 for s in pm.tree_leaves(specs)
+        if "model" not in {a for axes in s for a in axes})
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    oc = opt_lib.OptConfig(kind="factored")
+    opt = opt_lib.init(local, oc)
+    batch = batch_at(dc, 0, device="cuda")
+    grads_fn = make_grad_fn(lambda p, b, g: lm.lm_loss(p, b, cfg, generator=g,
+                                                       ctx=ctx),
+                            ctx=ctx, defs=defs)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    t1 = time.perf_counter()
+    with record_collectives() as table:
+        grads, metrics = grads_fn(
+            local, batch,
+            torch.Generator(device="cuda").manual_seed(step_seed(SEED, 0)))
+    torch.cuda.synchronize()
+    res["grad_s"] = time.perf_counter() - t1
+    res["collectives"] = table
+    res["launches"] = cuda_lib.launch_counts()
+    res["loss"] = float(metrics["loss"])
+    worst = {"norm": 0.0, "sample": 0.0, "norm_leaf": None,
+             "sample_leaf": None}
+    for (path, _), g in zip(_named_leaves(defs), pm.tree_leaves(grads)):
+        norm, sample = _dense_tp_sample(g)
+        rnorm, rsample = ref["leaves"][path][rank]
+        e_norm = abs(norm - rnorm) / max(rnorm, 1e-30)
+        e_sample = float((sample - rsample).norm()) / max(
+            float(rsample.norm()), 1e-30)
+        if e_norm > worst["norm"]:
+            worst.update(norm=e_norm, norm_leaf=path)
+        if e_sample > worst["sample"]:
+            worst.update(sample=e_sample, sample_leaf=path)
+    res["grads"] = worst
+    t1 = time.perf_counter()
+    opt_lib.apply_updates(local, grads, opt, oc, ctx=ctx, defs=defs)
+    torch.cuda.synchronize()
+    res["update_s"] = time.perf_counter() - t1
+    res["card_peak"] = (torch.cuda.max_memory_allocated() - base
+                        + _storage_bytes(local))
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_dense_tp() -> dict:
+    """Phase 30: gemma3-27b one period (5 windowed layers, 1 global) at
+    full width, bf16, remat, factored Adam, B 1 x S 4096 on two gloo
+    ranks sharing the card on (data 1, model 2): the row whole on both,
+    so each runs its half of the query heads (16 of 32), key / value
+    heads (8 of 16), d_ff (10,752 of 21,504) and vocabulary (131,072 of
+    262,144).  Gates: each rank's dense leaves exactly half one
+    process's bytes; step 0's loss within DENSE_TP_LOSS_TOL of phase
+    17's one process, each gradient leaf's slice norm and sample within
+    DENSE_TP_NORM_TOL / DENSE_TP_SAMPLE_TOL; the all-reduce calls of
+    the gradient step exactly :func:`dense_tp_all_reduces`; no kernel
+    launch (a dense model); each rank's card peak within DRYRUN_BAND of
+    its step traced on meta."""
+    import math
+    import multiprocessing
+    import os
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    check("leaves" in DENSE_TP_REF and "step0_loss" in DENSE_TP_REF,
+          "dense tp: phase 17's one-process reference is missing")
+    world = math.prod(DENSE_TP_MESH)
+    cfg = get_config(GEMMA)
+    cfg = cfg.replace(n_layers=cfg.period)
+    with tempfile.TemporaryDirectory() as workdir:
+        torch.save(DENSE_TP_REF, os.path.join(workdir, "tp_ref.pt"))
+        trace_out = os.path.join(workdir, "tp_trace.json")
+        tracer = multiprocessing.get_context("spawn").Process(
+            target=_dense_tp_trace, args=(trace_out,))
+        tracer.start()
+        procs = mp.spawn(_dense_tp_rank, args=(world, workdir),
+                         nprocs=world, join=False)
+        try:
+            while not procs.join():
+                pass
+        except Exception as err:       # a rank failed: the phase fails
+            for proc in procs.processes:
+                proc.terminate()
+            tracer.terminate()
+            raise SmokeFailure(f"dense tp ranks: {err}")
+        tracer.join(timeout=300)
+        check(tracer.exitcode == 0 and os.path.exists(trace_out),
+              f"dense tp: the meta trace failed ({tracer.exitcode})")
+        with open(trace_out) as f:
+            traced = json.load(f)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(workdir, f"tp_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    one = DENSE_TP_REF["step0_loss"]
+    check(abs(DENSE_TP_REF["loss"] - one) <= DENSE_TP_LOSS_TOL * abs(one),
+          f"dense tp: the reference's loss {DENSE_TP_REF['loss']} is not "
+          f"phase 17's step 0 ({one})")
+    peak_traced = traced["memory"]["peak_bytes_per_device"]
+    act = ranks[0]["collectives"].get("all_reduce", {"calls": 0,
+                                                     "bytes": 0})
+    want_calls = dense_tp_all_reduces(cfg, GEMMA_TRAIN_S,
+                                      ranks[0]["replicated_leaves"])
+    # Each exit moves [B, S, d] in the compute dtype, 2 (g - 1) / g of it.
+    g = DENSE_TP_MESH[1]
+    exit_bytes = (GEMMA_TRAIN_B * GEMMA_TRAIN_S * cfg.d_model * 2
+                  * 2 * (g - 1) / g)
+    exits = 2 + cfg.n_layers * (5 if cfg.remat else 4)
+    for r in ranks:
+        what = f"dense tp rank {r['rank']}"
+        check(r["tp_axes"] == {k: ["model"] for k in (
+            "heads", "kv_heads", "mlp", "vocab")},
+              f"{what}: tensor-parallel axes {r['tp_axes']}")
+        check(2 * r["dense_bytes"]["used"] == r["dense_bytes"]["whole"],
+              f"{what}: dense leaves {r['dense_bytes']} are not half")
+        check(abs(r["loss"] - one) <= DENSE_TP_LOSS_TOL * abs(one),
+              f"{what}: step-0 loss {r['loss']} against one process's "
+              f"{one} (tol {DENSE_TP_LOSS_TOL} relative)")
+        check(r["grads"]["norm"] <= DENSE_TP_NORM_TOL,
+              f"{what}: gradient norm {r['grads']} (tol "
+              f"{DENSE_TP_NORM_TOL})")
+        check(r["grads"]["sample"] <= DENSE_TP_SAMPLE_TOL,
+              f"{what}: gradient sample {r['grads']} (tol "
+              f"{DENSE_TP_SAMPLE_TOL})")
+        calls = r["collectives"].get("all_reduce", {}).get("calls", 0)
+        check(calls == want_calls,
+              f"{what}: {calls} all-reduces, {want_calls} derived")
+        check(not any(r["launches"].values()),
+              f"{what}: a dense model launched kernels: {r['launches']}")
+        ratio = peak_traced / r["card_peak"]
+        r["peak_ratio"] = ratio
+        check(DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1],
+              f"{what}: traced peak {peak_traced} / card peak "
+              f"{r['card_peak']} = {ratio:.4f} outside {DRYRUN_BAND}")
+    out = {"config": f"{GEMMA}, one period ({cfg.n_layers} layers), bf16, "
+                     f"remat, B={GEMMA_TRAIN_B} x S={GEMMA_TRAIN_S}, "
+                     f"factored Adam, mesh {DENSE_TP_MESH} over gloo",
+           "one_process_loss": one, "reference_s":
+           DENSE_TP_REF["reference_s"], "ranks": ranks,
+           "all_reduce": {"calls": act["calls"], "calls_derived": want_calls,
+                          "bytes": act["bytes"],
+                          "exit_bytes_predicted": exits * exit_bytes},
+           "traced": traced, "wall_s": time.perf_counter() - t0}
+    log("dense tp " + json.dumps(out))
+    log(f"dense tp: loss {[r['loss'] for r in ranks]} against one "
+        f"process's {one:.6f}; gradients (worst norm, sample) "
+        + ", ".join(f"{r['grads']['norm']:.3g} ({r['grads']['norm_leaf']}), "
+                    f"{r['grads']['sample']:.3g} "
+                    f"({r['grads']['sample_leaf']})" for r in ranks)
+        + f"; all-reduces {act['calls']} (derived {want_calls}), "
+        f"{act['bytes']:.0f} B a rank (the {exits} exits' predicted "
+        f"{exits * exit_bytes:.0f}); dense bytes a rank "
+        f"{ranks[0]['dense_bytes']}; peak a rank "
+        + ", ".join(f"{r['card_peak'] / 2**30:.3f}" for r in ranks)
+        + f" GiB, traced {peak_traced / 2**30:.3f} GiB (ratio "
+        + ", ".join(f"{r['peak_ratio']:.4f}" for r in ranks)
+        + f"); a rank's gradients {ranks[0]['grad_s']:.2f} s, update "
+        f"{ranks[0]['update_s']:.2f} s, build {ranks[0]['build_s']:.1f} s; "
+        f"phase {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import gc
     import os
@@ -9799,6 +10187,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         mixers = phase_mesh_mixers()
         lap("mesh mixers")
+        gc.collect()
+        torch.cuda.empty_cache()
+        dense_tp = phase_dense_tp()
+        lap("dense tp")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

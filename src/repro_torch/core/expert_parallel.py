@@ -90,6 +90,11 @@ all-to-alls, so the flat MoE keeps its per-shard capacity.  Where the
 expert dim does not divide over its mesh axis the plan's resolution
 falls back to replicated experts (every rank runs them all), as the
 reference's ``resolve_spec`` does.
+
+Where a step holds its rows whole over some axes, the dense layers run
+tensor-parallel over them (``MeshContext.tp_axes``): :func:`gather_on_use`
+with ``tp`` and :func:`serve_layout` on a prefill step's context keep
+those dense dims as the rank's slices.
 """
 from __future__ import annotations
 
@@ -110,14 +115,45 @@ def _is_expert_leaf(d: ParamDef) -> bool:
     return "expert_embed" in d.axes
 
 
-def gather_on_use(params, defs, ctx: MeshContext):
+def gather_on_use(params, defs, ctx: MeshContext, tp: bool = False):
     """A model's parameters for one call on a mesh, from this rank's
     slices (``defs``: their ParamDef tree): every leaf gathered whole
     (FSDP's gather on use; the backward pass reduce-scatters its
     gradient) except the experts' FFN weights, which stay this rank's
     shards for :func:`moe_apply_ep` to gather over their non-expert
-    dims.  Off-mesh the tree itself."""
-    return ctx.gather(params, defs, keep=_is_expert_leaf)
+    dims.  With ``tp`` (the transformer's loss, whose dense layers run
+    tensor-parallel where a step holds its rows whole) the dense dims of
+    attention, the dense FFN, the embedding and the unembedding that run
+    tensor-parallel (``MeshContext.tp_axes``) stay this rank's slices
+    too, gathered over their other dims only.  Off-mesh the tree
+    itself."""
+    if not tp or ctx.mesh is None:
+        return ctx.gather(params, defs, keep=_is_expert_leaf)
+
+    def walk(p, d, layer):      # layer: the key of the dict holding d
+        if isinstance(d, dict):
+            return {k: walk(p[k], d[k], k if isinstance(d[k], dict)
+                            else layer) for k in sorted(d)}
+        if _is_expert_leaf(d):
+            return p
+        return _block(p, d, ctx.resolve(d.shape, d.axes),
+                      _tp_dims(d, layer, ctx), ctx)
+    return walk(params, defs, None)
+
+
+# The layers whose dense dims run tensor-parallel where a step holds its
+# rows whole (``MeshContext.tp_axes``); MoA's projections, mamba's and
+# the experts' keep their own layouts.
+_TP_LAYERS = ("attn", "mlp", "embed", "unembed")
+
+
+def _tp_dims(d: ParamDef, layer: str | None, ctx: MeshContext
+             ) -> tuple[str, ...]:
+    """The logical axes of a leaf of ``layer`` (the key of the dict that
+    holds it) that run tensor-parallel on ``ctx``."""
+    if layer not in _TP_LAYERS:
+        return ()
+    return tuple(a for a, n in zip(d.axes, d.shape) if ctx.tp_axes(a, n))
 
 
 # The logical axes of an expert leaf's expert dims (the flat MoE's and
@@ -183,7 +219,12 @@ def serve_layout(params, defs, ctx: MeshContext):
     axes, under ``moa``: their d_ff is the heads' width, which feeds
     attention) and the hierarchical MoE's leaves are the slab over
     their expert dim (``experts``, or ``expert_groups`` where the
-    groups take the expert axis), whole over their other dims.  A dim
+    groups take the expert axis), whole over their other dims.  A
+    prefill step's context that holds its rows whole over some axes
+    (``launch/steps.py::prefill_rows``) also keeps the dense dims that
+    run tensor-parallel there as this rank's slices
+    (``MeshContext.tp_axes``, as :func:`gather_on_use` with ``tp``); the
+    engine's contexts keep them whole.  A dim
     that does not divide over its axes is whole, as the plan's
     resolution falls back.  Each dim of a leaf in ``params`` may be
     whole or this rank's slice by ``ctx``'s plan (``ctx.shard``'s cut):
@@ -195,16 +236,19 @@ def serve_layout(params, defs, ctx: MeshContext):
     if ctx.mesh is None:
         return params
 
-    def one(t, d, tp):
-        dims = ((_TP_DIMS if tp else _EXPERT_DIMS) if _is_expert_leaf(d)
-                else ())
+    def one(t, d, layer):
+        if not _is_expert_leaf(d):
+            dims = _tp_dims(d, layer, ctx)
+        elif layer == "moe" and "expert_groups" not in d.axes:
+            dims = _TP_DIMS
+        else:
+            dims = _EXPERT_DIMS
         return _block(t, d, ctx.resolve(d.shape, d.axes), dims, ctx)
 
-    def walk(p, d, moe):      # moe: d is a "moe" layer's dict
-        return {k: walk(p[k], d[k], k == "moe") if isinstance(d[k], dict)
-                else one(p[k], d[k], moe and "expert_groups" not in d[k].axes)
-                for k in sorted(d)}
-    return walk(params, defs, False)
+    def walk(p, d, layer):      # layer: the key of the dict d
+        return {k: walk(p[k], d[k], k) if isinstance(d[k], dict)
+                else one(p[k], d[k], layer) for k in sorted(d)}
+    return walk(params, defs, None)
 
 
 def local_plan(p, e0: int, e_local: int):

@@ -30,10 +30,24 @@ charges:
 
 * Train wire: the MoE exchanges its dispatch buffer in two all-to-alls
   (``core/expert_parallel.py::moe_apply_ep``), the reference's branch
-  without wide dispatch, which the port does not have.
-* Prefill / decode wire: serving runs ``moe_apply_serve`` and keeps
-  every weight but the experts' whole on every rank, so no dense layer
-  all-reduces a tensor-parallel output.  The flat MoE's experts are a
+  without wide dispatch, which the port does not have.  The dense
+  layers' tensor-parallel all-reduces are the port's
+  (``_dense_tp_wire``): only where a microbatch's rows are whole over
+  ``model``, remat's recompute of attention's exit included, the
+  embedding's and the loss's too, and none for a mamba mixer (the
+  reference charges attention, mamba and the dense FFN two each on
+  every cell).
+* Prefill / decode wire: serving runs ``moe_apply_serve``; the engine
+  and the decode step keep every weight but the experts' whole on every
+  rank, so no dense layer of theirs all-reduces a tensor-parallel
+  output.  A prefill step whose rows do not divide over the ranks holds
+  them whole over the axes outside the ``batch`` axes (``model``;
+  ``MeshContext.split_rows``), and there its dense layers run
+  tensor-parallel over those axes where their dim divides
+  (``MeshContext.tp_axes``): each attention and dense FFN layer
+  all-reduces its ``[rows, S, d]`` output, the embedding its ``[rows,
+  S, d]`` lookup, and the last logits ``[rows, V / g]`` (f32) are
+  all-gathered (``_dense_tp_wire``).  The flat MoE's experts are a
   rank's block over ``experts`` x ``expert_mlp`` (the reference's
   layout).  A decode step all-gathers its rows (and their routing mask)
   over the batch axes, and each MoE layer all-reduces its d_ff slice's
@@ -45,8 +59,7 @@ charges:
   over a cache whose sequence is sharded
   (``attention.attend_cached_sharded``) all-gathers three f32 tensors:
   the ranks' score maxima, their exponential sums (each [B, H]) and
-  their weighted values ([B, H, hd]).  A prefill attends whole rows on
-  every rank and sends nothing.
+  their weighted values ([B, H, hd]).
 * Prefill / decode weight bytes of an MoE layer: the serving MoE routes
   the step's rows of every rank in one plan, and its GMM (``rows``) and
   the fused kernels read no expert the plan leaves empty; so a step
@@ -117,6 +130,60 @@ def _all_reduce_share(sizes: dict, axes) -> float:
     return sum(2 * (sizes[a] - 1) / sizes[a] for a in spread)
 
 
+def _dense_tp_wire(cfg: ModelConfig, rules, sizes: dict, kind: str,
+                   rows: int, seq: int, mbs: int, bytes_p: int) -> float:
+    """Ring bytes a device sends for the dense layers run
+    tensor-parallel (the module docstring): each of the ``mbs``
+    (micro)batches of ``rows / mbs`` rows that do not divide over the
+    devices splits over the largest prefix of the ``batch`` axes that
+    divides it and stays whole over the others, over which each dense
+    dim that resolves there runs tensor-parallel.  Each attention layer
+    and dense FFN all-reduces its ``[rows_local, S, d]`` output once in
+    a prefill; a training step does so forward and backward, and remat's
+    recompute of a stacked period's layer re-runs attention's exit (it
+    stops before the FFN's).  The vocabulary: the embedding's lookup
+    (and its cotangent); a prefill's last logits ``[rows_local, V / g]``
+    f32 all-gathered; a training step's loss chunks' f32 max (forward,
+    recompute) and packed sums (forward, recompute, backward),
+    ``[rows_local, chunk]`` and ``[2, rows_local, chunk]``."""
+    rows_mb = rows // mbs
+    if rows_mb % math.prod(sizes.values()) == 0:
+        return 0.0
+    row_axes = partition.resolve_spec(rules, sizes, (rows_mb,),
+                                      ("batch",))[0]
+    whole = {a for a in sizes if a not in row_axes}
+    rows_loc = rows_mb / math.prod(sizes[a] for a in row_axes)
+
+    def tp(logical: str, size: int) -> tuple:
+        axes = partition.resolve_spec(rules, sizes, (size,), (logical,))[0]
+        return axes if size and axes and set(axes) <= whole else ()
+    train = kind == "train"
+    passes = 2 if train else 1
+    exit_bytes = rows_loc * seq * cfg.d_model * bytes_p
+    wire = 0.0
+    kinds = layer_kinds(cfg)
+    full, rem = n_periods(cfg)
+    for pos, lk in enumerate(kinds):
+        r = full + (1 if pos < rem else 0)
+        if lk.mixer in ("attn", "attn_local"):
+            calls = r * passes + (full if train and cfg.remat else 0)
+            wire += calls * _all_reduce_share(
+                sizes, tp("heads", cfg.n_heads)) * exit_bytes
+        if lk.ffn in ("dense", "moe+dense"):
+            wire += r * passes * _all_reduce_share(
+                sizes, tp("mlp", cfg.d_ff)) * exit_bytes
+    vocab = tp("vocab", cfg.vocab_size)
+    if vocab:
+        share = _all_reduce_share(sizes, vocab)
+        wire += passes * share * exit_bytes
+        if train:
+            wire += share * (2 + 3 * 2) * rows_loc * seq * F32_BYTES
+        else:
+            g = math.prod(sizes[a] for a in vocab)
+            wire += (g - 1) * rows_loc * (cfg.vocab_size / g) * F32_BYTES
+    return mbs * wire
+
+
 def analyze_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
                  plan: str) -> Analytic:
     """Per-device FLOPs, HBM bytes and wire bytes of one step of
@@ -168,6 +235,8 @@ def analyze_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
                                                        + F32_BYTES)
     else:
         rows_wire = 0.0
+    if kind != "decode":
+        wire += _dense_tp_wire(cfg, rules, sizes, kind, B, S, mbs, bytes_p)
 
     for pos, lk in enumerate(kinds):
         r = reps[pos]
@@ -206,9 +275,6 @@ def analyze_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
                                   ("embed_fsdp", "heads", "head_dim")))
             p_loc += p_here
             p_fsdp += p_here if fsdp_on else 0.0
-            if kind == "train":
-                # TP all-reduce of attn output (fwd+bwd)
-                w += 2 * tokens_loc * d * bytes_p * 2 * (M - 1) / M * r
             # decode: read the KV cache once per step
             if kind == "decode":
                 if lk.mixer == "attn_local" and cfg.sliding_window:
@@ -244,8 +310,6 @@ def analyze_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
             p_here = r * p / msh((d, 2 * d_in), ("embed_fsdp", "ssm_inner"))
             p_loc += p_here
             p_fsdp += p_here if fsdp_on else 0.0
-            if kind == "train":
-                w += 2 * tokens_loc * d * bytes_p * 2 * (M - 1) / M * r
             if kind == "decode":
                 st = B * d_in * N * F32_BYTES * 2
                 h += r * st / msh((B, d_in, N),
@@ -262,8 +326,6 @@ def analyze_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
             p_here = r * p / msh((d, cfg.d_ff), ("embed_fsdp", "mlp"))
             p_loc += p_here
             p_fsdp += p_here if fsdp_on else 0.0
-            if kind == "train":
-                w += 2 * tokens_loc * d * bytes_p * 2 * (M - 1) / M * r
             act_bytes += r * tokens_loc * (d + cfg.d_ff / m_f) * bytes_p
 
         if lk.ffn in ("moe", "moe+dense"):

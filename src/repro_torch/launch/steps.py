@@ -18,7 +18,11 @@ allocating a byte), laid out as one rank holds them:
   and of the cache by :func:`prefill_rows` (``MeshContext.split_rows``,
   the rule training follows; the routed layers' global plans gather the
   rows over the axes that split them, so the plan, the drops and each
-  row's logits are one process's);
+  row's logits are one process's); where the rows are whole over some
+  axes the dense layers run tensor-parallel over them, so the layout
+  keeps those dims as the rank's slices and an attention page holds the
+  rank's key / value heads where they split
+  (``transformer.tp_cache_defs``);
 * decode: the serving layout, the rank's rows of the slots and its
   slice of the cache (the decode plan fitted to the cache, as the
   engine fits it: ``serve/kv_cache.py::fit_decode_plan``).
@@ -39,7 +43,7 @@ from repro_torch.configs import shapes as shp
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import expert_parallel as ep_lib
 from repro_torch.launch.analytic import cfg_microbatches
-from repro_torch.models import lm
+from repro_torch.models import lm, transformer
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.serve.kv_cache import fit_decode_plan
 from repro_torch.sharding import partition
@@ -167,15 +171,17 @@ def build_step(cfg: ModelConfig, shape: shp.ShapeSpec, mesh=None,
     cache, cache_defs = shp.cache_specs(cfg, shape)
     if mesh is not None and shape.kind == "decode":
         ctx = fit_decode_plan(ctx, cache_defs)
+    if mesh is not None and shape.kind == "prefill":
+        ctx = prefill_rows(ctx, shape.global_batch, shape.seq_len)
     params = ep_lib.serve_layout(ctx.shard(pm.abstract(defs), defs), defs,
                                  ctx)
     if shape.kind == "prefill":
         if mesh is not None:
-            ctx = prefill_rows(ctx, shape.global_batch, shape.seq_len)
             mine = dataclasses.replace(shape, global_batch=(
                 shape.global_batch // ctx.size(ctx.rows_over)))
             batch = shp.batch_inputs(cfg, mine)
-            cache, _ = shp.cache_specs(cfg, mine)
+            cache = pm.abstract(transformer.tp_cache_defs(
+                cfg, mine.global_batch, mine.seq_len, ctx))
         return StepSpec(fn=make_prefill_step_fn(cfg, ctx),
                         args=(params, batch, cache), kind="prefill",
                         microbatches=1, fallbacks=fallbacks)

@@ -78,6 +78,28 @@ def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
                         wo.to(o.dtype).reshape(h * hd, -1))
 
 
+def _kv_pick(params, ctx, axes):
+    """The key / value heads that this rank's query heads read, where
+    the query heads run tensor-parallel over the mesh ``axes`` and the
+    key / value heads are whole: ``wq`` holds query heads [h0, h0 + n)
+    of H = n x ranks, KV-major (query head h reads kv head h // G, G = H
+    / KV).  A slice where those heads are whole kv groups or lie in one
+    group, else one kv head a query head (an index tensor)."""
+    n, kvh = params["wq"].shape[1], params["wk"].shape[1]
+    g = n * ctx.size(axes) // kvh
+    h0 = ctx.index(axes) * n
+    if n % g == 0 or g % n == 0:
+        return slice(h0 // g, h0 // g + max(n // g, 1))
+    return (h0 + torch.arange(n, device=params["wk"].device)) // g
+
+
+def _take(t: torch.Tensor, dim: int, pick) -> torch.Tensor:
+    """``t``'s entries ``pick`` (a slice or an index tensor) of ``dim``."""
+    if isinstance(pick, slice):
+        return t.narrow(dim, pick.start, pick.stop - pick.start)
+    return t.index_select(dim, pick)
+
+
 def _qkv(params, x, positions, *, rope_theta, qk_norm, eps=1e-6):
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
@@ -336,13 +358,31 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def attention(params, x, positions, *, rope_theta: float, qk_norm: bool,
               window: int = 0, q_block: int = 512, kv_block: int = 512,
-              pad_heads: int = 0) -> torch.Tensor:
+              pad_heads: int = 0, ctx=None, tp: tuple = ((), ())
+              ) -> torch.Tensor:
     """Causal self-attention for training.  x: [B, S, d] -> [B, S, d].
 
     ``window`` > 0 lets query i see keys in (i - window, i].
     ``pad_heads`` pads the query heads of each KV group with zero heads
     up to this many in all; their outputs are sliced off before the
-    output projection, so the result is unchanged."""
+    output projection, so the result is unchanged.
+
+    ``tp`` = (the mesh axes of ``ctx`` over which the query heads run
+    tensor-parallel, those of the key / value heads;
+    ``MeshContext.tp_axes``): ``wq`` / ``wo`` hold this rank's query
+    heads, ``wk`` / ``wv`` its key / value heads where they split, else
+    all of them, of which the rank cuts the groups its heads read (a
+    local cut: its gradient is partial, and the trainer's replica sum
+    adds the ranks' parts).  The output projection of the rank's heads
+    is a partial ``[B, S, d]``, summed over the ranks (padding applies
+    to whole heads only)."""
+    h_axes, kv_axes = tp
+    if h_axes and not kv_axes:
+        pick = _kv_pick(params, ctx, h_axes)
+        params = dict(params, wk=_take(params["wk"], 1, pick),
+                      wv=_take(params["wv"], 1, pick))
+    if h_axes:
+        pad_heads = 0
     q, k, v = _qkv(params, x, positions, rope_theta=rope_theta,
                    qk_norm=qk_norm)
     b, sq, h, hd = q.shape
@@ -359,7 +399,8 @@ def attention(params, x, positions, *, rope_theta: float, qk_norm: bool,
     vr = v.permute(0, 2, 1, 3)                     # [B, KV, S, hd]
     o = flash_attention(qr, kr, vr, True, window, q_block, kv_block)
     o = o[:, :, :g_orig].permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
-    return _out(o, params["wo"])
+    y = _out(o, params["wo"])
+    return ctx.all_reduce(y, h_axes) if h_axes else y
 
 
 def causal_attention(q, k, v, *, kv_len: int | None = None,
@@ -397,7 +438,8 @@ def causal_attention(q, k, v, *, kv_len: int | None = None,
 def prefill_attention(params, x, positions, *, rope_theta: float,
                       qk_norm: bool, cache: dict, window: int = 0,
                       q_block: int = 512, kv_block: int = 512,
-                      offset: int | None = None):
+                      offset: int | None = None, ctx=None,
+                      tp: tuple = ((), ())):
     """Prefill: causal :func:`blockwise_attention` over blocks of
     ``min(q_block, S)`` x ``min(kv_block, S)`` that also writes K/V for
     positions [0, S) into ``cache`` (in place).  Returns (y, cache).
@@ -411,18 +453,30 @@ def prefill_attention(params, x, positions, *, rope_theta: float,
     range of ``cache`` and they attend over the cached prefix [0,
     offset), cast to the compute dtype, followed by the chunk's own K/V
     at its absolute positions.  A ring buffer has no such prefix, so an
-    offset on a windowed layer raises."""
+    offset on a windowed layer raises.
+
+    ``tp``: as :func:`attention`.  Where the key / value heads split,
+    ``cache`` holds this rank's of them and the rank writes its own;
+    where they are whole, every rank writes all of them into its whole
+    page and attends with the groups its query heads read.  The output
+    is summed over the ranks."""
     if offset is not None and window:
         raise ValueError(
             "chunked prefill is unsupported for sliding-window layers")
+    h_axes, kv_axes = tp
+    pick = (_kv_pick(params, ctx, h_axes) if h_axes and not kv_axes
+            else None)
     q, k, v = _qkv(params, x, positions, rope_theta=rope_theta,
                    qk_norm=qk_norm)
     if not window:
         o = attend_chunk(q, k, v, cache,
                          0 if offset is None else int(offset),
-                         q_block=q_block, kv_block=kv_block)
-        return _out(o, params["wo"]), cache
-    o = blockwise_attention(q, k, v, window=window, q_block=q_block,
+                         q_block=q_block, kv_block=kv_block, pick=pick)
+        y = _out(o, params["wo"])
+        return (ctx.all_reduce(y, h_axes) if h_axes else y), cache
+    o = blockwise_attention(q, k if pick is None else _take(k, 2, pick),
+                            v if pick is None else _take(v, 2, pick),
+                            window=window, q_block=q_block,
                             kv_block=kv_block)
     s, length = k.shape[1], cache["k"].shape[1]
     if s >= length:
@@ -433,17 +487,19 @@ def prefill_attention(params, x, positions, *, rope_theta: float,
     else:
         cache["k"][:, :s] = k.to(cache["k"].dtype)
         cache["v"][:, :s] = v.to(cache["v"].dtype)
-    return _out(o, params["wo"]), cache
+    y = _out(o, params["wo"])
+    return (ctx.all_reduce(y, h_axes) if h_axes else y), cache
 
 
 def attend_chunk(q, k, v, cache: dict, off: int, *, q_block: int = 512,
-                 kv_block: int = 512) -> torch.Tensor:
+                 kv_block: int = 512, pick=None) -> torch.Tensor:
     """Write the chunk's K/V ([B, S, KV, hd]) at cache positions [off,
     off + S) in place, then attend its queries over [cached prefix
     [0, off), the chunk] through :func:`blockwise_attention` at
     ``q_offset = off`` (blocks of ``min(q_block, S)`` x
     ``min(kv_block, off + S)``).  The prefix is read back at the cache's
-    precision, as in the reference."""
+    precision, as in the reference.  ``pick`` (:func:`_kv_pick`'s)
+    takes the kv heads the queries read, after the write."""
     s = k.shape[1]
     if off + s > cache["k"].shape[1]:
         raise ValueError(f"chunk [{off}, {off + s}) overruns the cache "
@@ -456,6 +512,8 @@ def attend_chunk(q, k, v, cache: dict, off: int, *, q_block: int = 512,
         k_ctx, v_ctx = k, v
     cache["k"][:, off:off + s] = k.to(cache["k"].dtype)
     cache["v"][:, off:off + s] = v.to(cache["v"].dtype)
+    if pick is not None:
+        k_ctx, v_ctx = _take(k_ctx, 2, pick), _take(v_ctx, 2, pick)
     return blockwise_attention(q, k_ctx, v_ctx, q_block=q_block,
                                kv_block=kv_block, q_offset=off)
 

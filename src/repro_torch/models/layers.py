@@ -24,8 +24,21 @@ def embed_defs(vocab: int, d: int, dtype: torch.dtype) -> dict:
                               init="embed", dtype=dtype)}
 
 
-def embed(params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return params["table"][tokens.long()].to(dtype)
+def embed(params, tokens: torch.Tensor, dtype: torch.dtype, *, ctx=None,
+          axes: tuple = ()) -> torch.Tensor:
+    """Token embeddings in ``dtype``.  Vocab-parallel over the mesh
+    ``axes`` of ``ctx`` (``MeshContext.tp_axes("vocab", V)``): the table
+    is this rank's rows of the vocabulary, an id outside them gives a
+    zero row, and the sum over the ranks has one nonzero term a token,
+    so it is exact."""
+    table = params["table"]
+    if not axes:
+        return table[tokens.long()].to(dtype)
+    n = table.shape[0]
+    local = tokens.long() - ctx.index(axes) * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(dtype)
+    return ctx.all_reduce(torch.where(mine[..., None], rows, 0.0), axes)
 
 
 GATED = ("swiglu", "geglu")
@@ -41,9 +54,14 @@ def mlp_defs(d: int, d_ff: int, activation: str, dtype: torch.dtype) -> dict:
     return defs
 
 
-def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, activation: str, *, ctx=None,
+        axes: tuple = ()) -> torch.Tensor:
     """Dense FFN: matmuls in the compute dtype, activation in f32.  gelu
-    is the tanh form, the default of the reference's ``jax.nn.gelu``."""
+    is the tanh form, the default of the reference's ``jax.nn.gelu``.
+    Tensor-parallel over the mesh ``axes`` of ``ctx``
+    (``MeshContext.tp_axes("mlp", d_ff)``): ``w1`` / ``w3`` are this
+    rank's columns of d_ff and ``w2`` its rows, and the partial outputs
+    are summed over the ranks."""
     dt = x.dtype
     h = torch.matmul(x, params["w1"].to(dt)).float()
     if activation == "relu":
@@ -57,7 +75,8 @@ def mlp(params, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = act * g
     else:
         raise ValueError(activation)
-    return torch.matmul(h.to(dt), params["w2"].to(dt))
+    y = torch.matmul(h.to(dt), params["w2"].to(dt))
+    return ctx.all_reduce(y, axes) if axes else y
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

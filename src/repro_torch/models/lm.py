@@ -42,11 +42,13 @@ def lm_defs(cfg: ModelConfig) -> dict:
 
 
 def _embed_with_prefix(params, tokens, cfg: ModelConfig,
-                       prefix_embeds=None) -> torch.Tensor:
+                       prefix_embeds=None, ctx=None) -> torch.Tensor:
     """Token embeddings in the compute dtype, the first positions
     overwritten by the stub frontend's ``prefix_embeds`` when the
-    config has a prefix."""
-    x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
+    config has a prefix (vocab-parallel where ``ctx`` runs the
+    vocabulary tensor-parallel)."""
+    x = layers.embed(params["embed"], tokens, cfg.compute_dtype, ctx=ctx,
+                     axes=transformer.dense_tp(cfg, ctx)["vocab"])
     if cfg.n_prefix and prefix_embeds is not None:
         n = prefix_embeds.shape[1]
         x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x[:, n:]], dim=1)
@@ -83,21 +85,41 @@ def make_draws(cfg: ModelConfig, batch_size: int, seq_len: int,
     return {"noise": noise, "moa_noise": moa_noise}
 
 
-def _xent_sum(params, x, labels, cfg: ModelConfig):
+def _xent_sum(params, x, labels, cfg: ModelConfig, ctx=None,
+              axes: tuple = ()):
     """Summed token cross-entropy of one chunk: x [B, c, d] -> the
     [B, c, V] f32 logits, their log-sum-exp minus the gold logit (a
-    gather, exact where the reference takes a one-hot product)."""
+    gather, exact where the reference takes a one-hot product).
+
+    Vocab-parallel over the mesh ``axes`` of ``ctx``: the rank's [B, c,
+    V / M] logits; the max over the ranks (no gradient) shifts them; the
+    sums of their exponentials and the gold logit (from the rank that
+    holds the label, zero elsewhere) are summed over the ranks in one
+    all-reduce."""
     logits = logits_fn(params, x, cfg)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.sum(lse - gold)
+    if not axes:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return torch.sum(lse - gold)
+    n = logits.shape[-1]
+    m = ctx.all_max(torch.amax(logits, dim=-1), axes)
+    local = labels.long() - ctx.index(axes) * n
+    mine = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    part = torch.stack([torch.sum(torch.exp(logits - m[..., None]), dim=-1),
+                        torch.where(mine, gold, 0.0)])
+    total = ctx.all_reduce(part, axes)
+    return torch.sum(m + torch.log(total[0]) - total[1])
 
 
 def chunked_xent(params, x: torch.Tensor, labels: torch.Tensor,
-                 cfg: ModelConfig, chunk: int = 512) -> torch.Tensor:
+                 cfg: ModelConfig, chunk: int = 512, ctx=None
+                 ) -> torch.Tensor:
     """Mean cross-entropy without materializing [B, S, V]: each chunk of
     the sequence runs under ``torch.utils.checkpoint``, so one chunk's
-    logits exist at a time, forward and backward."""
+    logits exist at a time, forward and backward (vocab-parallel where
+    ``ctx`` runs the vocabulary tensor-parallel: :func:`_xent_sum`)."""
+    axes = transformer.dense_tp(cfg, ctx)["vocab"]
     b, s, _ = x.shape
     chunk = min(chunk, s)
     if s % chunk != 0:
@@ -106,7 +128,7 @@ def chunked_xent(params, x: torch.Tensor, labels: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, s, chunk):
         total = total + checkpoint(_xent_sum, params, x[:, c0:c0 + chunk],
-                                   labels[:, c0:c0 + chunk], cfg,
+                                   labels[:, c0:c0 + chunk], cfg, ctx, axes,
                                    use_reentrant=False,
                                    preserve_rng_state=False)
     return total / (b * s)
@@ -130,7 +152,11 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, *,
     here on use (``expert_parallel.gather_on_use``), ``batch`` is this
     rank's rows of the global batch, the flat MoE layers run the
     expert-parallel schedule, MoA mixers and the hierarchical MoE their
-    global plan, and the draws are those of the global batch (``draws``,
+    global plan, and where the step holds the rows whole over some axes
+    (``model``) the embedding, attention, the dense FFN and the loss run
+    tensor-parallel over them (``MeshContext.tp_axes``: the gather keeps
+    those dims as this rank's slices).  The draws are those of the
+    global batch (``draws``,
     or drawn from ``generator`` at the global size) of which the rank
     keeps the flat MoE's tokens (``sharding.context.local_draws``); a
     global plan's noise stays whole.  The rows split as the enclosing
@@ -143,7 +169,7 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, *,
     mesh = on_mesh(ctx)
     if mesh:
         ctx = with_step_rows(ctx)
-        params = ep_lib.gather_on_use(params, lm_defs(cfg), ctx)
+        params = ep_lib.gather_on_use(params, lm_defs(cfg), ctx, tp=True)
     if train and draws is None and generator is not None:
         draws = make_draws(cfg, b * (ctx.size(ctx.rows_over) if mesh
                                      else 1), s, generator, tokens.device)
@@ -151,14 +177,15 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, *,
         whole = ("moa_noise",) + (("noise",) if cfg.moe_hierarchical
                                   else ())
         draws = local_draws(draws, ctx, whole=whole)
-    x = _embed_with_prefix(params, tokens, cfg, batch.get("prefix_embeds"))
+    x = _embed_with_prefix(params, tokens, cfg, batch.get("prefix_embeds"),
+                           ctx)
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     x, aux = transformer.stack_apply(params["blocks"], x, cfg,
                                      positions=positions,
                                      draws=draws if train else None,
                                      train=train, ctx=ctx)
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    xent = chunked_xent(params, x, batch["labels"], cfg)
+    xent = chunked_xent(params, x, batch["labels"], cfg, ctx=ctx)
     loss = xent + aux["aux_loss"]
     n_moe = torch.clamp(aux["n_moe"], min=1.0)
     metrics = {"xent": xent, "aux_loss": aux["aux_loss"], "loss": loss,
@@ -190,9 +217,15 @@ def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
     same on every rank.  A context whose ``row_axes`` split the rows
     (``launch/steps.py::prefill_rows``) gives ``batch`` and ``cache`` as
     this rank's rows, and the logits are theirs (one process's rows:
-    the routed layers route every rank's rows)."""
+    the routed layers route every rank's rows).  Where such a context
+    holds the rows whole over some axes, the dense layers run
+    tensor-parallel over them (as in :func:`lm_loss`; ``params`` then
+    hold those dims as this rank's slices, ``serve_layout``'s, and
+    ``cache`` this rank's key / value heads where they split), and the
+    last logits are all-gathered over the vocabulary's axes."""
     tokens = batch["tokens"]
-    x = _embed_with_prefix(params, tokens, cfg, batch.get("prefix_embeds"))
+    x = _embed_with_prefix(params, tokens, cfg, batch.get("prefix_embeds"),
+                           ctx)
     b, s = tokens.shape
     positions = (start_pos or 0) + torch.arange(s, device=x.device)
     positions = positions[None, :].expand(b, s)
@@ -206,7 +239,11 @@ def lm_prefill(params, batch: dict, cache, cfg: ModelConfig, *,
         li = li.reshape(-1).expand(b)
         x = x[torch.arange(b, device=x.device), li][:, None, :]
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return logits_fn(params, x, cfg)[:, 0, :], cache
+    logits = logits_fn(params, x, cfg)[:, 0, :]
+    vocab = transformer.dense_tp(cfg, ctx)["vocab"]
+    if vocab:
+        logits = ctx.all_gather(logits, vocab, 1)
+    return logits, cache
 
 
 def lm_decode(params, tokens, cache, cur_index, cfg: ModelConfig, *,

@@ -36,6 +36,11 @@ experts' blocks (the flat MoE's over ``experts`` and its d_ff).  MoA
 mixers and the
 hierarchical MoE run their global plan (``expert_parallel.GlobalPlan``)
 in training and serving alike: one process's routing on every rank.
+Where a training or prefill step holds its rows whole over some axes
+(``model``), attention and the dense FFN run tensor-parallel over them
+(:func:`dense_tp`, ``MeshContext.tp_axes``): the rank's heads and d_ff
+slice, the partial outputs summed; MoA and mamba mixers keep their
+paths.
 """
 from __future__ import annotations
 
@@ -65,6 +70,17 @@ def _token_axes(ctx: MeshContext | None, serve: bool, decode: bool):
     if decode:
         return ctx.axes_of("batch")
     return () if ctx.row_axes is None else ctx.rows_over
+
+
+def dense_tp(cfg: ModelConfig, ctx: MeshContext | None) -> dict:
+    """The mesh axes over which each dense dim of ``cfg`` runs
+    tensor-parallel on ``ctx`` (``MeshContext.tp_axes``): ``heads``,
+    ``kv_heads``, ``mlp`` (the dense FFN's d_ff) and ``vocab``; every
+    entry empty off-mesh and wherever the rule does not apply."""
+    sizes = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+             "mlp": cfg.d_ff, "vocab": cfg.vocab_size}
+    return {k: ctx.tp_axes(k, n) if on_mesh(ctx) and n else ()
+            for k, n in sizes.items()}
 
 
 def _moe_args(cfg: ModelConfig, *, decode: bool = False) -> moe_lib.MoEArgs:
@@ -221,6 +237,31 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     return defs
 
 
+def tp_cache_defs(cfg: ModelConfig, batch: int, max_len: int,
+                  ctx: MeshContext | None) -> dict:
+    """:func:`cache_defs` of a prefill step's rows on ``ctx``: an
+    attention layer's K / V pages hold this rank's key / value heads
+    where they run tensor-parallel (``dense_tp``), as the reference's
+    ``prefill_tp`` lays its cache out; every other page as
+    :func:`cache_defs`."""
+    defs = cache_defs(cfg, batch, max_len)
+    axes = dense_tp(cfg, ctx)["kv_heads"]
+    if not axes:
+        return defs
+    kinds = layer_kinds(cfg)
+    n = ctx.size(axes)
+
+    def cut(d: ParamDef) -> ParamDef:
+        shape = d.shape[:-2] + (d.shape[-2] // n, d.shape[-1])
+        return ParamDef(shape, d.axes, init=d.init, dtype=d.dtype,
+                        fan_in=d.fan_in)
+    return {group: {pos: (tree_map(cut, page)
+                          if kinds[int(pos[3:]) % cfg.period].mixer
+                          in ("attn", "attn_local") else page)
+                    for pos, page in pages.items()}
+            for group, pages in defs.items()}
+
+
 def _layers(params, cache, cfg: ModelConfig):
     """(block params, block cache, kind) for every layer, in order."""
     kinds = layer_kinds(cfg)
@@ -280,7 +321,8 @@ def _apply_ffn(params, x, kind: LayerKind, cfg: ModelConfig, *, valid=None,
                                        train=train, noise=noise, mask=mask)
         out = out + y.reshape(b, s, d)
     if kind.ffn in ("dense", "moe+dense"):
-        out = out + layers.mlp(params["mlp"], h, cfg.activation)
+        out = out + layers.mlp(params["mlp"], h, cfg.activation, ctx=ctx,
+                               axes=dense_tp(cfg, ctx)["mlp"])
     return out, aux
 
 
@@ -344,12 +386,14 @@ def block_apply(params, x, kind: LayerKind, cfg: ModelConfig, *,
     elif kind.mixer == "mamba":
         y = ssm.mamba(params["mamba"], h, d_state=cfg.ssm_d_state)
     else:
+        tp = dense_tp(cfg, ctx)
         y = attention.attention(params["attn"], h, positions,
                                 rope_theta=cfg.rope_theta,
                                 qk_norm=cfg.qk_norm,
                                 window=_window(cfg, kind),
                                 q_block=cfg.q_block, kv_block=cfg.kv_block,
-                                pad_heads=cfg.pad_attn_heads)
+                                pad_heads=cfg.pad_attn_heads, ctx=ctx,
+                                tp=(tp["heads"], tp["kv_heads"]))
     x, aux = _apply_ffn(params, x + y, kind, cfg, train=train, noise=noise,
                         ctx=ctx)
     return x, _merge_aux(aux_mix, aux)
@@ -458,10 +502,12 @@ def block_prefill(params, x, kind: LayerKind, cfg: ModelConfig, cache,
                              return_state=True)
         _write_state(cache, state)
     else:
+        tp = dense_tp(cfg, ctx)
         y, _ = attention.prefill_attention(
             params["attn"], h, positions, rope_theta=cfg.rope_theta,
             qk_norm=cfg.qk_norm, cache=cache, window=_window(cfg, kind),
-            q_block=cfg.q_block, kv_block=cfg.kv_block, offset=start_pos)
+            q_block=cfg.q_block, kv_block=cfg.kv_block, offset=start_pos,
+            ctx=ctx, tp=(tp["heads"], tp["kv_heads"]))
     x, _ = _apply_ffn(params, x + y, kind, cfg, valid=valid, ctx=ctx,
                       serve=True)
     return x

@@ -51,6 +51,20 @@ ranks when it exits.  A contiguous token share of row-major ``[R, S]``
 tokens is exactly a row share where R divides, so the tokens' order
 (:attr:`MeshContext.token_axes`) is one rule in both cases.
 
+Dense tensor parallelism (:meth:`MeshContext.tp_axes`, one rule): where
+a step's rows are whole over some free axes (:attr:`MeshContext
+.whole_over`), each dense dim of :data:`DENSE_TP` (attention's query and
+key / value heads, the dense FFN's d_ff, the vocabulary) runs
+tensor-parallel over those of its plan axes (``model`` under
+``dp_tp_ep`` and ``prefill_tp``) that lie there, where the dim divides
+(``resolve``'s fallback), as the reference's GSPMD splits them.  The
+layers take column slices in and row slices out, and sum their partial
+outputs with :meth:`MeshContext.all_reduce` (whose backward pass sums
+the ranks' cotangents); the loss takes the max over the ranks with
+:meth:`MeshContext.all_max`.  One process, rows split over every axis,
+the engine's contexts and the decode step (``row_axes`` None) keep every
+dim whole.
+
 A collective over the ranks of a mesh axis of size 1 is the identity and
 is skipped (on a (data 1, model 2) mesh, FSDP over ``data`` costs
 nothing).
@@ -95,6 +109,11 @@ Spec = partition.Spec
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_mesh_context", default=None)
+
+# The dense dims a step whose rows are whole over some axes runs
+# tensor-parallel over them (:meth:`MeshContext.tp_axes`): attention's
+# query and key / value heads, the dense FFN's d_ff, the vocabulary.
+DENSE_TP = ("heads", "kv_heads", "mlp", "vocab")
 
 
 def _strip(spec: Spec, manual: frozenset) -> Spec:
@@ -202,6 +221,14 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _AllReduce.apply(grad, ctx.group), None
+
+
+def _all_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the group of a tensor outside autograd."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    _record("all_reduce", out, group, lambda g: 2 * (g - 1) / g)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
 
 
 def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
@@ -432,6 +459,32 @@ class MeshContext:
         whole (none where the rows split over every free axis)."""
         rows = self.rows_over
         return tuple(a for a in self.free_axes if a not in rows)
+
+    def tp_axes(self, logical: str, size: int) -> tuple[str, ...]:
+        """The mesh axes over which a dense dim (``logical``, one of
+        :data:`DENSE_TP`, of ``size``) runs tensor-parallel: the axes the
+        plan resolves it to (with ``resolve``'s divisibility fallback),
+        where each holds this context's rows whole (:attr:`whole_over`)
+        and has more than one rank; else none (off-mesh, rows split over
+        every axis, the engine's contexts and the decode step, whose
+        ``row_axes`` is None)."""
+        if self.mesh is None or logical not in DENSE_TP:
+            return ()
+        whole = self.whole_over
+        if not whole:
+            return ()
+        axes = self.resolve((size,), (logical,))[0]
+        if not axes or any(a not in whole for a in axes):
+            return ()
+        return self._spread(axes)
+
+    def all_max(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """Elementwise max over the ranks along ``axes``, with no
+        gradient (a softmax's shift)."""
+        x = x.detach()
+        for g in self._groups(axes):
+            x = _all_max(x, g)
+        return x
 
     @property
     def token_axes(self) -> tuple[str, ...]:

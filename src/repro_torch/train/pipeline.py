@@ -40,7 +40,11 @@ Where the port differs from the reference's SPMD body:
   capacity and balance losses are per microbatch, as the reference's;
   MoA mixers and the hierarchical MoE route the whole microbatch on
   every ``model`` rank (their global plan, gathered over the rows'
-  axes of the stage: ``model`` or none).
+  axes of the stage: ``model`` or none).  Where the rows are whole on
+  ``model`` the stage's attention and dense FFN run tensor-parallel
+  over it (``MeshContext.tp_axes``: the stage's gather keeps those dims
+  as the rank's slices), as a training step's do; the embedding and
+  the loss outside the pipelined region keep the vocabulary whole.
 * Bubble ticks run no layer (the reference computes them and masks the
   result): a stage that is not live passes its input through.  Every
   rank still calls every shift, in the same order, so the collectives
@@ -296,7 +300,7 @@ def pipeline_lm_loss(params, batch: dict, cfg: ModelConfig, *,
         {k: v for k, v in params.items() if k != "blocks"},
         {k: v for k, v in defs.items() if k != "blocks"}, pp)
     blocks = ep_lib.gather_on_use(params["blocks"], defs["blocks"],
-                                  stage_ctx)
+                                  stage_ctx, tp=True)
 
     def rows(t):                    # [B, S] -> [n_micro, B_local, S]
         return stage_ctx.local_rows(

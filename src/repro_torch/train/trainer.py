@@ -65,7 +65,23 @@ backward pass of that all-reduce sums the W cotangents; a global
 plan's balance loss is computed whole on every rank, so its W copies
 at 1/W add to one.  So the rule is ``loss / W`` with the replica sums,
 whether rows divide or not (``tests/test_torch_row_split.py`` holds it
-to JAX's one process on (1, 4) and (2, 2) with 2 rows).  Metrics are
+to JAX's one process on (1, 4) and (2, 2) with 2 rows).
+
+It holds too where the M ranks of a row group run the dense layers
+tensor-parallel (``MeshContext.tp_axes``: each holds a slice of the
+heads, d_ff and vocabulary, and the partial outputs meet in an
+all-reduce).  The step is then one computation over the M ranks, and
+each collective's backward pass is its adjoint across them: the exit
+all-reduce's backward sums the M ranks' cotangents, so a slice's
+gradient gets all M copies' share at 1/W, M / W = 1/R of its row
+group, as a whole leaf does through the replica sums.  A leaf whose
+spec shards ``model`` (a tensor-parallel slice) is left alone by
+``_sum_replicas``; one that stays whole on ``model`` (the norms'
+scales, the key / value projections where their heads do not divide,
+of which each rank used the groups its query heads read, an
+``embed_fsdp``-only leaf) holds each rank's partial gradient, and the
+replica sum over ``model`` adds them (``tests/test_torch_dense_tp.py``
+holds it to JAX's one process on (1, 2), (1, 4) and (2, 2)).  Metrics are
 the ranks' mean (each group's xent on M ranks: the global mean); rank 0
 alone prints and writes the checkpoint (gathered: the same files as a
 single-process run), the heartbeat and ``metrics.jsonl``.

@@ -539,15 +539,21 @@ def test_prefill_cell_holds_its_rows_on_a_fake_mesh(cells, rows, mine,
     """The reduced kimi-k2 (32 tokens a row) on a fake (2, 2) group: 8
     rows split over every rank, 2 rows over ``data`` (whole on both
     ``model`` ranks); a rank's tokens and cache are its ``rows / n``
-    rows (the cache of that many rows, leaf for leaf), the step traces
-    and the MoE layers gather the rows they route."""
+    rows (the cache of that many rows, leaf for leaf; where the rows are
+    whole on ``model`` an attention page holds half the key / value
+    heads, which run tensor-parallel there), the step traces and the
+    MoE layers gather the rows they route."""
     from repro_torch.launch.train import reduced
     rec = cells[0][f"prefill{rows}"]
     assert rec["row_axes"] == axes
     assert rec["tokens"] == [mine, 32]
     cfg = reduced(get_config(KIMI))
-    want = tpm.tree_leaves(ttransformer.cache_defs(cfg, mine, 32))
-    assert rec["cache"] == [list(d.shape) for d in want]
+    want = [list(d.shape) for d in tpm.tree_leaves(
+        ttransformer.cache_defs(cfg, mine, 32))]
+    if "model" not in axes:
+        for shape in want:
+            shape[-2] //= 2
+    assert rec["cache"] == want
     assert rec["peak"] > 0 and rec["gathers"] > 0
 
 
@@ -593,7 +599,9 @@ def prefill_ranks(tmp_path_factory, kimi):
 def test_prefill_rows_on_two_ranks_match_jax(prefill_ranks, case):
     """2 rows split one a rank (over ``data`` and ``model``), or 1 row
     whole on both ``model`` ranks (over ``data``, of size 1): each
-    rank's last logits and cache rows are JAX's one process's rows."""
+    rank's last logits and cache rows are JAX's one process's rows (of
+    an attention page, the rank's key / value heads where the whole
+    rows run them tensor-parallel)."""
     ranks, want = prefill_ranks
     jl, jcache = want[case]
     b = int(case[-1])
@@ -609,8 +617,11 @@ def test_prefill_rows_on_two_ranks_match_jax(prefill_ranks, case):
             # The stacked periods lead with the layers, the tail with
             # the rows.
             w = np.asarray(w)
-            _close(g, w[rows] if "tail" in path else w[:, rows],
-                   f"{case} cache {path}")
+            w = w[rows] if "tail" in path else w[:, rows]
+            if g.shape[-2] < w.shape[-2]:
+                n = g.shape[-2]
+                w = w[..., got["kv_index"] * n:(got["kv_index"] + 1) * n, :]
+            _close(g, w, f"{case} cache {path}")
     if b == 2:
         assert [int(r[case]["rows"][0]) for r in ranks] == [0, 1]
 

@@ -4,13 +4,16 @@
   dispatch off) for every arch of ``repro.launch.dryrun.ALL_ARCHS`` x
   the shapes ``cell_supported`` admits x the meshes (16, 16) and (2, 16,
   16), with the reference's ``resolve_spec`` fed a stand-in mesh that
-  carries only ``shape`` and ``size``.  Two terms are the port's own and
-  are held to hand counts here: the serving wire bytes
+  carries only ``shape`` and ``size``.  Three terms are the port's own
+  and are held to hand counts here: a training step's dense
+  tensor-parallel wire bytes (``_train_tp_counts``, in place of the
+  reference's two all-reduces a layer), the serving wire bytes
   (``moe_apply_serve``'s gathers, its all-reduce of the d_ff slices'
   f32 partial sums and its fused all-reduce, the decode rows' gathers,
-  ``attend_cached_sharded``'s three gathers; no dense tensor-parallel
-  all-reduce) and the serving MoE weight bytes (``min(E, k x T)``
-  experts read).
+  ``attend_cached_sharded``'s three gathers; a prefill step whose rows
+  stay whole on ``model`` all-reduces its dense layers' outputs and
+  all-gathers its last logits there, ``_prefill_tp_counts``) and the
+  serving MoE weight bytes (``min(E, k x T)`` experts read).
 * ``configs.shapes`` and the ``common.param`` helpers equal the
   reference's; ``abstract`` builds ``meta`` tensors of a full kimi-k2.
 * ``launch.roofline``'s terms with the H100's constants, its
@@ -96,6 +99,74 @@ def _nshards(plan, sizes, shape, axes, dim=None) -> int:
     return n
 
 
+def _train_tp_counts(cfg, shape, sizes, plan) -> tuple[float, float]:
+    """(the reference's tensor-parallel train charge, the port's) by
+    hand.  The reference charges 2 all-reduces of [tokens, d] a step for
+    each attention, mamba and dense FFN layer on every cell.  The port
+    runs them only where a microbatch's rows do not divide over the
+    devices (whole on ``model``): an attention layer whose heads divide
+    over ``model`` forward and backward, and again in remat's recompute
+    of a stacked period's layer; a dense FFN whose d_ff divides, forward
+    and backward; a vocabulary that divides, the embedding forward and
+    backward and each loss chunk's f32 max (twice) and packed sums
+    (three times)."""
+    B, S, d = shape.global_batch, shape.seq_len, cfg.d_model
+    bs = _nshards(plan, sizes, (B,), ("batch",))
+    m = sizes["model"]
+    share = 2 * (m - 1) / m
+    nbytes = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    kinds = layer_kinds(cfg)
+    full, rem = n_periods(cfg)
+    ref = port = 0.0
+    mbs = tana.cfg_microbatches(cfg, shape, bs)
+    rows = B // mbs
+    whole = rows % math.prod(sizes.values()) != 0
+    rows_loc = rows // _nshards(plan, sizes, (rows,), ("batch",))
+    exit_b = rows_loc * S * d * nbytes
+    for pos, lk in enumerate(kinds):
+        r = full + (1 if pos < rem else 0)
+        n = (lk.mixer in ("attn", "attn_local", "mamba")) + (
+            lk.ffn in ("dense", "moe+dense"))
+        ref += r * n * 2 * (B * S / bs) * d * nbytes * share
+        if whole and lk.mixer in ("attn", "attn_local") \
+                and cfg.n_heads % m == 0:
+            port += (2 * r + (full if cfg.remat else 0)) * share * exit_b
+        if whole and lk.ffn in ("dense", "moe+dense") and cfg.d_ff % m == 0:
+            port += 2 * r * share * exit_b
+    if whole and cfg.vocab_size % m == 0:
+        port += share * (2 * exit_b + 8 * rows_loc * S * 4)
+    return ref, mbs * port
+
+
+def _prefill_tp_counts(cfg, B, S, sizes, plan) -> float:
+    """A prefill step's dense tensor parallelism by hand: where its B
+    rows do not divide over the devices they stay whole on ``model``,
+    and each attention layer whose heads divide over it, each dense FFN
+    whose d_ff does and the embedding all-reduce the rank's [B / bs, S,
+    d] in the compute dtype; a vocabulary that divides all-gathers the
+    last logits, [B / bs, V / M] f32."""
+    if B % math.prod(sizes.values()):
+        bs = _nshards(plan, sizes, (B,), ("batch",))
+        m = sizes["model"]
+        share = 2 * (m - 1) / m
+        exit_b = (B // bs) * S * cfg.d_model * torch.empty(
+            (), dtype=cfg.compute_dtype).element_size()
+        kinds = layer_kinds(cfg)
+        full, rem = n_periods(cfg)
+        wire = 0.0
+        for pos, lk in enumerate(kinds):
+            r = full + (1 if pos < rem else 0)
+            if lk.mixer in ("attn", "attn_local") and cfg.n_heads % m == 0:
+                wire += r * share * exit_b
+            if lk.ffn in ("dense", "moe+dense") and cfg.d_ff % m == 0:
+                wire += r * share * exit_b
+        if cfg.vocab_size % m == 0:
+            wire += share * exit_b + (m - 1) * (B // bs) * (
+                cfg.vocab_size // m) * 4
+        return wire
+    return 0.0
+
+
 def _serve_counts(cfg, shape, sizes, plan) -> tuple[float, float]:
     """The port's serving charges by hand: (wire bytes a device sends,
     expert bytes a step does not read)."""
@@ -144,6 +215,8 @@ def _serve_counts(cfg, shape, sizes, plan) -> tuple[float, float]:
                            ("experts", "expert_embed", "expert_mlp"))
             n_mat = 3 if cfg.activation in ("swiglu", "geglu") else 2
             unread += r * (E - min(E, k * tokens)) * d * ff * n_mat * 2 / m_e
+    if kind == "prefill":
+        wire += _prefill_tp_counts(cfg, B, S, sizes, plan)
     return wire, unread
 
 
@@ -164,7 +237,10 @@ def test_analyze_cell_matches_reference(arch, shape, mesh):
     for k, v in want.detail.items():
         _close(got.detail[k], v, k)
     if jshp.SHAPES[shape].kind == "train":
-        _close(got.wire_bytes_per_dev, want.wire_bytes_per_dev, "wire")
+        ref_tp, port_tp = _train_tp_counts(tcfg, tshp.SHAPES[shape], sizes,
+                                           plan)
+        _close(got.wire_bytes_per_dev,
+               want.wire_bytes_per_dev - ref_tp + port_tp, "wire")
         _close(got.hbm_bytes_per_dev, want.hbm_bytes_per_dev, "hbm")
     else:
         wire, unread = _serve_counts(tcfg, tshp.SHAPES[shape], sizes, plan)

@@ -549,8 +549,11 @@ def case_prefill_rows(ctx: MeshContext, inputs: dict) -> dict:
     """For each case, ``launch/steps.py``'s prefill step on this rank's
     rows of the case's prompts (``steps.prefill_rows`` on the
     ``prefill_tp`` plan, as ``build_step`` splits them) into pages of
-    those rows: the rows' global indices, the split's axes, the last
-    logits and the cache."""
+    those rows (``transformer.tp_cache_defs``: an attention page holds
+    the rank's key / value heads where they run tensor-parallel): the
+    rows' global indices, the split's axes, the last logits, the cache
+    and the rank's index among the key / value heads' ranks (None where
+    they are whole)."""
     from repro_torch.common import param as pm
     from repro_torch.launch import steps
     from repro_torch.models import transformer
@@ -563,13 +566,15 @@ def case_prefill_rows(ctx: MeshContext, inputs: dict) -> dict:
         params = ep_lib.serve_layout(pre.shard(case["params"], defs), defs,
                                      pre)
         rows = pre.local_rows(torch.arange(b))
-        cache = pm.zeros(transformer.cache_defs(cfg, rows.numel(),
-                                                case["max_len"]), "cpu")
+        cache = pm.zeros(transformer.tp_cache_defs(
+            cfg, rows.numel(), case["max_len"], pre), "cpu")
         with torch.no_grad():
             logits, cache = steps.make_prefill_step_fn(cfg, pre)(
                 params, {"tokens": tokens[rows]}, cache)
+        kv = transformer.dense_tp(cfg, pre)["kv_heads"]
         out[name] = {"rows": rows, "row_axes": pre.row_axes,
-                     "logits": logits, "cache": cache}
+                     "logits": logits, "cache": cache,
+                     "kv_index": pre.index(kv) if kv else None}
     return out
 
 
@@ -625,11 +630,75 @@ def case_expert_tp(ctx: MeshContext, inputs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the dense layers tensor-parallel where a step's rows are whole
+# ---------------------------------------------------------------------------
+
+def _shapes(tree) -> dict:
+    """``{path: shape}`` of a tree's leaves."""
+    if isinstance(tree, dict):
+        return {f"{k}.{p}" if p else k: v for k in sorted(tree)
+                for p, v in _shapes(tree[k]).items()}
+    return {"": tuple(tree.shape)}
+
+
+def case_dense_tp(ctx: MeshContext, inputs: dict) -> dict:
+    """For each model, the trainer's gradients and metrics from the JAX
+    draws (full gradients), the tensor-parallel axes of its step's rows
+    (``transformer.dense_tp``), the leaf shapes ``gather_on_use`` hands
+    the loss under that split and under one that splits the rows over
+    every rank; for each prefill case, ``launch/steps.py``'s prefill
+    step on this rank's rows (``tp_cache_defs``'s pages, as
+    ``build_step`` lays them out): its logits, cache and the key / value
+    heads' axes."""
+    from repro_torch.common import param as pm
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    out = {"train": {}, "prefill": {}}
+    for name, model in inputs["models"].items():
+        cfg, defs = model["cfg"], _defs(model)
+        local = _grad_leaves(ctx.shard(model["params"], defs))
+        grads_fn = trainer_lib.make_grad_fn(
+            _loss_fn(model, ctx, draws=model["jax_draws"]), ctx=ctx,
+            defs=defs)
+        grads, metrics = grads_fn(local, model["batch"], None)
+        b, s = model["batch"]["tokens"].shape
+        rows = ctx.split_rows(b, s)
+        with torch.no_grad():
+            used = ep_lib.gather_on_use(local, defs, rows, tp=True)
+            split = ep_lib.gather_on_use(
+                local, defs, ctx.split_rows(ctx.world, s), tp=True)
+        out["train"][name] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": _full(ctx, grads, defs),
+            "tp": transformer.dense_tp(cfg, rows),
+            "shapes": _shapes(used), "split_shapes": _shapes(split)}
+    for name, case in inputs["prefill"].items():
+        cfg, tokens = case["cfg"], case["tokens"]
+        b, s = tokens.shape
+        pre = steps.prefill_rows(ctx.with_plan("prefill_tp"), b, s)
+        defs = lm.lm_defs(cfg)
+        params = ep_lib.serve_layout(pre.shard(case["params"], defs), defs,
+                                     pre)
+        rows = pre.local_rows(torch.arange(b))
+        cache = pm.zeros(transformer.tp_cache_defs(
+            cfg, rows.numel(), case["max_len"], pre), "cpu")
+        with torch.no_grad():
+            logits, cache = steps.make_prefill_step_fn(cfg, pre)(
+                params, {"tokens": tokens[rows]}, cache)
+        kv = transformer.dense_tp(cfg, pre)["kv_heads"]
+        out["prefill"][name] = {
+            "rows": rows, "logits": logits, "cache": cache, "kv": kv,
+            "kv_index": pre.index(kv) if kv else 0,
+            "shapes": _shapes(params)}
+    return out
+
+
 CASES = {"moe": case_moe, "train": case_train, "restore": case_restore,
          "serve": case_serve, "decode_wire": case_decode_wire,
          "pipeline": case_pipeline, "routed": case_routed,
          "rows": case_rows, "prefill_rows": case_prefill_rows,
-         "expert_tp": case_expert_tp}
+         "expert_tp": case_expert_tp, "dense_tp": case_dense_tp}
 
 
 # ---------------------------------------------------------------------------
